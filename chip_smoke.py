@@ -7,16 +7,27 @@ Phases, each fatal on failure:
   2. build    nvcc builds every kernel from csrc/ (in parallel), printing
               the -Xptxas -v register / shared-memory / spill lines
   3. parity   each kernel against its plain PyTorch version on the card at
-              the main-path shapes, with the tolerance stated
-  4. main     the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
+              the main-path shapes, with the tolerance stated: the sampling
+              kernels at batch 82, the training layer's forward (rates 0.1
+              and 0) and backward (dx and 12 gradients) at microbatch 64
+  4. sample   the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
               seeded random weights samples a 41-take, 2-chunk CFG take
               (batch 82) through select_sampling_model_fn ->
               autoregressive_sample_loop, counting kernel launches; the same
               take re-runs with the plain versions on the card and the two
               are compared; then the generate CLI runs on a checkpoint
               written here
-  5. times    kernel, plain and library-call times (CUDA events), take
-              throughput and peak memory, with the card name and power limit
+  5. train    the same model with use_fused_train_encoder takes 5 training
+              steps at batch 256 (4 microbatches of 64) with injected
+              timesteps and noise, counting 32 forward and 32 backward
+              launches a step; the same steps with the plain versions are
+              compared with it; then the train CLI trains 20 steps on
+              --dataset synthetic (launches counted again) and the generate
+              CLI samples from the checkpoint it wrote
+  6. times    kernel, plain and library-call times (CUDA events), take and
+              train-step throughput and peak memory, and a profile of a
+              denoise step and of a train step, with the card name and
+              power limit
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.  It imports nothing of JAX or of the JAX package.
@@ -24,7 +35,9 @@ no result.  It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -40,6 +53,11 @@ CHUNKS, RESPACING, STEPS, GUIDANCE = 2, "50", 50, 2.5
 TOL_LOCAL_BLOCK = 1e-4   # f32; <= 20-term softmax sums, cos/sin within 2 ulp
 TOL_ENCODER = 5e-4       # f32; K<=1024 sums in another order, LN rescaling
 TOL_TAKE = 1e-3          # f32; 100 chained denoise steps of 8 layers each
+MB, BATCH, RATE, TRAIN_STEPS, CLI_STEPS = 64, 256, 0.1, 5, 20
+TOL_TRAIN_FWD = 1e-4     # f32; as the inference layer, the same dropout masks
+TOL_TRAIN_GRAD = 5e-4    # of each gradient's max |value|; weight grads sum 5184 rows
+TOL_STEP_LOSS = 5e-4     # relative; 5 steps at batch 256 through 8 layers
+TOL_STEP_GRAD = 2e-3     # of each parameter gradient's max |value|, first step
 
 
 def log(msg: str) -> None:
@@ -88,25 +106,62 @@ def local_block_sdpa(xseq, coa, num_heads, window):
     return h.transpose(1, 2).reshape(b, t + 1, d)
 
 
-def encoder_layer_sdpa(x, wqkv, bqkv, wo, bo, l1w, l1b, w1, b1, w2, b2, l2w, l2b, num_heads):
+def encoder_layer_sdpa(x, wqkv, bqkv, wo, bo, l1w, l1b, w1, b1, w2, b2, l2w, l2b, num_heads,
+                       rate=0.0):
     """Yardstick: the encoder layer composed from torch ops with
-    F.scaled_dot_product_attention."""
+    F.scaled_dot_product_attention, and F.dropout at the other three
+    dropout sites when ``rate`` > 0."""
     import torch.nn.functional as F
 
     b, t, d = x.shape
     q, k, v = (y.reshape(b, t, num_heads, d // num_heads).transpose(1, 2)
                for y in F.linear(x, wqkv, bqkv).chunk(3, dim=-1))
-    a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, t, d)
-    x = F.layer_norm(x + F.linear(a, wo, bo), (d,), l1w, l1b, 1e-5)
-    h = F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2)
-    return F.layer_norm(x + h, (d,), l2w, l2b, 1e-5)
+    a = F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
+    a = a.transpose(1, 2).reshape(b, t, d)
+    x = F.layer_norm(x + F.dropout(F.linear(a, wo, bo), rate), (d,), l1w, l1b, 1e-5)
+    h = F.dropout(F.gelu(F.linear(x, w1, b1), approximate="tanh"), rate)
+    return F.layer_norm(x + F.dropout(F.linear(h, w2, b2), rate), (d,), l2w, l2b, 1e-5)
+
+
+def device_profile(step, steps, label, card, host_rows=0):
+    """Device time by kernel over ``steps`` calls of ``step`` (torch.profiler,
+    CUPTI), the device's idle share of an unprofiled call and, with
+    ``host_rows``, the host ops with the most self CPU time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step_ms = cuda_time_ms(step, iters=steps, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows, host = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            # an op's device time repeats the time of the kernels it launched
+            host.append((e.self_cpu_time_total / steps / 1e3, e.count // steps, e.key))
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / steps / 1e3, e.count // steps, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"profile: {label} {step_ms:.4f} ms (CUDA events, unprofiled); kernels "
+        f"{busy_ms:.4f} ms/step on the device -> idle share "
+        f"{max(0.0, 1 - busy_ms / step_ms):.3f} {card}")
+    for ms, n, name in rows[:14]:
+        log(f"  {ms:.4f} ms/step {100 * ms / busy_ms:5.1f}%  x{n}  {name[:90]}")
+    if host_rows:
+        host.sort(reverse=True)
+        log(f"  host: {sum(h[0] for h in host):.4f} ms/step of self CPU time in ops; top:")
+        for ms, n, name in host[:host_rows]:
+            log(f"  host {ms:.4f} ms/step  x{n}  {name[:80]}")
 
 
 def profile_denoise_step(model, diffusion, chunk_conds, init_seed, card, steps=10):
-    """Device time by kernel over ``steps`` CFG denoise steps (torch.profiler,
-    CUPTI), and the device's idle share of an unprofiled step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gesturediffusion_tpu_torch.diffusion.sampling import p_sample
     from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
@@ -117,31 +172,194 @@ def profile_denoise_step(model, diffusion, chunk_conds, init_seed, card, steps=1
     x = torch.zeros((B_TAKES, J, 1, T), device=init_seed.device)
     noise = torch.randn_like(x)
     t = torch.full((B_TAKES,), STEPS // 2, dtype=torch.long, device=x.device)
+    device_profile(lambda: p_sample(diffusion, model_fn, x, t, cond, noise), steps,
+                   "denoise step", card)
 
-    def step():
-        p_sample(diffusion, model_fn, x, t, cond, noise)
 
-    step_ms = cuda_time_ms(step, iters=steps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
+def check_train_layer(xt, gt, enc_w, seed):
+    """Training-layer kernels against the plain layer at microbatch 64:
+    forward at rates 0.1 and 0, rate 0 against the inference kernel, and
+    the backward's 13 gradients against autograd.  Returns the forward's
+    and the gradients' largest absolute differences."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+        encoder_layer_train_plain,
+    )
+
+    shape = f"[{MB},{T + 1},{D}] heads {HEADS} ff {FF}"
+    fwd_err = {}
+    for rate in (RATE, 0.0):
+        got = encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=HEADS, rate=rate)
+        want = encoder_layer_train_plain(xt, *enc_w, seed=seed, num_heads=HEADS, rate=rate)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            continue  # an op's row repeats the time of the kernels it launched
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / steps / 1e3, e.count // steps, e.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    log(f"profile: denoise step {step_ms:.4f} ms (CUDA events, unprofiled); kernels "
-        f"{busy_ms:.4f} ms/step on the device -> idle share "
-        f"{max(0.0, 1 - busy_ms / step_ms):.3f} {card}")
-    for ms, n, name in rows[:12]:
-        log(f"  {ms:.4f} ms/step {100 * ms / busy_ms:5.1f}%  x{n}  {name[:90]}")
+        fwd_err[rate] = (got - want).abs().max().item()
+        ok = got.shape == xt.shape and fwd_err[rate] <= TOL_TRAIN_FWD
+        log(f"{'OK' if ok else 'FAIL'} encoder_layer_train_fwd {shape} rate {rate}: "
+            f"max|diff| {fwd_err[rate]:.3e} (tol {TOL_TRAIN_FWD:g})")
+        if not ok:
+            raise AssertionError("training forward kernel disagrees with its plain version")
+    inf_err = (got - fused_encoder_layer(xt, *enc_w, num_heads=HEADS)).abs().max().item()
+    ok = inf_err <= TOL_TRAIN_FWD
+    log(f"{'OK' if ok else 'FAIL'} encoder_layer_train_fwd rate 0 vs the inference kernel "
+        f"encoder_layer: max|diff| {inf_err:.3e} (tol {TOL_TRAIN_FWD:g})")
+    if not ok:
+        raise AssertionError("rate-0 training forward disagrees with the inference kernel")
+
+    got = encoder_layer_train_bwd(xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE)
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in (xt, *enc_w)]
+        encoder_layer_train_plain(*leaves, seed=seed, num_heads=HEADS, rate=RATE).backward(gt)
+    torch.cuda.synchronize()
+    names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dln1_w", "dln1_b", "dw1", "db1",
+             "dw2", "db2", "dln2_w", "dln2_b")
+    worst, abs_err = (0.0, ""), 0.0
+    for name, a, leaf in zip(names, got, leaves):
+        err = (a - leaf.grad).abs().max().item()
+        abs_err = max(abs_err, err)
+        worst = max(worst, (err / leaf.grad.abs().max().item(), name))
+    ok = worst[0] <= TOL_TRAIN_GRAD
+    log(f"{'OK' if ok else 'FAIL'} encoder_layer_train_bwd {shape} rate {RATE}: dx and 12 "
+        f"grads vs autograd through the plain layer, worst max|diff|/max|grad| {worst[0]:.3e} "
+        f"({worst[1]}; tol {TOL_TRAIN_GRAD:g}), max|diff| {abs_err:.3e}")
+    if not ok:
+        raise AssertionError("training backward kernel disagrees with autograd")
+    return fwd_err[RATE], abs_err
+
+
+def train_phase(dev, randn, rs, card):
+    """5 training steps of the full-width model at batch 256 with the
+    kernels, counted, then the same steps with the plain versions."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.train.loop import (
+        TrainConfig,
+        TrainState,
+        make_optimizer,
+        train_step,
+    )
+
+    torch.manual_seed(1)
+    model = MDM(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
+                dropout=RATE, cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
+                window_size=WINDOW, use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(model)
+    plain.use_kernels = False
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=BATCH, microbatch_size=MB)
+    mask = torch.ones((BATCH, 1, 1, T), dtype=torch.bool, device=dev)
+    batches = [dict(motion=randn(BATCH, J, 1, T, scale=0.5),
+                    cond={"mfcc": randn(BATCH, A, 1, T), "seed": randn(BATCH, J, 1, S, scale=0.5),
+                          "mask": mask},
+                    t=torch.from_numpy(rs.randint(0, 1000, size=BATCH)).to(dev),
+                    noise=randn(BATCH, J, 1, T)) for _ in range(TRAIN_STEPS)]
+
+    def run(m):
+        opt, sched = make_optimizer(m.parameters(), cfg)
+        state = TrainState(m, opt, sched, UniformSampler(1000), {})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        losses, times, grads = [], [], None
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen,
+                                 b["t"], b["noise"])
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if grads is None:
+                grads = {n: p.grad.clone() for n, p in m.named_parameters()}
+        peak = torch.cuda.max_memory_allocated()
+        # the step's working memory above what was allocated before it
+        # (models, optimizer state after step 1 aside, the staged batches)
+        return (losses, grads, sorted(times[1:])[len(times[1:]) // 2] * 1e3,
+                (peak / 2**20, (peak - base) / 2**20))
+
+    encoder_layer_train_fwd.launches = encoder_layer_train_bwd.launches = 0
+    losses, grads, step_ms, peak = run(model)
+    launches = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
+    want = LAYERS * (BATCH // MB) * TRAIN_STEPS
+    finite = all(math.isfinite(x) for x in losses)
+    log(f"{'OK' if launches == (want, want) and finite else 'FAIL'} train: {TRAIN_STEPS} "
+        f"steps at batch {BATCH} ({BATCH // MB} x {MB}), losses "
+        f"{[round(x, 6) for x in losses]} (finite {finite}); launches fwd {launches[0]} bwd "
+        f"{launches[1]} (expected {want} each: {LAYERS} layers x {BATCH // MB} microbatches "
+        f"a step)")
+    if launches != (want, want) or not finite:
+        raise AssertionError("train steps: wrong launch counts or a non-finite loss")
+    p_losses, p_grads, p_step_ms, p_peak = run(plain)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, p_losses))
+    grad_err = max((grads[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                   for n, g in p_grads.items())
+    ok = loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
+    log(f"{'OK' if ok else 'FAIL'} train steps vs plain versions on the card (same seeds, t, "
+        f"noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's grads worst "
+        f"max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g})")
+    if not ok:
+        raise AssertionError("kernel train steps disagree with the plain steps")
+    log(f"time train step (batch {BATCH} = {BATCH // MB} x {MB}, median of steps 2-"
+        f"{TRAIN_STEPS}): kernels {step_ms:.3f} ms = {BATCH / step_ms * 1e3:.1f} samples/s, "
+        f"peak {peak[0]:.1f} MiB ({peak[1]:.1f} above the start); plain {p_step_ms:.3f} ms = "
+        f"{BATCH / p_step_ms * 1e3:.1f} samples/s, peak {p_peak[0]:.1f} MiB ({p_peak[1]:.1f} "
+        f"above the start) {card}")
+    return model, diffusion, cfg, batches[0]
+
+
+def train_cli_phase(card):
+    """The train CLI in this process (its launches counted), then the
+    generate CLI on the checkpoint it writes."""
+    import numpy as np
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.train import train_mdm
+
+    save_dir = os.path.join(HERE, "build", "chip_smoke", "train")
+    encoder_layer_train_fwd.launches = encoder_layer_train_bwd.launches = 0
+    t0 = time.perf_counter()
+    loop = train_mdm.main([
+        "--dataset", "synthetic", "--save_dir", save_dir, "--overwrite",
+        "--num_frames", str(T), "--batch_size", str(BATCH), "--microbatch_size", str(MB),
+        "--num_steps", str(CLI_STEPS), "--log_interval", "10",
+        "--use_fused_train_encoder"])
+    cli_s = time.perf_counter() - t0
+    launches = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
+    want = LAYERS * (BATCH // MB) * CLI_STEPS
+    ckpt = os.path.join(save_dir, f"model{CLI_STEPS:09d}.pt")
+    ok = launches == (want, want) and loop.state.step == CLI_STEPS and os.path.exists(ckpt)
+    log(f"{'OK' if ok else 'FAIL'} train CLI on the card: {CLI_STEPS} steps at batch {BATCH} "
+        f"in {cli_s:.1f} s (data set-up included); launches fwd {launches[0]} bwd "
+        f"{launches[1]} (expected {want} each); wrote {os.path.basename(ckpt)} {card}")
+    if not ok:
+        raise AssertionError("train CLI: wrong launch counts or no checkpoint")
+    out_dir = os.path.join(save_dir, "samples")
+    subprocess.run(
+        [sys.executable, "-m", "gesturediffusion_tpu_torch.sample.generate",
+         "--model_path", ckpt, "--dataset", "synthetic", "--num_samples", "8",
+         "--timestep_respacing", RESPACING, "--output_dir", out_dir],
+        check=True, cwd=HERE, timeout=600,
+    )
+    res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
+    ok = res["motion"].shape == (8, J // 6, 3, T) and np.isfinite(res["motion"]).all()
+    log(f"{'OK' if ok else 'FAIL'} generate CLI on the trained checkpoint: motion "
+        f"{res['motion'].shape}")
+    if not ok:
+        raise AssertionError("generate CLI on the trained checkpoint failed")
+    return launches
 
 
 def main() -> int:
@@ -163,10 +381,17 @@ def main() -> int:
         encoder_layer_plain,
         fused_encoder_layer,
     )
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+        encoder_layer_train_plain,
+    )
     from gesturediffusion_tpu_torch.ops.fused_local_block import (
         fused_local_block,
         pre_encoder_local_block,
     )
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.train.loop import TrainState, make_optimizer, train_step
 
     # ---- 1. device ----------------------------------------------------- #
     kind = torch.cuda.get_device_name(0)
@@ -230,6 +455,10 @@ def main() -> int:
         f"max|diff| {enc_err:.3e} (tol {TOL_ENCODER:g})")
     if not ok:
         raise AssertionError("encoder_layer kernel disagrees with its plain version")
+
+    xt, gt = randn(MB, T + 1, D), randn(MB, T + 1, D)
+    seed = torch.tensor([20240], dtype=torch.int32, device=dev)
+    train_fwd_err, train_bwd_err = check_train_layer(xt, gt, enc_w, seed)
 
     # ---- 4. main path: full-width CFG chunked-AR take ------------------ #
     torch.manual_seed(0)
@@ -313,7 +542,11 @@ def main() -> int:
     if not cli_ok:
         raise AssertionError("generate CLI output has the wrong shape or non-finite values")
 
-    # ---- 5. times ------------------------------------------------------ #
+    # ---- 5. training: steps, plain comparison, train CLI -------------- #
+    tmodel, tdiffusion, tcfg, tbatch = train_phase(dev, randn, rs, card)
+    train_launches = train_cli_phase(card)
+
+    # ---- 6. times ------------------------------------------------------ #
     lb_ms = cuda_time_ms(lambda: fused_local_block(xs, coa, num_heads=CL_HEADS, window=WINDOW))
     lb_plain_ms = cuda_time_ms(
         lambda: pre_encoder_local_block(xs, coa, num_heads=CL_HEADS, window_size=WINDOW))
@@ -332,9 +565,45 @@ def main() -> int:
     enc_bytes = 4 * (2 * m * D + sum(w.numel() for w in enc_w))
     enc_bound, enc_by = bound_ms(enc_flops, enc_bytes)
 
+    tw = [w.detach().clone().requires_grad_() for w in enc_w]
+    tx_ = xt.detach().clone().requires_grad_()
+
+    def plain_fwd_bwd():
+        with torch.enable_grad():
+            encoder_layer_train_plain(tx_, *tw, seed=seed, num_heads=HEADS, rate=RATE).backward(gt)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            encoder_layer_sdpa(tx_, *tw, HEADS, rate=RATE).backward(gt)
+
+    tf_ms = cuda_time_ms(lambda: encoder_layer_train_fwd(
+        xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE))
+    tb_ms = cuda_time_ms(lambda: encoder_layer_train_bwd(
+        xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE))
+    tf_plain_ms = cuda_time_ms(lambda: encoder_layer_train_plain(
+        xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE))
+    tb_plain_ms = cuda_time_ms(plain_fwd_bwd)
+    tf_lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(xt, *enc_w, HEADS, rate=RATE))
+    tb_lib_ms = cuda_time_ms(lib_fwd_bwd)
+    mt = MB * (T + 1)
+    gemm_flops = 2 * mt * (4 * D * D + 2 * D * FF)
+    attn_flops = 4 * MB * (T + 1) ** 2 * D
+    w_bytes = 4 * sum(w.numel() for w in enc_w)
+    tf_flops = gemm_flops + attn_flops
+    tf_bytes = 4 * 2 * mt * D + w_bytes + 4
+    # the backward recomputes the forward, then twice its products
+    tb_flops = tf_flops + 2 * gemm_flops + 2 * attn_flops
+    tb_bytes = 4 * 3 * mt * D + 2 * w_bytes + 4
+    tf_bound, tf_by = bound_ms(tf_flops, tf_bytes)
+    tb_bound, tb_by = bound_ms(tb_flops, tb_bytes)
+
     for name, ms, pms, lms, bnd, by, fl, nb in (
         ("local_block", lb_ms, lb_plain_ms, lb_lib_ms, lb_bound, lb_by, lb_flops, lb_bytes),
         ("encoder_layer", enc_ms, enc_plain_ms, enc_lib_ms, enc_bound, enc_by, enc_flops, enc_bytes),
+        ("encoder_layer_train_fwd", tf_ms, tf_plain_ms, tf_lib_ms, tf_bound, tf_by, tf_flops,
+         tf_bytes),
+        ("encoder_layer_train_bwd (plain and library: forward + backward)", tb_ms, tb_plain_ms,
+         tb_lib_ms, tb_bound, tb_by, tb_flops, tb_bytes),
     ):
         log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch+SDPA {lms:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}; {fl / 1e9:.4f} GFLOP, {nb / 1e6:.3f} MB) {card}")
@@ -346,6 +615,16 @@ def main() -> int:
         f"{plain_take_s / n_steps * 1e3:.3f} ms/step {card}")
     log(f"peak memory (counted take): {peak_mib:.1f} MiB {card}")
     profile_denoise_step(model, diffusion, chunk_conds, init_seed, card)
+    tstate = TrainState(tmodel, *make_optimizer(tmodel.parameters(), tcfg),
+                        UniformSampler(1000), {})
+    tgen = torch.Generator(device=dev).manual_seed(3)
+
+    def one_train_step():
+        train_step(tstate, tdiffusion, tcfg, tbatch["motion"], tbatch["cond"], tgen,
+                   tbatch["t"], tbatch["noise"])
+
+    device_profile(one_train_step, 2, f"train step (batch {BATCH} = {BATCH // MB} x {MB})",
+                   card, host_rows=8)
 
     kernels = [
         {"name": "local_block", "route": "cuda",
@@ -360,6 +639,18 @@ def main() -> int:
          "launches": launches["encoder_layer"], "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
+        {"name": "encoder_layer_train_fwd", "route": "cuda",
+         "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
+         "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:249",
+         "launches": train_launches[0], "max_abs_err": train_fwd_err,
+         "ms": tf_ms, "plain_ms": tf_plain_ms, "bound_ms": tf_bound,
+         "bound_by": tf_by, "library_ms": tf_lib_ms},
+        {"name": "encoder_layer_train_bwd", "route": "cuda",
+         "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
+         "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
+         "launches": train_launches[1], "max_abs_err": train_bwd_err,
+         "ms": tb_ms, "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
+         "bound_by": tb_by, "library_ms": tb_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,17 +1,20 @@
-"""Gaussian diffusion process math, sampling half.
+"""Gaussian diffusion process math.
 
 PyTorch counterpart of gesturediffusion_tpu/diffusion/gaussian.py
-(GaussianDiffusion :78-265 and create_diffusion :427-526): the schedule
+(GaussianDiffusion :78-424 and create_diffusion :427-526): the schedule
 arrays, respacing through ``timestep_map``, q_sample, the posterior, the
-x0/eps converters and p_mean_variance with fixed variances and inpainting.
-Every array is computed in float64 numpy and cast to float32, as the JAX
-package does.  ``training_losses`` and learned variances wait for the
-training slice.
+x0/eps converters, p_mean_variance with fixed or learned variances and
+inpainting, and the training losses (masked MSE for START_X / EPSILON /
+PREVIOUS_X, the learned-variance ``vb`` term, the velocity term).  Every
+array is computed in float64 numpy and cast to float32, as the JAX package
+does.  The geometric terms (``lambda_rcxyz``, ``lambda_fc``,
+``lambda_vel_rcxyz``) need the body model, which waits for a later slice.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -19,6 +22,12 @@ import numpy as np
 import torch
 
 from gesturediffusion_tpu_torch.diffusion import schedules
+from gesturediffusion_tpu_torch.diffusion.losses import (
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+    sum_flat,
+)
 
 
 class ModelMeanType(enum.Enum):
@@ -32,6 +41,16 @@ class ModelVarType(enum.Enum):
     FIXED_SMALL = enum.auto()
     FIXED_LARGE = enum.auto()
     LEARNED_RANGE = enum.auto()
+
+
+class LossType(enum.Enum):
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()
+    KL = enum.auto()
+    RESCALED_KL = enum.auto()
+
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
 
 
 # model_fn(x, t_model, cond) -> model output, same shape as x
@@ -61,11 +80,17 @@ class GaussianDiffusion:
     posterior_mean_coef2: torch.Tensor
     fixed_large_variance: torch.Tensor
     fixed_large_log_variance: torch.Tensor
+    log_betas: torch.Tensor
     timestep_map: torch.Tensor  # internal t -> model-facing t (respacing)
     num_timesteps: int
     original_num_steps: int
     model_mean_type: ModelMeanType
     model_var_type: ModelVarType
+    loss_type: LossType = LossType.MSE
+    lambda_rcxyz: float = 0.0
+    lambda_vel: float = 0.0
+    lambda_fc: float = 0.0
+    lambda_vel_rcxyz: float = 0.0
 
     def model_t(self, t: torch.Tensor) -> torch.Tensor:
         """Translate internal timesteps to the ids the model was trained on."""
@@ -124,20 +149,30 @@ class GaussianDiffusion:
         mask is set (START_X only)."""
         nd = x.dim()
         model_output = model_fn(x, self.model_t(t), cond)
+        learned = self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE)
+        if learned:
+            model_output, model_var_values = model_output.split(x.shape[1], dim=1)
         if inpaint is not None:
             if self.model_mean_type != ModelMeanType.START_X:
                 raise ValueError("inpainting imputation supports START_X prediction only")
             mask, motion = inpaint
             model_output = torch.where(mask, motion, model_output)
 
-        if self.model_var_type == ModelVarType.FIXED_LARGE:
+        if self.model_var_type == ModelVarType.LEARNED:
+            model_log_variance = model_var_values
+            model_variance = torch.exp(model_log_variance)
+        elif self.model_var_type == ModelVarType.LEARNED_RANGE:
+            min_log = _extract(self.posterior_log_variance_clipped, t, nd)
+            max_log = _extract(self.log_betas, t, nd)
+            frac = (model_var_values + 1) / 2
+            model_log_variance = frac * max_log + (1 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        elif self.model_var_type == ModelVarType.FIXED_LARGE:
             model_variance = _extract(self.fixed_large_variance, t, nd)
             model_log_variance = _extract(self.fixed_large_log_variance, t, nd)
-        elif self.model_var_type == ModelVarType.FIXED_SMALL:
+        else:
             model_variance = _extract(self.posterior_variance, t, nd)
             model_log_variance = _extract(self.posterior_log_variance_clipped, t, nd)
-        else:
-            raise NotImplementedError("learned variances wait for the training port")
 
         if self.model_mean_type == ModelMeanType.PREVIOUS_X:
             pred_xstart = self.predict_xstart_from_xprev(x, t, model_output)
@@ -155,6 +190,86 @@ class GaussianDiffusion:
             "pred_xstart": pred_xstart,
         }
 
+    # ------------------------------------------------------------------ #
+    # Losses (gaussian.py:289-424)
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def masked_l2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Length-mask-aware per-sample MSE.  a, b [B, J, F, T]; mask
+        [B, 1, 1, T] -> [B].  A fully masked sample has loss 0 (the count is
+        clamped to 1), not 0/0."""
+        mask = mask.to(a.dtype)
+        loss = sum_flat((a - b) ** 2 * mask)
+        non_zero = sum_flat(mask) * (a.shape[1] * a.shape[2])
+        return loss / non_zero.clamp(min=1.0)
+
+    def _vb_terms_bpd(self, model_fn, x_start, x_t, t, cond):
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, cond)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"]))
+        kl = kl / math.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+        )
+        decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl),
+                "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(
+        self,
+        model_fn: ModelFn,
+        x_start: torch.Tensor,
+        t: torch.Tensor,
+        cond: dict,
+        *,
+        mask: torch.Tensor,
+        noise: torch.Tensor,
+    ) -> dict[str, torch.Tensor]:
+        """Per-sample training losses [B] for one sampled timestep batch.
+        ``terms["loss"]`` sums rot_mse, vb (learned variances) and
+        lambda_vel * vel_mse."""
+        if self.lambda_rcxyz > 0 or self.lambda_fc > 0 or self.lambda_vel_rcxyz > 0:
+            raise NotImplementedError(
+                "the geometric losses need the body model, which waits for a later slice"
+            )
+        x_t = self.q_sample(x_start, t, noise)
+        terms: dict[str, torch.Tensor] = {}
+        if self.loss_type.is_vb():
+            terms["loss"] = self._vb_terms_bpd(model_fn, x_start, x_t, t, cond)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output = model_fn(x_t, self.model_t(t), cond)
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, model_var_values = model_output.split(x_t.shape[1], dim=1)
+            frozen_out = torch.cat([model_output.detach(), model_var_values], dim=1)
+            terms["vb"] = self._vb_terms_bpd(
+                lambda *_args: frozen_out, x_start, x_t, t, cond
+            )["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
+
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.model_mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+
+        terms["rot_mse"] = self.masked_l2(target, model_output, mask)
+        loss = terms["rot_mse"] + terms.get("vb", 0.0)
+        if self.lambda_vel > 0:
+            # the last joint row is the root location and takes no part
+            target_vel = target[..., 1:] - target[..., :-1]
+            model_vel = model_output[..., 1:] - model_output[..., :-1]
+            terms["vel_mse"] = self.masked_l2(
+                target_vel[:, :-1], model_vel[:, :-1], mask[..., 1:]
+            )
+            loss = loss + self.lambda_vel * terms["vel_mse"]
+        terms["loss"] = loss
+        return terms
+
 
 def create_diffusion(
     *,
@@ -163,6 +278,11 @@ def create_diffusion(
     timestep_respacing: str | None = None,
     model_mean_type: ModelMeanType = ModelMeanType.START_X,
     model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
+    loss_type: LossType = LossType.MSE,
+    lambda_rcxyz: float = 0.0,
+    lambda_vel: float = 0.0,
+    lambda_fc: float = 0.0,
+    lambda_vel_rcxyz: float = 0.0,
     device=None,
 ) -> GaussianDiffusion:
     """Build a (optionally respaced) GaussianDiffusion on ``device``
@@ -209,6 +329,7 @@ def create_diffusion(
         ),
         "fixed_large_variance": fixed_large_variance,
         "fixed_large_log_variance": np.log(fixed_large_variance),
+        "log_betas": np.log(betas),
     }
     tensors = {
         k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in arrays.items()
@@ -220,4 +341,9 @@ def create_diffusion(
         original_num_steps=original_num_steps,
         model_mean_type=model_mean_type,
         model_var_type=model_var_type,
+        loss_type=loss_type,
+        lambda_rcxyz=lambda_rcxyz,
+        lambda_vel=lambda_vel,
+        lambda_fc=lambda_fc,
+        lambda_vel_rcxyz=lambda_vel_rcxyz,
     )

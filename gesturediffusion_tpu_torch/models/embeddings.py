@@ -10,6 +10,8 @@ state dict (``embed_timestep.time_embed.{0,2}``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -89,8 +91,20 @@ def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, freqs: torch.Tensor):
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
 
 
-def mask_cond(cond2d: torch.Tensor, uncond: torch.Tensor) -> torch.Tensor:
+def mask_cond(
+    cond2d: torch.Tensor,
+    uncond: torch.Tensor,
+    cond_mask_prob: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
     """Zero the conditioning rows [B, C] where ``uncond`` [B] is set (the
-    CFG unconditional branch).  Inference only: the random training
-    dropout of embeddings.py:mask_cond waits for the training port."""
-    return cond2d * (1.0 - uncond.to(cond2d.dtype))[:, None]
+    CFG unconditional branch) and, in training, rows drawn with probability
+    ``cond_mask_prob`` from ``generator`` (embeddings.py:mask_cond)."""
+    out = cond2d * (1.0 - uncond.to(cond2d.dtype))[:, None]
+    if train and cond_mask_prob > 0.0:
+        if generator is None:
+            raise ValueError("training conditioning dropout needs a torch.Generator")
+        bern = torch.empty((cond2d.shape[0], 1), dtype=cond2d.dtype, device=cond2d.device)
+        out = out * (1.0 - bern.bernoulli_(cond_mask_prob, generator=generator))
+    return out

@@ -1,4 +1,4 @@
-"""MDM V2 gesture denoiser, inference only.
+"""MDM V2 gesture denoiser.
 
 PyTorch counterpart of gesturediffusion_tpu/models/mdm.py (SeedPoseEncoder,
 MDM with MFCC audio input).  Parameter and buffer names follow the
@@ -11,11 +11,17 @@ Shape flow: [B,J,F,T] -> input_process -> [B,T,D] -> cat audio [B,T,D+A]
 block (rotary + causal band attention + cond token + rotary) [B,T+1,D] ->
 8-layer post-LN encoder -> drop token -> output_process -> [B,J,F,T].
 
-The wav-encoder audio input, conditioning dropout and training dropout
-wait for later slices.
+``forward(..., train=True, generator=g)`` is the training mode of
+mdm.py:MDM.__call__ (:276-299): conditioning dropout with probability
+``cond_mask_prob`` (independent draws for the text and the seed-pose
+streams), the plain local block with attention-probability dropout, and
+the encoder in train mode; every mask comes from ``g``.  The wav-encoder
+audio input waits for a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -59,8 +65,10 @@ class OutputProcess(nn.Module):
 class MDM(nn.Module):
     """MDM V2 gesture denoiser (mdm.py:MDM, ``mfcc_input=True``).
 
-    ``use_kernels=False`` runs the plain PyTorch versions of the two CUDA
-    kernels on any device; by default a CUDA model launches the kernels."""
+    ``use_kernels=False`` runs the plain PyTorch versions of the CUDA
+    kernels on any device; by default a CUDA model launches the kernels.
+    ``use_fused_train_encoder`` trains through the fused training layer
+    (the parameters are the same either way)."""
 
     def __init__(
         self,
@@ -71,6 +79,7 @@ class MDM(nn.Module):
         ff_size: int = 1024,
         num_layers: int = 8,
         num_heads: int = 4,
+        dropout: float = 0.1,
         clip_dim: int = 512,
         use_text: bool = False,
         cond_mask_prob: float = 0.0,
@@ -79,6 +88,7 @@ class MDM(nn.Module):
         cl_head: int = 8,
         window_size: int = 10,
         use_kernels: bool = True,
+        use_fused_train_encoder: bool = False,
     ):
         super().__init__()
         if use_text and text_dim >= latent_dim:
@@ -86,6 +96,7 @@ class MDM(nn.Module):
         self.njoints, self.nfeats, self.latent_dim = njoints, nfeats, latent_dim
         self.use_text, self.mfcc_dim = use_text, mfcc_dim
         self.cond_mask_prob = cond_mask_prob  # training-time CFG dropout rate
+        self.dropout = dropout
         self.cl_head, self.window_size = cl_head, window_size
         self.use_kernels = use_kernels
         pose_dim = njoints * nfeats
@@ -101,15 +112,25 @@ class MDM(nn.Module):
         )
         if use_text:
             self.embed_text = nn.Linear(clip_dim, text_dim)
-        self.seqTransEncoder = TransformerEncoder(num_layers, d, num_heads, ff_size)
+        self.seqTransEncoder = TransformerEncoder(
+            num_layers, d, num_heads, ff_size, dropout,
+            use_fused_train_layer=use_fused_train_encoder,
+        )
         self.rel_pos = RotaryInvFreq(d // cl_head)
 
     @property
     def audio_feat_dim(self) -> int:
         return self.mfcc_dim
 
-    def local_block(self, xseq: torch.Tensor, coa: torch.Tensor) -> torch.Tensor:
-        """[B, T, D] latent + [B, D] token -> [B, T+1, D] (kernel 1)."""
+    def local_block(self, xseq: torch.Tensor, coa: torch.Tensor, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, T, D] latent + [B, D] token -> [B, T+1, D].  Inference takes
+        the kernel; training the plain block with dropout."""
+        if train:
+            return pre_encoder_local_block(
+                xseq, coa, num_heads=self.cl_head, window_size=self.window_size,
+                dropout_rate=self.dropout, generator=generator,
+            )
         if self.use_kernels:
             return fused_local_block(
                 xseq, coa, num_heads=self.cl_head, window=self.window_size
@@ -118,16 +139,22 @@ class MDM(nn.Module):
             xseq, coa, num_heads=self.cl_head, window_size=self.window_size
         )
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         bs, njoints, nfeats, nframes = x.shape
         uncond = cond.get("uncond")
         if uncond is None:
             uncond = torch.zeros((bs,), dtype=x.dtype, device=x.device)
 
-        flat_seed = cond["seed"].reshape(bs, -1)
-        emb_seed = self.seed_pose_encoder(mask_cond(flat_seed, uncond))
+        def masked(c):
+            return mask_cond(c, uncond, self.cond_mask_prob, train, generator)
+
+        # the text stream draws its mask before the seed stream (mdm.py:215-220)
         if self.use_text:
-            emb_text = self.embed_text(mask_cond(cond["text_emb"].to(x.dtype), uncond))
+            emb_text = self.embed_text(masked(cond["text_emb"].to(x.dtype)))
+        emb_seed = self.seed_pose_encoder(masked(cond["seed"].reshape(bs, -1)))
+        if self.use_text:
             stxt = torch.cat([emb_text, emb_seed], dim=-1)
         else:
             stxt = emb_seed
@@ -140,8 +167,8 @@ class MDM(nn.Module):
         coa_rep = coa[:, None, :].expand(bs, nframes, self.latent_dim)
         xseq = self.project_to_lat(torch.cat([emb_pose, emb_audio, coa_rep], dim=-1))
 
-        xseq = self.local_block(xseq.contiguous(), coa.contiguous())
-        out = self.seqTransEncoder(xseq, self.use_kernels)[:, 1:]
+        xseq = self.local_block(xseq.contiguous(), coa.contiguous(), train, generator)
+        out = self.seqTransEncoder(xseq, self.use_kernels, train, generator)[:, 1:]
         out = self.output_process.poseFinal(out)
         out = out.reshape(bs, nframes, self.njoints, self.nfeats)
         return out.permute(0, 2, 3, 1).float()

@@ -1,31 +1,46 @@
-"""Transformer encoder with torch ``nn.TransformerEncoderLayer`` semantics,
-inference only.
+"""Transformer encoder with torch ``nn.TransformerEncoderLayer`` semantics.
 
 PyTorch counterpart of gesturediffusion_tpu/models/transformer.py
-(MultiheadSelfAttention, TransformerEncoderLayer, TransformerEncoder; the
-fused inference layer FusedTransformerEncoderLayer is the same function).
-Post-LN order, GELU in its tanh form, batch-major [B, T, D].  Parameter
-names follow the reference state dict: ``layers.{i}.self_attn.
-in_proj_weight``, ``self_attn.out_proj``, ``linear1``, ``linear2``,
-``norm1``, ``norm2``.
+(MultiheadSelfAttention, TransformerEncoderLayer, FusedTrainEncoderLayer,
+TransformerEncoder; the fused inference layer FusedTransformerEncoderLayer
+is the same function as the inference path here).  Post-LN order, GELU in
+its tanh form, batch-major [B, T, D].  Parameter names follow the reference
+state dict: ``layers.{i}.self_attn.in_proj_weight``, ``self_attn.out_proj``,
+``linear1``, ``linear2``, ``norm1``, ``norm2``; both layer classes have the
+same parameters, so one checkpoint serves every path.
 
-GELU only (the activation of every configuration the repo ships).  Each
-layer is one call of ops/fused_encoder.py:fused_encoder_layer, which
-launches the CUDA kernel for CUDA tensors and runs the plain layer for CPU
-tensors; ``use_kernels=False`` runs the plain layer on any device (the
-card-side reference the kernel is held against).  Dropout and the
-training layers wait for the training port.
+Inference: each layer is one call of ops/fused_encoder.py:
+fused_encoder_layer (the CUDA kernel for CUDA tensors, the plain layer for
+CPU tensors).  Training (``train=True``):
+  * TransformerEncoderLayer runs the plain layer under autograd with
+    dropout at the four sites, Bernoulli masks from the generator;
+  * FusedTrainEncoderLayer draws one int32 seed per call from the
+    generator and runs ops/fused_encoder_train.py: the CUDA forward and
+    backward kernels for CUDA tensors, the plain hash-dropout layer for CPU
+    tensors.
+``use_kernels=False`` runs the plain versions on any device (the card-side
+reference the kernels are held against).  GELU only (the activation of
+every configuration the repo ships); rematerialisation waits.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from gesturediffusion_tpu_torch.ops.dropout import dropout
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
     encoder_layer_plain,
     fused_encoder_layer,
 )
+from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+    encoder_layer_train_plain,
+    fused_encoder_layer_train,
+)
+
+INT32_MAX = 2**31 - 1
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -44,9 +59,11 @@ class MultiheadSelfAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int):
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.self_attn = MultiheadSelfAttention(d_model, num_heads)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
@@ -64,21 +81,56 @@ class TransformerEncoderLayer(nn.Module):
             self.norm2.weight, self.norm2.bias,
         )
 
-    def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            return self.train_forward(x, use_kernels, generator)
         layer = fused_encoder_layer if use_kernels else encoder_layer_plain
         return layer(x, *self.weights(), num_heads=self.num_heads)
+
+    def train_forward(self, x, use_kernels, generator):
+        """transformer.py:TransformerEncoderLayer with deterministic=False:
+        the plain layer under autograd (the JAX package's default training
+        path has no kernel either), Bernoulli dropout at the four sites."""
+        rate = self.dropout
+        drop = None if rate == 0.0 else (lambda z, site: dropout(z, rate, generator))
+        return encoder_layer_plain(x, *self.weights(), num_heads=self.num_heads, drop=drop)
+
+
+class FusedTrainEncoderLayer(TransformerEncoderLayer):
+    """Training through the hash-dropout layer of
+    ops/fused_encoder_train.py (transformer.py:FusedTrainEncoderLayer):
+    one int32 seed drawn per call derives all four sites' masks, and the
+    CUDA path saves only the layer input for backward.  Inference is the
+    parent's."""
+
+    def train_forward(self, x, use_kernels, generator):
+        rate = self.dropout
+        if rate > 0.0:
+            if generator is None:
+                raise ValueError("training dropout needs an explicit torch.Generator")
+            seed = torch.randint(0, INT32_MAX, (1,), generator=generator,
+                                 device=generator.device, dtype=torch.int32)
+        else:
+            seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        layer = fused_encoder_layer_train if use_kernels else encoder_layer_train_plain
+        return layer(x.contiguous(), *self.weights(), seed=seed,
+                     num_heads=self.num_heads, rate=rate)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.1,
+                 use_fused_train_layer: bool = False):
         super().__init__()
+        cls = FusedTrainEncoderLayer if use_fused_train_layer else TransformerEncoderLayer
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, dim_feedforward)
+            cls(d_model, num_heads, dim_feedforward, dropout)
             for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, use_kernels)
+            x = layer(x, use_kernels, train, generator)
         return x

@@ -9,6 +9,11 @@ order with GELU in its tanh form):
 
     a = selfattn(x); x = LN1(x + a); x = LN2(x + linear2(gelu(linear1(x))))
 
+The plain version also serves training: ``drop(z, site)`` applies the
+dropout of one of the four sites (attention probabilities, attention
+output, activation, feed-forward output), with Bernoulli masks
+(models/transformer.py) or hash masks (ops/fused_encoder_train.py).
+
 Weights use PyTorch's [out, in] layout: wqkv [3D, D] (the packed
 ``in_proj_weight``), wo [D, D], w1 [F, D], w2 [D, F]; LayerNorm weight
 and bias [D].  On a CUDA tensor the wrapper launches
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +32,10 @@ import torch.nn.functional as F
 from gesturediffusion_tpu_torch.ops import _build
 
 LN_EPS = 1e-5
+# the training dropout sites, in the order the layer reaches them
+SITE_ATTN, SITE_POST_ATTN, SITE_ACT, SITE_FF = 0, 1, 2, 3
+# drop(z, site) -> z with the dropout of that site applied
+Drop = Optional[Callable[[torch.Tensor, int], torch.Tensor]]
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -36,30 +46,36 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def self_attention_plain(
     x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
-    wo: torch.Tensor, bo: torch.Tensor, num_heads: int,
+    wo: torch.Tensor, bo: torch.Tensor, num_heads: int, drop: Drop = None,
 ) -> torch.Tensor:
-    """Packed-QKV multi-head self-attention, f32 scores and softmax."""
+    """Packed-QKV multi-head self-attention, scores and softmax in at least
+    f32; ``drop`` drops the probabilities [B, H, T, T]."""
     b, t, d = x.shape
     dh = d // num_heads
+    ct = torch.promote_types(x.dtype, torch.float32)
     q, k, v = F.linear(x, wqkv, bqkv).chunk(3, dim=-1)
     q, k, v = (y.reshape(b, t, num_heads, dh).transpose(1, 2) for y in (q, k, v))
-    sim = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * (dh**-0.5)
-    attn = sim.softmax(dim=-1).to(x.dtype)
-    out = torch.einsum("bhij,bhjd->bhid", attn, v)
+    attn = (torch.einsum("bhid,bhjd->bhij", q.to(ct), k.to(ct)) * (dh**-0.5)).softmax(dim=-1)
+    if drop is not None:
+        attn = drop(attn, SITE_ATTN)
+    out = torch.einsum("bhij,bhjd->bhid", attn.to(x.dtype), v)
     return F.linear(out.transpose(1, 2).reshape(b, t, d), wo, bo)
 
 
 def encoder_layer_plain(
     x, wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
-    *, num_heads: int,
+    *, num_heads: int, drop: Drop = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the layer (inference: no dropout)."""
+    """Plain PyTorch version of the layer; ``drop`` is None for inference
+    and applies each site's dropout in training."""
+    def dropped(z, site):
+        return z if drop is None else drop(z, site)
+
     d = x.shape[-1]
-    x = F.layer_norm(
-        x + self_attention_plain(x, wqkv, bqkv, wo, bo, num_heads),
-        (d,), ln1_w, ln1_b, LN_EPS,
-    )
-    h = F.linear(gelu_tanh(F.linear(x, w1, b1)), w2, b2)
+    a = self_attention_plain(x, wqkv, bqkv, wo, bo, num_heads, drop)
+    x = F.layer_norm(x + dropped(a, SITE_POST_ATTN), (d,), ln1_w, ln1_b, LN_EPS)
+    h = dropped(gelu_tanh(F.linear(x, w1, b1)), SITE_ACT)
+    h = dropped(F.linear(h, w2, b2), SITE_FF)
     return F.layer_norm(x + h, (d,), ln2_w, ln2_b, LN_EPS)
 
 

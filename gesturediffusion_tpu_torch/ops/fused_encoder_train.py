@@ -1,0 +1,222 @@
+"""The training encoder layer: hash-PRNG dropout, plain version, and the
+CUDA forward and backward kernels behind one autograd Function.
+
+Counterpart of gesturediffusion_tpu/ops/pallas_encoder_train.py.  One
+post-LN layer (torch ``nn.TransformerEncoderLayer`` order, GELU in its tanh
+form) with dropout at four sites: the attention probabilities, the
+attention output, the activation and the feed-forward output (the site ids
+of ops/fused_encoder.py).  A site's
+mask is drawn from a murmur3 fmix32 hash of (global element index, site,
+seed) and is therefore the same on every device and in every pass:
+
+    keep = hash_u32(idx, salt(seed, site)) < keep_threshold(1 - rate)
+
+``encoder_layer_train_plain`` is the port of encoder_layer_train_reference
+(:629) and _forward_core (:102) under ordinary autograd: the CPU path and
+the kernels' specification.  ``fused_encoder_layer_train`` runs the plain
+version on a CPU tensor; on a CUDA tensor it launches
+csrc/encoder_layer_train.cu, whose forward saves only x, the weights and
+the seed, and whose backward recomputes the layer from x (launches counted
+in ``encoder_layer_train_fwd.launches`` and ``encoder_layer_train_bwd.launches``).
+
+Weights use PyTorch's [out, in] layout, as ops/fused_encoder.py; their
+gradients come back in it.  The global indices restart at batch row 0 in
+every call, as a separate TPU kernel call does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from gesturediffusion_tpu_torch.ops import _build
+from gesturediffusion_tpu_torch.ops.fused_encoder import (
+    _check_cuda_args as _check_layer_args,
+    encoder_layer_plain,
+)
+
+_U32 = 0xFFFFFFFF
+_GOLD = 0x9E3779B9
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+
+
+def _mul_u32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """(a * m) mod 2**32 for a in [0, 2**32) held in int64, without
+    overflowing int64: the product is split at 16 bits of ``a``."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * m + (((hi * m) & 0xFFFF) << 16)) & _U32
+
+
+def hash_u32(idx: torch.Tensor, salt) -> torch.Tensor:
+    """murmur3 fmix32 over (idx, salt) with uint32 wraparound
+    (pallas_encoder_train.py:_hash_u32).  Integer tensors in, int64 values
+    in [0, 2**32) out."""
+    h = (_mul_u32(idx.long() & _U32, _M1) + salt) & _U32
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, _M1)
+    h = h ^ (h >> 13)
+    h = _mul_u32(h, _M2)
+    return h ^ (h >> 16)
+
+
+def salt(seed, site: int):
+    """(seed + ((site * 0x9E3779B9) & 0xFFFFFFFF)) | 1 as uint32, for an int
+    seed or an integer tensor (pallas_encoder_train.py:_salt)."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.long()
+    return (((seed & _U32) + ((site * _GOLD) & _U32)) & _U32) | 1
+
+
+def keep_threshold(keep_prob: float) -> int:
+    """The uint32 threshold, computed in double precision as the TPU kernel
+    does (:82).  3865470566 at keep 0.9."""
+    return min(int(keep_prob * 2**32), 2**32 - 1)
+
+
+def keep_from_idx(idx: torch.Tensor, seed, site: int, keep_prob: float) -> torch.Tensor:
+    """Boolean keep-mask of the global element indices ``idx``."""
+    return hash_u32(idx, salt(seed, site)) < keep_threshold(keep_prob)
+
+
+def hash_dropout_mask(shape, base: int, seed, site: int, keep_prob: float,
+                      device=None) -> torch.Tensor:
+    """The keep-mask of the global flat indices base .. base + prod(shape)
+    (pallas_encoder_train.py:hash_dropout_mask)."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device) + base
+    return keep_from_idx(idx, seed, site, keep_prob).reshape(shape)
+
+
+def encoder_layer_train_plain(
+    x, wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
+    *, seed, num_heads: int, rate: float,
+) -> torch.Tensor:
+    """Plain PyTorch training layer.  x [B, T, D] -> [B, T, D]; ``seed`` is
+    an int or an integer tensor of one element; rate 0 draws nothing.  The
+    global indices are those of each site's row-major layout: [B, H, T, T]
+    for the probabilities, [B, T, width] for the other three."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(())
+    keep = 1.0 - rate
+
+    def drop(z, site):
+        mask = hash_dropout_mask(z.shape, 0, seed, site, keep, device=z.device)
+        # times 1 / keep (not divided by keep), as the kernels
+        return torch.where(mask, z * (1.0 / keep), torch.zeros((), dtype=z.dtype, device=z.device))
+
+    return encoder_layer_plain(
+        x, wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
+        num_heads=num_heads, drop=drop if rate > 0.0 else None,
+    )
+
+
+_FWD_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.cache
+def _kernels():
+    fwd = _build.load_function(
+        "encoder_layer_train", "gdt_encoder_layer_train_fwd_f32", _FWD_ARGS)
+    bwd = _build.load_function(
+        "encoder_layer_train", "gdt_encoder_layer_train_bwd_f32", _BWD_ARGS)
+    ws = _build.load_function(
+        "encoder_layer_train", "gdt_encoder_layer_train_workspace", [ctypes.c_int] * 6)
+    ws.restype = ctypes.c_size_t
+    return fwd, bwd, ws
+
+
+def _check_cuda_args(x, weights, seed, num_heads):
+    _check_layer_args(x, weights, num_heads)
+    if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != x.device:
+        raise ValueError("seed must be one int32 element on the device of x")
+
+
+def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float):
+    _check_cuda_args(x, weights, seed, num_heads)
+    b, t, d = x.shape
+    f = weights[6].shape[0]
+    keep = 1.0 - rate
+    fwd, bwd, ws_floats = _kernels()
+    ws = torch.empty(ws_floats(b, t, d, f, num_heads, int(backward)),
+                     dtype=torch.float32, device=x.device)
+    tail = (b, t, d, f, num_heads, (d // num_heads) ** -0.5,
+            keep_threshold(keep), 1.0 / keep, int(rate > 0.0))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = [x.data_ptr(), *(w.data_ptr() for w in weights), seed.data_ptr()]
+        if not backward:
+            outs = (torch.empty_like(x),)
+            code = fwd(*ptrs, outs[0].data_ptr(), ws.data_ptr(), *tail, stream)
+        else:
+            if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+                raise ValueError("g must be a contiguous float32 tensor shaped like x")
+            outs = (torch.empty_like(x), *(torch.empty_like(w) for w in weights))
+            code = bwd(*ptrs, g.data_ptr(), *(o.data_ptr() for o in outs),
+                       ws.data_ptr(), *tail, stream)
+    _build.check("encoder_layer_train", code)
+    return outs
+
+
+def encoder_layer_train_fwd(x, *weights, seed, num_heads: int, rate: float) -> torch.Tensor:
+    """The forward kernel on CUDA tensors (seed: one int32 on the device),
+    counted in ``encoder_layer_train_fwd.launches``."""
+    (out,) = _launch(False, x, weights, seed, None, num_heads, rate)
+    encoder_layer_train_fwd.launches += 1
+    return out
+
+
+def encoder_layer_train_bwd(x, *weights, seed, g, num_heads: int, rate: float):
+    """The backward kernel on CUDA tensors: recomputes the layer from x and
+    returns (dx, 12 weight gradients) for the output gradient g, counted
+    in ``encoder_layer_train_bwd.launches``."""
+    outs = _launch(True, x, weights, seed, g, num_heads, rate)
+    encoder_layer_train_bwd.launches += 1
+    return outs
+
+
+encoder_layer_train_fwd.launches = 0
+encoder_layer_train_bwd.launches = 0
+
+
+class _EncoderLayerTrain(torch.autograd.Function):
+    """Forward kernel; the backward kernel recomputes from x.  Saved for
+    backward: x, the 12 weights and the seed tensor, nothing else."""
+
+    @staticmethod
+    def forward(ctx, x, seed, num_heads, rate, *weights):
+        ctx.num_heads, ctx.rate = num_heads, rate
+        ctx.save_for_backward(x, seed, *weights)
+        return encoder_layer_train_fwd(x, *weights, seed=seed, num_heads=num_heads, rate=rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, seed, *weights = ctx.saved_tensors
+        dx, *dws = encoder_layer_train_bwd(x, *weights, seed=seed, g=g.contiguous(),
+                                           num_heads=ctx.num_heads, rate=ctx.rate)
+        return (dx, None, None, None, *dws)
+
+
+def fused_encoder_layer_train(
+    x, wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
+    *, seed, num_heads: int, rate: float,
+) -> torch.Tensor:
+    """One training encoder layer.  CPU tensors run
+    ``encoder_layer_train_plain``; CUDA tensors run the forward kernel and,
+    under autograd, the backward kernel.  On the card ``seed`` is one int32
+    element on the device (an int is moved there)."""
+    weights = (wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
+    if x.device.type == "cpu":
+        return encoder_layer_train_plain(x, *weights, seed=seed, num_heads=num_heads, rate=rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor([seed], dtype=torch.int32, device=x.device)
+    seed = seed.reshape(1)
+    return _EncoderLayerTrain.apply(x, seed, num_heads, float(rate), *weights)
+

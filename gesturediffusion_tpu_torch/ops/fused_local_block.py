@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -29,16 +30,20 @@ from gesturediffusion_tpu_torch.ops.local_attention import local_attention_dense
 
 
 def pre_encoder_local_block(
-    xseq: torch.Tensor, coa: torch.Tensor, *, num_heads: int, window_size: int
+    xseq: torch.Tensor, coa: torch.Tensor, *, num_heads: int, window_size: int,
+    dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version (inference: no dropout)."""
+    """Plain PyTorch version.  Training passes ``dropout_rate`` and the
+    generator that draws the attention-probability masks; the kernel is
+    the inference path (no dropout, no backward)."""
     bs, nt, d = xseq.shape
     dh = d // num_heads
     heads = xseq.reshape(bs, nt, num_heads, dh).transpose(1, 2)
     heads, _ = apply_rotary_pos_emb(heads, heads, rotary_freqs(nt, dh, xseq.device))
     heads = local_attention_dense(
         heads, heads, heads, window_size=window_size, causal=True,
-        look_backward=1, look_forward=0,
+        look_backward=1, look_forward=0, dropout_rate=dropout_rate,
+        generator=generator,
     ).to(xseq.dtype)
     xseq = heads.transpose(1, 2).reshape(bs, nt, d)
 

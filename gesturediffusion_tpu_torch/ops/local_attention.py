@@ -2,8 +2,9 @@
 
 PyTorch counterpart of gesturediffusion_tpu/ops/local_attention.py:
 local_attention_dense — one [T, T] score matrix with a static band mask,
-the path the JAX package takes at the gesture shapes (T <= 256).  The
-windowed ``local_attention`` waits for a later slice.  Layout [B, H, T, D].
+the path the JAX package takes at the gesture shapes (T <= 256), with
+dropout on the attention probabilities in training.  The windowed
+``local_attention`` waits for a later slice.  Layout [B, H, T, D].
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from gesturediffusion_tpu_torch.ops.dropout import dropout
 
 MASK_VALUE = -torch.finfo(torch.float32).max
 
@@ -26,11 +29,15 @@ def local_attention_dense(
     look_forward: int = 0,
     mask: Optional[torch.Tensor] = None,
     exact_windowsize: bool = False,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Banded attention: query i sees key j when their windows are at
     most ``look_backward`` apart backwards and ``look_forward`` forwards
     (and j <= i when causal).  ``mask`` [B, T] marks valid keys.  Scores
-    and softmax in float32; masked scores take the finite MASK_VALUE."""
+    and softmax in float32; masked scores take the finite MASK_VALUE.
+    ``dropout_rate`` > 0 drops probabilities with masks from ``generator``
+    (local_attention.py:174-176)."""
     if causal and look_forward > 0:
         raise ValueError("cannot look forward with causal attention")
     t, d = q.shape[-2], q.shape[-1]
@@ -46,5 +53,5 @@ def local_attention_dense(
     sim = sim.masked_fill(~allowed, MASK_VALUE)
     if mask is not None:
         sim = sim.masked_fill(~mask[:, None, None, :].bool(), MASK_VALUE)
-    attn = sim.softmax(dim=-1).to(v.dtype)
+    attn = dropout(sim.softmax(dim=-1).to(v.dtype), dropout_rate, generator)
     return torch.einsum("bhij,bhjd->bhid", attn, v)

@@ -22,16 +22,11 @@ import torch
 
 from gesturediffusion_tpu_torch.data.collate import collate_gesture, device_cond
 from gesturediffusion_tpu_torch.data.synthetic import get_dataset
-from gesturediffusion_tpu_torch.diffusion.gaussian import (
-    ModelMeanType,
-    ModelVarType,
-    create_diffusion,
-)
 from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
-from gesturediffusion_tpu_torch.models.mdm import MDM
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
 from gesturediffusion_tpu_torch.utils.device import resolve_device
+from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
 from gesturediffusion_tpu_torch.utils.parser import default_output_dir, generate_args
 
 
@@ -43,29 +38,6 @@ def split_pose_vector(vec: np.ndarray, n_joints: int):
     pos = vec[..., idx_pos].reshape(vec.shape[:-1] + (n_joints, 3))
     rot = vec[..., idx_rot].reshape(vec.shape[:-1] + (n_joints, 3))
     return pos, rot
-
-
-def create_model_and_diffusion(args, dataset, device: torch.device):
-    """The gesture MDM V2 and its diffusion from the (checkpoint) flags."""
-    if args.use_wav_enc:
-        raise NotImplementedError("the wav-encoder audio input waits for a later slice")
-    model = MDM(
-        njoints=dataset.pose_dim, nfeats=1, latent_dim=args.latent_dim,
-        ff_size=1024, num_layers=args.layers, num_heads=4,
-        cond_mask_prob=args.cond_mask_prob, use_text=args.use_text,
-        seed_poses=args.seed_poses,
-    )
-    diffusion = create_diffusion(
-        noise_schedule=args.noise_schedule,
-        steps=args.diffusion_steps,
-        timestep_respacing=args.timestep_respacing or None,
-        model_mean_type=ModelMeanType.START_X,
-        model_var_type=(
-            ModelVarType.FIXED_SMALL if args.sigma_small else ModelVarType.FIXED_LARGE
-        ),
-        device=device,
-    )
-    return model, diffusion
 
 
 def main(argv=None) -> str:

@@ -1,0 +1,342 @@
+"""Training step and loop.
+
+PyTorch counterpart of gesturediffusion_tpu/train/loop.py.  The JAX step
+is one jitted function (:109-291); here ``train_step`` is a plain Python
+function on tensors that does the same work in the same order: sample
+timesteps (or take injected ones), q_sample with the given or drawn noise,
+run the model in train mode, the importance-weighted masked-MSE loss,
+backward (averaged over ``microbatch_size`` microbatches), then, unless
+the loss or the gradient norm is not finite, the AdamW update with the
+reference's lagged linear LR anneal, the EMA and the sampler update.  A
+non-finite step changes nothing but the skip count.  Every random draw
+comes from one torch.Generator on the model's device.
+
+``TrainLoop`` is the host shell: data, logging, checkpoints and resume.
+A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
+reference torch layout, which the generate CLI and the JAX package's
+load_torch_checkpoint read) beside ``opt{step:09d}.pt`` (optimizer, LR
+schedule, sampler, EMA, skip count and generator state).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from gesturediffusion_tpu_torch.data.collate import device_cond
+from gesturediffusion_tpu_torch.data.loader import DataLoader, infinite_batches
+from gesturediffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from gesturediffusion_tpu_torch.diffusion.resample import create_named_schedule_sampler
+from gesturediffusion_tpu_torch.train.platforms import TrainPlatform
+from gesturediffusion_tpu_torch.utils import logger as log_lib
+from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    save_dir: str = "save/run"
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    lr_anneal_steps: int = 0
+    num_steps: int = 600_000
+    batch_size: int = 256
+    log_interval: int = 1_000
+    save_interval: int = 50_000
+    schedule_sampler: str = "uniform"
+    ema_rate: float = 0.0  # 0 disables EMA
+    # gradient accumulation: split each batch into microbatches of this
+    # size (0 = off)
+    microbatch_size: int = 0
+    seed: int = 10
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    sampler: object
+    ema: dict  # parameter name -> EMA tensor; empty when EMA is off
+    step: int = 0
+    nonfinite_skips: int = 0
+
+
+def quartile_means(t: torch.Tensor, values: torch.Tensor, num_timesteps: int) -> dict:
+    """Mean of ``values`` per timestep quartile (the reference's logging)."""
+    quart = (t * 4) // num_timesteps
+    out = {}
+    for q in range(4):
+        sel = (quart == q).to(values.dtype)
+        out[f"q{q}"] = (values * sel).sum() / sel.sum().clamp(min=1.0)
+    return out
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum((x.float() ** 2).sum() for x in tensors))
+
+
+def lr_factor(count: int, anneal_steps: int) -> float:
+    """The reference anneals after each update, so update k (1-based,
+    count = k - 1) applies lr * (1 - clip((count - 1) / N, 0, 1)): one step
+    behind a plain linear schedule (loop.py:make_optimizer)."""
+    if not anneal_steps:
+        return 1.0
+    return 1.0 - min(max((count - 1) / anneal_steps, 0.0), 1.0)
+
+
+def make_optimizer(params, config: TrainConfig):
+    """AdamW with optax's adamw defaults (betas 0.9 / 0.999, eps 1e-8,
+    decoupled weight decay on every parameter) and the lagged anneal."""
+    opt = torch.optim.AdamW(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=config.weight_decay)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda count: lr_factor(count, config.lr_anneal_steps))
+    return opt, sched
+
+
+def train_step(
+    state: TrainState,
+    diffusion: GaussianDiffusion,
+    config: TrainConfig,
+    motion: torch.Tensor,
+    cond: dict,
+    generator: torch.Generator,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> dict:
+    """One update.  ``t`` and ``noise`` default to the sampler's and the
+    generator's draws; passing them replays a step exactly.  Returns the
+    metrics as tensors (one host sync decides whether the step is kept)."""
+    model = state.model
+    model.train()
+    b = motion.shape[0]
+    if t is None:
+        t, weights = state.sampler.sample(b, generator)
+    else:
+        # injected timesteps: uniform importance weights
+        weights = torch.ones((b,), dtype=torch.float32, device=motion.device)
+    if noise is None:
+        noise = torch.randn(motion.shape, generator=generator, device=motion.device,
+                            dtype=motion.dtype)
+
+    def model_fn(x, tt, cc):
+        return model(x, tt, cc, train=True, generator=generator).to(motion.dtype)
+
+    mb = config.microbatch_size
+    if mb and mb < b:
+        if b % mb:
+            raise ValueError(f"batch {b} not divisible by microbatch_size {mb}")
+        k = b // mb
+    else:
+        k, mb = 1, b
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = torch.zeros((), device=motion.device)
+    terms: dict = {}
+    for i in range(k):
+        sl = slice(i * mb, (i + 1) * mb)
+        cc = {key: v[sl] for key, v in cond.items()}
+        with torch.enable_grad():  # whatever the caller's grad mode
+            terms_i = diffusion.training_losses(
+                model_fn, motion[sl], t[sl], cc, mask=cc["mask"], noise=noise[sl])
+            loss_i = (terms_i["loss"] * weights[sl]).mean()
+            (loss_i / k).backward()
+        loss = loss + loss_i.detach() / k
+        for name, val in terms_i.items():
+            terms.setdefault(name, []).append(val.detach())
+    terms = {name: torch.cat(vals) for name, vals in terms.items()}
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:  # a parameter the loss does not reach
+            p.grad = torch.zeros_like(p)
+    grad_norm = global_norm(p.grad for p in params)
+    ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+    if ok:
+        state.optimizer.step()
+        state.scheduler.step()
+        if config.ema_rate > 0:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    state.ema[name].mul_(config.ema_rate).add_(p, alpha=1 - config.ema_rate)
+        state.sampler.update_with_losses(t, terms["loss"])
+    else:
+        state.nonfinite_skips += 1
+    state.step += 1
+
+    with torch.no_grad():
+        metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": global_norm(params),
+                   "nonfinite_skips": state.nonfinite_skips}
+        for name, val in terms.items():
+            # importance-weighted, so the logged loss is the optimised one
+            wval = val * weights
+            metrics[name] = wval.mean()
+            for qname, qval in quartile_means(t, wval, diffusion.num_timesteps).items():
+                metrics[f"{name}_{qname}"] = qval
+    return metrics
+
+
+class TrainLoop:
+    """Host-side training shell: data, logging, checkpoints, resume."""
+
+    def __init__(
+        self,
+        config: TrainConfig,
+        diffusion: GaussianDiffusion,
+        model: nn.Module,
+        data: DataLoader,
+        device: torch.device,
+        platform: Optional[TrainPlatform] = None,
+        args_to_save: Optional[dict] = None,
+    ):
+        self.config = config
+        self.diffusion = diffusion
+        self.data = data
+        self.device = device
+        self.platform = platform or TrainPlatform(config.save_dir)
+        self.logger = log_lib.configure(config.save_dir)
+        model = model.to(device)
+        opt, sched = make_optimizer(model.parameters(), config)
+        sampler = create_named_schedule_sampler(
+            config.schedule_sampler, diffusion.num_timesteps, device)
+        self.state = TrainState(model, opt, sched, sampler, self._fresh_ema(model))
+        self.generator = torch.Generator(device=device).manual_seed(config.seed)
+        os.makedirs(config.save_dir, exist_ok=True)
+        if args_to_save is not None:
+            with open(os.path.join(config.save_dir, "args.json"), "w") as f:
+                json.dump(args_to_save, f, indent=4, sort_keys=True)
+        self.resume_step = 0
+        self._prev_skips = 0
+
+    def _fresh_ema(self, model: nn.Module) -> dict:
+        if self.config.ema_rate <= 0:
+            return {}
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    # ---- checkpoints (model{step:09d}.pt + opt{step:09d}.pt) ------------ #
+    def _path(self, kind: str, step: int) -> str:
+        return os.path.abspath(os.path.join(self.config.save_dir, f"{kind}{step:09d}.pt"))
+
+    def save(self) -> str:
+        s = self.state
+        path = self._path("model", s.step)
+        torch.save(s.model.state_dict(), path)
+        torch.save({
+            "optimizer": s.optimizer.state_dict(),
+            "scheduler": s.scheduler.state_dict(),
+            "sampler": s.sampler.state_dict(),
+            "ema": s.ema,
+            "nonfinite_skips": s.nonfinite_skips,
+            "generator": self.generator.get_state(),
+        }, self._path("opt", s.step))
+        log_lib.log(f"saved checkpoint {path}")
+        return path
+
+    def load(self, path: str) -> None:
+        """Resume from ``model*.pt``.  With its ``opt*.pt`` beside it the
+        optimizer, schedule, sampler, EMA and generator continue; without
+        it (a reference or JAX-exported file) the optimizer starts fresh
+        and only the LR schedule resumes at the file's step."""
+        s = self.state
+        s.model.load_state_dict(load_checkpoint(path))
+        step = parse_resume_step_from_filename(path)
+        opt_path = os.path.join(os.path.dirname(path),
+                                os.path.basename(path).replace("model", "opt", 1))
+        if os.path.exists(opt_path):
+            ck = torch.load(opt_path, map_location=self.device, weights_only=True)
+            s.optimizer.load_state_dict(ck["optimizer"])
+            s.scheduler.load_state_dict(ck["scheduler"])
+            s.sampler.load_state_dict(ck["sampler"])
+            s.ema = {n: e.to(self.device) for n, e in ck["ema"].items()}
+            s.nonfinite_skips = int(ck["nonfinite_skips"])
+            self.generator.set_state(ck["generator"].cpu())
+            log_lib.log(f"resumed from {path} at step {step}")
+        else:
+            s.optimizer, s.scheduler = make_optimizer(s.model.parameters(), self.config)
+            s.scheduler.last_epoch = step
+            for group, base in zip(s.optimizer.param_groups, s.scheduler.base_lrs):
+                group["lr"] = base * lr_factor(step, self.config.lr_anneal_steps)
+            s.ema = self._fresh_ema(s.model)
+            log_lib.log(f"fine-tuning from {path} at step {step} (fresh optimizer state)")
+        s.step = step
+        self.resume_step = step
+        self._prev_skips = s.nonfinite_skips
+
+    # ---- the loop ------------------------------------------------------- #
+    def _host_batches(self):
+        """Collated batches as tensors on the device.  The raw audio stays
+        on the host: the port's denoiser reads the MFCCs."""
+        for motion, cond in infinite_batches(self.data):
+            dcond = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                     for k, v in device_cond(cond).items() if k != "audio"}
+            yield torch.from_numpy(motion).to(self.device), dcond
+
+    def run_loop(self, batch_source=None) -> None:
+        """Train to ``num_steps``; ``batch_source`` yields ready
+        (motion, cond) tensor pairs instead of the data loader's."""
+        if batch_source is not None:
+            return self._run(batch_source)
+        batches = self._host_batches()
+        try:
+            self._run(batches)
+        finally:
+            batches.close()  # stops the loader's producer thread
+
+    def _run(self, batch_source) -> None:
+        cfg = self.config
+        t_start = time.time()
+        for step in range(self.state.step, cfg.num_steps):
+            motion, dcond = next(batch_source)
+            metrics = train_step(self.state, self.diffusion, cfg, motion, dcond, self.generator)
+
+            if step % cfg.log_interval == 0:
+                skips = self.state.nonfinite_skips
+                if skips > self._prev_skips:
+                    log_lib.log(f"WARNING: {skips - self._prev_skips} non-finite step(s) "
+                                f"skipped since last log (total {skips})")
+                if skips - self._prev_skips >= max(cfg.log_interval, 1):
+                    self.save()
+                    raise FloatingPointError(
+                        f"all {cfg.log_interval} steps since last log were non-finite "
+                        f"at step {step}; checkpoint saved")
+                self._prev_skips = skips
+                for k, v in metrics.items():
+                    v = float(v)
+                    if not np.isfinite(v):
+                        continue  # a skipped step's NaN; the skip count records it
+                    log_lib.logkv_mean(k, v)
+                    if k == "loss":
+                        self.platform.report_scalar(k, v, iteration=step, group_name="Loss")
+                log_lib.logkv("step", step)
+                log_lib.logkv("steps/sec", (step - self.resume_step + 1)
+                              / max(time.time() - t_start, 1e-9))
+                log_lib.dumpkvs()
+
+            if step > 0 and step % cfg.save_interval == 0:
+                self.save()
+                if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
+                    return
+        self.save()
+
+
+def parse_resume_step_from_filename(path: str) -> int:
+    """N from a ``model{N:09d}.pt`` path."""
+    m = re.search(r"model(\d+)", os.path.basename(os.path.normpath(path)))
+    return int(m.group(1)) if m else 0
+
+
+def find_latest_checkpoint(save_dir: str) -> Optional[str]:
+    """The ``model{N}.pt`` with the largest step N in ``save_dir``."""
+    if not os.path.isdir(save_dir):
+        return None
+    ckpts = [f for f in os.listdir(save_dir) if re.fullmatch(r"model\d+\.pt", f)]
+    if not ckpts:
+        return None
+    return os.path.join(save_dir, max(ckpts, key=parse_resume_step_from_filename))

@@ -1,0 +1,77 @@
+"""Training CLI: ``python -m gesturediffusion_tpu_torch.train.train_mdm``.
+
+PyTorch counterpart of gesturediffusion_tpu/train/train_mdm.py:main
+(:30-273): flags -> seed -> save-dir guard -> platform -> args.json ->
+data -> model and diffusion -> TrainLoop, with ``--resume_checkpoint
+latest|<model*.pt>``.  It runs on the CUDA card unless ``--device cpu`` is
+given.  ``--dataset synthetic`` only; the GENEA loaders wait for a later
+slice.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from gesturediffusion_tpu_torch.data.registry import get_dataset_loader
+from gesturediffusion_tpu_torch.train.loop import (
+    TrainConfig,
+    TrainLoop,
+    find_latest_checkpoint,
+)
+from gesturediffusion_tpu_torch.train.platforms import create_platform
+from gesturediffusion_tpu_torch.utils import logger as log_lib
+from gesturediffusion_tpu_torch.utils.device import resolve_device
+from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
+from gesturediffusion_tpu_torch.utils.parser import train_args
+
+
+def main(argv=None) -> TrainLoop:
+    args = train_args(argv)
+    device = resolve_device(args.device)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)  # the model's initial weights
+
+    if os.path.exists(args.save_dir) and not args.overwrite:
+        raise FileExistsError(f"save_dir [{args.save_dir}] already exists.")
+    os.makedirs(args.save_dir, exist_ok=True)
+    platform = create_platform(args.train_platform_type, args.save_dir)
+    platform.report_args(vars(args), name="Args")
+
+    log_lib.log("creating data loader...")
+    data = get_dataset_loader(args.dataset, batch_size=args.batch_size,
+                              num_frames=args.num_frames, n_seed_poses=args.seed_poses,
+                              seed=args.seed)
+    log_lib.log("creating model and diffusion...")
+    model, diffusion = create_model_and_diffusion(args, data.dataset, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log_lib.log(f"model initialized: {n_params / 1e6:.2f}M params on {device}")
+
+    config = TrainConfig(
+        save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,
+        lr_anneal_steps=args.lr_anneal_steps, num_steps=args.num_steps,
+        batch_size=args.batch_size, log_interval=args.log_interval,
+        save_interval=args.save_interval, schedule_sampler=args.schedule_sampler,
+        ema_rate=args.ema_rate, microbatch_size=args.microbatch_size, seed=args.seed,
+    )
+    loop = TrainLoop(config, diffusion, model, data, device, platform=platform,
+                     args_to_save=vars(args))
+    if args.resume_checkpoint:
+        resume = args.resume_checkpoint
+        if resume == "latest":
+            resume = find_latest_checkpoint(args.save_dir)
+            if resume is None:
+                raise FileNotFoundError(
+                    f"--resume_checkpoint latest: no model*.pt under {args.save_dir}")
+        loop.load(resume)
+    log_lib.log("training...")
+    loop.run_loop()
+    platform.close()
+    return loop
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

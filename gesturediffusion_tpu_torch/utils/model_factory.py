@@ -1,0 +1,50 @@
+"""Model and diffusion from the command-line flags, shared by the train and
+generate CLIs.
+
+Counterpart of gesturediffusion_tpu/utils/model_factory.py for the gesture
+datasets: MDM V2 with MFCC input (ff 1024, 4 heads, dropout 0.1, as the
+reference's get_model_args) and a START_X diffusion with MSE loss.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gesturediffusion_tpu_torch.diffusion.gaussian import (
+    LossType,
+    ModelMeanType,
+    ModelVarType,
+    create_diffusion,
+)
+from gesturediffusion_tpu_torch.models.mdm import MDM
+
+
+def create_model_and_diffusion(args, dataset, device: torch.device):
+    """The gesture MDM V2 (on the CPU; the caller moves it) and its
+    diffusion (on ``device``)."""
+    if getattr(args, "arch", "trans_enc") != "trans_enc":
+        raise NotImplementedError(f"--arch {args.arch!r}: only 'trans_enc' can be built")
+    if args.use_wav_enc:
+        raise NotImplementedError("the wav-encoder audio input waits for a later slice")
+    model = MDM(
+        njoints=dataset.pose_dim, nfeats=1, latent_dim=args.latent_dim,
+        ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1,
+        cond_mask_prob=args.cond_mask_prob, use_text=args.use_text,
+        seed_poses=args.seed_poses,
+        use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
+    )
+    diffusion = create_diffusion(
+        noise_schedule=args.noise_schedule,
+        steps=args.diffusion_steps,
+        timestep_respacing=getattr(args, "timestep_respacing", "") or None,
+        model_mean_type=ModelMeanType.START_X,
+        model_var_type=(
+            ModelVarType.FIXED_SMALL if args.sigma_small else ModelVarType.FIXED_LARGE
+        ),
+        loss_type=LossType.MSE,
+        lambda_vel=getattr(args, "lambda_vel", 0.0),
+        lambda_rcxyz=getattr(args, "lambda_rcxyz", 0.0),
+        lambda_fc=getattr(args, "lambda_fc", 0.0),
+        device=device,
+    )
+    return model, diffusion

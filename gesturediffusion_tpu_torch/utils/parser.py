@@ -1,10 +1,19 @@
-"""Flags of the generation CLI and the checkpoint-args override.
+"""Flags of the train and generate CLIs and the checkpoint-args override.
 
-PyTorch-port counterpart of gesturediffusion_tpu/utils/parser.py, reduced
-to the flags the gesture generation path uses.  As there, the dataset,
-model and diffusion groups are re-read from the ``args.json`` that sits
-next to the checkpoint, and ``cond_mask_prob == 0`` forces
-``guidance_param = 1``.
+PyTorch-port counterpart of gesturediffusion_tpu/utils/parser.py, with the
+JAX flag names for the gesture paths.  As there, generation re-reads the
+dataset, model and diffusion groups from the ``args.json`` next to the
+checkpoint, and ``cond_mask_prob == 0`` forces ``guidance_param = 1``.
+``--device`` defaults to the CUDA card.  Only flags that the port reads
+are accepted: an unknown flag is an argparse error, and a training flag
+that the port cannot honour yet raises NotImplementedError.  Left out of
+the JAX set because nothing here would read them: ``--emb_trans_dec``
+(trans_dec only), ``--unconstrained`` (text / action models only),
+``--use_audio`` (read by no model), the ``--eval_*`` settings (they go
+with ``--eval_during_training``, which raises) and the train CLI's
+``--use_fused_encoder`` (the inference layer takes no part in training).
+A JAX ``args.json`` that carries them still loads: generation copies only
+the keys its parser has.
 """
 
 from __future__ import annotations
@@ -44,9 +53,14 @@ def _add_checkpoint_groups(parser: ArgumentParser) -> None:
     data.add_argument("--data_dir", default="", type=str)
     data.add_argument("--num_frames", default=120, type=int)
     model = parser.add_argument_group("model")
+    model.add_argument("--arch", default="trans_enc",
+                       choices=["trans_enc", "trans_dec", "gru"], type=str)
     model.add_argument("--layers", default=8, type=int)
     model.add_argument("--latent_dim", default=256, type=int)
     model.add_argument("--cond_mask_prob", default=0.1, type=float)
+    model.add_argument("--lambda_rcxyz", default=0.0, type=float)
+    model.add_argument("--lambda_vel", default=0.0, type=float)
+    model.add_argument("--lambda_fc", default=0.0, type=float)
     model.add_argument("--use_text", action="store_true")
     model.add_argument("--mfcc_input", action="store_true")
     model.add_argument("--use_wav_enc", action="store_true")
@@ -87,4 +101,57 @@ def generate_args(argv=None) -> argparse.Namespace:
                     setattr(args, action.dest, model_args[action.dest])
     if args.cond_mask_prob == 0:
         args.guidance_param = 1
+    return args
+
+
+def train_args(argv=None) -> argparse.Namespace:
+    """Flags of ``python -m gesturediffusion_tpu_torch.train.train_mdm``
+    (parser.py:train_args)."""
+    parser = ArgumentParser(prog="python -m gesturediffusion_tpu_torch.train.train_mdm")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu (the plain PyTorch path).")
+    parser.add_argument("--seed", default=10, type=int)
+    parser.add_argument("--batch_size", default=256, type=int)
+    _add_checkpoint_groups(parser)
+    train = parser.add_argument_group("training")
+    train.add_argument("--save_dir", required=True, type=str)
+    train.add_argument("--overwrite", action="store_true")
+    train.add_argument("--train_platform_type", default="NoPlatform",
+                       choices=["NoPlatform", "ClearmlPlatform", "TensorboardPlatform"])
+    train.add_argument("--lr", default=1e-4, type=float)
+    train.add_argument("--weight_decay", default=0.0, type=float)
+    train.add_argument("--lr_anneal_steps", default=0, type=int)
+    train.add_argument("--eval_during_training", action="store_true")
+    train.add_argument("--log_interval", default=1_000, type=int)
+    train.add_argument("--save_interval", default=10_000, type=int)
+    train.add_argument("--num_steps", default=600_000, type=int)
+    train.add_argument("--resume_checkpoint", default="", type=str,
+                       help="'latest' or a model*.pt path.")
+    perf = parser.add_argument_group("performance")
+    perf.add_argument("--use_bf16", action="store_true")
+    perf.add_argument("--ema_rate", default=0.0, type=float,
+                      help="EMA decay for params (0 disables).")
+    perf.add_argument("--schedule_sampler", default="uniform",
+                      choices=["uniform", "loss-second-moment"])
+    perf.add_argument("--mesh_model_axis", default=1, type=int)
+    perf.add_argument("--use_fused_train_encoder", action="store_true",
+                      help="Train the encoder through the fused training "
+                           "layer (CUDA forward and backward kernels, only the "
+                           "layer input saved for backward).")
+    perf.add_argument("--microbatch_size", default=0, type=int,
+                      help="Gradient-accumulation microbatch size (0 = whole batch).")
+    perf.add_argument("--device_batch_pool", default=0, type=int)
+    perf.add_argument("--remat", action="store_true")
+    args = parser.parse_args(argv)
+
+    waiting = {
+        "--use_bf16 (bf16 training)": args.use_bf16,
+        "--remat (rematerialised encoder layers)": args.remat,
+        "--mesh_model_axis > 1 (tensor parallelism)": args.mesh_model_axis > 1,
+        "--device_batch_pool": args.device_batch_pool > 0,
+        "--eval_during_training (the evaluators)": args.eval_during_training,
+    }
+    for flag, asked in waiting.items():
+        if asked:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP)")
     return args

@@ -9,7 +9,9 @@ it runs on its own, without tests/conftest.py:
 
 Tolerances (float32, TF32 off): local block rtol 2e-4 / atol 2e-5 (sums of
 at most 2w terms); encoder layer atol 1e-4 (sums over K <= 1024 in another
-order, two LayerNorms); MDM fast CFG step atol 1e-4.
+order, two LayerNorms); MDM fast CFG step atol 1e-4; training layer forward
+atol 1e-4 and each of its 13 gradients within 5e-4 of that gradient's
+largest magnitude (the weight gradients sum over all B*T rows).
 """
 
 import numpy as np
@@ -21,6 +23,12 @@ from gesturediffusion_tpu_torch.models.mdm_fastpath import make_fast_cfg_fn
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
     encoder_layer_plain,
     fused_encoder_layer,
+)
+from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+    encoder_layer_train_bwd,
+    encoder_layer_train_fwd,
+    encoder_layer_train_plain,
+    fused_encoder_layer_train,
 )
 from gesturediffusion_tpu_torch.ops.fused_local_block import (
     fused_local_block,
@@ -112,3 +120,87 @@ def test_fast_cfg_step_kernels_match_plain(dev):
         model.use_kernels = False
         want = guided(x, t, pre(cond))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+GRAD_RTOL = 5e-4
+
+
+def _train_layer_value_and_grads(layer, x, w, g, **kw):
+    x = x.detach().clone().requires_grad_()
+    w = [t.detach().clone().requires_grad_() for t in w]
+    out = layer(x, *w, **kw)
+    out.backward(g)
+    return out.detach(), [x.grad] + [t.grad for t in w]
+
+
+@pytest.mark.parametrize("b,t,d,h,f", [(64, 81, 256, 4, 1024), (3, 24, 128, 4, 256),
+                                       (2, 7, 64, 2, 96)])
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
+    """Forward and backward kernels against autograd through the plain
+    hash-dropout layer, with the same seed (so the same masks)."""
+    w = _encoder_weights(d, f, dev, seed=7)
+    rs = np.random.RandomState(8)
+    x, g = _randn(rs, b, t, d, device=dev), _randn(rs, b, t, d, device=dev)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    kw = dict(seed=seed, num_heads=h, rate=rate)
+    before = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
+    got, got_grads = _train_layer_value_and_grads(fused_encoder_layer_train, x, w, g, **kw)
+    want, want_grads = _train_layer_value_and_grads(encoder_layer_train_plain, x, w, g, **kw)
+    torch.cuda.synchronize()
+    assert (encoder_layer_train_fwd.launches - before[0],
+            encoder_layer_train_bwd.launches - before[1]) == (1, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    for i, (a, e) in enumerate(zip(got_grads, want_grads)):
+        err = (a - e).abs().max().item()
+        assert err <= GRAD_RTOL * e.abs().max().item() + 1e-7, (i, err, e.abs().max().item())
+
+
+def test_train_forward_at_rate_zero_is_the_inference_kernel(dev):
+    w = _encoder_weights(256, 1024, dev, seed=9)
+    x = _randn(np.random.RandomState(9), 64, 81, 256, device=dev)
+    with torch.no_grad():
+        got = fused_encoder_layer_train(x, *w, seed=0, num_heads=4, rate=0.0)
+        want = fused_encoder_layer(x, *w, num_heads=4)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "loss-second-moment"])
+def test_train_step_launches_both_kernels_once_per_layer_and_microbatch(dev, sampler):
+    """One train step of a small MDM with sampled timesteps: 2 layers x 3
+    microbatches of each kernel, and the sampler's state updated on the card."""
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import create_named_schedule_sampler
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig, TrainState, make_optimizer, train_step
+
+    torch.manual_seed(0)
+    model = MDM(njoints=12, latent_dim=64, num_layers=2, ff_size=128, seed_poses=4,
+                cond_mask_prob=0.1, mfcc_dim=8, window_size=5,
+                use_fused_train_encoder=True).to(dev)
+    cfg = TrainConfig(lr=1e-4, microbatch_size=2)
+    opt, sched = make_optimizer(model.parameters(), cfg)
+    state = TrainState(model, opt, sched, create_named_schedule_sampler(sampler, 10, dev), {})
+    rs = np.random.RandomState(10)
+    cond = {"mfcc": _randn(rs, 6, 8, 1, 20, device=dev), "seed": _randn(rs, 6, 12, 1, 4, device=dev),
+            "mask": torch.ones((6, 1, 1, 20), dtype=torch.bool, device=dev)}
+    before = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
+    m = train_step(state, create_diffusion(steps=10, device=dev), cfg,
+                   _randn(rs, 6, 12, 1, 20, device=dev), cond,
+                   torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert (encoder_layer_train_fwd.launches - before[0],
+            encoder_layer_train_bwd.launches - before[1]) == (6, 6)
+    assert np.isfinite(m["loss"].item()) and state.nonfinite_skips == 0
+    if sampler == "loss-second-moment":
+        assert int(state.sampler.counts.sum()) == 6
+
+
+def test_plain_train_layer_gradcheck_in_float64(dev):
+    rs = np.random.RandomState(11)
+    x = torch.from_numpy(rs.randn(2, 5, 8)).to(dev).requires_grad_()
+    w = [t.double().requires_grad_() for t in _encoder_weights(8, 16, dev, seed=11)]
+
+    def layer(x, *ws):
+        return encoder_layer_train_plain(x, *ws, seed=3, num_heads=2, rate=0.25)
+
+    assert torch.autograd.gradcheck(layer, (x, *w), eps=1e-6, atol=1e-5)

@@ -36,9 +36,12 @@ def make_inputs(b: int, t: int, seed: int = 0, use_text: bool = False):
     return x, t_ids, cond
 
 
-def build_pair(use_text: bool = False, use_fused_encoder: bool = False, t: int = 16):
-    """(JAX model, its params, the port model with the same weights)."""
-    kw = dict(SMALL, use_text=use_text, text_dim=16 if use_text else 64)
+def build_pair(use_text: bool = False, use_fused_encoder: bool = False, t: int = 16,
+               **overrides):
+    """(JAX model, its params, the port model with the same weights).
+    ``overrides`` (e.g. dropout, cond_mask_prob, use_fused_train_encoder)
+    go to both models."""
+    kw = dict(SMALL, use_text=use_text, text_dim=16 if use_text else 64, **overrides)
     jax_model = JaxMDM(**kw, use_fused_encoder=use_fused_encoder)
     x, t_ids, cond = make_inputs(2, t, use_text=use_text)
     params = jax_model.init(
