@@ -28,6 +28,15 @@ Phases, each fatal on failure:
               train-step throughput and peak memory, and a profile of a
               denoise step and of a train step, with the card name and
               power limit
+  7. long     long-chunk sampling at 1200 frames: the band-attention kernel
+              at [82, 8, 1200, 32], the flash kernel at [82, 4, 1201, 64]
+              (and at a length off its tile), the encoder layer with its
+              flash stage at [82, 1201, 256], each against its plain
+              version; the same model samples a 41-take, 2-chunk take at
+              T = 1200 (20 DDPM steps) with launch counts, against the plain
+              take; the generate CLI at --num_frames 1200; kernel, plain and
+              library times, take throughput and a profile of a long
+              denoise step
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.  It imports nothing of JAX or of the JAX package.
@@ -58,6 +67,9 @@ TOL_TRAIN_FWD = 1e-4     # f32; as the inference layer, the same dropout masks
 TOL_TRAIN_GRAD = 5e-4    # of each gradient's max |value|; weight grads sum 5184 rows
 TOL_STEP_LOSS = 5e-4     # relative; 5 steps at batch 256 through 8 layers
 TOL_STEP_GRAD = 2e-3     # of each parameter gradient's max |value|, first step
+T_LONG, LONG_RESPACING, LONG_STEPS, LONG_SAMPLES = 1200, "20", 20, 8
+TOL_BAND = 1e-4          # f32; <= 20-term softmax sums, as the local block
+TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online rescaling
 
 
 def log(msg: str) -> None:
@@ -123,6 +135,238 @@ def encoder_layer_sdpa(x, wqkv, bqkv, wo, bo, l1w, l1b, w1, b1, w2, b2, l2w, l2b
     return F.layer_norm(x + F.dropout(F.linear(h, w2, b2), rate), (d,), l2w, l2b, 1e-5)
 
 
+def band_sdpa(q, window):
+    """Yardstick: F.scaled_dot_product_attention of q with itself under a
+    boolean causal band mask (the same and the previous window)."""
+    import torch
+    import torch.nn.functional as F
+
+    i = torch.arange(q.shape[2], device=q.device)
+    wi = i // window
+    allowed = (i[None, :] <= i[:, None]) & (wi[:, None] - wi[None, :] <= 1)
+    return F.scaled_dot_product_attention(q, q, q, attn_mask=allowed)
+
+
+def band_keys(t, window):
+    """Keys the causal look-back-one band scores over T = t queries."""
+    return sum(i - max(0, (i // window - 1) * window) + 1 for i in range(t))
+
+
+def run_take(model, diffusion, chunk_conds, init_seed, seed):
+    """One chunked-AR CFG take through select_sampling_model_fn ->
+    autoregressive_sample_loop, synchronised."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+
+    precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
+    gen = torch.Generator(device=init_seed.device).manual_seed(seed)
+    b, t = init_seed.shape[0], chunk_conds["mfcc"].shape[-1]
+    out = autoregressive_sample_loop(
+        diffusion, model_fn, (b, J, 1, t), chunk_conds, init_seed, S,
+        generator=gen, cond_precompute=precompute,
+    )
+    torch.cuda.synchronize()
+    return out
+
+
+def generate_cli(model_path, args, num_frames, num_samples, respacing, out_dir):
+    """The generate CLI in a subprocess on a checkpoint with its args.json;
+    returns the motion of results.npy and the wall time."""
+    import numpy as np
+
+    ckpt_dir = os.path.dirname(model_path)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, "args.json"), "w") as f:
+        json.dump(args, f)
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "gesturediffusion_tpu_torch.sample.generate",
+         "--model_path", model_path, "--dataset", "synthetic", "--num_frames", str(num_frames),
+         "--num_samples", str(num_samples), "--timestep_respacing", respacing,
+         "--guidance_param", str(GUIDANCE), "--output_dir", out_dir],
+        check=True, cwd=HERE, timeout=600,
+    )
+    res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
+    return res["motion"], time.perf_counter() - t0
+
+
+def long_chunk_phase(model, model_path, enc_w, randn, card):
+    """Phase 7: the long-chunk kernels against their plain versions, the
+    full-width take at T = 1200 with launch counts against the plain take,
+    the generate CLI at --num_frames 1200, then times.  Returns the kernel
+    rows of the band and flash kernels and the encoder layer's time at
+    T = 1201."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+    from gesturediffusion_tpu_torch.ops.flash_attention import (
+        fused_self_attention,
+        self_attention_reference,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+    from gesturediffusion_tpu_torch.ops.local_attention import local_attention
+
+    bb, tl, dev = 2 * B_TAKES, T_LONG + 1, torch.device("cuda")
+
+    def report(name, err, tol, ok_shape=True):
+        ok = ok_shape and err <= tol
+        log(f"{'OK' if ok else 'FAIL'} {name}: max|diff| {err:.3e} (tol {tol:g})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    # the local block's rotated heads are a transposed view of [B, T, H, dh]
+    qb = randn(bb, T_LONG, CL_HEADS, D // CL_HEADS).transpose(1, 2)
+    got = local_attention_band(qb, qb, qb, window_size=WINDOW)
+    band_err = (got - local_attention(qb, qb, qb, window_size=WINDOW)).abs().max().item()
+    report(f"band_attention [{bb},{CL_HEADS},{T_LONG},{D // CL_HEADS}] w {WINDOW} "
+           f"(strided heads)", band_err, TOL_BAND, got.shape == qb.shape)
+
+    qf, kf, vf = (randn(bb, HEADS, tl, D // HEADS) for _ in range(3))
+    got = fused_self_attention(qf, kf, vf)
+    flash_err = (got - self_attention_reference(qf, kf, vf)).abs().max().item()
+    report(f"flash_attention [{bb},{HEADS},{tl},{D // HEADS}]", flash_err, TOL_FLASH,
+           got.shape == qf.shape)
+    q2, k2, v2 = (randn(8, 8, 777, 32) for _ in range(3))  # 777 = 12 x 64 + 9
+    got = fused_self_attention(q2, k2, v2)
+    err2 = (got - self_attention_reference(q2, k2, v2)).abs().max().item()
+    report("flash_attention [8,8,777,32] (T off the 64-row tile)", err2, TOL_FLASH)
+    flash_err = max(flash_err, err2)
+
+    xl = randn(bb, tl, D)
+    fused_self_attention.launches = 0
+    got = fused_encoder_layer(xl, *enc_w, num_heads=HEADS)
+    in_layer = fused_self_attention.launches
+    enc_err = (got - encoder_layer_plain(xl, *enc_w, num_heads=HEADS)).abs().max().item()
+    report(f"encoder_layer [{bb},{tl},{D}] with the flash stage (launched {in_layer} "
+           f"time, expected 1)", enc_err, TOL_ENCODER, in_layer == 1)
+
+    # ---- the long take ---------------------------------------------------- #
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                 timestep_respacing=LONG_RESPACING, device=dev)
+    assert diffusion.num_timesteps == LONG_STEPS
+    conds = {"mfcc": randn(CHUNKS, B_TAKES, A, 1, T_LONG),
+             "scale": torch.full((CHUNKS, B_TAKES), GUIDANCE, device=dev)}
+    init_seed = randn(B_TAKES, J, 1, S, scale=0.5)
+    counters = {"band_attention": local_attention_band, "flash_attention": fused_self_attention,
+                "encoder_layer": fused_encoder_layer, "local_block": fused_local_block}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_take(model, diffusion, conds, init_seed, 1)
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    n_steps = LONG_STEPS * CHUNKS
+    want = {"band_attention": n_steps, "flash_attention": n_steps * LAYERS,
+            "encoder_layer": n_steps * LAYERS, "local_block": 0}
+    finite = bool(torch.isfinite(out).all())
+    log(f"long take: out {tuple(out.shape)} finite={finite} launches {launches} (expected "
+        f"{want}); first run {first_s:.3f} s; peak memory {peak_mib:.1f} MiB {card}")
+    if tuple(out.shape) != (CHUNKS, B_TAKES, J, 1, T_LONG) or not finite:
+        raise AssertionError("long take output has the wrong shape or non-finite values")
+    if launches != want:
+        raise AssertionError(f"long take kernel launches {launches} != {want}")
+    t0 = time.perf_counter()
+    run_take(model, diffusion, conds, init_seed, 1)
+    kernel_take_s = time.perf_counter() - t0
+    model.use_kernels = False
+    t0 = time.perf_counter()
+    out_plain = run_take(model, diffusion, conds, init_seed, 1)
+    plain_take_s = time.perf_counter() - t0
+    model.use_kernels = True
+    take_err = (out - out_plain).abs().max().item()
+    ok = take_err <= TOL_TAKE
+    log(f"{'OK' if ok else 'FAIL'} long take vs plain versions on the card: max|diff| "
+        f"{take_err:.3e} (tol {TOL_TAKE:g}; |out| max {out_plain.abs().max().item():.3f})")
+    if not ok:
+        raise AssertionError("long kernel take disagrees with the plain take")
+
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(model_path)), "long", "samples")
+    long_path = os.path.join(os.path.dirname(out_dir), "model000000000.pt")
+    os.makedirs(os.path.dirname(long_path), exist_ok=True)
+    torch.save(model.state_dict(), long_path)
+    motion, cli_s = generate_cli(
+        long_path, {"dataset": "synthetic", "num_frames": T_LONG, "layers": LAYERS,
+                    "latent_dim": D, "cond_mask_prob": 0.1, "seed_poses": S,
+                    "noise_schedule": "cosine", "diffusion_steps": 1000, "sigma_small": True},
+        T_LONG, LONG_SAMPLES, LONG_RESPACING, out_dir)
+    ok = motion.shape == (LONG_SAMPLES, J // 6, 3, T_LONG) and np.isfinite(motion).all()
+    log(f"{'OK' if ok else 'FAIL'} generate CLI at --num_frames {T_LONG}: motion "
+        f"{motion.shape} in {cli_s:.1f} s (process and data set-up included)")
+    if not ok:
+        raise AssertionError("long generate CLI output has the wrong shape or non-finite values")
+
+    # ---- times ------------------------------------------------------------ #
+    copy_ms = cuda_time_ms(lambda: qb.contiguous())
+    band_ms = cuda_time_ms(lambda: local_attention_band(qb, qb, qb, window_size=WINDOW))
+    band_plain_ms = cuda_time_ms(lambda: local_attention(qb, qb, qb, window_size=WINDOW), 10, 2)
+    band_lib_ms = cuda_time_ms(lambda: band_sdpa(qb, WINDOW), 5, 1)
+    band_flops = 4 * bb * CL_HEADS * band_keys(T_LONG, WINDOW) * (D // CL_HEADS)
+    band_bytes = 4 * 2 * qb.numel()  # q = k = v: the input read once, the output written once
+    band_bound, band_by = bound_ms(band_flops, band_bytes)
+
+    flash_ms = cuda_time_ms(lambda: fused_self_attention(qf, kf, vf), 10, 2)
+    flash_plain_ms = cuda_time_ms(lambda: self_attention_reference(qf, kf, vf), 5, 1)
+    flash_lib_ms = cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qf, kf, vf), 10, 2)
+    flash_flops = 4 * bb * HEADS * tl**2 * (D // HEADS)
+    flash_bytes = 4 * 4 * qf.numel()
+    flash_bound, flash_by = bound_ms(flash_flops, flash_bytes)
+
+    enc_ms = cuda_time_ms(lambda: fused_encoder_layer(xl, *enc_w, num_heads=HEADS), 5, 1)
+    enc_plain_ms = cuda_time_ms(lambda: encoder_layer_plain(xl, *enc_w, num_heads=HEADS), 5, 1)
+    enc_lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(xl, *enc_w, HEADS), 5, 1)
+    m = bb * tl
+    enc_flops = 2 * m * (4 * D * D + 2 * D * FF) + 4 * bb * tl**2 * D
+    enc_bytes = 4 * (2 * m * D + sum(w.numel() for w in enc_w))
+    enc_bound, enc_by = bound_ms(enc_flops, enc_bytes)
+
+    for name, ms, pms, lms, bnd, by, fl, nb in (
+        (f"band_attention [{bb},{CL_HEADS},{T_LONG},{D // CL_HEADS}]", band_ms, band_plain_ms,
+         band_lib_ms, band_bound, band_by, band_flops, band_bytes),
+        (f"flash_attention [{bb},{HEADS},{tl},{D // HEADS}]", flash_ms, flash_plain_ms,
+         flash_lib_ms, flash_bound, flash_by, flash_flops, flash_bytes),
+        (f"encoder_layer [{bb},{tl},{D}] (flash stage)", enc_ms, enc_plain_ms, enc_lib_ms,
+         enc_bound, enc_by, enc_flops, enc_bytes),
+    ):
+        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch+SDPA {lms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}; {fl / 1e9:.4f} GFLOP, {nb / 1e6:.3f} MB) {card}")
+    log(f"time band input .contiguous() copy (what reading the strides avoids): "
+        f"{copy_ms:.4f} ms {card}")
+    log(f"time long take ({B_TAKES} takes x {CHUNKS} chunks x {LONG_STEPS} DDPM steps at "
+        f"T = {T_LONG}, CFG batch {bb}): kernels {kernel_take_s:.3f} s = "
+        f"{B_TAKES * CHUNKS / kernel_take_s:.3f} chunks/s, "
+        f"{kernel_take_s / n_steps * 1e3:.3f} ms/step; plain {plain_take_s:.3f} s = "
+        f"{B_TAKES * CHUNKS / plain_take_s:.3f} chunks/s, "
+        f"{plain_take_s / n_steps * 1e3:.3f} ms/step {card}")
+    profile_denoise_step(model, diffusion, conds, init_seed, card, steps=3)
+
+    rows = [
+        {"name": "band_attention", "route": "cuda",
+         "source": "gesturediffusion_tpu_torch/csrc/band_attention.cu",
+         "replaces": "gesturediffusion_tpu/ops/pallas_attention.py:33",
+         "launches": launches["band_attention"], "max_abs_err": band_err,
+         "ms": band_ms, "plain_ms": band_plain_ms, "bound_ms": band_bound,
+         "bound_by": band_by, "library_ms": band_lib_ms},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "gesturediffusion_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "gesturediffusion_tpu/ops/pallas_flash.py:35",
+         "launches": launches["flash_attention"], "max_abs_err": flash_err,
+         "ms": flash_ms, "plain_ms": flash_plain_ms, "bound_ms": flash_bound,
+         "bound_by": flash_by, "library_ms": flash_lib_ms},
+    ]
+    return rows
+
+
 def device_profile(step, steps, label, card, host_rows=0):
     """Device time by kernel over ``steps`` calls of ``step`` (torch.profiler,
     CUPTI), the device's idle share of an unprofiled call and, with
@@ -169,11 +413,12 @@ def profile_denoise_step(model, diffusion, chunk_conds, init_seed, card, steps=1
     precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
     cond = precompute({"mfcc": chunk_conds["mfcc"][0], "scale": chunk_conds["scale"][0],
                        "seed": init_seed})
-    x = torch.zeros((B_TAKES, J, 1, T), device=init_seed.device)
+    nt = chunk_conds["mfcc"].shape[-1]
+    x = torch.zeros((B_TAKES, J, 1, nt), device=init_seed.device)
     noise = torch.randn_like(x)
-    t = torch.full((B_TAKES,), STEPS // 2, dtype=torch.long, device=x.device)
+    t = torch.full((B_TAKES,), diffusion.num_timesteps // 2, dtype=torch.long, device=x.device)
     device_profile(lambda: p_sample(diffusion, model_fn, x, t, cond, noise), steps,
-                   "denoise step", card)
+                   f"denoise step at T = {nt}", card)
 
 
 def check_train_layer(xt, gt, enc_w, seed):
@@ -373,9 +618,7 @@ def main() -> int:
     import numpy as np
 
     from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
-    from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
     from gesturediffusion_tpu_torch.models.mdm import MDM
-    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
     from gesturediffusion_tpu_torch.ops import _build
     from gesturediffusion_tpu_torch.ops.fused_encoder import (
         encoder_layer_plain,
@@ -473,17 +716,9 @@ def main() -> int:
         "scale": torch.full((CHUNKS, B_TAKES), GUIDANCE, device=dev),
     }
     init_seed = randn(B_TAKES, J, 1, S, scale=0.5)
-    shape = (B_TAKES, J, 1, T)
 
     def take(seed: int) -> torch.Tensor:
-        precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        out = autoregressive_sample_loop(
-            diffusion, model_fn, shape, chunk_conds, init_seed, S,
-            generator=gen, cond_precompute=precompute,
-        )
-        torch.cuda.synchronize()
-        return out
+        return run_take(model, diffusion, chunk_conds, init_seed, seed)
 
     fused_local_block.launches = 0
     fused_encoder_layer.launches = 0
@@ -521,24 +756,15 @@ def main() -> int:
     os.makedirs(ckpt_dir, exist_ok=True)
     model_path = os.path.join(ckpt_dir, "model000000000.pt")
     torch.save(model.state_dict(), model_path)
-    with open(os.path.join(ckpt_dir, "args.json"), "w") as f:
-        json.dump({"dataset": "synthetic", "num_frames": T, "layers": LAYERS,
-                   "latent_dim": D, "cond_mask_prob": 0.1, "seed_poses": S,
-                   "noise_schedule": "cosine", "diffusion_steps": 1000,
-                   "sigma_small": True}, f)
-    out_dir = os.path.join(ckpt_dir, "samples")
-    t0 = time.perf_counter()
-    subprocess.run(
-        [sys.executable, "-m", "gesturediffusion_tpu_torch.sample.generate",
-         "--model_path", model_path, "--dataset", "synthetic",
-         "--num_samples", str(B_TAKES), "--timestep_respacing", RESPACING,
-         "--guidance_param", str(GUIDANCE), "--output_dir", out_dir],
-        check=True, cwd=HERE, timeout=600,
-    )
-    res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
-    cli_ok = res["motion"].shape == (B_TAKES, J // 6, 3, T) and np.isfinite(res["motion"]).all()
+    motion, cli_s = generate_cli(
+        model_path, {"dataset": "synthetic", "num_frames": T, "layers": LAYERS,
+                     "latent_dim": D, "cond_mask_prob": 0.1, "seed_poses": S,
+                     "noise_schedule": "cosine", "diffusion_steps": 1000,
+                     "sigma_small": True},
+        T, B_TAKES, RESPACING, os.path.join(ckpt_dir, "samples"))
+    cli_ok = motion.shape == (B_TAKES, J // 6, 3, T) and np.isfinite(motion).all()
     log(f"{'OK' if cli_ok else 'FAIL'} generate CLI on the card: motion "
-        f"{res['motion'].shape} in {time.perf_counter() - t0:.1f} s (process included)")
+        f"{motion.shape} in {cli_s:.1f} s (process included)")
     if not cli_ok:
         raise AssertionError("generate CLI output has the wrong shape or non-finite values")
 
@@ -626,6 +852,9 @@ def main() -> int:
     device_profile(one_train_step, 2, f"train step (batch {BATCH} = {BATCH // MB} x {MB})",
                    card, host_rows=8)
 
+    # ---- 7. long chunks: band and flash kernels, T = 1200 take, CLI ---- #
+    long_rows = long_chunk_phase(model, model_path, enc_w, randn, card)
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
@@ -651,6 +880,7 @@ def main() -> int:
          "launches": train_launches[1], "max_abs_err": train_bwd_err,
          "ms": tb_ms, "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
          "bound_by": tb_by, "library_ms": tb_lib_ms},
+        *long_rows,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

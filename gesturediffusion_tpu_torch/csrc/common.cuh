@@ -1,6 +1,8 @@
 // Device code shared by the encoder-layer kernels (encoder_layer.cu,
-// encoder_layer_train.cu): warp reductions, GELU in its tanh form, float4
-// loads, the counter-based dropout hash, the SIMT GEMM with its fused
+// encoder_layer_train.cu) and the attention kernels (band_attention.cu,
+// flash_attention.cuh): warp reductions, GELU in its tanh form, float4
+// loads, attention operand strides, the counter-based dropout hash, the
+// SIMT GEMM with its fused
 // epilogues, the per-(batch, head) attention forward and the LayerNorm row
 // kernel.  Each .cu that includes this file is its own library, so
 // everything here has internal linkage.
@@ -51,6 +53,12 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+
+// (batch, head, position) strides of a [B, H, T, dh] operand of the
+// attention kernels, in floats; the head width is contiguous
+struct AttnStrides {
+  long long b, h, t;
+};
 
 // ---- dropout: the hash of pallas_encoder_train.py:64-92 ------------------ //
 

@@ -29,7 +29,12 @@
 //      slice prefetched into registers, and a fused epilogue (bias;
 //      optional GELU-tanh; optional residual add);
 //   2. attention with one block per (batch, head): K and V of the head in
-//      shared memory, a warp per two query rows, scores and softmax in f32;
+//      shared memory, a warp per two query rows, scores and softmax in f32.
+//      Where a head's K and V do not fit in a block's shared memory (above
+//      T = 384 at dh 64), the caller sets `flash` and the stage is the
+//      flash kernel of flash_attention.cuh instead (the port of
+//      pallas_flash.py::_flash_kernel): key tiles streamed through shared
+//      memory, online softmax, reading the packed qkv through its strides;
 //   3. a LayerNorm row kernel, one warp per row.
 // The intermediates (qkv, attention output, pre-LN sums, ff activations)
 // round-trip through device memory (~68 MB written and read back per call
@@ -39,6 +44,7 @@
 // fused LN epilogue are later work.
 
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 extern "C" {
 
@@ -49,20 +55,26 @@ const char* gdt_error_string(int code) {
 // Returns cudaGetLastError() after queueing the layer on `stream`.
 // Scratch buffers (all float32, contiguous): qkv [M, 3D], attn [M, D],
 // tmp [M, D], h1 [M, D], ff [M, F], with M = B * T.  `out` [M, D].
+// `flash` selects the flash attention stage (dh in {32, 64, 128}).
 int gdt_encoder_layer_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* ln2_w,
     const float* ln2_b, float* qkv, float* attn, float* tmp, float* h1,
     float* ff, float* out, int B, int T, int D, int F, int H, float scale,
-    void* stream) {
+    int flash, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const Drop none{nullptr, 0u, 1.0f};
   EpiArgs ep{};
   ep.bias = bqkv;
   gemm_nt<kBias>(x, wqkv, qkv, M, 3 * D, D, ep, s);
-  const cudaError_t e = attention(qkv, attn, B, T, D, H, scale, none, s);
+  const long long dh = D / H, t = T;
+  const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
+  const cudaError_t e =
+      flash ? flash_attention(qkv, qkv + D, qkv + 2 * D, attn, packed, packed, packed, rows,
+                              B, H, T, D / H, scale, s)
+            : attention(qkv, attn, B, T, D, H, scale, none, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   ep = EpiArgs{bo, x, nullptr, nullptr, none, 0};
   gemm_nt<kBiasResid>(attn, wo, tmp, M, D, D, ep, s);

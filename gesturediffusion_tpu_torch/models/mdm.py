@@ -33,6 +33,7 @@ from gesturediffusion_tpu_torch.models.embeddings import (
     mask_cond,
 )
 from gesturediffusion_tpu_torch.models.transformer import TransformerEncoder
+from gesturediffusion_tpu_torch.ops.band_attention import LOCAL_ATTN_DENSE_MAX_T
 from gesturediffusion_tpu_torch.ops.fused_local_block import (
     fused_local_block,
     pre_encoder_local_block,
@@ -124,20 +125,27 @@ class MDM(nn.Module):
 
     def local_block(self, xseq: torch.Tensor, coa: torch.Tensor, train: bool = False,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, T, D] latent + [B, D] token -> [B, T+1, D].  Inference takes
-        the kernel; training the plain block with dropout."""
+        """[B, T, D] latent + [B, D] token -> [B, T+1, D].
+
+        Inference with kernels: up to LOCAL_ATTN_DENSE_MAX_T (256) frames
+        the fused local-block kernel; above, ``pre_encoder_local_block``,
+        whose attention is the band kernel on the card.  The JAX package
+        picks the fused block only under ``--use_fused_encoder``, which
+        the port does not have (utils/parser.py), and its default path
+        takes the band kernel above 256 frames (mdm.py:70,
+        pallas_attention.py:181-194); the fused block's CUDA port cannot
+        hold more than 792 frames in shared memory either.  Training runs
+        the plain block with dropout (the band kernel has no backward),
+        ``use_kernels=False`` the plain block."""
+        kw = dict(num_heads=self.cl_head, window_size=self.window_size)
         if train:
-            return pre_encoder_local_block(
-                xseq, coa, num_heads=self.cl_head, window_size=self.window_size,
-                dropout_rate=self.dropout, generator=generator,
-            )
-        if self.use_kernels:
+            return pre_encoder_local_block(xseq, coa, **kw, dropout_rate=self.dropout,
+                                           generator=generator, use_kernels=False)
+        if self.use_kernels and xseq.shape[1] <= LOCAL_ATTN_DENSE_MAX_T:
             return fused_local_block(
                 xseq, coa, num_heads=self.cl_head, window=self.window_size
             )
-        return pre_encoder_local_block(
-            xseq, coa, num_heads=self.cl_head, window_size=self.window_size
-        )
+        return pre_encoder_local_block(xseq, coa, **kw, use_kernels=self.use_kernels)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict,
                 train: bool = False,

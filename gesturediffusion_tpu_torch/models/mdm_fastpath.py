@@ -13,9 +13,10 @@ with the same conditioning, so:
     disappears because a Linear over a concat is the sum of Linears over
     the parts.
 
-Per step the latent then goes through the local block (kernel 1) and the
-encoder layers (kernel 2) of the model itself.  The time-major "btj"
-layout waits for a later slice.
+Per step the latent then goes through the local block and the encoder
+layers of the model itself (models/mdm.py:MDM.local_block chooses the
+fused local block or, above 256 frames, the band-attention path).  The
+time-major "btj" layout waits for a later slice.
 """
 
 from __future__ import annotations

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("local_block", "encoder_layer", "encoder_layer_train")
+KERNELS = ("local_block", "encoder_layer", "encoder_layer_train", "band_attention",
+           "flash_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,0 +1,74 @@
+"""Non-causal self-attention: flash CUDA kernel and plain version.
+
+Counterpart of gesturediffusion_tpu/ops/pallas_flash.py:fused_self_attention
+(softmax(q k^T / sqrt(D)) v per (batch, head), f32 scores, online softmax).
+On a CUDA tensor ``fused_self_attention`` launches csrc/flash_attention.cu;
+on a CPU tensor it runs ``self_attention_reference``.  The encoder layer's
+chain launches the same device code on its packed qkv buffer where a
+head's K and V do not fit in shared memory (ops/fused_encoder.py), and
+counts those launches here too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from gesturediffusion_tpu_torch.ops import _build
+from gesturediffusion_tpu_torch.ops.band_attention import (
+    check_attention_args,
+    kernel_layout,
+)
+
+# the head widths the kernel is instantiated for
+FLASH_HEAD_WIDTHS = (32, 64, 128)
+
+
+def self_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T * D**-0.5) v on [B, H, T, D], scores and softmax in
+    float32 (tests/test_pallas_flash.py:xla_attention)."""
+    d = q.shape[-1]
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * (d**-0.5)
+    return torch.einsum("bhij,bhjd->bhid", s.softmax(dim=-1).to(v.dtype), v)
+
+
+@functools.cache
+def _kernel():
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _build.load_function(
+        "flash_attention", "gdt_flash_attention_f32",
+        [p] * 4 + [ll] * 12 + [i] * 4 + [ctypes.c_float, p],
+    )
+
+
+def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full (non-causal) attention, q, k, v [B, H, T, D] -> [B, H, T, D].
+
+    CPU tensors run ``self_attention_reference``; CUDA tensors launch the
+    flash kernel, which reads q, k and v through their strides and masks
+    keys past T itself, so no length is padded (counted in
+    ``fused_self_attention.launches``)."""
+    if q.device.type == "cpu":
+        return self_attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    check_attention_args("fused_self_attention", q, k, v)
+    b, h, t, d = q.shape
+    if d not in FLASH_HEAD_WIDTHS:
+        raise ValueError(f"fused_self_attention: head width {d} not in {FLASH_HEAD_WIDTHS}")
+    q, k, v = kernel_layout(q), kernel_layout(k), kernel_layout(v)
+    out = torch.empty_like(q)
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                  b, h, t, d, d**-0.5, stream)
+    _build.check("flash_attention", code)
+    fused_self_attention.launches += 1
+    return out
+
+
+fused_self_attention.launches = 0

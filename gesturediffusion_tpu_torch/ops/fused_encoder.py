@@ -17,7 +17,11 @@ output, activation, feed-forward output), with Bernoulli masks
 Weights use PyTorch's [out, in] layout: wqkv [3D, D] (the packed
 ``in_proj_weight``), wo [D, D], w1 [F, D], w2 [D, F]; LayerNorm weight
 and bias [D].  On a CUDA tensor the wrapper launches
-csrc/encoder_layer.cu; on a CPU tensor it runs the plain version.
+csrc/encoder_layer.cu; on a CPU tensor it runs the plain version.  The
+chain's attention stage keeps a head's K and V in shared memory where they
+fit (``attention_fits``, T <= 384 at dh 64) and is the flash kernel of
+ops/flash_attention.py beyond: two kernels chosen by shape, the same
+function at every T.
 """
 
 from __future__ import annotations
@@ -30,8 +34,15 @@ import torch
 import torch.nn.functional as F
 
 from gesturediffusion_tpu_torch.ops import _build
+from gesturediffusion_tpu_torch.ops.flash_attention import (
+    FLASH_HEAD_WIDTHS,
+    fused_self_attention,
+)
 
 LN_EPS = 1e-5
+# a block's shared memory on an H100 (opt-in maximum), common.cuh:kMaxSmem
+MAX_SMEM_BYTES = 232448
+ATTN_WARPS = 8  # common.cuh:kAttnThreads / 32
 # the training dropout sites, in the order the layer reaches them
 SITE_ATTN, SITE_POST_ATTN, SITE_ACT, SITE_FF = 0, 1, 2, 3
 # drop(z, site) -> z with the dropout of that site applied
@@ -79,12 +90,25 @@ def encoder_layer_plain(
     return F.layer_norm(x + h, (d,), ln2_w, ln2_b, LN_EPS)
 
 
+def attention_smem_bytes(t: int, d: int, num_heads: int) -> int:
+    """Shared memory of common.cuh:attention_kernel for T = t rows of one
+    head (common.cuh:attention): K rows padded to dh + 4, V rows padded
+    to a multiple of 4, two query and two score rows per warp."""
+    dh, tp = d // num_heads, (t + 3) & ~3
+    return 4 * (t * (dh + 4) + tp * dh + ATTN_WARPS * 2 * (dh + tp))
+
+
+def attention_fits(t: int, d: int, num_heads: int) -> bool:
+    """Whether a head's K and V fit the whole-sequence attention stage."""
+    return attention_smem_bytes(t, d, num_heads) <= MAX_SMEM_BYTES
+
+
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.load_function(
         "encoder_layer", "gdt_encoder_layer_f32",
-        [p] * 19 + [i] * 5 + [ctypes.c_float, p],
+        [p] * 19 + [i] * 5 + [ctypes.c_float, i, p],
     )
 
 
@@ -124,7 +148,9 @@ def fused_encoder_layer(
 
     CPU tensors run ``encoder_layer_plain``; CUDA tensors launch the
     kernel chain of csrc/encoder_layer.cu (counted once per call in
-    ``fused_encoder_layer.launches``)."""
+    ``fused_encoder_layer.launches``), whose attention stage is the flash
+    kernel where ``attention_fits`` is false (counted in
+    ``fused_self_attention.launches``)."""
     weights = (wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if x.device.type == "cpu":
         return encoder_layer_plain(x, *weights, num_heads=num_heads)
@@ -134,6 +160,12 @@ def fused_encoder_layer(
     b, t, d = x.shape
     f = w1.shape[0]
     m = b * t
+    flash = not attention_fits(t, d, num_heads)
+    if flash and d // num_heads not in FLASH_HEAD_WIDTHS:
+        raise ValueError(
+            f"T={t}: a head's K and V exceed shared memory and the flash stage takes "
+            f"head widths {FLASH_HEAD_WIDTHS}, not {d // num_heads}"
+        )
     new = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
     qkv, attn, tmp, h1, ff = new((m, 3 * d)), new((m, d)), new((m, d)), new((m, d)), new((m, f))
     out = new((b, t, d))
@@ -144,10 +176,11 @@ def fused_encoder_layer(
             x.data_ptr(), *(w.data_ptr() for w in weights),
             qkv.data_ptr(), attn.data_ptr(), tmp.data_ptr(), h1.data_ptr(),
             ff.data_ptr(), out.data_ptr(), b, t, d, f, num_heads,
-            (d // num_heads) ** -0.5, stream,
+            (d // num_heads) ** -0.5, int(flash), stream,
         )
     _build.check("encoder_layer", code)
     fused_encoder_layer.launches += 1
+    fused_self_attention.launches += flash
     return out
 
 

@@ -11,6 +11,10 @@ pre_encoder_local_block (the kernel's specification):
 
 xseq [B, T, D], coa [B, D] -> [B, T + 1, D].  On a CUDA tensor the wrapper
 launches csrc/local_block.cu; on a CPU tensor it runs the plain version.
+``pre_encoder_local_block`` takes its attention from
+ops/band_attention.py:local_attention_auto, as mdm.py:70 does: the dense
+form up to 256 frames, beyond that the band kernel on a CUDA tensor
+(unless ``use_kernels`` is False) and the windowed form otherwise.
 """
 
 from __future__ import annotations
@@ -26,24 +30,27 @@ from gesturediffusion_tpu_torch.models.embeddings import (
     rotary_freqs,
 )
 from gesturediffusion_tpu_torch.ops import _build
-from gesturediffusion_tpu_torch.ops.local_attention import local_attention_dense
+from gesturediffusion_tpu_torch.ops.band_attention import local_attention_auto
 
 
 def pre_encoder_local_block(
     xseq: torch.Tensor, coa: torch.Tensor, *, num_heads: int, window_size: int,
     dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
-    """Plain PyTorch version.  Training passes ``dropout_rate`` and the
-    generator that draws the attention-probability masks; the kernel is
-    the inference path (no dropout, no backward)."""
+    """The block composed from torch ops around ``local_attention_auto``:
+    the plain version of the fused kernel up to 256 frames, and the
+    long-chunk path (band kernel on the card) above.  Training passes
+    ``dropout_rate`` and the generator that draws the attention-probability
+    masks; ``use_kernels=False`` keeps the attention plain on the card."""
     bs, nt, d = xseq.shape
     dh = d // num_heads
     heads = xseq.reshape(bs, nt, num_heads, dh).transpose(1, 2)
     heads, _ = apply_rotary_pos_emb(heads, heads, rotary_freqs(nt, dh, xseq.device))
-    heads = local_attention_dense(
+    heads = local_attention_auto(
         heads, heads, heads, window_size=window_size, causal=True,
         look_backward=1, look_forward=0, dropout_rate=dropout_rate,
-        generator=generator,
+        generator=generator, use_kernels=use_kernels,
     ).to(xseq.dtype)
     xseq = heads.transpose(1, 2).reshape(bs, nt, d)
 

@@ -7,8 +7,10 @@ it runs on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances (float32, TF32 off): local block rtol 2e-4 / atol 2e-5 (sums of
-at most 2w terms); encoder layer atol 1e-4 (sums over K <= 1024 in another
+Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
+atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
+up to 1201 keys in another order, online rescaling); encoder layer atol
+1e-4, 5e-4 with the flash stage at T = 1201 (sums over K <= 1024 in another
 order, two LayerNorms); MDM fast CFG step atol 1e-4; training layer forward
 atol 1e-4 and each of its 13 gradients within 5e-4 of that gradient's
 largest magnitude (the weight gradients sum over all B*T rows).
@@ -20,6 +22,11 @@ import torch
 
 from gesturediffusion_tpu_torch.models.mdm import MDM
 from gesturediffusion_tpu_torch.models.mdm_fastpath import make_fast_cfg_fn
+from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+from gesturediffusion_tpu_torch.ops.flash_attention import (
+    fused_self_attention,
+    self_attention_reference,
+)
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
     encoder_layer_plain,
     fused_encoder_layer,
@@ -34,6 +41,7 @@ from gesturediffusion_tpu_torch.ops.fused_local_block import (
     fused_local_block,
     pre_encoder_local_block,
 )
+from gesturediffusion_tpu_torch.ops.local_attention import local_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -120,6 +128,75 @@ def test_fast_cfg_step_kernels_match_plain(dev):
         model.use_kernels = False
         want = guided(x, t, pre(cond))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,t,d,w,strided", [
+    (82, 8, 1200, 32, 10, True),   # the long chunk, the local block's transposed heads
+    (2, 3, 80, 32, 10, False),
+    (1, 2, 160, 16, 10, True),
+    (3, 4, 300, 8, 20, False),
+])
+def test_band_kernel_matches_plain(dev, b, h, t, d, w, strided):
+    rs = np.random.RandomState(12)
+    if strided:
+        q = _randn(rs, b, t, h, d, device=dev).transpose(1, 2)
+        k = v = q
+    else:
+        q, k, v = (_randn(rs, b, h, t, d, device=dev) for _ in range(3))
+    want = local_attention(q, k, v, window_size=w)
+    before = local_attention_band.launches
+    got = local_attention_band(q, k, v, window_size=w)
+    torch.cuda.synchronize()
+    assert local_attention_band.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,h,t,d", [(4, 4, 1201, 64), (2, 3, 130, 32), (1, 2, 513, 128),
+                                     (2, 3, 24, 32)])
+def test_flash_kernel_matches_reference(dev, b, h, t, d):
+    rs = np.random.RandomState(13)
+    q, k, v = (_randn(rs, b, h, t, d, device=dev) for _ in range(3))
+    want = self_attention_reference(q, k, v)
+    before = fused_self_attention.launches
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("t,flash", [(81, 0), (1201, 1)])
+def test_encoder_layer_takes_the_flash_stage_past_shared_memory(dev, t, flash):
+    w = _encoder_weights(256, 1024, dev, seed=14)
+    x = _randn(np.random.RandomState(14), 2, t, 256, device=dev)
+    want = encoder_layer_plain(x, *w, num_heads=4)
+    before = (fused_encoder_layer.launches, fused_self_attention.launches)
+    got = fused_encoder_layer(x, *w, num_heads=4)
+    torch.cuda.synchronize()
+    assert (fused_encoder_layer.launches - before[0],
+            fused_self_attention.launches - before[1]) == (1, flash)
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("t,band,block", [(80, 0, 1), (320, 1, 0)])
+def test_model_local_block_kernel_by_length(dev, t, band, block):
+    """Kernel 2 up to 256 frames, the band kernel above; both against the
+    plain block."""
+    torch.manual_seed(0)
+    model = MDM(njoints=12, latent_dim=64, num_layers=1, ff_size=128, seed_poses=4,
+                cond_mask_prob=0.1, mfcc_dim=8, window_size=5).to(dev).eval()
+    rs = np.random.RandomState(15)
+    xseq, coa = _randn(rs, 3, t, 64, device=dev), _randn(rs, 3, 64, device=dev)
+    before = (local_attention_band.launches, fused_local_block.launches)
+    with torch.no_grad():
+        got = model.local_block(xseq, coa)
+        torch.cuda.synchronize()
+        assert (local_attention_band.launches - before[0],
+                fused_local_block.launches - before[1]) == (band, block)
+        model.use_kernels = False
+        want = model.local_block(xseq, coa)
+    assert (local_attention_band.launches - before[0],
+            fused_local_block.launches - before[1]) == (band, block)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
 
 
 GRAD_RTOL = 5e-4
