@@ -27,7 +27,8 @@ Phases, each fatal on failure:
   6. times    kernel, plain and library-call times (CUDA events), take and
               train-step throughput and peak memory, and a profile of a
               denoise step and of a train step, with the card name and
-              power limit
+              power limit; the encoder layer at T = 81 with each attention
+              stage (flash, whole-sequence) through its C entry point
   7. long     long-chunk sampling at 1200 frames: the band-attention kernel
               at [82, 8, 1200, 32], the flash kernel at [82, 4, 1201, 64]
               (and at a length off its tile), the encoder layer with its
@@ -35,8 +36,13 @@ Phases, each fatal on failure:
               version; the same model samples a 41-take, 2-chunk take at
               T = 1200 (20 DDPM steps) with launch counts, against the plain
               take; the generate CLI at --num_frames 1200; kernel, plain and
-              library times, take throughput and a profile of a long
-              denoise step
+              library times, the SDPA backend the library yardstick ran
+              (from the profiler's kernel names), take throughput and a
+              profile of a long denoise step
+The encoder layer's products and the flash kernel run on the tensor cores
+in 3xTF32: their bound is the larger of bytes / 3.35 TB/s and 3 x FLOP /
+495 TFLOP/s, and their rows print the achieved f32-equivalent TFLOP/s.  The
+other kernels are f32 SIMT: operations / 67 TFLOP/s.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.  It imports nothing of JAX or of the JAX package.
@@ -55,6 +61,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense tensor cores; a 3xTF32 product takes three passes
 PEAK_BYTES_PER_S = 3.35e12
 B_TAKES, J, T, D, S, A = 41, 498, 80, 256, 10, 26
 LAYERS, HEADS, FF, CL_HEADS, WINDOW = 8, 4, 1024, 8, 10
@@ -91,9 +98,61 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, tf32x3: bool = False) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate against
+    operations over the f32 SIMT peak, or, for the 3xTF32 kernels, three
+    TF32 passes over the tensor-core peak."""
+    t_ops = 3 * flops / PEAK_TF32_FLOPS if tf32x3 else flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def time_line(name, ms, plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=False):
+    rate = f", {flops / ms / 1e9:.1f} TFLOP/s f32-equivalent in 3xTF32" if tf32x3 else ""
+    log(f"time {name}: kernel {ms:.4f} ms{rate}, plain {plain_ms:.4f} ms, torch+SDPA "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {flops / 1e9:.4f} GFLOP, "
+        f"{nbytes / 1e6:.3f} MB) {card}")
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The device kernels of one F.scaled_dot_product_attention call, read
+    from the profiler: which backend the library yardstick ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type != torch.autograd.DeviceType.CPU and us > 0:
+            names.add(e.key)
+    return "; ".join(sorted(n[:100] for n in names)) or "not measured (no device kernel traced)"
+
+
+def encoder_layer_stage(x, weights, flash: bool):
+    """The encoder layer's kernel chain through its C entry point with the
+    attention stage given (the wrapper picks flash for head width 64); for
+    the stage A/B, uncounted."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops import _build
+    from gesturediffusion_tpu_torch.ops.fused_encoder import _kernel
+
+    b, t, d = x.shape
+    f = weights[6].shape[0]
+    new = lambda *shape: torch.empty(shape, device=x.device)  # noqa: E731
+    bufs = (new(b * t, 3 * d), new(b * t, d), new(b * t, d), new(b * t, d), new(b * t, f))
+    out = new(b, t, d)
+    code = _kernel()(x.data_ptr(), *(w.data_ptr() for w in weights),
+                     *(y.data_ptr() for y in bufs), out.data_ptr(), b, t, d, f, HEADS,
+                     (d // HEADS) ** -0.5, int(flash), torch.cuda.current_stream().cuda_stream)
+    _build.check("encoder_layer", code)
+    return out
 
 
 def local_block_sdpa(xseq, coa, num_heads, window):
@@ -196,8 +255,8 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
     """Phase 7: the long-chunk kernels against their plain versions, the
     full-width take at T = 1200 with launch counts against the plain take,
     the generate CLI at --num_frames 1200, then times.  Returns the kernel
-    rows of the band and flash kernels and the encoder layer's time at
-    T = 1201."""
+    rows of the band and flash kernels (the flash row's launches are the
+    long take's) and the long take's launch counts."""
     import numpy as np
     import torch
 
@@ -320,7 +379,7 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
         lambda: torch.nn.functional.scaled_dot_product_attention(qf, kf, vf), 10, 2)
     flash_flops = 4 * bb * HEADS * tl**2 * (D // HEADS)
     flash_bytes = 4 * 4 * qf.numel()
-    flash_bound, flash_by = bound_ms(flash_flops, flash_bytes)
+    flash_bound, flash_by = bound_ms(flash_flops, flash_bytes, tf32x3=True)
 
     enc_ms = cuda_time_ms(lambda: fused_encoder_layer(xl, *enc_w, num_heads=HEADS), 5, 1)
     enc_plain_ms = cuda_time_ms(lambda: encoder_layer_plain(xl, *enc_w, num_heads=HEADS), 5, 1)
@@ -328,18 +387,16 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
     m = bb * tl
     enc_flops = 2 * m * (4 * D * D + 2 * D * FF) + 4 * bb * tl**2 * D
     enc_bytes = 4 * (2 * m * D + sum(w.numel() for w in enc_w))
-    enc_bound, enc_by = bound_ms(enc_flops, enc_bytes)
+    enc_bound, enc_by = bound_ms(enc_flops, enc_bytes, tf32x3=True)
 
-    for name, ms, pms, lms, bnd, by, fl, nb in (
-        (f"band_attention [{bb},{CL_HEADS},{T_LONG},{D // CL_HEADS}]", band_ms, band_plain_ms,
-         band_lib_ms, band_bound, band_by, band_flops, band_bytes),
-        (f"flash_attention [{bb},{HEADS},{tl},{D // HEADS}]", flash_ms, flash_plain_ms,
-         flash_lib_ms, flash_bound, flash_by, flash_flops, flash_bytes),
-        (f"encoder_layer [{bb},{tl},{D}] (flash stage)", enc_ms, enc_plain_ms, enc_lib_ms,
-         enc_bound, enc_by, enc_flops, enc_bytes),
-    ):
-        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch+SDPA {lms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}; {fl / 1e9:.4f} GFLOP, {nb / 1e6:.3f} MB) {card}")
+    time_line(f"band_attention [{bb},{CL_HEADS},{T_LONG},{D // CL_HEADS}]", band_ms,
+              band_plain_ms, band_lib_ms, band_bound, band_by, band_flops, band_bytes, card)
+    time_line(f"flash_attention [{bb},{HEADS},{tl},{D // HEADS}]", flash_ms, flash_plain_ms,
+              flash_lib_ms, flash_bound, flash_by, flash_flops, flash_bytes, card, tf32x3=True)
+    time_line(f"encoder_layer [{bb},{tl},{D}] (flash stage)", enc_ms, enc_plain_ms, enc_lib_ms,
+              enc_bound, enc_by, enc_flops, enc_bytes, card, tf32x3=True)
+    log(f"SDPA backend of the library yardstick at [{bb},{HEADS},{tl},{D // HEADS}]: "
+        f"{sdpa_backend(qf, kf, vf)}")
     log(f"time band input .contiguous() copy (what reading the strides avoids): "
         f"{copy_ms:.4f} ms {card}")
     log(f"time long take ({B_TAKES} takes x {CHUNKS} chunks x {LONG_STEPS} DDPM steps at "
@@ -364,7 +421,7 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
          "ms": flash_ms, "plain_ms": flash_plain_ms, "bound_ms": flash_bound,
          "bound_by": flash_by, "library_ms": flash_lib_ms},
     ]
-    return rows
+    return rows, launches
 
 
 def device_profile(step, steps, label, card, host_rows=0):
@@ -629,6 +686,7 @@ def main() -> int:
         encoder_layer_train_fwd,
         encoder_layer_train_plain,
     )
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
     from gesturediffusion_tpu_torch.ops.fused_local_block import (
         fused_local_block,
         pre_encoder_local_block,
@@ -722,14 +780,18 @@ def main() -> int:
 
     fused_local_block.launches = 0
     fused_encoder_layer.launches = 0
+    fused_self_attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = take(1)
     first_s = time.perf_counter() - t0
     launches = {"local_block": fused_local_block.launches,
-                "encoder_layer": fused_encoder_layer.launches}
+                "encoder_layer": fused_encoder_layer.launches,
+                "flash_attention": fused_self_attention.launches}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    want = {"local_block": STEPS * CHUNKS, "encoder_layer": STEPS * CHUNKS * LAYERS}
+    # the encoder layer's attention stage is the flash kernel at every length
+    want = {"local_block": STEPS * CHUNKS, "encoder_layer": STEPS * CHUNKS * LAYERS,
+            "flash_attention": STEPS * CHUNKS * LAYERS}
     log(f"take: out {tuple(out.shape)} finite={bool(torch.isfinite(out).all())} "
         f"launches {launches} (expected {want}); first run {first_s:.3f} s")
     if tuple(out.shape) != (CHUNKS, B_TAKES, J, 1, T) or not torch.isfinite(out).all():
@@ -789,7 +851,22 @@ def main() -> int:
     m = bb * (T + 1)
     enc_flops = 2 * m * (4 * D * D + 2 * D * FF) + 4 * bb * (T + 1) ** 2 * D
     enc_bytes = 4 * (2 * m * D + sum(w.numel() for w in enc_w))
-    enc_bound, enc_by = bound_ms(enc_flops, enc_bytes)
+    enc_bound, enc_by = bound_ms(enc_flops, enc_bytes, tf32x3=True)
+
+    # the attention stage at T = 81: the layer with the flash stage (what
+    # the wrapper takes) and with the whole-sequence stage, in turns
+    stage_err = {f: (encoder_layer_stage(xe, enc_w, f) - enc_plain).abs().max().item()
+                 for f in (True, False)}
+    stage_ms = {True: [], False: []}
+    for flash in (True, False, False, True):
+        stage_ms[flash].append(cuda_time_ms(lambda: encoder_layer_stage(xe, enc_w, flash)))
+    ok = max(stage_err.values()) <= TOL_ENCODER
+    log(f"{'OK' if ok else 'FAIL'} stage A/B encoder_layer [{bb},{T + 1},{D}]: flash stage "
+        f"{stage_ms[True][0]:.4f} / {stage_ms[True][1]:.4f} ms (max|diff| {stage_err[True]:.3e}), "
+        f"whole-sequence stage {stage_ms[False][0]:.4f} / {stage_ms[False][1]:.4f} ms (max|diff| "
+        f"{stage_err[False]:.3e}; tol {TOL_ENCODER:g}) {card}")
+    if not ok:
+        raise AssertionError("an attention stage of the encoder layer disagrees at T = 81")
 
     tw = [w.detach().clone().requires_grad_() for w in enc_w]
     tx_ = xt.detach().clone().requires_grad_()
@@ -823,16 +900,14 @@ def main() -> int:
     tf_bound, tf_by = bound_ms(tf_flops, tf_bytes)
     tb_bound, tb_by = bound_ms(tb_flops, tb_bytes)
 
-    for name, ms, pms, lms, bnd, by, fl, nb in (
-        ("local_block", lb_ms, lb_plain_ms, lb_lib_ms, lb_bound, lb_by, lb_flops, lb_bytes),
-        ("encoder_layer", enc_ms, enc_plain_ms, enc_lib_ms, enc_bound, enc_by, enc_flops, enc_bytes),
-        ("encoder_layer_train_fwd", tf_ms, tf_plain_ms, tf_lib_ms, tf_bound, tf_by, tf_flops,
-         tf_bytes),
-        ("encoder_layer_train_bwd (plain and library: forward + backward)", tb_ms, tb_plain_ms,
-         tb_lib_ms, tb_bound, tb_by, tb_flops, tb_bytes),
-    ):
-        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch+SDPA {lms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}; {fl / 1e9:.4f} GFLOP, {nb / 1e6:.3f} MB) {card}")
+    time_line("local_block", lb_ms, lb_plain_ms, lb_lib_ms, lb_bound, lb_by, lb_flops, lb_bytes,
+              card)
+    time_line(f"encoder_layer [{bb},{T + 1},{D}]", enc_ms, enc_plain_ms, enc_lib_ms, enc_bound,
+              enc_by, enc_flops, enc_bytes, card, tf32x3=True)
+    time_line("encoder_layer_train_fwd", tf_ms, tf_plain_ms, tf_lib_ms, tf_bound, tf_by, tf_flops,
+              tf_bytes, card)
+    time_line("encoder_layer_train_bwd (plain and library: forward + backward)", tb_ms,
+              tb_plain_ms, tb_lib_ms, tb_bound, tb_by, tb_flops, tb_bytes, card)
     n_steps = STEPS * CHUNKS
     log(f"time take ({B_TAKES} takes x {CHUNKS} chunks x {STEPS} DDPM steps, CFG batch {bb}): "
         f"kernels {kernel_take_s:.3f} s = {B_TAKES * CHUNKS / kernel_take_s:.3f} chunks/s, "
@@ -853,7 +928,9 @@ def main() -> int:
                    card, host_rows=8)
 
     # ---- 7. long chunks: band and flash kernels, T = 1200 take, CLI ---- #
-    long_rows = long_chunk_phase(model, model_path, enc_w, randn, card)
+    long_rows, long_launches = long_chunk_phase(model, model_path, enc_w, randn, card)
+    # launches of the two sampling paths: the 80-frame take, then the long take
+    long_rows[1]["launches"] += launches["flash_attention"]
 
     kernels = [
         {"name": "local_block", "route": "cuda",
@@ -865,7 +942,8 @@ def main() -> int:
         {"name": "encoder_layer", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
-         "launches": launches["encoder_layer"], "max_abs_err": enc_err,
+         "launches": launches["encoder_layer"] + long_launches["encoder_layer"],
+         "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
         {"name": "encoder_layer_train_fwd", "route": "cuda",

@@ -14,37 +14,39 @@
 //
 // What bounds it on an H100: at the gesture shape [82, 81, 256], ff 1024, a
 // call does ~11.0 GFLOP against ~16.7 MB of compulsory traffic (x in, out,
-// f32 weights), ~660 FLOP per byte: it is bound by arithmetic.  Without
-// tensor cores (this kernel stays in float32, no TF32) the ceiling is the
-// 67 TFLOP/s SIMT rate, ~164 us per call.
+// f32 weights), ~660 FLOP per byte: it is bound by arithmetic.  The products
+// run on the tensor cores in 3xTF32 (gemm_tf32x3.cuh): each f32 operand is
+// split into a TF32 big and small part and big.big + big.small + small.big
+// is accumulated in f32.  Three passes keep f32-level error (~1e-6
+// relative) where one TF32 pass (~1e-3) would be another result than the
+// f32 reference.  Three passes of the 495 TFLOP/s TF32 rate are 165 TFLOP/s
+// of f32-equivalent work: ~0.067 ms per call at 81 rows, ~1.67 ms at 1201.
 //
 // Design: the TPU kernel kept a whole batch block in VMEM and ran every
 // stage in one grid step.  A Hopper SM has 227 KB of shared memory, too
 // little for a block's [rows, 1024] feed-forward activations, so the layer
-// is a short chain of launches on one stream instead, all from
-// common.cuh (shared with the training layer, csrc/encoder_layer_train.cu):
-//   1. the SIMT GEMM for the four products: 64 x 128 block tiles, 8 x 8
-//      outputs per thread (4 FMAs per float read from shared memory, enough
-//      to keep the FMA pipes ahead of the shared-memory port), the next K
-//      slice prefetched into registers, and a fused epilogue (bias;
-//      optional GELU-tanh; optional residual add);
-//   2. attention with one block per (batch, head): K and V of the head in
-//      shared memory, a warp per two query rows, scores and softmax in f32.
-//      Where a head's K and V do not fit in a block's shared memory (above
-//      T = 384 at dh 64), the caller sets `flash` and the stage is the
-//      flash kernel of flash_attention.cuh instead (the port of
-//      pallas_flash.py::_flash_kernel): key tiles streamed through shared
-//      memory, online softmax, reading the packed qkv through its strides;
-//   3. a LayerNorm row kernel, one warp per row.
+// is a short chain of launches on one stream instead:
+//   1. the 3xTF32 GEMM of gemm_tf32x3.cuh for the four products
+//      (wgmma m64n64k8 TF32 fed by a 3-stage cp.async ring, 128 x 64
+//      block tiles, W split into big and small tiles as it lands, A split
+//      in registers), with a fused epilogue: bias; bias and GELU-tanh; bias
+//      and residual;
+//   2. attention: the flash kernel of flash_attention.cuh (the port of
+//      pallas_flash.py::_flash_kernel, 3xTF32 on the tensor cores) reading
+//      the packed qkv through its strides, at every length for the head
+//      widths it is built for (the caller sets `flash`); for other widths
+//      common.cuh's whole-sequence SIMT stage (one block per (batch, head),
+//      K and V in shared memory, shared with the training layer);
+//   3. a LayerNorm row kernel, one warp per row (common.cuh).
 // The intermediates (qkv, attention output, pre-LN sums, ff activations)
 // round-trip through device memory (~68 MB written and read back per call
 // at the gesture shape, much of it served from the 50 MB L2).  T is taken
-// as it is (no tile padding), so no key is padded and none needs masking.
-// Tensor cores (wgmma / TMA tiles, which would change the numerics) and a
-// fused LN epilogue are later work.
+// as it is (no tile padding): the GEMM masks its M edge and the flash
+// kernel its last key tile.
 
 #include "common.cuh"
 #include "flash_attention.cuh"
+#include "gemm_tf32x3.cuh"
 
 extern "C" {
 
@@ -55,7 +57,8 @@ const char* gdt_error_string(int code) {
 // Returns cudaGetLastError() after queueing the layer on `stream`.
 // Scratch buffers (all float32, contiguous): qkv [M, 3D], attn [M, D],
 // tmp [M, D], h1 [M, D], ff [M, F], with M = B * T.  `out` [M, D].
-// `flash` selects the flash attention stage (dh in {32, 64, 128}).
+// `flash` selects the flash attention stage (dh in {16, 32, 64, 128}),
+// else the whole-sequence stage, whose K and V must fit in shared memory.
 int gdt_encoder_layer_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
@@ -65,24 +68,20 @@ int gdt_encoder_layer_f32(
     int flash, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T;
-  const Drop none{nullptr, 0u, 1.0f};
-  EpiArgs ep{};
-  ep.bias = bqkv;
-  gemm_nt<kBias>(x, wqkv, qkv, M, 3 * D, D, ep, s);
+  cudaError_t e = gemm_tf32x3<kTcBias>(x, wqkv, qkv, bqkv, nullptr, M, 3 * D, D, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long dh = D / H, t = T;
   const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
-  const cudaError_t e =
-      flash ? flash_attention(qkv, qkv + D, qkv + 2 * D, attn, packed, packed, packed, rows,
+  const Drop none{nullptr, 0u, 1.0f};
+  e = flash ? flash_attention(qkv, qkv + D, qkv + 2 * D, attn, packed, packed, packed, rows,
                               B, H, T, D / H, scale, s)
             : attention(qkv, attn, B, T, D, H, scale, none, s);
+  if (e == cudaSuccess) e = gemm_tf32x3<kTcBiasResid>(attn, wo, tmp, bo, x, M, D, D, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ep = EpiArgs{bo, x, nullptr, nullptr, none, 0};
-  gemm_nt<kBiasResid>(attn, wo, tmp, M, D, D, ep, s);
   layernorm(tmp, ln1_w, ln1_b, h1, M, D, s);
-  ep = EpiArgs{b1, nullptr, nullptr, nullptr, none, 0};
-  gemm_nt<kBiasGelu>(h1, w1, ff, M, F, D, ep, s);
-  ep = EpiArgs{b2, h1, nullptr, nullptr, none, 0};
-  gemm_nt<kBiasResid>(ff, w2, tmp, M, D, F, ep, s);
+  e = gemm_tf32x3<kTcBiasGelu>(h1, w1, ff, b1, nullptr, M, F, D, s);
+  if (e == cudaSuccess) e = gemm_tf32x3<kTcBiasResid>(ff, w2, tmp, b2, h1, M, D, F, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   layernorm(tmp, ln2_w, ln2_b, out, M, D, s);
   return static_cast<int>(cudaGetLastError());
 }

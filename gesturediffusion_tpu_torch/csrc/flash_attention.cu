@@ -8,8 +8,9 @@
 //
 // What bounds it on an H100: at the long-chunk encoder shape [82, 4, 1201,
 // 64] a call does 4 B H T^2 dh = 121.1 GFLOP against 0.40 GB of q, k, v and
-// out: ~300 FLOP per byte, bound by arithmetic.  In float32 without tensor
-// cores the ceiling is the 67 TFLOP/s SIMT rate, ~1.81 ms per call.
+// out: ~300 FLOP per byte, bound by arithmetic.  Its products run in 3xTF32
+// on the tensor cores (three TF32 passes keep f32-level error; see the
+// header): at 495 / 3 TFLOP/s of f32-equivalent work, ~0.73 ms per call.
 
 #include "flash_attention.cuh"
 
@@ -20,7 +21,7 @@ const char* gdt_error_string(int code) {
 }
 
 // q, k, v, out [B, H, T, dh] through their strides (in floats, head width
-// contiguous), dh in {32, 64, 128}.  Returns cudaGetLastError() after
+// contiguous), dh in {16, 32, 64, 128}.  Returns cudaGetLastError() after
 // queueing on `stream`.
 int gdt_flash_attention_f32(const float* q, const float* k, const float* v, float* out,
                             long long qb, long long qh, long long qt, long long kb,

@@ -1,7 +1,7 @@
-// Flash self-attention forward, float32, non-causal: the device code of
-// csrc/flash_attention.cu (the standalone entry point) and of the encoder
-// layer's attention stage beyond what fits in shared memory
-// (csrc/encoder_layer.cu, reading its packed qkv buffer).
+// Flash self-attention forward, float32 numerics, non-causal: the device
+// code of csrc/flash_attention.cu (the standalone entry point) and of the
+// encoder layer's attention stage (csrc/encoder_layer.cu, reading its packed
+// qkv buffer).
 //
 // Replaces: gesturediffusion_tpu/ops/pallas_flash.py::_flash_kernel.  Same
 // function, per (batch, head):
@@ -16,178 +16,255 @@
 // never -inf.  Keys at positions >= T are masked (p = 0) and their rows
 // staged as zeros, so no length needs padding.
 //
-// Design: the TPU kernel walked the key blocks as the innermost, sequential
-// grid axis, carrying m, l and the accumulator in VMEM scratch (m and l as
-// lane-broadcast [BQ, 128] tiles), with T padded to the block sizes and D
-// to 128 lanes.  None of those layout rules carries over.  Here one block
-// owns one (batch * head, tile of kBQ queries) and loops over the key tiles
-// itself.  Its 256 threads form a 16 x 16 grid: thread (ty, tx) holds the
-// scores of rows ty + 16 i and keys tx + 16 j (i, j < 4) in registers, and
-// the accumulator of the same rows over the head-width columns
-// [tx * DH / 16, (tx + 1) * DH / 16).  Q and the current K tile sit in
-// shared memory in rows padded to DH + 4 floats, so each float4 read of K
-// by the 16 threads of a row group falls in distinct banks, and every
-// float4 pair feeds 16 FMAs.  A row's max and sum are reduced across its 16
-// threads with shuffles; the probabilities go through shared memory to the
-// P V product, whose V reads are contiguous across the row group.  Each
-// tensor is read through (batch, head, position) strides with the head
+// What bounds it on an H100: both products, S = q k^T and o += p v, run on
+// the tensor cores in 3xTF32 (gemm_tf32x3.cuh: each f32 operand split into
+// a TF32 big and small part, big.big + big.small + small.big accumulated in
+// f32), which keeps f32-level error (~1e-6 relative) where one TF32 pass
+// would be off by ~1e-3 and break the 2e-4 tolerance against the f32
+// reference.  At [82, 4, 1201, 64] a call is 121 GFLOP of products against
+// 0.40 GB of q, k, v and out: at three passes of the 495 TFLOP/s TF32 rate,
+// 0.73 ms, plus ~0.13 ms for its 473M exponentials on the SFUs.
+//
+// Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 4 warps
+// owns 64 queries of one (batch, head), a warp 16 query rows, and walks the
+// key tiles (64 keys; 16 at dh 128, for registers) through a 3-stage
+// cp.async ring.  A warp's q rows are read from device memory once, as A
+// fragments in registers (split into big and small once at dh <= 64; at dh
+// 128 kept whole and split as used).  K and V fragments are split as they
+// are read from shared memory.  Within each slice of 8 along a product's
+// reduction axis, k is permuted: fragment elements k = t and t + 4 come
+// from the adjacent physical positions 2t and 2t + 1 of both operands.
+// That makes each q and K fragment pair one float2, and it makes the S
+// accumulator of a key slice (row g: keys 2t, 2t + 1; row g + 8: the same)
+// exactly the A fragment that o += p v needs for those keys, so p stays in
+// registers: no shuffle and no pass through shared memory.  V is then read
+// at rows 2t and 2t + 1 of the slice.  Scores are kept in log2 units
+// (scale * log2(e) folded into one multiply, exp2 on the SFU); only the
+// last, ragged tile is masked.  Row max and row sum are reduced over the 4
+// threads of a quad with shuffles; the sum is kept per thread and reduced
+// once at the end.  Shared rows are padded (K to dh + 8, V to dh + 4
+// floats) so every fragment read is free of bank conflicts.  The kernel
+// issues about five instructions per mma, near the issue limit of the
+// mma.sync rate.  Measured slower at dh 64 and not done: splitting each K
+// and V tile once per block into big and small tiles (fewer ALU
+// operations, a second barrier a tile), and two query tiles a warp (K and
+// V fragments feed twice the mmas, but the registers spill).
+// Each tensor is read through (batch, head, position) strides with the head
 // width contiguous: the encoder chain passes its packed [B*T, 3D] qkv and
 // its [B*T, D] output, the standalone entry point [B, H, T, D] tensors.
-// Tensor cores (wgmma, TMA) would change the numerics and are later work.
 #pragma once
 
 #include "common.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
-constexpr int kFlashThreads = 256;  // 16 x 16
+constexpr int kFlashThreads = 128;  // 4 warps of 16 query rows
 constexpr int kFlashBQ = 64;        // queries per block
-constexpr int kFlashBK = 64;        // keys per tile
 
 template <int DH>
-constexpr size_t flash_smem_bytes() {
-  return ((size_t)2 * kFlashBQ * (DH + 4) + (size_t)kFlashBK * DH +
-          (size_t)kFlashBQ * (kFlashBK + 4)) * sizeof(float);
-}
+struct FlashTile {
+  static constexpr int BK = DH <= 64 ? 64 : 16;  // keys per tile
+  static constexpr int KLD = DH + 8;             // K row stride (floats)
+  static constexpr int VLD = DH + 4;             // V row stride (floats)
+  static constexpr int kStages = 3;              // ring of key tiles
+  static constexpr size_t smem = (size_t)kStages * BK * (KLD + VLD) * sizeof(float);
+};
 
-// grid (B * H, ceil(T / kFlashBQ)); rows 16-byte aligned
+// grid (ceil(T / kFlashBQ), B * H); rows 16-byte aligned
 template <int DH>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        AttnStrides sq, AttnStrides sk, AttnStrides sv, AttnStrides so,
                        int H, int T, float scale) {
-  constexpr int QS = DH + 4, PS = kFlashBK + 4, CPT = DH / 16, DH4 = DH / 4;
-  static_assert(DH % 32 == 0, "the head width must be a multiple of 32");
+  using Tile = FlashTile<DH>;
+  constexpr int BK = Tile::BK, KLD = Tile::KLD, VLD = Tile::VLD, kStages = Tile::kStages;
+  constexpr int KC = DH / 8;  // reduction slices of q k^T
+  constexpr int NS = BK / 8;  // key slices of a tile: n8 tiles of S, k slices of p v
+  constexpr int NO = DH / 8;  // n8 tiles of o
+  constexpr int C4 = DH / 4;  // float4s in a row
+  constexpr bool kSplitQOnce = DH <= 64;
+  static_assert(DH % 16 == 0, "the head width must be a multiple of 16");
+  static_assert(BK * C4 % kFlashThreads == 0, "a tile is whole float4s per thread");
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // [kFlashBQ][DH + 4]
-  float* Ks = Qs + kFlashBQ * QS;    // [kFlashBK][DH + 4]
-  float* Vs = Ks + kFlashBK * QS;    // [kFlashBK][DH]
-  float* Ps = Vs + kFlashBK * DH;    // [kFlashBQ][kFlashBK + 4]
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kFlashBQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* Ks = smem;                      // [kStages][BK][KLD]
+  float* Vs = Ks + kStages * BK * KLD;   // [kStages][BK][VLD]
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const float* qb = q + b * sq.b + h * sq.h;
-  const float* kbase = k + b * sk.b + h * sk.h;
-  const float* vbase = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int ntiles = (T + BK - 1) / BK;
+  // scores in log2 units: exp(x * scale - m) = exp2(x * scale * log2(e) - m')
+  const float scale_log2 = scale * 1.4426950408889634f;
 
-  for (int idx = threadIdx.x; idx < kFlashBQ * DH4; idx += kFlashThreads) {
-    const int r = idx / DH4, d = (idx - r * DH4) * 4;
-    *reinterpret_cast<float4*>(Qs + r * QS + d) =
-        q0 + r < T ? ld4(qb + (q0 + r) * sq.t + d) : zero;
-  }
-
-  float o[4][CPT], m[4], l[4];
+  auto load_tile = [&](int buf, int j0) {
+    float* ks = Ks + buf * BK * KLD;
+    float* vs = Vs + buf * BK * VLD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -FLT_MAX;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) o[i][c] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < T; k0 += kFlashBK) {
-    __syncthreads();  // the previous tile's K, V and P are read
-    for (int idx = threadIdx.x; idx < kFlashBK * DH4; idx += kFlashThreads) {
-      const int r = idx / DH4, d = (idx - r * DH4) * 4;
-      const bool in = k0 + r < T;
-      *reinterpret_cast<float4*>(Ks + r * QS + d) =
-          in ? ld4(kbase + (k0 + r) * sk.t + d) : zero;
-      *reinterpret_cast<float4*>(Vs + r * DH + d) =
-          in ? ld4(vbase + (k0 + r) * sv.t + d) : zero;
+    for (int i = 0; i < BK * C4 / kFlashThreads; ++i) {
+      const int f = threadIdx.x + i * kFlashThreads, r = f / C4, c = (f % C4) * 4;
+      const bool in = j0 + r < T;
+      cp_async16(ks + r * KLD + c, in ? kb + (j0 + r) * sk.t + c : kb, in);
+      cp_async16(vs + r * VLD + c, in ? vb + (j0 + r) * sv.t + c : vb, in);
     }
-    __syncthreads();
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1, BK);
+  cp_async_commit();
 
-    float s[4][4];
+  // this warp's query rows r0 (fragment rows g) and r1 = r0 + 8 (rows g + 8)
+  const int r0 = blockIdx.x * kFlashBQ + warp * 16 + g, r1 = r0 + 8;
+  float qf[kSplitQOnce ? 1 : KC][4];        // whole q fragments (dh 128)
+  uint32_t qbig[kSplitQOnce ? KC : 1][4];   // split once (dh <= 64)
+  uint32_t qsmall[kSplitQOnce ? KC : 1][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < KC; ++c) {
+    const float2 zero = make_float2(0.f, 0.f);
+    const float2 lo = r0 < T ? *reinterpret_cast<const float2*>(qb + r0 * sq.t + 8 * c + 2 * t) : zero;
+    const float2 hi = r1 < T ? *reinterpret_cast<const float2*>(qb + r1 * sq.t + 8 * c + 2 * t) : zero;
+    const float a[4] = {lo.x, hi.x, lo.y, hi.y};  // a0 .. a3 under the k permutation
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ld4(Qs + (ty + 16 * i) * QS + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = ld4(Ks + (tx + 16 * j) * QS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
-        }
-    }
-
-    // online softmax: a row's 64 keys are spread over the 16 lanes of
-    // its row group (tx), which are 16 consecutive lanes of one warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -FLT_MAX;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = k0 + tx + 16 * j < T ? s[i][j] * scale : -FLT_MAX;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < T ? expf(s[i][j] - m_new) : 0.0f;
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) o[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kFlashBK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = ld4(Ps + (ty + 16 * i) * PS + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vr = Vs + (kk + u) * DH + tx * CPT;
-        float vv[CPT];
-#pragma unroll
-        for (int c = 0; c < CPT; c += 2) {
-          const float2 v2 = *reinterpret_cast<const float2*>(vr + c);
-          vv[c] = v2.x;
-          vv[c + 1] = v2.y;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y : u == 2 ? pa[i].z : pa[i].w;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kSplitQOnce)
+        split_tf32(a[e], qbig[c][e], qsmall[c][e]);
+      else
+        qf[c][e] = a[e];
     }
   }
 
+  float o[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.0f;
+  float m_lo = -FLT_MAX, m_hi = -FLT_MAX, l_lo = 0.0f, l_hi = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<1>();  // tile it has landed
+    __syncthreads();     // ... for every thread; tile it - 1 is read
+    if (it + 2 < ntiles) load_tile((it + 2) % kStages, (it + 2) * BK);
+    cp_async_commit();
+    const float* ks = Ks + (it % kStages) * BK * KLD;
+    const float* vs = Vs + (it % kStages) * BK * VLD;
+
+    // S = q k^T, 16 x BK for this warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    const int kfrag = g * KLD + 2 * t;  // key g, head-width columns 2t, 2t + 1
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t a_big[4], a_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kSplitQOnce) {
+          a_big[e] = qbig[c][e];
+          a_small[e] = qsmall[c][e];
+        } else {
+          split_tf32(qf[c][e], a_big[e], a_small[e]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float2 k2 = *reinterpret_cast<const float2*>(ks + kfrag + n * 8 * KLD + 8 * c);
+        uint32_t b_big[2], b_small[2];
+        split_tf32(k2.x, b_big[0], b_small[0]);
+        split_tf32(k2.y, b_big[1], b_small[1]);
+        mma_tf32x3(s[n], a_big, a_small, b_big, b_small);
+      }
+    }
+
+    // online softmax in log2 units; this thread holds keys 8n + 2t + {0, 1}
+    // of rows r0 (s[n][0..1]) and r1 (s[n][2..3])
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+    const int j0 = it * BK;
+    if (j0 + BK > T) {  // the last tile is ragged: keys >= T score -FLT_MAX
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j0 + n * 8 + 2 * t + e >= T) s[n][e] = s[n][2 + e] = -FLT_MAX;
+    }
+    float mx_lo = -FLT_MAX, mx_hi = -FLT_MAX;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // a masked key: exp2(-FLT_MAX - m) = 0
+        s[n][e] = exp2f(s[n][e] - mn_lo);
+        s[n][2 + e] = exp2f(s[n][2 + e] - mn_hi);
+        sum_lo += s[n][e];
+        sum_hi += s[n][2 + e];
+      }
+    l_lo = al_lo * l_lo + sum_lo;
+    l_hi = al_hi * l_hi + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int d = 0; d < NO; ++d) {
+      o[d][0] *= al_lo;
+      o[d][1] *= al_lo;
+      o[d][2] *= al_hi;
+      o[d][3] *= al_hi;
+    }
+
+    // o += p v: the S accumulator of key slice n is p's A fragment
+    // (a0 = row g key 2t, a1 = row g + 8 key 2t, a2, a3 the keys 2t + 1)
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t p_big[4], p_small[4];
+      split_tf32(s[n][0], p_big[0], p_small[0]);
+      split_tf32(s[n][2], p_big[1], p_small[1]);
+      split_tf32(s[n][1], p_big[2], p_small[2]);
+      split_tf32(s[n][3], p_big[3], p_small[3]);
+      const float* v0 = vs + (n * 8 + 2 * t) * VLD + g;  // keys 2t, 2t + 1 of the slice
+#pragma unroll
+      for (int d = 0; d < NO; ++d) {
+        uint32_t b_big[2], b_small[2];
+        split_tf32(v0[d * 8], b_big[0], b_small[0]);
+        split_tf32(v0[VLD + d * 8], b_big[1], b_small[1]);
+        mma_tf32x3(o[d], p_big, p_small, b_big, b_small);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
   float* ob = out + b * so.b + h * so.h;
+  const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= T) continue;
-    const float inv = 1.0f / l[i];
-    float* orow = ob + row * so.t + tx * CPT;
-#pragma unroll
-    for (int c = 0; c < CPT; c += 2)
-      *reinterpret_cast<float2*>(orow + c) = make_float2(o[i][c] * inv, o[i][c + 1] * inv);
+  for (int d = 0; d < NO; ++d) {
+    if (r0 < T)
+      *reinterpret_cast<float2*>(ob + r0 * so.t + d * 8 + 2 * t) =
+          make_float2(o[d][0] * inv_lo, o[d][1] * inv_lo);
+    if (r1 < T)
+      *reinterpret_cast<float2*>(ob + r1 * so.t + d * 8 + 2 * t) =
+          make_float2(o[d][2] * inv_hi, o[d][3] * inv_hi);
   }
 }
 
@@ -196,21 +273,24 @@ cudaError_t flash_attention_dh(const float* q, const float* k, const float* v, f
                                const AttnStrides& sq, const AttnStrides& sk,
                                const AttnStrides& sv, const AttnStrides& so, int B, int H,
                                int T, float scale, cudaStream_t s) {
-  const size_t smem = flash_smem_bytes<DH>();
+  const size_t smem = FlashTile<DH>::smem;
   const cudaError_t e = set_smem(flash_attention_kernel<DH>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (T + kFlashBQ - 1) / kFlashBQ);
+  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((T + kFlashBQ - 1) / kFlashBQ, B * H);
   flash_attention_kernel<DH><<<grid, kFlashThreads, smem, s>>>(q, k, v, out, sq, sk, sv, so,
                                                                H, T, scale);
   return cudaSuccess;
 }
 
-// Queues flash_attention_kernel on `s` for head width dh in {32, 64, 128}.
+// Queues flash_attention_kernel on `s` for head width dh in {16, 32, 64, 128}.
 cudaError_t flash_attention(const float* q, const float* k, const float* v, float* out,
                             const AttnStrides& sq, const AttnStrides& sk,
                             const AttnStrides& sv, const AttnStrides& so, int B, int H,
                             int T, int dh, float scale, cudaStream_t s) {
   switch (dh) {
+    case 16:
+      return flash_attention_dh<16>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, s);
     case 32:
       return flash_attention_dh<32>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, s);
     case 64:

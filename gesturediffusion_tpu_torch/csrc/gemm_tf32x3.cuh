@@ -1,0 +1,346 @@
+// 3xTF32 tensor-core GEMM of the inference encoder layer (encoder_layer.cu),
+// and the 3xTF32 primitives the flash kernel shares (flash_attention.cuh).
+//
+// Replaces: the four products of
+// gesturediffusion_tpu/ops/pallas_encoder.py::_encoder_layer_kernel (qkv,
+// out-projection, ff1 with GELU, ff2), each a jnp.dot with
+// preferred_element_type=float32 at full f32 precision.
+//
+// Why three passes.  A TF32 operand keeps 10 of f32's 23 mantissa bits, so a
+// single-pass TF32 product is off by ~1e-3 relative: another result than the
+// f32 reference, not a faster one.  3xTF32 splits each f32 operand x into
+// big = tf32_rn(x) and small = tf32_rn(x - big), so x = big + small to
+// ~2^-22 relative, and accumulates big.big + big.small + small.big in f32 on
+// the tensor cores; the dropped small.small term is ~2^-22 relative.  The
+// result keeps f32-level error (~1e-6 relative), and every tolerance of the
+// f32 kernels stands.  tests/test_torch_tf32x3.py emulates this arithmetic on
+// the CPU against the JAX package and pins single-pass TF32's larger error.
+//
+// What bounds it on an H100: three TF32 passes at 495 TFLOP/s are 165 TFLOP/s
+// of f32-equivalent work, ~2.5x the 67 TFLOP/s SIMT f32 peak.  At the gesture
+// layer [82, 81, 256], ff 1024, the products are 10.4 GFLOP against ~17 MB of
+// compulsory traffic, ~600 FLOP per byte: bound by the tensor cores.
+//
+// Design: wgmma (warpgroup MMA) m64n64k8 TF32, A from registers, B from
+// shared memory, fed by a 3-stage cp.async ring of 32-wide K slices.  A
+// block of 2 warpgroups owns a 128 x 64 tile of C = A . W^T, a warpgroup 64
+// rows.  Both operands are K-contiguous (A [M, K], W [N, K], PyTorch's [out,
+// in]), the K-major layout that TF32 wgmma requires of both.  Raw A and W
+// slices land in shared memory as rows of K, padded to 40 floats.  Once a
+// slice has landed, the block splits its W part into a big and a small B
+// tile in wgmma's K-major layout without swizzle (core matrices of 8 rows x
+// 16 bytes: 128 bytes between the two along K, 256 between 8-row groups);
+// each warp reads its A fragments (mma.sync's m16n8k8 layout, the rows of
+// its 16) and splits them in registers.  Within each slice of 8, k is
+// permuted: fragment elements k = t and t + 4 are the adjacent physical
+// columns 2t and 2t + 1 of A (one float2 read), and the split pass writes
+// W's columns in that order.  Each k8 step is three wgmmas (big . small,
+// small . big, big . big) into one f32 accumulator; the block waits for
+// them before the next slice.  No pre-split copy of a weight exists
+// anywhere.  Two blocks fit an SM (108.5 KB).  The same tile serves every
+// product: at 81 rows the N = 256 products have 208 tiles for 132 SMs.  M
+// and N edges are masked (copies past them are zero-filled, stores
+// skipped): T is taken as it is.  The epilogue adds the bias, then GELU
+// (tanh form) or the residual, and stores float2 pairs.  Overlapping the
+// next slice's split with the running wgmmas (two B buffers) measured no
+// faster with a 2-stage ring and slower with 3 (one block an SM); TMA,
+// swizzled tiles and a producer warp are later work.
+//
+// The flash kernel uses the mma.sync.m16n8k8 TF32 primitives below
+// (mma_tf32x3); tools/tf32_ceiling.py measures both instructions' rates.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+// ---- 3xTF32 primitives --------------------------------------------------- //
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as its bits:
+// half a TF32 ulp added to the magnitude bits, the low 13 cleared.  The same
+// rounding as cvt.rna.tf32.f32 for finite x in two integer operations,
+// which measured faster on an H100 than the conversion instruction, whose
+// throughput is lower (the split rounds every operand element twice).
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small to ~2^-22 relative; x - big is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rn(x);
+  small = tf32_rn(x - __uint_as_float(big));
+}
+
+// d += a . b on one m16n8k8 tile, TF32 operands, f32 accumulator.
+// a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (k t, col g), b1 (t + 4, g); d0, d1 (row g, cols 2t, 2t + 1), d2, d3
+// (row g + 8); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b in 3xTF32: the two small cross terms first, then big . big
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_big);
+}
+
+// ---- cp.async ------------------------------------------------------------ //
+
+// 16 bytes global -> shared, or 16 zero bytes when !in (src is not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------- //
+
+// Shared-memory matrix descriptor of wgmma, no swizzle: a K-major operand
+// stored as core matrices of 8 rows x 16 bytes (rows 16 bytes apart); `lbo`
+// bytes between core matrices adjacent along K, `sbo` between 8-row groups.
+__device__ __forceinline__ uint64_t wgmma_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// st.shared writes become visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of v across this point
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(v[i])::"memory");
+}
+
+// d += a . b for a warpgroup: a 64 x 8 TF32 tile from registers (each warp
+// its 16 rows, laid out as mma.sync's m16n8k8 A fragment), b 8 x 64 from
+// shared memory through `desc`, d 64 x 64 in f32 (each warp its 16 rows,
+// per n8 tile as mma.sync's accumulator)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// ---- the GEMM ------------------------------------------------------------ //
+
+constexpr int kTcBM = 128;            // block rows: 2 warpgroups of 64
+constexpr int kTcBN = 64;             // block columns: one wgmma n64 tile
+constexpr int kTcBK = 32;             // K slice per stage: 4 wgmma k8 steps
+constexpr int kTcLd = kTcBK + 8;      // raw rows: conflict-free float2 reads
+constexpr int kTcStages = 3;
+constexpr int kTcThreads = 256;
+constexpr int kTcSlice = kTcBN * 8;   // floats of one k8 step of the B tiles
+constexpr uint32_t kTcLbo = 128, kTcSbo = 256;  // core-matrix strides (bytes)
+// B big and small tiles of one stage, then the ring of raw A and W slices
+constexpr size_t kTcSmem =
+    ((size_t)2 * kTcBK * kTcBN + (size_t)kTcStages * (kTcBM + kTcBN) * kTcLd) * sizeof(float);
+
+enum TcEpilogue {
+  kTcBias,       // C = acc + bias
+  kTcBiasGelu,   // C = gelu_tanh(acc + bias)
+  kTcBiasResid,  // C = resid + (acc + bias)
+};
+
+// C[M, N] = epi(A[M, K] . W[N, K]^T); K % 4 == 0, N % 2 == 0, rows 16-byte
+// aligned.  grid (ceil(N / kTcBN), ceil(M / kTcBM)).
+template <int EPI>
+__global__ void __launch_bounds__(kTcThreads)
+gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                   float* __restrict__ C, const float* __restrict__ bias,
+                   const float* __restrict__ resid, int M, int N, int K) {
+  extern __shared__ __align__(16) float smem[];
+  float* Bbig = smem;                          // [4 k8 steps][kTcSlice]
+  float* Bsmall = Bbig + kTcBK * kTcBN;        // [4 k8 steps][kTcSlice]
+  float* As = Bsmall + kTcBK * kTcBN;          // [stages][kTcBM][kTcLd]
+  float* Ws = As + kTcStages * kTcBM * kTcLd;  // [stages][kTcBN][kTcLd]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  const int ktiles = (K + kTcBK - 1) / kTcBK;
+
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = kt * kTcBK;
+    float* as = As + stage * kTcBM * kTcLd;
+    float* ws = Ws + stage * kTcBN * kTcLd;
+#pragma unroll
+    for (int i = 0; i < kTcBM * (kTcBK / 4) / kTcThreads; ++i) {
+      const int f = tid + i * kTcThreads, r = f >> 3, c = (f & 7) * 4;
+      const bool in = m0 + r < M && k0 + c < K;
+      cp_async16(as + r * kTcLd + c, in ? A + (size_t)(m0 + r) * K + k0 + c : A, in);
+    }
+#pragma unroll
+    for (int i = 0; i < kTcBN * (kTcBK / 4) / kTcThreads; ++i) {
+      const int f = tid + i * kTcThreads, r = f >> 3, c = (f & 7) * 4;
+      const bool in = n0 + r < N && k0 + c < K;
+      cp_async16(ws + r * kTcLd + c, in ? W + (size_t)(n0 + r) * K + k0 + c : W, in);
+    }
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < ktiles) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  // the split pass: thread -> W row sp_n of k8 step sp_s; its 8 values go
+  // to row sp_n of the two core matrices of that step, k permuted so that
+  // logical k = t, t + 4 hold the physical columns 2t, 2t + 1
+  const int sp_s = tid >> 6, sp_n = tid & 63;
+  const int sp_dst = sp_s * kTcSlice + (sp_n >> 3) * 64 + (sp_n & 7) * 4;
+  const uint64_t desc_big = wgmma_desc(Bbig, kTcLbo, kTcSbo);
+  const uint64_t desc_small = wgmma_desc(Bsmall, kTcLbo, kTcSbo);
+  const int arow = warp * 16 + g;  // this warp's A rows arow, arow + 8
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kTcStages - 2>();  // slice kt has landed
+    __syncthreads();                 // ... for every thread; the B tiles are free
+    const int next = kt + kTcStages - 1;
+    if (next < ktiles) load_stage(next % kTcStages, next);
+    cp_async_commit();
+
+    const int stage = kt % kTcStages;
+    const float* ws = Ws + stage * kTcBN * kTcLd + sp_n * kTcLd + 8 * sp_s;
+    {
+      const float4 lo = ld4(ws), hi = ld4(ws + 4);
+      const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      uint32_t bg[8], sm[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // core 0: x0, x2, x4, x6; core 1: x1, x3, x5, x7
+        split_tf32(x[2 * i], bg[i], sm[i]);
+        split_tf32(x[2 * i + 1], bg[4 + i], sm[4 + i]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<uint4*>(Bbig + sp_dst + 32 * h) =
+            make_uint4(bg[4 * h], bg[4 * h + 1], bg[4 * h + 2], bg[4 * h + 3]);
+        *reinterpret_cast<uint4*>(Bsmall + sp_dst + 32 * h) =
+            make_uint4(sm[4 * h], sm[4 * h + 1], sm[4 * h + 2], sm[4 * h + 3]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    const float* as = As + stage * kTcBM * kTcLd + arow * kTcLd + 2 * t;
+    uint32_t a_big[4][4], a_small[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float2 lo = *reinterpret_cast<const float2*>(as + 8 * s);
+      const float2 hi = *reinterpret_cast<const float2*>(as + 8 * kTcLd + 8 * s);
+      split_tf32(lo.x, a_big[s][0], a_small[s][0]);
+      split_tf32(hi.x, a_big[s][1], a_small[s][1]);
+      split_tf32(lo.y, a_big[s][2], a_small[s][2]);
+      split_tf32(hi.y, a_big[s][3], a_small[s][3]);
+    }
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t step = (uint64_t)(s * kTcSlice * sizeof(float)) >> 4;
+      wgmma_m64n64k8_tf32(acc, a_big[s], desc_small + step);
+      wgmma_m64n64k8_tf32(acc, a_small[s], desc_big + step);
+      wgmma_m64n64k8_tf32(acc, a_big[s], desc_big + step);
+    }
+    wgmma_commit();
+    wgmma_wait_all();  // the B tiles and A fragments are read
+    reg_fence(acc);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      reg_fence(a_big[s]);
+      reg_fence(a_small[s]);
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    if (c >= N) continue;
+    const float2 b2 = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + arow + 8 * hf;
+      if (r >= M) continue;
+      const size_t off = (size_t)r * N + c;
+      float v0 = acc[4 * j + 2 * hf] + b2.x, v1 = acc[4 * j + 2 * hf + 1] + b2.y;
+      if (EPI == kTcBiasGelu) {
+        v0 = gelu_tanh(v0);
+        v1 = gelu_tanh(v1);
+      }
+      if (EPI == kTcBiasResid) {
+        const float2 r2 = *reinterpret_cast<const float2*>(resid + off);
+        v0 += r2.x;
+        v1 += r2.y;
+      }
+      *reinterpret_cast<float2*>(C + off) = make_float2(v0, v1);
+    }
+  }
+}
+
+// Queues C = epi(A . W^T) on `s`.
+template <int EPI>
+cudaError_t gemm_tf32x3(const float* A, const float* W, float* C, const float* bias,
+                        const float* resid, int M, int N, int K, cudaStream_t s) {
+  const cudaError_t e = set_smem(gemm_tf32x3_kernel<EPI>, kTcSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
+  gemm_tf32x3_kernel<EPI><<<grid, kTcThreads, kTcSmem, s>>>(A, W, C, bias, resid, M, N, K);
+  return cudaSuccess;
+}
+
+}  // namespace

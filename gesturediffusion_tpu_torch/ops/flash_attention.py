@@ -2,11 +2,11 @@
 
 Counterpart of gesturediffusion_tpu/ops/pallas_flash.py:fused_self_attention
 (softmax(q k^T / sqrt(D)) v per (batch, head), f32 scores, online softmax).
-On a CUDA tensor ``fused_self_attention`` launches csrc/flash_attention.cu;
-on a CPU tensor it runs ``self_attention_reference``.  The encoder layer's
-chain launches the same device code on its packed qkv buffer where a
-head's K and V do not fit in shared memory (ops/fused_encoder.py), and
-counts those launches here too.
+On a CUDA tensor ``fused_self_attention`` launches csrc/flash_attention.cu
+(both products on the tensor cores in 3xTF32, f32-level error); on a CPU
+tensor it runs ``self_attention_reference``.  The inference encoder
+layer's chain launches the same device code on its packed qkv buffer as its
+attention stage (ops/fused_encoder.py), and counts those launches here too.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from gesturediffusion_tpu_torch.ops.band_attention import (
 )
 
 # the head widths the kernel is instantiated for
-FLASH_HEAD_WIDTHS = (32, 64, 128)
+FLASH_HEAD_WIDTHS = (16, 32, 64, 128)
 
 
 def self_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

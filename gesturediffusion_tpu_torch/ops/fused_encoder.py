@@ -17,11 +17,12 @@ output, activation, feed-forward output), with Bernoulli masks
 Weights use PyTorch's [out, in] layout: wqkv [3D, D] (the packed
 ``in_proj_weight``), wo [D, D], w1 [F, D], w2 [D, F]; LayerNorm weight
 and bias [D].  On a CUDA tensor the wrapper launches
-csrc/encoder_layer.cu; on a CPU tensor it runs the plain version.  The
-chain's attention stage keeps a head's K and V in shared memory where they
-fit (``attention_fits``, T <= 384 at dh 64) and is the flash kernel of
-ops/flash_attention.py beyond: two kernels chosen by shape, the same
-function at every T.
+csrc/encoder_layer.cu (its four products on the tensor cores in 3xTF32,
+f32-level error); on a CPU tensor it runs the plain version.  The chain's
+attention stage is the flash kernel of ops/flash_attention.py at every T
+for the head widths that kernel has (``FLASH_HEAD_WIDTHS``); for other
+widths it is the whole-sequence stage, which keeps a head's K and V in
+shared memory and so takes T only where they fit (``attention_fits``).
 """
 
 from __future__ import annotations
@@ -99,8 +100,24 @@ def attention_smem_bytes(t: int, d: int, num_heads: int) -> int:
 
 
 def attention_fits(t: int, d: int, num_heads: int) -> bool:
-    """Whether a head's K and V fit the whole-sequence attention stage."""
+    """Whether a head's K and V fit the whole-sequence attention stage (the
+    inference layer's stage for head widths the flash kernel lacks, and the
+    training layer's)."""
     return attention_smem_bytes(t, d, num_heads) <= MAX_SMEM_BYTES
+
+
+def flash_stage(t: int, d: int, num_heads: int) -> bool:
+    """Whether the kernel chain's attention stage is the flash kernel (every
+    T, head widths in ``FLASH_HEAD_WIDTHS``) or the whole-sequence stage
+    (other widths); raises where neither takes the shape."""
+    if d // num_heads in FLASH_HEAD_WIDTHS:
+        return True
+    if not attention_fits(t, d, num_heads):
+        raise ValueError(
+            f"T={t}: a head's K and V exceed shared memory and the flash stage takes "
+            f"head widths {FLASH_HEAD_WIDTHS}, not {d // num_heads}"
+        )
+    return False
 
 
 @functools.cache
@@ -149,8 +166,9 @@ def fused_encoder_layer(
     CPU tensors run ``encoder_layer_plain``; CUDA tensors launch the
     kernel chain of csrc/encoder_layer.cu (counted once per call in
     ``fused_encoder_layer.launches``), whose attention stage is the flash
-    kernel where ``attention_fits`` is false (counted in
-    ``fused_self_attention.launches``)."""
+    kernel for head widths in ``FLASH_HEAD_WIDTHS`` (counted in
+    ``fused_self_attention.launches``) and the whole-sequence stage for
+    other widths, where a head's K and V fit in shared memory."""
     weights = (wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if x.device.type == "cpu":
         return encoder_layer_plain(x, *weights, num_heads=num_heads)
@@ -160,12 +178,7 @@ def fused_encoder_layer(
     b, t, d = x.shape
     f = w1.shape[0]
     m = b * t
-    flash = not attention_fits(t, d, num_heads)
-    if flash and d // num_heads not in FLASH_HEAD_WIDTHS:
-        raise ValueError(
-            f"T={t}: a head's K and V exceed shared memory and the flash stage takes "
-            f"head widths {FLASH_HEAD_WIDTHS}, not {d // num_heads}"
-        )
+    flash = flash_stage(t, d, num_heads)
     new = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
     qkv, attn, tmp, h1, ff = new((m, 3 * d)), new((m, d)), new((m, d)), new((m, d)), new((m, f))
     out = new((b, t, d))

@@ -7,6 +7,8 @@ it runs on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
+The encoder layer's products and the flash kernel run on the tensor cores
+in 3xTF32 (f32-level error), the other kernels in f32 SIMT arithmetic.
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -89,7 +91,12 @@ def test_local_block_kernel_rejects_float64(dev):
         fused_local_block(x, x[:, 0], num_heads=8, window=5)
 
 
-@pytest.mark.parametrize("b,t,d,h,f", [(82, 81, 256, 4, 1024), (3, 24, 128, 4, 256), (2, 7, 64, 2, 96)])
+@pytest.mark.parametrize("b,t,d,h,f", [
+    (82, 81, 256, 4, 1024),  # M = 6642 rows: off every GEMM tile; N 768, 256, 1024; K 256, 1024
+    (2, 7, 256, 4, 1024),    # M = 14, under one tile
+    (3, 24, 128, 4, 256),
+    (2, 7, 64, 2, 96),       # N = 96 and K = 96: off the 64-column tile and the 32-wide K slice
+])
 def test_encoder_kernel_matches_plain(dev, b, t, d, h, f):
     w = _encoder_weights(d, f, dev)
     x = _randn(np.random.RandomState(4), b, t, d, device=dev)
@@ -164,13 +171,36 @@ def test_flash_kernel_matches_reference(dev, b, h, t, d):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("t,flash", [(81, 0), (1201, 1)])
-def test_encoder_layer_takes_the_flash_stage_past_shared_memory(dev, t, flash):
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 63, 65, 777, 1201])
+def test_flash_kernel_at_tile_edges(dev, t, d, packed):
+    """Lengths around the 64-query and the 64- (32 at d 128) key tiles, each
+    head width, through [B, H, T, D] tensors and through the strides of a
+    packed [B, T, 3, H, D] qkv as the encoder layer hands it over."""
+    b, h = 2, 2
+    rs = np.random.RandomState(16)
+    if packed:
+        qkv = _randn(rs, b, t, 3, h, d, device=dev)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (_randn(rs, b, h, t, d, device=dev) for _ in range(3))
+    want = self_attention_reference(q, k, v)
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("t,heads,flash", [(81, 4, 1), (1201, 4, 1), (81, 32, 0)])
+def test_encoder_layer_takes_the_flash_stage_past_shared_memory(dev, t, heads, flash):
+    """The flash stage at every length for its head widths (64 here), past
+    shared memory and below it; a head width it lacks (8) takes the
+    whole-sequence stage where that fits."""
     w = _encoder_weights(256, 1024, dev, seed=14)
     x = _randn(np.random.RandomState(14), 2, t, 256, device=dev)
-    want = encoder_layer_plain(x, *w, num_heads=4)
+    want = encoder_layer_plain(x, *w, num_heads=heads)
     before = (fused_encoder_layer.launches, fused_self_attention.launches)
-    got = fused_encoder_layer(x, *w, num_heads=4)
+    got = fused_encoder_layer(x, *w, num_heads=heads)
     torch.cuda.synchronize()
     assert (fused_encoder_layer.launches - before[0],
             fused_self_attention.launches - before[1]) == (1, flash)

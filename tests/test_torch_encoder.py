@@ -13,10 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from gesturediffusion_tpu.models.transformer import (
-    TransformerEncoder as JaxEncoder,
-    TransformerEncoderLayer as JaxLayer,
-)
+from gesturediffusion_tpu.models.transformer import TransformerEncoder as JaxEncoder
 from gesturediffusion_tpu.ops.pallas_encoder import fused_encoder_layer as jax_fused_layer
 from gesturediffusion_tpu_torch.models.transformer import TransformerEncoder
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
@@ -24,31 +21,13 @@ from gesturediffusion_tpu_torch.ops.fused_encoder import (
     fused_encoder_layer,
     gelu_tanh,
 )
+from tests.torch_port_common import (
+    jax_layer_args,
+    jax_layer_params as _jax_layer_params,
+    torch_layer_weights as _torch_weights,
+)
 
 ATOL = 1e-4
-
-
-def _jax_layer_params(d, h, f, seed=0):
-    x = jnp.zeros((1, 4, d))
-    layer = JaxLayer(d_model=d, num_heads=h, dim_feedforward=f, dropout=0.0)
-    return layer, jax.tree_util.tree_map(
-        np.asarray, layer.init(jax.random.PRNGKey(seed), x)["params"]
-    )
-
-
-def _torch_weights(p, device="cpu"):
-    """JAX layer params -> fused_encoder_layer's 12 tensors ([out, in])."""
-    def t(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(device)
-
-    return (
-        t(p["self_attn"]["in_proj"]["kernel"].T), t(p["self_attn"]["in_proj"]["bias"]),
-        t(p["self_attn"]["out_proj"]["kernel"].T), t(p["self_attn"]["out_proj"]["bias"]),
-        t(p["norm1"]["scale"]), t(p["norm1"]["bias"]),
-        t(p["linear1"]["kernel"].T), t(p["linear1"]["bias"]),
-        t(p["linear2"]["kernel"].T), t(p["linear2"]["bias"]),
-        t(p["norm2"]["scale"]), t(p["norm2"]["bias"]),
-    )
 
 
 @pytest.mark.parametrize("b,t,d,h,f", [
@@ -67,12 +46,8 @@ def test_cpu_path_matches_pallas_interpret():
     b, t, d, h, f = 3, 20, 64, 4, 128
     x = np.random.RandomState(1).randn(b, t, d).astype(np.float32)
     _, p = _jax_layer_params(d, h, f, seed=1)
-    s, n1, l1, l2, n2 = (p[k] for k in ("self_attn", "norm1", "linear1", "linear2", "norm2"))
     want = np.asarray(jax_fused_layer(
-        jnp.asarray(x), s["in_proj"]["kernel"], s["in_proj"]["bias"],
-        s["out_proj"]["kernel"], s["out_proj"]["bias"], n1["scale"], n1["bias"],
-        l1["kernel"], l1["bias"], l2["kernel"], l2["bias"], n2["scale"], n2["bias"],
-        num_heads=h, block_b=2, interpret=True,
+        jnp.asarray(x), *jax_layer_args(p), num_heads=h, block_b=2, interpret=True,
     ))
     got = encoder_layer_plain(torch.from_numpy(x), *_torch_weights(p), num_heads=h)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)

@@ -20,6 +20,7 @@ from gesturediffusion_tpu_torch.ops.fused_encoder import (
     MAX_SMEM_BYTES,
     attention_fits,
     attention_smem_bytes,
+    flash_stage,
 )
 
 TOL = 2e-5
@@ -60,6 +61,20 @@ def test_encoder_attention_stage_choice(t, fits):
     assert (attention_smem_bytes(t, 256, 4) <= MAX_SMEM_BYTES) is fits
     if t == 81:
         assert attention_smem_bytes(t, 256, 4) == 53008
+
+
+@pytest.mark.parametrize("t,d,heads,flash", [
+    (81, 256, 4, True), (1201, 256, 4, True),     # dh 64: flash at every length
+    (20, 64, 4, True), (300, 512, 4, True),       # dh 16 and 128
+    (81, 256, 32, False), (384, 256, 32, False),  # dh 8: whole-sequence stage where it fits
+])
+def test_encoder_layer_stage_by_head_width(t, d, heads, flash):
+    assert flash_stage(t, d, heads) is flash
+
+
+def test_encoder_layer_stage_raises_past_shared_memory_without_flash():
+    with pytest.raises(ValueError, match="exceed shared memory"):
+        flash_stage(2000, 256, 32)
 
 
 def test_flash_wrapper_rejects_other_devices():

@@ -1,0 +1,115 @@
+"""The numerics of the tensor-core kernels, emulated on the CPU.
+
+The inference encoder layer's products (csrc/gemm_tf32x3.cuh) and both
+products of the flash kernel (csrc/flash_attention.cuh) run in 3xTF32: each
+f32 operand x is split into big = tf32_rn(x) and small = tf32_rn(x - big),
+and big.big + big.small + small.big is accumulated in f32.  This file
+emulates that arithmetic in plain PyTorch (TF32 rounding by integer bit
+arithmetic on the f32 view, as cvt.rna.tf32.f32 rounds: to nearest, ties
+away from zero) and holds it against the JAX package's f32 kernels in
+interpret mode, with the same numpy-seeded inputs and weights:
+ops/pallas_encoder.py:fused_encoder_layer at [3, 24, 128], 4 heads, ff 256,
+within 5e-4 (the card's tolerance for the layer), and
+ops/pallas_flash.py:fused_self_attention at [2, 3, 130, 32], within 2e-4
+(the flash kernel's).  A single TF32 pass is at least 10x further from the
+reference than three: that is why the kernels take three.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from gesturediffusion_tpu.ops.pallas_encoder import fused_encoder_layer as jax_fused_layer
+from gesturediffusion_tpu.ops.pallas_flash import fused_self_attention as jax_flash
+from gesturediffusion_tpu_torch.ops.fused_encoder import LN_EPS, gelu_tanh
+from tests.torch_port_common import jax_layer_args, jax_layer_params, torch_layer_weights
+
+TOL_LAYER, TOL_FLASH = 5e-4, 2e-4
+
+
+def tf32_rn(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: add half a TF32 ulp to the magnitude bits, clear the low 13."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    big = tf32_rn(x)
+    return big, tf32_rn(x - big)
+
+
+def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels compute it: three TF32 passes, f32 sums."""
+    (a_big, a_small), (b_big, b_small) = split(a), split(b)
+    return a_big @ b_small + a_small @ b_big + a_big @ b_big
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in a single TF32 pass."""
+    return tf32_rn(a) @ tf32_rn(b)
+
+
+def attention(q, k, v, mm):
+    """softmax(q k^T / sqrt(dh)) v on [..., T, dh] with both products by
+    ``mm``; scores and softmax in f32."""
+    s = mm(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return mm(s.softmax(dim=-1), v)
+
+
+def encoder_layer(x, wqkv, bqkv, wo, bo, l1w, l1b, w1, b1, w2, b2, l2w, l2b, *, num_heads, mm):
+    """The inference layer (ops/fused_encoder.py:encoder_layer_plain) with
+    every product by ``mm``."""
+    b, t, d = x.shape
+    qkv = mm(x, wqkv.T) + bqkv
+    q, k, v = (y.reshape(b, t, num_heads, -1).transpose(1, 2) for y in qkv.chunk(3, dim=-1))
+    a = attention(q, k, v, mm).transpose(1, 2).reshape(b, t, d)
+    h1 = F.layer_norm(x + (mm(a, wo.T) + bo), (d,), l1w, l1b, LN_EPS)
+    ff = mm(gelu_tanh(mm(h1, w1.T) + b1), w2.T) + b2
+    return F.layer_norm(h1 + ff, (d,), l2w, l2b, LN_EPS)
+
+
+def test_tf32_rn_rounds_to_nearest_ties_away():
+    ulp = 2.0**-10  # TF32 spacing in [1, 2)
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 2 - 2**-20, -(1 + ulp / 2), 1 + 1.5 * ulp,
+                      2 - ulp / 4], dtype=torch.float32)
+    want = torch.tensor([1.0, 1 + ulp, 1.0, -(1 + ulp), 1 + 2 * ulp, 2.0])
+    torch.testing.assert_close(tf32_rn(x), want, rtol=0, atol=0)
+
+
+def test_split_keeps_f32_accuracy():
+    """big + small is x to ~2^-22 relative; big alone only to 2^-11."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(100_000).astype(np.float32))
+    big, small = split(x)
+    assert ((big.double() + small.double() - x.double()).abs() / x.abs().double()).max() <= 2.0**-21
+    assert ((big.double() - x.double()).abs() / x.abs().double()).max() <= 2.0**-11
+    assert torch.equal(tf32_rn(big), big) and torch.equal(tf32_rn(small), small)
+
+
+@pytest.mark.parametrize("b,t,d,h,f", [(3, 24, 128, 4, 256), (2, 17, 64, 4, 128)])
+def test_encoder_layer_in_three_passes_matches_jax(b, t, d, h, f):
+    x = np.random.RandomState(4).randn(b, t, d).astype(np.float32)
+    _, p = jax_layer_params(d, h, f, seed=4)
+    want = np.asarray(jax_fused_layer(jnp.asarray(x), *jax_layer_args(p), num_heads=h,
+                                      block_b=2, interpret=True))
+    w = torch_layer_weights(p)
+    three = encoder_layer(torch.from_numpy(x), *w, num_heads=h, mm=matmul_tf32x3).numpy()
+    one = encoder_layer(torch.from_numpy(x), *w, num_heads=h, mm=matmul_tf32).numpy()
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 <= TOL_LAYER, err3
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("b,h,t,d", [(2, 3, 130, 32), (1, 2, 81, 64)])
+def test_flash_in_three_passes_matches_jax(b, h, t, d):
+    rs = np.random.RandomState(5)
+    q, k, v = (rs.randn(b, h, t, d).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    three = attention(qt, kt, vt, matmul_tf32x3).numpy()
+    one = attention(qt, kt, vt, matmul_tf32).numpy()
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 <= TOL_FLASH, err3
+    assert err1 >= 10 * err3, (err1, err3)

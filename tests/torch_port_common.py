@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from gesturediffusion_tpu.models.mdm import MDM as JaxMDM
+from gesturediffusion_tpu.models.transformer import TransformerEncoderLayer as JaxLayer
 from gesturediffusion_tpu_torch.models.mdm import MDM
 from gesturediffusion_tpu_torch.utils.convert import state_dict_from_params
 
@@ -59,3 +60,34 @@ def to_jax(tree: dict) -> dict:
 
 def to_torch(tree: dict, device="cpu") -> dict:
     return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in tree.items()}
+
+
+def jax_layer_params(d: int, h: int, f: int, seed: int = 0):
+    """(flax TransformerEncoderLayer, its params as numpy)."""
+    layer = JaxLayer(d_model=d, num_heads=h, dim_feedforward=f, dropout=0.0)
+    params = layer.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4, d)))["params"]
+    return layer, jax.tree_util.tree_map(np.asarray, params)
+
+
+def torch_layer_weights(p: dict, device="cpu") -> tuple:
+    """JAX layer params -> the port's 12 encoder-layer tensors ([out, in])."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    return (
+        t(p["self_attn"]["in_proj"]["kernel"].T), t(p["self_attn"]["in_proj"]["bias"]),
+        t(p["self_attn"]["out_proj"]["kernel"].T), t(p["self_attn"]["out_proj"]["bias"]),
+        t(p["norm1"]["scale"]), t(p["norm1"]["bias"]),
+        t(p["linear1"]["kernel"].T), t(p["linear1"]["bias"]),
+        t(p["linear2"]["kernel"].T), t(p["linear2"]["bias"]),
+        t(p["norm2"]["scale"]), t(p["norm2"]["bias"]),
+    )
+
+
+def jax_layer_args(p: dict) -> tuple:
+    """JAX layer params -> ops/pallas_encoder.py:fused_encoder_layer's 12
+    weight arguments ([in, out])."""
+    s, n1, l1, l2, n2 = (p[k] for k in ("self_attn", "norm1", "linear1", "linear2", "norm2"))
+    return (s["in_proj"]["kernel"], s["in_proj"]["bias"], s["out_proj"]["kernel"],
+            s["out_proj"]["bias"], n1["scale"], n1["bias"], l1["kernel"], l1["bias"],
+            l2["kernel"], l2["bias"], n2["scale"], n2["bias"])

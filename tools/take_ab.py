@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Sampling speed of several trees of the PyTorch port on one card, in turns.
+
+    python3 tools/take_ab.py build/parent . . build/parent
+
+For each tree given (the root of a checkout: a `git archive` of another
+commit unpacked into a git-ignored directory, or `.`), a process of its own
+imports that tree's gesturediffusion_tpu_torch (its kernels built from its
+csrc/ into its build/kernels/) and times, with the kernels, the two
+sampling takes of chip_smoke.py (this tree's copy supplies the constants
+and the take driver): the 80-frame take (41 takes x 2 chunks x 50 DDPM
+steps, CFG batch 82) and the 1200-frame take (41 x 2 x 20 steps), each run
+once to warm up and then timed three times, with the same seeded weights
+and inputs in every tree.  One line a tree: the median ms per denoise step
+and chunks/s of each take, with the card's name and power limit.  Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def one_tree(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    model = MDM(njoints=cs.J, latent_dim=cs.D, ff_size=cs.FF, num_layers=cs.LAYERS,
+                num_heads=cs.HEADS, cond_mask_prob=0.1, seed_poses=cs.S, mfcc_dim=cs.A,
+                cl_head=cs.CL_HEADS, window_size=cs.WINDOW).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init_seed = torch.randn(cs.B_TAKES, cs.J, 1, cs.S, generator=gen, device=dev) * 0.5
+    result = {"root": root}
+    for frames, respacing, steps in ((cs.T, cs.RESPACING, cs.STEPS),
+                                     (cs.T_LONG, cs.LONG_RESPACING, cs.LONG_STEPS)):
+        diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                     timestep_respacing=respacing, device=dev)
+        conds = {"mfcc": torch.randn(cs.CHUNKS, cs.B_TAKES, cs.A, 1, frames, generator=gen,
+                                     device=dev),
+                 "scale": torch.full((cs.CHUNKS, cs.B_TAKES), cs.GUIDANCE, device=dev)}
+        cs.run_take(model, diffusion, conds, init_seed, 1)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cs.run_take(model, diffusion, conds, init_seed, 1)
+            times.append(time.perf_counter() - t0)
+        take_s = sorted(times)[1]
+        result[f"T={frames}"] = {"ms_per_step": take_s / (steps * cs.CHUNKS) * 1e3,
+                                 "chunks_per_s": cs.B_TAKES * cs.CHUNKS / take_s}
+    return result
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--one"]:
+        print(json.dumps(one_tree(argv[1])))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or not argv:
+        print("take_ab: needs a CUDA card and at least one tree", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    for root in argv:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                             check=True, capture_output=True, text=True, cwd=HERE).stdout
+        r = json.loads(out.strip().splitlines()[-1])
+        print(f"take A/B {root}: " + ", ".join(
+            f"{k} {v['ms_per_step']:.3f} ms/step = {v['chunks_per_s']:.3f} chunks/s"
+            for k, v in r.items() if k != "root") + f" [{smi}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
