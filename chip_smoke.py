@@ -5,11 +5,15 @@ NVIDIA card: ``python3 chip_smoke.py`` from the root of the repository.
 Phases, each fatal on failure:
   1. device   card name, count, power limit; TF32 switched off
   2. build    nvcc builds every kernel from csrc/ (in parallel), printing
-              the -Xptxas -v register / shared-memory / spill lines
+              the -Xptxas -v register / shared-memory / spill lines, and
+              counts the TF32 tensor-core instructions (wgmma's HGMMA,
+              mma.sync's HMMA) of each training-layer kernel in its SASS
   3. parity   each kernel against its plain PyTorch version on the card at
               the main-path shapes, with the tolerance stated: the sampling
               kernels at batch 82, the training layer's forward (rates 0.1
-              and 0) and backward (dx and 12 gradients) at microbatch 64
+              and 0) and backward (dx and 12 gradients) at microbatch 64 and
+              81 rows (80 frames and the token), 121 rows (the train CLI's
+              default 120 frames) and 201 rows (off every tile)
   4. sample   the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
               seeded random weights samples a 41-take, 2-chunk CFG take
               (batch 82) through select_sampling_model_fn ->
@@ -22,13 +26,17 @@ Phases, each fatal on failure:
               timesteps and noise, counting 32 forward and 32 backward
               launches a step; the same steps with the plain versions are
               compared with it; then the train CLI trains 20 steps on
-              --dataset synthetic (launches counted again) and the generate
-              CLI samples from the checkpoint it wrote
+              --dataset synthetic at its default --num_frames 120 (launches
+              counted again) and the generate CLI samples from the
+              checkpoint it wrote
   6. times    kernel, plain and library-call times (CUDA events), take and
               train-step throughput and peak memory, and a profile of a
               denoise step and of a train step, with the card name and
               power limit; the encoder layer at T = 81 with each attention
-              stage (flash, whole-sequence) through its C entry point
+              stage (flash, whole-sequence) through its C entry point; the
+              training kernels at 81 and 121 rows and the device kernels one
+              forward and backward launch (none of them a library kernel);
+              the train-step profile summed by kernel
   7. long     long-chunk sampling at 1200 frames: the band-attention kernel
               at [82, 8, 1200, 32], the flash kernel at [82, 4, 1201, 64]
               (and at a length off its tile), the encoder layer with its
@@ -39,10 +47,11 @@ Phases, each fatal on failure:
               library times, the SDPA backend the library yardstick ran
               (from the profiler's kernel names), take throughput and a
               profile of a long denoise step
-The encoder layer's products and the flash kernel run on the tensor cores
-in 3xTF32: their bound is the larger of bytes / 3.35 TB/s and 3 x FLOP /
-495 TFLOP/s, and their rows print the achieved f32-equivalent TFLOP/s.  The
-other kernels are f32 SIMT: operations / 67 TFLOP/s.
+The encoder layers' products and attention (kernels 1, 4, 5 and 6) run on
+the tensor cores in 3xTF32: their bound is the larger of bytes / 3.35 TB/s
+and 3 x FLOP / 495 TFLOP/s, and their rows print the achieved
+f32-equivalent TFLOP/s.  The other kernels are f32 SIMT: operations / 67
+TFLOP/s.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.  It imports nothing of JAX or of the JAX package.
@@ -70,6 +79,8 @@ TOL_LOCAL_BLOCK = 1e-4   # f32; <= 20-term softmax sums, cos/sin within 2 ulp
 TOL_ENCODER = 5e-4       # f32; K<=1024 sums in another order, LN rescaling
 TOL_TAKE = 1e-3          # f32; 100 chained denoise steps of 8 layers each
 MB, BATCH, RATE, TRAIN_STEPS, CLI_STEPS = 64, 256, 0.1, 5, 20
+T_CLI = 120              # the train CLI's default --num_frames
+TRAIN_ROWS = (T + 1, T_CLI + 1, 201)  # training-layer parity; 201 = 3 x 64 + 9
 TOL_TRAIN_FWD = 1e-4     # f32; as the inference layer, the same dropout masks
 TOL_TRAIN_GRAD = 5e-4    # of each gradient's max |value|; weight grads sum 5184 rows
 TOL_STEP_LOSS = 5e-4     # relative; 5 steps at batch 256 through 8 layers
@@ -81,6 +92,29 @@ TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online res
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def tensor_core_sass(name: str) -> dict:
+    """{kernel (mangled name): {"HGMMA": n, "HMMA": n}}: the TF32 tensor-core
+    instructions of each kernel in library ``name``'s SASS (cuobjdump
+    -sass), or {} where the toolkit has no cuobjdump."""
+    from gesturediffusion_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", _build.library_path(name)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None and "TF32" in line:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[fn][op] += 1
+    return counts
 
 
 def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -424,9 +458,10 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
     return rows, launches
 
 
-def device_profile(step, steps, label, card, host_rows=0):
+def device_profile(step, steps, label, card, host_rows=0, groups=None):
     """Device time by kernel over ``steps`` calls of ``step`` (torch.profiler,
-    CUPTI), the device's idle share of an unprofiled call and, with
+    CUPTI), the device's idle share of an unprofiled call, with ``groups``
+    (kernel name -> label or None) the time summed by label and, with
     ``host_rows``, the host ops with the most self CPU time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -454,6 +489,15 @@ def device_profile(step, steps, label, card, host_rows=0):
         f"{max(0.0, 1 - busy_ms / step_ms):.3f} {card}")
     for ms, n, name in rows[:14]:
         log(f"  {ms:.4f} ms/step {100 * ms / busy_ms:5.1f}%  x{n}  {name[:90]}")
+    if groups is not None:
+        summed = {}
+        for ms, n, name in rows:
+            label = groups(name) or "everything else (PyTorch's kernels)"
+            t, c = summed.get(label, (0.0, 0))
+            summed[label] = (t + ms, c + n)
+        log("  by group:")
+        for label, (ms, n) in sorted(summed.items(), key=lambda kv: -kv[1][0]):
+            log(f"  {ms:.4f} ms/step {100 * ms / busy_ms:5.1f}%  x{n}  {label}")
     if host_rows:
         host.sort(reverse=True)
         log(f"  host: {sum(h[0] for h in host):.4f} ms/step of self CPU time in ops; top:")
@@ -492,7 +536,7 @@ def check_train_layer(xt, gt, enc_w, seed):
         encoder_layer_train_plain,
     )
 
-    shape = f"[{MB},{T + 1},{D}] heads {HEADS} ff {FF}"
+    shape = f"[{xt.shape[0]},{xt.shape[1]},{D}] heads {HEADS} ff {FF}"
     fwd_err = {}
     for rate in (RATE, 0.0):
         got = encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=HEADS, rate=rate)
@@ -530,6 +574,104 @@ def check_train_layer(xt, gt, enc_w, seed):
     if not ok:
         raise AssertionError("training backward kernel disagrees with autograd")
     return fwd_err[RATE], abs_err
+
+
+def train_kernel_times(xt, gt, enc_w, seed):
+    """Times of the training kernels at xt's shape, and of the plain layer
+    and the torch+SDPA composition (forward; forward and backward), with
+    their work: {"fwd": row, "bwd": row}, a row being (ms, plain ms, library
+    ms, bound ms, bound by, FLOP, bytes).  FLOP counts the function's
+    products once (the backward: the recompute and twice the forward's), as
+    PR 4's table did, whatever the kernels recompute besides."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+        encoder_layer_train_plain,
+    )
+
+    tw = [w.detach().clone().requires_grad_() for w in enc_w]
+    tx_ = xt.detach().clone().requires_grad_()
+
+    def plain_fwd_bwd():
+        with torch.enable_grad():
+            encoder_layer_train_plain(tx_, *tw, seed=seed, num_heads=HEADS, rate=RATE).backward(gt)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            encoder_layer_sdpa(tx_, *tw, HEADS, rate=RATE).backward(gt)
+
+    ms = {
+        "fwd": (cuda_time_ms(lambda: encoder_layer_train_fwd(
+                    xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE)),
+                cuda_time_ms(lambda: encoder_layer_train_plain(
+                    xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE)),
+                cuda_time_ms(lambda: encoder_layer_sdpa(xt, *enc_w, HEADS, rate=RATE))),
+        "bwd": (cuda_time_ms(lambda: encoder_layer_train_bwd(
+                    xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE)),
+                cuda_time_ms(plain_fwd_bwd), cuda_time_ms(lib_fwd_bwd)),
+    }
+    b, t = xt.shape[:2]
+    gemm_flops = 2 * b * t * (4 * D * D + 2 * D * FF)
+    attn_flops = 4 * b * t**2 * D
+    w_bytes = 4 * sum(w.numel() for w in enc_w)
+    work = {"fwd": (gemm_flops + attn_flops, 4 * 2 * b * t * D + w_bytes + 4),
+            # the backward recomputes the forward, then twice its products
+            "bwd": (3 * (gemm_flops + attn_flops), 4 * 3 * b * t * D + 2 * w_bytes + 4)}
+    return {k: (*ms[k], *bound_ms(*work[k], tf32x3=True), *work[k]) for k in ms}
+
+
+def time_keys(row):
+    """The timing keys of a kernel's JSON row from a train_kernel_times row."""
+    return dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), row[:5]))
+
+
+# the port's kernels on the training layer's path, by the profiler's names
+# (demangled or mangled), grouped for the train-step profile
+TRAIN_KERNEL_GROUPS = (
+    ("GEMM forward products (wgmma 3xTF32)",
+     ("gemm_tf32x3_kernel<true, true", "gemm_tf32x3_kernelILb1ELb1E")),
+    ("GEMM data gradients (wgmma 3xTF32, B transposed)",
+     ("gemm_tf32x3_kernel<true, false", "gemm_tf32x3_kernelILb1ELb0E")),
+    ("GEMM weight gradients (wgmma 3xTF32, both transposed, split-K)",
+     ("gemm_tf32x3_kernel<false, false", "gemm_tf32x3_kernelILb0ELb0E")),
+    ("flash attention forward with dropout (mma.sync 3xTF32)", ("flash_attention_kernel",)),
+    ("attention backward dQ and dK/dV passes (mma.sync 3xTF32)",
+     ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")),
+    ("row and column passes (LayerNorm, its backward, column and split sums, D)",
+     ("layernorm_kernel", "ln_bwd_kernel", "colsum_kernel", "sum_splits_kernel",
+      "attn_bwd_rowdot_kernel")),
+)
+
+
+def train_kernel_group(name: str):
+    """The TRAIN_KERNEL_GROUPS label of a device kernel, or None."""
+    for label, keys in TRAIN_KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return label
+    return None
+
+
+def layer_kernel_names(xt, gt, enc_w, seed) -> set:
+    """The device kernels that one training forward and one backward launch
+    run, read from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE)
+        encoder_layer_train_bwd(xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE)
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and not e.key.startswith(("Memcpy", "Memset"))}
 
 
 def train_phase(dev, randn, rs, card):
@@ -635,7 +777,7 @@ def train_cli_phase(card):
     t0 = time.perf_counter()
     loop = train_mdm.main([
         "--dataset", "synthetic", "--save_dir", save_dir, "--overwrite",
-        "--num_frames", str(T), "--batch_size", str(BATCH), "--microbatch_size", str(MB),
+        "--num_frames", str(T_CLI), "--batch_size", str(BATCH), "--microbatch_size", str(MB),
         "--num_steps", str(CLI_STEPS), "--log_interval", "10",
         "--use_fused_train_encoder"])
     cli_s = time.perf_counter() - t0
@@ -643,8 +785,9 @@ def train_cli_phase(card):
     want = LAYERS * (BATCH // MB) * CLI_STEPS
     ckpt = os.path.join(save_dir, f"model{CLI_STEPS:09d}.pt")
     ok = launches == (want, want) and loop.state.step == CLI_STEPS and os.path.exists(ckpt)
-    log(f"{'OK' if ok else 'FAIL'} train CLI on the card: {CLI_STEPS} steps at batch {BATCH} "
-        f"in {cli_s:.1f} s (data set-up included); launches fwd {launches[0]} bwd "
+    log(f"{'OK' if ok else 'FAIL'} train CLI on the card: {CLI_STEPS} steps at batch {BATCH}, "
+        f"--num_frames {T_CLI}, in {cli_s:.1f} s (data set-up included); launches fwd "
+        f"{launches[0]} bwd "
         f"{launches[1]} (expected {want} each); wrote {os.path.basename(ckpt)} {card}")
     if not ok:
         raise AssertionError("train CLI: wrong launch counts or no checkpoint")
@@ -656,7 +799,7 @@ def train_cli_phase(card):
         check=True, cwd=HERE, timeout=600,
     )
     res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
-    ok = res["motion"].shape == (8, J // 6, 3, T) and np.isfinite(res["motion"]).all()
+    ok = res["motion"].shape == (8, J // 6, 3, T_CLI) and np.isfinite(res["motion"]).all()
     log(f"{'OK' if ok else 'FAIL'} generate CLI on the trained checkpoint: motion "
         f"{res['motion'].shape}")
     if not ok:
@@ -680,11 +823,6 @@ def main() -> int:
     from gesturediffusion_tpu_torch.ops.fused_encoder import (
         encoder_layer_plain,
         fused_encoder_layer,
-    )
-    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
-        encoder_layer_train_bwd,
-        encoder_layer_train_fwd,
-        encoder_layer_train_plain,
     )
     from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
     from gesturediffusion_tpu_torch.ops.fused_local_block import (
@@ -718,6 +856,15 @@ def main() -> int:
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
+    sass = tensor_core_sass("encoder_layer_train")
+    if not sass:
+        log("sass: not measured (no cuobjdump beside nvcc)")
+    for fn, ops in sorted(sass.items()):
+        log(f"sass encoder_layer_train {fn[:110]}: TF32 HGMMA x{ops['HGMMA']}, HMMA x{ops['HMMA']}")
+        product = any(k in fn for k in ("gemm_tf32x3_kernel", "flash_attention_kernel",
+                                        "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel"))
+        if product and not (ops["HGMMA"] or ops["HMMA"]):
+            raise AssertionError(f"{fn}: a product kernel without TF32 tensor-core instructions")
 
     torch.set_grad_enabled(False)
     rs = np.random.RandomState(0)
@@ -757,9 +904,12 @@ def main() -> int:
     if not ok:
         raise AssertionError("encoder_layer kernel disagrees with its plain version")
 
-    xt, gt = randn(MB, T + 1, D), randn(MB, T + 1, D)
     seed = torch.tensor([20240], dtype=torch.int32, device=dev)
-    train_fwd_err, train_bwd_err = check_train_layer(xt, gt, enc_w, seed)
+    train_x = {t: (randn(MB, t, D), randn(MB, t, D)) for t in TRAIN_ROWS}
+    train_errs = [check_train_layer(x_, g_, enc_w, seed) for x_, g_ in train_x.values()]
+    train_fwd_err = max(e[0] for e in train_errs)
+    train_bwd_err = max(e[1] for e in train_errs)
+    xt, gt = train_x[T + 1]
 
     # ---- 4. main path: full-width CFG chunked-AR take ------------------ #
     torch.manual_seed(0)
@@ -868,46 +1018,22 @@ def main() -> int:
     if not ok:
         raise AssertionError("an attention stage of the encoder layer disagrees at T = 81")
 
-    tw = [w.detach().clone().requires_grad_() for w in enc_w]
-    tx_ = xt.detach().clone().requires_grad_()
-
-    def plain_fwd_bwd():
-        with torch.enable_grad():
-            encoder_layer_train_plain(tx_, *tw, seed=seed, num_heads=HEADS, rate=RATE).backward(gt)
-
-    def lib_fwd_bwd():
-        with torch.enable_grad():
-            encoder_layer_sdpa(tx_, *tw, HEADS, rate=RATE).backward(gt)
-
-    tf_ms = cuda_time_ms(lambda: encoder_layer_train_fwd(
-        xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE))
-    tb_ms = cuda_time_ms(lambda: encoder_layer_train_bwd(
-        xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE))
-    tf_plain_ms = cuda_time_ms(lambda: encoder_layer_train_plain(
-        xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE))
-    tb_plain_ms = cuda_time_ms(plain_fwd_bwd)
-    tf_lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(xt, *enc_w, HEADS, rate=RATE))
-    tb_lib_ms = cuda_time_ms(lib_fwd_bwd)
-    mt = MB * (T + 1)
-    gemm_flops = 2 * mt * (4 * D * D + 2 * D * FF)
-    attn_flops = 4 * MB * (T + 1) ** 2 * D
-    w_bytes = 4 * sum(w.numel() for w in enc_w)
-    tf_flops = gemm_flops + attn_flops
-    tf_bytes = 4 * 2 * mt * D + w_bytes + 4
-    # the backward recomputes the forward, then twice its products
-    tb_flops = tf_flops + 2 * gemm_flops + 2 * attn_flops
-    tb_bytes = 4 * 3 * mt * D + 2 * w_bytes + 4
-    tf_bound, tf_by = bound_ms(tf_flops, tf_bytes)
-    tb_bound, tb_by = bound_ms(tb_flops, tb_bytes)
+    train_times = {t: train_kernel_times(*train_x[t], enc_w, seed) for t in (T + 1, T_CLI + 1)}
+    layer_kernels = layer_kernel_names(xt, gt, enc_w, seed)
+    ok = all(train_kernel_group(n) for n in layer_kernels)
+    log(f"{'OK' if ok else 'FAIL'} device kernels of one encoder_layer_train_fwd and _bwd "
+        f"launch (the port's own, none from a library): {sorted(layer_kernels)}")
+    if not ok:
+        raise AssertionError("a product of the training layer ran outside the port's kernels")
 
     time_line("local_block", lb_ms, lb_plain_ms, lb_lib_ms, lb_bound, lb_by, lb_flops, lb_bytes,
               card)
     time_line(f"encoder_layer [{bb},{T + 1},{D}]", enc_ms, enc_plain_ms, enc_lib_ms, enc_bound,
               enc_by, enc_flops, enc_bytes, card, tf32x3=True)
-    time_line("encoder_layer_train_fwd", tf_ms, tf_plain_ms, tf_lib_ms, tf_bound, tf_by, tf_flops,
-              tf_bytes, card)
-    time_line("encoder_layer_train_bwd (plain and library: forward + backward)", tb_ms,
-              tb_plain_ms, tb_lib_ms, tb_bound, tb_by, tb_flops, tb_bytes, card)
+    for t, tt in train_times.items():
+        time_line(f"encoder_layer_train_fwd [{MB},{t},{D}]", *tt["fwd"], card, tf32x3=True)
+        time_line(f"encoder_layer_train_bwd [{MB},{t},{D}] (plain and library: forward + "
+                  f"backward)", *tt["bwd"], card, tf32x3=True)
     n_steps = STEPS * CHUNKS
     log(f"time take ({B_TAKES} takes x {CHUNKS} chunks x {STEPS} DDPM steps, CFG batch {bb}): "
         f"kernels {kernel_take_s:.3f} s = {B_TAKES * CHUNKS / kernel_take_s:.3f} chunks/s, "
@@ -925,7 +1051,7 @@ def main() -> int:
                    tbatch["t"], tbatch["noise"])
 
     device_profile(one_train_step, 2, f"train step (batch {BATCH} = {BATCH // MB} x {MB})",
-                   card, host_rows=8)
+                   card, host_rows=8, groups=train_kernel_group)
 
     # ---- 7. long chunks: band and flash kernels, T = 1200 take, CLI ---- #
     long_rows, long_launches = long_chunk_phase(model, model_path, enc_w, randn, card)
@@ -950,14 +1076,12 @@ def main() -> int:
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:249",
          "launches": train_launches[0], "max_abs_err": train_fwd_err,
-         "ms": tf_ms, "plain_ms": tf_plain_ms, "bound_ms": tf_bound,
-         "bound_by": tf_by, "library_ms": tf_lib_ms},
+         **time_keys(train_times[T + 1]["fwd"])},
         {"name": "encoder_layer_train_bwd", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
          "launches": train_launches[1], "max_abs_err": train_bwd_err,
-         "ms": tb_ms, "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
-         "bound_by": tb_by, "library_ms": tb_lib_ms},
+         **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
     ]
     print(json.dumps({"kernels": kernels}))

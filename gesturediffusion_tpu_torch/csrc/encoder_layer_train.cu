@@ -24,145 +24,483 @@
 // it.  What bounds it on an H100: at the training shape [64, 81, 256], ff
 // 1024, the forward does ~8.58 GFLOP against ~13.8 MB of compulsory
 // traffic and the backward ~25.7 GFLOP against ~22.2 MB: both are bound by
-// arithmetic (f32 SIMT, no tensor cores: ~0.13 and ~0.38 ms at 67 TFLOP/s).
+// arithmetic.  Every product runs on the tensor cores in 3xTF32
+// (gemm_tf32x3.cuh: each f32 operand split into a TF32 big and small part,
+// big.big + big.small + small.big accumulated in f32, f32-level error), so
+// the bound is three TF32 passes at 495 TFLOP/s: ~0.052 and ~0.156 ms.
 //
 // Design: the TPU kernels kept a batch block in VMEM and accumulated the
 // weight gradients in VMEM scratch across a sequential grid.  Here each
 // entry point is a chain of launches on one stream:
-//   * the SIMT GEMM of common.cuh (shared with the inference layer,
-//     csrc/encoder_layer.cu), which reads either operand along K or along
-//     its other axis, so the forward products (A . W^T), the data gradients
-//     (dY . W) and the weight gradients (dY^T . X, a reduction over all B*T
-//     rows) share it.  The weight gradients split the row reduction into
-//     chunks that fill the card and add the partial sums in a second pass,
-//     in a fixed order: deterministic, no atomics.  Fused epilogues apply
-//     bias, GELU-tanh, dropout, the GELU derivative and residuals;
-//   * the attention forward of common.cuh (a block per (batch, head), a
-//     warp per two query rows) with its site-0 dropout, and here its
-//     backward, which keeps Q, K, V, dO and the [T, T] probability
-//     gradients of its head in shared memory;
+//   * the wgmma GEMM of gemm_tf32x3.cuh (shared with the inference layer),
+//     which takes either operand along K or transposed, so the forward
+//     products (A . W^T), the data gradients (dY . W) and the weight
+//     gradients (dY^T . X, a reduction over all B*T rows) share it.  The
+//     weight gradients split the row reduction into chunks that fill the
+//     card and add the partial sums in a second pass, in a fixed order:
+//     deterministic, no atomics.  Fused epilogues apply bias, GELU-tanh,
+//     dropout, the GELU derivative and residuals;
+//   * the flash attention forward of flash_attention.cuh with its site-0
+//     dropout (and, in the backward's recompute, the rows' log-sum-exp),
+//     and here a flash-style attention backward (FlashAttention-2 with
+//     dropout) on mma.sync 3xTF32: neither holds a head's whole sequence,
+//     so T is bounded by device memory only;
 //   * LayerNorm forward (common.cuh) and backward row kernels (a warp per
 //     row) and a column-sum kernel for the bias and LayerNorm-parameter
-//     gradients.
+//     gradients: memory-bound passes.
 // The backward's recomputed intermediates live in one workspace that the
 // caller allocates for the call and frees after it; nothing but x, the
-// weights and the seed is kept between forward and backward.
+// weights and the seed is kept between forward and backward.  Two backward
+// calls on the same inputs give bit-equal results.
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "flash_attention.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
 constexpr int kColX = 32, kColY = 16;  // column-sum block: 32 columns
+constexpr int kColSplits = 16;         // row chunks of a column sum, at most
 constexpr int kTargetBlocks = 264;     // two GEMM blocks per H100 SM
 constexpr int kSumThreads = 256;
 
-// Attention backward of one (batch, head): qkv [B*T, 3D] and dout [B*T, D]
-// -> dqkv [B*T, 3D].  The softmax is recomputed from q and k and the site-0
-// masks redrawn.  With p the undropped probabilities and pd the dropped:
-//   dv = pd^T dO;  dp = keep ? (dO v^T) / keep : 0;
-//   ds = p * (dp - rowsum(dp * p)) * scale;  dq = ds k;  dk = ds^T q.
-// Q, K, V, dO ([T][dh + 4]) and ds, pd ([T][tp]) stay in shared memory.
-__global__ void __launch_bounds__(kAttnThreads)
-attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                float* __restrict__ dqkv, int T, int D, int H, float scale,
-                Drop drop) {
-  extern __shared__ __align__(16) float smem[];
-  const int dh = D / H, ks = dh + 4, tp = (T + 3) & ~3;
-  const int nwarps = blockDim.x >> 5;
-  float* Qs = smem;
-  float* Ks = Qs + T * ks;
-  float* Vs = Ks + T * ks;
-  float* Os = Vs + T * ks;   // dO
-  float* dS = Os + T * ks;   // [T][tp]
-  float* Pd = dS + T * tp;   // [T][tp]
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float* base = qkv + (size_t)b * T * 3 * D + h * dh;
-  const float* obase = dout + (size_t)b * T * D + h * dh;
+// ---- attention backward -------------------------------------------------- //
+//
+// With P the softmax of S = scale q k^T, Z the scaled site-0 keep mask
+// (inv_keep or 0) and O = (Z o P) V the dropped output of the recompute,
+// the FlashAttention-2 identities with dropout:
+//   dP = Z o (dO V^T),  D_i = rowsum(dO_i o O_i) = sum_j P_ij dP_ij,
+//   dS = P o (dP - D) * scale,  dV = (Z o P)^T dO,  dK = dS^T Q,  dQ = dS K.
+// P is recomputed tile by tile from S and the forward's log-sum-exp (log2
+// units): P = exp2(S log2(e) - lse).  Two passes, both deterministic (no
+// atomics), both with a block of 4 warps keeping 64 rows of one (batch,
+// head) resident, a warp 16 of them, and streaming tiles of the other side
+// through a 3-stage cp.async ring:
+//   * the dK/dV pass keeps 64 keys and walks the query tiles.  It computes
+//     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out as
+//     accumulator fragments whose columns are queries; under the k
+//     permutation of gemm_tf32x3.cuh those are exactly the A fragments of
+//     dV += (Z o P)^T dO and dK += dS^T Q (the trick that keeps P in
+//     registers for P V in the forward);
+//   * the dQ pass keeps 64 queries and walks the key tiles: S = Q K^T,
+//     dP = dO V^T, then dQ += dS K from the dS accumulator.
+// The dQ pass recomputes S and dP: 7 tile products instead of FA-2's 5,
+// the price of summing dQ without atomics or [T, T] partials.  Every
+// product is mma.sync.m16n8k8 TF32 in three passes.  The mask index is
+// ((b*H + h)*T + i)*T + j at the physical query i and key j of each
+// accumulator element (the S accumulator of row g holds keys 2t, 2t + 1).
+// Rows are padded to dh + 4 floats: the float2 reads along the head width
+// (row g, columns 2t, 2t + 1) and the scalar reads down it (rows 2t, 2t +
+// 1, column g) are then both free of bank conflicts for dh >= 32.  A warp
+// whose 16 resident rows all lie past T skips the arithmetic; the ragged
+// tile of the other side is masked (p = 0).
 
-  const int dh4 = dh / 4;
-  for (int idx = threadIdx.x; idx < T * dh4; idx += blockDim.x) {
-    const int j = idx / dh4, d = (idx - j * dh4) * 4;
-    const float* row = base + (size_t)j * 3 * D + d;
-    *reinterpret_cast<float4*>(Qs + j * ks + d) = ld4(row);
-    *reinterpret_cast<float4*>(Ks + j * ks + d) = ld4(row + D);
-    *reinterpret_cast<float4*>(Vs + j * ks + d) = ld4(row + 2 * D);
-    *reinterpret_cast<float4*>(Os + j * ks + d) = ld4(obase + (size_t)j * D + d);
-  }
-  __syncthreads();
+constexpr int kBwdThreads = 128;  // 4 warps of 16 resident rows
+constexpr int kBwdRows = 64;      // resident rows a block
 
-  const bool has_drop = drop.seed != nullptr;
-  const uint32_t salt = has_drop ? site_salt(drop.seed, kSiteAttn) : 0u;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < T; i += nwarps) {
-    const float* qi = Qs + i * ks;
-    const float* oi = Os + i * ks;
-    float* ds = dS + i * tp;
-    float* pd = Pd + i * tp;
-    float m = -FLT_MAX;
-    for (int j = lane; j < T; j += 32) {
-      const float* kj = Ks + j * ks;
-      float s = 0.0f;
-      for (int d = 0; d < dh; d += 4) {
-        const float4 k4 = ld4(kj + d), a = ld4(qi + d);
-        s = fmaf(a.x, k4.x, s); s = fmaf(a.y, k4.y, s);
-        s = fmaf(a.z, k4.z, s); s = fmaf(a.w, k4.w, s);
-      }
-      s *= scale;
-      ds[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int j = lane; j < T; j += 32) {
-      const float e = expf(ds[j] - m);
-      ds[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    const uint32_t row_idx = (static_cast<uint32_t>(b * H + h) * T + i) * T;
-    float r = 0.0f;
-    for (int j = lane; j < T; j += 32) {
-      const float* vj = Vs + j * ks;
-      float dpd = 0.0f;
-      for (int d = 0; d < dh; d += 4) {
-        const float4 v4 = ld4(vj + d), a = ld4(oi + d);
-        dpd = fmaf(a.x, v4.x, dpd); dpd = fmaf(a.y, v4.y, dpd);
-        dpd = fmaf(a.z, v4.z, dpd); dpd = fmaf(a.w, v4.w, dpd);
-      }
-      const float p = ds[j] / l;
-      const float dp = has_drop ? dropped(dpd, row_idx + j, salt, drop) : dpd;
-      ds[j] = p;
-      pd[j] = dp;  // dp until the row sum is known
-      r = fmaf(dp, p, r);
-    }
-    r = warp_sum(r);
-    for (int j = lane; j < T; j += 32) {
-      const float p = ds[j], dp = pd[j];
-      ds[j] = p * (dp - r) * scale;
-      pd[j] = has_drop ? dropped(p, row_idx + j, salt, drop) : p;
-    }
-  }
-  __syncthreads();
+template <int DH>
+struct BwdTile {
+  static constexpr int LD = DH + 4;              // row stride (floats)
+  static constexpr int BN = DH <= 64 ? 32 : 16;  // streamed rows a tile
+  static constexpr int kStages = 3;
+  // resident [64][LD] x 2, the ring [kStages][BN][LD] x 2, lse and D of the
+  // dK/dV pass's query tiles [kStages][BN] x 2
+  static constexpr size_t smem =
+      ((size_t)2 * kBwdRows * LD + (size_t)2 * kStages * BN * LD + 2 * kStages * BN) *
+      sizeof(float);
+};
 
-  // dq[i] = sum_j ds[i][j] k[j]; dk[j] = sum_i ds[i][j] q[i];
-  // dv[j] = sum_i pd[i][j] dO[i].  A warp shares the row and spans d, so the
-  // [T][tp] reads broadcast and the [T][dh + 4] reads are consecutive.
-  for (int e = threadIdx.x; e < T * dh; e += blockDim.x) {
-    const int i = e / dh, d = e - i * dh;
-    float dq = 0.0f, dk = 0.0f, dv = 0.0f;
-    for (int j = 0; j < T; ++j) {
-      dq = fmaf(dS[i * tp + j], Ks[j * ks + d], dq);
-      dk = fmaf(dS[j * tp + i], Qs[j * ks + d], dk);
-      dv = fmaf(Pd[j * tp + i], Os[j * ks + d], dv);
-    }
-    float* row = dqkv + ((size_t)b * T + i) * 3 * D + h * dh + d;
-    row[0] = dq;
-    row[D] = dk;
-    row[2 * D] = dv;
+// A fragment of rows r, r + 8 and k slice c of a [rows][LD] tile, split
+template <int LD>
+__device__ __forceinline__ void frag_a(const float* x, int r, int c, int t,
+                                       uint32_t (&big)[4], uint32_t (&small)[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(x + r * LD + 8 * c + 2 * t);
+  const float2 hi = *reinterpret_cast<const float2*>(x + (r + 8) * LD + 8 * c + 2 * t);
+  split_tf32(lo.x, big[0], small[0]);
+  split_tf32(hi.x, big[1], small[1]);
+  split_tf32(lo.y, big[2], small[2]);
+  split_tf32(hi.y, big[3], small[3]);
+}
+
+// B fragment of X^T (k along X's rows' width): b0 = X[8n + g][8c + 2t],
+// b1 = X[8n + g][8c + 2t + 1]
+template <int LD>
+__device__ __forceinline__ void frag_bt(const float* x, int n, int c, int g, int t,
+                                        uint32_t (&big)[2], uint32_t (&small)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(x + (8 * n + g) * LD + 8 * c + 2 * t);
+  split_tf32(v.x, big[0], small[0]);
+  split_tf32(v.y, big[1], small[1]);
+}
+
+// B fragment of X (k along X's rows): b0 = X[8n + 2t][8d + g],
+// b1 = X[8n + 2t + 1][8d + g]
+template <int LD>
+__device__ __forceinline__ void frag_b(const float* x, int n, int d, int g, int t,
+                                       uint32_t (&big)[2], uint32_t (&small)[2]) {
+  const float* p = x + (8 * n + 2 * t) * LD + 8 * d + g;
+  split_tf32(p[0], big[0], small[0]);
+  split_tf32(p[LD], big[1], small[1]);
+}
+
+// the accumulator of an n8 tile as the A fragment of a product whose k runs
+// along its columns (a0 = row g col 2t, a1 = row g + 8 col 2t, a2, a3 the
+// columns 2t + 1)
+__device__ __forceinline__ void acc_a(const float (&d)[4], uint32_t (&big)[4],
+                                      uint32_t (&small)[4]) {
+  split_tf32(d[0], big[0], small[0]);
+  split_tf32(d[2], big[1], small[1]);
+  split_tf32(d[1], big[2], small[2]);
+  split_tf32(d[3], big[3], small[3]);
+}
+
+// rows [r0, r0 + n) of a head's [T, DH] operand (row stride ld floats) into
+// a [n][LD] tile, rows past T zero-filled
+template <int DH>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, size_t ld, int r0,
+                                          int n, int T) {
+  constexpr int C4 = DH / 4, LD = BwdTile<DH>::LD;
+  for (int f = threadIdx.x; f < n * C4; f += kBwdThreads) {
+    const int r = f / C4, c = (f % C4) * 4;
+    const bool in = r0 + r < T;
+    cp_async16(dst + r * LD + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
   }
 }
+
+// dK and dV of 64 keys of one (batch, head): grid (ceil(T / 64), B * H).
+// qkv, dqkv [B*T, 3D]; dout [B*T, D]; lse, dvec [B*H, T].
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kBwdThreads)
+attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ dvec,
+                     float* __restrict__ dqkv, int T, int D, int H, float scale, Drop drop) {
+  using Tile = BwdTile<DH>;
+  constexpr int LD = Tile::LD, BN = Tile::BN, kStages = Tile::kStages;
+  constexpr int KC = DH / 8;  // k slices of S^T and dP^T
+  constexpr int NS = BN / 8;  // query slices of a tile
+  constexpr int NO = DH / 8;  // n8 tiles of dK and dV
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                       // [64][LD]
+  float* Vs = Ks + kBwdRows * LD;         // [64][LD]
+  float* Qs = Vs + kBwdRows * LD;         // [kStages][BN][LD]
+  float* Os = Qs + kStages * BN * LD;     // dO: [kStages][BN][LD]
+  float* Ls = Os + kStages * BN * LD;     // lse: [kStages][BN]
+  float* Ds = Ls + kStages * BN;          // D: [kStages][BN]
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t ld3 = 3 * (size_t)D;
+  const float* qb = qkv + (size_t)b * T * ld3 + h * DH;
+  const float* ob = dout + (size_t)b * T * D + h * DH;
+  const float* lb = lse + (size_t)bh * T;
+  const float* db = dvec + (size_t)bh * T;
+  const int k0 = blockIdx.x * kBwdRows;
+  const int ntiles = (T + BN - 1) / BN;
+
+  auto load_tile = [&](int buf, int j0) {
+    load_rows<DH>(Qs + buf * BN * LD, qb, ld3, j0, BN, T);
+    load_rows<DH>(Os + buf * BN * LD, ob, D, j0, BN, T);
+    if (threadIdx.x < BN) {
+      const int j = j0 + threadIdx.x;
+      Ls[buf * BN + threadIdx.x] = j < T ? lb[j] : 0.0f;
+      Ds[buf * BN + threadIdx.x] = j < T ? db[j] : 0.0f;
+    }
+  };
+  load_rows<DH>(Ks, qb + D, ld3, k0, kBwdRows, T);
+  load_rows<DH>(Vs, qb + 2 * D, ld3, k0, kBwdRows, T);
+  load_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1, BN);
+  cp_async_commit();
+
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  const int kr = warp * 16 + g;  // this thread's keys k0 + kr, k0 + kr + 8
+  const bool active = k0 + warp * 16 < T;
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<1>();  // tile it has landed
+    __syncthreads();     // ... for every thread; tile it - 1 is read
+    if (it + 2 < ntiles) load_tile((it + 2) % kStages, (it + 2) * BN);
+    cp_async_commit();
+    if (!active) continue;
+    const int buf = it % kStages, j0 = it * BN;
+    const float* qs = Qs + buf * BN * LD;
+    const float* os = Os + buf * BN * LD;
+    const float* ls = Ls + buf * BN;
+    const float* ds = Ds + buf * BN;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BN queries for this warp
+    float st[NS][4], dpt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t kbig[4], ksmall[4], vbig[4], vsmall[4];
+      frag_a<LD>(Ks, kr, c, t, kbig, ksmall);
+      frag_a<LD>(Vs, kr, c, t, vbig, vsmall);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bbig[2], bsmall[2];
+        frag_bt<LD>(qs, n, c, g, t, bbig, bsmall);
+        mma_tf32x3(st[n], kbig, ksmall, bbig, bsmall);
+        frag_bt<LD>(os, n, c, g, t, bbig, bsmall);
+        mma_tf32x3(dpt[n], vbig, vsmall, bbig, bsmall);
+      }
+    }
+
+    // element e of slice n: key k0 + kr + 8 (e >> 1), query j0 + 8n + 2t + (e & 1)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jl = 8 * n + 2 * t + (e & 1);
+        const float p = j0 + jl < T ? exp2f(st[n][e] * scale_log2 - ls[jl]) : 0.0f;
+        float pd = p, dp = dpt[n][e];
+        if constexpr (DROP) {
+          const uint32_t key = k0 + kr + 8 * (e >> 1);
+          const uint32_t idx = (static_cast<uint32_t>(bh) * T + j0 + jl) * T + key;
+          const bool keep = hash_u32(idx, salt) < drop.thresh;
+          pd = keep ? p * drop.inv_keep : 0.0f;
+          dp = keep ? dp * drop.inv_keep : 0.0f;
+        }
+        st[n][e] = pd;                        // (Z o P)^T
+        dpt[n][e] = p * (dp - ds[jl]) * scale;  // dS^T
+      }
+
+    // dV += (Z o P)^T dO, dK += dS^T Q
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t pbig[4], psmall[4], sbig[4], ssmall[4];
+      acc_a(st[n], pbig, psmall);
+      acc_a(dpt[n], sbig, ssmall);
+#pragma unroll
+      for (int d = 0; d < NO; ++d) {
+        uint32_t bbig[2], bsmall[2];
+        frag_b<LD>(os, n, d, g, t, bbig, bsmall);
+        mma_tf32x3(dv[d], pbig, psmall, bbig, bsmall);
+        frag_b<LD>(qs, n, d, g, t, bbig, bsmall);
+        mma_tf32x3(dk[d], sbig, ssmall, bbig, bsmall);
+      }
+    }
+  }
+
+  const int r0 = k0 + kr, r1 = r0 + 8;
+  float* dkb = dqkv + (size_t)b * T * ld3 + D + h * DH + 2 * t;
+  float* dvb = dkb + D;
+#pragma unroll
+  for (int d = 0; d < NO; ++d) {
+    if (r0 < T) {
+      *reinterpret_cast<float2*>(dkb + r0 * ld3 + 8 * d) = make_float2(dk[d][0], dk[d][1]);
+      *reinterpret_cast<float2*>(dvb + r0 * ld3 + 8 * d) = make_float2(dv[d][0], dv[d][1]);
+    }
+    if (r1 < T) {
+      *reinterpret_cast<float2*>(dkb + r1 * ld3 + 8 * d) = make_float2(dk[d][2], dk[d][3]);
+      *reinterpret_cast<float2*>(dvb + r1 * ld3 + 8 * d) = make_float2(dv[d][2], dv[d][3]);
+    }
+  }
+}
+
+// dQ of 64 queries of one (batch, head): grid (ceil(T / 64), B * H).
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kBwdThreads)
+attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ dvec,
+                   float* __restrict__ dqkv, int T, int D, int H, float scale, Drop drop) {
+  using Tile = BwdTile<DH>;
+  constexpr int LD = Tile::LD, BN = Tile::BN, kStages = Tile::kStages;
+  constexpr int KC = DH / 8;  // k slices of S and dP
+  constexpr int NS = BN / 8;  // key slices of a tile
+  constexpr int NO = DH / 8;  // n8 tiles of dQ
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                       // [64][LD]
+  float* Os = Qs + kBwdRows * LD;         // dO: [64][LD]
+  float* Ks = Os + kBwdRows * LD;         // [kStages][BN][LD]
+  float* Vs = Ks + kStages * BN * LD;     // [kStages][BN][LD]
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t ld3 = 3 * (size_t)D;
+  const float* qb = qkv + (size_t)b * T * ld3 + h * DH;
+  const int q0 = blockIdx.x * kBwdRows;
+  const int ntiles = (T + BN - 1) / BN;
+
+  auto load_tile = [&](int buf, int j0) {
+    load_rows<DH>(Ks + buf * BN * LD, qb + D, ld3, j0, BN, T);
+    load_rows<DH>(Vs + buf * BN * LD, qb + 2 * D, ld3, j0, BN, T);
+  };
+  load_rows<DH>(Qs, qb, ld3, q0, kBwdRows, T);
+  load_rows<DH>(Os, dout + (size_t)b * T * D + h * DH, D, q0, kBwdRows, T);
+  load_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1, BN);
+  cp_async_commit();
+
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  const int qr = warp * 16 + g;  // this thread's queries q0 + qr, q0 + qr + 8
+  const int r0 = q0 + qr, r1 = r0 + 8;
+  const bool active = q0 + warp * 16 < T;
+  const float lse_r[2] = {r0 < T ? lse[(size_t)bh * T + r0] : 0.0f,
+                          r1 < T ? lse[(size_t)bh * T + r1] : 0.0f};
+  const float d_r[2] = {r0 < T ? dvec[(size_t)bh * T + r0] : 0.0f,
+                        r1 < T ? dvec[(size_t)bh * T + r1] : 0.0f};
+  float dq[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<1>();  // tile it has landed
+    __syncthreads();     // ... for every thread; tile it - 1 is read
+    if (it + 2 < ntiles) load_tile((it + 2) % kStages, (it + 2) * BN);
+    cp_async_commit();
+    if (!active) continue;
+    const int j0 = it * BN;
+    const float* ks = Ks + (it % kStages) * BN * LD;
+    const float* vs = Vs + (it % kStages) * BN * LD;
+
+    // S = Q K^T and dP = dO V^T: 16 queries x BN keys for this warp
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t qbig[4], qsmall[4], obig[4], osmall[4];
+      frag_a<LD>(Qs, qr, c, t, qbig, qsmall);
+      frag_a<LD>(Os, qr, c, t, obig, osmall);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bbig[2], bsmall[2];
+        frag_bt<LD>(ks, n, c, g, t, bbig, bsmall);
+        mma_tf32x3(s[n], qbig, qsmall, bbig, bsmall);
+        frag_bt<LD>(vs, n, c, g, t, bbig, bsmall);
+        mma_tf32x3(dp[n], obig, osmall, bbig, bsmall);
+      }
+    }
+
+    // element e of slice n: query r0 + 8 (e >> 1), key j0 + 8n + 2t + (e & 1)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + 8 * n + 2 * t + (e & 1), hi = e >> 1;
+        const float p = key < T ? exp2f(s[n][e] * scale_log2 - lse_r[hi]) : 0.0f;
+        float dpz = dp[n][e];
+        if constexpr (DROP) {
+          const uint32_t idx = (static_cast<uint32_t>(bh) * T + r0 + 8 * hi) * T + key;
+          dpz = dropped(dpz, idx, salt, drop);
+        }
+        s[n][e] = p * (dpz - d_r[hi]) * scale;  // dS
+      }
+
+    // dQ += dS K
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t sbig[4], ssmall[4];
+      acc_a(s[n], sbig, ssmall);
+#pragma unroll
+      for (int d = 0; d < NO; ++d) {
+        uint32_t bbig[2], bsmall[2];
+        frag_b<LD>(ks, n, d, g, t, bbig, bsmall);
+        mma_tf32x3(dq[d], sbig, ssmall, bbig, bsmall);
+      }
+    }
+  }
+
+  float* dqb = dqkv + (size_t)b * T * ld3 + h * DH + 2 * t;
+#pragma unroll
+  for (int d = 0; d < NO; ++d) {
+    if (r0 < T)
+      *reinterpret_cast<float2*>(dqb + r0 * ld3 + 8 * d) = make_float2(dq[d][0], dq[d][1]);
+    if (r1 < T)
+      *reinterpret_cast<float2*>(dqb + r1 * ld3 + 8 * d) = make_float2(dq[d][2], dq[d][3]);
+  }
+}
+
+// dvec[(b*H + h)*T + i] = sum_d dout[m, h*dh + d] o[m, h*dh + d] for m = b*T
+// + i: D of the attention backward, one thread per (row, head)
+__global__ void __launch_bounds__(kSumThreads)
+attn_bwd_rowdot_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                       float* __restrict__ dvec, int M, int T, int D, int H) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= M * H) return;
+  const int m = e / H, h = e - m * H, dh = D / H;
+  const float* a = o + (size_t)m * D + h * dh;
+  const float* c = dout + (size_t)m * D + h * dh;
+  float s = 0.0f;
+  for (int d = 0; d < dh; d += 4) {
+    const float4 x = ld4(a + d), y = ld4(c + d);
+    s = fmaf(x.x, y.x, s); s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s); s = fmaf(x.w, y.w, s);
+  }
+  const int b = m / T;
+  dvec[((size_t)b * H + h) * T + (m - b * T)] = s;
+}
+
+template <int DH, bool DROP>
+cudaError_t attention_backward_launch(const float* qkv, const float* dout, const float* lse,
+                                  const float* dvec, float* dqkv, int B, int T, int D, int H,
+                                  float scale, const Drop& drop, cudaStream_t s) {
+  constexpr size_t smem = BwdTile<DH>::smem;
+  cudaError_t e = set_smem(attn_bwd_dq_kernel<DH, DROP>, smem);
+  if (e == cudaSuccess) e = set_smem(attn_bwd_dkdv_kernel<DH, DROP>, smem);
+  if (e != cudaSuccess) return e;
+  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((T + kBwdRows - 1) / kBwdRows, B * H);
+  attn_bwd_dq_kernel<DH, DROP><<<grid, kBwdThreads, smem, s>>>(qkv, dout, lse, dvec, dqkv, T,
+                                                               D, H, scale, drop);
+  attn_bwd_dkdv_kernel<DH, DROP><<<grid, kBwdThreads, smem, s>>>(qkv, dout, lse, dvec, dqkv, T,
+                                                                 D, H, scale, drop);
+  return cudaSuccess;
+}
+
+template <int DH>
+cudaError_t attention_backward_dh(const float* qkv, const float* dout, const float* lse,
+                                  const float* dvec, float* dqkv, int B, int T, int D, int H,
+                                  float scale, const Drop& drop, cudaStream_t s) {
+  return drop.seed != nullptr
+             ? attention_backward_launch<DH, true>(qkv, dout, lse, dvec, dqkv, B, T, D, H,
+                                                   scale, drop, s)
+             : attention_backward_launch<DH, false>(qkv, dout, lse, dvec, dqkv, B, T, D, H,
+                                                    scale, drop, s);
+}
+
+// Queues D (into dvec) and both passes of the attention backward: qkv [B*T,
+// 3D] and the forward's lse [B*H, T], o and dout [B*T, D] -> dqkv [B*T, 3D].
+cudaError_t attention_backward(const float* qkv, const float* o, const float* dout,
+                               const float* lse, float* dvec, float* dqkv, int B, int T,
+                               int D, int H, float scale, const Drop& drop, cudaStream_t s) {
+  const int rows = B * T * H;
+  attn_bwd_rowdot_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
+      o, dout, dvec, B * T, T, D, H);
+  switch (D / H) {
+    case 16:
+      return attention_backward_dh<16>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop, s);
+    case 32:
+      return attention_backward_dh<32>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop, s);
+    case 64:
+      return attention_backward_dh<64>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop, s);
+    case 128:
+      return attention_backward_dh<128>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop,
+                                        s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---- row and column kernels ---------------------------------------------- //
 
 // LayerNorm backward, a warp per row.  X is the LayerNorm input [M, D], G
 // the gradient of its output.  Writes dX (the input gradient), dXd =
@@ -206,16 +544,19 @@ ln_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G,
   }
 }
 
-// out[c] = sum_r X[r, c] for X [M, N]: a block of 32 x 16 threads per 32
-// columns, rows summed in a fixed order.
+// out[z * N + c] = sum_r X[r, c] over the rows [z * rows, (z + 1) * rows)
+// of chunk z = blockIdx.y, X [M, N]: a block of 32 x 16 threads per 32
+// columns and row chunk, rows summed in a fixed order.
 __global__ void __launch_bounds__(kColX * kColY)
-colsum_kernel(const float* __restrict__ X, float* __restrict__ out, int M, int N) {
+colsum_kernel(const float* __restrict__ X, float* __restrict__ out, int M, int N, int rows) {
   __shared__ float part[kColY][kColX + 1];
   const int tx = threadIdx.x & (kColX - 1), ty = threadIdx.x / kColX;
-  const int c = blockIdx.x * kColX + tx;
+  const int c = blockIdx.x * kColX + tx, z = blockIdx.y;
+  const int r_end = min(M, (z + 1) * rows);
+  out += (size_t)z * N;
   float s = 0.0f;
   if (c < N)
-    for (int r = ty; r < M; r += kColY) s += X[(size_t)r * N + c];
+    for (int r = z * rows + ty; r < r_end; r += kColY) s += X[(size_t)r * N + c];
   part[ty][tx] = s;
   __syncthreads();
   if (ty == 0 && c < N) {
@@ -240,44 +581,53 @@ struct Dims {
   int B, T, D, F, H, M;
 };
 
-// C[I, J] = epi(A[I, K] . W[K, J]): the data gradients (W in [out, in])
+// C[M, N] = epi(A[M, K] . W[K, N]): the data gradients (W in [out, in])
 template <int EPI>
-void gemm_nn(const float* A, const float* W, float* C, int I, int J, int K,
-             const EpiArgs& ep, cudaStream_t s) {
-  gemm<true, false, EPI>(A, W, C, I, J, K, K, J, 1, K, ep, s);
+cudaError_t gemm_nn(const float* A, const float* W, float* C, int M, int N, int K,
+                    const EpiArgs& ep, cudaStream_t s) {
+  return gemm_tf32x3<true, false, EPI>(A, W, C, M, N, K, K, N, 1, K, ep, s);
 }
 
 // How many row chunks a weight gradient [I, J] over M rows is split into,
-// and the chunk length (a multiple of kBK): enough blocks to fill the card.
+// and the chunk length (a multiple of kTcBK): enough blocks to fill the card.
 int weight_grad_splits(int I, int J, int M, int* chunk) {
-  const int tiles = ((I + kBM - 1) / kBM) * ((J + kBN - 1) / kBN);
+  const int tiles = ((I + kTcBM - 1) / kTcBM) * ((J + kTcBN - 1) / kTcBN);
   int splits = (kTargetBlocks + tiles - 1) / tiles;
   splits = std::max(1, std::min(splits, M / 128));
   int c = (M + splits - 1) / splits;
-  c = (c + kBK - 1) / kBK * kBK;
+  c = (c + kTcBK - 1) / kTcBK * kTcBK;
   *chunk = c;
   return (M + c - 1) / c;
 }
 
 // dW[I, J] = sum_m dY[m, i] X[m, j] (dY [M, I], X [M, J]); `part` holds the
 // split partial sums.
-void weight_grad(const float* dY, const float* X, float* dW, float* part,
-                 int M, int I, int J, cudaStream_t s) {
+cudaError_t weight_grad(const float* dY, const float* X, float* dW, float* part, int M, int I,
+                        int J, cudaStream_t s) {
   int chunk;
   const int splits = weight_grad_splits(I, J, M, &chunk);
   const EpiArgs ep{};
-  if (splits == 1) {
-    gemm<false, false, kPlain>(dY, X, dW, I, J, M, I, J, 1, chunk, ep, s);
-    return;
-  }
-  gemm<false, false, kPlain>(dY, X, part, I, J, M, I, J, splits, chunk, ep, s);
+  if (splits == 1) return gemm_tf32x3<false, false, kPlain>(dY, X, dW, I, J, M, I, J, 1, chunk,
+                                                            ep, s);
+  const cudaError_t e =
+      gemm_tf32x3<false, false, kPlain>(dY, X, part, I, J, M, I, J, splits, chunk, ep, s);
   const int n = I * J;
   sum_splits_kernel<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       part, dW, n, splits);
+  return e;
 }
 
-void colsum(const float* X, float* out, int M, int N, cudaStream_t s) {
-  colsum_kernel<<<(N + kColX - 1) / kColX, kColX * kColY, 0, s>>>(X, out, M, N);
+// out[c] = sum_r X[r, c]: the rows split into chunks that spread over the
+// card (N / 32 column blocks alone leave most SMs idle), the chunks' sums
+// in `part` added in chunk order
+void colsum(const float* X, float* out, float* part, int M, int N, cudaStream_t s) {
+  const int splits = std::max(1, std::min(kColSplits, M / 256));
+  const int rows = (M + splits - 1) / splits;
+  colsum_kernel<<<dim3((N + kColX - 1) / kColX, splits), kColX * kColY, 0, s>>>(
+      X, splits > 1 ? part : out, M, N, rows);
+  if (splits > 1)
+    sum_splits_kernel<<<(N + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(part, out, N,
+                                                                                  splits);
 }
 
 void ln_bwd(const float* X, const float* G, const float* w, float* dX,
@@ -288,45 +638,48 @@ void ln_bwd(const float* X, const float* G, const float* w, float* dX,
       X, G, w, dX, dXd, P, M, D, drop, site);
 }
 
-size_t attn_bwd_smem(const Dims& n) {
-  const size_t dh = n.D / n.H, tp = (n.T + 3) & ~3;
-  return (4 * (size_t)n.T * (dh + 4) + 2 * (size_t)n.T * tp) * sizeof(float);
-}
+// ---- the two chains ------------------------------------------------------ //
 
-// The forward chain.  qkv [M, 3D], o, u, y1, v2 [M, D], hd and (if not null)
-// h1 [M, F] are written; the layer output goes to `out`.
 struct Weights {
   const float *wqkv, *bqkv, *wo, *bo, *ln1_w, *ln1_b, *w1, *b1, *w2, *b2,
       *ln2_w, *ln2_b;
 };
 
+// The forward chain.  qkv [M, 3D], o, u, y1, v2 [M, D] and hd [M, F] are
+// written; h1 [M, F] and lse [B*H, T] when not null; the layer output goes
+// to `out` unless it is null (the backward's recompute stops at v2).
 cudaError_t forward_chain(const float* x, const Weights& w, const Drop& drop,
-                          const Dims& n, float scale, float* qkv, float* o,
+                          const Dims& n, float scale, float* qkv, float* o, float* lse,
                           float* u, float* y1, float* h1, float* hd, float* v2,
                           float* out, cudaStream_t s) {
   const int M = n.M, D = n.D, F = n.F;
-  EpiArgs ep{};
-  ep.bias = w.bqkv;
-  gemm_nt<kBias>(x, w.wqkv, qkv, M, 3 * D, D, ep, s);
-  const cudaError_t e = attention(qkv, o, n.B, n.T, D, n.H, scale, drop, s);
+  const long long dh = D / n.H, t = n.T;
+  const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
+  cudaError_t e = gemm_nt<kBias>(x, w.wqkv, qkv, M, 3 * D, D, EpiArgs{w.bqkv}, s);
+  if (e == cudaSuccess)
+    e = flash_attention(qkv, qkv + D, qkv + 2 * D, o, packed, packed, packed, rows, n.B, n.H,
+                        n.T, D / n.H, scale, drop, lse, s);
+  if (e == cudaSuccess)
+    e = gemm_nt<kBiasResid>(o, w.wo, u, M, D, D,
+                            EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn}, s);
   if (e != cudaSuccess) return e;
-  ep = EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn};
-  gemm_nt<kBiasResid>(o, w.wo, u, M, D, D, ep, s);
   layernorm(u, w.ln1_w, w.ln1_b, y1, M, D, s);
-  ep = EpiArgs{w.b1, nullptr, nullptr, h1, drop, kSiteAct};
-  gemm_nt<kBiasGelu>(y1, w.w1, hd, M, F, D, ep, s);
-  ep = EpiArgs{w.b2, y1, nullptr, nullptr, drop, kSiteFF};
-  gemm_nt<kBiasResid>(hd, w.w2, v2, M, D, F, ep, s);
-  layernorm(v2, w.ln2_w, w.ln2_b, out, M, D, s);
-  return cudaSuccess;
+  e = gemm_nt<kBiasGelu>(y1, w.w1, hd, M, F, D, EpiArgs{w.b1, nullptr, nullptr, h1, drop,
+                                                        kSiteAct}, s);
+  if (e == cudaSuccess)
+    e = gemm_nt<kBiasResid>(hd, w.w2, v2, M, D, F,
+                            EpiArgs{w.b2, y1, nullptr, nullptr, drop, kSiteFF}, s);
+  if (e == cudaSuccess && out != nullptr) layernorm(v2, w.ln2_w, w.ln2_b, out, M, D, s);
+  return e;
 }
 
 Drop make_drop(const int* seed, unsigned thresh, float inv_keep, int use_dropout) {
   return Drop{use_dropout ? seed : nullptr, thresh, inv_keep};
 }
 
+// floats of the partial sums of a weight gradient or a column sum
 size_t split_floats(const Dims& n) {
-  size_t most = 0;
+  size_t most = (size_t)kColSplits * std::max(3 * n.D, n.F);
   const int shapes[4][2] = {{3 * n.D, n.D}, {n.D, n.D}, {n.F, n.D}, {n.D, n.F}};
   for (const auto& ij : shapes) {
     int chunk;
@@ -334,6 +687,66 @@ size_t split_floats(const Dims& n) {
     if (splits > 1) most = std::max(most, (size_t)splits * ij[0] * ij[1]);
   }
   return most;
+}
+
+// The backward chain: the forward recomputed from x, then from g = dL/dout
+// dx and the 12 gradients (each in its parameter's layout).
+cudaError_t backward_chain(const float* x, const Weights& w, const Drop& drop, const Dims& n,
+                           float scale, const float* g, float* dx, float* dwqkv,
+                           float* dbqkv, float* dwo, float* dbo, float* dln1_w,
+                           float* dln1_b, float* dw1, float* db1, float* dw2, float* db2,
+                           float* dln2_w, float* dln2_b, float* ws, cudaStream_t s) {
+  const int M = n.M, D = n.D, F = n.F;
+  const size_t m = M;
+  float* qkv = ws;
+  float* dqkv = qkv + m * 3 * D;
+  float* h1 = dqkv + m * 3 * D;
+  float* hd = h1 + m * F;      // then dh1
+  float* o = hd + m * F;
+  float* u = o + m * D;
+  float* y1 = u + m * D;
+  float* v2 = y1 + m * D;
+  float* dv = v2 + m * D;
+  float* dff = dv + m * D;
+  float* P = dff + m * D;
+  float* dy1 = P + m * D;
+  float* du = dy1 + m * D;
+  float* da = du + m * D;
+  float* dout = da + m * D;
+  float* part = dout + m * D;
+  float* lse = part + split_floats(n);  // [B*H, T]
+  float* dvec = lse + m * n.H;          // [B*H, T]
+
+  cudaError_t e = forward_chain(x, w, drop, n, scale, qkv, o, lse, u, y1, h1, hd, v2, nullptr,
+                                s);
+  if (e != cudaSuccess) return e;
+  // LN2 and the feed-forward branch
+  ln_bwd(v2, g, w.ln2_w, dv, dff, P, M, D, drop, kSiteFF, s);
+  colsum(P, dln2_w, part, M, D, s);
+  colsum(g, dln2_b, part, M, D, s);
+  e = weight_grad(dff, hd, dw2, part, M, D, F, s);
+  colsum(dff, db2, part, M, D, s);
+  if (e == cudaSuccess)  // hd <- dh1
+    e = gemm_nn<kDropGeluGrad>(dff, w.w2, hd, M, F, D,
+                               EpiArgs{nullptr, nullptr, h1, nullptr, drop, kSiteAct}, s);
+  if (e == cudaSuccess) e = weight_grad(hd, y1, dw1, part, M, F, D, s);
+  colsum(hd, db1, part, M, F, s);
+  if (e == cudaSuccess) e = gemm_nn<kResid>(hd, w.w1, dy1, M, D, F, EpiArgs{nullptr, dv}, s);
+  if (e != cudaSuccess) return e;
+  // LN1 and the attention branch
+  ln_bwd(u, dy1, w.ln1_w, du, da, P, M, D, drop, kSitePostAttn, s);
+  colsum(P, dln1_w, part, M, D, s);
+  colsum(dy1, dln1_b, part, M, D, s);
+  e = weight_grad(da, o, dwo, part, M, D, D, s);
+  colsum(da, dbo, part, M, D, s);
+  if (e == cudaSuccess) e = gemm_nn<kPlain>(da, w.wo, dout, M, D, D, EpiArgs{}, s);
+  if (e == cudaSuccess)
+    e = attention_backward(qkv, o, dout, lse, dvec, dqkv, n.B, n.T, D, n.H, scale, drop, s);
+  if (e == cudaSuccess) e = weight_grad(dqkv, x, dwqkv, part, M, 3 * D, D, s);
+  colsum(dqkv, dbqkv, part, M, 3 * D, s);
+  if (e == cudaSuccess)
+    e = gemm_nn<kResid>(dqkv, w.wqkv, dx, M, D, 3 * D, EpiArgs{nullptr, du}, s);
+  return e;
 }
 
 }  // namespace
@@ -351,12 +764,13 @@ size_t gdt_encoder_layer_train_workspace(int B, int T, int D, int F, int H,
   const Dims n{B, T, D, F, H, B * T};
   const size_t M = n.M;
   if (!backward) return M * (3 * (size_t)D + 4 * (size_t)D + F);
-  return M * (18 * (size_t)D + 2 * (size_t)F) + split_floats(n);
+  return M * (17 * (size_t)D + 2 * (size_t)F + 2 * (size_t)H) + split_floats(n);
 }
 
 // Forward: x [B, T, D] -> out [B, T, D].  `seed` points at one int32 on the
 // device; thresh and inv_keep come from the caller (rate 0: use_dropout 0).
-// Returns cudaGetLastError() after queueing the chain on `stream`.
+// The head width D / H is 16, 32, 64 or 128 (the flash kernel's).  Returns
+// cudaGetLastError() after queueing the chain on `stream`.
 int gdt_encoder_layer_train_fwd_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
@@ -375,7 +789,8 @@ int gdt_encoder_layer_train_fwd_f32(
   float* v2 = y1 + M * D;
   float* hd = v2 + M * D;
   const cudaError_t e = forward_chain(x, w, make_drop(seed, thresh, inv_keep, use_dropout),
-                                      n, scale, qkv, o, u, y1, nullptr, hd, v2, out, s);
+                                      n, scale, qkv, o, nullptr, u, y1, nullptr, hd, v2, out,
+                                      s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -392,62 +807,13 @@ int gdt_encoder_layer_train_bwd_f32(
     float* dln2_w, float* dln2_b, float* ws, int B, int T, int D, int F, int H,
     float scale, unsigned thresh, float inv_keep, int use_dropout,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims n{B, T, D, F, H, B * T};
   const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
-  const Drop drop = make_drop(seed, thresh, inv_keep, use_dropout);
-  const size_t M = n.M;
-  float* qkv = ws;
-  float* dqkv = qkv + M * 3 * D;
-  float* h1 = dqkv + M * 3 * D;
-  float* hd = h1 + M * F;      // then dh1
-  float* o = hd + M * F;
-  float* u = o + M * D;
-  float* y1 = u + M * D;
-  float* v2 = y1 + M * D;
-  float* dv = v2 + M * D;
-  float* dff = dv + M * D;
-  float* P = dff + M * D;
-  float* dy1 = P + M * D;
-  float* du = dy1 + M * D;
-  float* da = du + M * D;
-  float* dout = da + M * D;
-  float* y2 = dout + M * D;    // the recomputed output, unused
-  float* part = y2 + M * D;
-
-  const size_t smem = attn_bwd_smem(n);
-  cudaError_t e = set_smem(attn_bwd_kernel, smem);
+  const cudaError_t e = backward_chain(
+      x, w, make_drop(seed, thresh, inv_keep, use_dropout), n, scale, g, dx, dwqkv, dbqkv,
+      dwo, dbo, dln1_w, dln1_b, dw1, db1, dw2, db2, dln2_w, dln2_b, ws,
+      static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = forward_chain(x, w, drop, n, scale, qkv, o, u, y1, h1, hd, v2, y2, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  const int Mi = n.M;
-  EpiArgs ep{};
-  // LN2 and the feed-forward branch
-  ln_bwd(v2, g, ln2_w, dv, dff, P, Mi, D, drop, kSiteFF, s);
-  colsum(P, dln2_w, Mi, D, s);
-  colsum(g, dln2_b, Mi, D, s);
-  weight_grad(dff, hd, dw2, part, Mi, D, F, s);
-  colsum(dff, db2, Mi, D, s);
-  ep = EpiArgs{nullptr, nullptr, h1, nullptr, drop, kSiteAct};
-  gemm_nn<kDropGeluGrad>(dff, w2, hd, Mi, F, D, ep, s);  // hd <- dh1
-  weight_grad(hd, y1, dw1, part, Mi, F, D, s);
-  colsum(hd, db1, Mi, F, s);
-  ep = EpiArgs{nullptr, dv, nullptr, nullptr, Drop{}, 0};
-  gemm_nn<kResid>(hd, w1, dy1, Mi, D, F, ep, s);
-  // LN1 and the attention branch
-  ln_bwd(u, dy1, ln1_w, du, da, P, Mi, D, drop, kSitePostAttn, s);
-  colsum(P, dln1_w, Mi, D, s);
-  colsum(dy1, dln1_b, Mi, D, s);
-  weight_grad(da, o, dwo, part, Mi, D, D, s);
-  colsum(da, dbo, Mi, D, s);
-  gemm_nn<kPlain>(da, wo, dout, Mi, D, D, EpiArgs{}, s);
-  attn_bwd_kernel<<<n.B * n.H, kAttnThreads, smem, s>>>(qkv, dout, dqkv, n.T, D,
-                                                        n.H, scale, drop);
-  weight_grad(dqkv, x, dwqkv, part, Mi, 3 * D, D, s);
-  colsum(dqkv, dbqkv, Mi, 3 * D, s);
-  ep = EpiArgs{nullptr, du, nullptr, nullptr, Drop{}, 0};
-  gemm_nn<kResid>(dqkv, wqkv, dx, Mi, D, 3 * D, ep, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,8 +30,8 @@ int gdt_flash_attention_f32(const float* q, const float* k, const float* v, floa
                             int B, int H, int T, int dh, float scale, void* stream) {
   const cudaError_t e = flash_attention(
       q, k, v, out, AttnStrides{qb, qh, qt}, AttnStrides{kb, kh, kt},
-      AttnStrides{vb, vh, vt}, AttnStrides{ob, oh, ot}, B, H, T, dh, scale,
-      static_cast<cudaStream_t>(stream));
+      AttnStrides{vb, vh, vt}, AttnStrides{ob, oh, ot}, B, H, T, dh, scale, Drop{},
+      nullptr, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

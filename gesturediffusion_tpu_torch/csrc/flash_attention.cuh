@@ -1,7 +1,7 @@
 // Flash self-attention forward, float32 numerics, non-causal: the device
 // code of csrc/flash_attention.cu (the standalone entry point) and of the
-// encoder layer's attention stage (csrc/encoder_layer.cu, reading its packed
-// qkv buffer).
+// encoder layers' attention stage (csrc/encoder_layer.cu and
+// csrc/encoder_layer_train.cu, reading their packed qkv buffer).
 //
 // Replaces: gesturediffusion_tpu/ops/pallas_flash.py::_flash_kernel.  Same
 // function, per (batch, head):
@@ -15,6 +15,14 @@
 // and o / l is written once at the end.  m starts at the finite -FLT_MAX,
 // never -inf.  Keys at positions >= T are masked (p = 0) and their rows
 // staged as zeros, so no length needs padding.
+//
+// The training layer (pallas_encoder_train.py::_fwd_kernel) drops the
+// probabilities at site 0 (drop.seed set; the DROP instantiation): l sums
+// the undropped p and o = sum_j drop(p_ij) v_j / l, each mask drawn from the
+// hash of ((b*H + h)*T + i)*T + j at the physical key j (common.cuh), the
+// masks of pallas_encoder_train.py.  With `lse` it also writes each row's
+// log-sum-exp in log2 units, m + log2(l), for the attention backward.  The
+// inference instantiation (DROP false, no lse) computes what it did.
 //
 // What bounds it on an H100: both products, S = q k^T and o += p v, run on
 // the tensor cores in 3xTF32 (gemm_tf32x3.cuh: each f32 operand split into
@@ -72,12 +80,12 @@ struct FlashTile {
 };
 
 // grid (ceil(T / kFlashBQ), B * H); rows 16-byte aligned
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        AttnStrides sq, AttnStrides sk, AttnStrides sv, AttnStrides so,
-                       int H, int T, float scale) {
+                       int H, int T, float scale, Drop drop, float* __restrict__ lse) {
   using Tile = FlashTile<DH>;
   constexpr int BK = Tile::BK, KLD = Tile::KLD, VLD = Tile::VLD, kStages = Tile::kStages;
   constexpr int KC = DH / 8;  // reduction slices of q k^T
@@ -142,6 +150,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.0f;
   float m_lo = -FLT_MAX, m_hi = -FLT_MAX, l_lo = 0.0f, l_hi = 0.0f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  // the site-0 index of (row r0, key 2t of the first tile); r1 is 8 T on
+  const uint32_t idx0 = (static_cast<uint32_t>(blockIdx.y) * T + r0) * T + 2 * t;
 
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<1>();  // tile it has landed
@@ -231,9 +242,17 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // o += p v: the S accumulator of key slice n is p's A fragment
-    // (a0 = row g key 2t, a1 = row g + 8 key 2t, a2, a3 the keys 2t + 1)
+    // (a0 = row g key 2t, a1 = row g + 8 key 2t, a2, a3 the keys 2t + 1),
+    // dropped at site 0 after the row sums took it
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
+      if constexpr (DROP) {
+        const uint32_t i_lo = idx0 + j0 + 8 * n, i_hi = i_lo + 8u * T;
+        s[n][0] = dropped(s[n][0], i_lo, salt, drop);
+        s[n][1] = dropped(s[n][1], i_lo + 1, salt, drop);
+        s[n][2] = dropped(s[n][2], i_hi, salt, drop);
+        s[n][3] = dropped(s[n][3], i_hi + 1, salt, drop);
+      }
       uint32_t p_big[4], p_small[4];
       split_tf32(s[n][0], p_big[0], p_small[0]);
       split_tf32(s[n][2], p_big[1], p_small[1]);
@@ -255,6 +274,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
+  if (lse != nullptr && t == 0) {
+    if (r0 < T) lse[(size_t)blockIdx.y * T + r0] = m_lo + log2f(l_lo);
+    if (r1 < T) lse[(size_t)blockIdx.y * T + r1] = m_hi + log2f(l_hi);
+  }
   float* ob = out + b * so.b + h * so.h;
   const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
 #pragma unroll
@@ -268,35 +291,52 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int DH, bool DROP>
+cudaError_t flash_launch(const float* q, const float* k, const float* v, float* out,
+                               const AttnStrides& sq, const AttnStrides& sk,
+                               const AttnStrides& sv, const AttnStrides& so, int B, int H,
+                               int T, float scale, const Drop& drop, float* lse,
+                               cudaStream_t s) {
+  const size_t smem = FlashTile<DH>::smem;
+  const cudaError_t e = set_smem(flash_attention_kernel<DH, DROP>, smem);
+  if (e != cudaSuccess) return e;
+  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((T + kFlashBQ - 1) / kFlashBQ, B * H);
+  flash_attention_kernel<DH, DROP><<<grid, kFlashThreads, smem, s>>>(
+      q, k, v, out, sq, sk, sv, so, H, T, scale, drop, lse);
+  return cudaSuccess;
+}
+
 template <int DH>
 cudaError_t flash_attention_dh(const float* q, const float* k, const float* v, float* out,
                                const AttnStrides& sq, const AttnStrides& sk,
                                const AttnStrides& sv, const AttnStrides& so, int B, int H,
-                               int T, float scale, cudaStream_t s) {
-  const size_t smem = FlashTile<DH>::smem;
-  const cudaError_t e = set_smem(flash_attention_kernel<DH>, smem);
-  if (e != cudaSuccess) return e;
-  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
-  const dim3 grid((T + kFlashBQ - 1) / kFlashBQ, B * H);
-  flash_attention_kernel<DH><<<grid, kFlashThreads, smem, s>>>(q, k, v, out, sq, sk, sv, so,
-                                                               H, T, scale);
-  return cudaSuccess;
+                               int T, float scale, const Drop& drop, float* lse,
+                               cudaStream_t s) {
+  return drop.seed != nullptr
+             ? flash_launch<DH, true>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s)
+             : flash_launch<DH, false>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse,
+                                       s);
 }
 
-// Queues flash_attention_kernel on `s` for head width dh in {16, 32, 64, 128}.
+// Queues flash_attention_kernel on `s` for head width dh in {16, 32, 64, 128},
+// with site-0 dropout when drop.seed is set and the rows' log-sum-exp (log2
+// units, [B*H, T]) when lse is not null.
 cudaError_t flash_attention(const float* q, const float* k, const float* v, float* out,
                             const AttnStrides& sq, const AttnStrides& sk,
                             const AttnStrides& sv, const AttnStrides& so, int B, int H,
-                            int T, int dh, float scale, cudaStream_t s) {
+                            int T, int dh, float scale, const Drop& drop, float* lse,
+                            cudaStream_t s) {
   switch (dh) {
     case 16:
-      return flash_attention_dh<16>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, s);
+      return flash_attention_dh<16>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s);
     case 32:
-      return flash_attention_dh<32>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, s);
+      return flash_attention_dh<32>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s);
     case 64:
-      return flash_attention_dh<64>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, s);
+      return flash_attention_dh<64>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s);
     case 128:
-      return flash_attention_dh<128>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, s);
+      return flash_attention_dh<128>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse,
+                                     s);
     default:
       return cudaErrorInvalidValue;
   }

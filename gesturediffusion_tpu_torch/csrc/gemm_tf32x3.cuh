@@ -1,10 +1,14 @@
-// 3xTF32 tensor-core GEMM of the inference encoder layer (encoder_layer.cu),
-// and the 3xTF32 primitives the flash kernel shares (flash_attention.cuh).
+// 3xTF32 tensor-core GEMM of both encoder layers (encoder_layer.cu,
+// encoder_layer_train.cu), and the 3xTF32 primitives the attention kernels
+// share (flash_attention.cuh, the training layer's attention backward).
 //
 // Replaces: the four products of
 // gesturediffusion_tpu/ops/pallas_encoder.py::_encoder_layer_kernel (qkv,
 // out-projection, ff1 with GELU, ff2), each a jnp.dot with
-// preferred_element_type=float32 at full f32 precision.
+// preferred_element_type=float32 at full f32 precision, and the products of
+// pallas_encoder_train.py::_fwd_kernel and ::_bwd_kernel: the same four
+// forward products with dropout, the data gradients dX = dY . W and the
+// weight gradients dW = dY^T . X.
 //
 // Why three passes.  A TF32 operand keeps 10 of f32's 23 mantissa bits, so a
 // single-pass TF32 product is off by ~1e-3 relative: another result than the
@@ -23,30 +27,40 @@
 //
 // Design: wgmma (warpgroup MMA) m64n64k8 TF32, A from registers, B from
 // shared memory, fed by a 3-stage cp.async ring of 32-wide K slices.  A
-// block of 2 warpgroups owns a 128 x 64 tile of C = A . W^T, a warpgroup 64
-// rows.  Both operands are K-contiguous (A [M, K], W [N, K], PyTorch's [out,
-// in]), the K-major layout that TF32 wgmma requires of both.  Raw A and W
-// slices land in shared memory as rows of K, padded to 40 floats.  Once a
-// slice has landed, the block splits its W part into a big and a small B
-// tile in wgmma's K-major layout without swizzle (core matrices of 8 rows x
-// 16 bytes: 128 bytes between the two along K, 256 between 8-row groups);
-// each warp reads its A fragments (mma.sync's m16n8k8 layout, the rows of
-// its 16) and splits them in registers.  Within each slice of 8, k is
-// permuted: fragment elements k = t and t + 4 are the adjacent physical
-// columns 2t and 2t + 1 of A (one float2 read), and the split pass writes
-// W's columns in that order.  Each k8 step is three wgmmas (big . small,
-// small . big, big . big) into one f32 accumulator; the block waits for
-// them before the next slice.  No pre-split copy of a weight exists
-// anywhere.  Two blocks fit an SM (108.5 KB).  The same tile serves every
-// product: at 81 rows the N = 256 products have 208 tiles for 132 SMs.  M
-// and N edges are masked (copies past them are zero-filled, stores
-// skipped): T is taken as it is.  The epilogue adds the bias, then GELU
-// (tanh form) or the residual, and stores float2 pairs.  Overlapping the
-// next slice's split with the running wgmmas (two B buffers) measured no
-// faster with a 2-stage ring and slower with 3 (one block an SM); TMA,
-// swizzled tiles and a producer warp are later work.
+// block of 2 warpgroups owns a 128 x 64 tile of C = A . B^T (A [M, K], B
+// [N, K] as PyTorch's [out, in] weights), a warpgroup 64 rows.  TF32 wgmma
+// requires both operands K-major; an operand that is not K-contiguous in
+// device memory (A_KC, B_KC false: the data gradients' W, both operands of
+// the weight gradients) is transposed on its way from the raw ring, at no
+// extra pass.  Raw slices land in shared memory as they lie in device
+// memory: K-contiguous ones as rows of K padded to 40 floats, the others as
+// rows of M (N) padded to 132 (68) floats.  Once a slice has landed, the
+// block splits its B part into a big and a small tile in wgmma's K-major
+// layout without swizzle (core matrices of 8 rows x 16 bytes: 128 bytes
+// between the two along K, 256 between 8-row groups): a thread reads 8
+// values along K of one row of B, two float4s from a K-contiguous slice or
+// 8 scalars down a column of a transposed one (a warp's 32 lanes read 32
+// consecutive floats of a row: no bank conflict).  Each warp reads its A
+// fragments (mma.sync's m16n8k8 layout, the rows of its 16) and splits them
+// in registers: one float2 per pair from a K-contiguous slice, two scalars
+// from a transposed one (the 132-float rows put the 32 lanes in 32 banks).
+// Within each slice of 8, k is permuted: fragment elements k = t and t + 4
+// are the adjacent physical columns 2t and 2t + 1 of A, and the split pass
+// writes B's columns in that order.  Each k8 step is three wgmmas (big .
+// small, small . big, big . big) into one f32 accumulator; the block waits
+// for them before the next slice.  No pre-split or pre-transposed copy of
+// an operand exists anywhere.  Two blocks fit an SM (108.5 KB).  M and N
+// edges are masked (copies past them are zero-filled, stores skipped): T is
+// taken as it is.  blockIdx.z takes one chunk of K and writes its own slice
+// of C (the weight gradients' deterministic split-K; the caller sums the
+// slices in a fixed order).  The epilogue adds the bias, then GELU (tanh
+// form), the dropout of a training site, the GELU derivative or the
+// residual, and stores float2 pairs.  Overlapping the next slice's split
+// with the running wgmmas (two B buffers) measured no faster with a 2-stage
+// ring and slower with 3 (one block an SM); TMA, swizzled tiles and a
+// producer warp are later work.
 //
-// The flash kernel uses the mma.sync.m16n8k8 TF32 primitives below
+// The attention kernels use the mma.sync.m16n8k8 TF32 primitives below
 // (mma_tf32x3); tools/tf32_ceiling.py measures both instructions' rates.
 #pragma once
 
@@ -179,53 +193,94 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
 constexpr int kTcBM = 128;            // block rows: 2 warpgroups of 64
 constexpr int kTcBN = 64;             // block columns: one wgmma n64 tile
 constexpr int kTcBK = 32;             // K slice per stage: 4 wgmma k8 steps
-constexpr int kTcLd = kTcBK + 8;      // raw rows: conflict-free float2 reads
+constexpr int kTcLd = kTcBK + 8;      // K-contiguous raw rows: conflict-free float2 reads
+constexpr int kTcLdAT = kTcBM + 4;    // transposed raw A rows [k][m]: 32 banks for a warp
+constexpr int kTcLdBT = kTcBN + 4;    // transposed raw B rows [k][n]
+constexpr int kTcAStage = kTcBM * kTcLd;  // floats of a raw A slice (either layout fits)
+constexpr int kTcBStage = kTcBN * kTcLd;  // floats of a raw B slice (either layout fits)
+static_assert(kTcBK * kTcLdAT <= kTcAStage && kTcBK * kTcLdBT <= kTcBStage,
+              "a transposed raw slice fits the stage");
 constexpr int kTcStages = 3;
 constexpr int kTcThreads = 256;
 constexpr int kTcSlice = kTcBN * 8;   // floats of one k8 step of the B tiles
 constexpr uint32_t kTcLbo = 128, kTcSbo = 256;  // core-matrix strides (bytes)
-// B big and small tiles of one stage, then the ring of raw A and W slices
+// B big and small tiles of one stage, then the ring of raw A and B slices
 constexpr size_t kTcSmem =
-    ((size_t)2 * kTcBK * kTcBN + (size_t)kTcStages * (kTcBM + kTcBN) * kTcLd) * sizeof(float);
+    ((size_t)2 * kTcBK * kTcBN + (size_t)kTcStages * (kTcAStage + kTcBStage)) * sizeof(float);
 
-enum TcEpilogue {
-  kTcBias,       // C = acc + bias
-  kTcBiasGelu,   // C = gelu_tanh(acc + bias)
-  kTcBiasResid,  // C = resid + (acc + bias)
+// The dropout of kBiasResid, kBiasGelu and kDropGeluGrad applies only when
+// ep.drop.seed is set; the element's index is its offset r * N + c in C.
+enum Epilogue {
+  kPlain,         // C = acc
+  kBias,          // C = acc + bias
+  kBiasResid,     // C = resid + drop(acc + bias)
+  kBiasGelu,      // pre = acc + bias; C = drop(gelu(pre))
+  kDropGeluGrad,  // C = drop(acc) * gelu'(aux)
+  kResid,         // C = acc + resid
 };
 
-// C[M, N] = epi(A[M, K] . W[N, K]^T); K % 4 == 0, N % 2 == 0, rows 16-byte
-// aligned.  grid (ceil(N / kTcBN), ceil(M / kTcBM)).
-template <int EPI>
+struct EpiArgs {
+  const float* bias;   // [N]
+  const float* resid;  // [M, N]
+  const float* aux;    // [M, N] GELU input for kDropGeluGrad
+  float* pre;          // [M, N] pre-activation out for kBiasGelu, or null
+  Drop drop;
+  int site;
+};
+
+// C[M, N] = epi(sum_k A(m, k) B(n, k)).  A(m, k) is A[m*lda + k] when A_KC
+// and A[k*lda + m] otherwise; B(n, k) is B[n*ldb + k] when B_KC and
+// B[k*ldb + n] otherwise.  The block takes the k range [z*k_chunk,
+// (z+1)*k_chunk) of z = blockIdx.z and writes slice z of C (partial sums
+// when gridDim.z > 1).  Requirements: the contiguous axis of each operand
+// is a multiple of 4 long (K when A_KC or B_KC, M or N otherwise), so is
+// k_chunk when it is not K, N is even, pointers and rows are 16-byte
+// aligned.  grid (ceil(N / kTcBN), ceil(M / kTcBM), splits).
+template <bool A_KC, bool B_KC, int EPI>
 __global__ void __launch_bounds__(kTcThreads)
-gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                   float* __restrict__ C, const float* __restrict__ bias,
-                   const float* __restrict__ resid, int M, int N, int K) {
+gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ C, int M, int N, int K, int lda, int ldb,
+                   int k_chunk, EpiArgs ep) {
   extern __shared__ __align__(16) float smem[];
   float* Bbig = smem;                          // [4 k8 steps][kTcSlice]
   float* Bsmall = Bbig + kTcBK * kTcBN;        // [4 k8 steps][kTcSlice]
-  float* As = Bsmall + kTcBK * kTcBN;          // [stages][kTcBM][kTcLd]
-  float* Ws = As + kTcStages * kTcBM * kTcLd;  // [stages][kTcBN][kTcLd]
+  float* As = Bsmall + kTcBK * kTcBN;          // [stages][kTcAStage]
+  float* Bs = As + kTcStages * kTcAStage;      // [stages][kTcBStage]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-  const int ktiles = (K + kTcBK - 1) / kTcBK;
+  const int kbeg = blockIdx.z * k_chunk, kend = min(K, kbeg + k_chunk);
+  const int ktiles = (kend - kbeg + kTcBK - 1) / kTcBK;
 
   auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kTcBK;
-    float* as = As + stage * kTcBM * kTcLd;
-    float* ws = Ws + stage * kTcBN * kTcLd;
+    const int k0 = kbeg + kt * kTcBK;
+    float* as = As + stage * kTcAStage;
+    float* bs = Bs + stage * kTcBStage;
 #pragma unroll
     for (int i = 0; i < kTcBM * (kTcBK / 4) / kTcThreads; ++i) {
-      const int f = tid + i * kTcThreads, r = f >> 3, c = (f & 7) * 4;
-      const bool in = m0 + r < M && k0 + c < K;
-      cp_async16(as + r * kTcLd + c, in ? A + (size_t)(m0 + r) * K + k0 + c : A, in);
+      const int f = tid + i * kTcThreads;
+      if constexpr (A_KC) {
+        const int r = f >> 3, c = (f & 7) * 4;
+        const bool in = m0 + r < M && k0 + c < kend;
+        cp_async16(as + r * kTcLd + c, in ? A + (size_t)(m0 + r) * lda + k0 + c : A, in);
+      } else {  // row r of the slice is k, c is m
+        const int r = f >> 5, c = (f & 31) * 4;
+        const bool in = k0 + r < kend && m0 + c < M;
+        cp_async16(as + r * kTcLdAT + c, in ? A + (size_t)(k0 + r) * lda + m0 + c : A, in);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kTcBN * (kTcBK / 4) / kTcThreads; ++i) {
-      const int f = tid + i * kTcThreads, r = f >> 3, c = (f & 7) * 4;
-      const bool in = n0 + r < N && k0 + c < K;
-      cp_async16(ws + r * kTcLd + c, in ? W + (size_t)(n0 + r) * K + k0 + c : W, in);
+      const int f = tid + i * kTcThreads;
+      if constexpr (B_KC) {
+        const int r = f >> 3, c = (f & 7) * 4;
+        const bool in = n0 + r < N && k0 + c < kend;
+        cp_async16(bs + r * kTcLd + c, in ? B + (size_t)(n0 + r) * ldb + k0 + c : B, in);
+      } else {  // row r of the slice is k, c is n
+        const int r = f >> 4, c = (f & 15) * 4;
+        const bool in = k0 + r < kend && n0 + c < N;
+        cp_async16(bs + r * kTcLdBT + c, in ? B + (size_t)(k0 + r) * ldb + n0 + c : B, in);
+      }
     }
   };
 
@@ -239,7 +294,7 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
     cp_async_commit();
   }
 
-  // the split pass: thread -> W row sp_n of k8 step sp_s; its 8 values go
+  // the split pass: thread -> B row sp_n of k8 step sp_s; its 8 values go
   // to row sp_n of the two core matrices of that step, k permuted so that
   // logical k = t, t + 4 hold the physical columns 2t, 2t + 1
   const int sp_s = tid >> 6, sp_n = tid & 63;
@@ -256,10 +311,18 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
     cp_async_commit();
 
     const int stage = kt % kTcStages;
-    const float* ws = Ws + stage * kTcBN * kTcLd + sp_n * kTcLd + 8 * sp_s;
     {
-      const float4 lo = ld4(ws), hi = ld4(ws + 4);
-      const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      float x[8];
+      if constexpr (B_KC) {
+        const float* bs = Bs + stage * kTcBStage + sp_n * kTcLd + 8 * sp_s;
+        const float4 lo = ld4(bs), hi = ld4(bs + 4);
+        x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+        x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+      } else {
+        const float* bs = Bs + stage * kTcBStage + 8 * sp_s * kTcLdBT + sp_n;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = bs[i * kTcLdBT];
+      }
       uint32_t bg[8], sm[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // core 0: x0, x2, x4, x6; core 1: x1, x3, x5, x7
@@ -277,12 +340,19 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
     fence_proxy_async();
     __syncthreads();
 
-    const float* as = As + stage * kTcBM * kTcLd + arow * kTcLd + 2 * t;
+    const float* as = As + stage * kTcAStage;
     uint32_t a_big[4][4], a_small[4][4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const float2 lo = *reinterpret_cast<const float2*>(as + 8 * s);
-      const float2 hi = *reinterpret_cast<const float2*>(as + 8 * kTcLd + 8 * s);
+      float2 lo, hi;  // rows arow, arow + 8 at the physical columns 8s + 2t, 8s + 2t + 1
+      if constexpr (A_KC) {
+        lo = *reinterpret_cast<const float2*>(as + arow * kTcLd + 8 * s + 2 * t);
+        hi = *reinterpret_cast<const float2*>(as + (arow + 8) * kTcLd + 8 * s + 2 * t);
+      } else {
+        const float* p = as + (8 * s + 2 * t) * kTcLdAT + arow;
+        lo = make_float2(p[0], p[kTcLdAT]);
+        hi = make_float2(p[8], p[kTcLdAT + 8]);
+      }
       split_tf32(lo.x, a_big[s][0], a_small[s][0]);
       split_tf32(hi.x, a_big[s][1], a_small[s][1]);
       split_tf32(lo.y, a_big[s][2], a_small[s][2]);
@@ -307,23 +377,43 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
     }
   }
 
+  C += (size_t)blockIdx.z * M * N;
+  constexpr bool kHasBias = EPI == kBias || EPI == kBiasResid || EPI == kBiasGelu;
+  const bool drop = (EPI == kBiasResid || EPI == kBiasGelu || EPI == kDropGeluGrad) &&
+                    ep.drop.seed != nullptr;
+  const uint32_t salt = drop ? site_salt(ep.drop.seed, ep.site) : 0u;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int c = n0 + 8 * j + 2 * t;
     if (c >= N) continue;
-    const float2 b2 = *reinterpret_cast<const float2*>(bias + c);
+    float2 b2 = make_float2(0.f, 0.f);
+    if (kHasBias) b2 = *reinterpret_cast<const float2*>(ep.bias + c);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = m0 + arow + 8 * hf;
       if (r >= M) continue;
       const size_t off = (size_t)r * N + c;
-      float v0 = acc[4 * j + 2 * hf] + b2.x, v1 = acc[4 * j + 2 * hf + 1] + b2.y;
-      if (EPI == kTcBiasGelu) {
+      float v0 = acc[4 * j + 2 * hf], v1 = acc[4 * j + 2 * hf + 1];
+      if (kHasBias) {
+        v0 += b2.x;
+        v1 += b2.y;
+      }
+      if (EPI == kBiasGelu) {
+        if (ep.pre != nullptr) *reinterpret_cast<float2*>(ep.pre + off) = make_float2(v0, v1);
         v0 = gelu_tanh(v0);
         v1 = gelu_tanh(v1);
       }
-      if (EPI == kTcBiasResid) {
-        const float2 r2 = *reinterpret_cast<const float2*>(resid + off);
+      if (drop) {
+        v0 = dropped(v0, static_cast<uint32_t>(off), salt, ep.drop);
+        v1 = dropped(v1, static_cast<uint32_t>(off + 1), salt, ep.drop);
+      }
+      if (EPI == kDropGeluGrad) {
+        const float2 h2 = *reinterpret_cast<const float2*>(ep.aux + off);
+        v0 *= gelu_tanh_grad(h2.x);
+        v1 *= gelu_tanh_grad(h2.y);
+      }
+      if (EPI == kBiasResid || EPI == kResid) {
+        const float2 r2 = *reinterpret_cast<const float2*>(ep.resid + off);
         v0 += r2.x;
         v1 += r2.y;
       }
@@ -332,15 +422,25 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
-// Queues C = epi(A . W^T) on `s`.
-template <int EPI>
-cudaError_t gemm_tf32x3(const float* A, const float* W, float* C, const float* bias,
-                        const float* resid, int M, int N, int K, cudaStream_t s) {
-  const cudaError_t e = set_smem(gemm_tf32x3_kernel<EPI>, kTcSmem);
+// Queues C = epi(A . B^T) on `s` (operand layouts as gemm_tf32x3_kernel).
+template <bool A_KC, bool B_KC, int EPI>
+cudaError_t gemm_tf32x3(const float* A, const float* B, float* C, int M, int N, int K,
+                        int lda, int ldb, int splits, int k_chunk, const EpiArgs& ep,
+                        cudaStream_t s) {
+  const cudaError_t e = set_smem(gemm_tf32x3_kernel<A_KC, B_KC, EPI>, kTcSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-  gemm_tf32x3_kernel<EPI><<<grid, kTcThreads, kTcSmem, s>>>(A, W, C, bias, resid, M, N, K);
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
+  gemm_tf32x3_kernel<A_KC, B_KC, EPI><<<grid, kTcThreads, kTcSmem, s>>>(
+      A, B, C, M, N, K, lda, ldb, k_chunk, ep);
   return cudaSuccess;
+}
+
+// C[M, N] = epi(A[M, K] . W[N, K]^T): the forward products, W in PyTorch's
+// [out, in] layout
+template <int EPI>
+cudaError_t gemm_nt(const float* A, const float* W, float* C, int M, int N, int K,
+                    const EpiArgs& ep, cudaStream_t s) {
+  return gemm_tf32x3<true, true, EPI>(A, W, C, M, N, K, K, K, 1, K, ep, s);
 }
 
 }  // namespace

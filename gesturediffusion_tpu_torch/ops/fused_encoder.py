@@ -43,7 +43,7 @@ from gesturediffusion_tpu_torch.ops.flash_attention import (
 LN_EPS = 1e-5
 # a block's shared memory on an H100 (opt-in maximum), common.cuh:kMaxSmem
 MAX_SMEM_BYTES = 232448
-ATTN_WARPS = 8  # common.cuh:kAttnThreads / 32
+ATTN_WARPS = 8  # encoder_layer.cu:kAttnThreads / 32
 # the training dropout sites, in the order the layer reaches them
 SITE_ATTN, SITE_POST_ATTN, SITE_ACT, SITE_FF = 0, 1, 2, 3
 # drop(z, site) -> z with the dropout of that site applied
@@ -92,17 +92,16 @@ def encoder_layer_plain(
 
 
 def attention_smem_bytes(t: int, d: int, num_heads: int) -> int:
-    """Shared memory of common.cuh:attention_kernel for T = t rows of one
-    head (common.cuh:attention): K rows padded to dh + 4, V rows padded
-    to a multiple of 4, two query and two score rows per warp."""
+    """Shared memory of encoder_layer.cu:attention_kernel for T = t rows of
+    one head (encoder_layer.cu:attention): K rows padded to dh + 4, V rows
+    padded to a multiple of 4, two query and two score rows per warp."""
     dh, tp = d // num_heads, (t + 3) & ~3
     return 4 * (t * (dh + 4) + tp * dh + ATTN_WARPS * 2 * (dh + tp))
 
 
 def attention_fits(t: int, d: int, num_heads: int) -> bool:
     """Whether a head's K and V fit the whole-sequence attention stage (the
-    inference layer's stage for head widths the flash kernel lacks, and the
-    training layer's)."""
+    inference layer's stage for head widths the flash kernel lacks)."""
     return attention_smem_bytes(t, d, num_heads) <= MAX_SMEM_BYTES
 
 

@@ -23,11 +23,12 @@ Weights use PyTorch's [out, in] layout, as ops/fused_encoder.py; their
 gradients come back in it.  The global indices restart at batch row 0 in
 every call, as a separate TPU kernel call does.
 
-The kernels hold a head's whole sequence in shared memory (the attention
-forward of common.cuh and the attention backward, which also keeps the
-[T, T] probability gradients), so a CUDA call above ``train_max_rows``
-rows raises a ValueError before any launch; the plain training layer
-(train without ``--use_fused_train_encoder``) takes any length.
+The kernels' attention is flash-style in both directions (the flash kernel
+of ops/flash_attention.py with site-0 dropout, and a tiled backward), so T
+is bounded by device memory only.  They take the flash kernel's head widths
+(``FLASH_HEAD_WIDTHS``); a CUDA call with another width raises a ValueError
+before any launch, naming the plain training layer (train without
+``--use_fused_train_encoder``), which takes any width.
 """
 
 from __future__ import annotations
@@ -39,10 +40,9 @@ import math
 import torch
 
 from gesturediffusion_tpu_torch.ops import _build
+from gesturediffusion_tpu_torch.ops.flash_attention import FLASH_HEAD_WIDTHS
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
-    MAX_SMEM_BYTES,
     _check_cuda_args as _check_layer_args,
-    attention_fits,
     encoder_layer_plain,
 )
 
@@ -139,43 +139,21 @@ def _kernels():
     return fwd, bwd, ws
 
 
-def attn_bwd_smem_bytes(t: int, d: int, num_heads: int) -> int:
-    """Shared memory of encoder_layer_train.cu:attn_bwd_kernel for T = t
-    rows of one head (attn_bwd_smem): Q, K, V and dO rows padded to dh + 4,
-    the [T, T] score gradients and dropped probabilities padded to a
-    multiple of 4."""
-    dh, tp = d // num_heads, (t + 3) & ~3
-    return 4 * (4 * t * (dh + 4) + 2 * t * tp)
-
-
-@functools.cache
-def train_max_rows(d: int, num_heads: int) -> int:
-    """The longest sequence (in rows: frames + the conditioning token)
-    whose attention forward and backward both fit a block's shared memory."""
-    t = 1
-    while attention_fits(t + 1, d, num_heads) and \
-            attn_bwd_smem_bytes(t + 1, d, num_heads) <= MAX_SMEM_BYTES:
-        t += 1
-    return t
-
-
-def check_train_rows(t: int, d: int, num_heads: int) -> None:
-    """Raise a ValueError naming the limit when T = t rows exceed what the
-    training kernels can hold."""
-    limit = train_max_rows(d, num_heads)
-    if t > limit:
+def check_head_width(d: int, num_heads: int) -> None:
+    """Raise a ValueError naming the plain training layer when the head
+    width is not one the kernels' flash attention takes."""
+    if d % num_heads or d // num_heads not in FLASH_HEAD_WIDTHS:
         raise ValueError(
-            f"the fused training layer holds a head's whole sequence in shared memory: "
-            f"at D={d} with {num_heads} heads it takes at most {limit} rows "
-            f"(--num_frames {limit - 1} plus the conditioning token), got {t}; train "
-            f"longer sequences through the plain training layer (without "
-            f"--use_fused_train_encoder)"
+            f"the fused training layer's attention takes head widths {FLASH_HEAD_WIDTHS}: "
+            f"D={d} with {num_heads} heads gives {d / num_heads:g}; train this width "
+            f"through the plain training layer (without --use_fused_train_encoder)"
         )
 
 
 def _check_cuda_args(x, weights, seed, num_heads):
+    if x.dim() == 3:
+        check_head_width(x.shape[2], num_heads)
     _check_layer_args(x, weights, num_heads)
-    check_train_rows(x.shape[1], x.shape[2], num_heads)
     if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != x.device:
         raise ValueError("seed must be one int32 element on the device of x")
 

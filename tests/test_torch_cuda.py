@@ -7,8 +7,9 @@ it runs on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The encoder layer's products and the flash kernel run on the tensor cores
-in 3xTF32 (f32-level error), the other kernels in f32 SIMT arithmetic.
+The encoder layers' products and attention (the flash kernel, the training
+layer's attention backward) run on the tensor cores in 3xTF32 (f32-level
+error), the other kernels in f32 SIMT arithmetic.
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -240,12 +241,7 @@ def _train_layer_value_and_grads(layer, x, w, g, **kw):
     return out.detach(), [x.grad] + [t.grad for t in w]
 
 
-@pytest.mark.parametrize("b,t,d,h,f", [(64, 81, 256, 4, 1024), (3, 24, 128, 4, 256),
-                                       (2, 7, 64, 2, 96)])
-@pytest.mark.parametrize("rate", [0.1, 0.0])
-def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
-    """Forward and backward kernels against autograd through the plain
-    hash-dropout layer, with the same seed (so the same masks)."""
+def _check_train_kernels(dev, b, t, d, h, f, rate):
     w = _encoder_weights(d, f, dev, seed=7)
     rs = np.random.RandomState(8)
     x, g = _randn(rs, b, t, d, device=dev), _randn(rs, b, t, d, device=dev)
@@ -263,9 +259,51 @@ def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
         assert err <= GRAD_RTOL * e.abs().max().item() + 1e-7, (i, err, e.abs().max().item())
 
 
-def test_train_forward_at_rate_zero_is_the_inference_kernel(dev):
+@pytest.mark.parametrize("b,t,d,h,f", [(64, 81, 256, 4, 1024), (64, 121, 256, 4, 1024),
+                                       (3, 24, 128, 4, 256), (2, 7, 64, 2, 96)])
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
+    """Forward and backward kernels against autograd through the plain
+    hash-dropout layer, with the same seed (so the same masks); 121 rows is
+    the train CLI's default of 120 frames and the token."""
+    _check_train_kernels(dev, b, t, d, h, f, rate)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 64, 65, 121, 321])
+def test_train_kernels_at_tile_edges(dev, t, dh, rate):
+    """Lengths around the attention's 64-row blocks and its 32- (16 at dh
+    128) row tiles, past any shared-memory limit, at each head width the
+    flash-style attention takes."""
+    _check_train_kernels(dev, 2, t, 2 * dh, 2, 4 * dh, rate)
+
+
+def test_train_backward_is_bit_for_bit_repeatable(dev):
+    """No atomics: two backward calls on the same inputs give the same bits."""
+    w = _encoder_weights(256, 1024, dev, seed=17)
+    rs = np.random.RandomState(17)
+    x, g = _randn(rs, 64, 121, 256, device=dev), _randn(rs, 64, 121, 256, device=dev)
+    seed = torch.tensor([777], dtype=torch.int32, device=dev)
+    kw = dict(seed=seed, g=g, num_heads=4, rate=0.1)
+    first = encoder_layer_train_bwd(x, *w, **kw)
+    second = encoder_layer_train_bwd(x, *w, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_train_kernels_reject_a_head_width(dev):
+    w = _encoder_weights(64, 128, dev)
+    seed = torch.tensor([1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="without --use_fused_train_encoder"):
+        encoder_layer_train_fwd(torch.zeros(2, 8, 64, device=dev), *w, seed=seed, num_heads=8,
+                                rate=0.1)
+
+
+@pytest.mark.parametrize("t", [81, 121])
+def test_train_forward_at_rate_zero_is_the_inference_kernel(dev, t):
     w = _encoder_weights(256, 1024, dev, seed=9)
-    x = _randn(np.random.RandomState(9), 64, 81, 256, device=dev)
+    x = _randn(np.random.RandomState(9), 64, t, 256, device=dev)
     with torch.no_grad():
         got = fused_encoder_layer_train(x, *w, seed=0, num_heads=4, rate=0.0)
         want = fused_encoder_layer(x, *w, num_heads=4)

@@ -24,6 +24,7 @@ from gesturediffusion_tpu_torch.ops.fused_encoder import (
 from tests.torch_port_common import (
     jax_layer_args,
     jax_layer_params as _jax_layer_params,
+    threefry_prng,  # noqa: F401 (autouse fixture)
     torch_layer_weights as _torch_weights,
 )
 

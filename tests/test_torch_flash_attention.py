@@ -55,7 +55,7 @@ def test_reference_is_sdpa_on_the_cpu():
 
 @pytest.mark.parametrize("t,fits", [(81, True), (384, True), (385, False), (1201, False)])
 def test_encoder_attention_stage_choice(t, fits):
-    """The byte count of common.cuh:attention at D=256, 4 heads: 53,008
+    """The byte count of encoder_layer.cu:attention at D=256, 4 heads: 53,008
     bytes at T=81; T=385 is the first length past a block's 232,448."""
     assert attention_fits(t, 256, 4) is fits
     assert (attention_smem_bytes(t, 256, 4) <= MAX_SMEM_BYTES) is fits

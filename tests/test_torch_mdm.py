@@ -23,7 +23,14 @@ from gesturediffusion_tpu_torch.models.mdm_fastpath import (
     select_sampling_model_fn,
 )
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint, state_dict_from_params
-from tests.torch_port_common import SMALL, build_pair, make_inputs, to_jax, to_torch
+from tests.torch_port_common import (
+    SMALL,
+    build_pair,
+    make_inputs,
+    threefry_prng,  # noqa: F401 (autouse fixture)
+    to_jax,
+    to_torch,
+)
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -30,7 +30,11 @@ from gesturediffusion_tpu_torch.diffusion.sampling import (
     p_sample_loop,
 )
 from gesturediffusion_tpu_torch.models.mdm_fastpath import make_fast_cfg_fn
-from tests.torch_port_common import SMALL, build_pair
+from tests.torch_port_common import (
+    SMALL,
+    build_pair,
+    threefry_prng,  # noqa: F401 (autouse fixture)
+)
 
 ARRAYS = (
     "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",

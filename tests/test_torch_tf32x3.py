@@ -13,8 +13,17 @@ within 5e-4 (the card's tolerance for the layer), and
 ops/pallas_flash.py:fused_self_attention at [2, 3, 130, 32], within 2e-4
 (the flash kernel's).  A single TF32 pass is at least 10x further from the
 reference than three: that is why the kernels take three.
+
+The GEMM also takes operands that are not K-contiguous (the training
+layer's data and weight gradients) and splits K into row chunks summed in
+a fixed order (the weight gradients): ``gemm_tf32x3`` emulates that from
+the operands as they lie in memory, held against jax.vjp of the same
+product in f32 within 2e-6 of the output's largest magnitude (sums over at
+most 242 terms in another order; measured 3e-07 to 7e-07, one TF32 pass
+3e-04).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +33,12 @@ import torch.nn.functional as F
 from gesturediffusion_tpu.ops.pallas_encoder import fused_encoder_layer as jax_fused_layer
 from gesturediffusion_tpu.ops.pallas_flash import fused_self_attention as jax_flash
 from gesturediffusion_tpu_torch.ops.fused_encoder import LN_EPS, gelu_tanh
-from tests.torch_port_common import jax_layer_args, jax_layer_params, torch_layer_weights
+from tests.torch_port_common import (
+    jax_layer_args,
+    jax_layer_params,
+    threefry_prng,  # noqa: F401 (autouse fixture)
+    torch_layer_weights,
+)
 
 TOL_LAYER, TOL_FLASH = 5e-4, 2e-4
 
@@ -50,6 +64,21 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in a single TF32 pass."""
     return tf32_rn(a) @ tf32_rn(b)
+
+
+def gemm_tf32x3(a, b, *, a_kc=True, b_kc=True, k_chunk=None, mm=matmul_tf32x3):
+    """C = A . B^T as csrc/gemm_tf32x3.cuh computes it from the operands as
+    they lie in memory: A(m, k) = a[m, k] when a_kc, else a[k, m]; B(n, k) =
+    b[n, k] when b_kc, else b[k, n].  With k_chunk, K is split into chunks
+    (the kernel's blockIdx.z), each chunk's product a partial sum, and the
+    partials are added in chunk order (the weight gradients' split-K)."""
+    am, bm = (a if a_kc else a.T), (b if b_kc else b.T)
+    step = k_chunk or am.shape[1]
+    out = None
+    for k0 in range(0, am.shape[1], step):
+        part = mm(am[:, k0:k0 + step], bm[:, k0:k0 + step].T)
+        out = part if out is None else out + part
+    return out
 
 
 def attention(q, k, v, mm):
@@ -112,4 +141,35 @@ def test_flash_in_three_passes_matches_jax(b, h, t, d):
     one = attention(qt, kt, vt, matmul_tf32).numpy()
     err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
     assert err3 <= TOL_FLASH, err3
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("product", ["forward", "data_grad", "weight_grad"])
+def test_gemm_operand_layouts_match_jax(product):
+    """The training layer's three operand layouts at its ff2 product, 2 x
+    121 rows, ff 128, D 64: the forward y = h W2^T (both operands
+    K-contiguous), the data gradient dh = dy W2 (W2 read along its other
+    axis), the weight gradient dW2 = dy^T h (both operands transposed, the
+    242 rows split into chunks of 96: two whole and a ragged one).  Against
+    jax.vjp of the same product in f32; one TF32 pass is 10x further off."""
+    rs = np.random.RandomState(6)
+    m, f, d = 242, 128, 64
+    h = rs.randn(m, f).astype(np.float32)
+    w2 = (rs.randn(d, f) * f**-0.5).astype(np.float32)
+    dy = rs.randn(m, d).astype(np.float32)
+    y, vjp = jax.vjp(lambda h, w: jnp.dot(h, w.T, precision=jax.lax.Precision.HIGHEST),
+                     jnp.asarray(h), jnp.asarray(w2))
+    dh, dw2 = vjp(jnp.asarray(dy))
+    h_t, w2_t, dy_t = (torch.from_numpy(a) for a in (h, w2, dy))
+    args, kw, want = {
+        "forward": ((h_t, w2_t), {}, y),
+        "data_grad": ((dy_t, w2_t), dict(b_kc=False), dh),
+        "weight_grad": ((dy_t, h_t), dict(a_kc=False, b_kc=False, k_chunk=96), dw2),
+    }[product]
+    want = np.asarray(want)
+    three = gemm_tf32x3(*args, **kw).numpy()
+    one = gemm_tf32x3(*args, **kw, mm=matmul_tf32).numpy()
+    assert three.shape == want.shape
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 <= 2e-6 * np.abs(want).max(), (err3, np.abs(want).max())
     assert err1 >= 10 * err3, (err1, err3)

@@ -40,7 +40,13 @@ from gesturediffusion_tpu_torch.train import loop as ploop
 from gesturediffusion_tpu_torch.train import train_mdm
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint, state_dict_from_params
 from gesturediffusion_tpu_torch.utils.parser import train_args
-from tests.torch_port_common import SMALL, build_pair, to_jax, to_torch
+from tests.torch_port_common import (
+    SMALL,
+    build_pair,
+    threefry_prng,  # noqa: F401 (autouse fixture)
+    to_jax,
+    to_torch,
+)
 
 MEAN_TYPES = ("START_X", "EPSILON", "PREVIOUS_X")
 

@@ -135,6 +135,25 @@ def test_plain_layer_matches_the_pallas_kernels_in_interpret_mode(block_b, rate)
                  _jax_value_and_grads(kernel, x, ws, g))
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_layer_matches_the_pallas_kernels_at_121_rows(rate):
+    """The train CLI's default 120 frames plus the token, the length the
+    fused layer now takes on the card: the Pallas kernels pad T to 128 and
+    B to the block; the port's unpadded indices must draw the same masks."""
+    b, t, d, f, h, seed = 3, 121, 16, 32, 4, 21
+    rs = np.random.RandomState(7)
+    x = rs.randn(b, t, d).astype(np.float32)
+    g = rs.randn(b, t, d).astype(np.float32)
+    ws = _jax_weights(d, f, seed=8)
+    fused = jet.make_fused_train_layer(h, rate, block_b=2, interpret=True)
+
+    def kernel(x, *ws):
+        return fused(x, *ws, jnp.int32(seed))
+
+    _assert_same(_port_value_and_grads(x, ws, g, seed, h, rate),
+                 _jax_value_and_grads(kernel, x, ws, g))
+
+
 def test_rate_zero_is_the_inference_layer():
     rs = np.random.RandomState(4)
     x = torch.from_numpy(rs.randn(2, 9, 16).astype(np.float32))

@@ -3,6 +3,14 @@
 A small gesture MDM is built and initialised in the JAX package; its
 weights are carried into the port with utils/convert.py, and inputs are
 made with numpy from a seed so both packages see the same numbers.
+
+``threefry_prng`` pins JAX's default PRNG implementation for a test: the
+JAX train CLI switches the whole process to ``rbg``
+(gesturediffusion_tpu/utils/fixseed.py:set_prng_impl), and a test that
+runs it in-process leaves that on its pytest worker, where every later key
+(init keys of the models whose weights are carried across, the noise keys
+of the sampling chains) would draw other numbers.  A port module that
+draws JAX keys imports the fixture; it is autouse there.
 """
 
 from __future__ import annotations
@@ -10,12 +18,23 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gesturediffusion_tpu.models.mdm import MDM as JaxMDM
 from gesturediffusion_tpu.models.transformer import TransformerEncoderLayer as JaxLayer
 from gesturediffusion_tpu_torch.models.mdm import MDM
 from gesturediffusion_tpu_torch.utils.convert import state_dict_from_params
+
+@pytest.fixture(autouse=True)
+def threefry_prng():
+    """Run the test under JAX's default threefry2x32 PRNG, whatever an
+    earlier test set, and restore the setting after it."""
+    before = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    yield
+    jax.config.update("jax_default_prng_impl", before)
+
 
 # J=12, D=64, 2 encoder layers of 4 heads, 8 local heads, window 5
 SMALL = dict(njoints=12, latent_dim=64, num_layers=2, ff_size=128, num_heads=4,

@@ -47,11 +47,12 @@ VARIANTS = {
     "gemm_no_loads": [(G, "    if (next < ktiles) load_stage(next % kTcStages, next);", ""),
                       (G, "    if (s < ktiles) load_stage(s, s);", "")],
     "gemm_no_split": [(G, "    fence_proxy_async();\n    __syncthreads();\n", ""),
-                      (G, "      const float4 lo = ld4(ws), hi = ld4(ws + 4);",
-                       "      const float4 lo = make_float4(1.f, 2.f, 3.f, 4.f), hi = lo;")],
-    "gemm_no_a_frags": [(G, "      const float2 lo = *reinterpret_cast<const float2*>(as + 8 * s);\n"
-                            "      const float2 hi = *reinterpret_cast<const float2*>(as + 8 * kTcLd + 8 * s);",
-                         "      const float2 lo = make_float2(s, 1.f), hi = lo;")],
+                      (G, "        const float4 lo = ld4(bs), hi = ld4(bs + 4);",
+                       "        const float4 lo = make_float4(1.f, 2.f, 3.f, 4.f), hi = lo;")],
+    "gemm_no_a_frags": [(G, "        lo = *reinterpret_cast<const float2*>(as + arow * kTcLd + 8 * s + 2 * t);\n"
+                            "        hi = *reinterpret_cast<const float2*>(as + (arow + 8) * kTcLd + 8 * s"
+                            " + 2 * t);",
+                         "        lo = make_float2(s, 1.f);\n        hi = lo;")],
 }
 VARIANTS["gemm_wgmma_only"] = (VARIANTS["gemm_no_loads"] + VARIANTS["gemm_no_split"]
                                + VARIANTS["gemm_no_a_frags"])

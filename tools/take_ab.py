@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Sampling speed of several trees of the PyTorch port on one card, in turns.
+"""Sampling and training speed of several trees of the PyTorch port on one
+card, in turns.
 
     python3 tools/take_ab.py build/parent . . build/parent
 
@@ -10,10 +11,13 @@ csrc/ into its build/kernels/) and times, with the kernels, the two
 sampling takes of chip_smoke.py (this tree's copy supplies the constants
 and the take driver): the 80-frame take (41 takes x 2 chunks x 50 DDPM
 steps, CFG batch 82) and the 1200-frame take (41 x 2 x 20 steps), each run
-once to warm up and then timed three times, with the same seeded weights
-and inputs in every tree.  One line a tree: the median ms per denoise step
-and chunks/s of each take, with the card's name and power limit.  Needs a
-CUDA card.
+once to warm up and then timed three times, then the full-width train step
+of chip_smoke.py's phase 5 (batch 256 = 4 x 64 at 80 frames, dropout 0.1,
+the fused training layer, injected timesteps and noise), run six times,
+with the same seeded weights and inputs in every tree.  One line a tree:
+the median ms per denoise step and chunks/s of each take and the median ms
+and samples/s of train steps 2-6, with the card's name and power limit.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -65,7 +69,53 @@ def one_tree(root: str) -> dict:
         take_s = sorted(times)[1]
         result[f"T={frames}"] = {"ms_per_step": take_s / (steps * cs.CHUNKS) * 1e3,
                                  "chunks_per_s": cs.B_TAKES * cs.CHUNKS / take_s}
+    ms = train_step_ms(cs, gen)
+    result["train"] = {"ms": ms, "samples_per_s": cs.BATCH / ms * 1e3}
     return result
+
+
+def train_step_ms(cs, gen) -> float:
+    """Median ms of train steps 2-6 at chip_smoke.py's phase-5 shape."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+    from gesturediffusion_tpu_torch.train.loop import (
+        TrainConfig,
+        TrainState,
+        make_optimizer,
+        train_step,
+    )
+
+    torch.set_grad_enabled(True)
+    dev = torch.device("cuda")
+    torch.manual_seed(1)
+    model = MDM(njoints=cs.J, latent_dim=cs.D, ff_size=cs.FF, num_layers=cs.LAYERS,
+                num_heads=cs.HEADS, dropout=cs.RATE, cond_mask_prob=0.1, seed_poses=cs.S,
+                mfcc_dim=cs.A, cl_head=cs.CL_HEADS, window_size=cs.WINDOW,
+                use_fused_train_encoder=True).to(dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=cs.BATCH, microbatch_size=cs.MB)
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg), UniformSampler(1000), {})
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    n, t = cs.BATCH, cs.T
+    motion, noise = rn(n, cs.J, 1, t) * 0.5, rn(n, cs.J, 1, t)
+    cond = {"mfcc": rn(n, cs.A, 1, t), "seed": rn(n, cs.J, 1, cs.S) * 0.5,
+            "mask": torch.ones((n, 1, 1, t), dtype=torch.bool, device=dev)}
+    steps = torch.randint(0, 1000, (n,), generator=gen, device=dev)
+    step_gen = torch.Generator(device=dev).manual_seed(7)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, diffusion, cfg, motion, cond, step_gen, steps, noise)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times[1:])[2] * 1e3
 
 
 def main(argv: list[str]) -> int:
@@ -85,7 +135,8 @@ def main(argv: list[str]) -> int:
         r = json.loads(out.strip().splitlines()[-1])
         print(f"take A/B {root}: " + ", ".join(
             f"{k} {v['ms_per_step']:.3f} ms/step = {v['chunks_per_s']:.3f} chunks/s"
-            for k, v in r.items() if k != "root") + f" [{smi}]", flush=True)
+            for k, v in r.items() if k.startswith("T=")) + f", train step {r['train']['ms']:.3f} "
+            f"ms = {r['train']['samples_per_s']:.1f} samples/s [{smi}]", flush=True)
     return 0
 
 
