@@ -7,13 +7,18 @@ Phases, each fatal on failure:
   2. build    nvcc builds every kernel from csrc/ (in parallel), printing
               the -Xptxas -v register / shared-memory / spill lines, and
               counts the TF32 tensor-core instructions (wgmma's HGMMA,
-              mma.sync's HMMA) of each training-layer kernel in its SASS
+              mma.sync's HMMA) of each training-layer kernel and of the
+              band and local-block kernels in their SASS
   3. parity   each kernel against its plain PyTorch version on the card at
               the main-path shapes, with the tolerance stated: the sampling
               kernels at batch 82, the training layer's forward (rates 0.1
               and 0) and backward (dx and 12 gradients) at microbatch 64 and
               81 rows (80 frames and the token), 121 rows (the train CLI's
-              default 120 frames) and 201 rows (off every tile)
+              default 120 frames) and 201 rows (off every tile); the local
+              block and the band kernel at tile edges (lengths, windows,
+              head widths, aliased and separate operands); kernels 1, 4, 5
+              and 6 at the head widths the kernels pad (8, 66, 80, 96) at
+              T 81 and 1201 (training 81 and 121)
   4. sample   the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
               seeded random weights samples a 41-take, 2-chunk CFG take
               (batch 82) through select_sampling_model_fn ->
@@ -32,11 +37,9 @@ Phases, each fatal on failure:
   6. times    kernel, plain and library-call times (CUDA events), take and
               train-step throughput and peak memory, and a profile of a
               denoise step and of a train step, with the card name and
-              power limit; the encoder layer at T = 81 with each attention
-              stage (flash, whole-sequence) through its C entry point; the
-              training kernels at 81 and 121 rows and the device kernels one
-              forward and backward launch (none of them a library kernel);
-              the train-step profile summed by kernel
+              power limit; the training kernels at 81 and 121 rows and the
+              device kernels one forward and backward launch (none of them a
+              library kernel); the train-step profile summed by kernel
   7. long     long-chunk sampling at 1200 frames: the band-attention kernel
               at [82, 8, 1200, 32], the flash kernel at [82, 4, 1201, 64]
               (and at a length off its tile), the encoder layer with its
@@ -47,11 +50,21 @@ Phases, each fatal on failure:
               library times, the SDPA backend the library yardstick ran
               (from the profiler's kernel names), take throughput and a
               profile of a long denoise step
-The encoder layers' products and attention (kernels 1, 4, 5 and 6) run on
-the tensor cores in 3xTF32: their bound is the larger of bytes / 3.35 TB/s
-and 3 x FLOP / 495 TFLOP/s, and their rows print the achieved
-f32-equivalent TFLOP/s.  The other kernels are f32 SIMT: operations / 67
-TFLOP/s.
+  8. widths   a --latent_dim 320 model (4 heads of 80, local heads of 40,
+              2 layers) takes one denoise step at T = 1200 through the
+              kernels (launches counted) against the plain path, then the
+              generate CLI samples --num_frames 1200 from its checkpoint
+Every kernel's products run on the tensor cores in 3xTF32.  Kernel times
+(`ms` in the kernels line) are CUDA events over back-to-back calls, the
+wrapper's host work included, for all six kernels; for the band and
+local-block kernels, whose calls the host work can outlast, the profiler's
+device time of the kernel alone is printed beside it and kept under
+`device_ms`.  The bound of
+kernels 1, 4, 5 and 6 is the larger of bytes / 3.35 TB/s and 3 x FLOP /
+495 TFLOP/s, and their rows print the achieved f32-equivalent TFLOP/s; the
+bound of the band and local-block kernels (2, 3) counts the band's own
+FLOP at the 67 TFLOP/s f32 rate (bytes bind them either way).  Each time
+row prints the achieved share of its bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.  It imports nothing of JAX or of the JAX package.
@@ -63,6 +76,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +102,8 @@ TOL_STEP_GRAD = 2e-3     # of each parameter gradient's max |value|, first step
 T_LONG, LONG_RESPACING, LONG_STEPS, LONG_SAMPLES = 1200, "20", 20, 8
 TOL_BAND = 1e-4          # f32; <= 20-term softmax sums, as the local block
 TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online rescaling
+C1_WIDTHS = (8, 66, 80, 96)  # head widths the kernels pad: --latent_dim 32, 264, 320, 384
+D_C1, C1_LAYERS = 320, 2     # phase 8's model: 4 heads of 80, 8 local heads of 40
 
 
 def log(msg: str) -> None:
@@ -95,9 +111,10 @@ def log(msg: str) -> None:
 
 
 def tensor_core_sass(name: str) -> dict:
-    """{kernel (mangled name): {"HGMMA": n, "HMMA": n}}: the TF32 tensor-core
-    instructions of each kernel in library ``name``'s SASS (cuobjdump
-    -sass), or {} where the toolkit has no cuobjdump."""
+    """{kernel (mangled name): {"HGMMA": n, "HMMA": n, "all": n}}: the TF32
+    tensor-core instructions of each kernel in library ``name``'s SASS
+    (cuobjdump -sass) and all its instructions, or {} where the toolkit has
+    no cuobjdump."""
     from gesturediffusion_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -109,11 +126,13 @@ def tensor_core_sass(name: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
-        elif fn is not None and "TF32" in line:
-            for op in ("HGMMA", "HMMA"):
-                if op in line:
-                    counts[fn][op] += 1
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "all": 0}
+        elif fn is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[fn]["all"] += 1
+            if "TF32" in line:
+                for op in ("HGMMA", "HMMA"):
+                    if op in line:
+                        counts[fn][op] += 1
     return counts
 
 
@@ -132,6 +151,36 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """The device time of one launch of the kernels whose name holds
+    ``kernel``, from the profiler over ``iters`` calls of ``fn`` (after a
+    warm up), per launch it traced: the kernel's own time where the
+    wrapper's host work outlasts it, as the local block's does, and CUDA
+    events would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key and e.device_type != torch.autograd.DeviceType.CPU:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            n += e.count
+    if us <= 0.0 or n == 0:
+        raise AssertionError(f"the profiler traced no {kernel} on the device")
+    if n != iters:
+        log(f"note: the profiler traced {n} of {iters} {kernel} launches; the time is per "
+            f"traced launch")
+    return us / n / 1e3
+
+
 def bound_ms(flops: float, nbytes: float, tf32x3: bool = False) -> tuple[float, str]:
     """The least time for the work: bytes over the memory rate against
     operations over the f32 SIMT peak, or, for the 3xTF32 kernels, three
@@ -145,7 +194,7 @@ def time_line(name, ms, plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3
     rate = f", {flops / ms / 1e9:.1f} TFLOP/s f32-equivalent in 3xTF32" if tf32x3 else ""
     log(f"time {name}: kernel {ms:.4f} ms{rate}, plain {plain_ms:.4f} ms, torch+SDPA "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {flops / 1e9:.4f} GFLOP, "
-        f"{nbytes / 1e6:.3f} MB) {card}")
+        f"{nbytes / 1e6:.3f} MB), {bound / ms:.3f} of the bound {card}")
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -166,27 +215,6 @@ def sdpa_backend(q, k, v) -> str:
         if e.device_type != torch.autograd.DeviceType.CPU and us > 0:
             names.add(e.key)
     return "; ".join(sorted(n[:100] for n in names)) or "not measured (no device kernel traced)"
-
-
-def encoder_layer_stage(x, weights, flash: bool):
-    """The encoder layer's kernel chain through its C entry point with the
-    attention stage given (the wrapper picks flash for head width 64); for
-    the stage A/B, uncounted."""
-    import torch
-
-    from gesturediffusion_tpu_torch.ops import _build
-    from gesturediffusion_tpu_torch.ops.fused_encoder import _kernel
-
-    b, t, d = x.shape
-    f = weights[6].shape[0]
-    new = lambda *shape: torch.empty(shape, device=x.device)  # noqa: E731
-    bufs = (new(b * t, 3 * d), new(b * t, d), new(b * t, d), new(b * t, d), new(b * t, f))
-    out = new(b, t, d)
-    code = _kernel()(x.data_ptr(), *(w.data_ptr() for w in weights),
-                     *(y.data_ptr() for y in bufs), out.data_ptr(), b, t, d, f, HEADS,
-                     (d // HEADS) ** -0.5, int(flash), torch.cuda.current_stream().cuda_stream)
-    _build.check("encoder_layer", code)
-    return out
 
 
 def local_block_sdpa(xseq, coa, num_heads, window):
@@ -309,12 +337,6 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
 
     bb, tl, dev = 2 * B_TAKES, T_LONG + 1, torch.device("cuda")
 
-    def report(name, err, tol, ok_shape=True):
-        ok = ok_shape and err <= tol
-        log(f"{'OK' if ok else 'FAIL'} {name}: max|diff| {err:.3e} (tol {tol:g})")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
-
     # the local block's rotated heads are a transposed view of [B, T, H, dh]
     qb = randn(bb, T_LONG, CL_HEADS, D // CL_HEADS).transpose(1, 2)
     got = local_attention_band(qb, qb, qb, window_size=WINDOW)
@@ -401,6 +423,8 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
     # ---- times ------------------------------------------------------------ #
     copy_ms = cuda_time_ms(lambda: qb.contiguous())
     band_ms = cuda_time_ms(lambda: local_attention_band(qb, qb, qb, window_size=WINDOW))
+    band_device_ms = device_ms(lambda: local_attention_band(qb, qb, qb, window_size=WINDOW),
+                               "band_attention_kernel")
     band_plain_ms = cuda_time_ms(lambda: local_attention(qb, qb, qb, window_size=WINDOW), 10, 2)
     band_lib_ms = cuda_time_ms(lambda: band_sdpa(qb, WINDOW), 5, 1)
     band_flops = 4 * bb * CL_HEADS * band_keys(T_LONG, WINDOW) * (D // CL_HEADS)
@@ -414,6 +438,15 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
     flash_flops = 4 * bb * HEADS * tl**2 * (D // HEADS)
     flash_bytes = 4 * 4 * qf.numel()
     flash_bound, flash_by = bound_ms(flash_flops, flash_bytes, tf32x3=True)
+    # the padded width of --latent_dim 320: heads of 80 at the DHP = 80 kernel
+    q8, k8, v8 = (randn(bb, HEADS, tl, D_C1 // HEADS) for _ in range(3))
+    flash80_ms = cuda_time_ms(lambda: fused_self_attention(q8, k8, v8), 10, 2)
+    flash80_plain_ms = cuda_time_ms(lambda: self_attention_reference(q8, k8, v8), 5, 1)
+    flash80_lib_ms = cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q8, k8, v8), 10, 2)
+    flash80_flops = 4 * bb * HEADS * tl**2 * (D_C1 // HEADS)
+    flash80_bytes = 4 * 4 * q8.numel()
+    flash80_bound, flash80_by = bound_ms(flash80_flops, flash80_bytes, tf32x3=True)
 
     enc_ms = cuda_time_ms(lambda: fused_encoder_layer(xl, *enc_w, num_heads=HEADS), 5, 1)
     enc_plain_ms = cuda_time_ms(lambda: encoder_layer_plain(xl, *enc_w, num_heads=HEADS), 5, 1)
@@ -427,12 +460,16 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
               band_plain_ms, band_lib_ms, band_bound, band_by, band_flops, band_bytes, card)
     time_line(f"flash_attention [{bb},{HEADS},{tl},{D // HEADS}]", flash_ms, flash_plain_ms,
               flash_lib_ms, flash_bound, flash_by, flash_flops, flash_bytes, card, tf32x3=True)
+    time_line(f"flash_attention [{bb},{HEADS},{tl},{D_C1 // HEADS}] (padded width 80)",
+              flash80_ms, flash80_plain_ms, flash80_lib_ms, flash80_bound, flash80_by,
+              flash80_flops, flash80_bytes, card, tf32x3=True)
     time_line(f"encoder_layer [{bb},{tl},{D}] (flash stage)", enc_ms, enc_plain_ms, enc_lib_ms,
               enc_bound, enc_by, enc_flops, enc_bytes, card, tf32x3=True)
     log(f"SDPA backend of the library yardstick at [{bb},{HEADS},{tl},{D // HEADS}]: "
         f"{sdpa_backend(qf, kf, vf)}")
     log(f"time band input .contiguous() copy (what reading the strides avoids): "
-        f"{copy_ms:.4f} ms {card}")
+        f"{copy_ms:.4f} ms; band kernel's device time (profiler) {band_device_ms:.4f} ms, "
+        f"{band_bound / band_device_ms:.3f} of the bound {card}")
     log(f"time long take ({B_TAKES} takes x {CHUNKS} chunks x {LONG_STEPS} DDPM steps at "
         f"T = {T_LONG}, CFG batch {bb}): kernels {kernel_take_s:.3f} s = "
         f"{B_TAKES * CHUNKS / kernel_take_s:.3f} chunks/s, "
@@ -446,8 +483,8 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
          "source": "gesturediffusion_tpu_torch/csrc/band_attention.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_attention.py:33",
          "launches": launches["band_attention"], "max_abs_err": band_err,
-         "ms": band_ms, "plain_ms": band_plain_ms, "bound_ms": band_bound,
-         "bound_by": band_by, "library_ms": band_lib_ms},
+         "ms": band_ms, "device_ms": band_device_ms, "plain_ms": band_plain_ms,
+         "bound_ms": band_bound, "bound_by": band_by, "library_ms": band_lib_ms},
         {"name": "flash_attention", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/flash_attention.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_flash.py:35",
@@ -456,6 +493,77 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
          "bound_by": flash_by, "library_ms": flash_lib_ms},
     ]
     return rows, launches
+
+
+def c1_model_phase(randn, root, card):
+    """Phase 8: a --latent_dim 320 model (4 heads of 80, local heads of 40)
+    takes one CFG denoise step at T = 1200 through the kernels, launches
+    counted, against the same step through the plain versions; then the
+    generate CLI samples --num_frames 1200 from its checkpoint."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+    from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+
+    dev = torch.device("cuda")
+    torch.manual_seed(2)
+    model = MDM(njoints=J, latent_dim=D_C1, ff_size=FF, num_layers=C1_LAYERS, num_heads=HEADS,
+                cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
+                window_size=WINDOW).to(dev).eval()
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                 timestep_respacing=LONG_RESPACING, device=dev)
+    chunk = {"mfcc": randn(B_TAKES, A, 1, T_LONG), "seed": randn(B_TAKES, J, 1, S, scale=0.5),
+             "scale": torch.full((B_TAKES,), GUIDANCE, device=dev)}
+    x, noise = randn(B_TAKES, J, 1, T_LONG), randn(B_TAKES, J, 1, T_LONG)
+    t = torch.full((B_TAKES,), diffusion.num_timesteps // 2, dtype=torch.long, device=dev)
+
+    def step():
+        precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
+        out = p_sample(diffusion, model_fn, x, t, precompute(chunk), noise)["sample"]
+        torch.cuda.synchronize()
+        return out
+
+    counters = {"band_attention": local_attention_band, "flash_attention": fused_self_attention,
+                "encoder_layer": fused_encoder_layer, "local_block": fused_local_block}
+    for fn in counters.values():
+        fn.launches = 0
+    got = step()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {"band_attention": 1, "flash_attention": C1_LAYERS, "encoder_layer": C1_LAYERS,
+            "local_block": 0}
+    model.use_kernels = False
+    plain = step()
+    model.use_kernels = True
+    err = (got - plain).abs().max().item()
+    ok = launches == want and err <= TOL_TAKE and bool(torch.isfinite(got).all())
+    log(f"{'OK' if ok else 'FAIL'} --latent_dim {D_C1} ({HEADS} heads of {D_C1 // HEADS}, "
+        f"{CL_HEADS} local heads of {D_C1 // CL_HEADS}, {C1_LAYERS} layers): one denoise step "
+        f"at T = {T_LONG}, CFG batch {2 * B_TAKES}, kernels vs plain versions max|diff| "
+        f"{err:.3e} (tol {TOL_TAKE:g}); launches {launches} (expected {want}) {card}")
+    if not ok:
+        raise AssertionError("the --latent_dim 320 step disagrees or missed its kernels")
+
+    out_dir = os.path.join(root, "c1", "samples")
+    path = os.path.join(root, "c1", "model000000000.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(model.state_dict(), path)
+    motion, cli_s = generate_cli(
+        path, {"dataset": "synthetic", "num_frames": T_LONG, "layers": C1_LAYERS,
+               "latent_dim": D_C1, "cond_mask_prob": 0.1, "seed_poses": S,
+               "noise_schedule": "cosine", "diffusion_steps": 1000, "sigma_small": True},
+        T_LONG, 1, "5", out_dir)
+    ok = motion.shape == (1, J // 6, 3, T_LONG) and np.isfinite(motion).all()
+    log(f"{'OK' if ok else 'FAIL'} generate CLI at --latent_dim {D_C1} --num_frames {T_LONG} "
+        f"(1 take, respacing 5): motion {motion.shape} in {cli_s:.1f} s")
+    if not ok:
+        raise AssertionError("the --latent_dim 320 generate CLI failed")
 
 
 def device_profile(step, steps, label, card, host_rows=0, groups=None):
@@ -522,11 +630,113 @@ def profile_denoise_step(model, diffusion, chunk_conds, init_seed, card, steps=1
                    f"denoise step at T = {nt}", card)
 
 
-def check_train_layer(xt, gt, enc_w, seed):
-    """Training-layer kernels against the plain layer at microbatch 64:
-    forward at rates 0.1 and 0, rate 0 against the inference kernel, and
-    the backward's 13 gradients against autograd.  Returns the forward's
-    and the gradients' largest absolute differences."""
+def layer_weights(randn, d, f):
+    """The 12 weights of an encoder layer of width d and ff f, seeded."""
+    return (
+        randn(3 * d, d, scale=d**-0.5), randn(3 * d, scale=0.02),
+        randn(d, d, scale=d**-0.5), randn(d, scale=0.02),
+        1.0 + randn(d, scale=0.1), randn(d, scale=0.1),
+        randn(f, d, scale=d**-0.5), randn(f, scale=0.02),
+        randn(d, f, scale=f**-0.5), randn(d, scale=0.02),
+        1.0 + randn(d, scale=0.1), randn(d, scale=0.1),
+    )
+
+
+def report(name, err, tol, ok_shape=True):
+    """One parity line; raises where the kernel disagrees."""
+    ok = ok_shape and err <= tol
+    log(f"{'OK' if ok else 'FAIL'} {name}: max|diff| {err:.3e} (tol {tol:g})")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def band_edges_parity(randn):
+    """Kernels 2 and 3 off the main path's shapes: the local block at one
+    tile (T 10), off the 16-query tile (90), at 16 tiles (256) and at heads
+    of 6 (a float a copy) and 40; the band kernel around its 64-query
+    tiles and 40-key chunks (T 20, 70, 1210), at windows 5 and 16, head
+    widths 6 and 40, with q, k, v one tensor, three, and strided views.
+    Returns the largest differences (local block, band)."""
+    from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+    from gesturediffusion_tpu_torch.ops.fused_local_block import (
+        fused_local_block,
+        pre_encoder_local_block,
+    )
+    from gesturediffusion_tpu_torch.ops.local_attention import local_attention
+
+    lb_err = 0.0
+    for b, t, d, h, w in ((8, 10, D, CL_HEADS, WINDOW), (8, 90, D, CL_HEADS, WINDOW),
+                          (4, 256, D, CL_HEADS, WINDOW), (8, 80, 48, CL_HEADS, 5),
+                          (8, 80, 320, CL_HEADS, WINDOW)):
+        x, coa = randn(b, t, d), randn(b, d)
+        got = fused_local_block(x, coa, num_heads=h, window=w)
+        err = (got - pre_encoder_local_block(x, coa, num_heads=h, window_size=w)).abs().max().item()
+        report(f"local_block [{b},{t},{d}] heads {h} w {w}", err, TOL_LOCAL_BLOCK,
+               got.shape == (b, t + 1, d))
+        lb_err = max(lb_err, err)
+    band_err = 0.0
+    for t, w, dh, layout in ((20, WINDOW, 32, "aliased"), (70, WINDOW, 32, "separate"),
+                             (1210, WINDOW, 32, "strided"), (T_LONG, 5, 32, "aliased"),
+                             (T_LONG, 16, 32, "separate"), (T_LONG, WINDOW, 6, "strided"),
+                             (T_LONG, WINDOW, 40, "aliased"), (1210, WINDOW, 6, "separate")):
+        if layout == "strided":
+            q, k = (randn(4, t, CL_HEADS, dh).transpose(1, 2) for _ in range(2))
+            v = q
+        elif layout == "aliased":
+            q = k = v = randn(4, CL_HEADS, t, dh)
+        else:
+            q, k, v = (randn(4, CL_HEADS, t, dh) for _ in range(3))
+        got = local_attention_band(q, k, v, window_size=w)
+        err = (got - local_attention(q, k, v, window_size=w)).abs().max().item()
+        report(f"band_attention [4,{CL_HEADS},{t},{dh}] w {w} ({layout})", err, TOL_BAND,
+               got.shape == q.shape)
+        band_err = max(band_err, err)
+    return lb_err, band_err
+
+
+def c1_widths_parity(randn, seed):
+    """Kernels 1, 4, 5 and 6 at the head widths the kernels pad (C1_WIDTHS,
+    4 heads), at T 81 and 1201 (training 81 and 121), each against its
+    plain version under the main path's tolerances.  Returns the largest
+    differences {kernel: err}."""
+    from gesturediffusion_tpu_torch.ops.flash_attention import (
+        fused_self_attention,
+        self_attention_reference,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+
+    errs = {"flash_attention": 0.0, "encoder_layer": 0.0, "encoder_layer_train_fwd": 0.0,
+            "encoder_layer_train_bwd": 0.0}
+    for dh in C1_WIDTHS:
+        d = HEADS * dh
+        w = layer_weights(randn, d, 4 * d)
+        for t in (T + 1, T_LONG + 1):
+            q, k, v = (randn(4, HEADS, t, dh) for _ in range(3))
+            got = fused_self_attention(q, k, v)
+            err = (got - self_attention_reference(q, k, v)).abs().max().item()
+            report(f"flash_attention [4,{HEADS},{t},{dh}]", err, TOL_FLASH, got.shape == q.shape)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            x = randn(4, t, d)
+            got = fused_encoder_layer(x, *w, num_heads=HEADS)
+            err = (got - encoder_layer_plain(x, *w, num_heads=HEADS)).abs().max().item()
+            report(f"encoder_layer [4,{t},{d}] heads {HEADS} of {dh}", err, TOL_ENCODER,
+                   got.shape == x.shape)
+            errs["encoder_layer"] = max(errs["encoder_layer"], err)
+        for t in (T + 1, T_CLI + 1):
+            fwd, bwd = check_train_layer(randn(8, t, d), randn(8, t, d), w, seed, heads=HEADS)
+            errs["encoder_layer_train_fwd"] = max(errs["encoder_layer_train_fwd"], fwd)
+            errs["encoder_layer_train_bwd"] = max(errs["encoder_layer_train_bwd"], bwd)
+    return errs
+
+
+def check_train_layer(xt, gt, enc_w, seed, heads=HEADS):
+    """Training-layer kernels against the plain layer (microbatch 64 on the
+    main path): forward at rates 0.1 and 0, rate 0 against the inference
+    kernel, and the backward's 13 gradients against autograd.  Returns the
+    forward's and the gradients' largest absolute differences."""
     import torch
 
     from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
@@ -536,11 +746,11 @@ def check_train_layer(xt, gt, enc_w, seed):
         encoder_layer_train_plain,
     )
 
-    shape = f"[{xt.shape[0]},{xt.shape[1]},{D}] heads {HEADS} ff {FF}"
+    shape = f"[{xt.shape[0]},{xt.shape[1]},{xt.shape[2]}] heads {heads} ff {enc_w[6].shape[0]}"
     fwd_err = {}
     for rate in (RATE, 0.0):
-        got = encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=HEADS, rate=rate)
-        want = encoder_layer_train_plain(xt, *enc_w, seed=seed, num_heads=HEADS, rate=rate)
+        got = encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=heads, rate=rate)
+        want = encoder_layer_train_plain(xt, *enc_w, seed=seed, num_heads=heads, rate=rate)
         torch.cuda.synchronize()
         fwd_err[rate] = (got - want).abs().max().item()
         ok = got.shape == xt.shape and fwd_err[rate] <= TOL_TRAIN_FWD
@@ -548,17 +758,17 @@ def check_train_layer(xt, gt, enc_w, seed):
             f"max|diff| {fwd_err[rate]:.3e} (tol {TOL_TRAIN_FWD:g})")
         if not ok:
             raise AssertionError("training forward kernel disagrees with its plain version")
-    inf_err = (got - fused_encoder_layer(xt, *enc_w, num_heads=HEADS)).abs().max().item()
+    inf_err = (got - fused_encoder_layer(xt, *enc_w, num_heads=heads)).abs().max().item()
     ok = inf_err <= TOL_TRAIN_FWD
     log(f"{'OK' if ok else 'FAIL'} encoder_layer_train_fwd rate 0 vs the inference kernel "
         f"encoder_layer: max|diff| {inf_err:.3e} (tol {TOL_TRAIN_FWD:g})")
     if not ok:
         raise AssertionError("rate-0 training forward disagrees with the inference kernel")
 
-    got = encoder_layer_train_bwd(xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE)
+    got = encoder_layer_train_bwd(xt, *enc_w, seed=seed, g=gt, num_heads=heads, rate=RATE)
     with torch.enable_grad():
         leaves = [t.detach().clone().requires_grad_() for t in (xt, *enc_w)]
-        encoder_layer_train_plain(*leaves, seed=seed, num_heads=HEADS, rate=RATE).backward(gt)
+        encoder_layer_train_plain(*leaves, seed=seed, num_heads=heads, rate=RATE).backward(gt)
     torch.cuda.synchronize()
     names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dln1_w", "dln1_b", "dw1", "db1",
              "dw2", "db2", "dln2_w", "dln2_b")
@@ -856,15 +1066,20 @@ def main() -> int:
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
-    sass = tensor_core_sass("encoder_layer_train")
-    if not sass:
-        log("sass: not measured (no cuobjdump beside nvcc)")
-    for fn, ops in sorted(sass.items()):
-        log(f"sass encoder_layer_train {fn[:110]}: TF32 HGMMA x{ops['HGMMA']}, HMMA x{ops['HMMA']}")
-        product = any(k in fn for k in ("gemm_tf32x3_kernel", "flash_attention_kernel",
-                                        "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel"))
-        if product and not (ops["HGMMA"] or ops["HMMA"]):
-            raise AssertionError(f"{fn}: a product kernel without TF32 tensor-core instructions")
+    for lib in ("encoder_layer_train", "band_attention", "local_block"):
+        sass = tensor_core_sass(lib)
+        if not sass:
+            log(f"sass {lib}: not measured (no cuobjdump beside nvcc)")
+        for fn, ops in sorted(sass.items()):
+            product = any(k in fn for k in (
+                "gemm_tf32x3_kernel", "flash_attention_kernel", "attn_bwd_dq_kernel",
+                "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel"))
+            if not product:
+                continue
+            log(f"sass {lib} {fn[:110]}: TF32 HGMMA x{ops['HGMMA']}, HMMA x{ops['HMMA']} of "
+                f"{ops['all']} instructions")
+            if not (ops["HGMMA"] or ops["HMMA"]):
+                raise AssertionError(f"{fn}: a product kernel without TF32 tensor-core instructions")
 
     torch.set_grad_enabled(False)
     rs = np.random.RandomState(0)
@@ -886,14 +1101,7 @@ def main() -> int:
         raise AssertionError("local_block kernel disagrees with its plain version")
 
     xe = randn(bb, T + 1, D)
-    enc_w = (
-        randn(3 * D, D, scale=D**-0.5), randn(3 * D, scale=0.02),
-        randn(D, D, scale=D**-0.5), randn(D, scale=0.02),
-        1.0 + randn(D, scale=0.1), randn(D, scale=0.1),
-        randn(FF, D, scale=D**-0.5), randn(FF, scale=0.02),
-        randn(D, FF, scale=FF**-0.5), randn(D, scale=0.02),
-        1.0 + randn(D, scale=0.1), randn(D, scale=0.1),
-    )
+    enc_w = layer_weights(randn, D, FF)
     enc_plain = encoder_layer_plain(xe, *enc_w, num_heads=HEADS)
     enc_kernel = fused_encoder_layer(xe, *enc_w, num_heads=HEADS)
     torch.cuda.synchronize()
@@ -910,6 +1118,12 @@ def main() -> int:
     train_fwd_err = max(e[0] for e in train_errs)
     train_bwd_err = max(e[1] for e in train_errs)
     xt, gt = train_x[T + 1]
+    edge_lb_err, edge_band_err = band_edges_parity(randn)
+    lb_err = max(lb_err, edge_lb_err)
+    c1_errs = c1_widths_parity(randn, seed)
+    enc_err = max(enc_err, c1_errs["encoder_layer"])
+    train_fwd_err = max(train_fwd_err, c1_errs["encoder_layer_train_fwd"])
+    train_bwd_err = max(train_bwd_err, c1_errs["encoder_layer_train_bwd"])
 
     # ---- 4. main path: full-width CFG chunked-AR take ------------------ #
     torch.manual_seed(0)
@@ -985,7 +1199,11 @@ def main() -> int:
     train_launches = train_cli_phase(card)
 
     # ---- 6. times ------------------------------------------------------ #
-    lb_ms = cuda_time_ms(lambda: fused_local_block(xs, coa, num_heads=CL_HEADS, window=WINDOW))
+    lb_ms = cuda_time_ms(
+        lambda: fused_local_block(xs, coa, num_heads=CL_HEADS, window=WINDOW))
+    lb_device_ms = device_ms(
+        lambda: fused_local_block(xs, coa, num_heads=CL_HEADS, window=WINDOW),
+        "local_block_kernel", iters=100)
     lb_plain_ms = cuda_time_ms(
         lambda: pre_encoder_local_block(xs, coa, num_heads=CL_HEADS, window_size=WINDOW))
     lb_lib_ms = cuda_time_ms(lambda: local_block_sdpa(xs, coa, CL_HEADS, WINDOW))
@@ -1003,21 +1221,6 @@ def main() -> int:
     enc_bytes = 4 * (2 * m * D + sum(w.numel() for w in enc_w))
     enc_bound, enc_by = bound_ms(enc_flops, enc_bytes, tf32x3=True)
 
-    # the attention stage at T = 81: the layer with the flash stage (what
-    # the wrapper takes) and with the whole-sequence stage, in turns
-    stage_err = {f: (encoder_layer_stage(xe, enc_w, f) - enc_plain).abs().max().item()
-                 for f in (True, False)}
-    stage_ms = {True: [], False: []}
-    for flash in (True, False, False, True):
-        stage_ms[flash].append(cuda_time_ms(lambda: encoder_layer_stage(xe, enc_w, flash)))
-    ok = max(stage_err.values()) <= TOL_ENCODER
-    log(f"{'OK' if ok else 'FAIL'} stage A/B encoder_layer [{bb},{T + 1},{D}]: flash stage "
-        f"{stage_ms[True][0]:.4f} / {stage_ms[True][1]:.4f} ms (max|diff| {stage_err[True]:.3e}), "
-        f"whole-sequence stage {stage_ms[False][0]:.4f} / {stage_ms[False][1]:.4f} ms (max|diff| "
-        f"{stage_err[False]:.3e}; tol {TOL_ENCODER:g}) {card}")
-    if not ok:
-        raise AssertionError("an attention stage of the encoder layer disagrees at T = 81")
-
     train_times = {t: train_kernel_times(*train_x[t], enc_w, seed) for t in (T + 1, T_CLI + 1)}
     layer_kernels = layer_kernel_names(xt, gt, enc_w, seed)
     ok = all(train_kernel_group(n) for n in layer_kernels)
@@ -1028,6 +1231,8 @@ def main() -> int:
 
     time_line("local_block", lb_ms, lb_plain_ms, lb_lib_ms, lb_bound, lb_by, lb_flops, lb_bytes,
               card)
+    log(f"time local_block kernel's device time (profiler, the wrapper's host work left out): "
+        f"{lb_device_ms:.4f} ms, {lb_bound / lb_device_ms:.3f} of the bound {card}")
     time_line(f"encoder_layer [{bb},{T + 1},{D}]", enc_ms, enc_plain_ms, enc_lib_ms, enc_bound,
               enc_by, enc_flops, enc_bytes, card, tf32x3=True)
     for t, tt in train_times.items():
@@ -1057,14 +1262,19 @@ def main() -> int:
     long_rows, long_launches = long_chunk_phase(model, model_path, enc_w, randn, card)
     # launches of the two sampling paths: the 80-frame take, then the long take
     long_rows[1]["launches"] += launches["flash_attention"]
+    long_rows[0]["max_abs_err"] = max(long_rows[0]["max_abs_err"], edge_band_err)
+    long_rows[1]["max_abs_err"] = max(long_rows[1]["max_abs_err"], c1_errs["flash_attention"])
+
+    # ---- 8. the widths the kernels pad, end to end --------------------- #
+    c1_model_phase(randn, os.path.dirname(ckpt_dir), card)
 
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
          "launches": launches["local_block"], "max_abs_err": lb_err,
-         "ms": lb_ms, "plain_ms": lb_plain_ms, "bound_ms": lb_bound,
-         "bound_by": lb_by, "library_ms": lb_lib_ms},
+         "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
+         "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
         {"name": "encoder_layer", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",

@@ -14,106 +14,157 @@
 // of [B, T, H, dh]) are read in place: no repacking copy.
 //
 // What bounds it on an H100: at the long-chunk shape [82, 8, 1200, 32]
-// (w 10) a call does ~1.6 GFLOP (at most 2w keys a query) against ~0.2 GB
-// of compulsory traffic when q = k = v, as in the local block (the input
-// read once, the output written once): ~8 FLOP per byte, bound by memory
-// bandwidth, ~0.06 ms at 3.35 TB/s.
+// (w 10) the band is ~1.6 GFLOP against ~0.2 GB of compulsory traffic when
+// q = k = v, as in the local block (the input read once, the output written
+// once): bound by memory bandwidth, ~0.060 ms at 3.35 TB/s.  The tensor
+// cores do the padded work (16 queries against 40 keys a tile, ~4.0 GFLOP
+// f32-equivalent), ~0.037 ms at mma.sync's measured ~108 TFLOP/s 3xTF32
+// ceiling (tools/tf32_ceiling.py): under the byte bound.
 //
 // Design: the TPU kernel took a query block of BQ rows (a multiple of w)
-// with its own and the previous aligned KV block, [BQ, 2 BQ] score tiles on
-// the MXU, a mask from broadcast iotas and a joint softmax.  Its masked
-// tiles are mostly wasted work, and the MXU tiling does not carry over.
-// Here one block owns one (batch * head, tile of kTile queries): it stages
-// the tile's queries and the K / V rows its band reaches (at most kTile +
-// 2w - 1 of them) into shared memory, so nothing grows with T; then one
-// warp per query computes only the <= 2w band scores (lanes over keys, K
-// rows padded to dh + 1 floats so those reads fall in distinct banks), the
-// softmax with warp reductions, starting from the finite -FLT_MAX (never
-// -inf), and the weighted sum of V (lanes over the head width), and writes
-// the output row once.  Keys outside the band are never scored, which is
-// the same as masking them.
+// with its own and the previous aligned KV block and masked a [BQ, 2 BQ]
+// score tile on the MXU.  Here the call's tiles of 64 queries, (batch,
+// head) rows one after another, are cut into equal runs of consecutive
+// tiles, one run a block and as many blocks as the card holds at once (a
+// persistent grid, one wave, no tail); a block of 4 warps walks its run, a
+// warp a 16-query tile through band_tile.cuh (3xTF32 mma.sync, the mask in
+// registers, P in registers).  Tiles land in a shared-memory ring of slots
+// through cp.async, two tiles ahead of the compute, so the previous
+// window's rows are still resident when a tile needs them and every input
+// row is read from device memory once, but for the band rows before a
+// run's first tile (the traffic the bound counts).  When k or v alias q
+// (the same pointer and strides, as on the model's path), their rows are
+// staged once and read from q's ring.  Rows of a head width that is not a
+// multiple of 16 are staged with zero columns up to DHP, 16 bytes a copy
+// when every row is 16-byte aligned (dh % 4 == 0) and one float a copy
+// otherwise; output columns past dh are never stored.
 
-#include "common.cuh"
+#include "band_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // queries per block
+constexpr int kBandWarps = 4;
+constexpr int kBandThreads = 32 * kBandWarps;
+constexpr int kBandBQ = 16 * kBandWarps;  // queries a tile
+constexpr int kAhead = 2;                 // tiles in flight ahead of the compute
+static_assert(kBandBQ == 64, "slot rows are j >> 6, j & 63");
 
-__device__ __forceinline__ const float* row_ptr(const float* p, const AttnStrides& s, int b,
-                                                int h, int t) {
-  return p + b * s.b + h * s.h + t * s.t;
-}
+struct Operand {
+  const float* p;
+  AttnStrides s;
+};
 
-// grid (B * H, ceil(T / kTile)); dh % 4 == 0, rows 16-byte aligned
-__global__ void __launch_bounds__(kThreads)
-band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out,
-                      AttnStrides sq, AttnStrides sk, AttnStrides sv, AttnStrides so,
-                      int H, int T, int dh, int window, float scale) {
+struct BandArgs {
+  Operand src[3];     // the distinct operands in ring order: q, then k, v unless aliased
+  int nsrc;           // rings staged (1 when q = k = v)
+  int kring, vring;   // the ring k and v are read from
+  float* out;
+  AttnStrides so;
+  int H, T, dh, window;
+  bool vec;           // 16-byte copies and float2 stores
+  float scale_log2;   // dh^-0.5 * log2(e)
+  int ring_tiles;     // tiles a ring holds, a power of two
+  int ntiles;         // tiles of a (batch, head) row: ceil(T / 64)
+  int total;          // tiles of the call: B * H * ntiles
+  int per_block;      // consecutive tiles a block walks
+};
+
+// grid ceil(total / per_block); block kBandThreads.  Tile u is tile
+// u % ntiles of (batch, head) row u / ntiles; it lands in ring slot u mod
+// ring_tiles.
+template <int DHP>
+__global__ void __launch_bounds__(kBandThreads) band_attention_kernel(BandArgs a) {
+  constexpr int LD = DHP + 4;  // see band_tile.cuh: conflict-free fragment reads
+  constexpr int NO = DHP / 8, C4 = DHP / 4;
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kTile;
-  const int rows = min(kTile, T - q0);
-  const int k_lo = max(0, (q0 / window - 1) * window);
-  const int nkeys = q0 + rows - k_lo;
-  const int ks = dh + 1, nwarps = kThreads / 32;
-  float* Qs = smem;                 // [kTile][dh]
-  float* Vs = Qs + kTile * dh;      // [kTile + 2w][dh]
-  float* Ks = Vs + (kTile + 2 * window) * dh;  // [kTile + 2w][dh + 1]
-  float* pbuf = Ks + (kTile + 2 * window) * ks;  // [nwarps][2w]
+  const int T = a.T, dh = a.dh, ntiles = a.ntiles, smask = a.ring_tiles - 1;
+  const int ring_floats = a.ring_tiles * kBandBQ * LD;
+  const int first = blockIdx.x * a.per_block, last = min(first + a.per_block, a.total);
+  if (first >= last) return;
 
-  const int dh4 = dh / 4;
-  for (int idx = threadIdx.x; idx < rows * dh4; idx += blockDim.x) {
-    const int r = idx / dh4, d = (idx - r * dh4) * 4;
-    *reinterpret_cast<float4*>(Qs + r * dh + d) =
-        *reinterpret_cast<const float4*>(row_ptr(q, sq, b, h, q0 + r) + d);
-  }
-  for (int idx = threadIdx.x; idx < nkeys * dh4; idx += blockDim.x) {
-    const int r = idx / dh4, d = (idx - r * dh4) * 4;
-    const float4 k4 = *reinterpret_cast<const float4*>(row_ptr(k, sk, b, h, k_lo + r) + d);
-    float* kr = Ks + r * ks + d;
-    kr[0] = k4.x; kr[1] = k4.y; kr[2] = k4.z; kr[3] = k4.w;
-    *reinterpret_cast<float4*>(Vs + r * dh + d) =
-        *reinterpret_cast<const float4*>(row_ptr(v, sv, b, h, k_lo + r) + d);
-  }
+  // rows that are never staged read as zeros (band_tile.cuh reads up to 7
+  // rows past a band)
+  for (int f = threadIdx.x; f < a.nsrc * ring_floats; f += kBandThreads) smem[f] = 0.0f;
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* p = pbuf + warp * 2 * window;
-  for (int r = warp; r < rows; r += nwarps) {
-    const int i = q0 + r;
-    const int lo = max(0, (i / window - 1) * window);
-    const int nk = i - lo + 1;  // <= 2w
-    const float* qi = Qs + r * dh;
-    const float* kb = Ks + (lo - k_lo) * ks;
-    float m = -FLT_MAX;
-    for (int jj = lane; jj < nk; jj += 32) {
-      const float* kj = kb + jj * ks;
-      float s = 0.0f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qi[d], kj[d], s);
-      s *= scale;
-      p[jj] = s;
-      m = fmaxf(m, s);
+  // rows [from, end) of tile u into slot u of every ring; rows past T and
+  // columns past dh are zeros
+  auto load_tile = [&](int u, int from) {
+    const int bh = u / ntiles, b = bh / a.H, h = bh % a.H;
+    const int r0 = max(from, (u % ntiles) * kBandBQ), r1 = (u % ntiles + 1) * kBandBQ;
+    for (int r = 0; r < a.nsrc; ++r) {
+      float* dst = smem + r * ring_floats + ((u & smask) * kBandBQ + r0 % kBandBQ) * LD;
+      const float* src = a.src[r].p + b * a.src[r].s.b + h * a.src[r].s.h;
+      const long long st = a.src[r].s.t;
+      if (a.vec) {
+        for (int f = threadIdx.x; f < (r1 - r0) * C4; f += kBandThreads) {
+          const int i = f / C4, c = (f % C4) * 4, row = r0 + i;
+          const bool in = row < T && c < dh;
+          cp_async16(dst + i * LD + c, in ? src + row * st + c : src, in);
+        }
+      } else {
+        copy_rows_scalar<DHP, LD>(dst, src, st, r0, r1 - r0, T, dh);
+      }
     }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int jj = lane; jj < nk; jj += 32) {
-      const float e = expf(p[jj] - m);
-      p[jj] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    __syncwarp();
-    const float* vb = Vs + (lo - k_lo) * dh;
-    float* orow = out + b * so.b + h * so.h + i * so.t;
-    for (int d = lane; d < dh; d += 32) {
-      float acc = 0.0f;
-      for (int jj = 0; jj < nk; ++jj) acc = fmaf(p[jj], vb[jj * dh + d], acc);
-      orow[d] = acc * inv;
-    }
-    __syncwarp();
+  };
+  // the first tile with the band rows before it, then the tiles ahead
+  const int tile0 = first % ntiles, from = band_lo(tile0 * kBandBQ, a.window);
+  for (int tile = from / kBandBQ; tile <= tile0; ++tile) load_tile(first - tile0 + tile, from);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < kAhead; ++i) {
+    if (first + i < last) load_tile(first + i, 0);
+    cp_async_commit();
   }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int u = first; u < last; ++u) {
+    cp_async_wait<kAhead - 1>();  // tile u has landed
+    __syncthreads();              // ... for every thread; tile u - 1 is done
+    if (u + kAhead < last) load_tile(u + kAhead, 0);
+    cp_async_commit();
+    const int bh = u / ntiles, b = bh / a.H, h = bh % a.H, u_row = u - u % ntiles;
+    const int q0 = (u % ntiles) * kBandBQ + 16 * warp;
+    if (q0 >= T) continue;
+    // row j of this (batch, head) row: tile j / 64 of the row, slot mod ring
+    auto slot = [&](int ring, int j) {
+      return smem + ring * ring_floats +
+             ((((u_row + (j >> 6)) & smask) << 6) + (j & (kBandBQ - 1))) * LD;
+    };
+    auto qrow = [&](int i) { return slot(0, i); };
+    auto krow = [&](int j) { return slot(a.kring, j); };
+    auto vrow = [&](int j) { return slot(a.vring, j); };
+    float o[NO][4];
+    band_tile<DHP>(q0, T, a.window, a.scale_log2, qrow, krow, vrow, o);
+    float* ob = a.out + b * a.so.b + h * a.so.h;
+    const int r0 = q0 + g, r1 = r0 + 8;
+#pragma unroll
+    for (int d = 0; d < NO; ++d) {
+      const int col = 8 * d + 2 * t;
+      store_pair(ob + r0 * a.so.t + col, o[d][0], o[d][1], r0 < T, col, dh, a.vec);
+      store_pair(ob + r1 * a.so.t + col, o[d][2], o[d][3], r1 < T, col, dh, a.vec);
+    }
+  }
+}
+
+bool same(const Operand& x, const Operand& y) {
+  return x.p == y.p && x.s.b == y.s.b && x.s.h == y.s.h && x.s.t == y.s.t;
+}
+
+template <int DHP>
+cudaError_t band_launch(const BandArgs& a, cudaStream_t s) {
+  const size_t smem = (size_t)a.nsrc * a.ring_tiles * kBandBQ * (DHP + 4) * sizeof(float);
+  // one wave: as many blocks as fit on the card at once, each walking an
+  // equal run of consecutive tiles
+  int slots = 0;
+  const cudaError_t e = wave_blocks(band_attention_kernel<DHP>, kBandThreads, smem, slots);
+  if (e != cudaSuccess) return e;
+  BandArgs args = a;
+  args.per_block = (a.total + slots - 1) / slots;
+  const int grid = (a.total + args.per_block - 1) / args.per_block;
+  band_attention_kernel<DHP><<<grid, kBandThreads, smem, s>>>(args);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -125,25 +176,53 @@ const char* gdt_error_string(int code) {
 }
 
 // q, k, v, out [B, H, T, dh] through their strides (in floats, head width
-// contiguous).  Returns cudaGetLastError() after queueing on `stream`.
+// contiguous), any head width dh <= 128, window >= 1.  Returns
+// cudaGetLastError() after queueing on `stream`.
 int gdt_band_attention_f32(const float* q, const float* k, const float* v, float* out,
                            long long qb, long long qh, long long qt, long long kb,
                            long long kh, long long kt, long long vb, long long vh,
                            long long vt, long long ob, long long oh, long long ot,
                            int B, int H, int T, int dh, int window, float scale,
                            void* stream) {
-  if (dh % 4 != 0 || window < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int nwarps = kThreads / 32;
-  const size_t keys = kTile + 2 * (size_t)window;
-  const size_t smem =
-      ((size_t)kTile * dh + keys * dh + keys * (dh + 1) + nwarps * 2 * (size_t)window) *
-      sizeof(float);
-  const cudaError_t e = set_smem(band_attention_kernel, smem);
+  if (window < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Operand oq{q, {qb, qh, qt}}, ok{k, {kb, kh, kt}}, ov{v, {vb, vh, vt}};
+  BandArgs a{};
+  a.src[0] = oq;
+  a.nsrc = 1;
+  if (same(ok, oq)) {
+    a.kring = 0;
+  } else {
+    a.kring = a.nsrc;
+    a.src[a.nsrc++] = ok;
+  }
+  if (same(ov, oq)) {
+    a.vring = 0;
+  } else if (same(ov, ok)) {
+    a.vring = a.kring;
+  } else {
+    a.vring = a.nsrc;
+    a.src[a.nsrc++] = ov;
+  }
+  a.out = out;
+  a.so = AttnStrides{ob, oh, ot};
+  a.H = H;
+  a.T = T;
+  a.dh = dh;
+  a.window = window;
+  a.vec = dh % 4 == 0 && aligned16(q, oq.s) && aligned16(k, ok.s) && aligned16(v, ov.s) &&
+          aligned16(out, a.so);
+  a.scale_log2 = scale * 1.4426950408889634f;
+  a.ntiles = (T + kBandBQ - 1) / kBandBQ;
+  a.total = B * H * a.ntiles;
+  // the band of a tile reaches 2w - 1 rows back, into earlier tiles; the
+  // tile and kAhead tiles ahead of it are resident too
+  const int tiles = (2 * window - 1 + kBandBQ - 1) / kBandBQ + 1 + kAhead;
+  a.ring_tiles = 1;
+  while (a.ring_tiles < tiles) a.ring_tiles *= 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      with_padded_width(dh, [&](auto w) { return band_launch<decltype(w)::value>(a, s); });
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (T + kTile - 1) / kTile);
-  band_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, AttnStrides{qb, qh, qt}, AttnStrides{kb, kh, kt},
-      AttnStrides{vb, vh, vt}, AttnStrides{ob, oh, ot}, H, T, dh, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,20 @@
 // Device code shared by the encoder-layer kernels (encoder_layer.cu,
 // encoder_layer_train.cu) and the attention kernels (band_attention.cu,
-// flash_attention.cuh): warp reductions, GELU in its tanh form, float4
-// loads, attention operand strides, the counter-based dropout hash, the
-// shared-memory opt-in and the LayerNorm row kernel.  Each .cu that
-// includes this file is its own library, so everything here has internal
-// linkage.
+// local_block.cu, flash_attention.cuh): a warp sum, GELU in its tanh form,
+// float4 loads, attention operand strides, row alignment and the stores of
+// a padded head width, the counter-based dropout hash, the shared-memory
+// opt-in, the size of a one-wave grid and the LayerNorm row kernel.  Each .cu that includes this file is
+// its own library, so everything here has internal linkage.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
+#include <vector>
 
 namespace {
 
@@ -20,12 +24,6 @@ constexpr float kLnEps = 1e-5f;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -53,6 +51,27 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 struct AttnStrides {
   long long b, h, t;
 };
+
+// whether every row of an operand starts 16 bytes aligned, so that it can
+// be copied a float4 at a time (with dh % 4 == 0)
+inline bool aligned16(const float* p, const AttnStrides& s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 && s.h % 4 == 0 &&
+         s.t % 4 == 0;
+}
+
+// Stores the output pair (x, y) at columns col, col + 1 (col even) of a row
+// of head width dh, dropping columns >= dh (the padding of a padded head
+// width): one float2 where `vec` (dh % 4 == 0, aligned rows), else floats.
+__device__ __forceinline__ void store_pair(float* p, float x, float y, bool row_ok, int col,
+                                           int dh, bool vec) {
+  if (!row_ok || col >= dh) return;
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    p[0] = x;
+    if (col + 1 < dh) p[1] = y;
+  }
+}
 
 // ---- dropout: the hash of pallas_encoder_train.py:64-92 ------------------ //
 
@@ -86,12 +105,68 @@ __device__ __forceinline__ float dropped(float z, uint32_t idx, uint32_t salt,
   return hash_u32(idx, salt) < d.thresh ? z * d.inv_keep : 0.0f;
 }
 
+// f(std::integral_constant<int, DHP>{}) for the padded width DHP of head
+// width dh, the next multiple of 16 up to 128: the widths the attention
+// kernels are instantiated for.  cudaErrorInvalidValue outside 1 .. 128.
+template <typename F>
+cudaError_t with_padded_width(int dh, F&& f) {
+  switch ((dh + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 16>{});
+    case 2: return f(std::integral_constant<int, 32>{});
+    case 3: return f(std::integral_constant<int, 48>{});
+    case 4: return f(std::integral_constant<int, 64>{});
+    case 5: return f(std::integral_constant<int, 80>{});
+    case 6: return f(std::integral_constant<int, 96>{});
+    case 7: return f(std::integral_constant<int, 112>{});
+    case 8: return f(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel* kernel, size_t smem) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// The blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) the current card holds at once: the grid of a one-wave persistent
+// kernel.  The kernel's shared-memory opt-in is raised to the maximum and the
+// answer kept per kernel, device and smem, so the occupancy query and the
+// attribute calls are paid once, not on every launch.
+template <typename Kernel>
+cudaError_t wave_blocks(Kernel* kernel, int threads, size_t smem, int& blocks) {
+  struct Entry {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& c : cache)
+    if (c.kernel == key && c.dev == dev && c.smem == smem) {
+      blocks = c.blocks;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kMaxSmem));
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  cache.push_back({key, dev, smem, blocks});
+  return cudaSuccess;
 }
 
 // ---- LayerNorm ----------------------------------------------------------- //

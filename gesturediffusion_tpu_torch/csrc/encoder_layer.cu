@@ -33,10 +33,8 @@
 //      bias; bias and GELU-tanh; bias and residual;
 //   2. attention: the flash kernel of flash_attention.cuh (the port of
 //      pallas_flash.py::_flash_kernel, 3xTF32 on the tensor cores) reading
-//      the packed qkv through its strides, at every length for the head
-//      widths it is built for (the caller sets `flash`); for other widths
-//      the whole-sequence SIMT stage below (one block per (batch, head), K
-//      and V in shared memory);
+//      the packed qkv through its strides, at every length and every head
+//      width up to 128 (zero-padded to the next multiple of 16);
 //   3. a LayerNorm row kernel, one warp per row (common.cuh).
 // The intermediates (qkv, attention output, pre-LN sums, ff activations)
 // round-trip through device memory (~68 MB written and read back per call
@@ -48,123 +46,6 @@
 #include "flash_attention.cuh"
 #include "gemm_tf32x3.cuh"
 
-namespace {
-
-constexpr int kAttnThreads = 256;
-
-// The whole-sequence attention stage, for head widths the flash kernel lacks.
-//
-// qkv [B*T, 3D] -> out [B*T, D]: softmax(q k^T * scale) v per head.  One
-// block per (batch, head); dh % 4 == 0.  K rows are padded to dh + 4
-// floats: float4 reads by lanes on consecutive keys then fall in distinct
-// banks.  Each warp takes two query rows at a time, so every K float4 feeds
-// 8 FMAs and every V float2 feeds 4.  The row sum is applied after the
-// product.
-__global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                 int T, int D, int H, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int dh = D / H, ks = dh + 4, tp = (T + 3) & ~3;
-  const int nwarps = blockDim.x >> 5;
-  float* Ks = smem;                      // [T][dh + 4]
-  float* Vs = Ks + T * ks;               // [tp][dh], rows >= T zero
-  float* qbuf = Vs + tp * dh;            // [nwarps][2][dh]
-  float* pbuf = qbuf + nwarps * 2 * dh;  // [nwarps][2][tp]
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float* base = qkv + (size_t)b * T * 3 * D + h * dh;
-
-  const int dh4 = dh / 4;
-  for (int idx = threadIdx.x; idx < tp * dh4; idx += blockDim.x) {
-    const int j = idx / dh4, d = (idx - j * dh4) * 4;
-    if (j < T) {
-      const float* row = base + (size_t)j * 3 * D + d;
-      *reinterpret_cast<float4*>(Ks + j * ks + d) = ld4(row + D);
-      *reinterpret_cast<float4*>(Vs + j * dh + d) = ld4(row + 2 * D);
-    } else {
-      *reinterpret_cast<float4*>(Vs + j * dh + d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* q0 = qbuf + warp * 2 * dh;
-  float* q1 = q0 + dh;
-  float* p0 = pbuf + warp * 2 * tp;
-  float* p1 = p0 + tp;
-  for (int i0 = 2 * warp; i0 < T; i0 += 2 * nwarps) {
-    const bool two = i0 + 1 < T;
-    for (int d = lane; d < dh; d += 32) {
-      q0[d] = base[(size_t)i0 * 3 * D + d];
-      q1[d] = two ? base[(size_t)(i0 + 1) * 3 * D + d] : 0.0f;
-    }
-    __syncwarp();
-    float m0 = -FLT_MAX, m1 = -FLT_MAX;
-    for (int j = lane; j < T; j += 32) {
-      const float* kj = Ks + j * ks;
-      float s0 = 0.0f, s1 = 0.0f;
-      for (int d = 0; d < dh; d += 4) {
-        const float4 k4 = ld4(kj + d), a = ld4(q0 + d), c = ld4(q1 + d);
-        s0 = fmaf(a.x, k4.x, s0); s0 = fmaf(a.y, k4.y, s0);
-        s0 = fmaf(a.z, k4.z, s0); s0 = fmaf(a.w, k4.w, s0);
-        s1 = fmaf(c.x, k4.x, s1); s1 = fmaf(c.y, k4.y, s1);
-        s1 = fmaf(c.z, k4.z, s1); s1 = fmaf(c.w, k4.w, s1);
-      }
-      s0 *= scale;
-      s1 *= scale;
-      p0[j] = s0;
-      p1[j] = s1;
-      m0 = fmaxf(m0, s0);
-      m1 = fmaxf(m1, s1);
-    }
-    m0 = warp_max(m0);
-    m1 = warp_max(m1);
-    float l0 = 0.0f, l1 = 0.0f;
-    for (int j = lane; j < tp; j += 32) {
-      const float e0 = j < T ? expf(p0[j] - m0) : 0.0f;
-      const float e1 = j < T ? expf(p1[j] - m1) : 0.0f;
-      l0 += e0;
-      l1 += e1;
-      p0[j] = e0;
-      p1[j] = e1;
-    }
-    const float inv0 = 1.0f / warp_sum(l0), inv1 = 1.0f / warp_sum(l1);
-    __syncwarp();
-    for (int d = 2 * lane; d < dh; d += 64) {
-      float2 o0 = make_float2(0.f, 0.f), o1 = make_float2(0.f, 0.f);
-      for (int j = 0; j < tp; j += 4) {
-        const float4 pa = ld4(p0 + j), pb = ld4(p1 + j);
-        const float wa[4] = {pa.x, pa.y, pa.z, pa.w};
-        const float wb[4] = {pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 v = *reinterpret_cast<const float2*>(Vs + (j + u) * dh + d);
-          o0.x = fmaf(wa[u], v.x, o0.x); o0.y = fmaf(wa[u], v.y, o0.y);
-          o1.x = fmaf(wb[u], v.x, o1.x); o1.y = fmaf(wb[u], v.y, o1.y);
-        }
-      }
-      float* orow = out + ((size_t)b * T + i0) * D + h * dh + d;
-      *reinterpret_cast<float2*>(orow) = make_float2(o0.x * inv0, o0.y * inv0);
-      if (two)
-        *reinterpret_cast<float2*>(orow + D) = make_float2(o1.x * inv1, o1.y * inv1);
-    }
-    __syncwarp();
-  }
-}
-
-// Queues attention_kernel for [B, T] rows of D = H heads on `s`.
-cudaError_t attention(const float* qkv, float* out, int B, int T, int D, int H,
-                      float scale, cudaStream_t s) {
-  const size_t dh = D / H, tp = (T + 3) & ~3, nwarps = kAttnThreads / 32;
-  const size_t smem =
-      ((size_t)T * (dh + 4) + tp * dh + nwarps * 2 * (dh + tp)) * sizeof(float);
-  const cudaError_t e = set_smem(attention_kernel, smem);
-  if (e != cudaSuccess) return e;
-  attention_kernel<<<B * H, kAttnThreads, smem, s>>>(qkv, out, T, D, H, scale);
-  return cudaSuccess;
-}
-
-}  // namespace
-
 extern "C" {
 
 const char* gdt_error_string(int code) {
@@ -174,24 +55,22 @@ const char* gdt_error_string(int code) {
 // Returns cudaGetLastError() after queueing the layer on `stream`.
 // Scratch buffers (all float32, contiguous): qkv [M, 3D], attn [M, D],
 // tmp [M, D], h1 [M, D], ff [M, F], with M = B * T.  `out` [M, D].
-// `flash` selects the flash attention stage (dh in {16, 32, 64, 128}),
-// else the whole-sequence stage, whose K and V must fit in shared memory.
+// D % 4 == 0 (the GEMM's 16-byte rows); head width D / H <= 128.
 int gdt_encoder_layer_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* ln2_w,
     const float* ln2_b, float* qkv, float* attn, float* tmp, float* h1,
     float* ff, float* out, int B, int T, int D, int F, int H, float scale,
-    int flash, void* stream) {
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   cudaError_t e = gemm_nt<kBias>(x, wqkv, qkv, M, 3 * D, D, EpiArgs{bqkv}, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long dh = D / H, t = T;
   const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
-  e = flash ? flash_attention(qkv, qkv + D, qkv + 2 * D, attn, packed, packed, packed, rows,
-                              B, H, T, D / H, scale, Drop{}, nullptr, s)
-            : attention(qkv, attn, B, T, D, H, scale, s);
+  e = flash_attention<false>(qkv, qkv + D, qkv + 2 * D, attn, packed, packed, packed, rows, B,
+                             H, T, D / H, scale, Drop{}, nullptr, s);
   if (e == cudaSuccess) e = gemm_nt<kBiasResid>(attn, wo, tmp, M, D, D, EpiArgs{bo, x}, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   layernorm(tmp, ln1_w, ln1_b, h1, M, D, s);

@@ -91,19 +91,22 @@ constexpr int kSumThreads = 256;
 // product is mma.sync.m16n8k8 TF32 in three passes.  The mask index is
 // ((b*H + h)*T + i)*T + j at the physical query i and key j of each
 // accumulator element (the S accumulator of row g holds keys 2t, 2t + 1).
-// Rows are padded to dh + 4 floats: the float2 reads along the head width
+// Rows are padded to DHP + 4 floats: the float2 reads along the head width
 // (row g, columns 2t, 2t + 1) and the scalar reads down it (rows 2t, 2t +
-// 1, column g) are then both free of bank conflicts for dh >= 32.  A warp
+// 1, column g) are then both free of bank conflicts for DHP >= 32.  A warp
 // whose 16 resident rows all lie past T skips the arithmetic; the ragged
-// tile of the other side is masked (p = 0).
+// tile of the other side is masked (p = 0).  Any head width dh <= 128 runs
+// at the padded width DHP (the next multiple of 16), as the flash forward
+// does: staged columns dh .. DHP - 1 are zero, so the padded columns of dQ,
+// dK and dV are zero, and they are never stored.
 
 constexpr int kBwdThreads = 128;  // 4 warps of 16 resident rows
 constexpr int kBwdRows = 64;      // resident rows a block
 
-template <int DH>
+template <int DHP>
 struct BwdTile {
-  static constexpr int LD = DH + 4;              // row stride (floats)
-  static constexpr int BN = DH <= 64 ? 32 : 16;  // streamed rows a tile
+  static constexpr int LD = DHP + 4;              // row stride (floats)
+  static constexpr int BN = DHP <= 64 ? 32 : 16;  // streamed rows a tile
   static constexpr int kStages = 3;
   // resident [64][LD] x 2, the ring [kStages][BN][LD] x 2, lse and D of the
   // dK/dV pass's query tiles [kStages][BN] x 2
@@ -155,31 +158,37 @@ __device__ __forceinline__ void acc_a(const float (&d)[4], uint32_t (&big)[4],
   split_tf32(d[3], big[3], small[3]);
 }
 
-// rows [r0, r0 + n) of a head's [T, DH] operand (row stride ld floats) into
-// a [n][LD] tile, rows past T zero-filled
-template <int DH>
+// rows [r0, r0 + n) of a head's [T, dh] operand (row stride ld floats) into
+// a [n][LD] tile, rows past T and columns past dh zero-filled; 16 bytes a
+// copy where `vec` (dh, ld and the head offsets multiples of 4)
+template <int DHP>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, size_t ld, int r0,
-                                          int n, int T) {
-  constexpr int C4 = DH / 4, LD = BwdTile<DH>::LD;
-  for (int f = threadIdx.x; f < n * C4; f += kBwdThreads) {
-    const int r = f / C4, c = (f % C4) * 4;
-    const bool in = r0 + r < T;
-    cp_async16(dst + r * LD + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
+                                          int n, int T, int dh, bool vec) {
+  constexpr int C4 = DHP / 4, LD = BwdTile<DHP>::LD;
+  if (vec) {
+    for (int f = threadIdx.x; f < n * C4; f += kBwdThreads) {
+      const int r = f / C4, c = (f % C4) * 4;
+      const bool in = r0 + r < T && c < dh;
+      cp_async16(dst + r * LD + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
+    }
+  } else {
+    copy_rows_scalar<DHP, LD>(dst, src, ld, r0, n, T, dh);
   }
 }
 
 // dK and dV of 64 keys of one (batch, head): grid (ceil(T / 64), B * H).
 // qkv, dqkv [B*T, 3D]; dout [B*T, D]; lse, dvec [B*H, T].
-template <int DH, bool DROP>
+template <int DHP, bool DROP>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ dvec,
-                     float* __restrict__ dqkv, int T, int D, int H, float scale, Drop drop) {
-  using Tile = BwdTile<DH>;
+                     float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
+                     float scale, Drop drop) {
+  using Tile = BwdTile<DHP>;
   constexpr int LD = Tile::LD, BN = Tile::BN, kStages = Tile::kStages;
-  constexpr int KC = DH / 8;  // k slices of S^T and dP^T
-  constexpr int NS = BN / 8;  // query slices of a tile
-  constexpr int NO = DH / 8;  // n8 tiles of dK and dV
+  constexpr int KC = DHP / 8;  // k slices of S^T and dP^T
+  constexpr int NS = BN / 8;   // query slices of a tile
+  constexpr int NO = DHP / 8;  // n8 tiles of dK and dV
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                       // [64][LD]
   float* Vs = Ks + kBwdRows * LD;         // [64][LD]
@@ -191,24 +200,24 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ do
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const size_t ld3 = 3 * (size_t)D;
-  const float* qb = qkv + (size_t)b * T * ld3 + h * DH;
-  const float* ob = dout + (size_t)b * T * D + h * DH;
+  const float* qb = qkv + (size_t)b * T * ld3 + h * dh;
+  const float* ob = dout + (size_t)b * T * D + h * dh;
   const float* lb = lse + (size_t)bh * T;
   const float* db = dvec + (size_t)bh * T;
   const int k0 = blockIdx.x * kBwdRows;
   const int ntiles = (T + BN - 1) / BN;
 
   auto load_tile = [&](int buf, int j0) {
-    load_rows<DH>(Qs + buf * BN * LD, qb, ld3, j0, BN, T);
-    load_rows<DH>(Os + buf * BN * LD, ob, D, j0, BN, T);
+    load_rows<DHP>(Qs + buf * BN * LD, qb, ld3, j0, BN, T, dh, vec);
+    load_rows<DHP>(Os + buf * BN * LD, ob, D, j0, BN, T, dh, vec);
     if (threadIdx.x < BN) {
       const int j = j0 + threadIdx.x;
       Ls[buf * BN + threadIdx.x] = j < T ? lb[j] : 0.0f;
       Ds[buf * BN + threadIdx.x] = j < T ? db[j] : 0.0f;
     }
   };
-  load_rows<DH>(Ks, qb + D, ld3, k0, kBwdRows, T);
-  load_rows<DH>(Vs, qb + 2 * D, ld3, k0, kBwdRows, T);
+  load_rows<DHP>(Ks, qb + D, ld3, k0, kBwdRows, T, dh, vec);
+  load_rows<DHP>(Vs, qb + 2 * D, ld3, k0, kBwdRows, T, dh, vec);
   load_tile(0, 0);
   cp_async_commit();
   if (ntiles > 1) load_tile(1, BN);
@@ -294,32 +303,30 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ do
   }
 
   const int r0 = k0 + kr, r1 = r0 + 8;
-  float* dkb = dqkv + (size_t)b * T * ld3 + D + h * DH + 2 * t;
+  float* dkb = dqkv + (size_t)b * T * ld3 + D + h * dh + 2 * t;
   float* dvb = dkb + D;
 #pragma unroll
   for (int d = 0; d < NO; ++d) {
-    if (r0 < T) {
-      *reinterpret_cast<float2*>(dkb + r0 * ld3 + 8 * d) = make_float2(dk[d][0], dk[d][1]);
-      *reinterpret_cast<float2*>(dvb + r0 * ld3 + 8 * d) = make_float2(dv[d][0], dv[d][1]);
-    }
-    if (r1 < T) {
-      *reinterpret_cast<float2*>(dkb + r1 * ld3 + 8 * d) = make_float2(dk[d][2], dk[d][3]);
-      *reinterpret_cast<float2*>(dvb + r1 * ld3 + 8 * d) = make_float2(dv[d][2], dv[d][3]);
-    }
+    const int col = 8 * d + 2 * t;
+    store_pair(dkb + r0 * ld3 + 8 * d, dk[d][0], dk[d][1], r0 < T, col, dh, vec);
+    store_pair(dvb + r0 * ld3 + 8 * d, dv[d][0], dv[d][1], r0 < T, col, dh, vec);
+    store_pair(dkb + r1 * ld3 + 8 * d, dk[d][2], dk[d][3], r1 < T, col, dh, vec);
+    store_pair(dvb + r1 * ld3 + 8 * d, dv[d][2], dv[d][3], r1 < T, col, dh, vec);
   }
 }
 
 // dQ of 64 queries of one (batch, head): grid (ceil(T / 64), B * H).
-template <int DH, bool DROP>
+template <int DHP, bool DROP>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ dvec,
-                   float* __restrict__ dqkv, int T, int D, int H, float scale, Drop drop) {
-  using Tile = BwdTile<DH>;
+                   float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
+                   float scale, Drop drop) {
+  using Tile = BwdTile<DHP>;
   constexpr int LD = Tile::LD, BN = Tile::BN, kStages = Tile::kStages;
-  constexpr int KC = DH / 8;  // k slices of S and dP
-  constexpr int NS = BN / 8;  // key slices of a tile
-  constexpr int NO = DH / 8;  // n8 tiles of dQ
+  constexpr int KC = DHP / 8;  // k slices of S and dP
+  constexpr int NS = BN / 8;   // key slices of a tile
+  constexpr int NO = DHP / 8;  // n8 tiles of dQ
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                       // [64][LD]
   float* Os = Qs + kBwdRows * LD;         // dO: [64][LD]
@@ -329,16 +336,16 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const size_t ld3 = 3 * (size_t)D;
-  const float* qb = qkv + (size_t)b * T * ld3 + h * DH;
+  const float* qb = qkv + (size_t)b * T * ld3 + h * dh;
   const int q0 = blockIdx.x * kBwdRows;
   const int ntiles = (T + BN - 1) / BN;
 
   auto load_tile = [&](int buf, int j0) {
-    load_rows<DH>(Ks + buf * BN * LD, qb + D, ld3, j0, BN, T);
-    load_rows<DH>(Vs + buf * BN * LD, qb + 2 * D, ld3, j0, BN, T);
+    load_rows<DHP>(Ks + buf * BN * LD, qb + D, ld3, j0, BN, T, dh, vec);
+    load_rows<DHP>(Vs + buf * BN * LD, qb + 2 * D, ld3, j0, BN, T, dh, vec);
   };
-  load_rows<DH>(Qs, qb, ld3, q0, kBwdRows, T);
-  load_rows<DH>(Os, dout + (size_t)b * T * D + h * DH, D, q0, kBwdRows, T);
+  load_rows<DHP>(Qs, qb, ld3, q0, kBwdRows, T, dh, vec);
+  load_rows<DHP>(Os, dout + (size_t)b * T * D + h * dh, D, q0, kBwdRows, T, dh, vec);
   load_tile(0, 0);
   cp_async_commit();
   if (ntiles > 1) load_tile(1, BN);
@@ -419,13 +426,12 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout
     }
   }
 
-  float* dqb = dqkv + (size_t)b * T * ld3 + h * DH + 2 * t;
+  float* dqb = dqkv + (size_t)b * T * ld3 + h * dh + 2 * t;
 #pragma unroll
   for (int d = 0; d < NO; ++d) {
-    if (r0 < T)
-      *reinterpret_cast<float2*>(dqb + r0 * ld3 + 8 * d) = make_float2(dq[d][0], dq[d][1]);
-    if (r1 < T)
-      *reinterpret_cast<float2*>(dqb + r1 * ld3 + 8 * d) = make_float2(dq[d][2], dq[d][3]);
+    const int col = 8 * d + 2 * t;
+    store_pair(dqb + r0 * ld3 + 8 * d, dq[d][0], dq[d][1], r0 < T, col, dh, vec);
+    store_pair(dqb + r1 * ld3 + 8 * d, dq[d][2], dq[d][3], r1 < T, col, dh, vec);
   }
 }
 
@@ -440,41 +446,39 @@ attn_bwd_rowdot_kernel(const float* __restrict__ o, const float* __restrict__ do
   const float* a = o + (size_t)m * D + h * dh;
   const float* c = dout + (size_t)m * D + h * dh;
   float s = 0.0f;
-  for (int d = 0; d < dh; d += 4) {
-    const float4 x = ld4(a + d), y = ld4(c + d);
-    s = fmaf(x.x, y.x, s); s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s); s = fmaf(x.w, y.w, s);
-  }
+  for (int d = 0; d < dh; ++d) s = fmaf(a[d], c[d], s);
   const int b = m / T;
   dvec[((size_t)b * H + h) * T + (m - b * T)] = s;
 }
 
-template <int DH, bool DROP>
-cudaError_t attention_backward_launch(const float* qkv, const float* dout, const float* lse,
-                                  const float* dvec, float* dqkv, int B, int T, int D, int H,
-                                  float scale, const Drop& drop, cudaStream_t s) {
-  constexpr size_t smem = BwdTile<DH>::smem;
-  cudaError_t e = set_smem(attn_bwd_dq_kernel<DH, DROP>, smem);
-  if (e == cudaSuccess) e = set_smem(attn_bwd_dkdv_kernel<DH, DROP>, smem);
+struct BwdArgs {
+  const float *qkv, *dout, *lse, *dvec;
+  float* dqkv;
+  int B, T, D, H, dh;
+  bool vec;
+  float scale;
+  Drop drop;
+};
+
+template <int DHP, bool DROP>
+cudaError_t attention_backward_launch(const BwdArgs& a, cudaStream_t s) {
+  constexpr size_t smem = BwdTile<DHP>::smem;
+  cudaError_t e = set_smem(attn_bwd_dq_kernel<DHP, DROP>, smem);
+  if (e == cudaSuccess) e = set_smem(attn_bwd_dkdv_kernel<DHP, DROP>, smem);
   if (e != cudaSuccess) return e;
-  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
-  const dim3 grid((T + kBwdRows - 1) / kBwdRows, B * H);
-  attn_bwd_dq_kernel<DH, DROP><<<grid, kBwdThreads, smem, s>>>(qkv, dout, lse, dvec, dqkv, T,
-                                                               D, H, scale, drop);
-  attn_bwd_dkdv_kernel<DH, DROP><<<grid, kBwdThreads, smem, s>>>(qkv, dout, lse, dvec, dqkv, T,
-                                                                 D, H, scale, drop);
+  if (a.B * a.H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((a.T + kBwdRows - 1) / kBwdRows, a.B * a.H);
+  attn_bwd_dq_kernel<DHP, DROP><<<grid, kBwdThreads, smem, s>>>(
+      a.qkv, a.dout, a.lse, a.dvec, a.dqkv, a.T, a.D, a.H, a.dh, a.vec, a.scale, a.drop);
+  attn_bwd_dkdv_kernel<DHP, DROP><<<grid, kBwdThreads, smem, s>>>(
+      a.qkv, a.dout, a.lse, a.dvec, a.dqkv, a.T, a.D, a.H, a.dh, a.vec, a.scale, a.drop);
   return cudaSuccess;
 }
 
-template <int DH>
-cudaError_t attention_backward_dh(const float* qkv, const float* dout, const float* lse,
-                                  const float* dvec, float* dqkv, int B, int T, int D, int H,
-                                  float scale, const Drop& drop, cudaStream_t s) {
-  return drop.seed != nullptr
-             ? attention_backward_launch<DH, true>(qkv, dout, lse, dvec, dqkv, B, T, D, H,
-                                                   scale, drop, s)
-             : attention_backward_launch<DH, false>(qkv, dout, lse, dvec, dqkv, B, T, D, H,
-                                                    scale, drop, s);
+template <int DHP>
+cudaError_t attention_backward_dhp(const BwdArgs& a, cudaStream_t s) {
+  return a.drop.seed != nullptr ? attention_backward_launch<DHP, true>(a, s)
+                                : attention_backward_launch<DHP, false>(a, s);
 }
 
 // Queues D (into dvec) and both passes of the attention backward: qkv [B*T,
@@ -485,19 +489,12 @@ cudaError_t attention_backward(const float* qkv, const float* o, const float* do
   const int rows = B * T * H;
   attn_bwd_rowdot_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       o, dout, dvec, B * T, T, D, H);
-  switch (D / H) {
-    case 16:
-      return attention_backward_dh<16>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop, s);
-    case 32:
-      return attention_backward_dh<32>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop, s);
-    case 64:
-      return attention_backward_dh<64>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop, s);
-    case 128:
-      return attention_backward_dh<128>(qkv, dout, lse, dvec, dqkv, B, T, D, H, scale, drop,
-                                        s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  // qkv's and dout's rows are 16-byte aligned (D % 4 == 0); so is every
+  // head's slice when dh % 4 == 0
+  const int dh = D / H;
+  const BwdArgs a{qkv, dout, lse, dvec, dqkv, B, T, D, H, dh, dh % 4 == 0, scale, drop};
+  return with_padded_width(
+      dh, [&](auto w) { return attention_backward_dhp<decltype(w)::value>(a, s); });
 }
 
 // ---- row and column kernels ---------------------------------------------- //
@@ -657,8 +654,8 @@ cudaError_t forward_chain(const float* x, const Weights& w, const Drop& drop,
   const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
   cudaError_t e = gemm_nt<kBias>(x, w.wqkv, qkv, M, 3 * D, D, EpiArgs{w.bqkv}, s);
   if (e == cudaSuccess)
-    e = flash_attention(qkv, qkv + D, qkv + 2 * D, o, packed, packed, packed, rows, n.B, n.H,
-                        n.T, D / n.H, scale, drop, lse, s);
+    e = flash_attention<true>(qkv, qkv + D, qkv + 2 * D, o, packed, packed, packed, rows, n.B,
+                              n.H, n.T, D / n.H, scale, drop, lse, s);
   if (e == cudaSuccess)
     e = gemm_nt<kBiasResid>(o, w.wo, u, M, D, D,
                             EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn}, s);
@@ -769,7 +766,7 @@ size_t gdt_encoder_layer_train_workspace(int B, int T, int D, int F, int H,
 
 // Forward: x [B, T, D] -> out [B, T, D].  `seed` points at one int32 on the
 // device; thresh and inv_keep come from the caller (rate 0: use_dropout 0).
-// The head width D / H is 16, 32, 64 or 128 (the flash kernel's).  Returns
+// D % 4 == 0 and the head width D / H <= 128 (the flash kernel's).  Returns
 // cudaGetLastError() after queueing the chain on `stream`.
 int gdt_encoder_layer_train_fwd_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,

@@ -21,14 +21,14 @@ const char* gdt_error_string(int code) {
 }
 
 // q, k, v, out [B, H, T, dh] through their strides (in floats, head width
-// contiguous), dh in {16, 32, 64, 128}.  Returns cudaGetLastError() after
+// contiguous), any head width dh <= 128.  Returns cudaGetLastError() after
 // queueing on `stream`.
 int gdt_flash_attention_f32(const float* q, const float* k, const float* v, float* out,
                             long long qb, long long qh, long long qt, long long kb,
                             long long kh, long long kt, long long vb, long long vh,
                             long long vt, long long ob, long long oh, long long ot,
                             int B, int H, int T, int dh, float scale, void* stream) {
-  const cudaError_t e = flash_attention(
+  const cudaError_t e = flash_attention<false>(
       q, k, v, out, AttnStrides{qb, qh, qt}, AttnStrides{kb, kh, kt},
       AttnStrides{vb, vh, vt}, AttnStrides{ob, oh, ot}, B, H, T, dh, scale, Drop{},
       nullptr, static_cast<cudaStream_t>(stream));

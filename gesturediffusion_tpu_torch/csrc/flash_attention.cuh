@@ -35,10 +35,10 @@
 //
 // Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 4 warps
 // owns 64 queries of one (batch, head), a warp 16 query rows, and walks the
-// key tiles (64 keys; 16 at dh 128, for registers) through a 3-stage
+// key tiles (64 keys; 16 above DHP 64, for registers) through a 3-stage
 // cp.async ring.  A warp's q rows are read from device memory once, as A
-// fragments in registers (split into big and small once at dh <= 64; at dh
-// 128 kept whole and split as used).  K and V fragments are split as they
+// fragments in registers (split into big and small once at DHP <= 64,
+// above it kept whole and split as used).  K and V fragments are split as they
 // are read from shared memory.  Within each slice of 8 along a product's
 // reduction axis, k is permuted: fragment elements k = t and t + 4 come
 // from the adjacent physical positions 2t and 2t + 1 of both operands.
@@ -50,7 +50,7 @@
 // (scale * log2(e) folded into one multiply, exp2 on the SFU); only the
 // last, ragged tile is masked.  Row max and row sum are reduced over the 4
 // threads of a quad with shuffles; the sum is kept per thread and reduced
-// once at the end.  Shared rows are padded (K to dh + 8, V to dh + 4
+// once at the end.  Shared rows are padded (K to DHP + 8, V to DHP + 4
 // floats) so every fragment read is free of bank conflicts.  The kernel
 // issues about five instructions per mma, near the issue limit of the
 // mma.sync rate.  Measured slower at dh 64 and not done: splitting each K
@@ -60,41 +60,53 @@
 // Each tensor is read through (batch, head, position) strides with the head
 // width contiguous: the encoder chain passes its packed [B*T, 3D] qkv and
 // its [B*T, D] output, the standalone entry point [B, H, T, D] tensors.
+//
+// Any head width dh <= 128: the kernel is built for the padded widths DHP,
+// every multiple of 16 up to 128, and takes the real dh at run time.  K and
+// V rows are staged with columns dh .. DHP - 1 zero-filled (cp.async's
+// zero fill), q's fragments read those columns as zeros, and only the
+// columns below dh are stored: zero columns add nothing to q . k and give
+// zero output columns, so the result is that of the real width, with the
+// scale dh^-0.5 the caller passes.  Rows are copied 16 bytes at a time
+// where dh and every stride are multiples of 4 floats and the pointers
+// 16-byte aligned (`vec`), else one float at a time.
 #pragma once
 
 #include "common.cuh"
-#include "gemm_tf32x3.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
 constexpr int kFlashThreads = 128;  // 4 warps of 16 query rows
 constexpr int kFlashBQ = 64;        // queries per block
 
-template <int DH>
+constexpr int kFlashMaxHeadWidth = 128;
+
+template <int DHP>
 struct FlashTile {
-  static constexpr int BK = DH <= 64 ? 64 : 16;  // keys per tile
-  static constexpr int KLD = DH + 8;             // K row stride (floats)
-  static constexpr int VLD = DH + 4;             // V row stride (floats)
+  static constexpr int BK = DHP <= 64 ? 64 : 16;  // keys per tile
+  static constexpr int KLD = DHP + 8;             // K row stride (floats)
+  static constexpr int VLD = DHP + 4;             // V row stride (floats)
   static constexpr int kStages = 3;              // ring of key tiles
   static constexpr size_t smem = (size_t)kStages * BK * (KLD + VLD) * sizeof(float);
 };
 
-// grid (ceil(T / kFlashBQ), B * H); rows 16-byte aligned
-template <int DH, bool DROP>
+// grid (ceil(T / kFlashBQ), B * H); head width dh <= DHP
+template <int DHP, bool DROP>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        AttnStrides sq, AttnStrides sk, AttnStrides sv, AttnStrides so,
-                       int H, int T, float scale, Drop drop, float* __restrict__ lse) {
-  using Tile = FlashTile<DH>;
+                       int H, int T, int dh, bool vec, float scale, Drop drop,
+                       float* __restrict__ lse) {
+  using Tile = FlashTile<DHP>;
   constexpr int BK = Tile::BK, KLD = Tile::KLD, VLD = Tile::VLD, kStages = Tile::kStages;
-  constexpr int KC = DH / 8;  // reduction slices of q k^T
-  constexpr int NS = BK / 8;  // key slices of a tile: n8 tiles of S, k slices of p v
-  constexpr int NO = DH / 8;  // n8 tiles of o
-  constexpr int C4 = DH / 4;  // float4s in a row
-  constexpr bool kSplitQOnce = DH <= 64;
-  static_assert(DH % 16 == 0, "the head width must be a multiple of 16");
-  static_assert(BK * C4 % kFlashThreads == 0, "a tile is whole float4s per thread");
+  constexpr int KC = DHP / 8;  // reduction slices of q k^T
+  constexpr int NS = BK / 8;   // key slices of a tile: n8 tiles of S, k slices of p v
+  constexpr int NO = DHP / 8;  // n8 tiles of o
+  constexpr int C4 = DHP / 4;  // float4s in a row
+  constexpr bool kSplitQOnce = DHP <= 64;
+  static_assert(DHP % 16 == 0, "the padded head width is a multiple of 16");
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                      // [kStages][BK][KLD]
   float* Vs = Ks + kStages * BK * KLD;   // [kStages][BK][VLD]
@@ -108,15 +120,23 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // scores in log2 units: exp(x * scale - m) = exp2(x * scale * log2(e) - m')
   const float scale_log2 = scale * 1.4426950408889634f;
 
+  // rows j0 .. j0 + BK - 1; rows past T and columns past dh zero-filled
   auto load_tile = [&](int buf, int j0) {
     float* ks = Ks + buf * BK * KLD;
     float* vs = Vs + buf * BK * VLD;
+    if (vec) {
+      constexpr int kIters = (BK * C4 + kFlashThreads - 1) / kFlashThreads;
 #pragma unroll
-    for (int i = 0; i < BK * C4 / kFlashThreads; ++i) {
-      const int f = threadIdx.x + i * kFlashThreads, r = f / C4, c = (f % C4) * 4;
-      const bool in = j0 + r < T;
-      cp_async16(ks + r * KLD + c, in ? kb + (j0 + r) * sk.t + c : kb, in);
-      cp_async16(vs + r * VLD + c, in ? vb + (j0 + r) * sv.t + c : vb, in);
+      for (int i = 0; i < kIters; ++i) {
+        const int f = threadIdx.x + i * kFlashThreads, r = f / C4, c = (f % C4) * 4;
+        if (BK * C4 % kFlashThreads != 0 && f >= BK * C4) break;
+        const bool in = j0 + r < T && c < dh;
+        cp_async16(ks + r * KLD + c, in ? kb + (j0 + r) * sk.t + c : kb, in);
+        cp_async16(vs + r * VLD + c, in ? vb + (j0 + r) * sv.t + c : vb, in);
+      }
+    } else {
+      copy_rows_scalar<DHP, KLD>(ks, kb, sk.t, j0, BK, T, dh);
+      copy_rows_scalar<DHP, VLD>(vs, vb, sv.t, j0, BK, T, dh);
     }
   };
   load_tile(0, 0);
@@ -126,14 +146,20 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // this warp's query rows r0 (fragment rows g) and r1 = r0 + 8 (rows g + 8)
   const int r0 = blockIdx.x * kFlashBQ + warp * 16 + g, r1 = r0 + 8;
-  float qf[kSplitQOnce ? 1 : KC][4];        // whole q fragments (dh 128)
-  uint32_t qbig[kSplitQOnce ? KC : 1][4];   // split once (dh <= 64)
+  float qf[kSplitQOnce ? 1 : KC][4];        // whole q fragments (DHP > 64)
+  uint32_t qbig[kSplitQOnce ? KC : 1][4];   // split once (DHP <= 64)
   uint32_t qsmall[kSplitQOnce ? KC : 1][4];
+  // q[r][col, col + 1] (col even), zero past T and past the real head width
+  auto qpair = [&](int r, int col) {
+    if (r >= T || col >= dh) return make_float2(0.f, 0.f);
+    const float* p = qb + r * sq.t + col;
+    if (vec) return *reinterpret_cast<const float2*>(p);
+    return make_float2(p[0], col + 1 < dh ? p[1] : 0.f);
+  };
 #pragma unroll
   for (int c = 0; c < KC; ++c) {
-    const float2 zero = make_float2(0.f, 0.f);
-    const float2 lo = r0 < T ? *reinterpret_cast<const float2*>(qb + r0 * sq.t + 8 * c + 2 * t) : zero;
-    const float2 hi = r1 < T ? *reinterpret_cast<const float2*>(qb + r1 * sq.t + 8 * c + 2 * t) : zero;
+    const int col = 8 * c + 2 * t;
+    const float2 lo = qpair(r0, col), hi = qpair(r1, col);
     const float a[4] = {lo.x, hi.x, lo.y, hi.y};  // a0 .. a3 under the k permutation
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -282,64 +308,59 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
 #pragma unroll
   for (int d = 0; d < NO; ++d) {
-    if (r0 < T)
-      *reinterpret_cast<float2*>(ob + r0 * so.t + d * 8 + 2 * t) =
-          make_float2(o[d][0] * inv_lo, o[d][1] * inv_lo);
-    if (r1 < T)
-      *reinterpret_cast<float2*>(ob + r1 * so.t + d * 8 + 2 * t) =
-          make_float2(o[d][2] * inv_hi, o[d][3] * inv_hi);
+    const int col = d * 8 + 2 * t;
+    store_pair(ob + r0 * so.t + col, o[d][0] * inv_lo, o[d][1] * inv_lo, r0 < T, col, dh, vec);
+    store_pair(ob + r1 * so.t + col, o[d][2] * inv_hi, o[d][3] * inv_hi, r1 < T, col, dh, vec);
   }
 }
 
-template <int DH, bool DROP>
-cudaError_t flash_launch(const float* q, const float* k, const float* v, float* out,
-                               const AttnStrides& sq, const AttnStrides& sk,
-                               const AttnStrides& sv, const AttnStrides& so, int B, int H,
-                               int T, float scale, const Drop& drop, float* lse,
-                               cudaStream_t s) {
-  const size_t smem = FlashTile<DH>::smem;
-  const cudaError_t e = set_smem(flash_attention_kernel<DH, DROP>, smem);
+struct FlashArgs {
+  const float *q, *k, *v;
+  float* out;
+  AttnStrides sq, sk, sv, so;
+  int B, H, T, dh;
+  bool vec;
+  float scale;
+  Drop drop;
+  float* lse;
+};
+
+template <int DHP, bool DROP>
+cudaError_t flash_launch(const FlashArgs& a, cudaStream_t s) {
+  const size_t smem = FlashTile<DHP>::smem;
+  const cudaError_t e = set_smem(flash_attention_kernel<DHP, DROP>, smem);
   if (e != cudaSuccess) return e;
-  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
-  const dim3 grid((T + kFlashBQ - 1) / kFlashBQ, B * H);
-  flash_attention_kernel<DH, DROP><<<grid, kFlashThreads, smem, s>>>(
-      q, k, v, out, sq, sk, sv, so, H, T, scale, drop, lse);
+  if (a.B * a.H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((a.T + kFlashBQ - 1) / kFlashBQ, a.B * a.H);
+  flash_attention_kernel<DHP, DROP><<<grid, kFlashThreads, smem, s>>>(
+      a.q, a.k, a.v, a.out, a.sq, a.sk, a.sv, a.so, a.H, a.T, a.dh, a.vec, a.scale, a.drop,
+      a.lse);
   return cudaSuccess;
 }
 
-template <int DH>
-cudaError_t flash_attention_dh(const float* q, const float* k, const float* v, float* out,
-                               const AttnStrides& sq, const AttnStrides& sk,
-                               const AttnStrides& sv, const AttnStrides& so, int B, int H,
-                               int T, float scale, const Drop& drop, float* lse,
-                               cudaStream_t s) {
-  return drop.seed != nullptr
-             ? flash_launch<DH, true>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s)
-             : flash_launch<DH, false>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse,
-                                       s);
+template <int DHP, bool TRAIN>
+cudaError_t flash_dhp(const FlashArgs& a, cudaStream_t s) {
+  if constexpr (TRAIN)
+    if (a.drop.seed != nullptr) return flash_launch<DHP, true>(a, s);
+  return flash_launch<DHP, false>(a, s);
 }
 
-// Queues flash_attention_kernel on `s` for head width dh in {16, 32, 64, 128},
-// with site-0 dropout when drop.seed is set and the rows' log-sum-exp (log2
-// units, [B*H, T]) when lse is not null.
+// Queues flash_attention_kernel on `s` for any head width dh <= 128 (the
+// kernel of the next multiple of 16), with site-0 dropout when drop.seed is
+// set (TRAIN: the training layer's instantiation; the inference ones build
+// no dropout kernel) and the rows' log-sum-exp (log2 units, [B*H, T]) when
+// lse is not null.
+template <bool TRAIN>
 cudaError_t flash_attention(const float* q, const float* k, const float* v, float* out,
                             const AttnStrides& sq, const AttnStrides& sk,
                             const AttnStrides& sv, const AttnStrides& so, int B, int H,
                             int T, int dh, float scale, const Drop& drop, float* lse,
                             cudaStream_t s) {
-  switch (dh) {
-    case 16:
-      return flash_attention_dh<16>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s);
-    case 32:
-      return flash_attention_dh<32>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s);
-    case 64:
-      return flash_attention_dh<64>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse, s);
-    case 128:
-      return flash_attention_dh<128>(q, k, v, out, sq, sk, sv, so, B, H, T, scale, drop, lse,
-                                     s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const bool vec = dh % 4 == 0 && aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
+                   aligned16(out, so);
+  const FlashArgs a{q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec, scale, drop, lse};
+  return with_padded_width(dh,
+                           [&](auto w) { return flash_dhp<decltype(w)::value, TRAIN>(a, s); });
 }
 
 }  // namespace

@@ -12,138 +12,163 @@
 //
 // What bounds it on an H100: at the gesture shape (B=82, T=80, D=256,
 // 8 heads of 32, w=10) a call moves ~13.6 MB (x and coa in, [B, T+1, D]
-// out) and does ~0.1 GFLOP, ~8 FLOP per byte: it is bound by memory
-// bandwidth, ~4 us at 3.35 TB/s.
+// out) and does ~0.1 GFLOP: it is bound by memory bandwidth, ~4 us at
+// 3.35 TB/s.  The call is two waves of small blocks, so what it costs is
+// two blocks' latency: load, attention, store, in series.
 //
 // Design: the TPU kernel kept [block_b, T, 256] in VMEM and paid for the
 // TPU's (8, 128) tiling with a rotate-half permutation matmul, static lane
 // slices and rows padded to 8.  None of that carries over.  Here one block
-// owns one (batch, head) pair: it reads the head's [T, dh] slice once,
-// applies the first rotary pass while staging it into shared memory, runs
-// the banded attention from shared memory (one warp per query row, lanes
-// over the <= 2w keys for the scores, lanes over dh for the weighted sum),
-// applies the second rotary pass in registers and writes the output row
-// once.  The rotary tables are computed per block into shared memory from
-// the same float64 frequencies the reference builds on the host.  Every
-// input byte is read from device memory once and every output byte written
-// once.
+// owns one (batch, head) pair, 656 blocks at the gesture shape.  At DHP 32
+// a block has up to 5 warps and registers capped for 4 blocks an SM (528
+// at once: two waves; uncapped, 3 an SM fit, and the call measured 5%
+// slower); wider heads spill under that cap and run faster in blocks of up
+// to 16 warps, uncapped.  Each 128-byte head row a block
+// reads is one whole cache line.  A persistent one-wave grid over (batch
+// row, 16-query tile) units that loads whole 1 KB rows of x by the TMA
+// engine into two slabs measured slower (tools/variants/local_block_rows.cu,
+// PERF.md section 6): each unit re-ropes its band's halo rows, and its
+// passes serialize within the block.  The block reads the
+// head's [T, dh] slice once, applying the first rotary pass on the way into
+// shared memory (a float4 from each half a thread, columns past dh zeroed),
+// then each warp runs the band attention of 16 queries on the tensor cores
+// (band_tile.cuh, shared with band_attention.cu: 3xTF32 mma.sync, the band
+// mask in registers, P in registers), a warp a tile (5 warps at T 80),
+// parks its output rows in shared memory, and the block applies the second
+// rotary pass and writes the T + 1 output rows, the conditioning token
+// first, a float4 a thread.  The rotary tables (cos and sin of the float32
+// frequencies of models/embeddings.py::rotary_freqs, [T + 1, dh / 2]) are
+// built once per shape and device by the wrapper and read from L2 (10 KB at
+// the gesture shape).  The products of rope are rounded as PyTorch's
+// (no fused multiply-add), so rope here is bit for bit the plain version's.
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
+#include <algorithm>
+
+#include "band_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kMaxSmem = 232448;  // H100 per-block opt-in maximum
+// the most warps a block, a 16-query tile a warp (5 at T 80); see above
+template <int DHP>
+constexpr int kMaxLocalWarps = DHP <= 32 ? 5 : 16;
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// rope of the pair (x1, x2) = (column k, column k + dh / 2) with cos c and
+// sin s: x * cos + rotate_half(x) * sin, each product rounded on its own
+__device__ __forceinline__ void rope_pair(float x1, float x2, float c, float s, float& y1,
+                                         float& y2) {
+  y1 = __fadd_rn(__fmul_rn(x1, c), __fmul_rn(-x2, s));
+  y2 = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void rope4(const float4& x1, const float4& x2, const float4& c,
+                                      const float4& s, float4& y1, float4& y2) {
+  rope_pair(x1.x, x2.x, c.x, s.x, y1.x, y2.x);
+  rope_pair(x1.y, x2.y, c.y, s.y, y1.y, y2.y);
+  rope_pair(x1.z, x2.z, c.z, s.z, y1.z, y2.z);
+  rope_pair(x1.w, x2.w, c.w, s.w, y1.w, y2.w);
 }
 
-// x [B, T, D], coa [B, D] -> out [B, T + 1, D]; one block per (batch, head)
-__global__ void __launch_bounds__(kThreads)
-local_block_kernel(const float* __restrict__ x, const float* __restrict__ coa,
-                   float* __restrict__ out, int T, int D, int H, int window,
-                   float scale) {
-  extern __shared__ float smem[];
-  const int dh = D / H, half = dh / 2, xs_stride = dh + 1;
-  const int nwarps = blockDim.x >> 5;
-  float* xs = smem;                     // [T][dh + 1] rotated head slice
-  float* cs = xs + T * xs_stride;       // [T + 1][half] cos table
-  float* sn = cs + (T + 1) * half;      // [T + 1][half] sin table
-  float* obuf = sn + (T + 1) * half;    // [nwarps][dh] attention row
-  float* pbuf = obuf + nwarps * dh;     // [nwarps][T] softmax weights
+struct LocalArgs {
+  const float *x, *coa, *cos_t, *sin_t;  // [B, T, D], [B, D], [T + 1, dh / 2] x 2
+  float* out;                            // [B, T + 1, D]
+  int T, D, H, window;
+  float scale_log2;  // dh^-0.5 * log2(e)
+  bool vec;          // dh % 8 == 0 and 16-byte aligned rows: float4 copies
+};
+
+// grid B * H, block 32 x min(kMaxLocalWarps, ceil(T / 16))
+template <int DHP>
+__global__ void __launch_bounds__(32 * kMaxLocalWarps<DHP>, DHP <= 32 ? 4 : 1)
+    local_block_kernel(LocalArgs a) {
+  constexpr int LD = DHP + 4, NO = DHP / 8;
+  extern __shared__ __align__(16) float smem[];
+  const float *__restrict__ x = a.x, *__restrict__ cos_t = a.cos_t, *__restrict__ sin_t = a.sin_t;
+  const int T = a.T, D = a.D, H = a.H, dh = D / H, half = dh / 2, nthreads = blockDim.x;
+  const bool vec = a.vec;
+  float* xs = smem;               // [T + 8][LD] rotated rows; columns past dh, rows past T zero
+  float* os = xs + (T + 8) * LD;  // [T][LD] attention rows
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-
-  // rotary tables: freq = float32(pos * 10000^(-2k/dh)) computed in float64
-  // (models/embeddings.py::rotary_freqs), then cos / sin in float32
-  for (int idx = threadIdx.x; idx < (T + 1) * half; idx += blockDim.x) {
-    const int pos = idx / half, k = idx - pos * half;
-    const double inv = 1.0 / pow(10000.0, (double)(2 * k) / (double)dh);
-    const float f = (float)((double)pos * inv);
-    cs[idx] = cosf(f);
-    sn[idx] = sinf(f);
-  }
-  __syncthreads();
-
   const float* xb = x + (size_t)b * T * D + h * dh;
-  for (int idx = threadIdx.x; idx < T * dh; idx += blockDim.x) {
-    const int i = idx / dh, d = idx - i * dh;
-    const bool lo_half = d < half;
-    const int k = lo_half ? d : d - half;
-    const float v = xb[(size_t)i * D + d];
-    const float partner = xb[(size_t)i * D + (lo_half ? d + half : d - half)];
-    const float rh = lo_half ? -partner : partner;
-    xs[i * xs_stride + d] = v * cs[i * half + k] + rh * sn[i * half + k];
+
+  // the first rotary pass, positions 0 .. T - 1, on the way in
+  if (vec) {
+    const int h4 = half / 4;
+    for (int f = threadIdx.x; f < T * h4; f += nthreads) {
+      const int i = f / h4, k = (f - i * h4) * 4;
+      float4 y1, y2;
+      rope4(ld4(xb + (size_t)i * D + k), ld4(xb + (size_t)i * D + k + half),
+            ld4(cos_t + i * half + k), ld4(sin_t + i * half + k), y1, y2);
+      *reinterpret_cast<float4*>(xs + i * LD + k) = y1;
+      *reinterpret_cast<float4*>(xs + i * LD + k + half) = y2;
+    }
+  } else {
+    for (int f = threadIdx.x; f < T * half; f += nthreads) {
+      const int i = f / half, k = f - i * half;
+      rope_pair(xb[(size_t)i * D + k], xb[(size_t)i * D + k + half], cos_t[i * half + k],
+                sin_t[i * half + k], xs[i * LD + k], xs[i * LD + k + half]);
+    }
+  }
+  // the padded columns, and the 8 rows past T that band_tile.cuh may read
+  for (int f = threadIdx.x; f < T * (DHP - dh); f += nthreads) {
+    const int i = f / (DHP - dh);
+    xs[i * LD + dh + (f - i * (DHP - dh))] = 0.0f;
+  }
+  for (int f = threadIdx.x; f < 8 * LD; f += nthreads) xs[T * LD + f] = 0.0f;
+  __syncthreads();
+
+  // the band attention, q = k = v, a warp a 16-query tile
+  const int warp = threadIdx.x >> 5, nwarps = nthreads >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  auto row = [&](int j) { return xs + j * LD; };
+  for (int q0 = 16 * warp; q0 < T; q0 += 16 * nwarps) {
+    float o[NO][4];
+    band_tile<DHP>(q0, T, a.window, a.scale_log2, row, row, row, o);
+    const int r0 = q0 + g, r1 = r0 + 8;
+#pragma unroll
+    for (int d = 0; d < NO; ++d) {
+      const int col = 8 * d + 2 * t;
+      if (r0 < T) *reinterpret_cast<float2*>(os + r0 * LD + col) = make_float2(o[d][0], o[d][1]);
+      if (r1 < T) *reinterpret_cast<float2*>(os + r1 * LD + col) = make_float2(o[d][2], o[d][3]);
+    }
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ob = obuf + warp * dh;
-  float* p = pbuf + warp * T;
-  float* outb = out + (size_t)b * (T + 1) * D + h * dh;
-
-  for (int i = warp; i < T; i += nwarps) {
-    int lo = (i / window - 1) * window;
-    if (lo < 0) lo = 0;
-    const int nk = i - lo + 1;
-    const float* qi = xs + i * xs_stride;
-    float m = -FLT_MAX;
-    for (int jj = lane; jj < nk; jj += 32) {
-      const float* kj = xs + (lo + jj) * xs_stride;
-      float s = 0.0f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qi[d], kj[d], s);
-      s *= scale;
-      p[jj] = s;
-      m = fmaxf(m, s);
+  // the second rotary pass, positions 0 .. T: the token at 0, then a[i] at
+  // i + 1
+  float* outb = a.out + (size_t)b * (T + 1) * D + h * dh;
+  const float* cb = a.coa + (size_t)b * D + h * dh;
+  if (vec) {
+    const int h4 = half / 4;
+    for (int f = threadIdx.x; f < (T + 1) * h4; f += nthreads) {
+      const int pos = f / h4, k = (f - pos * h4) * 4;
+      const float* src = pos == 0 ? cb : os + (pos - 1) * LD;
+      float4 y1, y2;
+      rope4(ld4(src + k), ld4(src + k + half), ld4(cos_t + pos * half + k),
+            ld4(sin_t + pos * half + k), y1, y2);
+      *reinterpret_cast<float4*>(outb + (size_t)pos * D + k) = y1;
+      *reinterpret_cast<float4*>(outb + (size_t)pos * D + k + half) = y2;
     }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int jj = lane; jj < nk; jj += 32) {
-      const float e = expf(p[jj] - m);
-      p[jj] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    const float inv = 1.0f / sum;
-    __syncwarp();
-    for (int d = lane; d < dh; d += 32) {
-      float acc = 0.0f;
-      for (int jj = 0; jj < nk; ++jj)
-        acc = fmaf(p[jj], xs[(lo + jj) * xs_stride + d], acc);
-      ob[d] = acc * inv;
-    }
-    __syncwarp();
-    const int pos = i + 1;
-    for (int d = lane; d < dh; d += 32) {
-      const bool lo_half = d < half;
-      const int k = lo_half ? d : d - half;
-      const float rh = lo_half ? -ob[d + half] : ob[d - half];
-      outb[(size_t)pos * D + d] =
-          ob[d] * cs[pos * half + k] + rh * sn[pos * half + k];
-    }
-    __syncwarp();
-  }
-
-  // row 0: the conditioning token, rotated at position 0
-  if (warp == nwarps - 1) {
-    const float* cb = coa + (size_t)b * D + h * dh;
-    for (int d = lane; d < dh; d += 32) {
-      const bool lo_half = d < half;
-      const int k = lo_half ? d : d - half;
-      const float rh = lo_half ? -cb[d + half] : cb[d - half];
-      outb[d] = cb[d] * cs[k] + rh * sn[k];
+  } else {
+    for (int f = threadIdx.x; f < (T + 1) * half; f += nthreads) {
+      const int pos = f / half, k = f - pos * half;
+      const float* src = pos == 0 ? cb : os + (pos - 1) * LD;
+      rope_pair(src[k], src[k + half], cos_t[pos * half + k], sin_t[pos * half + k],
+                outb[(size_t)pos * D + k], outb[(size_t)pos * D + k + half]);
     }
   }
 }
+
+template <int DHP>
+cudaError_t local_block_launch(const LocalArgs& a, int B, cudaStream_t s) {
+  const size_t smem = (2 * (size_t)a.T + 8) * (DHP + 4) * sizeof(float);
+  const cudaError_t e = set_smem(local_block_kernel<DHP>, smem);
+  if (e != cudaSuccess) return e;
+  const int nwarps = std::min(kMaxLocalWarps<DHP>, (a.T + 15) / 16);
+  local_block_kernel<DHP><<<B * a.H, 32 * nwarps, smem, s>>>(a);
+  return cudaSuccess;
+}
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -153,24 +178,22 @@ const char* gdt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns cudaGetLastError() after queueing the block on `stream`.
-int gdt_local_block_f32(const float* x, const float* coa, float* out, int B,
-                        int T, int D, int H, int window, float scale,
-                        void* stream) {
+// x [B, T, D] and coa [B, D] contiguous, cos_t and sin_t [T + 1, dh / 2]
+// (dh = D / H even, at most 128) -> out [B, T + 1, D].  Returns
+// cudaGetLastError() after queueing the block on `stream`.
+int gdt_local_block_f32(const float* x, const float* coa, const float* cos_t,
+                        const float* sin_t, float* out, int B, int T, int D, int H,
+                        int window, float scale, void* stream) {
   const int dh = D / H;
-  const int nwarps = kThreads / 32;
-  const size_t smem = ((size_t)T * (dh + 1) + 2 * (size_t)(T + 1) * (dh / 2) +
-                       (size_t)nwarps * (dh + T)) *
-                      sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        local_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  local_block_kernel<<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, coa, out, T, D, H, window, scale);
+  if (T < 1 || D % H || dh % 2 || window < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = dh % 8 == 0 && D % 4 == 0 && aligned(x) && aligned(coa) && aligned(cos_t) &&
+                   aligned(sin_t) && aligned(out);
+  const LocalArgs a{x, coa, cos_t, sin_t, out, T, D, H, window, scale * 1.4426950408889634f, vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = with_padded_width(
+      dh, [&](auto w) { return local_block_launch<decltype(w)::value>(a, B, s); });
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

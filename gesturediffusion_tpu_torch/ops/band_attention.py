@@ -30,6 +30,21 @@ from gesturediffusion_tpu_torch.ops.local_attention import (
 
 # below this length the dense band-masked formulation is taken
 LOCAL_ATTN_DENSE_MAX_T = 256
+# the widest head the attention kernels take (band, flash, the training
+# layer's attention backward, the local block); no configuration of the
+# repo has wider heads (--latent_dim 512 with 4 heads gives 128)
+MAX_HEAD_WIDTH = 128
+
+
+def padded_head_width(dh: int) -> int:
+    """The width the attention kernels run head width ``dh`` at: the next
+    multiple of 16 (csrc/ instantiates 16, 32, ..., 128), columns past dh
+    zero-filled in shared memory.  Raises a ValueError past
+    ``MAX_HEAD_WIDTH``."""
+    if not 0 < dh <= MAX_HEAD_WIDTH:
+        raise ValueError(f"the attention kernels take head widths 1 .. {MAX_HEAD_WIDTH}, "
+                         f"not {dh}")
+    return -(-dh // 16) * 16
 
 
 @functools.cache
@@ -41,13 +56,14 @@ def _kernel():
     )
 
 
-def kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the attention kernels can read it through its
-    strides (last axis contiguous, every stride a multiple of 4 floats,
-    16-byte aligned), else a contiguous copy."""
-    ok = (x.stride(-1) == 1 and all(s % 4 == 0 for s in x.stride()[:-1])
-          and x.data_ptr() % 16 == 0)
-    return x if ok else x.contiguous()
+def kernel_layout(*xs: torch.Tensor) -> tuple:
+    """The operands as the attention kernels read them: each tensor itself
+    when its head width (last axis) is contiguous, whatever its other
+    strides and alignment, else one contiguous copy of it; a tensor passed
+    more than once is copied once, so aliased operands stay aliased."""
+    laid = {}
+    return tuple(laid.setdefault(id(x), x if x.stride(-1) == 1 else x.contiguous())
+                 for x in xs)
 
 
 def check_attention_args(name: str, q, k, v) -> None:
@@ -61,8 +77,6 @@ def check_attention_args(name: str, q, k, v) -> None:
         raise TypeError(f"{name}: the kernel takes float32 tensors")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k and v must be on the same device")
-    if q.shape[-1] % 4:
-        raise ValueError(f"{name}: the head width {q.shape[-1]} must be divisible by 4")
 
 
 def local_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,7 +99,8 @@ def local_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     check_attention_args("local_attention_band", q, k, v)
-    q, k, v = kernel_layout(q), kernel_layout(k), kernel_layout(v)
+    padded_head_width(q.shape[-1])
+    q, k, v = kernel_layout(q, k, v)
     out = torch.empty_like(q)
     b, h, _, d = q.shape
     fn = _kernel()

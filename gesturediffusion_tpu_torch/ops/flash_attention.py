@@ -7,6 +7,9 @@ On a CUDA tensor ``fused_self_attention`` launches csrc/flash_attention.cu
 tensor it runs ``self_attention_reference``.  The inference encoder
 layer's chain launches the same device code on its packed qkv buffer as its
 attention stage (ops/fused_encoder.py), and counts those launches here too.
+The kernel takes any head width up to ``MAX_HEAD_WIDTH``, run at the next
+multiple of 16 with zero-filled columns (``padded_head_width``), as
+pallas_flash.py pads D to 128.
 """
 
 from __future__ import annotations
@@ -20,10 +23,8 @@ from gesturediffusion_tpu_torch.ops import _build
 from gesturediffusion_tpu_torch.ops.band_attention import (
     check_attention_args,
     kernel_layout,
+    padded_head_width,
 )
-
-# the head widths the kernel is instantiated for
-FLASH_HEAD_WIDTHS = (16, 32, 64, 128)
 
 
 def self_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -47,18 +48,17 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     """Full (non-causal) attention, q, k, v [B, H, T, D] -> [B, H, T, D].
 
     CPU tensors run ``self_attention_reference``; CUDA tensors launch the
-    flash kernel, which reads q, k and v through their strides and masks
-    keys past T itself, so no length is padded (counted in
-    ``fused_self_attention.launches``)."""
+    flash kernel, which reads q, k and v through their strides, masks keys
+    past T itself and pads the head width in shared memory, so nothing is
+    padded in device memory (counted in ``fused_self_attention.launches``)."""
     if q.device.type == "cpu":
         return self_attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     check_attention_args("fused_self_attention", q, k, v)
     b, h, t, d = q.shape
-    if d not in FLASH_HEAD_WIDTHS:
-        raise ValueError(f"fused_self_attention: head width {d} not in {FLASH_HEAD_WIDTHS}")
-    q, k, v = kernel_layout(q), kernel_layout(k), kernel_layout(v)
+    padded_head_width(d)
+    q, k, v = kernel_layout(q, k, v)
     out = torch.empty_like(q)
     fn = _kernel()
     with torch.cuda.device(q.device):

@@ -20,9 +20,7 @@ and bias [D].  On a CUDA tensor the wrapper launches
 csrc/encoder_layer.cu (its four products on the tensor cores in 3xTF32,
 f32-level error); on a CPU tensor it runs the plain version.  The chain's
 attention stage is the flash kernel of ops/flash_attention.py at every T
-for the head widths that kernel has (``FLASH_HEAD_WIDTHS``); for other
-widths it is the whole-sequence stage, which keeps a head's K and V in
-shared memory and so takes T only where they fit (``attention_fits``).
+and every head width up to 128 (``padded_head_width``).
 """
 
 from __future__ import annotations
@@ -35,15 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from gesturediffusion_tpu_torch.ops import _build
-from gesturediffusion_tpu_torch.ops.flash_attention import (
-    FLASH_HEAD_WIDTHS,
-    fused_self_attention,
-)
+from gesturediffusion_tpu_torch.ops.band_attention import padded_head_width
+from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
 
 LN_EPS = 1e-5
-# a block's shared memory on an H100 (opt-in maximum), common.cuh:kMaxSmem
-MAX_SMEM_BYTES = 232448
-ATTN_WARPS = 8  # encoder_layer.cu:kAttnThreads / 32
 # the training dropout sites, in the order the layer reaches them
 SITE_ATTN, SITE_POST_ATTN, SITE_ACT, SITE_FF = 0, 1, 2, 3
 # drop(z, site) -> z with the dropout of that site applied
@@ -91,40 +84,12 @@ def encoder_layer_plain(
     return F.layer_norm(x + h, (d,), ln2_w, ln2_b, LN_EPS)
 
 
-def attention_smem_bytes(t: int, d: int, num_heads: int) -> int:
-    """Shared memory of encoder_layer.cu:attention_kernel for T = t rows of
-    one head (encoder_layer.cu:attention): K rows padded to dh + 4, V rows
-    padded to a multiple of 4, two query and two score rows per warp."""
-    dh, tp = d // num_heads, (t + 3) & ~3
-    return 4 * (t * (dh + 4) + tp * dh + ATTN_WARPS * 2 * (dh + tp))
-
-
-def attention_fits(t: int, d: int, num_heads: int) -> bool:
-    """Whether a head's K and V fit the whole-sequence attention stage (the
-    inference layer's stage for head widths the flash kernel lacks)."""
-    return attention_smem_bytes(t, d, num_heads) <= MAX_SMEM_BYTES
-
-
-def flash_stage(t: int, d: int, num_heads: int) -> bool:
-    """Whether the kernel chain's attention stage is the flash kernel (every
-    T, head widths in ``FLASH_HEAD_WIDTHS``) or the whole-sequence stage
-    (other widths); raises where neither takes the shape."""
-    if d // num_heads in FLASH_HEAD_WIDTHS:
-        return True
-    if not attention_fits(t, d, num_heads):
-        raise ValueError(
-            f"T={t}: a head's K and V exceed shared memory and the flash stage takes "
-            f"head widths {FLASH_HEAD_WIDTHS}, not {d // num_heads}"
-        )
-    return False
-
-
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.load_function(
         "encoder_layer", "gdt_encoder_layer_f32",
-        [p] * 19 + [i] * 5 + [ctypes.c_float, i, p],
+        [p] * 19 + [i] * 5 + [ctypes.c_float, p],
     )
 
 
@@ -140,11 +105,12 @@ def _check_cuda_args(x, weights, num_heads):
     ):
         if tuple(w.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(w.shape)}")
-    if d % num_heads or (d // num_heads) % 4 or f % 4:
+    if d % num_heads or d % 4 or f % 4:
         raise ValueError(
-            f"D={d} must split into {num_heads} heads of a width divisible by 4; "
-            f"F={f} must be divisible by 4"
+            f"D={d} must split into {num_heads} heads; D and F={f} must be divisible by 4 "
+            f"(the products' 16-byte rows)"
         )
+    padded_head_width(d // num_heads)
     for w in (x, *weights):
         if w.dtype != torch.float32:
             raise TypeError("the encoder-layer kernel takes float32 tensors")
@@ -165,9 +131,7 @@ def fused_encoder_layer(
     CPU tensors run ``encoder_layer_plain``; CUDA tensors launch the
     kernel chain of csrc/encoder_layer.cu (counted once per call in
     ``fused_encoder_layer.launches``), whose attention stage is the flash
-    kernel for head widths in ``FLASH_HEAD_WIDTHS`` (counted in
-    ``fused_self_attention.launches``) and the whole-sequence stage for
-    other widths, where a head's K and V fit in shared memory."""
+    kernel (counted in ``fused_self_attention.launches``)."""
     weights = (wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if x.device.type == "cpu":
         return encoder_layer_plain(x, *weights, num_heads=num_heads)
@@ -177,7 +141,6 @@ def fused_encoder_layer(
     b, t, d = x.shape
     f = w1.shape[0]
     m = b * t
-    flash = flash_stage(t, d, num_heads)
     new = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
     qkv, attn, tmp, h1, ff = new((m, 3 * d)), new((m, d)), new((m, d)), new((m, d)), new((m, f))
     out = new((b, t, d))
@@ -188,11 +151,11 @@ def fused_encoder_layer(
             x.data_ptr(), *(w.data_ptr() for w in weights),
             qkv.data_ptr(), attn.data_ptr(), tmp.data_ptr(), h1.data_ptr(),
             ff.data_ptr(), out.data_ptr(), b, t, d, f, num_heads,
-            (d // num_heads) ** -0.5, int(flash), stream,
+            (d // num_heads) ** -0.5, stream,
         )
     _build.check("encoder_layer", code)
     fused_encoder_layer.launches += 1
-    fused_self_attention.launches += flash
+    fused_self_attention.launches += 1
     return out
 
 

@@ -25,10 +25,8 @@ every call, as a separate TPU kernel call does.
 
 The kernels' attention is flash-style in both directions (the flash kernel
 of ops/flash_attention.py with site-0 dropout, and a tiled backward), so T
-is bounded by device memory only.  They take the flash kernel's head widths
-(``FLASH_HEAD_WIDTHS``); a CUDA call with another width raises a ValueError
-before any launch, naming the plain training layer (train without
-``--use_fused_train_encoder``), which takes any width.
+is bounded by device memory only, and takes any head width up to 128, as
+the inference layer does.
 """
 
 from __future__ import annotations
@@ -40,7 +38,6 @@ import math
 import torch
 
 from gesturediffusion_tpu_torch.ops import _build
-from gesturediffusion_tpu_torch.ops.flash_attention import FLASH_HEAD_WIDTHS
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
     _check_cuda_args as _check_layer_args,
     encoder_layer_plain,
@@ -139,20 +136,7 @@ def _kernels():
     return fwd, bwd, ws
 
 
-def check_head_width(d: int, num_heads: int) -> None:
-    """Raise a ValueError naming the plain training layer when the head
-    width is not one the kernels' flash attention takes."""
-    if d % num_heads or d // num_heads not in FLASH_HEAD_WIDTHS:
-        raise ValueError(
-            f"the fused training layer's attention takes head widths {FLASH_HEAD_WIDTHS}: "
-            f"D={d} with {num_heads} heads gives {d / num_heads:g}; train this width "
-            f"through the plain training layer (without --use_fused_train_encoder)"
-        )
-
-
 def _check_cuda_args(x, weights, seed, num_heads):
-    if x.dim() == 3:
-        check_head_width(x.shape[2], num_heads)
     _check_layer_args(x, weights, num_heads)
     if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != x.device:
         raise ValueError("seed must be one int32 element on the device of x")

@@ -10,7 +10,10 @@ pre_encoder_local_block (the kernel's specification):
     conditioning token -> rotary over T + 1 -> merge heads
 
 xseq [B, T, D], coa [B, D] -> [B, T + 1, D].  On a CUDA tensor the wrapper
-launches csrc/local_block.cu; on a CPU tensor it runs the plain version.
+launches csrc/local_block.cu (its band attention on the tensor cores in
+3xTF32, through the routine it shares with the band kernel) with the rotary
+tables of ``rotary_table``, built once per shape and device; on a CPU
+tensor it runs the plain version.
 ``pre_encoder_local_block`` takes its attention from
 ops/band_attention.py:local_attention_auto, as mdm.py:70 does: the dense
 form up to 256 frames, beyond that the band kernel on a CUDA tensor
@@ -30,7 +33,10 @@ from gesturediffusion_tpu_torch.models.embeddings import (
     rotary_freqs,
 )
 from gesturediffusion_tpu_torch.ops import _build
-from gesturediffusion_tpu_torch.ops.band_attention import local_attention_auto
+from gesturediffusion_tpu_torch.ops.band_attention import (
+    local_attention_auto,
+    padded_head_width,
+)
 
 
 def pre_encoder_local_block(
@@ -63,11 +69,21 @@ def pre_encoder_local_block(
 
 
 @functools.cache
+def rotary_table(positions: int, dh: int, device: torch.device) -> tuple:
+    """(cos, sin) [positions, dh / 2] of the rotary frequencies
+    (``rotary_freqs``, whose two halves are equal): the kernel's tables,
+    built once per shape and device with the plain version's own ops, so
+    they are its tables bit for bit."""
+    freqs = rotary_freqs(positions, dh, device)[:, : dh // 2]
+    return freqs.cos().contiguous(), freqs.sin().contiguous()
+
+
+@functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.load_function(
         "local_block", "gdt_local_block_f32",
-        [p, p, p, i, i, i, i, i, ctypes.c_float, p],
+        [p] * 5 + [i] * 5 + [ctypes.c_float, p],
     )
 
 
@@ -86,6 +102,7 @@ def _check_cuda_args(xseq, coa, num_heads, window):
         raise ValueError(
             f"D={d} must split into {num_heads} heads of even width; window >= 1"
         )
+    padded_head_width(d // num_heads)
     if not (xseq.is_contiguous() and coa.is_contiguous()):
         raise ValueError("the local-block kernel takes contiguous tensors")
 
@@ -105,12 +122,14 @@ def fused_local_block(
         raise ValueError(f"unsupported device {xseq.device}")
     _check_cuda_args(xseq, coa, num_heads, window)
     b, t, d = xseq.shape
+    dh = d // num_heads
+    cos, sin = rotary_table(t + 1, dh, xseq.device)
     out = torch.empty((b, t + 1, d), dtype=xseq.dtype, device=xseq.device)
     fn = _kernel()
     with torch.cuda.device(xseq.device):
         stream = torch.cuda.current_stream(xseq.device).cuda_stream
-        code = fn(xseq.data_ptr(), coa.data_ptr(), out.data_ptr(), b, t, d,
-                  num_heads, window, (d // num_heads) ** -0.5, stream)
+        code = fn(xseq.data_ptr(), coa.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                  out.data_ptr(), b, t, d, num_heads, window, dh**-0.5, stream)
     _build.check("local_block", code)
     fused_local_block.launches += 1
     return out

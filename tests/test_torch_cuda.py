@@ -7,9 +7,11 @@ it runs on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The encoder layers' products and attention (the flash kernel, the training
-layer's attention backward) run on the tensor cores in 3xTF32 (f32-level
-error), the other kernels in f32 SIMT arithmetic.
+Every product of every kernel runs on the tensor cores in 3xTF32
+(f32-level error): the encoder layers' GEMMs, the flash kernel, the
+training layer's attention backward and the band attention that the band
+kernel and the local block share.  Every head width up to 128 is taken
+(padded to the next multiple of 16 in shared memory).
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -40,9 +42,11 @@ from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
     encoder_layer_train_plain,
     fused_encoder_layer_train,
 )
+from gesturediffusion_tpu_torch.models.embeddings import rotary_freqs
 from gesturediffusion_tpu_torch.ops.fused_local_block import (
     fused_local_block,
     pre_encoder_local_block,
+    rotary_table,
 )
 from gesturediffusion_tpu_torch.ops.local_attention import local_attention
 
@@ -74,7 +78,11 @@ def _encoder_weights(d, f, device, seed=0):
     )
 
 
-@pytest.mark.parametrize("b,t,d,h,w", [(82, 80, 256, 8, 10), (3, 16, 64, 8, 5), (5, 24, 32, 4, 10)])
+@pytest.mark.parametrize("b,t,d,h,w", [
+    (82, 80, 256, 8, 10), (3, 16, 64, 8, 5), (5, 24, 32, 4, 10),
+    (3, 10, 256, 8, 10), (3, 90, 256, 8, 10), (2, 256, 256, 8, 10),  # one tile; 16 tiles on 5 warps
+    (3, 40, 48, 8, 5), (2, 33, 320, 8, 10),  # heads of 6 (one float a copy) and 40
+])
 def test_local_block_kernel_matches_plain(dev, b, t, d, h, w):
     rs = np.random.RandomState(3)
     x, coa = _randn(rs, b, t, d, device=dev), _randn(rs, b, d, device=dev)
@@ -84,6 +92,14 @@ def test_local_block_kernel_matches_plain(dev, b, t, d, h, w):
     torch.cuda.synchronize()
     assert fused_local_block.launches == before + 1
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("t,dh", [(81, 32), (257, 6), (11, 48)])
+def test_rotary_table_is_the_plain_table_on_the_card(dev, t, dh):
+    cos, sin = rotary_table(t, dh, dev)
+    freqs = rotary_freqs(t, dh, dev)
+    assert torch.equal(cos, freqs.cos()[:, : dh // 2])
+    assert torch.equal(sin, freqs.sin()[:, : dh // 2])
 
 
 def test_local_block_kernel_rejects_float64(dev):
@@ -159,6 +175,68 @@ def test_band_kernel_matches_plain(dev, b, h, t, d, w, strided):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
 
 
+# T and window pairs the band wrapper takes (T divisible by w), around the
+# kernel's 64-query tiles and 40-key chunks
+BAND_EDGES = [(t, w) for t in (20, 70, 1200, 1210) for w in (5, 10, 16) if t % w == 0]
+
+
+@pytest.mark.parametrize("layout", ["aliased", "separate", "strided"])
+@pytest.mark.parametrize("d", [6, 32, 40, 48])
+@pytest.mark.parametrize("t,w", BAND_EDGES)
+def test_band_kernel_at_tile_edges_and_widths(dev, t, w, d, layout):
+    """One tensor for q, k and v (the local block's) or three, contiguous
+    or as the transposed view of [B, T, H, dh]; head widths off the 16-wide
+    padding and one not divisible by 4 (copied a float at a time)."""
+    b, h = 2, 3
+    rs = np.random.RandomState(18)
+    if layout == "strided":
+        q = _randn(rs, b, t, h, d, device=dev).transpose(1, 2)
+        k = _randn(rs, b, t, h, d, device=dev).transpose(1, 2)
+        v = q
+    elif layout == "aliased":
+        q = k = v = _randn(rs, b, h, t, d, device=dev)
+    else:
+        q, k, v = (_randn(rs, b, h, t, d, device=dev) for _ in range(3))
+    want = local_attention(q, k, v, window_size=w)
+    got = local_attention_band(q, k, v, window_size=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+# head widths the reference runs that the kernels pad (8 -> 16, 66 -> 80,
+# 80, 96): --latent_dim 32, 264, 320 and 384 at 4 heads
+C1_WIDTHS = (8, 66, 80, 96)
+
+
+@pytest.mark.parametrize("dh", C1_WIDTHS)
+@pytest.mark.parametrize("t", [81, 1201])
+def test_flash_kernel_at_the_c1_widths(dev, t, dh):
+    rs = np.random.RandomState(19)
+    q, k, v = (_randn(rs, 2, 4, t, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", C1_WIDTHS)
+@pytest.mark.parametrize("t", [81, 1201])
+def test_encoder_kernel_at_the_c1_widths(dev, t, dh):
+    d = 4 * dh
+    w = _encoder_weights(d, 4 * d, dev, seed=20)
+    x = _randn(np.random.RandomState(20), 2, t, d, device=dev)
+    want = encoder_layer_plain(x, *w, num_heads=4)
+    got = fused_encoder_layer(x, *w, num_heads=4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("dh", C1_WIDTHS)
+@pytest.mark.parametrize("t", [81, 121])
+def test_train_kernels_at_the_c1_widths(dev, t, dh, rate):
+    _check_train_kernels(dev, 2, t, 4 * dh, 4, 4 * dh, rate)
+
+
 @pytest.mark.parametrize("b,h,t,d", [(4, 4, 1201, 64), (2, 3, 130, 32), (1, 2, 513, 128),
                                      (2, 3, 24, 32)])
 def test_flash_kernel_matches_reference(dev, b, h, t, d):
@@ -176,9 +254,10 @@ def test_flash_kernel_matches_reference(dev, b, h, t, d):
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("t", [1, 63, 65, 777, 1201])
 def test_flash_kernel_at_tile_edges(dev, t, d, packed):
-    """Lengths around the 64-query and the 64- (32 at d 128) key tiles, each
-    head width, through [B, H, T, D] tensors and through the strides of a
-    packed [B, T, 3, H, D] qkv as the encoder layer hands it over."""
+    """Lengths around the 64-query and the 64- (16 above d 64) key tiles, at
+    head widths that need no padding, through [B, H, T, D] tensors and
+    through the strides of a packed [B, T, 3, H, D] qkv as the encoder layer
+    hands it over."""
     b, h = 2, 2
     rs = np.random.RandomState(16)
     if packed:
@@ -192,11 +271,11 @@ def test_flash_kernel_at_tile_edges(dev, t, d, packed):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("t,heads,flash", [(81, 4, 1), (1201, 4, 1), (81, 32, 0)])
+@pytest.mark.parametrize("t,heads,flash", [(81, 4, 1), (1201, 4, 1), (81, 32, 1)])
 def test_encoder_layer_takes_the_flash_stage_past_shared_memory(dev, t, heads, flash):
-    """The flash stage at every length for its head widths (64 here), past
-    shared memory and below it; a head width it lacks (8) takes the
-    whole-sequence stage where that fits."""
+    """The flash stage, the layer's one attention stage, at every length
+    and head width: 64 past shared memory and below it, and 8 (padded to
+    16)."""
     w = _encoder_weights(256, 1024, dev, seed=14)
     x = _randn(np.random.RandomState(14), 2, t, 256, device=dev)
     want = encoder_layer_plain(x, *w, num_heads=heads)
@@ -273,9 +352,9 @@ def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("t", [1, 64, 65, 121, 321])
 def test_train_kernels_at_tile_edges(dev, t, dh, rate):
-    """Lengths around the attention's 64-row blocks and its 32- (16 at dh
-    128) row tiles, past any shared-memory limit, at each head width the
-    flash-style attention takes."""
+    """Lengths around the attention's 64-row blocks and its 32- (16 above dh
+    64) row tiles, past any shared-memory limit, at head widths that need no
+    padding (the padded ones: test_train_kernels_at_the_c1_widths)."""
     _check_train_kernels(dev, 2, t, 2 * dh, 2, 4 * dh, rate)
 
 
@@ -293,11 +372,18 @@ def test_train_backward_is_bit_for_bit_repeatable(dev):
 
 
 def test_train_kernels_reject_a_head_width(dev):
-    w = _encoder_weights(64, 128, dev)
+    """The one head width the training kernels reject is one wider than
+    128, on the card before any launch; 8 heads of 8 at D = 64 are taken,
+    at the padded width 16, forward and backward against the plain
+    layer."""
+    w = _encoder_weights(272, 544, dev, seed=7)
+    x = torch.zeros(1, 9, 272, device=dev)
     seed = torch.tensor([1], dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="without --use_fused_train_encoder"):
-        encoder_layer_train_fwd(torch.zeros(2, 8, 64, device=dev), *w, seed=seed, num_heads=8,
-                                rate=0.1)
+    before = encoder_layer_train_fwd.launches
+    with pytest.raises(ValueError, match="head widths 1 .. 128, not 136"):
+        fused_encoder_layer_train(x, *w, seed=seed, num_heads=2, rate=0.1)
+    assert encoder_layer_train_fwd.launches == before
+    _check_train_kernels(dev, 2, 8, 64, 8, 128, 0.1)
 
 
 @pytest.mark.parametrize("t", [81, 121])

@@ -3,8 +3,9 @@
 plain version, the CUDA kernel is held against it in test_torch_cuda.py and
 chip_smoke.py) against the JAX package's ops/pallas_flash.py:
 fused_self_attention in interpret mode, at the shapes of
-tests/test_pallas_flash.py, and the encoder layer's choice between its two
-attention stages.  Tolerance atol 2e-5, rtol 2e-5, as the JAX test."""
+tests/test_pallas_flash.py, and the dispatch of every head width the model
+can have (the kernels pad it to the next multiple of 16, up to 128).
+Tolerance atol 2e-5, rtol 2e-5, as the JAX test."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,15 +13,24 @@ import pytest
 import torch
 
 from gesturediffusion_tpu.ops.pallas_flash import fused_self_attention as jax_flash
+from gesturediffusion_tpu_torch.ops.band_attention import (
+    MAX_HEAD_WIDTH,
+    check_attention_args,
+    kernel_layout,
+    padded_head_width,
+)
 from gesturediffusion_tpu_torch.ops.flash_attention import (
     fused_self_attention,
     self_attention_reference,
 )
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
-    MAX_SMEM_BYTES,
-    attention_fits,
-    attention_smem_bytes,
-    flash_stage,
+    _check_cuda_args as check_layer_args,
+)
+from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+    _check_cuda_args as check_train_args,
+)
+from gesturediffusion_tpu_torch.ops.fused_local_block import (
+    _check_cuda_args as check_local_block_args,
 )
 
 TOL = 2e-5
@@ -53,28 +63,83 @@ def test_reference_is_sdpa_on_the_cpu():
                                rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("t,fits", [(81, True), (384, True), (385, False), (1201, False)])
-def test_encoder_attention_stage_choice(t, fits):
-    """The byte count of encoder_layer.cu:attention at D=256, 4 heads: 53,008
-    bytes at T=81; T=385 is the first length past a block's 232,448."""
-    assert attention_fits(t, 256, 4) is fits
-    assert (attention_smem_bytes(t, 256, 4) <= MAX_SMEM_BYTES) is fits
-    if t == 81:
-        assert attention_smem_bytes(t, 256, 4) == 53008
+def _layer(t, d, heads, f=None):
+    """x [1, t, d] and the 12 layer weights (zeros) of a D = d layer."""
+    f = f or 4 * d
+    shapes = [(3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (f, d), (f,), (d, f), (d,),
+              (d,), (d,)]
+    return torch.zeros(1, t, d), tuple(torch.zeros(s) for s in shapes)
 
 
-@pytest.mark.parametrize("t,d,heads,flash", [
-    (81, 256, 4, True), (1201, 256, 4, True),     # dh 64: flash at every length
-    (20, 64, 4, True), (300, 512, 4, True),       # dh 16 and 128
-    (81, 256, 32, False), (384, 256, 32, False),  # dh 8: whole-sequence stage where it fits
+@pytest.mark.parametrize("t,d,heads,width", [
+    (81, 256, 4, 64), (1201, 256, 4, 64),     # dh 64: the gesture model
+    (20, 64, 4, 16), (300, 512, 4, 128),      # dh 16 and 128
+    (81, 256, 32, 16), (384, 256, 32, 16),    # dh 8, padded to 16
 ])
-def test_encoder_layer_stage_by_head_width(t, d, heads, flash):
-    assert flash_stage(t, d, heads) is flash
+def test_encoder_layer_stage_by_head_width(t, d, heads, width):
+    """The inference layer's one attention stage, the flash kernel, at the
+    padded width its head width runs at; the layer's checks take the shape."""
+    x, w = _layer(t, d, heads)
+    check_layer_args(x, w, heads)
+    assert padded_head_width(d // heads) == width
 
 
 def test_encoder_layer_stage_raises_past_shared_memory_without_flash():
-    with pytest.raises(ValueError, match="exceed shared memory"):
-        flash_stage(2000, 256, 32)
+    """2000 rows of 32 heads of 8 (past a block's shared memory for a
+    whole-sequence stage) take the flash stage; only a head wider than 128
+    is refused."""
+    x, w = _layer(2000, 256, 32)
+    check_layer_args(x, w, 32)
+    assert padded_head_width(8) == 16
+    x, w = _layer(4, 272, 2)
+    with pytest.raises(ValueError, match="head widths 1 .. 128, not 136"):
+        check_layer_args(x, w, 2)
+
+
+# the head widths of --latent_dim 32, 264, 320 and 384 at 4 heads; 80 and 96
+# are the flash stage's C1 widths (--latent_dim 320 and 384)
+C1_WIDTHS = (8, 66, 80, 96)
+
+
+@pytest.mark.parametrize("dh", C1_WIDTHS)
+@pytest.mark.parametrize("t", [81, 266, 1201])
+def test_dispatch_takes_every_head_width_of_the_reference(t, dh):
+    """The card path's checks take what the JAX package runs: the inference
+    layer, the training layer, the band kernel (its local heads of dh) and
+    the local block, at the next multiple of 16."""
+    x, w = _layer(t, 4 * dh, 4)
+    check_layer_args(x, w, 4)
+    check_train_args(x, w, torch.zeros(1, dtype=torch.int32), 4)
+    q = torch.zeros(1, 2, t, dh)
+    check_attention_args("local_attention_band", q, q, q)
+    check_local_block_args(torch.zeros(1, t, 8 * dh), torch.zeros(1, 8 * dh), 8, 10)
+    assert padded_head_width(dh) == -(-dh // 16) * 16 <= MAX_HEAD_WIDTH
+
+
+@pytest.mark.parametrize("check", ["layer", "train", "local_block", "padded"])
+def test_dispatch_refuses_heads_wider_than_128(check):
+    d = 2 * (MAX_HEAD_WIDTH + 8)
+    x, w = _layer(4, d, 2)
+    calls = {
+        "layer": lambda: check_layer_args(x, w, 2),
+        "train": lambda: check_train_args(x, w, torch.zeros(1, dtype=torch.int32), 2),
+        "local_block": lambda: check_local_block_args(x, torch.zeros(1, d), 2, 10),
+        "padded": lambda: padded_head_width(MAX_HEAD_WIDTH + 8),
+    }
+    with pytest.raises(ValueError, match="head widths 1 .. 128"):
+        calls[check]()
+
+
+def test_kernel_layout_copies_a_shared_tensor_once():
+    """Operands the kernels read through their strides stay as they are; one
+    tensor passed three times with a strided head width is copied once, so
+    the kernels still see q = k = v."""
+    heads = torch.zeros(2, 5, 3, 8).transpose(1, 2)  # the local block's view
+    assert all(y is heads for y in kernel_layout(heads, heads, heads))
+    odd = torch.zeros(2, 3, 5, 16)[..., ::2]
+    q, k, v = kernel_layout(odd, odd, odd)
+    assert q.is_contiguous() and q is k is v
+    torch.testing.assert_close(q, odd, rtol=0, atol=0)
 
 
 def test_flash_wrapper_rejects_other_devices():

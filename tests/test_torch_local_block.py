@@ -17,9 +17,11 @@ from gesturediffusion_tpu.ops.local_attention import (
 from gesturediffusion_tpu.ops.pallas_local_block import (
     fused_local_block as jax_fused_block,
 )
+from gesturediffusion_tpu_torch.models.embeddings import rotary_freqs
 from gesturediffusion_tpu_torch.ops.fused_local_block import (
     fused_local_block,
     pre_encoder_local_block,
+    rotary_table,
 )
 from gesturediffusion_tpu_torch.ops.local_attention import local_attention_dense
 
@@ -87,3 +89,14 @@ def test_unsupported_device_raises():
     x = torch.empty(2, 16, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_local_block(x, torch.empty(2, 64, device="meta"), num_heads=8, window=5)
+
+
+@pytest.mark.parametrize("t,dh", [(81, 32), (11, 6), (257, 48)])
+def test_rotary_table_is_the_plain_table(t, dh):
+    """The kernel's cached cos and sin tables are the plain version's bit
+    for bit (the card test checks the same on the card)."""
+    cos, sin = rotary_table(t, dh, torch.device("cpu"))
+    freqs = rotary_freqs(t, dh)
+    assert cos.shape == sin.shape == (t, dh // 2)
+    assert torch.equal(cos, freqs.cos()[:, : dh // 2])
+    assert torch.equal(sin, freqs.sin()[:, dh // 2:])

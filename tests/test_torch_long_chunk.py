@@ -4,7 +4,7 @@ band_attention.py) against the JAX package at T = 320, the small gesture
 MDM of torch_port_common (window 5 divides it): the local block, the model
 forward, the fast CFG function and a 2-chunk, 4-step AR take under the JAX
 chain's own noise.  Also the model's choice of local-block path and the
-fused training layer's head-width check.  Tolerances are those of the existing
+fused training layer's head-width checks.  Tolerances are those of the existing
 tests of the same comparisons: rtol 2e-4 / atol 2e-5 for the block, the
 forward and the CFG function (test_torch_local_block.py,
 test_torch_mdm.py), rtol 1e-4 / atol 2e-5 for the take
@@ -24,7 +24,10 @@ from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
 from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
 from gesturediffusion_tpu_torch.models import mdm as port_mdm
 from gesturediffusion_tpu_torch.models.mdm_fastpath import make_fast_cfg_fn
-from gesturediffusion_tpu_torch.ops.fused_encoder_train import encoder_layer_train_fwd
+from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+    _check_cuda_args as check_train_args,
+    encoder_layer_train_fwd,
+)
 from gesturediffusion_tpu_torch.ops.fused_local_block import pre_encoder_local_block
 from tests.torch_port_common import (
     SMALL,
@@ -158,19 +161,24 @@ def test_training_forward_above_256_frames_uses_windowed_dropout():
     assert torch.isfinite(run(3)).all()
 
 
-@pytest.mark.parametrize("d,heads", [(64, 8), (96, 4), (40, 4)])
-def test_fused_training_layer_rejects_a_head_width_before_launch(d, heads):
-    """The training kernels' attention is the flash kernel's, at head widths
-    16, 32, 64 and 128 and any length: another width (8, 24, 10 here)
-    raises before anything is built or launched (here on CPU tensors, which
-    never reach a kernel), and the message names the plain training layer."""
+def _train_layer_args(d, heads):
     f = 2 * d
     weights = [torch.zeros(3 * d, d), torch.zeros(3 * d), torch.zeros(d, d), torch.zeros(d),
                torch.ones(d), torch.zeros(d), torch.zeros(f, d), torch.zeros(f),
                torch.zeros(d, f), torch.zeros(d), torch.ones(d), torch.zeros(d)]
-    x = torch.zeros(1, 9, d)
-    seed = torch.zeros(1, dtype=torch.int32)
+    return torch.zeros(1, 9, d), weights, torch.zeros(1, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("d,heads", [(64, 8), (96, 4), (40, 4)])
+def test_fused_training_layer_rejects_a_head_width_before_launch(d, heads):
+    """The training kernels take every head width up to 128, as the flash
+    kernel does: 8, 24 and 10 here pass the launcher's checks (run at 16,
+    32 and 16).  Only a head wider than 128 is refused, before anything is
+    built or launched (here on CPU tensors, which never reach a kernel)."""
+    x, weights, seed = _train_layer_args(d, heads)
+    check_train_args(x, weights, seed, heads)
+    x, weights, seed = _train_layer_args(heads * 136, heads)
     before = encoder_layer_train_fwd.launches
-    with pytest.raises(ValueError, match="without --use_fused_train_encoder"):
+    with pytest.raises(ValueError, match="head widths 1 .. 128, not 136"):
         encoder_layer_train_fwd(x, *weights, seed=seed, num_heads=heads, rate=0.1)
     assert encoder_layer_train_fwd.launches == before

@@ -1,7 +1,8 @@
 """Port parity of the gesture MDM V2: the forward against MDM.apply
 (train=False), the fast CFG function against models/mdm_fastpath.py:
 make_fast_cfg_fn, and the weight carriers against
-utils/convert_torch.py (export_mdm_state_dict, save_torch_checkpoint).
+utils/convert_torch.py (export_mdm_state_dict, save_torch_checkpoint),
+also at the model widths whose head widths the card path pads (80, 96).
 Weights cross with gesturediffusion_tpu_torch/utils/convert.py.
 Tolerance rtol 2e-4, atol 2e-5 (float32 reassociation, as
 tests/test_fastpath.py)."""
@@ -102,6 +103,21 @@ def test_jax_written_pt_loads_into_port(tmp_path):
     want = np.asarray(jax_model.apply(params, jnp.asarray(x), jnp.asarray(t), to_jax(cond)))
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(t), to_torch(cond)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("latent_dim,t", [(320, 1200), (384, 300)])
+def test_forward_matches_jax_at_the_c1_widths(latent_dim, t):
+    """Widths whose heads the card path pads (4 heads of 80 and 96, local
+    heads of 40 and 48), at lengths past the local block's dense form:
+    the port's forward (its CPU path, the kernels' plain versions) against
+    the JAX MDM, 1 layer, batch 1, the same weights."""
+    jax_model, params, port = build_pair(latent_dim=latent_dim, num_layers=1)
+    x, ts, cond = make_inputs(1, t, seed=6)
+    want = np.asarray(jax_model.apply(params, jnp.asarray(x), jnp.asarray(ts), to_jax(cond)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(ts), to_torch(cond)).numpy()
+    assert got.shape == (1, SMALL["njoints"], 1, t)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 

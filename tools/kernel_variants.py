@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """The shipped 3xTF32 kernels against patched copies of themselves, on one card.
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py [prefix ...]
 
-Each variant is a copy of gesturediffusion_tpu_torch/csrc/ under
+Each variant (or only those whose names start with a prefix given) is a copy of gesturediffusion_tpu_torch/csrc/ under
 build/variants/<name>/ with a few source lines replaced (VARIANTS below),
 built with the port's nvcc flags; its C entry points are called through
-ctypes, in turns with the shipped build, on the same inputs:
+ctypes, in turns with the shipped build, on the same inputs (the band and
+local-block kernels timed by the profiler's device time, as chip_smoke.py
+does):
 
   cvt_rounding       TF32 rounding by cvt.rna.tf32.f32 instead of the two
                      integer operations of tf32_rn (the same rounding)
@@ -18,13 +20,48 @@ ctypes, in turns with the shipped build, on the same inputs:
   gemm_no_a_frags    the GEMM without its A fragment reads
   gemm_wgmma_only    the GEMM with all three removed: wgmma, the epilogue
                      and the stage's barriers are left
+  band_no_math       the band kernel without its band tiles (the ring's
+                     loads, barriers and the stores of zeros are left)
+  band_no_loads      the band kernel without its ring loads (the tiles
+                     compute on stale shared memory)
+  band_5_blocks      the band kernel with registers capped for 5 (6) blocks
+  band_6_blocks      an SM (__launch_bounds__'s second argument)
+  band_q_split_once  the band tile splitting Q's fragments once, held in
+  local_q_split_once registers for the tile, instead of as it uses them
+  band_pv_two_acc    P V summed into two accumulators (even and odd key
+                     tiles), half the dependent chain of mma.sync
+  band_rz_split      the split without rounding: the raw f32 bits as the big
+  local_rz_split     part and x - (x truncated to TF32) as the small one
+                     (the tensor cores read a TF32 operand's top 19 bits);
+                     their errors are checked
+  local_uncapped     the local block in blocks of up to 16 warps, registers
+                     not capped, at every padded width (shipped above DHP
+                     32; at DHP 32 3 blocks an SM at T 80)
+  local_5_blocks     the local block's registers capped for 5 blocks an SM
+                     at DHP 32 (shipped: 4)
+  local_cap_all      blocks of up to 5 warps capped for 4 blocks an SM at
+                     every padded width (shipped at DHP 32 only)
+  local_no_attention the local block without its band tiles (the rotary
+                     passes, loads and stores are left)
+  local_rows         the local block in whole rows,
+                     tools/variants/local_block_rows.cu in place of
+                     csrc/local_block.cu: a one-wave persistent grid over
+                     (batch row, 16-query tile) units, whole 1 KB rows of x
+                     copied by the TMA engine (cp.async.bulk on mbarriers)
+                     into two slabs, the next unit's in flight
+  local_rows_no_attention  local_rows without its band tiles
+  local_rows_no_copies     local_rows without its bulk copies (the units
+                     compute on stale shared memory)
 
-The gemm_no_* variants compute wrong numbers: they are ablations, timed to
-see what each phase of a stage costs, and their errors are not checked.
-One line a case: the encoder layer at [82, 81, 256] and [82, 1201, 256]
-(ff 1024, 4 heads; its products' device time from the profiler at 1201 rows)
-and the flash kernel at [82, 4, 1201, 64], with the card's name and power
-limit.  A patch that no longer matches the sources fails loudly.
+The variants whose errors are not checked (the gemm_* ones, *_no_*,
+*_blocks, band_pv_two_acc) are ablations, timed to see what a phase or a
+choice costs.  One line a case: the encoder layer at [82, 81, 256] and
+[82, 1201, 256] (ff 1024, 4 heads; its products' device time from the
+profiler at 1201 rows), the flash kernel at [82, 4, 1201, 64], the band
+kernel at [82, 8, 1200, 32] (the local block's aliased, transposed heads)
+and the local block at [82, 80, 256] and [82, 80, 320] (heads of 40), with
+the card's name and power limit.
+A patch that no longer matches the sources fails loudly.
 """
 
 from __future__ import annotations
@@ -39,9 +76,11 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-G = "gemm_tf32x3.cuh"
+G, M = "gemm_tf32x3.cuh", "mma_tf32x3.cuh"
+BAND, LOCAL, TILE = "band_attention.cu", "local_block.cu", "band_tile.cuh"
+ZERO_O = "    for (int d = 0; d < NO; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;"
 VARIANTS = {
-    "cvt_rounding": [(G, "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
+    "cvt_rounding": [(M, "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
                       "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n"
                       "  return r;")],
     "gemm_no_loads": [(G, "    if (next < ktiles) load_stage(next % kTcStages, next);", ""),
@@ -56,9 +95,72 @@ VARIANTS = {
 }
 VARIANTS["gemm_wgmma_only"] = (VARIANTS["gemm_no_loads"] + VARIANTS["gemm_no_split"]
                                + VARIANTS["gemm_no_a_frags"])
+ROWS = (LOCAL, None, "local_block_rows.cu")  # the whole file, from tools/variants/
+BAND_CALL = "    band_tile<DHP>(q0, T, a.window, a.scale_log2, qrow, krow, vrow, o);"
+LOCAL_CALL = "    band_tile<DHP>(q0, T, a.window, a.scale_log2, row, row, row, o);"
+ROWS_CALL = "      band_tile<DHP>(q0, T, w, a.scale_log2, row, row, row, o);"
+Q_SPLIT_ONCE = [
+    (TILE, "  float qf[KC][4];\n", "  float qf[KC][4];\n  uint32_t qbig[KC][4], qsmall[KC][4];\n"),
+    (TILE, "      qf[c][3] = in_hi ? qh[8 * c + t + 4] : 0.0f;\n",
+     "      qf[c][3] = in_hi ? qh[8 * c + t + 4] : 0.0f;\n#pragma unroll\n"
+     "      for (int e = 0; e < 4; ++e) split_tf32(qf[c][e], qbig[c][e], qsmall[c][e]);\n"),
+    (TILE, "        for (int e = 0; e < 4; ++e) split_tf32(qf[c][e], a_big[e], a_small[e]);",
+     "        for (int e = 0; e < 4; ++e) {\n          a_big[e] = qbig[c][e];\n"
+     "          a_small[e] = qsmall[c][e];\n        }")]
+RZ_SPLIT = [(M, "  big = tf32_rn(x);\n  small = tf32_rn(x - __uint_as_float(big));",
+             "  big = __float_as_uint(x);\n"
+             "  small = __float_as_uint(x - __uint_as_float(big & 0xFFFFE000u));")]
+LOCAL_BOUNDS = "__launch_bounds__(32 * kMaxLocalWarps<DHP>, DHP <= 32 ? 4 : 1)"
+LOCAL_WARPS = "constexpr int kMaxLocalWarps = DHP <= 32 ? 5 : 16;"
+VARIANTS.update({
+    "band_no_math": [(BAND, BAND_CALL, ZERO_O)],
+    "band_no_loads": [
+        (BAND, "  for (int tile = from / kBandBQ; tile <= tile0; ++tile) load_tile(first - tile0 + tile, "
+               "from);", ""),
+        (BAND, "    if (first + i < last) load_tile(first + i, 0);", ""),
+        (BAND, "    if (u + kAhead < last) load_tile(u + kAhead, 0);", "")],
+    "band_5_blocks": [(BAND, "__global__ void __launch_bounds__(kBandThreads) band_attention_kernel",
+                       "__global__ void __launch_bounds__(kBandThreads, 5) band_attention_kernel")],
+    "band_6_blocks": [(BAND, "__global__ void __launch_bounds__(kBandThreads) band_attention_kernel",
+                       "__global__ void __launch_bounds__(kBandThreads, 6) band_attention_kernel")],
+    "band_q_split_once": Q_SPLIT_ONCE,
+    "band_pv_two_acc": [
+        (TILE, "    for (int e = 0; e < 4; ++e) o[d][e] = 0.0f;",
+         "    for (int e = 0; e < 4; ++e) o[d][e] = 0.0f;\n  float o2[NO][4] = {};"),
+        (TILE, "      o[d][3] *= al_hi;",
+         "      o[d][3] *= al_hi;\n      o2[d][0] *= al_lo; o2[d][1] *= al_lo; o2[d][2] *= al_hi; "
+         "o2[d][3] *= al_hi;"),
+        (TILE, "        mma_tf32x3(o[d], p_big, p_small, b_big, b_small);",
+         "        mma_tf32x3((n & 1) ? o2[d] : o[d], p_big, p_small, b_big, b_small);"),
+        (TILE, "  const float inv_lo = l_lo > 0.0f ? 1.0f / l_lo : 0.0f;",
+         "  for (int d = 0; d < NO; ++d) for (int e = 0; e < 4; ++e) o[d][e] += o2[d][e];\n"
+         "  const float inv_lo = l_lo > 0.0f ? 1.0f / l_lo : 0.0f;")],
+    "band_rz_split": RZ_SPLIT,
+    "local_q_split_once": Q_SPLIT_ONCE,
+    "local_uncapped": [(LOCAL, LOCAL_WARPS, "constexpr int kMaxLocalWarps = 16;"),
+                       (LOCAL, LOCAL_BOUNDS, "__launch_bounds__(32 * kMaxLocalWarps<DHP>)")],
+    "local_5_blocks": [(LOCAL, LOCAL_BOUNDS,
+                        "__launch_bounds__(32 * kMaxLocalWarps<DHP>, DHP <= 32 ? 5 : 1)")],
+    "local_cap_all": [(LOCAL, LOCAL_WARPS, "constexpr int kMaxLocalWarps = 5;"),
+                      (LOCAL, LOCAL_BOUNDS, "__launch_bounds__(32 * kMaxLocalWarps<DHP>, 4)")],
+    "local_no_attention": [(LOCAL, LOCAL_CALL, ZERO_O)],
+    "local_rz_split": RZ_SPLIT,
+    "local_rows": [ROWS],
+    "local_rows_no_attention": [ROWS, (LOCAL, ROWS_CALL, "  " + ZERO_O)],
+    "local_rows_no_copies": [ROWS, (LOCAL, "  if (warp == 0) fetch(blockIdx.x, 0);\n", ""),
+                             (LOCAL, "    if (warp == 0 && u + gridDim.x < a.units) "
+                                     "fetch(u + gridDim.x, s ^ 1);\n"
+                                     "    mbar_wait(&bar[s], (it >> 1) & 1);\n", "")],
+})
+# the libraries each variant is timed through
+LIBS = ("encoder_layer", "flash_attention", "band_attention", "local_block")
+VARIANT_LIBS = {name: (("band_attention",) if name.startswith("band_") else
+                       ("local_block",) if name.startswith("local_") else
+                       ("encoder_layer", "flash_attention")) for name in VARIANTS}
 
 
-def build(name: str, patches) -> dict[str, ctypes.CDLL]:
+def start_build(name: str, patches, libs=LIBS) -> dict:
+    """Starts nvcc on each library of one variant; finish_build waits."""
     from gesturediffusion_tpu_torch.ops import _build
 
     src = _build.CSRC_DIR
@@ -68,6 +170,9 @@ def build(name: str, patches) -> dict[str, ctypes.CDLL]:
         shutil.copytree(_build.CSRC_DIR, src)
         for fname, old, new in patches:
             path = os.path.join(src, fname)
+            if old is None:  # the whole file, from tools/variants/
+                shutil.copyfile(os.path.join(HERE, "tools", "variants", new), path)
+                continue
             text = open(path).read()
             if old not in text:
                 raise RuntimeError(f"variant {name}: {fname} no longer holds {old!r}")
@@ -75,20 +180,24 @@ def build(name: str, patches) -> dict[str, ctypes.CDLL]:
                 f.write(text.replace(old, new))
     out = os.path.join(HERE, "build", "variants", name + "-lib")
     os.makedirs(out, exist_ok=True)
-    procs = {k: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+    return {k: (os.path.join(out, f"lib{k}.so"),
+                subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                                   os.path.join(out, f"lib{k}.so"), os.path.join(src, k + ".cu")],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for k in ("encoder_layer", "flash_attention")}
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for k in libs}
+
+
+def finish_build(name: str, procs: dict) -> dict[str, ctypes.CDLL]:
     libs = {}
-    for k, p in procs.items():
+    for k, (path, p) in procs.items():
         report, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"variant {name}: nvcc failed on {k}.cu\n{report}")
-        libs[k] = ctypes.CDLL(os.path.join(out, f"lib{k}.so"))
+        libs[k] = ctypes.CDLL(path)
     return libs
 
 
-def main() -> int:
+def main(prefixes: list[str]) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,12 +206,21 @@ def main() -> int:
         return 1
     from gesturediffusion_tpu_torch.ops.flash_attention import self_attention_reference
     from gesturediffusion_tpu_torch.ops.fused_encoder import encoder_layer_plain
+    from gesturediffusion_tpu_torch.ops.fused_local_block import (
+        pre_encoder_local_block,
+        rotary_table,
+    )
+    from gesturediffusion_tpu_torch.ops.local_attention import local_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    builds = {"shipped": build("shipped", None)}
-    builds.update({name: build(name, patches) for name, patches in VARIANTS.items()})
+    # every variant's nvcc runs at once
+    started = {"shipped": start_build("shipped", None)}
+    started.update({name: start_build(name, patches, VARIANT_LIBS[name])
+                    for name, patches in VARIANTS.items()
+                    if not prefixes or name.startswith(tuple(prefixes))})
+    builds = {name: finish_build(name, procs) for name, procs in started.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rn(*shape, scale=1.0):
@@ -129,13 +247,13 @@ def main() -> int:
     def layer(lib, x):
         fn = lib.gdt_encoder_layer_f32
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float, p]
         b, t, _ = x.shape
         new = functools.partial(torch.empty, device="cuda")
         bufs = (new(b * t, 3 * d), new(b * t, d), new(b * t, d), new(b * t, d), new(b * t, ff))
         out = new(b, t, d)
         code = fn(x.data_ptr(), *(y.data_ptr() for y in w), *(y.data_ptr() for y in bufs),
-                  out.data_ptr(), b, t, d, ff, heads, (d // heads) ** -0.5, 1,
+                  out.data_ptr(), b, t, d, ff, heads, (d // heads) ** -0.5,
                   torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"encoder layer variant failed: CUDA error {code}")
@@ -154,6 +272,25 @@ def main() -> int:
             raise RuntimeError(f"flash variant failed: CUDA error {code}")
         return out
 
+    def device_ms(fn, kernel, iters=20):
+        """the profiler's device time of the kernel, per launch it traced"""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if kernel in e.key and e.device_type != torch.autograd.DeviceType.CPU:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+                n += e.count
+        if n != iters:
+            print(f"device_ms: the profiler traced {n} of {iters} {kernel} launches")
+        return us / max(n, 1) / 1e3
+
     def gemm_ms(lib, x):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -171,6 +308,8 @@ def main() -> int:
         want = encoder_layer_plain(x, *w, num_heads=heads)
         parts = []
         for name, libs in builds.items():
+            if "encoder_layer" not in libs:
+                continue
             err = (layer(libs["encoder_layer"], x) - want).abs().max().item()
             ms = cuda_ms(lambda: layer(libs["encoder_layer"], x))
             note = f"{err:.2e}" if not name.startswith("gemm_") else "not checked"
@@ -182,12 +321,74 @@ def main() -> int:
     want = self_attention_reference(q, k, v)
     parts = []
     for name in ("shipped", "cvt_rounding"):
+        if name not in builds:
+            continue
         lib = builds[name]["flash_attention"]
         err = (flash(lib, q, k, v) - want).abs().max().item()
         parts.append(f"{name} {cuda_ms(lambda: flash(lib, q, k, v)):.4f} ms (max|diff| {err:.2e})")
     print(f"flash [82,{heads},1201,{d // heads}]: " + "; ".join(parts) + f" [{smi}]")
+
+    def band(lib, q):
+        fn = lib.gdt_band_attention_f32
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 4 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
+        out = torch.empty_like(q)
+        b, h, t, dh = q.shape
+        code = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *q.stride()[:3] * 3,
+                  *out.stride()[:3], b, h, t, dh, 10, dh**-0.5,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"band variant failed: CUDA error {code}")
+        return out
+
+    def local(lib, x, coa):
+        fn = lib.gdt_local_block_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
+        b, t, dd = x.shape
+        cos, sin = rotary_table(t + 1, dd // 8, x.device)
+        out = torch.empty(b, t + 1, dd, device="cuda")
+        code = fn(x.data_ptr(), coa.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                  b, t, dd, 8, 10, (dd // 8) ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"local block variant failed: CUDA error {code}")
+        return out
+
+    qb = rn(82, 1200, 8, d // 8).transpose(1, 2)
+    want = local_attention(qb, qb, qb, window_size=10)
+    parts = []
+    for name in ("shipped", "band_no_math", "band_no_loads", "band_5_blocks", "band_6_blocks",
+                 "band_q_split_once", "band_pv_two_acc", "band_rz_split"):
+        if name not in builds:
+            continue
+        lib = builds[name]["band_attention"]
+        checked = name.endswith(("shipped", "rz_split", "split_once"))
+        note = f"{(band(lib, qb) - want).abs().max().item():.2e}" if checked else "not checked"
+        ms = device_ms(lambda: band(lib, qb), "band_attention_kernel")
+        parts.append(f"{name} {ms:.4f} ms (max|diff| {note})")
+    print(f"band [82,8,1200,{d // 8}] w 10: " + "; ".join(parts) + f" [{smi}]")
+
+    # the gesture shape, then the local heads of 40 of --latent_dim 320
+    for dd, names in ((d, ("shipped", "local_q_split_once", "local_uncapped", "local_5_blocks",
+                           "local_cap_all", "local_no_attention", "local_rz_split", "local_rows",
+                           "local_rows_no_attention", "local_rows_no_copies")),
+                      (320, ("shipped", "local_uncapped", "local_cap_all"))):
+        x, coa = rn(82, 80, dd), rn(82, dd)
+        want = pre_encoder_local_block(x, coa, num_heads=8, window_size=10)
+        parts = []
+        for name in names:
+            if name not in builds:
+                continue
+            lib = builds[name]["local_block"]
+            checked = name.endswith(("shipped", "rz_split", "split_once", "uncapped", "cap_all",
+                                     "rows"))
+            note = (f"{(local(lib, x, coa) - want).abs().max().item():.2e}" if checked
+                    else "not checked")
+            ms = device_ms(lambda: local(lib, x, coa), "local_block_kernel", 100)
+            parts.append(f"{name} {ms:.4f} ms (max|diff| {note})")
+        print(f"local block [82,80,{dd}] heads 8 w 10: " + "; ".join(parts) + f" [{smi}]")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
