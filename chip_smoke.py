@@ -17,8 +17,13 @@ Phases, each fatal on failure:
               default 120 frames) and 201 rows (off every tile); the local
               block and the band kernel at tile edges (lengths, windows,
               head widths, aliased and separate operands); kernels 1, 4, 5
-              and 6 at the head widths the kernels pad (8, 66, 80, 96) at
-              T 81 and 1201 (training 81 and 121)
+              and 6 at the head widths the kernels pad (8, 66, 80, 96) and
+              at those past 128 that run in 128-column slices (136, 256,
+              264, 520, ff 4 D), and at D = 130, F = 1030 (2 heads of 65:
+              rows not 16-byte aligned) at T 81 and 1201 (training 81 and
+              121); the band kernel and the local block at local heads of
+              136 and 264, the local block at heads of 128 and 256 frames
+              (past a block's shared memory)
   4. sample   the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
               seeded random weights samples a 41-take, 2-chunk CFG take
               (batch 82) through select_sampling_model_fn ->
@@ -53,7 +58,21 @@ Phases, each fatal on failure:
   8. widths   a --latent_dim 320 model (4 heads of 80, local heads of 40,
               2 layers) takes one denoise step at T = 1200 through the
               kernels (launches counted) against the plain path, then the
-              generate CLI samples --num_frames 1200 from its checkpoint
+              generate CLI samples --num_frames 1200 from its checkpoint;
+              a --latent_dim 1024 model (heads of 256) takes the same step;
+              the flash kernel's times at heads of 256 and 520 and the
+              --latent_dim 1024 encoder layer's, at CFG batch 82, T = 1201
+  9. genea    the GENEA data path and streaming serve at full width on the
+              phase-4 model: a synthetic GENEA-2023 tree (41 takes of 480
+              frames a split, pose 498; the val MFCC cache's build time),
+              the generate CLI on it (41 takes x 5 chunks, .bvh, _gt.bvh,
+              .wav) against the same take sampled in this process; the
+              streaming session at 41 streams (DDPM-50) against that take,
+              launches a chunk counted; per-chunk latency at 1 and 4
+              streams, DDPM-50 and DDIM-50, and a profile of a streams-1
+              chunk; the demo CLI (4 streams, 3 chunks, DDIM-50) from the
+              val split and from a wav; the train CLI on the train split (5
+              steps, batch 64, 120 frames, launches counted)
 Every kernel's products run on the tensor cores in 3xTF32.  Kernel times
 (`ms` in the kernels line) are CUDA events over back-to-back calls, the
 wrapper's host work included, for all six kernels; for the band and
@@ -103,7 +122,13 @@ T_LONG, LONG_RESPACING, LONG_STEPS, LONG_SAMPLES = 1200, "20", 20, 8
 TOL_BAND = 1e-4          # f32; <= 20-term softmax sums, as the local block
 TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online rescaling
 C1_WIDTHS = (8, 66, 80, 96)  # head widths the kernels pad: --latent_dim 32, 264, 320, 384
+# head widths past 128, in 128-column slices: --latent_dim 544, 1024, 1056, 2080
+WIDE_WIDTHS = (136, 256, 264, 520)
+WIDE_LOCAL = (136, 264)      # local heads past 128: --latent_dim 1088, 2112
 D_C1, C1_LAYERS = 320, 2     # phase 8's model: 4 heads of 80, 8 local heads of 40
+D_WIDE = 1024                # phase 8's second model: 4 heads of 256, 8 local heads of 128
+G_TAKES, G_FRAMES = 41, 480  # phase 9's synthetic GENEA split: 5 val chunks of 80 a take
+SERVE_CHUNKS = 5
 
 
 def log(msg: str) -> None:
@@ -495,11 +520,12 @@ def long_chunk_phase(model, model_path, enc_w, randn, card):
     return rows, launches
 
 
-def c1_model_phase(randn, root, card):
-    """Phase 8: a --latent_dim 320 model (4 heads of 80, local heads of 40)
-    takes one CFG denoise step at T = 1200 through the kernels, launches
-    counted, against the same step through the plain versions; then the
-    generate CLI samples --num_frames 1200 from its checkpoint."""
+def c1_model_phase(randn, root, card, d=D_C1, cli=True):
+    """Phase 8: a --latent_dim d model (C1_LAYERS layers of 4 heads, 8
+    local heads) takes one CFG denoise step at T = 1200 through the kernels,
+    launches counted, against the same step through the plain versions;
+    then, with ``cli``, the generate CLI samples --num_frames 1200 from its
+    checkpoint."""
     import numpy as np
     import torch
 
@@ -514,7 +540,7 @@ def c1_model_phase(randn, root, card):
 
     dev = torch.device("cuda")
     torch.manual_seed(2)
-    model = MDM(njoints=J, latent_dim=D_C1, ff_size=FF, num_layers=C1_LAYERS, num_heads=HEADS,
+    model = MDM(njoints=J, latent_dim=d, ff_size=FF, num_layers=C1_LAYERS, num_heads=HEADS,
                 cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
                 window_size=WINDOW).to(dev).eval()
     diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
@@ -543,12 +569,14 @@ def c1_model_phase(randn, root, card):
     model.use_kernels = True
     err = (got - plain).abs().max().item()
     ok = launches == want and err <= TOL_TAKE and bool(torch.isfinite(got).all())
-    log(f"{'OK' if ok else 'FAIL'} --latent_dim {D_C1} ({HEADS} heads of {D_C1 // HEADS}, "
-        f"{CL_HEADS} local heads of {D_C1 // CL_HEADS}, {C1_LAYERS} layers): one denoise step "
+    log(f"{'OK' if ok else 'FAIL'} --latent_dim {d} ({HEADS} heads of {d // HEADS}, "
+        f"{CL_HEADS} local heads of {d // CL_HEADS}, {C1_LAYERS} layers): one denoise step "
         f"at T = {T_LONG}, CFG batch {2 * B_TAKES}, kernels vs plain versions max|diff| "
         f"{err:.3e} (tol {TOL_TAKE:g}); launches {launches} (expected {want}) {card}")
     if not ok:
-        raise AssertionError("the --latent_dim 320 step disagrees or missed its kernels")
+        raise AssertionError(f"the --latent_dim {d} step disagrees or missed its kernels")
+    if not cli:
+        return
 
     out_dir = os.path.join(root, "c1", "samples")
     path = os.path.join(root, "c1", "model000000000.pt")
@@ -556,14 +584,263 @@ def c1_model_phase(randn, root, card):
     torch.save(model.state_dict(), path)
     motion, cli_s = generate_cli(
         path, {"dataset": "synthetic", "num_frames": T_LONG, "layers": C1_LAYERS,
-               "latent_dim": D_C1, "cond_mask_prob": 0.1, "seed_poses": S,
+               "latent_dim": d, "cond_mask_prob": 0.1, "seed_poses": S,
                "noise_schedule": "cosine", "diffusion_steps": 1000, "sigma_small": True},
         T_LONG, 1, "5", out_dir)
     ok = motion.shape == (1, J // 6, 3, T_LONG) and np.isfinite(motion).all()
-    log(f"{'OK' if ok else 'FAIL'} generate CLI at --latent_dim {D_C1} --num_frames {T_LONG} "
+    log(f"{'OK' if ok else 'FAIL'} generate CLI at --latent_dim {d} --num_frames {T_LONG} "
         f"(1 take, respacing 5): motion {motion.shape} in {cli_s:.1f} s")
     if not ok:
-        raise AssertionError("the --latent_dim 320 generate CLI failed")
+        raise AssertionError(f"the --latent_dim {d} generate CLI failed")
+
+
+def wide_times(randn, card):
+    """Times past a head width of 128 (the sliced kernels): flash at
+    [82, 4, 1201, dh] for dh 256 and 520 (--latent_dim 1024 and 2080), and
+    the encoder layer of --latent_dim 1024 (ff 1024) at [82, 1201, 1024],
+    against their plain versions and library calls."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.flash_attention import (
+        fused_self_attention,
+        self_attention_reference,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+
+    bb, tl = 2 * B_TAKES, T_LONG + 1
+    for dh in (256, 520):
+        q, k, v = (randn(bb, HEADS, tl, dh) for _ in range(3))
+        ms = cuda_time_ms(lambda: fused_self_attention(q, k, v), 3, 1)
+        plain_ms = cuda_time_ms(lambda: self_attention_reference(q, k, v), 3, 1)
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 3, 1)
+        flops, nbytes = 4 * bb * HEADS * tl**2 * dh, 4 * 4 * q.numel()
+        bound, by = bound_ms(flops, nbytes, tf32x3=True)
+        time_line(f"flash_attention [{bb},{HEADS},{tl},{dh}] (128-column slices)", ms, plain_ms,
+                  lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+        del q, k, v
+    w = layer_weights(randn, D_WIDE, FF)
+    x = randn(bb, tl, D_WIDE)
+    ms = cuda_time_ms(lambda: fused_encoder_layer(x, *w, num_heads=HEADS), 3, 1)
+    plain_ms = cuda_time_ms(lambda: encoder_layer_plain(x, *w, num_heads=HEADS), 3, 1)
+    lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(x, *w, HEADS), 3, 1)
+    m = bb * tl
+    flops = 2 * m * (4 * D_WIDE * D_WIDE + 2 * D_WIDE * FF) + 4 * bb * tl**2 * D_WIDE
+    nbytes = 4 * (2 * m * D_WIDE + sum(t.numel() for t in w))
+    bound, by = bound_ms(flops, nbytes, tf32x3=True)
+    time_line(f"encoder_layer [{bb},{tl},{D_WIDE}] heads {HEADS} of {D_WIDE // HEADS} ff {FF}",
+              ms, plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+
+
+def genea_serve_phase(model, model_path, card):
+    """Phase 9: the GENEA data path and streaming serve at full width on the
+    phase-4 model.  A synthetic GENEA-2023 tree (G_TAKES takes of G_FRAMES
+    frames a split) and its val MFCC cache; the generate CLI on it (5
+    chunks a take) against the same take sampled in this process; the
+    streaming session at 41 streams against that take, and its per-chunk
+    latency at 1 and 4 streams (DDPM-50, DDIM-50) with a profile of one
+    streams-1 chunk; the demo CLI from the val split and from a wav; the
+    train CLI on the train split.  Returns the launches of the kernels on
+    these paths (the batch take, the sessions, the train CLI)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from gesturediffusion_tpu_torch.data.collate import collate_gesture, device_cond
+    from gesturediffusion_tpu_torch.data.genea import Genea2023
+    from gesturediffusion_tpu_torch.data.synthetic import make_synthetic_genea2023
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
+    from gesturediffusion_tpu_torch.diffusion.schedules import respacing_string
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+    from gesturediffusion_tpu_torch.sample.generate import split_pose_vector, take_layout
+    from gesturediffusion_tpu_torch.serve.streaming import StreamingGestureSession
+    from gesturediffusion_tpu_torch.train import train_mdm
+
+    dev = torch.device("cuda")
+    counters = {"local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
+                "flash_attention": fused_self_attention,
+                "encoder_layer_train_fwd": encoder_layer_train_fwd,
+                "encoder_layer_train_bwd": encoder_layer_train_bwd}
+    total = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        for name, n in got.items():
+            total[name] += n
+        return out, got
+
+    # ---- data -------------------------------------------------------------- #
+    base = os.path.join(HERE, "build", "chip_smoke")
+    root = os.path.join(base, "genea2023")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_genea2023(root, n_takes=G_TAKES, frames_per_take=G_FRAMES, pose_dim=J, seed=0)
+    make_s = time.perf_counter() - t0
+    val = Genea2023(root, split="val", window=T, n_seed_poses=S)
+    t0 = time.perf_counter()
+    for f in range(len(val.takes)):
+        val._take_mfcc(f)
+    cache_s = time.perf_counter() - t0
+    audio_mb = sum(os.path.getsize(os.path.join(val.audiopath, f))
+                   for f in os.listdir(val.audiopath)) / 1e6
+    counts, starts, _ = take_layout(val)
+    chunks = int(counts.min())
+    log(f"genea: synthetic GENEA-2023 tree, {G_TAKES} takes a split of {G_FRAMES} frames, pose "
+        f"{J}, written in {make_s:.1f} s ({audio_mb:.1f} MB of audio in the val split); val "
+        f"split {len(val)} windows, {chunks} chunks of {T} a take; MFCC cache of the val split "
+        f"({G_TAKES} takes) built in {cache_s:.2f} s")
+    if chunks != (G_FRAMES - T) // T or len(counts) != G_TAKES:
+        raise AssertionError(f"val layout: {len(counts)} takes, {chunks} chunks")
+
+    # ---- the generate CLI against the same take in this process ------------ #
+    ckpt_dir = os.path.join(base, "genea")
+    path = os.path.join(ckpt_dir, "model000000000.pt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    shutil.copy(model_path, path)
+    out_dir = os.path.join(ckpt_dir, "samples")
+    motion, cli_s = generate_cli(
+        path, {"dataset": "genea2023", "data_dir": root, "num_frames": T, "layers": LAYERS,
+               "latent_dim": D, "cond_mask_prob": 0.1, "seed_poses": S,
+               "noise_schedule": "cosine", "diffusion_steps": 1000, "sigma_small": True},
+        T, G_TAKES, RESPACING, out_dir)
+    res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
+    names = os.listdir(out_dir)
+    files = (sum(n.endswith(".bvh") and not n.endswith("_gt.bvh") for n in names),
+             sum(n.endswith("_gt.bvh") for n in names), sum(n.endswith(".wav") for n in names))
+    ok = (motion.shape == (G_TAKES, J // 6, 3, chunks * T) and np.isfinite(motion).all()
+          and (np.asarray(res["lengths"]) == chunks * T).all()
+          and files == (G_TAKES,) * 3)
+    log(f"{'OK' if ok else 'FAIL'} generate CLI --dataset genea2023 ({G_TAKES} takes x {chunks} "
+        f"chunks, DDPM respaced to {STEPS}): motion {motion.shape}, lengths "
+        f"{sorted(set(int(n) for n in res['lengths']))}, (.bvh, _gt.bvh, .wav) files {files}, "
+        f"in {cli_s:.1f} s wall (process start, data, sampling, BVH and wav writing) {card}")
+    if not ok:
+        raise AssertionError("the genea generate CLI wrote the wrong results")
+
+    dconds = []
+    for c in range(chunks):
+        _, cond = collate_gesture([val[int(starts[b]) + c] for b in range(G_TAKES)],
+                                  max_frames=T)
+        dconds.append(device_cond(cond))
+    feeds = [{k: v for k, v in dc.items() if k != "seed"} for dc in dconds]
+    init_seed = dconds[0]["seed"]
+    stacked = {k: torch.from_numpy(np.stack([f[k] for f in feeds])).to(dev) for k in feeds[0]}
+    stacked["scale"] = torch.full((chunks, G_TAKES), GUIDANCE, device=dev)
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                 timestep_respacing=RESPACING, device=dev)
+    precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
+    batch, launches = counted(lambda: autoregressive_sample_loop(
+        diffusion, model_fn, (G_TAKES, J, 1, T), stacked, torch.from_numpy(init_seed).to(dev),
+        S, generator=torch.Generator(device=dev).manual_seed(10), cond_precompute=precompute))
+    batch = batch.cpu().numpy()
+    pos = np.concatenate([
+        split_pose_vector(val.inv_transform(batch[c][:, :, 0, :].transpose(0, 2, 1)), J // 6)[0]
+        for c in range(chunks)], axis=1).transpose(0, 2, 3, 1)
+    report(f"generate CLI's motion vs the take sampled in this process (same conditioning, "
+           f"generator seed 10; launches {launches})", float(np.abs(pos - motion).max()),
+           TOL_TAKE)
+
+    # ---- streaming ---------------------------------------------------------- #
+    motion_s = T / 30.0
+
+    def serve(streams, sampler, label):
+        """5 chunks through a fresh session; per-chunk latency (s)."""
+        d = create_diffusion(noise_schedule="cosine", steps=1000, device=dev,
+                             timestep_respacing=respacing_string(STEPS, sampler))
+        session = StreamingGestureSession(
+            model, guidance_param=GUIDANCE, cond_mask_prob=0.1, sampler=sampler, diffusion=d,
+            streams=streams, chunk_frames=T, seed_poses=S, fps=30.0, device=dev)
+        session.start(init_seed[:streams], rng=10)
+        outs, lat = [], []
+        for f in feeds:
+            outs.append(session.feed({k: v[:streams] for k, v in f.items()}))
+            lat.append(session.stats().last_latency_s)
+        steady = lat[1:]
+        mean = sum(steady) / len(steady)
+        log(f"serve {label}: streams {streams}, {sampler.upper()}-{STEPS}, {len(lat)} chunks of "
+            f"{T} frames: first chunk {lat[0] * 1e3:.2f} ms; steady mean {mean * 1e3:.2f} ms, "
+            f"worst {max(steady) * 1e3:.2f} ms, real-time factor {motion_s / mean:.2f} "
+            f"(chunk latencies ms {[round(x * 1e3, 2) for x in lat]}) {card}")
+        return session, np.stack(outs)
+
+    (_, streamed), launches = counted(lambda: serve(G_TAKES, "ddpm", "batch width"))
+    per_chunk = {k: launches[k] // chunks for k in ("local_block", "encoder_layer",
+                                                    "flash_attention")}
+    want = {"local_block": STEPS, "encoder_layer": STEPS * LAYERS,
+            "flash_attention": STEPS * LAYERS}
+    report(f"streamed take at {G_TAKES} streams vs the batch take (launches a chunk "
+           f"{per_chunk}, expected {want})", float(np.abs(streamed - batch).max()), TOL_TAKE,
+           per_chunk == want and launches["local_block"] == chunks * STEPS)
+    sessions = {}
+    for streams in (1, 4):
+        for sampler in ("ddpm", "ddim"):
+            (sessions[streams, sampler], _), _ = counted(
+                lambda: serve(streams, sampler, "small live batch"))
+    one = sessions[1, "ddpm"]
+    device_profile(lambda: one.feed({k: v[:1] for k, v in feeds[1].items()}), 2,
+                   f"one steady streams-1 chunk (DDPM-{STEPS}, {STEPS} denoise steps)", card,
+                   host_rows=8)
+
+    # ---- the demo CLI from the val split and from a wav --------------------- #
+    wav = os.path.join(ckpt_dir, "take.wav")
+    audio = np.load(os.path.join(val.audiopath, val.takes[0] + ".npy"))
+    wavfile.write(wav, 22050, (audio * 32767).astype(np.int16))
+    for source, extra in (("val split", []), ("wav", ["--wav", wav])):
+        serve_dir = os.path.join(ckpt_dir, "serve_" + ("wav" if extra else "val"))
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "gesturediffusion_tpu_torch.serve.demo", "--model_path", path,
+             "--streams", "4", "--num_chunks", "3", "--sampler", "ddim", "--sample_steps",
+             str(STEPS), "--guidance_param", str(GUIDANCE), "--output_dir", serve_dir, *extra],
+            check=True, cwd=HERE, timeout=600)
+        demo_s = time.perf_counter() - t0
+        res = np.load(os.path.join(serve_dir, "results.npy"), allow_pickle=True).item()
+        with open(os.path.join(serve_dir, "serving_report.json")) as f:
+            rep = json.load(f)
+        ok = (res["motion"].shape == (4, J // 6, 3, 3 * T) and np.isfinite(res["motion"]).all()
+              and rep == res["serving_report"] and rep["chunks_served"] == 3
+              and all(os.path.exists(os.path.join(serve_dir, f"stream_{i}.bvh"))
+                      for i in range(4)))
+        log(f"{'OK' if ok else 'FAIL'} demo CLI from the {source} (4 streams x 3 chunks, "
+            f"DDIM-{STEPS}): motion {res['motion'].shape}, report {rep}, {demo_s:.1f} s wall "
+            f"{card}")
+        if not ok:
+            raise AssertionError(f"the demo CLI from the {source} wrote the wrong results")
+
+    # ---- the train CLI on the train split ------------------------------------ #
+    save_dir = os.path.join(base, "genea_train")
+    t0 = time.perf_counter()
+    loop, launches = counted(lambda: train_mdm.main([
+        "--dataset", "genea2023", "--data_dir", root, "--save_dir", save_dir, "--overwrite",
+        "--num_frames", str(T_CLI), "--batch_size", "64", "--num_steps", "5",
+        "--log_interval", "5", "--use_fused_train_encoder"]))
+    want = LAYERS * 5
+    ok = (loop.state.step == 5 and launches["encoder_layer_train_fwd"] == want
+          and launches["encoder_layer_train_bwd"] == want)
+    log(f"{'OK' if ok else 'FAIL'} train CLI --dataset genea2023 --num_frames {T_CLI}: 5 steps "
+        f"at batch 64 in {time.perf_counter() - t0:.1f} s (data set-up and the train split's "
+        f"MFCC cache included); launches fwd {launches['encoder_layer_train_fwd']} bwd "
+        f"{launches['encoder_layer_train_bwd']} (expected {want} each) {card}")
+    if not ok:
+        raise AssertionError("the genea train CLI missed its steps or kernels")
+    return total
 
 
 def device_profile(step, steps, label, card, host_rows=0, groups=None):
@@ -652,11 +929,12 @@ def report(name, err, tol, ok_shape=True):
 
 def band_edges_parity(randn):
     """Kernels 2 and 3 off the main path's shapes: the local block at one
-    tile (T 10), off the 16-query tile (90), at 16 tiles (256) and at heads
-    of 6 (a float a copy) and 40; the band kernel around its 64-query
-    tiles and 40-key chunks (T 20, 70, 1210), at windows 5 and 16, head
-    widths 6 and 40, with q, k, v one tensor, three, and strided views.
-    Returns the largest differences (local block, band)."""
+    tile (T 10), off the 16-query tile (90), at 16 tiles (256), at heads
+    of 6 (a float a copy), 40, 128 at 256 frames and WIDE_LOCAL; the band
+    kernel around its 64-query tiles and 40-key chunks (T 20, 70, 1210),
+    at windows 5 and 16, head widths 6, 40 and WIDE_LOCAL, with q, k, v one
+    tensor, three, and strided views.  Returns the largest differences
+    (local block, band)."""
     from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
     from gesturediffusion_tpu_torch.ops.fused_local_block import (
         fused_local_block,
@@ -665,9 +943,13 @@ def band_edges_parity(randn):
     from gesturediffusion_tpu_torch.ops.local_attention import local_attention
 
     lb_err = 0.0
+    # local heads past 128 (WIDE_LOCAL) and of 128 at 256 frames run the
+    # kernel's sliced path
+    wide = tuple((4, 80, CL_HEADS * dh, CL_HEADS, WINDOW) for dh in WIDE_LOCAL)
     for b, t, d, h, w in ((8, 10, D, CL_HEADS, WINDOW), (8, 90, D, CL_HEADS, WINDOW),
                           (4, 256, D, CL_HEADS, WINDOW), (8, 80, 48, CL_HEADS, 5),
-                          (8, 80, 320, CL_HEADS, WINDOW)):
+                          (8, 80, 320, CL_HEADS, WINDOW), (2, 256, 1024, CL_HEADS, WINDOW),
+                          *wide):
         x, coa = randn(b, t, d), randn(b, d)
         got = fused_local_block(x, coa, num_heads=h, window=w)
         err = (got - pre_encoder_local_block(x, coa, num_heads=h, window_size=w)).abs().max().item()
@@ -678,7 +960,9 @@ def band_edges_parity(randn):
     for t, w, dh, layout in ((20, WINDOW, 32, "aliased"), (70, WINDOW, 32, "separate"),
                              (1210, WINDOW, 32, "strided"), (T_LONG, 5, 32, "aliased"),
                              (T_LONG, 16, 32, "separate"), (T_LONG, WINDOW, 6, "strided"),
-                             (T_LONG, WINDOW, 40, "aliased"), (1210, WINDOW, 6, "separate")):
+                             (T_LONG, WINDOW, 40, "aliased"), (1210, WINDOW, 6, "separate"),
+                             *((T_LONG, WINDOW, dh, layout) for dh in WIDE_LOCAL
+                               for layout in ("strided", "separate"))):
         if layout == "strided":
             q, k = (randn(4, t, CL_HEADS, dh).transpose(1, 2) for _ in range(2))
             v = q
@@ -696,7 +980,9 @@ def band_edges_parity(randn):
 
 def c1_widths_parity(randn, seed):
     """Kernels 1, 4, 5 and 6 at the head widths the kernels pad (C1_WIDTHS,
-    4 heads), at T 81 and 1201 (training 81 and 121), each against its
+    4 heads), at the widths past 128 that run in slices (WIDE_WIDTHS, ff 4
+    D), and at D = 130, F = 1030 with 2 heads of 65 (rows not 16-byte
+    aligned), at T 81 and 1201 (training 81 and 121), each against its
     plain version under the main path's tolerances.  Returns the largest
     differences {kernel: err}."""
     from gesturediffusion_tpu_torch.ops.flash_attention import (
@@ -710,23 +996,24 @@ def c1_widths_parity(randn, seed):
 
     errs = {"flash_attention": 0.0, "encoder_layer": 0.0, "encoder_layer_train_fwd": 0.0,
             "encoder_layer_train_bwd": 0.0}
-    for dh in C1_WIDTHS:
-        d = HEADS * dh
-        w = layer_weights(randn, d, 4 * d)
+    layers = [(HEADS * dh, 4 * HEADS * dh, HEADS) for dh in C1_WIDTHS + WIDE_WIDTHS]
+    for d, f, heads in layers + [(130, 1030, 2)]:
+        dh = d // heads
+        w = layer_weights(randn, d, f)
         for t in (T + 1, T_LONG + 1):
-            q, k, v = (randn(4, HEADS, t, dh) for _ in range(3))
+            q, k, v = (randn(4, heads, t, dh) for _ in range(3))
             got = fused_self_attention(q, k, v)
             err = (got - self_attention_reference(q, k, v)).abs().max().item()
-            report(f"flash_attention [4,{HEADS},{t},{dh}]", err, TOL_FLASH, got.shape == q.shape)
+            report(f"flash_attention [4,{heads},{t},{dh}]", err, TOL_FLASH, got.shape == q.shape)
             errs["flash_attention"] = max(errs["flash_attention"], err)
             x = randn(4, t, d)
-            got = fused_encoder_layer(x, *w, num_heads=HEADS)
-            err = (got - encoder_layer_plain(x, *w, num_heads=HEADS)).abs().max().item()
-            report(f"encoder_layer [4,{t},{d}] heads {HEADS} of {dh}", err, TOL_ENCODER,
+            got = fused_encoder_layer(x, *w, num_heads=heads)
+            err = (got - encoder_layer_plain(x, *w, num_heads=heads)).abs().max().item()
+            report(f"encoder_layer [4,{t},{d}] heads {heads} of {dh} ff {f}", err, TOL_ENCODER,
                    got.shape == x.shape)
             errs["encoder_layer"] = max(errs["encoder_layer"], err)
         for t in (T + 1, T_CLI + 1):
-            fwd, bwd = check_train_layer(randn(8, t, d), randn(8, t, d), w, seed, heads=HEADS)
+            fwd, bwd = check_train_layer(randn(8, t, d), randn(8, t, d), w, seed, heads=heads)
             errs["encoder_layer_train_fwd"] = max(errs["encoder_layer_train_fwd"], fwd)
             errs["encoder_layer_train_bwd"] = max(errs["encoder_layer_train_bwd"], bwd)
     return errs
@@ -1073,7 +1360,9 @@ def main() -> int:
         for fn, ops in sorted(sass.items()):
             product = any(k in fn for k in (
                 "gemm_tf32x3_kernel", "flash_attention_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel"))
+                "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel",
+                "flash_wide_kernel", "band_wide_kernel", "attn_bwd_dq_wide_kernel",
+                "attn_bwd_dkdv_wide_kernel"))
             if not product:
                 continue
             log(f"sass {lib} {fn[:110]}: TF32 HGMMA x{ops['HGMMA']}, HMMA x{ops['HMMA']} of "
@@ -1265,35 +1554,44 @@ def main() -> int:
     long_rows[0]["max_abs_err"] = max(long_rows[0]["max_abs_err"], edge_band_err)
     long_rows[1]["max_abs_err"] = max(long_rows[1]["max_abs_err"], c1_errs["flash_attention"])
 
-    # ---- 8. the widths the kernels pad, end to end --------------------- #
+    # ---- 8. the widths the kernels pad or slice, end to end ------------ #
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card)
+    c1_model_phase(randn, os.path.dirname(ckpt_dir), card, d=D_WIDE, cli=False)
+    wide_times(randn, card)
+
+    # ---- 9. the GENEA data path and streaming serve -------------------- #
+    genea = genea_serve_phase(model, model_path, card)
 
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
-         "launches": launches["local_block"], "max_abs_err": lb_err,
+         "launches": launches["local_block"] + genea["local_block"], "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
         {"name": "encoder_layer", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
-         "launches": launches["encoder_layer"] + long_launches["encoder_layer"],
+         "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
+                      + genea["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
         {"name": "encoder_layer_train_fwd", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:249",
-         "launches": train_launches[0], "max_abs_err": train_fwd_err,
+         "launches": train_launches[0] + genea["encoder_layer_train_fwd"],
+         "max_abs_err": train_fwd_err,
          **time_keys(train_times[T + 1]["fwd"])},
         {"name": "encoder_layer_train_bwd", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
-         "launches": train_launches[1], "max_abs_err": train_bwd_err,
+         "launches": train_launches[1] + genea["encoder_layer_train_bwd"],
+         "max_abs_err": train_bwd_err,
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
     ]
+    kernels[-1]["launches"] += genea["flash_attention"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

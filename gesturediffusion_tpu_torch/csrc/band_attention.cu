@@ -37,9 +37,13 @@
 // staged once and read from q's ring.  Rows of a head width that is not a
 // multiple of 16 are staged with zero columns up to DHP, 16 bytes a copy
 // when every row is 16-byte aligned (dh % 4 == 0) and one float a copy
-// otherwise; output columns past dh are never stored.
+// otherwise; output columns past dh are never stored.  Heads wider than 128,
+// and rings that would not fit a block's shared memory (three separate
+// operands at DHP 128, or windows past ~50 frames), take the sliced kernel
+// of wide_attention.cuh, which reads its fragments from device memory.
 
 #include "band_tile.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -176,7 +180,7 @@ const char* gdt_error_string(int code) {
 }
 
 // q, k, v, out [B, H, T, dh] through their strides (in floats, head width
-// contiguous), any head width dh <= 128, window >= 1.  Returns
+// contiguous), any head width, window >= 1.  Returns
 // cudaGetLastError() after queueing on `stream`.
 int gdt_band_attention_f32(const float* q, const float* k, const float* v, float* out,
                            long long qb, long long qh, long long qt, long long kb,
@@ -220,8 +224,14 @@ int gdt_band_attention_f32(const float* q, const float* k, const float* v, float
   a.ring_tiles = 1;
   while (a.ring_tiles < tiles) a.ring_tiles *= 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t ring_bytes = (size_t)a.nsrc * a.ring_tiles * kBandBQ *
+                            ((dh + 15) / 16 * 16 + 4) * sizeof(float);
   const cudaError_t e =
-      with_padded_width(dh, [&](auto w) { return band_launch<decltype(w)::value>(a, s); });
+      dh > kMaxPaddedWidth || ring_bytes > kMaxSmem
+          ? band_wide_launch(q, k, v, out, oq.s, ok.s, ov.s, a.so, B, H, T, dh, window, a.vec,
+                             a.scale_log2, s)
+          : with_padded_width(dh,
+                              [&](auto w) { return band_launch<decltype(w)::value>(a, s); });
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -105,6 +105,11 @@ __device__ __forceinline__ float dropped(float z, uint32_t idx, uint32_t salt,
   return hash_u32(idx, salt) < d.thresh ? z * d.inv_keep : 0.0f;
 }
 
+// The widest padded head width of the attention kernels that hold a head's
+// rows in registers and shared memory; wider heads take the sliced kernels
+// of wide_attention.cuh.
+constexpr int kMaxPaddedWidth = 128;
+
 // f(std::integral_constant<int, DHP>{}) for the padded width DHP of head
 // width dh, the next multiple of 16 up to 128: the widths the attention
 // kernels are instantiated for.  cudaErrorInvalidValue outside 1 .. 128.

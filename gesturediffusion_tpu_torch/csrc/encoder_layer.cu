@@ -33,8 +33,9 @@
 //      bias; bias and GELU-tanh; bias and residual;
 //   2. attention: the flash kernel of flash_attention.cuh (the port of
 //      pallas_flash.py::_flash_kernel, 3xTF32 on the tensor cores) reading
-//      the packed qkv through its strides, at every length and every head
-//      width up to 128 (zero-padded to the next multiple of 16);
+//      the packed qkv through its strides, at every length and head width
+//      (zero-padded to the next multiple of 16 up to 128, in 128-column
+//      slices past it);
 //   3. a LayerNorm row kernel, one warp per row (common.cuh).
 // The intermediates (qkv, attention output, pre-LN sums, ff activations)
 // round-trip through device memory (~68 MB written and read back per call
@@ -55,7 +56,7 @@ const char* gdt_error_string(int code) {
 // Returns cudaGetLastError() after queueing the layer on `stream`.
 // Scratch buffers (all float32, contiguous): qkv [M, 3D], attn [M, D],
 // tmp [M, D], h1 [M, D], ff [M, F], with M = B * T.  `out` [M, D].
-// D % 4 == 0 (the GEMM's 16-byte rows); head width D / H <= 128.
+// Any D, F and head width D / H.
 int gdt_encoder_layer_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,

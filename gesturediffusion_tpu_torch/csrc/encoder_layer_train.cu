@@ -98,7 +98,10 @@ constexpr int kSumThreads = 256;
 // tile of the other side is masked (p = 0).  Any head width dh <= 128 runs
 // at the padded width DHP (the next multiple of 16), as the flash forward
 // does: staged columns dh .. DHP - 1 are zero, so the padded columns of dQ,
-// dK and dV are zero, and they are never stored.
+// dK and dV are zero, and they are never stored.  Wider heads take the
+// sliced passes below (wide_attention.cuh's design: the products over the
+// whole width from device memory, one 128-column slice of dQ, dK and dV a
+// block).
 
 constexpr int kBwdThreads = 128;  // 4 warps of 16 resident rows
 constexpr int kBwdRows = 64;      // resident rows a block
@@ -435,6 +438,123 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout
   }
 }
 
+// The dQ pass past a head width of 128: grid (ceil(T / 64), B * H,
+// ceil(dh / 128)), each block one 128-column slice of dQ.
+template <bool DROP>
+__global__ void __launch_bounds__(kWideThreads)
+attn_bwd_dq_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ dvec,
+                        float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
+                        float scale, Drop drop) {
+  constexpr int NS = kWideKeys / 8;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, c0 = blockIdx.z * kWideSlice;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int q0 = blockIdx.x * kWideRows + warp * 16;
+  if (q0 >= T) return;
+  const int r0 = q0 + (lane >> 2);
+  const long long ld3 = 3 * (long long)D;
+  const float* qb = qkv + b * T * ld3 + h * dh;
+  const float* ob = dout + (long long)b * T * D + h * dh;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = r0 + 8 * hi;
+    lse_r[hi] = r < T ? lse[(size_t)bh * T + r] : 0.0f;
+    d_r[hi] = r < T ? dvec[(size_t)bh * T + r] : 0.0f;
+  }
+  float dq[kWideNO][4];
+#pragma unroll
+  for (int d = 0; d < kWideNO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.0f;
+
+  for (int j0 = 0; j0 < T; j0 += kWideKeys) {
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    wide_scores<NS>(s, qb, ld3, q0, qb + D, ld3, j0, T, dh, vec);     // S = Q K^T
+    wide_scores<NS>(dp, ob, D, q0, qb + 2 * D, ld3, j0, T, dh, vec);  // dP = dO V^T
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + 8 * n + 2 * t + (e & 1), hi = e >> 1;
+        const float p = key < T ? exp2f(s[n][e] * scale_log2 - lse_r[hi]) : 0.0f;
+        float dpz = dp[n][e];
+        if constexpr (DROP) {
+          const uint32_t idx = (static_cast<uint32_t>(bh) * T + r0 + 8 * hi) * T + key;
+          dpz = dropped(dpz, idx, salt, drop);
+        }
+        s[n][e] = p * (dpz - d_r[hi]) * scale;  // dS
+      }
+    wide_pv<NS>(dq, s, qb + D, ld3, j0, c0, T, dh);  // dQ += dS K
+  }
+  wide_store(dqkv + b * T * ld3 + h * dh, ld3, q0, c0, dq, T, dh, vec);
+}
+
+// The dK/dV pass past a head width of 128, as the dQ pass.
+template <bool DROP>
+__global__ void __launch_bounds__(kWideThreads)
+attn_bwd_dkdv_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dvec,
+                          float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
+                          float scale, Drop drop) {
+  constexpr int NS = kWideKeys / 8;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, c0 = blockIdx.z * kWideSlice;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kWideRows + warp * 16;  // this warp's keys k0 .. k0 + 15
+  if (k0 >= T) return;
+  const long long ld3 = 3 * (long long)D;
+  const float* qb = qkv + b * T * ld3 + h * dh;
+  const float* ob = dout + (long long)b * T * D + h * dh;
+  const float* lb = lse + (size_t)bh * T;
+  const float* db = dvec + (size_t)bh * T;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  float dk[kWideNO][4], dv[kWideNO][4];
+#pragma unroll
+  for (int d = 0; d < kWideNO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.0f;
+
+  for (int j0 = 0; j0 < T; j0 += kWideKeys) {
+    float st[NS][4], dpt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+    wide_scores<NS>(st, qb + D, ld3, k0, qb, ld3, j0, T, dh, vec);      // S^T = K Q^T
+    wide_scores<NS>(dpt, qb + 2 * D, ld3, k0, ob, D, j0, T, dh, vec);   // dP^T = V dO^T
+    // element e of slice n: key k0 + g + 8 (e >> 1), query j0 + 8n + 2t + (e & 1)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + 8 * n + 2 * t + (e & 1);
+        const float p = j < T ? exp2f(st[n][e] * scale_log2 - lb[j]) : 0.0f;
+        float pd = p, dp = dpt[n][e];
+        if constexpr (DROP) {
+          const uint32_t key = k0 + g + 8 * (e >> 1);
+          const uint32_t idx = (static_cast<uint32_t>(bh) * T + j) * T + key;
+          const bool keep = hash_u32(idx, salt) < drop.thresh;
+          pd = keep ? p * drop.inv_keep : 0.0f;
+          dp = keep ? dp * drop.inv_keep : 0.0f;
+        }
+        st[n][e] = pd;                                       // (Z o P)^T
+        dpt[n][e] = j < T ? p * (dp - db[j]) * scale : 0.0f;  // dS^T
+      }
+    wide_pv<NS>(dv, st, ob, D, j0, c0, T, dh);    // dV += (Z o P)^T dO
+    wide_pv<NS>(dk, dpt, qb, ld3, j0, c0, T, dh);  // dK += dS^T Q
+  }
+  float* dkb = dqkv + b * T * ld3 + D + h * dh;
+  wide_store(dkb, ld3, k0, c0, dk, T, dh, vec);
+  wide_store(dkb + D, ld3, k0, c0, dv, T, dh, vec);
+}
+
 // dvec[(b*H + h)*T + i] = sum_d dout[m, h*dh + d] o[m, h*dh + d] for m = b*T
 // + i: D of the attention backward, one thread per (row, head)
 __global__ void __launch_bounds__(kSumThreads)
@@ -489,10 +609,29 @@ cudaError_t attention_backward(const float* qkv, const float* o, const float* do
   const int rows = B * T * H;
   attn_bwd_rowdot_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       o, dout, dvec, B * T, T, D, H);
-  // qkv's and dout's rows are 16-byte aligned (D % 4 == 0); so is every
-  // head's slice when dh % 4 == 0
+  // 16-byte copies where every row of qkv, dout and dqkv and every head's
+  // slice of it starts 16-byte aligned
   const int dh = D / H;
-  const BwdArgs a{qkv, dout, lse, dvec, dqkv, B, T, D, H, dh, dh % 4 == 0, scale, drop};
+  const bool vec = dh % 4 == 0 && D % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dout) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dqkv) % 16 == 0;
+  if (dh > kMaxPaddedWidth) {
+    if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
+    const dim3 grid((T + kWideRows - 1) / kWideRows, B * H, (dh + kWideSlice - 1) / kWideSlice);
+    if (drop.seed != nullptr) {
+      attn_bwd_dq_wide_kernel<true><<<grid, kWideThreads, 0, s>>>(qkv, dout, lse, dvec, dqkv, T,
+                                                                  D, H, dh, vec, scale, drop);
+      attn_bwd_dkdv_wide_kernel<true><<<grid, kWideThreads, 0, s>>>(
+          qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
+    } else {
+      attn_bwd_dq_wide_kernel<false><<<grid, kWideThreads, 0, s>>>(
+          qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
+      attn_bwd_dkdv_wide_kernel<false><<<grid, kWideThreads, 0, s>>>(
+          qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
+    }
+    return cudaSuccess;
+  }
+  const BwdArgs a{qkv, dout, lse, dvec, dqkv, B, T, D, H, dh, vec, scale, drop};
   return with_padded_width(
       dh, [&](auto w) { return attention_backward_dhp<decltype(w)::value>(a, s); });
 }
@@ -766,7 +905,7 @@ size_t gdt_encoder_layer_train_workspace(int B, int T, int D, int F, int H,
 
 // Forward: x [B, T, D] -> out [B, T, D].  `seed` points at one int32 on the
 // device; thresh and inv_keep come from the caller (rate 0: use_dropout 0).
-// D % 4 == 0 and the head width D / H <= 128 (the flash kernel's).  Returns
+// Any D and F, any head width D / H.  Returns
 // cudaGetLastError() after queueing the chain on `stream`.
 int gdt_encoder_layer_train_fwd_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,

@@ -21,7 +21,7 @@ const char* gdt_error_string(int code) {
 }
 
 // q, k, v, out [B, H, T, dh] through their strides (in floats, head width
-// contiguous), any head width dh <= 128.  Returns cudaGetLastError() after
+// contiguous), any head width.  Returns cudaGetLastError() after
 // queueing on `stream`.
 int gdt_flash_attention_f32(const float* q, const float* k, const float* v, float* out,
                             long long qb, long long qh, long long qt, long long kb,

@@ -61,8 +61,10 @@
 // width contiguous: the encoder chain passes its packed [B*T, 3D] qkv and
 // its [B*T, D] output, the standalone entry point [B, H, T, D] tensors.
 //
-// Any head width dh <= 128: the kernel is built for the padded widths DHP,
-// every multiple of 16 up to 128, and takes the real dh at run time.  K and
+// Any head width: up to 128 the kernel is built for the padded widths DHP,
+// every multiple of 16 up to 128, and takes the real dh at run time; wider
+// heads run the sliced kernel of wide_attention.cuh (same function, same
+// dropout and log-sum-exp).  K and
 // V rows are staged with columns dh .. DHP - 1 zero-filled (cp.async's
 // zero fill), q's fragments read those columns as zeros, and only the
 // columns below dh are stored: zero columns add nothing to q . k and give
@@ -74,13 +76,12 @@
 
 #include "common.cuh"
 #include "mma_tf32x3.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
 constexpr int kFlashThreads = 128;  // 4 warps of 16 query rows
 constexpr int kFlashBQ = 64;        // queries per block
-
-constexpr int kFlashMaxHeadWidth = 128;
 
 template <int DHP>
 struct FlashTile {
@@ -346,7 +347,8 @@ cudaError_t flash_dhp(const FlashArgs& a, cudaStream_t s) {
 }
 
 // Queues flash_attention_kernel on `s` for any head width dh <= 128 (the
-// kernel of the next multiple of 16), with site-0 dropout when drop.seed is
+// kernel of the next multiple of 16), flash_wide_kernel for wider heads,
+// with site-0 dropout when drop.seed is
 // set (TRAIN: the training layer's instantiation; the inference ones build
 // no dropout kernel) and the rows' log-sum-exp (log2 units, [B*H, T]) when
 // lse is not null.
@@ -358,6 +360,14 @@ cudaError_t flash_attention(const float* q, const float* k, const float* v, floa
                             cudaStream_t s) {
   const bool vec = dh % 4 == 0 && aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
                    aligned16(out, so);
+  if (dh > kMaxPaddedWidth) {
+    if constexpr (TRAIN)
+      if (drop.seed != nullptr)
+        return flash_wide_launch<true>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec, scale,
+                                       drop, lse, s);
+    return flash_wide_launch<false>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec, scale, drop,
+                                    lse, s);
+  }
   const FlashArgs a{q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec, scale, drop, lse};
   return with_padded_width(dh,
                            [&](auto w) { return flash_dhp<decltype(w)::value, TRAIN>(a, s); });

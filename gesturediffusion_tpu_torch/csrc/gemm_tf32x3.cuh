@@ -65,6 +65,8 @@
 // rates.
 #pragma once
 
+#include <algorithm>
+
 #include "common.cuh"
 #include "mma_tf32x3.cuh"
 
@@ -151,6 +153,21 @@ constexpr uint32_t kTcLbo = 128, kTcSbo = 256;  // core-matrix strides (bytes)
 constexpr size_t kTcSmem =
     ((size_t)2 * kTcBK * kTcBN + (size_t)kTcStages * (kTcAStage + kTcBStage)) * sizeof(float);
 
+// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of a row-major operand
+// (row stride ld) into shared rows of ldd floats, one float a copy, zeros
+// past r_end and c_end: the copy of slices whose rows are not 16-byte
+// aligned (a row length or stride not divisible by 4), kept out of line so
+// that the main loop holds only its float4 copies.
+__device__ __noinline__ void gemm_copy_scalar(float* dst, int ldd, const float* base,
+                                              long long ld, int r0, int c0, int rows, int cols,
+                                              int r_end, int c_end) {
+  for (int f = threadIdx.x; f < rows * cols; f += blockDim.x) {
+    const int r = f / cols, c = f % cols;
+    const bool in = r0 + r < r_end && c0 + c < c_end;
+    cp_async4(dst + r * ldd + c, in ? base + (r0 + r) * ld + c0 + c : base, in);
+  }
+}
+
 // The dropout of kBiasResid, kBiasGelu and kDropGeluGrad applies only when
 // ep.drop.seed is set; the element's index is its offset r * N + c in C.
 enum Epilogue {
@@ -171,19 +188,36 @@ struct EpiArgs {
   int site;
 };
 
+// The tensor cores add each product into the f32 accumulator without
+// rounding to nearest (the sum is truncated), so the accumulator's error
+// grows with the number of wgmma steps: ~2.3e-5 at the gesture layer's K
+// of 1024 (PERF.md section 6).  The GENERAL instantiation serves every
+// call the main path's shapes do not: a reduction longer than kTcFlushK
+// (wide layers, unsplit weight gradients), whose accumulator it flushes
+// into an f32 sum every kTcFlushSlices slices, bounding the error at that
+// of 128 terms, and operands or outputs that are not aligned for the
+// 16-byte copies and float2 stores.  The main path's instantiation is the
+// kernel without those branches.
+constexpr int kTcFlushK = 1024;
+constexpr int kTcFlushSlices = 4;
+
 // C[M, N] = epi(sum_k A(m, k) B(n, k)).  A(m, k) is A[m*lda + k] when A_KC
 // and A[k*lda + m] otherwise; B(n, k) is B[n*ldb + k] when B_KC and
 // B[k*ldb + n] otherwise.  The block takes the k range [z*k_chunk,
 // (z+1)*k_chunk) of z = blockIdx.z and writes slice z of C (partial sums
-// when gridDim.z > 1).  Requirements: the contiguous axis of each operand
-// is a multiple of 4 long (K when A_KC or B_KC, M or N otherwise), so is
-// k_chunk when it is not K, N is even, pointers and rows are 16-byte
-// aligned.  grid (ceil(N / kTcBN), ceil(M / kTcBM), splits).
-template <bool A_KC, bool B_KC, int EPI>
+// when gridDim.z > 1).  Slices are copied 16 bytes at a time where `vec`
+// (every row of both operands 16-byte aligned and the contiguous axes
+// multiples of 4 long: K and k_chunk when A_KC or B_KC, M or N otherwise),
+// else a float at a time; the epilogue reads and writes float2 pairs where
+// `pair` (N even, its pointers 8-byte aligned), else floats.  Both flags
+// are read by the GENERAL instantiation only; the other takes them true.
+// grid (ceil(N / kTcBN), ceil(M / kTcBM), splits).
+template <bool A_KC, bool B_KC, int EPI, bool GENERAL>
 __global__ void __launch_bounds__(kTcThreads)
 gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    float* __restrict__ C, int M, int N, int K, int lda, int ldb,
-                   int k_chunk, EpiArgs ep) {
+                   int k_chunk, bool vec_arg, bool pair_arg, EpiArgs ep) {
+  const bool vec = !GENERAL || vec_arg, pair = !GENERAL || pair_arg;
   extern __shared__ __align__(16) float smem[];
   float* Bbig = smem;                          // [4 k8 steps][kTcSlice]
   float* Bsmall = Bbig + kTcBK * kTcBN;        // [4 k8 steps][kTcSlice]
@@ -199,6 +233,17 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
     const int k0 = kbeg + kt * kTcBK;
     float* as = As + stage * kTcAStage;
     float* bs = Bs + stage * kTcBStage;
+    if (!vec) {
+      if constexpr (A_KC)
+        gemm_copy_scalar(as, kTcLd, A, lda, m0, k0, kTcBM, kTcBK, M, kend);
+      else
+        gemm_copy_scalar(as, kTcLdAT, A, lda, k0, m0, kTcBK, kTcBM, kend, M);
+      if constexpr (B_KC)
+        gemm_copy_scalar(bs, kTcLd, B, ldb, n0, k0, kTcBN, kTcBK, N, kend);
+      else
+        gemm_copy_scalar(bs, kTcLdBT, B, ldb, k0, n0, kTcBK, kTcBN, kend, N);
+      return;
+    }
 #pragma unroll
     for (int i = 0; i < kTcBM * (kTcBK / 4) / kTcThreads; ++i) {
       const int f = tid + i * kTcThreads;
@@ -228,8 +273,11 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   };
 
   float acc[32];
+  float sum[GENERAL ? 32 : 1];  // the flushed sum (GENERAL)
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (GENERAL ? 32 : 1); ++i) sum[i] = 0.0f;
 
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
@@ -318,6 +366,19 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
       reg_fence(a_big[s]);
       reg_fence(a_small[s]);
     }
+    if constexpr (GENERAL) {
+      if (kt % kTcFlushSlices == kTcFlushSlices - 1 || kt == ktiles - 1) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sum[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+      }
+    }
+  }
+  if constexpr (GENERAL) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = sum[i];
   }
 
   C += (size_t)blockIdx.z * M * N;
@@ -329,8 +390,12 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for (int j = 0; j < 8; ++j) {
     const int c = n0 + 8 * j + 2 * t;
     if (c >= N) continue;
+    const bool two = c + 1 < N;
+    auto ld2 = [&](const float* p) {
+      return pair ? *reinterpret_cast<const float2*>(p) : make_float2(p[0], two ? p[1] : 0.f);
+    };
     float2 b2 = make_float2(0.f, 0.f);
-    if (kHasBias) b2 = *reinterpret_cast<const float2*>(ep.bias + c);
+    if (kHasBias) b2 = ld2(ep.bias + c);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = m0 + arow + 8 * hf;
@@ -341,8 +406,16 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
         v0 += b2.x;
         v1 += b2.y;
       }
+      auto st2 = [&](float* p, float x0, float x1) {
+        if (pair) {
+          *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+        } else {
+          p[0] = x0;
+          if (two) p[1] = x1;
+        }
+      };
       if (EPI == kBiasGelu) {
-        if (ep.pre != nullptr) *reinterpret_cast<float2*>(ep.pre + off) = make_float2(v0, v1);
+        if (ep.pre != nullptr) st2(ep.pre + off, v0, v1);
         v0 = gelu_tanh(v0);
         v1 = gelu_tanh(v1);
       }
@@ -351,31 +424,50 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
         v1 = dropped(v1, static_cast<uint32_t>(off + 1), salt, ep.drop);
       }
       if (EPI == kDropGeluGrad) {
-        const float2 h2 = *reinterpret_cast<const float2*>(ep.aux + off);
+        const float2 h2 = ld2(ep.aux + off);
         v0 *= gelu_tanh_grad(h2.x);
         v1 *= gelu_tanh_grad(h2.y);
       }
       if (EPI == kBiasResid || EPI == kResid) {
-        const float2 r2 = *reinterpret_cast<const float2*>(ep.resid + off);
+        const float2 r2 = ld2(ep.resid + off);
         v0 += r2.x;
         v1 += r2.y;
       }
-      *reinterpret_cast<float2*>(C + off) = make_float2(v0, v1);
+      st2(C + off, v0, v1);
     }
   }
 }
 
-// Queues C = epi(A . B^T) on `s` (operand layouts as gemm_tf32x3_kernel).
+template <bool A_KC, bool B_KC, int EPI, bool GENERAL>
+cudaError_t gemm_tf32x3_launch(const float* A, const float* B, float* C, int M, int N, int K,
+                               int lda, int ldb, int splits, int k_chunk, bool vec, bool pair,
+                               const EpiArgs& ep, cudaStream_t s) {
+  const cudaError_t e = set_smem(gemm_tf32x3_kernel<A_KC, B_KC, EPI, GENERAL>, kTcSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
+  gemm_tf32x3_kernel<A_KC, B_KC, EPI, GENERAL><<<grid, kTcThreads, kTcSmem, s>>>(
+      A, B, C, M, N, K, lda, ldb, k_chunk, vec, pair, ep);
+  return cudaSuccess;
+}
+
+// Queues C = epi(A . B^T) on `s` (operand layouts as gemm_tf32x3_kernel),
+// the GENERAL instantiation where a block's K range passes kTcFlushK or an
+// operand or output is not aligned for the vector copies and stores.
 template <bool A_KC, bool B_KC, int EPI>
 cudaError_t gemm_tf32x3(const float* A, const float* B, float* C, int M, int N, int K,
                         int lda, int ldb, int splits, int k_chunk, const EpiArgs& ep,
                         cudaStream_t s) {
-  const cudaError_t e = set_smem(gemm_tf32x3_kernel<A_KC, B_KC, EPI>, kTcSmem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
-  gemm_tf32x3_kernel<A_KC, B_KC, EPI><<<grid, kTcThreads, kTcSmem, s>>>(
-      A, B, C, M, N, K, lda, ldb, k_chunk, ep);
-  return cudaSuccess;
+  auto at = [](const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; };
+  const bool k4 = K % 4 == 0 && k_chunk % 4 == 0;
+  const bool vec = at(A, 16) && at(B, 16) && lda % 4 == 0 && ldb % 4 == 0 &&
+                   (A_KC ? k4 : M % 4 == 0) && (B_KC ? k4 : N % 4 == 0);
+  const bool pair = N % 2 == 0 && at(C, 8) && at(ep.bias, 8) && at(ep.resid, 8) &&
+                    at(ep.aux, 8) && at(ep.pre, 8);
+  if (!vec || !pair || std::min(K, k_chunk) > kTcFlushK)
+    return gemm_tf32x3_launch<A_KC, B_KC, EPI, true>(A, B, C, M, N, K, lda, ldb, splits,
+                                                     k_chunk, vec, pair, ep, s);
+  return gemm_tf32x3_launch<A_KC, B_KC, EPI, false>(A, B, C, M, N, K, lda, ldb, splits,
+                                                    k_chunk, true, true, ep, s);
 }
 
 // C[M, N] = epi(A[M, K] . W[N, K]^T): the forward products, W in PyTorch's

@@ -41,10 +41,15 @@
 // built once per shape and device by the wrapper and read from L2 (10 KB at
 // the gesture shape).  The products of rope are rounded as PyTorch's
 // (no fused multiply-add), so rope here is bit for bit the plain version's.
+// A head whose rows do not fit a block's shared memory (local heads wider
+// than 128, or 128 past 216 frames) takes three launches instead:
+// the first rotary pass into a workspace, the sliced band kernel of
+// wide_attention.cuh on it, and the token and second rotary pass.
 
 #include <algorithm>
 
 #include "band_tile.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -170,6 +175,42 @@ cudaError_t local_block_launch(const LocalArgs& a, int B, cudaStream_t s) {
 
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The wide path's first rotary pass: r[b, i, h*dh + k] and [.. + dh / 2] =
+// rope of x at position i, a thread a pair.
+__global__ void rope_in_kernel(const float* __restrict__ x, const float* __restrict__ cos_t,
+                               const float* __restrict__ sin_t, float* __restrict__ r, int B,
+                               int T, int D, int H) {
+  const int half = D / H / 2;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)B * T * H * half) return;
+  const int k = e % half, h = (e / half) % H, i = (e / half / H) % T;
+  const long long off = e / half / H * D + h * 2 * half + k;  // (b*T + i)*D + h*dh + k
+  rope_pair(x[off], x[off + half], cos_t[i * half + k], sin_t[i * half + k], r[off],
+            r[off + half]);
+}
+
+// The wide path's second pass: out[b, 0] = rope(coa[b], 0), out[b, i + 1] =
+// rope(a[b, i], i + 1), a thread a pair.
+__global__ void rope_out_kernel(const float* __restrict__ a, const float* __restrict__ coa,
+                                const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                                float* __restrict__ out, int B, int T, int D, int H) {
+  const int half = D / H / 2;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)B * (T + 1) * H * half) return;
+  const int k = e % half, h = (e / half) % H, pos = (e / half / H) % (T + 1);
+  const long long b = e / half / H / (T + 1), col = h * 2 * half + k;
+  const float* src = pos == 0 ? coa + b * D + col : a + (b * T + pos - 1) * D + col;
+  float* dst = out + (b * (T + 1) + pos) * D + col;
+  rope_pair(src[0], src[half], cos_t[pos * half + k], sin_t[pos * half + k], dst[0],
+            dst[half]);
+}
+
+// whether a head's rows fit the one-block kernel's shared memory
+bool fits_block(int T, int dh) {
+  return dh <= kMaxPaddedWidth &&
+         (2 * (size_t)T + 8) * ((dh + 15) / 16 * 16 + 4) * sizeof(float) <= kMaxSmem;
+}
+
 }  // namespace
 
 extern "C" {
@@ -178,11 +219,18 @@ const char* gdt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Float32 elements of the workspace the block needs: 0 where a head fits
+// the one-block kernel, else the rotated rows and the attention [B, T, D]
+// of the wide path.
+size_t gdt_local_block_workspace(int B, int T, int D, int H) {
+  return fits_block(T, D / H) ? 0 : 2 * (size_t)B * T * D;
+}
+
 // x [B, T, D] and coa [B, D] contiguous, cos_t and sin_t [T + 1, dh / 2]
-// (dh = D / H even, at most 128) -> out [B, T + 1, D].  Returns
-// cudaGetLastError() after queueing the block on `stream`.
+// (dh = D / H even) -> out [B, T + 1, D]; ws as gdt_local_block_workspace
+// asks.  Returns cudaGetLastError() after queueing the block on `stream`.
 int gdt_local_block_f32(const float* x, const float* coa, const float* cos_t,
-                        const float* sin_t, float* out, int B, int T, int D, int H,
+                        const float* sin_t, float* out, float* ws, int B, int T, int D, int H,
                         int window, float scale, void* stream) {
   const int dh = D / H;
   if (T < 1 || D % H || dh % 2 || window < 1)
@@ -191,6 +239,21 @@ int gdt_local_block_f32(const float* x, const float* coa, const float* cos_t,
                    aligned(sin_t) && aligned(out);
   const LocalArgs a{x, coa, cos_t, sin_t, out, T, D, H, window, scale * 1.4426950408889634f, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fits_block(T, dh)) {
+    if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    float *r = ws, *att = ws + (size_t)B * T * D;
+    const long long pairs_in = (long long)B * T * H * (dh / 2);
+    const long long pairs_out = (long long)B * (T + 1) * H * (dh / 2);
+    rope_in_kernel<<<(pairs_in + 255) / 256, 256, 0, s>>>(x, cos_t, sin_t, r, B, T, D, H);
+    const AttnStrides rows{(long long)T * D, dh, D};
+    const bool wvec = dh % 4 == 0 && D % 4 == 0 && aligned(ws);
+    const cudaError_t e = band_wide_launch(r, r, r, att, rows, rows, rows, rows, B, H, T, dh,
+                                           window, wvec, a.scale_log2, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rope_out_kernel<<<(pairs_out + 255) / 256, 256, 0, s>>>(att, coa, cos_t, sin_t, out, B, T,
+                                                            D, H);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t e = with_padded_width(
       dh, [&](auto w) { return local_block_launch<decltype(w)::value>(a, B, s); });
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -24,9 +24,13 @@ def lengths_to_mask(lengths: np.ndarray, max_len: int) -> np.ndarray:
 
 
 def collate_gesture(
-    items: Sequence[dict], max_frames: Optional[int] = None
+    items: Sequence[dict], max_frames: Optional[int] = None,
+    audio_samples_per_frame: int = AUDIO_SAMPLES_PER_FRAME,
 ) -> tuple[np.ndarray, dict]:
-    """Collate gesture dataset items into the canonical batch contract."""
+    """Collate gesture dataset items into the canonical batch contract.
+
+    ``audio_samples_per_frame`` sets the fixed audio pad target (t frames x
+    samples a frame); the registry passes round(sr / fps) of the dataset."""
     b = len(items)
     t = max_frames or max(it["motion"].shape[0] for it in items)
     d = items[0]["motion"].shape[1]
@@ -56,7 +60,7 @@ def collate_gesture(
             seed[i, :, 0, :] = it["seed"].T
         cond["seed"] = seed
     if "audio" in items[0]:
-        la = t * AUDIO_SAMPLES_PER_FRAME
+        la = t * audio_samples_per_frame
         audio = np.zeros((b, la), np.float32)
         for i, it in enumerate(items):
             n = min(it["audio"].shape[0], la)

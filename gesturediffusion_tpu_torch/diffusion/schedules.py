@@ -1,8 +1,8 @@
 """Beta schedules and timestep respacing, in float64 numpy.
 
 Copy of gesturediffusion_tpu/diffusion/schedules.py (get_named_beta_schedule,
-space_timesteps, respaced_betas and their helpers) for the PyTorch port,
-which imports nothing of the JAX package.
+space_timesteps, respacing_string, respaced_betas and their helpers) for
+the PyTorch port, which imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -110,6 +110,35 @@ def space_timesteps(
         all_steps += taken_steps
         start_idx += size
     return set(all_steps)
+
+
+def respacing_string(
+    sample_steps: int | None,
+    sampler: str = "ddpm",
+    spacing: str = "uniform",
+) -> str | None:
+    """The one mapping from (sample_steps, sampler, spacing) to a
+    ``timestep_respacing`` string, which the streaming session and the
+    serving CLI share.  Returns None for no respacing (the full trained
+    chain)."""
+    if spacing not in ("uniform", "logsnr"):
+        raise ValueError(
+            f"unknown step spacing {spacing!r} (uniform | logsnr)"
+        )
+    if not sample_steps:
+        if spacing != "uniform":
+            # the full chain visits every step — there is nothing for a
+            # non-uniform spacing to choose; ignoring it would lie
+            raise ValueError(
+                f"step spacing {spacing!r} requires sample_steps "
+                "(the full chain is not respaced)"
+            )
+        return None
+    if spacing == "logsnr":
+        return f"logsnr{sample_steps}"
+    if sampler == "ddim":
+        return f"ddim{sample_steps}"
+    return str(sample_steps)
 
 
 def respaced_betas(

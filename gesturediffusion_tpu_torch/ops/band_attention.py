@@ -30,21 +30,22 @@ from gesturediffusion_tpu_torch.ops.local_attention import (
 
 # below this length the dense band-masked formulation is taken
 LOCAL_ATTN_DENSE_MAX_T = 256
-# the widest head the attention kernels take (band, flash, the training
-# layer's attention backward, the local block); no configuration of the
-# repo has wider heads (--latent_dim 512 with 4 heads gives 128)
-MAX_HEAD_WIDTH = 128
+# the widest padded head width the attention kernels hold in registers and
+# shared memory (csrc/common.cuh:kMaxPaddedWidth); wider heads run in
+# slices of this many columns (csrc/wide_attention.cuh)
+SLICE_WIDTH = 128
 
 
 def padded_head_width(dh: int) -> int:
-    """The width the attention kernels run head width ``dh`` at: the next
-    multiple of 16 (csrc/ instantiates 16, 32, ..., 128), columns past dh
-    zero-filled in shared memory.  Raises a ValueError past
-    ``MAX_HEAD_WIDTH``."""
-    if not 0 < dh <= MAX_HEAD_WIDTH:
-        raise ValueError(f"the attention kernels take head widths 1 .. {MAX_HEAD_WIDTH}, "
-                         f"not {dh}")
-    return -(-dh // 16) * 16
+    """The width the attention kernels run head width ``dh`` at: up to
+    ``SLICE_WIDTH`` the next multiple of 16 (csrc/ instantiates 16, 32, ...,
+    128), columns past dh zero-filled in shared memory; past it the next
+    multiple of ``SLICE_WIDTH``, the output's column slices.  Raises a
+    ValueError for a width below 1."""
+    if dh < 1:
+        raise ValueError(f"head width {dh}: the attention kernels take widths >= 1")
+    step = 16 if dh <= SLICE_WIDTH else SLICE_WIDTH
+    return -(-dh // step) * step
 
 
 @functools.cache

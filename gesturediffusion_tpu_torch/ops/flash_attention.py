@@ -7,9 +7,10 @@ On a CUDA tensor ``fused_self_attention`` launches csrc/flash_attention.cu
 tensor it runs ``self_attention_reference``.  The inference encoder
 layer's chain launches the same device code on its packed qkv buffer as its
 attention stage (ops/fused_encoder.py), and counts those launches here too.
-The kernel takes any head width up to ``MAX_HEAD_WIDTH``, run at the next
-multiple of 16 with zero-filled columns (``padded_head_width``), as
-pallas_flash.py pads D to 128.
+The kernel takes any head width (``padded_head_width``): up to 128 at the
+next multiple of 16 with zero-filled columns, wider heads in 128-column
+slices (csrc/wide_attention.cuh), as pallas_flash.py pads D to a multiple
+of 128.
 """
 
 from __future__ import annotations

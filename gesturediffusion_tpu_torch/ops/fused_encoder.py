@@ -20,7 +20,8 @@ and bias [D].  On a CUDA tensor the wrapper launches
 csrc/encoder_layer.cu (its four products on the tensor cores in 3xTF32,
 f32-level error); on a CPU tensor it runs the plain version.  The chain's
 attention stage is the flash kernel of ops/flash_attention.py at every T
-and every head width up to 128 (``padded_head_width``).
+and head width (``padded_head_width``); any D and F (rows that are not
+16-byte aligned are copied a float at a time).
 """
 
 from __future__ import annotations
@@ -105,11 +106,8 @@ def _check_cuda_args(x, weights, num_heads):
     ):
         if tuple(w.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(w.shape)}")
-    if d % num_heads or d % 4 or f % 4:
-        raise ValueError(
-            f"D={d} must split into {num_heads} heads; D and F={f} must be divisible by 4 "
-            f"(the products' 16-byte rows)"
-        )
+    if d % num_heads:
+        raise ValueError(f"D={d} must split into {num_heads} heads")
     padded_head_width(d // num_heads)
     for w in (x, *weights):
         if w.dtype != torch.float32:

@@ -25,7 +25,7 @@ every call, as a separate TPU kernel call does.
 
 The kernels' attention is flash-style in both directions (the flash kernel
 of ops/flash_attention.py with site-0 dropout, and a tiled backward), so T
-is bounded by device memory only, and takes any head width up to 128, as
+is bounded by device memory only, and takes any head width, D and F, as
 the inference layer does.
 """
 

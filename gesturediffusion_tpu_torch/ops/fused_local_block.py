@@ -13,7 +13,10 @@ xseq [B, T, D], coa [B, D] -> [B, T + 1, D].  On a CUDA tensor the wrapper
 launches csrc/local_block.cu (its band attention on the tensor cores in
 3xTF32, through the routine it shares with the band kernel) with the rotary
 tables of ``rotary_table``, built once per shape and device; on a CPU
-tensor it runs the plain version.
+tensor it runs the plain version.  A head whose rows do not fit a block's
+shared memory (local heads wider than 128, or 128 past 216 frames) runs
+the kernel's sliced path, in a workspace the wrapper
+allocates for the call.
 ``pre_encoder_local_block`` takes its attention from
 ops/band_attention.py:local_attention_auto, as mdm.py:70 does: the dense
 form up to 256 frames, beyond that the band kernel on a CUDA tensor
@@ -79,12 +82,15 @@ def rotary_table(positions: int, dh: int, device: torch.device) -> tuple:
 
 
 @functools.cache
-def _kernel():
+def _kernels():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.load_function(
+    block = _build.load_function(
         "local_block", "gdt_local_block_f32",
-        [p] * 5 + [i] * 5 + [ctypes.c_float, p],
+        [p] * 6 + [i] * 5 + [ctypes.c_float, p],
     )
+    ws_floats = _build.load_function("local_block", "gdt_local_block_workspace", [i] * 4)
+    ws_floats.restype = ctypes.c_size_t
+    return block, ws_floats
 
 
 def _check_cuda_args(xseq, coa, num_heads, window):
@@ -125,11 +131,14 @@ def fused_local_block(
     dh = d // num_heads
     cos, sin = rotary_table(t + 1, dh, xseq.device)
     out = torch.empty((b, t + 1, d), dtype=xseq.dtype, device=xseq.device)
-    fn = _kernel()
+    fn, ws_floats = _kernels()
+    n_ws = ws_floats(b, t, d, num_heads)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=xseq.device) if n_ws else None
     with torch.cuda.device(xseq.device):
         stream = torch.cuda.current_stream(xseq.device).cuda_stream
         code = fn(xseq.data_ptr(), coa.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                  out.data_ptr(), b, t, d, num_heads, window, dh**-0.5, stream)
+                  out.data_ptr(), None if ws is None else ws.data_ptr(), b, t, d, num_heads,
+                  window, dh**-0.5, stream)
     _build.check("local_block", code)
     fused_local_block.launches += 1
     return out

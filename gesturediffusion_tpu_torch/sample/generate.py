@@ -1,14 +1,19 @@
 """Gesture generation CLI: ``python -m gesturediffusion_tpu_torch.sample.generate``.
 
 PyTorch counterpart of gesturediffusion_tpu/sample/generate.py:main
-(:94-311): load the checkpoint and its args.json, collate every chunk of
-every take, run chunked autoregressive DDPM sampling with the fast CFG
-model function (the last ``seed_poses`` frames of a chunk seed the next),
-invert the normalisation, split positions from rotations and write
-``results.npy`` (+ ``results.txt``, ``results_len.txt``).  It runs on the
-CUDA card unless ``--device cpu`` is given.  BVH export, video and the
-GENEA loaders wait for later slices; a dataset without take structure
-(``synthetic``) generates one chunk per take.
+(:94-378): load the checkpoint and its args.json, take the val split of
+the dataset, collate every chunk of every take, run chunked
+autoregressive sampling (``--sampler ddpm|ddim``) with the fast CFG model
+function (the last ``seed_poses`` frames of a chunk seed the next, the
+first chunk seeded by the dataset's poses), invert the normalisation,
+split positions from rotations and write ``results.npy`` (+
+``results.txt``, ``results_len.txt``), a ``<take>.bvh`` and
+``<take>_gt.bvh`` per take (on the dataset's reference skeleton when it
+has one) and the take's audio as ``<take>.wav``.  A GENEA split generates
+as many chunks a take as its shortest take holds; a dataset without take
+structure (``synthetic``) one chunk a take.  It runs on the CUDA card
+unless ``--device cpu`` is given.  The stick-figure video and its audio
+mux are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -19,15 +24,23 @@ import sys
 
 import numpy as np
 import torch
+from scipy.io import wavfile
 
 from gesturediffusion_tpu_torch.data.collate import collate_gesture, device_cond
-from gesturediffusion_tpu_torch.data.synthetic import get_dataset
-from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
+from gesturediffusion_tpu_torch.data.registry import get_dataset
+from gesturediffusion_tpu_torch.diffusion.sampling import (
+    autoregressive_sample_loop,
+    sample_loop,
+)
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
 from gesturediffusion_tpu_torch.utils.parser import default_output_dir, generate_args
+from gesturediffusion_tpu_torch.viz.bvh import export_gesture_bvh, read_bvh
+
+FPS = 30
+SR = 22050
 
 
 def split_pose_vector(vec: np.ndarray, n_joints: int):
@@ -40,20 +53,70 @@ def split_pose_vector(vec: np.ndarray, n_joints: int):
     return pos, rot
 
 
+def take_layout(dataset):
+    """Per-take window layout of a dataset split, in the split's own item
+    indices (those ``dataset[i]`` takes): ``(counts, starts, take_ids)``
+    over the takes with at least one window in the split (``take_ids``
+    indexes ``dataset.takes``), or None for a dataset without takes.
+    ``samples_cumulative`` counts over the whole corpus, so a split that
+    windows a slice of it (Genea2022's 70/30 split, offset ``begin``) has
+    the offset subtracted (generate.py:59)."""
+    if not hasattr(dataset, "samples_cumulative"):
+        return None
+    cum = np.asarray(dataset.samples_cumulative, dtype=np.int64)
+    begin = int(getattr(dataset, "begin", 0))
+    bounds = np.clip(cum - begin, 0, len(dataset))
+    starts = np.concatenate([[0], bounds[:-1]])
+    counts = bounds - starts
+    (keep,) = np.nonzero(counts > 0)
+    return counts[keep], starts[keep], keep
+
+
+def load_reference_skeleton(dataset):
+    """The dataset's reference BVH skeleton (joint names and offsets), read
+    once, or None where the file is absent (synthetic data)."""
+    path = os.path.join(getattr(dataset, "datapath", ""), "trn/main-agent/bvh/reference.bvh")
+    return read_bvh(path, skip_motion=True) if os.path.isfile(path) else None
+
+
 def main(argv=None) -> str:
     args = generate_args(argv)
     device = resolve_device(args.device)
+    loop = sample_loop(args.sampler)
     out_path = args.output_dir or default_output_dir(
         args.model_path, "samples", f"seed{args.seed}"
     )
 
-    dataset = get_dataset(args.dataset, args.num_frames, n_seed_poses=args.seed_poses)
+    dataset = get_dataset(args.dataset, args.num_frames, split="val",
+                          datapath=args.data_dir or None, n_seed_poses=args.seed_poses)
     n_joints = dataset.pose_dim // 6
-    n_takes = min(args.num_samples, len(dataset))
-    chunks_per_take = 1
-    take_starts = np.arange(n_takes)
+
+    # as many takes as asked and the split has, as many chunks a take as
+    # its shortest take holds
+    layout = take_layout(dataset)
+    if layout is not None:
+        per_take, take_starts, take_ids = layout
+        n_takes = min(args.num_samples, len(per_take))
+        chunks_per_take = int(per_take[:n_takes].min())
+        step = int(getattr(dataset, "step", args.num_frames))
+        if chunks_per_take > 1 and step != args.num_frames:
+            # chunk k + 1 must start where chunk k ends for the seed
+            # hand-off and the concatenation to form one take; Genea2022's
+            # step of 30 < window makes consecutive windows overlap
+            raise SystemExit(
+                f"chunked AR generation needs non-overlapping windows "
+                f"(dataset step {step} != num_frames {args.num_frames}); "
+                f"this split's windows overlap — use --num_samples per "
+                f"single window or a split with step == window (like the "
+                f"genea2023 val split)"
+            )
+    else:
+        n_takes = min(args.num_samples, len(dataset))
+        chunks_per_take = 1
+        take_starts = np.arange(len(dataset), dtype=np.int64)
+        take_ids = take_starts
     print(f"Generating {n_takes} takes x {chunks_per_take} chunks of "
-          f"{args.num_frames} frames on {device}")
+          f"{args.num_frames} frames on {device} ({args.sampler})")
 
     model, diffusion = create_model_and_diffusion(args, dataset, device)
     model.load_state_dict(load_checkpoint(args.model_path))
@@ -62,15 +125,26 @@ def main(argv=None) -> str:
         model, args.guidance_param, args.cond_mask_prob
     )
 
-    chunk_dconds, all_text, all_lengths = [], [], []
+    # every chunk of every take, collated on the host
+    chunk_dconds, chunk_gts = [], []
+    all_text, all_audio, all_lengths = [], [], []
     for chunk in range(chunks_per_take):
         items = [dataset[int(take_starts[take]) + chunk] for take in range(n_takes)]
-        _, cond = collate_gesture(items, max_frames=args.num_frames)
+        gt_motion, cond = collate_gesture(items, max_frames=args.num_frames)
         chunk_dconds.append(device_cond(cond))
+        chunk_gts.append(gt_motion)
         all_text += cond.get("text", [""] * n_takes)
-        all_lengths.append(np.asarray(cond["lengths"]))
+        if "audio" in cond:
+            all_audio.append(cond["audio"])
+        all_lengths.append(cond["lengths"])
 
-    init_seed = torch.from_numpy(chunk_dconds[0]["seed"]).to(device)
+    # the first chunk's dataset seed poses start the AR carry; later chunks'
+    # are superseded by the hand-off
+    if "seed" in chunk_dconds[0]:
+        init_seed = torch.from_numpy(chunk_dconds[0]["seed"]).to(device)
+    else:
+        init_seed = torch.zeros((n_takes, dataset.pose_dim, 1, args.seed_poses),
+                                dtype=torch.float32, device=device)
     stacked_conds = {
         k: torch.from_numpy(np.stack([d[k] for d in chunk_dconds])).to(device)
         for k in chunk_dconds[0] if k != "seed"
@@ -83,15 +157,22 @@ def main(argv=None) -> str:
     outs = autoregressive_sample_loop(
         diffusion, model_fn, (n_takes, dataset.pose_dim, 1, args.num_frames),
         stacked_conds, init_seed, args.seed_poses,
-        generator=generator, cond_precompute=cond_precompute,
+        generator=generator, cond_precompute=cond_precompute, loop=loop,
     ).cpu().numpy()  # [C, B, J, 1, T]
 
-    motions = np.concatenate([
-        split_pose_vector(
-            dataset.inv_transform(outs[chunk][:, :, 0, :].transpose(0, 2, 1)), n_joints
-        )[0]                                                        # [B, T, J, 3]
-        for chunk in range(chunks_per_take)
-    ], axis=1)
+    def poses(motion):  # [B, J, 1, T] in model space -> (positions, rotations)
+        return split_pose_vector(dataset.inv_transform(motion[:, :, 0, :].transpose(0, 2, 1)),
+                                 n_joints)
+
+    sampled = [poses(outs[c]) for c in range(chunks_per_take)]
+    truth = [poses(chunk_gts[c]) for c in range(chunks_per_take)]
+    motions = np.concatenate([p for p, _ in sampled], axis=1)  # [B, T_total, J, 3]
+    rotations = np.concatenate([r for _, r in sampled], axis=1)
+    gt_pos = np.concatenate([p for p, _ in truth], axis=1)
+    gt_rot = np.concatenate([r for _, r in truth], axis=1)
+    audios = np.concatenate(all_audio, axis=1) if all_audio else None
+    # text and lengths pair 1:1 with the motion rows; lengths are the take
+    # totals (generate.py:282-293)
     all_text = all_text[:n_takes]
     lengths = np.concatenate(all_lengths)[:n_takes] * chunks_per_take
 
@@ -110,7 +191,19 @@ def main(argv=None) -> str:
         fw.write("\n".join(all_text))
     with open(npy_path.replace(".npy", "_len.txt"), "w") as fw:
         fw.write("\n".join(str(int(n)) for n in lengths))
-    print(f"saved {npy_path}")
+
+    takes = getattr(dataset, "takes", [f"take_{i}" for i in range(n_takes)])
+    reference = load_reference_skeleton(dataset)
+    for i in range(n_takes):
+        t = int(take_ids[i])
+        anim_path = os.path.join(out_path, str(takes[t] if t < len(takes) else f"take_{t}"))
+        export_gesture_bvh(anim_path + ".bvh", rotations[i], motions[i][:, 0, :],
+                           reference=reference, fps=FPS)
+        export_gesture_bvh(anim_path + "_gt.bvh", gt_rot[i], gt_pos[i][:, 0, :],
+                           reference=reference, fps=FPS)
+        if audios is not None:
+            wavfile.write(anim_path + ".wav", SR, (audios[i] * 32767).astype(np.int16))
+    print(f"saved {npy_path} and {n_takes} takes")
     return out_path
 
 

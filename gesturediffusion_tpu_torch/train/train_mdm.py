@@ -4,8 +4,10 @@ PyTorch counterpart of gesturediffusion_tpu/train/train_mdm.py:main
 (:30-273): flags -> seed -> save-dir guard -> platform -> args.json ->
 data -> model and diffusion -> TrainLoop, with ``--resume_checkpoint
 latest|<model*.pt>``.  It runs on the CUDA card unless ``--device cpu`` is
-given.  ``--dataset synthetic`` only; the GENEA loaders wait for a later
-slice.
+given.  ``--dataset genea2023`` reads the train split of ``--data_dir``
+through the registry, ``synthetic`` is the in-memory set; ``genea2022``
+loads too, but has no seed poses for the model to condition on, and is
+refused before training (the JAX CLI fails on it inside the model).
 """
 
 from __future__ import annotations
@@ -43,8 +45,14 @@ def main(argv=None) -> TrainLoop:
 
     log_lib.log("creating data loader...")
     data = get_dataset_loader(args.dataset, batch_size=args.batch_size,
-                              num_frames=args.num_frames, n_seed_poses=args.seed_poses,
+                              num_frames=args.num_frames, split="train",
+                              datapath=args.data_dir or None, n_seed_poses=args.seed_poses,
                               seed=args.seed)
+    if args.seed_poses and "seed" not in data.dataset[0]:
+        # the MDM V2 conditions every step on seed poses; the JAX train CLI
+        # fails on such a dataset at the model's cond["seed"] (mdm.py:228)
+        raise ValueError(f"--dataset {args.dataset} has no seed poses, which the model "
+                         f"conditions on (--seed_poses {args.seed_poses})")
     log_lib.log("creating model and diffusion...")
     model, diffusion = create_model_and_diffusion(args, data.dataset, device)
     n_params = sum(p.numel() for p in model.parameters())

@@ -19,6 +19,28 @@ from gesturediffusion_tpu_torch.diffusion.gaussian import (
 from gesturediffusion_tpu_torch.models.mdm import MDM
 
 
+def create_gaussian_diffusion(args, device: torch.device,
+                              timestep_respacing: str | None = None):
+    """The START_X diffusion of the flags on ``device``, respaced by
+    ``timestep_respacing`` or else ``--timestep_respacing``
+    (model_factory.py:114)."""
+    return create_diffusion(
+        noise_schedule=args.noise_schedule,
+        steps=args.diffusion_steps,
+        timestep_respacing=(timestep_respacing
+                            or getattr(args, "timestep_respacing", "") or None),
+        model_mean_type=ModelMeanType.START_X,
+        model_var_type=(
+            ModelVarType.FIXED_SMALL if args.sigma_small else ModelVarType.FIXED_LARGE
+        ),
+        loss_type=LossType.MSE,
+        lambda_vel=getattr(args, "lambda_vel", 0.0),
+        lambda_rcxyz=getattr(args, "lambda_rcxyz", 0.0),
+        lambda_fc=getattr(args, "lambda_fc", 0.0),
+        device=device,
+    )
+
+
 def create_model_and_diffusion(args, dataset, device: torch.device):
     """The gesture MDM V2 (on the CPU; the caller moves it) and its
     diffusion (on ``device``)."""
@@ -33,18 +55,4 @@ def create_model_and_diffusion(args, dataset, device: torch.device):
         seed_poses=args.seed_poses,
         use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
     )
-    diffusion = create_diffusion(
-        noise_schedule=args.noise_schedule,
-        steps=args.diffusion_steps,
-        timestep_respacing=getattr(args, "timestep_respacing", "") or None,
-        model_mean_type=ModelMeanType.START_X,
-        model_var_type=(
-            ModelVarType.FIXED_SMALL if args.sigma_small else ModelVarType.FIXED_LARGE
-        ),
-        loss_type=LossType.MSE,
-        lambda_vel=getattr(args, "lambda_vel", 0.0),
-        lambda_rcxyz=getattr(args, "lambda_rcxyz", 0.0),
-        lambda_fc=getattr(args, "lambda_fc", 0.0),
-        device=device,
-    )
-    return model, diffusion
+    return model, create_gaussian_diffusion(args, device)

@@ -1,9 +1,9 @@
-"""Flags of the train and generate CLIs and the checkpoint-args override.
+"""Flags of the train, generate and serve CLIs and the checkpoint-args override.
 
 PyTorch-port counterpart of gesturediffusion_tpu/utils/parser.py, with the
-JAX flag names for the gesture paths.  As there, generation re-reads the
-dataset, model and diffusion groups from the ``args.json`` next to the
-checkpoint, and ``cond_mask_prob == 0`` forces ``guidance_param = 1``.
+JAX flag names for the gesture paths.  As there, generation and serving
+re-read the dataset, model and diffusion groups from the ``args.json`` next
+to the checkpoint, and ``cond_mask_prob == 0`` forces ``guidance_param = 1``.
 ``--device`` defaults to the CUDA card.  Only flags that the port reads
 are accepted: an unknown flag is an argparse error, and a training flag
 that the port cannot honour yet raises NotImplementedError.  Left out of
@@ -72,8 +72,9 @@ def _add_checkpoint_groups(parser: ArgumentParser) -> None:
     diffusion.add_argument("--sigma_small", default=True, type=str2bool)
 
 
-def generate_args(argv=None) -> argparse.Namespace:
-    parser = ArgumentParser(prog="python -m gesturediffusion_tpu_torch.sample.generate")
+def _sampling_parser(prog: str) -> ArgumentParser:
+    """The flags the generate and serve CLIs share (parser.py:add_sampling_options)."""
+    parser = ArgumentParser(prog=prog)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain PyTorch path).")
     parser.add_argument("--seed", default=10, type=int)
@@ -81,10 +82,15 @@ def generate_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--output_dir", default="", type=str)
     parser.add_argument("--num_samples", default=10, type=int)
     parser.add_argument("--guidance_param", default=2.5, type=float)
-    parser.add_argument("--timestep_respacing", default="", type=str)
     parser.add_argument("--use_fused_encoder", action="store_true",
                         help="Accepted for JAX command lines; the device "
                              "decides which code runs.")
+    return parser
+
+
+def _parse_and_load_from_model(parser: ArgumentParser, argv) -> argparse.Namespace:
+    """Parse, then take the dataset, model and diffusion flags from the
+    args.json beside the checkpoint (parser.py:parse_and_load_from_model)."""
     _add_checkpoint_groups(parser)
     args = parser.parse_args(argv)
 
@@ -102,6 +108,39 @@ def generate_args(argv=None) -> argparse.Namespace:
     if args.cond_mask_prob == 0:
         args.guidance_param = 1
     return args
+
+
+SAMPLERS = ["ddpm", "ddim", "plms", "dpmpp"]  # plms and dpmpp raise (ROADMAP A3)
+
+
+def generate_args(argv=None) -> argparse.Namespace:
+    """Flags of ``python -m gesturediffusion_tpu_torch.sample.generate``."""
+    parser = _sampling_parser("python -m gesturediffusion_tpu_torch.sample.generate")
+    parser.add_argument("--sampler", default="ddpm", choices=SAMPLERS, type=str)
+    parser.add_argument("--timestep_respacing", default="", type=str,
+                        help='e.g. "50", "ddim50" or "logsnr50".')
+    return _parse_and_load_from_model(parser, argv)
+
+
+def serve_args(argv=None) -> argparse.Namespace:
+    """Flags of ``python -m gesturediffusion_tpu_torch.serve.demo``
+    (parser.py:serve_args)."""
+    parser = _sampling_parser("python -m gesturediffusion_tpu_torch.serve.demo")
+    serve = parser.add_argument_group("serve")
+    serve.add_argument("--wav", default="", type=str,
+                       help="Raw mono wav to stream (22050 Hz). Default: "
+                            "stream the val split's own audio windows.")
+    serve.add_argument("--streams", default=1, type=int,
+                       help="Concurrent takes batched per chunk (multi-tenant serving).")
+    serve.add_argument("--num_chunks", default=0, type=int,
+                       help="Chunks to serve; 0 = as many as the source provides.")
+    serve.add_argument("--sampler", default="ddpm", choices=SAMPLERS, type=str)
+    serve.add_argument("--sample_steps", default=0, type=int,
+                       help="Respace the sampler to N steps (the latency knob); "
+                            "0 = the full trained chain.")
+    serve.add_argument("--step_spacing", default="uniform", choices=["uniform", "logsnr"],
+                       type=str, help="Respaced steps uniform in timestep or in log-SNR.")
+    return _parse_and_load_from_model(parser, argv)
 
 
 def train_args(argv=None) -> argparse.Namespace:

@@ -10,8 +10,9 @@ it runs on its own, without tests/conftest.py:
 Every product of every kernel runs on the tensor cores in 3xTF32
 (f32-level error): the encoder layers' GEMMs, the flash kernel, the
 training layer's attention backward and the band attention that the band
-kernel and the local block share.  Every head width up to 128 is taken
-(padded to the next multiple of 16 in shared memory).
+kernel and the local block share.  Every head width is taken (up to 128
+padded to the next multiple of 16 in shared memory, wider heads in
+128-column slices), and so are D and F not divisible by 4.
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -372,18 +373,91 @@ def test_train_backward_is_bit_for_bit_repeatable(dev):
 
 
 def test_train_kernels_reject_a_head_width(dev):
-    """The one head width the training kernels reject is one wider than
-    128, on the card before any launch; 8 heads of 8 at D = 64 are taken,
-    at the padded width 16, forward and backward against the plain
-    layer."""
-    w = _encoder_weights(272, 544, dev, seed=7)
-    x = torch.zeros(1, 9, 272, device=dev)
-    seed = torch.tensor([1], dtype=torch.int32, device=dev)
-    before = encoder_layer_train_fwd.launches
-    with pytest.raises(ValueError, match="head widths 1 .. 128, not 136"):
-        fused_encoder_layer_train(x, *w, seed=seed, num_heads=2, rate=0.1)
-    assert encoder_layer_train_fwd.launches == before
+    """The training kernels reject no head width: 2 heads of 136 (past
+    128, in 128-column slices) are taken as 8 heads of 8 at D = 64 are (at
+    the padded width 16), forward and backward against the plain layer."""
+    _check_train_kernels(dev, 1, 9, 272, 2, 544, 0.1)
     _check_train_kernels(dev, 2, 8, 64, 8, 128, 0.1)
+
+
+# head widths past 128, run in 128-column slices (csrc/wide_attention.cuh):
+# --latent_dim 544, 1024, 1056 and 2080 at 4 heads
+WIDE_WIDTHS = (136, 256, 264, 520)
+
+
+@pytest.mark.parametrize("dh", WIDE_WIDTHS)
+@pytest.mark.parametrize("t", [81, 1201])
+def test_flash_kernel_at_wide_widths(dev, t, dh):
+    rs = np.random.RandomState(21)
+    q, k, v = (_randn(rs, 2, 4, t, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", WIDE_WIDTHS)
+@pytest.mark.parametrize("t", [81, 300])
+def test_encoder_kernel_at_wide_widths(dev, t, dh):
+    d = 4 * dh
+    w = _encoder_weights(d, 4 * d, dev, seed=22)
+    x = _randn(np.random.RandomState(22), 2, t, d, device=dev)
+    want = encoder_layer_plain(x, *w, num_heads=4)
+    got = fused_encoder_layer(x, *w, num_heads=4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("dh", WIDE_WIDTHS)
+@pytest.mark.parametrize("t", [81, 121])
+def test_train_kernels_at_wide_widths(dev, t, dh, rate):
+    _check_train_kernels(dev, 2, t, 4 * dh, 4, 4 * dh, rate)
+
+
+@pytest.mark.parametrize("layout", ["aliased", "separate", "strided"])
+@pytest.mark.parametrize("dh", [136, 264])
+@pytest.mark.parametrize("t,w", [(80, 10), (1200, 10), (320, 64)])
+def test_band_kernel_at_wide_widths(dev, t, w, dh, layout):
+    rs = np.random.RandomState(23)
+    if layout == "strided":
+        q = _randn(rs, 2, t, 4, dh, device=dev).transpose(1, 2)
+        k = v = q
+    elif layout == "aliased":
+        q = k = v = _randn(rs, 2, 4, t, dh, device=dev)
+    else:
+        q, k, v = (_randn(rs, 2, 4, t, dh, device=dev) for _ in range(3))
+    got = local_attention_band(q, k, v, window_size=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_attention(q, k, v, window_size=w), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("t,dh", [(80, 136), (256, 136), (80, 264), (33, 264), (256, 128)])
+def test_local_block_kernel_at_wide_widths(dev, t, dh):
+    """Local heads wider than 128, and of 128 at 256 frames (past a
+    block's shared memory), take the kernel's sliced path."""
+    rs = np.random.RandomState(24)
+    x, coa = _randn(rs, 2, t, 8 * dh, device=dev), _randn(rs, 2, 8 * dh, device=dev)
+    want = pre_encoder_local_block(x, coa, num_heads=8, window_size=10)
+    before = fused_local_block.launches
+    got = fused_local_block(x, coa, num_heads=8, window=10)
+    torch.cuda.synchronize()
+    assert fused_local_block.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("t", [81, 121])
+def test_layers_take_rows_not_16_byte_aligned(dev, t):
+    """D = 130 and F = 1030 (2 heads of 65): the products copy their
+    rows a float at a time; the inference layer and the training kernels
+    against their plain versions."""
+    w = _encoder_weights(130, 1030, dev, seed=25)
+    x = _randn(np.random.RandomState(25), 3, t, 130, device=dev)
+    got = fused_encoder_layer(x, *w, num_heads=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, encoder_layer_plain(x, *w, num_heads=2), rtol=0, atol=1e-4)
+    for rate in (0.1, 0.0):
+        _check_train_kernels(dev, 3, t, 130, 2, 1030, rate)
 
 
 @pytest.mark.parametrize("t", [81, 121])

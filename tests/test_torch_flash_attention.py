@@ -4,8 +4,9 @@ plain version, the CUDA kernel is held against it in test_torch_cuda.py and
 chip_smoke.py) against the JAX package's ops/pallas_flash.py:
 fused_self_attention in interpret mode, at the shapes of
 tests/test_pallas_flash.py, and the dispatch of every head width the model
-can have (the kernels pad it to the next multiple of 16, up to 128).
-Tolerance atol 2e-5, rtol 2e-5, as the JAX test."""
+can have (the kernels pad it to the next multiple of 16 up to 128, and run
+wider heads in 128-column slices).  Tolerance atol 2e-5, rtol 2e-5, as the
+JAX test."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 
 from gesturediffusion_tpu.ops.pallas_flash import fused_self_attention as jax_flash
 from gesturediffusion_tpu_torch.ops.band_attention import (
-    MAX_HEAD_WIDTH,
+    SLICE_WIDTH,
     check_attention_args,
     kernel_layout,
     padded_head_width,
@@ -86,14 +87,17 @@ def test_encoder_layer_stage_by_head_width(t, d, heads, width):
 
 def test_encoder_layer_stage_raises_past_shared_memory_without_flash():
     """2000 rows of 32 heads of 8 (past a block's shared memory for a
-    whole-sequence stage) take the flash stage; only a head wider than 128
+    whole-sequence stage) take the flash stage, and so do heads wider than
+    128 (in 128-column slices); only a D that does not split into the heads
     is refused."""
     x, w = _layer(2000, 256, 32)
     check_layer_args(x, w, 32)
     assert padded_head_width(8) == 16
     x, w = _layer(4, 272, 2)
-    with pytest.raises(ValueError, match="head widths 1 .. 128, not 136"):
-        check_layer_args(x, w, 2)
+    check_layer_args(x, w, 2)
+    assert padded_head_width(136) == 256
+    with pytest.raises(ValueError, match="must split into 3 heads"):
+        check_layer_args(x, w, 3)
 
 
 # the head widths of --latent_dim 32, 264, 320 and 384 at 4 heads; 80 and 96
@@ -113,21 +117,35 @@ def test_dispatch_takes_every_head_width_of_the_reference(t, dh):
     q = torch.zeros(1, 2, t, dh)
     check_attention_args("local_attention_band", q, q, q)
     check_local_block_args(torch.zeros(1, t, 8 * dh), torch.zeros(1, 8 * dh), 8, 10)
-    assert padded_head_width(dh) == -(-dh // 16) * 16 <= MAX_HEAD_WIDTH
+    assert padded_head_width(dh) == -(-dh // 16) * 16 <= SLICE_WIDTH
 
 
-@pytest.mark.parametrize("check", ["layer", "train", "local_block", "padded"])
-def test_dispatch_refuses_heads_wider_than_128(check):
-    d = 2 * (MAX_HEAD_WIDTH + 8)
-    x, w = _layer(4, d, 2)
-    calls = {
-        "layer": lambda: check_layer_args(x, w, 2),
-        "train": lambda: check_train_args(x, w, torch.zeros(1, dtype=torch.int32), 2),
-        "local_block": lambda: check_local_block_args(x, torch.zeros(1, d), 2, 10),
-        "padded": lambda: padded_head_width(MAX_HEAD_WIDTH + 8),
-    }
-    with pytest.raises(ValueError, match="head widths 1 .. 128"):
-        calls[check]()
+@pytest.mark.parametrize("dh,heads,f", [
+    (136, 4, None), (256, 4, None), (264, 4, None), (520, 4, None),  # --latent_dim 544 .. 2080
+    (65, 2, 1030),  # D = 130, F = 1030: rows that are not 16-byte aligned
+])
+def test_dispatch_takes_heads_wider_than_128(dh, heads, f):
+    """The card path's checks take the head widths past 128 that the JAX
+    package runs (pallas_flash.py pads any width to a multiple of 128), and
+    D and F not divisible by 4: the inference layer, the training layer, the
+    band kernel and the local block at heads of dh, the local block also at
+    local heads of dh (8 of them, as the model's; an odd width only where
+    rotary refuses it, as in JAX).  Past 128 the width runs in 128-column
+    slices."""
+    d = heads * dh
+    x, w = _layer(4, d, heads, f)
+    check_layer_args(x, w, heads)
+    check_train_args(x, w, torch.zeros(1, dtype=torch.int32), heads)
+    q = torch.zeros(1, 2, 4, dh)
+    check_attention_args("local_attention_band", q, q, q)
+    if dh % 2 == 0:
+        check_local_block_args(x, torch.zeros(1, d), heads, 10)
+        check_local_block_args(torch.zeros(1, 4, 8 * dh), torch.zeros(1, 8 * dh), 8, 10)
+    else:  # rotary pairs the two halves of a head
+        with pytest.raises(ValueError, match="even width"):
+            check_local_block_args(x, torch.zeros(1, d), heads, 10)
+    want = -(-dh // 16) * 16 if dh <= SLICE_WIDTH else -(-dh // SLICE_WIDTH) * SLICE_WIDTH
+    assert padded_head_width(dh) == want
 
 
 def test_kernel_layout_copies_a_shared_tensor_once():

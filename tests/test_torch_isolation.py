@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 22  # every module of the port was imported
+    assert int(r.stdout.split()[-1]) >= 45  # every module of the port was imported
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

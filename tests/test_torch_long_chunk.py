@@ -171,14 +171,17 @@ def _train_layer_args(d, heads):
 
 @pytest.mark.parametrize("d,heads", [(64, 8), (96, 4), (40, 4)])
 def test_fused_training_layer_rejects_a_head_width_before_launch(d, heads):
-    """The training kernels take every head width up to 128, as the flash
-    kernel does: 8, 24 and 10 here pass the launcher's checks (run at 16,
-    32 and 16).  Only a head wider than 128 is refused, before anything is
-    built or launched (here on CPU tensors, which never reach a kernel)."""
+    """The training kernels take every head width, as the flash kernel
+    does: 8, 24 and 10 here pass the launcher's checks (run at 16, 32 and
+    16), and so do heads of 136 (in 128-column slices).  Only a D that does
+    not split into the heads is refused, before anything is built or
+    launched (here on CPU tensors, which never reach a kernel)."""
     x, weights, seed = _train_layer_args(d, heads)
     check_train_args(x, weights, seed, heads)
     x, weights, seed = _train_layer_args(heads * 136, heads)
+    check_train_args(x, weights, seed, heads)
+    x, weights, seed = _train_layer_args(heads * 136 + 1, heads)
     before = encoder_layer_train_fwd.launches
-    with pytest.raises(ValueError, match="head widths 1 .. 128, not 136"):
+    with pytest.raises(ValueError, match=f"must split into {heads} heads"):
         encoder_layer_train_fwd(x, *weights, seed=seed, num_heads=heads, rate=0.1)
     assert encoder_layer_train_fwd.launches == before

@@ -106,10 +106,12 @@ def test_jax_written_pt_loads_into_port(tmp_path):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("latent_dim,t", [(320, 1200), (384, 300)])
+@pytest.mark.parametrize("latent_dim,t", [(320, 1200), (384, 300), (544, 300), (1056, 120)])
 def test_forward_matches_jax_at_the_c1_widths(latent_dim, t):
     """Widths whose heads the card path pads (4 heads of 80 and 96, local
-    heads of 40 and 48), at lengths past the local block's dense form:
+    heads of 40 and 48) or runs in 128-column slices (4 heads of 136 and
+    264, local heads of 68 and 132), at lengths past and within the local
+    block's dense form:
     the port's forward (its CPU path, the kernels' plain versions) against
     the JAX MDM, 1 layer, batch 1, the same weights."""
     jax_model, params, port = build_pair(latent_dim=latent_dim, num_layers=1)

@@ -344,12 +344,14 @@ def main(prefixes: list[str]) -> int:
     def local(lib, x, coa):
         fn = lib.gdt_local_block_f32
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, p]
         b, t, dd = x.shape
         cos, sin = rotary_table(t + 1, dd // 8, x.device)
         out = torch.empty(b, t + 1, dd, device="cuda")
+        # the shapes timed here fit one block: no workspace
         code = fn(x.data_ptr(), coa.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-                  b, t, dd, 8, 10, (dd // 8) ** -0.5, torch.cuda.current_stream().cuda_stream)
+                  None, b, t, dd, 8, 10, (dd // 8) ** -0.5,
+                  torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"local block variant failed: CUDA error {code}")
         return out

@@ -275,8 +275,8 @@ const char* gdt_error_string(int code) {
 // [B, T + 1, D].  Returns cudaGetLastError() after queueing the block on
 // `stream`.
 int gdt_local_block_f32(const float* x, const float* coa, const float* cos_t,
-                        const float* sin_t, float* out, int B, int T, int D, int H,
-                        int window, float scale, void* stream) {
+                        const float* sin_t, float* out, float* /* ws: unused */, int B, int T,
+                        int D, int H, int window, float scale, void* stream) {
   const int dh = D / H;
   if (B < 1 || T < 1 || D % H || D % 4 || dh % 2 || window < 1 || !aligned(x) || !aligned(coa))
     return static_cast<int>(cudaErrorInvalidValue);
