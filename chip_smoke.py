@@ -73,6 +73,20 @@ Phases, each fatal on failure:
               chunk; the demo CLI (4 streams, 3 chunks, DDIM-50) from the
               val split and from a wav; the train CLI on the train split (5
               steps, batch 64, 120 frames, launches counted)
+ 10. t2m      text-to-motion sampling and motion editing: the
+              humanml-encoder-512 MotionMDM (263 features, D 512, 8 layers of
+              4 heads of 128, 197 rows) with seeded random weights as a
+              reference-layout .pt, a random CLIP text tower at ViT-B/32 width
+              with a synthetic BPE file (CLIP_CHECKPOINT, CLIP_BPE_PATH), a
+              synthetic HumanML3D tree of 30 clips; the encoder layer at
+              [6, 197, 512] and [64, 197, 512] against its plain version; a
+              predict take (3 repetitions, CFG batch 6, DDPM respaced to 50)
+              against the plain take, 8 launches a step; the predict CLI at
+              the reference configuration (1000 steps, 196 frames); the edit
+              CLI in_between and upper_body on the tree and in_between on the
+              phase-9 gesture checkpoint, kept entries against the ground
+              truth and launches counted; the tower's and the layer's times,
+              a t2m denoise step's time and profile at CFG batch 6 and 64
 Every kernel's products run on the tensor cores in 3xTF32.  Kernel times
 (`ms` in the kernels line) are CUDA events over back-to-back calls, the
 wrapper's host work included, for all six kernels; for the band and
@@ -129,6 +143,17 @@ D_C1, C1_LAYERS = 320, 2     # phase 8's model: 4 heads of 80, 8 local heads of 
 D_WIDE = 1024                # phase 8's second model: 4 heads of 256, 8 local heads of 128
 G_TAKES, G_FRAMES = 41, 480  # phase 9's synthetic GENEA split: 5 val chunks of 80 a take
 SERVE_CHUNKS = 5
+# phase 10: the humanml-encoder-512 MotionMDM (4 heads of 128; 196 frames
+# and the conditioning token = 197 rows), CFG at 2 x 3 repetitions for the
+# predict CLI and at 64 for the timed step; the CLIP text tower at ViT-B/32
+# width; a synthetic HumanML3D tree whose test split holds the edit CLI's
+# default 10 clips
+T2M_J, T2M_D, T2M_FRAMES, T2M_REPS, T2M_BIG = 263, 512, 196, 3, 32
+T2M_RESPACING, T2M_STEPS = "50", 50
+HML_CLIPS, EDIT_SAMPLES = 30, 10
+CLIP_LAYERS, CLIP_WIDTH, CLIP_HEADS = 12, 512, 8
+PROMPT = "a person walks forward and waves"
+TOL_KEPT = 1e-5          # an edit's kept entries against the ground truth (x0 at t = 0)
 
 
 def log(msg: str) -> None:
@@ -841,6 +866,229 @@ def genea_serve_phase(model, model_path, card):
     if not ok:
         raise AssertionError("the genea train CLI missed its steps or kernels")
     return total
+
+
+def t2m_phase(randn, gesture_path, card):
+    """Phase 10: text-to-motion sampling and motion editing on the card.
+    The humanml-encoder-512 MotionMDM with seeded random weights (a
+    reference-layout .pt), a random CLIP text tower at ViT-B/32 width with
+    a synthetic BPE file (CLIP_CHECKPOINT / CLIP_BPE_PATH), a synthetic
+    HumanML3D tree; kernel 1 at [6, 197, 512] and [64, 197, 512] against its
+    plain version; one predict take (3 repetitions, CFG batch 6, DDPM
+    respaced to 50) through the kernels against the plain take, launches
+    counted; the predict CLI at the reference configuration (1000 steps);
+    the edit CLI in_between and upper_body on the tree, and in_between on
+    the phase-9 gesture checkpoint (kernels 1 and 2 counted), each with its
+    kept entries against the ground truth; then times and profiles.
+    Returns the kernel-1 rows of the two t2m shapes (the first counting
+    every text-to-motion launch but the CFG-64 step's), the launches of
+    every path of the phase and those of the gesture edit."""
+    import gzip
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.humanml import make_synthetic_humanml
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample
+    from gesturediffusion_tpu_torch.models.cfg import classifier_free_guidance
+    from gesturediffusion_tpu_torch.models.clip_text import CLIPTextEmbedder, CLIPTextEncoder
+    from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+    from gesturediffusion_tpu_torch.sample import edit, predict
+    from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
+
+    dev = torch.device("cuda")
+    counters = {"local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
+                "flash_attention": fused_self_attention}
+    total = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        for name, n in got.items():
+            total[name] += n
+        return out, got
+
+    # ---- the checkpoint, the CLIP tower and BPE file, the tree ------------- #
+    base = os.path.join(HERE, "build", "chip_smoke", "t2m")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    torch.manual_seed(4)
+    model_path = os.path.join(base, "model000000000.pt")
+    torch.save(MotionMDM(njoints=T2M_J, latent_dim=T2M_D, ff_size=FF, num_layers=LAYERS,
+                         num_heads=HEADS, cond_mode="text", cond_mask_prob=0.1).state_dict(),
+               model_path)
+    clip_path, bpe_path = os.path.join(base, "clip.pt"), os.path.join(base, "bpe.txt.gz")
+    torch.save(CLIPTextEncoder(width=CLIP_WIDTH, layers=CLIP_LAYERS, heads=CLIP_HEADS,
+                               embed_dim=512).state_dict(), clip_path)
+    merges = ["t h", "th e</w>", "p e", "pe r", "per s", "o n</w>", "w a", "wa l", "wal k",
+              "walk s</w>", "f o", "fo r", "for w", "forw a", "forwa r", "forwar d</w>"]
+    with gzip.open(bpe_path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    os.environ["CLIP_CHECKPOINT"], os.environ["CLIP_BPE_PATH"] = clip_path, bpe_path
+    root = make_synthetic_humanml(os.path.join(base, "humanml"), n_clips=HML_CLIPS, dim=T2M_J)
+    with open(os.path.join(base, "args.json"), "w") as f:
+        json.dump({"dataset": "humanml", "data_dir": root, "layers": LAYERS,
+                   "latent_dim": T2M_D, "cond_mask_prob": 0.1, "noise_schedule": "cosine",
+                   "diffusion_steps": 1000, "sigma_small": True}, f)
+    embedder = get_text_encoder(device=dev)
+    if not isinstance(embedder, CLIPTextEmbedder):
+        raise AssertionError("the CLIP text tower did not load")
+    log(f"t2m: humanml-encoder-512 checkpoint ({T2M_J} features, D {T2M_D}, {LAYERS} layers "
+        f"of {HEADS} heads of {T2M_D // HEADS}), a CLIP text tower of width {CLIP_WIDTH}, "
+        f"{CLIP_LAYERS} layers, {CLIP_HEADS} heads, context 77 ({os.path.getsize(clip_path) / 1e6:.1f}"
+        f" MB) and a synthetic HumanML3D tree of {HML_CLIPS} clips written in "
+        f"{time.perf_counter() - t0:.1f} s; text embedder: {type(embedder).__name__}")
+
+    # ---- kernel 1 at the t2m shapes ---------------------------------------- #
+    w = layer_weights(randn, T2M_D, FF)
+    rows = T2M_FRAMES + 1
+    xs = {b: randn(b, rows, T2M_D) for b in (2 * T2M_REPS, 2 * T2M_BIG)}
+    errs = {}
+    for b, x in xs.items():
+        got = fused_encoder_layer(x, *w, num_heads=HEADS)
+        errs[b] = (got - encoder_layer_plain(x, *w, num_heads=HEADS)).abs().max().item()
+        report(f"encoder_layer [{b},{rows},{T2M_D}] heads {HEADS} of {T2M_D // HEADS} ff {FF}",
+               errs[b], TOL_ENCODER, got.shape == x.shape)
+
+    # ---- one predict take through the kernels against the plain take ------- #
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                 timestep_respacing=T2M_RESPACING, device=dev)
+    model = MotionMDM(njoints=T2M_J, latent_dim=T2M_D, ff_size=FF, num_layers=LAYERS,
+                      num_heads=HEADS, cond_mode="text", cond_mask_prob=0.1)
+    predictor = predict.Predictor(model_path, dataset_root=base, model=model,
+                                  diffusion=diffusion, device=dev)
+    take, launches = counted(lambda: predictor.predict(PROMPT, T2M_REPS, seed=0,
+                                                       motion_length=9.8))
+    take_launches = launches
+    model.use_kernels = False
+    plain = predictor.predict(PROMPT, T2M_REPS, seed=0, motion_length=9.8)
+    model.use_kernels = True
+    want = {"local_block": 0, "encoder_layer": T2M_STEPS * LAYERS,
+            "flash_attention": T2M_STEPS * LAYERS}
+    take_err = float(np.abs(take["features"] - plain["features"]).max())
+    ok = (launches == want and take["features"].shape == (T2M_REPS, T2M_FRAMES, T2M_J)
+          and np.isfinite(take["motion_xyz"]).all())
+    report(f"predict take ({T2M_REPS} repetitions, CFG batch {2 * T2M_REPS}, DDPM respaced to "
+           f"{T2M_STEPS}) vs plain versions on the card; launches {launches} (expected {want}; "
+           f"|features| max {np.abs(plain['features']).max():.3f})", take_err, TOL_TAKE, ok)
+
+    # ---- the predict CLI at the reference configuration -------------------- #
+    out_dir = os.path.join(base, "predict")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gesturediffusion_tpu_torch.sample.predict", "--model_path",
+         model_path, "--text", PROMPT, "--motion_length", "9.8", "--output_dir", out_dir],
+        check=True, cwd=HERE, timeout=600, capture_output=True, text=True)
+    predict_s = time.perf_counter() - t0
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
+    ok = (res["motion"].shape == (T2M_REPS, 22, 3, T2M_FRAMES) and np.isfinite(res["motion"]).all()
+          and res["text"] == [PROMPT] * T2M_REPS and sorted(os.listdir(out_dir))
+          == ["results.npy", "results.txt"] and line["frames"] == T2M_FRAMES
+          and "loading CLIP text tower" in proc.stdout)
+    log(f"{'OK' if ok else 'FAIL'} predict CLI (humanml-encoder-512, 1000 DDPM steps, "
+        f"{T2M_REPS} repetitions, CFG batch {2 * T2M_REPS}, the CLIP tower): motion "
+        f"{res['motion'].shape}, {line}, in {predict_s:.1f} s wall (process start, CLIP and "
+        f"model loading included) {card}")
+    if not ok:
+        raise AssertionError("the predict CLI wrote the wrong results")
+
+    # ---- the edit CLI: text in_between and upper_body, gesture in_between -- #
+    def edit_run(path, mode, reps, per_step, label, xyz_joints=None):
+        out = os.path.join(os.path.dirname(path), f"edit_{mode}")
+        t0 = time.perf_counter()
+        run, launches = counted(lambda: edit.run([
+            "--model_path", path, "--edit_mode", mode, "--num_repetitions", str(reps),
+            "--text_condition", PROMPT if mode == "in_between" else "", "--output_dir", out]))
+        wall = time.perf_counter() - t0
+        res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+        n = run["gt"].shape[0]
+        mask = np.tile(run["mask"], (reps, 1, 1, 1))
+        kept = float(np.abs(run["samples"][mask] - np.tile(run["gt"], (reps, 1, 1, 1))[mask]).max())
+        shape = (reps * n, xyz_joints, 3, run["gt"].shape[-1]) if xyz_joints else \
+            (reps * n,) + run["gt"].shape[1:]
+        want = {k: v * 1000 * reps for k, v in per_step.items()}
+        ok = (n == EDIT_SAMPLES and launches == want and res["motion"].shape == shape
+              and np.isfinite(res["motion"]).all() and (~run["mask"]).any())
+        report(f"edit CLI {label} --edit_mode {mode} ({n} samples x {reps} repetitions, 1000 "
+               f"DDPM steps, CFG batch {2 * n}): kept entries vs the ground truth; motion "
+               f"{res['motion'].shape}; launches {launches} (expected {want}); {wall:.1f} s "
+               f"wall {card}", kept, TOL_KEPT, ok)
+        return kept, launches
+
+    t2m_step = {"local_block": 0, "encoder_layer": LAYERS, "flash_attention": LAYERS}
+    kept = [edit_run(model_path, "in_between", T2M_REPS, t2m_step, "--dataset humanml", 22),
+            edit_run(model_path, "upper_body", 1, t2m_step, "--dataset humanml", 22)]
+    gesture_dir = os.path.join(os.path.dirname(os.path.dirname(gesture_path)), "gesture_edit")
+    shutil.rmtree(gesture_dir, ignore_errors=True)
+    os.makedirs(gesture_dir)
+    for name in ("model000000000.pt", "args.json"):
+        shutil.copy(os.path.join(os.path.dirname(gesture_path), name), gesture_dir)
+    kept.append(edit_run(os.path.join(gesture_dir, "model000000000.pt"), "in_between", 1,
+                         {"local_block": 1, "encoder_layer": LAYERS, "flash_attention": LAYERS},
+                         "--dataset genea2023 (the phase-4 model)"))
+    text_launches = take_launches["encoder_layer"] + sum(k[1]["encoder_layer"] for k in kept[:2])
+
+    # ---- times --------------------------------------------------------------- #
+    emb_ms = cuda_time_ms(lambda: embedder([PROMPT] * 10), 10, 2)
+    log(f"time CLIP text tower ({CLIP_LAYERS} layers of width {CLIP_WIDTH}, context 77, "
+        f"tokenizer included): {emb_ms:.4f} ms for 10 prompts {card}")
+    t2m_rows = []
+    for b, x in xs.items():
+        ms = cuda_time_ms(lambda: fused_encoder_layer(x, *w, num_heads=HEADS), 20, 3)
+        plain_ms = cuda_time_ms(lambda: encoder_layer_plain(x, *w, num_heads=HEADS), 10, 2)
+        lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(x, *w, HEADS), 10, 2)
+        m = b * rows
+        flops = 2 * m * (4 * T2M_D * T2M_D + 2 * T2M_D * FF) + 4 * b * rows**2 * T2M_D
+        nbytes = 4 * (2 * m * T2M_D + sum(t.numel() for t in w))
+        bound, by = bound_ms(flops, nbytes, tf32x3=True)
+        time_line(f"encoder_layer [{b},{rows},{T2M_D}] heads {HEADS} of {T2M_D // HEADS}", ms,
+                  plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+        t2m_rows.append({
+            "name": f"encoder_layer_t2m_{b}x{rows}x{T2M_D}", "route": "cuda",
+            "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
+            "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
+            "launches": 0, "max_abs_err": errs[b], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+
+    guided = classifier_free_guidance(model, 0.1)
+    text_emb = embedder([PROMPT])
+    for b in (T2M_REPS, T2M_BIG):
+        x = randn(b, T2M_J, 1, T2M_FRAMES)
+        noise = randn(b, T2M_J, 1, T2M_FRAMES)
+        cond = {"text_emb": text_emb.expand(b, -1), "scale": torch.full((b,), 2.5, device=dev)}
+        t = torch.full((b,), diffusion.num_timesteps // 2, dtype=torch.long, device=dev)
+
+        def step():
+            return p_sample(diffusion, guided, x, t, cond, noise)["sample"]
+
+        _, launches = counted(step)
+        if launches != t2m_step:
+            raise AssertionError(f"t2m denoise step launches {launches} != {t2m_step}")
+        t2m_rows[0 if b == T2M_REPS else 1]["launches"] += launches["encoder_layer"]
+        ms = cuda_time_ms(step, 20, 3)
+        model.use_kernels = False
+        plain_ms = cuda_time_ms(step, 10, 2)
+        model.use_kernels = True
+        log(f"time t2m denoise step (CFG batch {2 * b}, [{2 * b},{rows},{T2M_D}]): kernels "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms {card}")
+        device_profile(step, 5, f"t2m denoise step at CFG batch {2 * b}", card, host_rows=4)
+    # the predict take ran at [6, 197, 512], the text edits at [20, 197, 512]
+    t2m_rows[0]["launches"] += text_launches
+    log(f"t2m: the edits' kept entries within {max(k[0] for k in kept):.3e} of the ground truth")
+    return t2m_rows, total, kept[2][1]
 
 
 def device_profile(step, steps, label, card, host_rows=0, groups=None):
@@ -1562,18 +1810,24 @@ def main() -> int:
     # ---- 9. the GENEA data path and streaming serve -------------------- #
     genea = genea_serve_phase(model, model_path, card)
 
+    # ---- 10. text-to-motion sampling and motion editing ---------------- #
+    t2m_rows, t2m, gesture_edit = t2m_phase(
+        randn, os.path.join(HERE, "build", "chip_smoke", "genea", "model000000000.pt"), card)
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
-         "launches": launches["local_block"] + genea["local_block"], "max_abs_err": lb_err,
+         "launches": launches["local_block"] + genea["local_block"]
+                     + gesture_edit["local_block"],
+         "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
         {"name": "encoder_layer", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
          "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
-                      + genea["encoder_layer"]),
+                      + genea["encoder_layer"] + gesture_edit["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
@@ -1591,7 +1845,8 @@ def main() -> int:
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
     ]
-    kernels[-1]["launches"] += genea["flash_attention"]
+    kernels[-1]["launches"] += genea["flash_attention"] + t2m["flash_attention"]
+    kernels += t2m_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

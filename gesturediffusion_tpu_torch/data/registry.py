@@ -1,10 +1,12 @@
 """Dataset registry and loader factory.
 
 Counterpart of gesturediffusion_tpu/data/registry.py (get_dataset_class,
-get_dataset, get_dataset_loader) for the gesture datasets the port loads:
-``genea2023``, ``genea2022`` and the in-memory ``synthetic`` set.  The
-text and action datasets raise NotImplementedError until their slices
-(ROADMAP A7, A8).
+get_dataset, get_dataset_loader) for the datasets the port loads: the
+gesture sets ``genea2023``, ``genea2022`` and the in-memory ``synthetic``
+set, and the text-to-motion sets ``humanml`` and ``kit``
+(data/humanml.py:Text2MotionDatasetV2).  The action datasets
+``humanact12`` and ``uestc`` raise NotImplementedError until their slice
+(ROADMAP A12, after the rot6d / SMPL geometry of A6).
 """
 
 from __future__ import annotations
@@ -14,10 +16,13 @@ from typing import Optional
 
 from gesturediffusion_tpu_torch.data.collate import collate_gesture
 from gesturediffusion_tpu_torch.data.genea import Genea2022, Genea2023
+from gesturediffusion_tpu_torch.data.humanml import Text2MotionDatasetV2
 from gesturediffusion_tpu_torch.data.loader import DataLoader
 from gesturediffusion_tpu_torch.data.synthetic import SyntheticGesture
 
-_WAITING = {"humanml": "A7", "kit": "A7", "humanact12": "A8", "uestc": "A8"}
+TEXT_DATASETS = ("humanml", "kit")
+# the action datasets need the rot6d / SMPL geometry of ROADMAP A6
+_WAITING = {"humanact12": "A12", "uestc": "A12"}
 
 
 def get_dataset_class(name: str):
@@ -27,6 +32,8 @@ def get_dataset_class(name: str):
         return Genea2022
     if name == "synthetic":
         return SyntheticGesture
+    if name in TEXT_DATASETS:
+        return Text2MotionDatasetV2
     if name in _WAITING:
         raise NotImplementedError(
             f"dataset [{name}] is not ported yet (ROADMAP {_WAITING[name]})")
@@ -44,6 +51,11 @@ def get_dataset(
     cls = get_dataset_class(name)
     if name == "synthetic":
         return cls(window=num_frames, n_seed_poses=n_seed_poses, **kwargs)
+    if name in TEXT_DATASETS:
+        return cls(
+            datapath or f"./dataset/{'HumanML3D' if name == 'humanml' else 'KIT-ML'}",
+            split=split, dataset_name="t2m" if name == "humanml" else "kit", **kwargs,
+        )
     kw = dict(split=split, window=num_frames, **kwargs)
     if datapath:
         kw["datapath"] = datapath

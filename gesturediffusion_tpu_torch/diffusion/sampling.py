@@ -8,7 +8,10 @@ replaces the draws so a test can replay the JAX chain's noise: step
 ``num_steps`` is the draw of x_T, step i the draw of the update at
 timestep i, as the JAX loops fold them (sampling.py:50-52, 139, 262).
 DDIM draws its per-step normal even at eta 0, as JAX does, so both loops
-take the same draws from a generator.  PLMS and DPM++ wait (ROADMAP A3).
+take the same draws from a generator.  ``inpaint=(mask, motion)`` imputes
+the ground truth into every step's x0 prediction where mask is set (motion
+editing; diffusion/gaussian.py:p_mean_variance), with the same draws.
+PLMS and DPM++ wait (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from gesturediffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, ModelFn, _extract
 
 NoiseFn = Callable[[int, int, tuple], torch.Tensor]
+# (mask, motion): the x0 prediction takes motion where mask is set
+Inpaint = Optional[tuple[torch.Tensor, torch.Tensor]]
 
 
 def _nonzero_mask(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -47,9 +52,11 @@ def p_sample(
     t: torch.Tensor,
     cond: dict,
     noise: torch.Tensor,
+    *,
+    inpaint: Inpaint = None,
 ) -> dict[str, torch.Tensor]:
     """One ancestral DDPM step x_t -> x_{t-1} with the given noise."""
-    out = diffusion.p_mean_variance(model_fn, x, t, cond)
+    out = diffusion.p_mean_variance(model_fn, x, t, cond, inpaint=inpaint)
     nonzero = _nonzero_mask(t, x.dim())
     sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
     return {"sample": sample, "pred_xstart": out["pred_xstart"]}
@@ -65,6 +72,7 @@ def p_sample_loop(
     generator: torch.Generator,
     noise_fn: Optional[NoiseFn] = None,
     chunk: int = 0,
+    inpaint: Inpaint = None,
 ) -> torch.Tensor:
     """The full ancestral chain from x_T ~ N(0, I); returns x_0 (float32).
     ``chunk`` only labels the draws for ``noise_fn``."""
@@ -73,7 +81,7 @@ def p_sample_loop(
     x = draw(num_steps)
     for i in range(num_steps - 1, -1, -1):
         t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
-        x = p_sample(diffusion, model_fn, x, t, cond, draw(i))["sample"]
+        x = p_sample(diffusion, model_fn, x, t, cond, draw(i), inpaint=inpaint)["sample"]
     return x
 
 
@@ -86,10 +94,11 @@ def ddim_sample(
     noise: torch.Tensor,
     *,
     eta: float = 0.0,
+    inpaint: Inpaint = None,
 ) -> dict[str, torch.Tensor]:
     """One DDIM step x_t -> x_{t-1} with the given noise (deterministic at
     eta 0, where the noise is multiplied by 0)."""
-    out = diffusion.p_mean_variance(model_fn, x, t, cond)
+    out = diffusion.p_mean_variance(model_fn, x, t, cond, inpaint=inpaint)
     eps = diffusion.predict_eps_from_xstart(x, t, out["pred_xstart"])
     nd = x.dim()
     alpha_bar = _extract(diffusion.alphas_cumprod, t, nd)
@@ -118,6 +127,7 @@ def ddim_sample_loop(
     noise_fn: Optional[NoiseFn] = None,
     chunk: int = 0,
     eta: float = 0.0,
+    inpaint: Inpaint = None,
 ) -> torch.Tensor:
     """The full DDIM chain from x_T ~ N(0, I), the draws of
     ``p_sample_loop``; returns x_0 (float32)."""
@@ -126,7 +136,8 @@ def ddim_sample_loop(
     x = draw(num_steps)
     for i in range(num_steps - 1, -1, -1):
         t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
-        x = ddim_sample(diffusion, model_fn, x, t, cond, draw(i), eta=eta)["sample"]
+        x = ddim_sample(diffusion, model_fn, x, t, cond, draw(i), eta=eta,
+                        inpaint=inpaint)["sample"]
     return x
 
 

@@ -160,14 +160,17 @@ def make_fast_cfg_fn(model: MDM, cond_mask_prob: float = 0.1) -> tuple[Callable,
 
 
 def select_sampling_model_fn(
-    model: MDM, guidance: float, cond_mask_prob: float, no_fast: bool = False
+    model, guidance: float, cond_mask_prob: float, no_fast: bool = False
 ) -> tuple[Optional[Callable], Callable]:
     """Returns (cond_precompute, model_fn) as
-    mdm_fastpath.py:select_sampling_model_fn does: the fast path unless
-    ``no_fast``, CFG-wrapped when guidance != 1 (for guidance 0 the
-    cond_mask_prob guard is clamped away from zero)."""
+    mdm_fastpath.py:select_sampling_model_fn (:231-261) does: for the
+    gesture MDM the fast path unless ``no_fast``, for any other denoiser
+    (the MotionMDM of models/mdm_t2m.py) the module's own forward; either
+    CFG-wrapped when guidance != 1 (for guidance 0, where the scale returns
+    the unconditional pass exactly, the cond_mask_prob guard is clamped
+    away from zero)."""
     p = max(cond_mask_prob, 1e-9) if guidance == 0 else cond_mask_prob
-    if not no_fast:
+    if not no_fast and isinstance(model, MDM):
         if guidance != 1:
             return make_fast_cfg_fn(model, p)
         return make_fast_model_fn(model)

@@ -1,0 +1,113 @@
+"""MotionMDM: the original MDM denoiser for text-to-motion, action-to-motion
+and unconstrained generation.
+
+PyTorch counterpart of gesturediffusion_tpu/models/mdm_t2m.py:MotionMDM
+(:34-136), the architecture of the released ``humanml-encoder-512``
+checkpoints.  Token 0 is the conditioning: the timestep embedding plus the
+CLIP sentence embedding through ``embed_text`` (cond_mode ``text``), plus
+the action's row of ``embed_action`` (``action``), or the timestep alone
+(``no_cond``).  Then the additive sinusoidal positional encoding, the post-LN
+encoder of models/transformer.py and the output projection.  Parameter
+and buffer names follow the upstream torch state dict that
+gesturediffusion_tpu/utils/convert_torch.py:export_motion_mdm_state_dict
+writes; the upstream action embedding is a bare [num_actions, D] matrix,
+into whose rows that exporter folds the JAX Dense's bias.
+
+Shape flow: [B,J,F,T] -> input_process [B,T,D] -> prepend token 0
+[B,T+1,D] + pe -> encoder (each layer one launch of the encoder-layer
+kernel on the card) -> drop token 0 -> output_process -> [B,J,F,T].  The
+263 -> D and D -> 263 projections stay plain products, as in JAX, outside
+any kernel.  Inference only: text-to-motion training waits (ROADMAP A11).
+
+cond: ``text_emb`` [B, clip_dim] (text), ``action`` [B] int (action),
+``uncond`` [B] float, the CFG mask (1 drops the conditioning).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gesturediffusion_tpu_torch.models.embeddings import (
+    PositionalEncoding,
+    TimestepEmbedder,
+    mask_cond,
+)
+from gesturediffusion_tpu_torch.models.mdm import InputProcess, OutputProcess
+from gesturediffusion_tpu_torch.models.transformer import TransformerEncoder
+
+COND_MODES = ("text", "action", "no_cond")
+
+
+class EmbedAction(nn.Module):
+    """The upstream action embedding: one row of D per action id."""
+
+    def __init__(self, num_actions: int, latent_dim: int):
+        super().__init__()
+        self.action_embedding = nn.Parameter(torch.randn(num_actions, latent_dim))
+
+    def forward(self, action: torch.Tensor) -> torch.Tensor:
+        return self.action_embedding[action.reshape(-1).long()]
+
+
+class MotionMDM(nn.Module):
+    """[B, J, F, T] -> [B, J, F, T].  ``use_kernels=False`` runs the plain
+    PyTorch encoder layer on any device; by default a CUDA model launches
+    the encoder-layer kernel."""
+
+    def __init__(
+        self,
+        njoints: int = 263,
+        nfeats: int = 1,
+        latent_dim: int = 512,
+        ff_size: int = 1024,
+        num_layers: int = 8,
+        num_heads: int = 4,
+        dropout: float = 0.1,
+        clip_dim: int = 512,
+        cond_mode: str = "text",
+        cond_mask_prob: float = 0.1,
+        num_actions: int = 12,
+        use_kernels: bool = True,
+    ):
+        super().__init__()
+        if cond_mode not in COND_MODES:
+            raise ValueError(f"unknown cond_mode {cond_mode}")
+        self.njoints, self.nfeats, self.latent_dim = njoints, nfeats, latent_dim
+        self.num_layers, self.cond_mode = num_layers, cond_mode
+        self.cond_mask_prob = cond_mask_prob
+        self.use_kernels = use_kernels
+        d = latent_dim
+        self.input_process = InputProcess(njoints * nfeats, d)
+        self.output_process = OutputProcess(d, njoints * nfeats)
+        self.sequence_pos_encoder = PositionalEncoding(d)
+        self.embed_timestep = TimestepEmbedder(d, self.sequence_pos_encoder)
+        if cond_mode == "text":
+            self.embed_text = nn.Linear(clip_dim, d)
+        elif cond_mode == "action":
+            self.embed_action = EmbedAction(num_actions, d)
+        self.seqTransEncoder = TransformerEncoder(num_layers, d, num_heads, ff_size, dropout)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict) -> torch.Tensor:
+        bs, njoints, nfeats, nframes = x.shape
+        uncond = cond.get("uncond")
+        if uncond is None:
+            uncond = torch.zeros((bs,), dtype=x.dtype, device=x.device)
+
+        emb = self.embed_timestep(timesteps).to(x.dtype)
+        if self.cond_mode == "text":
+            emb = emb + self.embed_text(mask_cond(cond["text_emb"].to(x.dtype), uncond))
+        elif self.cond_mode == "action":
+            # masked after the embedding, as the reference masks its lookup
+            # (mdm_t2m.py:94-104): masking before would leak a bias into
+            # the unconditional CFG branch
+            emb = emb + mask_cond(self.embed_action(cond["action"]).to(x.dtype), uncond)
+
+        feats = x.reshape(bs, njoints * nfeats, nframes).transpose(1, 2)   # [B, T, J*F]
+        h = self.input_process.poseEmbedding(feats)
+        xseq = torch.cat([emb[:, None, :], h], dim=1)
+        xseq = xseq + self.sequence_pos_encoder.pe[:nframes + 1, 0].to(x.dtype)
+        out = self.seqTransEncoder(xseq.contiguous(), self.use_kernels)[:, 1:]
+        out = self.output_process.poseFinal(out)
+        out = out.reshape(bs, nframes, self.njoints, self.nfeats)
+        return out.permute(0, 2, 3, 1).float()

@@ -35,7 +35,10 @@ from gesturediffusion_tpu_torch.diffusion.sampling import (
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
 from gesturediffusion_tpu_torch.utils.device import resolve_device
-from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
+from gesturediffusion_tpu_torch.utils.model_factory import (
+    GESTURE_DATASETS,
+    create_model_and_diffusion,
+)
 from gesturediffusion_tpu_torch.utils.parser import default_output_dir, generate_args
 from gesturediffusion_tpu_torch.viz.bvh import export_gesture_bvh, read_bvh
 
@@ -81,6 +84,13 @@ def load_reference_skeleton(dataset):
 
 def main(argv=None) -> str:
     args = generate_args(argv)
+    if args.dataset not in GESTURE_DATASETS:
+        # the gesture generator only, as JAX's (generate.py:109-120)
+        raise SystemExit(
+            f"sample.generate is the GESTURE generator (audio-conditioned chunked AR), like "
+            f"the reference fork's; --dataset {args.dataset} has no audio takes. Use "
+            f"gesturediffusion_tpu_torch.sample.predict (text-to-motion) or "
+            f"gesturediffusion_tpu_torch.sample.edit instead.")
     device = resolve_device(args.device)
     loop = sample_loop(args.sampler)
     out_path = args.output_dir or default_output_dir(

@@ -47,6 +47,7 @@ from gesturediffusion_tpu_torch.serve.streaming import StreamingGestureSession
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import (
+    GESTURE_DATASETS,
     create_gaussian_diffusion,
     create_model_and_diffusion,
 )
@@ -126,6 +127,10 @@ def _wav_chunk_feeder(path: str, dataset, streams: int, num_frames: int, seed_po
 
 def main(argv=None) -> str:
     args = serve_args(argv)
+    if args.dataset not in GESTURE_DATASETS:
+        raise SystemExit(
+            f"serve.demo streams gestures from audio; --dataset {args.dataset} has no audio "
+            f"takes. Use gesturediffusion_tpu_torch.sample.predict (text-to-motion) instead.")
     device = resolve_device(args.device)
     out_path = args.output_dir or default_output_dir(args.model_path, "serve", f"seed{args.seed}")
     if args.num_chunks < 0:

@@ -8,6 +8,8 @@ given.  ``--dataset genea2023`` reads the train split of ``--data_dir``
 through the registry, ``synthetic`` is the in-memory set; ``genea2022``
 loads too, but has no seed poses for the model to condition on, and is
 refused before training (the JAX CLI fails on it inside the model).
+The text-to-motion datasets are refused: their training waits (ROADMAP
+A11).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import sys
 import numpy as np
 import torch
 
-from gesturediffusion_tpu_torch.data.registry import get_dataset_loader
+from gesturediffusion_tpu_torch.data.registry import TEXT_DATASETS, get_dataset_loader
 from gesturediffusion_tpu_torch.train.loop import (
     TrainConfig,
     TrainLoop,
@@ -33,6 +35,10 @@ from gesturediffusion_tpu_torch.utils.parser import train_args
 
 def main(argv=None) -> TrainLoop:
     args = train_args(argv)
+    if args.dataset in TEXT_DATASETS:
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: text-to-motion training (MotionMDM through the "
+            f"training-layer kernels) is not ported yet (ROADMAP A11)")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)  # the model's initial weights

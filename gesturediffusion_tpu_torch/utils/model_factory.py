@@ -1,9 +1,13 @@
-"""Model and diffusion from the command-line flags, shared by the train and
-generate CLIs.
+"""Model and diffusion from the command-line flags, shared by the train,
+generate and edit CLIs.
 
-Counterpart of gesturediffusion_tpu/utils/model_factory.py for the gesture
-datasets: MDM V2 with MFCC input (ff 1024, 4 heads, dropout 0.1, as the
-reference's get_model_args) and a START_X diffusion with MSE loss.
+Counterpart of gesturediffusion_tpu/utils/model_factory.py (:52-110): the
+gesture datasets get MDM V2 with MFCC input, ``humanml`` and ``kit`` the
+MotionMDM of models/mdm_t2m.py (cond_mode ``text``, or ``no_cond`` under
+``--unconstrained``; 263 and 251 features), each with ff 1024, 4 heads
+and dropout 0.1 as the reference's get_model_args; the diffusion is
+START_X with MSE loss.  The action datasets raise until their slice
+(ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -17,6 +21,11 @@ from gesturediffusion_tpu_torch.diffusion.gaussian import (
     create_diffusion,
 )
 from gesturediffusion_tpu_torch.models.mdm import MDM
+from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+
+GESTURE_DATASETS = ("genea2022", "genea2023", "synthetic")
+# features a frame of the text-to-motion codecs (12 J - 1)
+TEXT_NJOINTS = {"humanml": 263, "kit": 251}
 
 
 def create_gaussian_diffusion(args, device: torch.device,
@@ -42,10 +51,22 @@ def create_gaussian_diffusion(args, device: torch.device,
 
 
 def create_model_and_diffusion(args, dataset, device: torch.device):
-    """The gesture MDM V2 (on the CPU; the caller moves it) and its
+    """The denoiser of the flags (on the CPU; the caller moves it) and its
     diffusion (on ``device``)."""
     if getattr(args, "arch", "trans_enc") != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch!r}: only 'trans_enc' can be built")
+    if args.dataset in TEXT_NJOINTS:
+        model = MotionMDM(
+            njoints=TEXT_NJOINTS[args.dataset], nfeats=1, latent_dim=args.latent_dim,
+            ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1, clip_dim=512,
+            cond_mode="no_cond" if getattr(args, "unconstrained", False) else "text",
+            cond_mask_prob=args.cond_mask_prob,
+        )
+        return model, create_gaussian_diffusion(args, device)
+    if args.dataset not in GESTURE_DATASETS:
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: the action-to-motion MotionMDM is not ported yet "
+            f"(ROADMAP A12)")
     if args.use_wav_enc:
         raise NotImplementedError("the wav-encoder audio input waits for a later slice")
     model = MDM(

@@ -1,4 +1,5 @@
-"""Flags of the train, generate and serve CLIs and the checkpoint-args override.
+"""Flags of the train, generate, edit and serve CLIs and the checkpoint-args
+override.
 
 PyTorch-port counterpart of gesturediffusion_tpu/utils/parser.py, with the
 JAX flag names for the gesture paths.  As there, generation and serving
@@ -8,8 +9,10 @@ to the checkpoint, and ``cond_mask_prob == 0`` forces ``guidance_param = 1``.
 are accepted: an unknown flag is an argparse error, and a training flag
 that the port cannot honour yet raises NotImplementedError.  Left out of
 the JAX set because nothing here would read them: ``--emb_trans_dec``
-(trans_dec only), ``--unconstrained`` (text / action models only),
-``--use_audio`` (read by no model), the ``--eval_*`` settings (they go
+(trans_dec only), ``--use_audio`` (read by no model), the train CLI's
+``--unconstrained`` (text-to-motion training waits), ``--prng`` (the port
+draws from torch generators), edit's ``--no_fast_sampler`` (a gesture
+model samples through its fast path only), the ``--eval_*`` settings (they go
 with ``--eval_during_training``, which raises) and the train CLI's
 ``--use_fused_encoder`` (the inference layer takes no part in training).
 A JAX ``args.json`` that carries them still loads: generation copies only
@@ -46,10 +49,14 @@ def default_output_dir(model_path: str, prefix: str, *parts: str) -> str:
     )
 
 
-def _add_checkpoint_groups(parser: ArgumentParser) -> None:
+def _add_checkpoint_groups(parser: ArgumentParser, sampling: bool = False) -> None:
+    """The dataset, model and diffusion groups; ``sampling`` adds
+    ``--unconstrained``, which only the sampling CLIs read (a text
+    dataset's MotionMDM; its training waits, ROADMAP A11)."""
     data = parser.add_argument_group("dataset")
     data.add_argument("--dataset", default="genea2023",
-                      choices=["genea2022", "genea2023", "synthetic"])
+                      choices=["genea2022", "genea2023", "humanml", "kit", "humanact12",
+                               "uestc", "synthetic"])
     data.add_argument("--data_dir", default="", type=str)
     data.add_argument("--num_frames", default=120, type=int)
     model = parser.add_argument_group("model")
@@ -61,6 +68,9 @@ def _add_checkpoint_groups(parser: ArgumentParser) -> None:
     model.add_argument("--lambda_rcxyz", default=0.0, type=float)
     model.add_argument("--lambda_vel", default=0.0, type=float)
     model.add_argument("--lambda_fc", default=0.0, type=float)
+    if sampling:
+        model.add_argument("--unconstrained", action="store_true",
+                           help="A text dataset's MotionMDM without conditioning (no_cond).")
     model.add_argument("--use_text", action="store_true")
     model.add_argument("--mfcc_input", action="store_true")
     model.add_argument("--use_wav_enc", action="store_true")
@@ -91,7 +101,7 @@ def _sampling_parser(prog: str) -> ArgumentParser:
 def _parse_and_load_from_model(parser: ArgumentParser, argv) -> argparse.Namespace:
     """Parse, then take the dataset, model and diffusion flags from the
     args.json beside the checkpoint (parser.py:parse_and_load_from_model)."""
-    _add_checkpoint_groups(parser)
+    _add_checkpoint_groups(parser, sampling=True)
     args = parser.parse_args(argv)
 
     args.model_path = os.path.normpath(args.model_path)
@@ -119,6 +129,20 @@ def generate_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--sampler", default="ddpm", choices=SAMPLERS, type=str)
     parser.add_argument("--timestep_respacing", default="", type=str,
                         help='e.g. "50", "ddim50" or "logsnr50".')
+    return _parse_and_load_from_model(parser, argv)
+
+
+def edit_args(argv=None) -> argparse.Namespace:
+    """Flags of ``python -m gesturediffusion_tpu_torch.sample.edit``
+    (parser.py:edit_args, the edit group :248-256)."""
+    parser = _sampling_parser("python -m gesturediffusion_tpu_torch.sample.edit")
+    parser.add_argument("--num_repetitions", default=3, type=int)
+    edit = parser.add_argument_group("edit")
+    edit.add_argument("--edit_mode", default="in_between", choices=["in_between", "upper_body"],
+                      type=str)
+    edit.add_argument("--text_condition", default="", type=str)
+    edit.add_argument("--prefix_end", default=0.25, type=float)
+    edit.add_argument("--suffix_start", default=0.75, type=float)
     return _parse_and_load_from_model(parser, argv)
 
 

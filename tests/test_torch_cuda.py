@@ -28,6 +28,8 @@ import torch
 
 from gesturediffusion_tpu_torch.models.mdm import MDM
 from gesturediffusion_tpu_torch.models.mdm_fastpath import make_fast_cfg_fn
+from gesturediffusion_tpu_torch.models.cfg import classifier_free_guidance
+from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
 from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
 from gesturediffusion_tpu_torch.ops.flash_attention import (
     fused_self_attention,
@@ -153,6 +155,30 @@ def test_fast_cfg_step_kernels_match_plain(dev):
         model.use_kernels = False
         want = guided(x, t, pre(cond))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [3, 32])
+def test_t2m_cfg_forward_kernels_match_plain(dev, b):
+    """The humanml-encoder-512 MotionMDM (heads of 128, 197 rows; 2 of its
+    8 layers) under CFG at batch 2b = 6 (predict) and 64, through the
+    encoder-layer kernel and its flash stage against use_kernels=False,
+    with the launch counts.  atol 2e-4: two layers' TOL of 1e-4 each."""
+    torch.manual_seed(0)
+    model = MotionMDM(latent_dim=512, num_layers=2, ff_size=1024).to(dev).eval()
+    rs = np.random.RandomState(6)
+    x = _randn(rs, b, 263, 1, 196, device=dev)
+    cond = {"text_emb": _randn(rs, b, 512, scale=0.1, device=dev),
+            "scale": torch.full((b,), 2.5, device=dev)}
+    t = torch.from_numpy(rs.randint(0, 1000, size=b)).to(dev)
+    guided = classifier_free_guidance(model, 0.1)
+    with torch.no_grad():
+        enc, flash = fused_encoder_layer.launches, fused_self_attention.launches
+        got = guided(x, t, cond)
+        assert (fused_encoder_layer.launches - enc, fused_self_attention.launches - flash) == (2, 2)
+        model.use_kernels = False
+        want = guided(x, t, cond)
+    assert got.shape == (b, 263, 1, 196)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
 
 
 @pytest.mark.parametrize("b,h,t,d,w,strided", [

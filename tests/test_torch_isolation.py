@@ -1,5 +1,7 @@
-"""The PyTorch port imports no JAX and nothing of gesturediffusion_tpu, and
-chip_smoke.py refuses to run without a CUDA card."""
+"""The PyTorch port imports no JAX and nothing of gesturediffusion_tpu (nor
+``regex``, which the machine with the card may lack: the CLIP tokenizer
+falls back to ``re``), and chip_smoke.py refuses to run without a CUDA
+card."""
 
 import os
 import shutil
@@ -12,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED_IMPORT = r"""
 import pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "gesturediffusion_tpu"):
+for name in ("jax", "jaxlib", "flax", "gesturediffusion_tpu", "regex"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import gesturediffusion_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -21,8 +23,17 @@ for name in names:
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "flax", "gesturediffusion_tpu"))]
 assert not leaked, leaked
-assert {"gesturediffusion_tpu_torch.ops.band_attention",
-        "gesturediffusion_tpu_torch.ops.flash_attention"} <= set(names), names
+assert {"gesturediffusion_tpu_torch." + m for m in (
+    "ops.band_attention", "ops.flash_attention", "ops.quaternion", "ops.motion_process",
+    "data.humanml", "data.humanml_utils", "models.mdm_t2m", "models.clip_text",
+    "utils.text_embedder", "sample.predict", "sample.edit")} <= set(names), names
+# the tokenizer takes re where regex is missing
+import gzip, os, tempfile
+from gesturediffusion_tpu_torch.models.clip_text import SimpleTokenizer
+path = os.path.join(tempfile.mkdtemp(), "bpe.txt.gz")
+with gzip.open(path, "wt") as f:
+    f.write("#version: 0.2\nh e\n")
+assert SimpleTokenizer(path).pat.__class__.__module__ == "re"
 print(len(names))
 """
 
@@ -31,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 45  # every module of the port was imported
+    assert int(r.stdout.split()[-1]) >= 54  # every module of the port was imported
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

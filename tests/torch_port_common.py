@@ -22,9 +22,14 @@ import pytest
 import torch
 
 from gesturediffusion_tpu.models.mdm import MDM as JaxMDM
+from gesturediffusion_tpu.models.mdm_t2m import MotionMDM as JaxMotionMDM
 from gesturediffusion_tpu.models.transformer import TransformerEncoderLayer as JaxLayer
 from gesturediffusion_tpu_torch.models.mdm import MDM
-from gesturediffusion_tpu_torch.utils.convert import state_dict_from_params
+from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+from gesturediffusion_tpu_torch.utils.convert import (
+    motion_mdm_state_dict_from_params,
+    state_dict_from_params,
+)
 
 @pytest.fixture(autouse=True)
 def threefry_prng():
@@ -70,6 +75,43 @@ def build_pair(use_text: bool = False, use_fused_encoder: bool = False, t: int =
     params = jax.tree_util.tree_map(np.asarray, params)
     port = MDM(**kw)
     port.load_state_dict(state_dict_from_params(params, cl_head=kw["cl_head"]))
+    return jax_model, params, port.eval()
+
+
+# the text-to-motion denoiser at small widths (the feature width is the
+# codec's: 263 or 251)
+SMALL_T2M = dict(latent_dim=64, num_layers=2, num_heads=4, ff_size=128, cond_mask_prob=0.1)
+
+
+def make_t2m_inputs(b: int, njoints: int, cond_mode: str, t: int = 20, seed: int = 0):
+    """Numpy x [B, J, 1, T], timesteps [B] and cond (text_emb or action)."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(b, njoints, 1, t).astype(np.float32)
+    t_ids = rs.randint(0, 1000, size=(b,)).astype(np.int32)
+    cond = {}
+    if cond_mode == "text":
+        cond["text_emb"] = rs.randn(b, 512).astype(np.float32)
+    elif cond_mode == "action":
+        cond["action"] = rs.randint(0, 12, size=(b,)).astype(np.int32)
+    return x, t_ids, cond
+
+
+def build_t2m_pair(cond_mode: str = "text", njoints: int = 263,
+                   use_fused_encoder: bool = False, **overrides):
+    """(JAX MotionMDM, its params as numpy, the port model with the same
+    weights).  The JAX action Dense gets a non-zero bias, which the
+    converter folds into the embedding rows."""
+    kw = dict(SMALL_T2M, njoints=njoints, cond_mode=cond_mode, **overrides)
+    jax_model = JaxMotionMDM(**kw, use_fused_encoder=use_fused_encoder)
+    x, t, cond = make_t2m_inputs(2, njoints, cond_mode)
+    params = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t),
+                            to_jax(cond))
+    params = jax.tree_util.tree_map(np.array, params)
+    if cond_mode == "action":
+        bias = params["params"]["embed_action"]["bias"]
+        bias[:] = np.random.RandomState(9).randn(*bias.shape) * 0.5
+    port = MotionMDM(**kw)
+    port.load_state_dict(motion_mdm_state_dict_from_params(params))
     return jax_model, params, port.eval()
 
 
