@@ -87,6 +87,22 @@ Phases, each fatal on failure:
               phase-9 gesture checkpoint, kept entries against the ground
               truth and launches counted; the tower's and the layer's times,
               a t2m denoise step's time and profile at CFG batch 6 and 64
+ 11. samplers PLMS (order 2) and DPM++(2M) on the phase-4 model: the
+              41-take, 2-chunk take respaced to 20 steps with each, through
+              the kernels (launches counted; PLMS's warm-up adds a model
+              pass a chunk) against the plain take; the generate CLI with
+              --sampler dpmpp; a streams-1 session's chunk latency at
+              DPM++-20 beside DDIM-50
+ 12. t2m-train text-to-motion training of the phase-10 model: kernels 5
+              and 6 at [64, 197, 512] (heads of 128, rates 0.1 and 0)
+              against their plain versions and their times; 5 steps at batch
+              64 with use_fused_train_encoder (8 forward and 8 backward
+              launches a step) against the plain steps, a profiled step; the
+              train CLI --dataset humanml on a synthetic tree of 240 clips
+              (the CLIP tower embedding the captions; launches counted), the
+              predict CLI on its checkpoint (kernel 1 counted) and a batch
+              of 32 prompts on it (CFG batch 64); the flash kernel alone at
+              [6, 4, 197, 128] and [64, 4, 197, 128]
 Every kernel's products run on the tensor cores in 3xTF32.  Kernel times
 (`ms` in the kernels line) are CUDA events over back-to-back calls, the
 wrapper's host work included, for all six kernels; for the band and
@@ -154,6 +170,12 @@ HML_CLIPS, EDIT_SAMPLES = 30, 10
 CLIP_LAYERS, CLIP_WIDTH, CLIP_HEADS = 12, 512, 8
 PROMPT = "a person walks forward and waves"
 TOL_KEPT = 1e-5          # an edit's kept entries against the ground truth (x0 at t = 0)
+# phase 11: PLMS (order 2, one warm-up pass a chunk) and DPM++(2M) respaced
+# to 20 steps on the phase-4 take; a streams-1 session's chunks
+SAMPLER_STEPS, SAMPLER_CHUNKS = 20, 5
+# phase 12: the phase-10 model trained at batch 64 (196 frames + the token);
+# a synthetic HumanML3D tree whose train split holds 80 clips
+T2M_TRAIN_STEPS, T2M_TRAIN_CLIPS = 5, 240
 
 
 def log(msg: str) -> None:
@@ -323,6 +345,28 @@ def band_keys(t, window):
     return sum(i - max(0, (i // window - 1) * window) + 1 for i in range(t))
 
 
+def launch_counter(counters: dict):
+    """(counted, total): ``counted(fn)`` sets the launch count of every
+    wrapper in ``counters`` ({name: wrapper}) to 0, runs ``fn``, waits for
+    the card and returns (fn's result, {name: launches}); ``total`` sums
+    them over every call."""
+    import torch
+
+    total = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        for name, n in got.items():
+            total[name] += n
+        return out, got
+
+    return counted, total
+
+
 def run_take(model, diffusion, chunk_conds, init_seed, seed):
     """One chunked-AR CFG take through select_sampling_model_fn ->
     autoregressive_sample_loop, synchronised."""
@@ -342,9 +386,10 @@ def run_take(model, diffusion, chunk_conds, init_seed, seed):
     return out
 
 
-def generate_cli(model_path, args, num_frames, num_samples, respacing, out_dir):
-    """The generate CLI in a subprocess on a checkpoint with its args.json;
-    returns the motion of results.npy and the wall time."""
+def generate_cli(model_path, args, num_frames, num_samples, respacing, out_dir, extra=()):
+    """The generate CLI in a subprocess on a checkpoint with its args.json
+    (``extra``: more flags); returns the motion of results.npy and the wall
+    time."""
     import numpy as np
 
     ckpt_dir = os.path.dirname(model_path)
@@ -356,7 +401,7 @@ def generate_cli(model_path, args, num_frames, num_samples, respacing, out_dir):
         [sys.executable, "-m", "gesturediffusion_tpu_torch.sample.generate",
          "--model_path", model_path, "--dataset", "synthetic", "--num_frames", str(num_frames),
          "--num_samples", str(num_samples), "--timestep_respacing", respacing,
-         "--guidance_param", str(GUIDANCE), "--output_dir", out_dir],
+         "--guidance_param", str(GUIDANCE), "--output_dir", out_dir, *extra],
         check=True, cwd=HERE, timeout=600,
     )
     res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
@@ -695,21 +740,11 @@ def genea_serve_phase(model, model_path, card):
     from gesturediffusion_tpu_torch.train import train_mdm
 
     dev = torch.device("cuda")
-    counters = {"local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
-                "flash_attention": fused_self_attention,
-                "encoder_layer_train_fwd": encoder_layer_train_fwd,
-                "encoder_layer_train_bwd": encoder_layer_train_bwd}
-    total = dict.fromkeys(counters, 0)
-
-    def counted(fn):
-        for c in counters.values():
-            c.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {name: c.launches for name, c in counters.items()}
-        for name, n in got.items():
-            total[name] += n
-        return out, got
+    counted, total = launch_counter({
+        "local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
+        "flash_attention": fused_self_attention,
+        "encoder_layer_train_fwd": encoder_layer_train_fwd,
+        "encoder_layer_train_bwd": encoder_layer_train_bwd})
 
     # ---- data -------------------------------------------------------------- #
     base = os.path.join(HERE, "build", "chip_smoke")
@@ -905,19 +940,9 @@ def t2m_phase(randn, gesture_path, card):
     from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
 
     dev = torch.device("cuda")
-    counters = {"local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
-                "flash_attention": fused_self_attention}
-    total = dict.fromkeys(counters, 0)
-
-    def counted(fn):
-        for c in counters.values():
-            c.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {name: c.launches for name, c in counters.items()}
-        for name, n in got.items():
-            total[name] += n
-        return out, got
+    counted, total = launch_counter({
+        "local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
+        "flash_attention": fused_self_attention})
 
     # ---- the checkpoint, the CLIP tower and BPE file, the tree ------------- #
     base = os.path.join(HERE, "build", "chip_smoke", "t2m")
@@ -1089,6 +1114,290 @@ def t2m_phase(randn, gesture_path, card):
     t2m_rows[0]["launches"] += text_launches
     log(f"t2m: the edits' kept entries within {max(k[0] for k in kept):.3e} of the ground truth")
     return t2m_rows, total, kept[2][1]
+
+
+def samplers_phase(model, model_path, chunk_conds, init_seed, randn, card):
+    """Phase 11: the PLMS (order 2) and DPM++(2M) samplers on the phase-4
+    model.  The phase-4 take (41 takes, 2 chunks, CFG batch 82) respaced to
+    SAMPLER_STEPS steps with each, through the kernels (launches counted:
+    PLMS adds one warm-up model pass a chunk) against the same take through
+    the plain versions; the generate CLI with --sampler dpmpp; a streams-1
+    session's chunk latency at DPM++-20 beside DDIM-50.  Returns the
+    launches of these paths."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import (
+        autoregressive_sample_loop,
+        sample_loop,
+    )
+    from gesturediffusion_tpu_torch.diffusion.schedules import respacing_string
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+    from gesturediffusion_tpu_torch.serve.streaming import StreamingGestureSession
+
+    dev = torch.device("cuda")
+    counted, total = launch_counter({
+        "local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
+        "flash_attention": fused_self_attention})
+    precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
+
+    def diffusion(sampler, steps):
+        return create_diffusion(noise_schedule="cosine", steps=1000, device=dev,
+                                timestep_respacing=respacing_string(steps, sampler))
+
+    for sampler, warmup in (("plms", 1), ("dpmpp", 0)):
+        d = diffusion(sampler, SAMPLER_STEPS)
+
+        def take():
+            return autoregressive_sample_loop(
+                d, model_fn, (B_TAKES, J, 1, T), chunk_conds, init_seed, S,
+                generator=torch.Generator(device=dev).manual_seed(1),
+                cond_precompute=precompute, loop=sample_loop(sampler))
+
+        out, launches = counted(take)
+        passes = (SAMPLER_STEPS + warmup) * CHUNKS
+        want = {"local_block": passes, "encoder_layer": passes * LAYERS,
+                "flash_attention": passes * LAYERS}
+        t0 = time.perf_counter()
+        take()
+        torch.cuda.synchronize()
+        take_s = time.perf_counter() - t0
+        model.use_kernels = False
+        plain = take()
+        model.use_kernels = True
+        report(f"{sampler} take ({B_TAKES} takes x {CHUNKS} chunks, respaced to "
+               f"{SAMPLER_STEPS} steps, {passes // CHUNKS} model passes a chunk, CFG batch "
+               f"{2 * B_TAKES}) vs plain versions on the card; launches {launches} (expected "
+               f"{want}; |out| max {plain.abs().max().item():.3f})",
+               (out - plain).abs().max().item(), TOL_TAKE,
+               launches == want and bool(torch.isfinite(out).all())
+               and tuple(out.shape) == (CHUNKS, B_TAKES, J, 1, T))
+        log(f"time {sampler} take: {take_s:.3f} s = {B_TAKES * CHUNKS / take_s:.3f} chunks/s, "
+            f"{take_s / passes * 1e3:.3f} ms a model pass {card}")
+
+    motion, cli_s = generate_cli(
+        model_path, {"dataset": "synthetic", "num_frames": T, "layers": LAYERS,
+                     "latent_dim": D, "cond_mask_prob": 0.1, "seed_poses": S,
+                     "noise_schedule": "cosine", "diffusion_steps": 1000,
+                     "sigma_small": True},
+        T, B_TAKES, str(SAMPLER_STEPS), os.path.join(os.path.dirname(model_path), "dpmpp"),
+        extra=("--sampler", "dpmpp"))
+    ok = motion.shape == (B_TAKES, J // 6, 3, T) and np.isfinite(motion).all()
+    log(f"{'OK' if ok else 'FAIL'} generate CLI --sampler dpmpp --timestep_respacing "
+        f"{SAMPLER_STEPS}: motion {motion.shape} in {cli_s:.1f} s (process included) {card}")
+    if not ok:
+        raise AssertionError("the generate CLI under dpmpp wrote the wrong results")
+
+    feeds = [randn(1, A, 1, T) for _ in range(SAMPLER_CHUNKS)]
+    for sampler, steps in (("ddim", STEPS), ("dpmpp", SAMPLER_STEPS)):
+        session = StreamingGestureSession(
+            model, guidance_param=GUIDANCE, cond_mask_prob=0.1, sampler=sampler,
+            diffusion=diffusion(sampler, steps), streams=1, chunk_frames=T, seed_poses=S,
+            fps=30.0, device=dev)
+        session.start(init_seed[:1], rng=10)
+
+        def serve():
+            lat = []
+            for f in feeds:
+                session.feed({"mfcc": f})
+                lat.append(session.stats().last_latency_s)
+            return lat
+
+        lat, launches = counted(serve)
+        steady = lat[1:]
+        mean = sum(steady) / len(steady)
+        want = SAMPLER_CHUNKS * steps
+        log(f"{'OK' if launches['local_block'] == want else 'FAIL'} serve streams 1, "
+            f"{sampler.upper()}-{steps}: first chunk {lat[0] * 1e3:.2f} ms; steady mean "
+            f"{mean * 1e3:.2f} ms, worst {max(steady) * 1e3:.2f} ms, real-time factor "
+            f"{T / 30.0 / mean:.2f}; launches {launches} ({want} local blocks expected) {card}")
+        if launches["local_block"] != want:
+            raise AssertionError(f"the {sampler} session missed its kernels")
+    return total
+
+
+def t2m_train_phase(randn, rs, card):
+    """Phase 12: text-to-motion training on the card.  Kernels 5 and 6 at
+    [64, 197, 512] (heads of 128, ff 1024; rates 0.1 and 0) against their
+    plain versions, with their times; T2M_TRAIN_STEPS steps of the
+    humanml-encoder-512 MotionMDM at batch 64 with use_fused_train_encoder
+    (8 forward and 8 backward launches a step) against the same steps
+    through the plain layer, and a profiled step; the train CLI on a
+    synthetic HumanML3D tree (the CLIP tower of phase 10 embedding the
+    captions; launches counted), the predict CLI in this process on the
+    checkpoint it writes (kernel 1 counted) and a batch of T2M_BIG prompts
+    on it (CFG batch 64, counted); the flash kernel alone at
+    [6, 4, 197, 128] and [64, 4, 197, 128].  Returns the kernel rows of
+    these shapes, the launches of the phase's paths and those of its
+    CFG-64 take."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.humanml import make_synthetic_humanml
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+    from gesturediffusion_tpu_torch.ops.flash_attention import (
+        fused_self_attention,
+        self_attention_reference,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.sample import predict
+    from gesturediffusion_tpu_torch.train import train_mdm
+    from gesturediffusion_tpu_torch.train.loop import (
+        TrainConfig,
+        TrainState,
+        make_optimizer,
+        train_step,
+    )
+
+    dev = torch.device("cuda")
+    counted, total = launch_counter({
+        "encoder_layer": fused_encoder_layer, "flash_attention": fused_self_attention,
+        "encoder_layer_train_fwd": encoder_layer_train_fwd,
+        "encoder_layer_train_bwd": encoder_layer_train_bwd})
+    rows, dh = T2M_FRAMES + 1, T2M_D // HEADS
+
+    # ---- kernels 5 and 6 at the t2m shape ------------------------------------ #
+    w = layer_weights(randn, T2M_D, FF)
+    xt, gt = randn(MB, rows, T2M_D), randn(MB, rows, T2M_D)
+    seed = torch.tensor([20241], dtype=torch.int32, device=dev)
+    fwd_err, bwd_err = check_train_layer(xt, gt, w, seed)
+    times = train_kernel_times(xt, gt, w, seed, iters=10)
+    shape = f"[{MB},{rows},{T2M_D}] heads {HEADS} of {dh}"
+    time_line(f"encoder_layer_train_fwd {shape}", *times["fwd"], card, tf32x3=True)
+    time_line(f"encoder_layer_train_bwd {shape} (plain and library: forward + backward)",
+              *times["bwd"], card, tf32x3=True)
+
+    # ---- train steps through the kernels against the plain steps ----------- #
+    torch.manual_seed(5)
+    model = MotionMDM(njoints=T2M_J, latent_dim=T2M_D, ff_size=FF, num_layers=LAYERS,
+                      num_heads=HEADS, dropout=RATE, cond_mode="text", cond_mask_prob=0.1,
+                      use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(model)
+    plain.use_kernels = False
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=MB)
+    lengths = rs.randint(40, T2M_FRAMES + 1, size=MB)
+    mask = torch.from_numpy(np.arange(T2M_FRAMES)[None] < lengths[:, None])[:, None, None]
+    batches = [dict(motion=randn(MB, T2M_J, 1, T2M_FRAMES, scale=0.5),
+                    cond={"text_emb": randn(MB, 512, scale=0.1), "mask": mask.to(dev)},
+                    t=torch.from_numpy(rs.randint(0, 1000, size=MB)).to(dev),
+                    noise=randn(MB, T2M_J, 1, T2M_FRAMES)) for _ in range(T2M_TRAIN_STEPS)]
+    compare_train_steps(model, plain, diffusion, cfg, batches, LAYERS,
+                        f"batch {MB}, [{MB},{rows},{T2M_D}], heads of {dh}",
+                        f"{LAYERS} layers", card)
+    total["encoder_layer_train_fwd"] += LAYERS * T2M_TRAIN_STEPS
+    total["encoder_layer_train_bwd"] += LAYERS * T2M_TRAIN_STEPS
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg), UniformSampler(1000), {})
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b0 = batches[0]
+    device_profile(lambda: train_step(state, diffusion, cfg, b0["motion"], b0["cond"], gen,
+                                      b0["t"], b0["noise"]),
+                   2, f"t2m train step (batch {MB}, [{MB},{rows},{T2M_D}])", card,
+                   host_rows=8, groups=train_kernel_group)
+
+    # ---- the train CLI, then the predict CLI on its checkpoint -------------- #
+    base = os.path.join(HERE, "build", "chip_smoke", "t2m_train")
+    t0 = time.perf_counter()
+    root = make_synthetic_humanml(os.path.join(base, "humanml"), n_clips=T2M_TRAIN_CLIPS,
+                                  dim=T2M_J)
+    make_s = time.perf_counter() - t0
+    save_dir = os.path.join(base, "run")
+    t0 = time.perf_counter()
+    loop, launches = counted(lambda: train_mdm.main([
+        "--dataset", "humanml", "--data_dir", root, "--save_dir", save_dir, "--overwrite",
+        "--latent_dim", str(T2M_D), "--batch_size", str(MB), "--use_fused_train_encoder",
+        "--num_steps", str(CLI_STEPS), "--log_interval", "10"]))
+    cli_s = time.perf_counter() - t0
+    want = LAYERS * CLI_STEPS
+    ckpt = os.path.join(save_dir, f"model{CLI_STEPS:09d}.pt")
+    ok = (loop.state.step == CLI_STEPS and os.path.exists(ckpt)
+          and launches["encoder_layer_train_fwd"] == want
+          and launches["encoder_layer_train_bwd"] == want
+          and type(loop.text_encoder).__name__ == "CLIPTextEmbedder")
+    log(f"{'OK' if ok else 'FAIL'} train CLI --dataset humanml --latent_dim {T2M_D} --batch_size "
+        f"{MB} --use_fused_train_encoder: {CLI_STEPS} steps in {cli_s:.1f} s (data set-up, the "
+        f"CLIP tower's captions included; the tree of {T2M_TRAIN_CLIPS} clips written in "
+        f"{make_s:.1f} s); text encoder {type(loop.text_encoder).__name__}; launches fwd "
+        f"{launches['encoder_layer_train_fwd']} bwd {launches['encoder_layer_train_bwd']} "
+        f"(expected {want} each) {card}")
+    if not ok:
+        raise AssertionError("the humanml train CLI missed its steps or kernels")
+    out_dir = os.path.join(base, "predict")
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: predict.main([
+        "--model_path", ckpt, "--text", PROMPT, "--motion_length", "9.8",
+        "--output_dir", out_dir]))
+    predict_s = time.perf_counter() - t0
+    res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
+    want = {"encoder_layer": 1000 * LAYERS, "flash_attention": 1000 * LAYERS}
+    ok = (res["motion"].shape == (T2M_REPS, 22, 3, T2M_FRAMES)
+          and np.isfinite(res["motion"]).all()
+          and {k: launches[k] for k in want} == want)
+    log(f"{'OK' if ok else 'FAIL'} predict CLI on the trained checkpoint (1000 DDPM steps, "
+        f"{T2M_REPS} repetitions): motion {res['motion'].shape} in {predict_s:.1f} s; launches "
+        f"{launches} (expected {want}) {card}")
+    if not ok:
+        raise AssertionError("the predict CLI on the trained checkpoint failed")
+    # a batch of T2M_BIG prompts (CFG batch 64) on the trained checkpoint
+    predictor = predict.Predictor(
+        ckpt, dataset_root=root, device=dev,
+        model=MotionMDM(njoints=T2M_J, latent_dim=T2M_D, ff_size=FF, num_layers=LAYERS,
+                        num_heads=HEADS, cond_mode="text", cond_mask_prob=0.1),
+        diffusion=create_diffusion(noise_schedule="cosine", steps=1000, device=dev,
+                                   timestep_respacing=T2M_RESPACING))
+    big, big_launches = counted(lambda: predictor.predict(PROMPT, T2M_BIG, seed=0,
+                                                          motion_length=9.8))
+    want = {"encoder_layer": T2M_STEPS * LAYERS, "flash_attention": T2M_STEPS * LAYERS}
+    ok = (big["features"].shape == (T2M_BIG, T2M_FRAMES, T2M_J)
+          and np.isfinite(big["motion_xyz"]).all()
+          and {k: big_launches[k] for k in want} == want)
+    log(f"{'OK' if ok else 'FAIL'} {T2M_BIG} prompts at once on the trained checkpoint (CFG "
+        f"batch {2 * T2M_BIG}, DDPM respaced to {T2M_STEPS}): features {big['features'].shape}; "
+        f"launches {big_launches} (expected {want}) {card}")
+    if not ok:
+        raise AssertionError("the CFG-64 take on the trained checkpoint failed")
+
+    # ---- flash alone at heads of 128 ----------------------------------------- #
+    out_rows = [
+        {"name": f"encoder_layer_train_{k}_t2m_{MB}x{rows}x{T2M_D}", "route": "cuda",
+         "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
+         "replaces": f"gesturediffusion_tpu/ops/pallas_encoder_train.py:{line}",
+         "launches": total[f"encoder_layer_train_{k}"], "max_abs_err": err,
+         **time_keys(times[k])}
+        for k, line, err in (("fwd", 249, fwd_err), ("bwd", 273, bwd_err))]
+    for b in (2 * T2M_REPS, 2 * T2M_BIG):
+        q, k, v = (randn(b, HEADS, rows, dh) for _ in range(3))
+        got = fused_self_attention(q, k, v)
+        err = (got - self_attention_reference(q, k, v)).abs().max().item()
+        report(f"flash_attention [{b},{HEADS},{rows},{dh}]", err, TOL_FLASH, got.shape == q.shape)
+        ms = cuda_time_ms(lambda: fused_self_attention(q, k, v), 20, 3)
+        plain_ms = cuda_time_ms(lambda: self_attention_reference(q, k, v), 10, 2)
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 20, 3)
+        flops = 4 * b * HEADS * rows**2 * dh
+        nbytes = 4 * 4 * q.numel()
+        bound, by = bound_ms(flops, nbytes, tf32x3=True)
+        time_line(f"flash_attention [{b},{HEADS},{rows},{dh}]", ms, plain_ms, lib_ms, bound, by,
+                  flops, nbytes, card, tf32x3=True)
+        out_rows.append({
+            "name": f"flash_attention_t2m_{b}x{HEADS}x{rows}x{dh}", "route": "cuda",
+            "source": "gesturediffusion_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "gesturediffusion_tpu/ops/pallas_flash.py:35",
+            # the predict CLI's steps run at CFG batch 6, the 32 prompts' at 64
+            "launches": (launches if b == 2 * T2M_REPS else big_launches)["flash_attention"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms})
+    return out_rows, total, big_launches
 
 
 def device_profile(step, steps, label, card, host_rows=0, groups=None):
@@ -1321,13 +1630,14 @@ def check_train_layer(xt, gt, enc_w, seed, heads=HEADS):
     return fwd_err[RATE], abs_err
 
 
-def train_kernel_times(xt, gt, enc_w, seed):
-    """Times of the training kernels at xt's shape, and of the plain layer
-    and the torch+SDPA composition (forward; forward and backward), with
-    their work: {"fwd": row, "bwd": row}, a row being (ms, plain ms, library
-    ms, bound ms, bound by, FLOP, bytes).  FLOP counts the function's
-    products once (the backward: the recompute and twice the forward's), as
-    PR 4's table did, whatever the kernels recompute besides."""
+def train_kernel_times(xt, gt, enc_w, seed, iters=50):
+    """Times of the training kernels at xt's shape (D and FF read off the
+    weights, HEADS heads), and of the plain layer and the torch+SDPA
+    composition (forward; forward and backward), with their work: {"fwd":
+    row, "bwd": row}, a row being (ms, plain ms, library ms, bound ms, bound
+    by, FLOP, bytes).  FLOP counts the function's products once (the
+    backward: the recompute and twice the forward's), whatever the kernels
+    recompute besides."""
     import torch
 
     from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
@@ -1347,23 +1657,27 @@ def train_kernel_times(xt, gt, enc_w, seed):
         with torch.enable_grad():
             encoder_layer_sdpa(tx_, *tw, HEADS, rate=RATE).backward(gt)
 
+    def timed(fn):
+        return cuda_time_ms(fn, iters=iters, warmup=min(5, iters))
+
     ms = {
-        "fwd": (cuda_time_ms(lambda: encoder_layer_train_fwd(
+        "fwd": (timed(lambda: encoder_layer_train_fwd(
                     xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE)),
-                cuda_time_ms(lambda: encoder_layer_train_plain(
+                timed(lambda: encoder_layer_train_plain(
                     xt, *enc_w, seed=seed, num_heads=HEADS, rate=RATE)),
-                cuda_time_ms(lambda: encoder_layer_sdpa(xt, *enc_w, HEADS, rate=RATE))),
-        "bwd": (cuda_time_ms(lambda: encoder_layer_train_bwd(
+                timed(lambda: encoder_layer_sdpa(xt, *enc_w, HEADS, rate=RATE))),
+        "bwd": (timed(lambda: encoder_layer_train_bwd(
                     xt, *enc_w, seed=seed, g=gt, num_heads=HEADS, rate=RATE)),
-                cuda_time_ms(plain_fwd_bwd), cuda_time_ms(lib_fwd_bwd)),
+                timed(plain_fwd_bwd), timed(lib_fwd_bwd)),
     }
-    b, t = xt.shape[:2]
-    gemm_flops = 2 * b * t * (4 * D * D + 2 * D * FF)
-    attn_flops = 4 * b * t**2 * D
+    b, t, d = xt.shape
+    f = enc_w[6].shape[0]
+    gemm_flops = 2 * b * t * (4 * d * d + 2 * d * f)
+    attn_flops = 4 * b * t**2 * d
     w_bytes = 4 * sum(w.numel() for w in enc_w)
-    work = {"fwd": (gemm_flops + attn_flops, 4 * 2 * b * t * D + w_bytes + 4),
+    work = {"fwd": (gemm_flops + attn_flops, 4 * 2 * b * t * d + w_bytes + 4),
             # the backward recomputes the forward, then twice its products
-            "bwd": (3 * (gemm_flops + attn_flops), 4 * 3 * b * t * D + 2 * w_bytes + 4)}
+            "bwd": (3 * (gemm_flops + attn_flops), 4 * 3 * b * t * d + 2 * w_bytes + 4)}
     return {k: (*ms[k], *bound_ms(*work[k], tf32x3=True), *work[k]) for k in ms}
 
 
@@ -1425,18 +1739,8 @@ def train_phase(dev, randn, rs, card):
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
-    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
     from gesturediffusion_tpu_torch.models.mdm import MDM
-    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
-        encoder_layer_train_bwd,
-        encoder_layer_train_fwd,
-    )
-    from gesturediffusion_tpu_torch.train.loop import (
-        TrainConfig,
-        TrainState,
-        make_optimizer,
-        train_step,
-    )
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig
 
     torch.manual_seed(1)
     model = MDM(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
@@ -1453,57 +1757,81 @@ def train_phase(dev, randn, rs, card):
                     t=torch.from_numpy(rs.randint(0, 1000, size=BATCH)).to(dev),
                     noise=randn(BATCH, J, 1, T)) for _ in range(TRAIN_STEPS)]
 
-    def run(m):
-        opt, sched = make_optimizer(m.parameters(), cfg)
-        state = TrainState(m, opt, sched, UniformSampler(1000), {})
-        gen = torch.Generator(device=dev).manual_seed(7)
-        losses, times, grads = [], [], None
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen,
-                                 b["t"], b["noise"])
-            losses.append(metrics["loss"].item())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if grads is None:
-                grads = {n: p.grad.clone() for n, p in m.named_parameters()}
-        peak = torch.cuda.max_memory_allocated()
-        # the step's working memory above what was allocated before it
-        # (models, optimizer state after step 1 aside, the staged batches)
-        return (losses, grads, sorted(times[1:])[len(times[1:]) // 2] * 1e3,
-                (peak / 2**20, (peak - base) / 2**20))
+    compare_train_steps(model, plain, diffusion, cfg, batches, LAYERS * (BATCH // MB),
+                        f"batch {BATCH} ({BATCH // MB} x {MB})",
+                        f"{LAYERS} layers x {BATCH // MB} microbatches", card)
+    return model, diffusion, cfg, batches[0]
 
+
+def run_train_steps(model, diffusion, cfg, batches):
+    """train_step over ``batches`` (injected t and noise) from a fresh
+    optimizer and generator: (losses, the first step's gradients, the
+    median ms of steps 2 on, (peak MiB, MiB above the start))."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.train.loop import TrainState, make_optimizer, train_step
+
+    dev = torch.device("cuda")
+    opt, sched = make_optimizer(model.parameters(), cfg)
+    state = TrainState(model, opt, sched, UniformSampler(1000), {})
+    gen = torch.Generator(device=dev).manual_seed(7)
+    losses, times, grads = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
+                             b["noise"])
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if grads is None:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated()
+    # the step's working memory above what was allocated before it
+    # (models, optimizer state after step 1 aside, the staged batches)
+    return (losses, grads, sorted(times[1:])[len(times[1:]) // 2] * 1e3,
+            (peak / 2**20, (peak - base) / 2**20))
+
+
+def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, why, card):
+    """The steps through the training kernels (``per_step`` forward and
+    backward launches a step, counted) against the same steps through the
+    plain layers, under TOL_STEP_LOSS and TOL_STEP_GRAD; prints ms a step,
+    samples/s and peak memory of both.  Returns the kernels' ms a step."""
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+
+    n, b = len(batches), batches[0]["motion"].shape[0]
     encoder_layer_train_fwd.launches = encoder_layer_train_bwd.launches = 0
-    losses, grads, step_ms, peak = run(model)
+    losses, grads, step_ms, peak = run_train_steps(model, diffusion, cfg, batches)
     launches = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
-    want = LAYERS * (BATCH // MB) * TRAIN_STEPS
+    want = per_step * n
     finite = all(math.isfinite(x) for x in losses)
-    log(f"{'OK' if launches == (want, want) and finite else 'FAIL'} train: {TRAIN_STEPS} "
-        f"steps at batch {BATCH} ({BATCH // MB} x {MB}), losses "
-        f"{[round(x, 6) for x in losses]} (finite {finite}); launches fwd {launches[0]} bwd "
-        f"{launches[1]} (expected {want} each: {LAYERS} layers x {BATCH // MB} microbatches "
-        f"a step)")
+    log(f"{'OK' if launches == (want, want) and finite else 'FAIL'} train: {n} steps at {label}, "
+        f"losses {[round(x, 6) for x in losses]} (finite {finite}); launches fwd {launches[0]} "
+        f"bwd {launches[1]} (expected {want} each: {why} a step)")
     if launches != (want, want) or not finite:
         raise AssertionError("train steps: wrong launch counts or a non-finite loss")
-    p_losses, p_grads, p_step_ms, p_peak = run(plain)
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, p_losses))
-    grad_err = max((grads[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-                   for n, g in p_grads.items())
+    p_losses, p_grads, p_step_ms, p_peak = run_train_steps(plain, diffusion, cfg, batches)
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, p_losses))
+    grad_err = max((grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                   for k, g in p_grads.items())
     ok = loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
     log(f"{'OK' if ok else 'FAIL'} train steps vs plain versions on the card (same seeds, t, "
         f"noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's grads worst "
         f"max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g})")
     if not ok:
         raise AssertionError("kernel train steps disagree with the plain steps")
-    log(f"time train step (batch {BATCH} = {BATCH // MB} x {MB}, median of steps 2-"
-        f"{TRAIN_STEPS}): kernels {step_ms:.3f} ms = {BATCH / step_ms * 1e3:.1f} samples/s, "
-        f"peak {peak[0]:.1f} MiB ({peak[1]:.1f} above the start); plain {p_step_ms:.3f} ms = "
-        f"{BATCH / p_step_ms * 1e3:.1f} samples/s, peak {p_peak[0]:.1f} MiB ({p_peak[1]:.1f} "
-        f"above the start) {card}")
-    return model, diffusion, cfg, batches[0]
+    log(f"time train step ({label}, median of steps 2-{n}): kernels {step_ms:.3f} ms = "
+        f"{b / step_ms * 1e3:.1f} samples/s, peak {peak[0]:.1f} MiB ({peak[1]:.1f} above the "
+        f"start); plain {p_step_ms:.3f} ms = {b / p_step_ms * 1e3:.1f} samples/s, peak "
+        f"{p_peak[0]:.1f} MiB ({p_peak[1]:.1f} above the start) {card}")
+    return step_ms
 
 
 def train_cli_phase(card):
@@ -1814,12 +2142,22 @@ def main() -> int:
     t2m_rows, t2m, gesture_edit = t2m_phase(
         randn, os.path.join(HERE, "build", "chip_smoke", "genea", "model000000000.pt"), card)
 
+    # ---- 11. the PLMS and DPM++ samplers -------------------------------- #
+    samplers = samplers_phase(model, model_path, chunk_conds, init_seed, randn, card)
+
+    # ---- 12. text-to-motion training ----------------------------------- #
+    t2m_train_rows, t2m_train, t2m_big = t2m_train_phase(randn, rs, card)
+    # the predict CLI on the trained checkpoint runs at [6, 197, 512], the
+    # batch of prompts at [64, 197, 512]
+    t2m_rows[0]["launches"] += t2m_train["encoder_layer"] - t2m_big["encoder_layer"]
+    t2m_rows[1]["launches"] += t2m_big["encoder_layer"]
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
          "launches": launches["local_block"] + genea["local_block"]
-                     + gesture_edit["local_block"],
+                     + gesture_edit["local_block"] + samplers["local_block"],
          "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
@@ -1827,7 +2165,8 @@ def main() -> int:
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
          "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
-                      + genea["encoder_layer"] + gesture_edit["encoder_layer"]),
+                      + genea["encoder_layer"] + gesture_edit["encoder_layer"]
+                      + samplers["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
@@ -1845,8 +2184,9 @@ def main() -> int:
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
     ]
-    kernels[-1]["launches"] += genea["flash_attention"] + t2m["flash_attention"]
-    kernels += t2m_rows
+    kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
+                                + samplers["flash_attention"])
+    kernels += t2m_rows + t2m_train_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -93,8 +93,13 @@ def get_dataset_loader(
     # samples a frame holds only at 22050 Hz and 30 fps)
     spf = (round(dataset.sr / dataset.fps)
            if hasattr(dataset, "sr") and hasattr(dataset, "fps") else None)
-    collate_fn = (partial(collate_gesture, max_frames=num_frames, audio_samples_per_frame=spf)
-                  if spf else partial(collate_gesture, max_frames=num_frames))
+    if name in TEXT_DATASETS:
+        # a text clip's items are padded to 196 frames, whatever num_frames
+        collate_fn = partial(collate_gesture, max_frames=196)
+    elif spf:
+        collate_fn = partial(collate_gesture, max_frames=num_frames, audio_samples_per_frame=spf)
+    else:
+        collate_fn = partial(collate_gesture, max_frames=num_frames)
     return DataLoader(
         dataset,
         batch_size=batch_size,

@@ -3,12 +3,14 @@
 PyTorch counterpart of gesturediffusion_tpu/diffusion/gaussian.py
 (GaussianDiffusion :78-424 and create_diffusion :427-526): the schedule
 arrays, respacing through ``timestep_map``, q_sample, the posterior, the
-x0/eps converters, p_mean_variance with fixed or learned variances and
-inpainting, and the training losses (masked MSE for START_X / EPSILON /
-PREVIOUS_X, the learned-variance ``vb`` term, the velocity term).  Every
-array is computed in float64 numpy and cast to float32, as the JAX package
-does.  The geometric terms (``lambda_rcxyz``, ``lambda_fc``,
-``lambda_vel_rcxyz``) need the body model, which waits for a later slice.
+x0/eps converters, p_mean_variance with fixed or learned variances,
+inpainting, ``clip_denoised`` and ``denoised_fn``, the classifier-guidance
+shifts ``condition_mean`` and ``condition_score``, and the training losses
+(masked MSE for START_X / EPSILON / PREVIOUS_X, the learned-variance ``vb``
+term, the velocity term).  Every array is computed in float64 numpy and
+cast to float32, as the JAX package does.  The geometric terms
+(``lambda_rcxyz``, ``lambda_fc``, ``lambda_vel_rcxyz``) need the body
+model, which waits for a later slice.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ class LossType(enum.Enum):
 
 # model_fn(x, t_model, cond) -> model output, same shape as x
 ModelFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
+# cond_fn(x, t_model, cond) -> grad_x log p(y | x), same shape as x
+CondFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
 
 
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -70,6 +74,7 @@ class GaussianDiffusion:
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
+    alphas_cumprod_next: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
@@ -142,11 +147,15 @@ class GaussianDiffusion:
         t: torch.Tensor,
         cond: dict,
         *,
+        clip_denoised: bool = False,
+        denoised_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         inpaint: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> dict[str, torch.Tensor]:
         """Run the model; mean/variance of p(x_{t-1} | x_t) plus x0.
         ``inpaint`` = (mask, motion) overwrites the x0 prediction where
-        mask is set (START_X only)."""
+        mask is set (START_X only); then ``denoised_fn`` and, with
+        ``clip_denoised``, a clip to [-1, 1] process the x0 prediction
+        before the posterior mean is taken from it."""
         nd = x.dim()
         model_output = model_fn(x, self.model_t(t), cond)
         learned = self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE)
@@ -174,14 +183,19 @@ class GaussianDiffusion:
             model_variance = _extract(self.posterior_variance, t, nd)
             model_log_variance = _extract(self.posterior_log_variance_clipped, t, nd)
 
+        def process_xstart(xs):
+            if denoised_fn is not None:
+                xs = denoised_fn(xs)
+            return xs.clamp(-1.0, 1.0) if clip_denoised else xs
+
         if self.model_mean_type == ModelMeanType.PREVIOUS_X:
-            pred_xstart = self.predict_xstart_from_xprev(x, t, model_output)
+            pred_xstart = process_xstart(self.predict_xstart_from_xprev(x, t, model_output))
             model_mean = model_output
         else:
             if self.model_mean_type == ModelMeanType.START_X:
-                pred_xstart = model_output
+                pred_xstart = process_xstart(model_output)
             else:
-                pred_xstart = self.predict_xstart_from_eps(x, t, model_output)
+                pred_xstart = process_xstart(self.predict_xstart_from_eps(x, t, model_output))
             model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
         return {
             "mean": model_mean,
@@ -189,6 +203,23 @@ class GaussianDiffusion:
             "log_variance": model_log_variance,
             "pred_xstart": pred_xstart,
         }
+
+    # classifier guidance (gaussian.py:270-287)
+    def condition_mean(self, cond_fn: CondFn, p_mean_var: dict, x, t, cond) -> torch.Tensor:
+        """The posterior mean shifted by variance * grad log p(y | x)."""
+        gradient = cond_fn(x, self.model_t(t), cond)
+        return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+    def condition_score(self, cond_fn: CondFn, p_mean_var: dict, x, t, cond) -> dict:
+        """Song et al. (2020) score conditioning: eps shifted by
+        -sqrt(1 - alpha_bar) * grad, x0 and the mean rederived from it."""
+        alpha_bar = _extract(self.alphas_cumprod, t, x.dim())
+        eps = self.predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, self.model_t(t), cond)
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self.predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x, t)
+        return out
 
     # ------------------------------------------------------------------ #
     # Losses (gaussian.py:289-424)
@@ -303,6 +334,7 @@ def create_diffusion(
     alphas = 1.0 - betas
     alphas_cumprod = np.cumprod(alphas, axis=0)
     alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    alphas_cumprod_next = np.append(alphas_cumprod[1:], 0.0)
     posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
     if num_timesteps > 1:
         posterior_log_variance_clipped = np.log(
@@ -317,6 +349,7 @@ def create_diffusion(
         "betas": betas,
         "alphas_cumprod": alphas_cumprod,
         "alphas_cumprod_prev": alphas_cumprod_prev,
+        "alphas_cumprod_next": alphas_cumprod_next,
         "sqrt_alphas_cumprod": np.sqrt(alphas_cumprod),
         "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - alphas_cumprod),
         "sqrt_recip_alphas_cumprod": np.sqrt(1.0 / alphas_cumprod),

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gesturediffusion_tpu_torch.ops.dropout import dropout as drop
+
 
 def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
     """Sin/cos table [max_len, d_model] in float64 (sin on even columns,
@@ -32,12 +34,21 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 class PositionalEncoding(nn.Module):
     """Holds the reference's ``pe`` buffer [max_len, 1, d_model] (float32).
-    The gesture denoiser reads it only through TimestepEmbedder."""
+    The gesture denoiser reads it only through TimestepEmbedder; MotionMDM
+    adds it to its [B, T, D] sequence, with dropout at ``dropout`` in
+    training, the mask drawn from the caller's generator
+    (embeddings.py:PositionalEncoding)."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, max_len: int = 5000, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         pe = sinusoidal_table(max_len, d_model).astype(np.float32)
         self.register_buffer("pe", torch.from_numpy(pe[:, None, :]))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.pe[:x.shape[1], 0].to(x.dtype)
+        return drop(x, self.dropout, generator) if train else x
 
 
 class TimestepEmbedder(nn.Module):

@@ -17,13 +17,23 @@ Shape flow: [B,J,F,T] -> input_process [B,T,D] -> prepend token 0
 [B,T+1,D] + pe -> encoder (each layer one launch of the encoder-layer
 kernel on the card) -> drop token 0 -> output_process -> [B,J,F,T].  The
 263 -> D and D -> 263 projections stay plain products, as in JAX, outside
-any kernel.  Inference only: text-to-motion training waits (ROADMAP A11).
+any kernel.
+
+Training (``train=True`` with a ``torch.Generator``) draws, in this
+order, the conditioning mask (``cond_mask_prob``), the positional
+encoding's dropout and the encoder's dropout from the generator.  With
+``use_fused_train_encoder`` each encoder layer is the fused training layer
+(the CUDA forward and backward kernels for CUDA tensors, the plain
+hash-dropout layer for CPU tensors; transformer.py:FusedTrainEncoderLayer),
+else the plain layer with Bernoulli dropout.
 
 cond: ``text_emb`` [B, clip_dim] (text), ``action`` [B] int (action),
 ``uncond`` [B] float, the CFG mask (1 drops the conditioning).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -52,8 +62,9 @@ class EmbedAction(nn.Module):
 
 class MotionMDM(nn.Module):
     """[B, J, F, T] -> [B, J, F, T].  ``use_kernels=False`` runs the plain
-    PyTorch encoder layer on any device; by default a CUDA model launches
-    the encoder-layer kernel."""
+    PyTorch encoder layers on any device; by default a CUDA model launches
+    the encoder-layer kernel (inference) or the training-layer kernels
+    (training under ``use_fused_train_encoder``)."""
 
     def __init__(
         self,
@@ -69,6 +80,7 @@ class MotionMDM(nn.Module):
         cond_mask_prob: float = 0.1,
         num_actions: int = 12,
         use_kernels: bool = True,
+        use_fused_train_encoder: bool = False,
     ):
         super().__init__()
         if cond_mode not in COND_MODES:
@@ -80,34 +92,42 @@ class MotionMDM(nn.Module):
         d = latent_dim
         self.input_process = InputProcess(njoints * nfeats, d)
         self.output_process = OutputProcess(d, njoints * nfeats)
-        self.sequence_pos_encoder = PositionalEncoding(d)
+        self.sequence_pos_encoder = PositionalEncoding(d, dropout=dropout)
         self.embed_timestep = TimestepEmbedder(d, self.sequence_pos_encoder)
         if cond_mode == "text":
             self.embed_text = nn.Linear(clip_dim, d)
         elif cond_mode == "action":
             self.embed_action = EmbedAction(num_actions, d)
-        self.seqTransEncoder = TransformerEncoder(num_layers, d, num_heads, ff_size, dropout)
+        self.seqTransEncoder = TransformerEncoder(
+            num_layers, d, num_heads, ff_size, dropout,
+            use_fused_train_layer=use_fused_train_encoder,
+        )
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         bs, njoints, nfeats, nframes = x.shape
         uncond = cond.get("uncond")
         if uncond is None:
             uncond = torch.zeros((bs,), dtype=x.dtype, device=x.device)
 
+        def masked(c):
+            return mask_cond(c, uncond, self.cond_mask_prob, train, generator)
+
         emb = self.embed_timestep(timesteps).to(x.dtype)
         if self.cond_mode == "text":
-            emb = emb + self.embed_text(mask_cond(cond["text_emb"].to(x.dtype), uncond))
+            emb = emb + self.embed_text(masked(cond["text_emb"].to(x.dtype)))
         elif self.cond_mode == "action":
             # masked after the embedding, as the reference masks its lookup
             # (mdm_t2m.py:94-104): masking before would leak a bias into
             # the unconditional CFG branch
-            emb = emb + mask_cond(self.embed_action(cond["action"]).to(x.dtype), uncond)
+            emb = emb + masked(self.embed_action(cond["action"]).to(x.dtype))
 
         feats = x.reshape(bs, njoints * nfeats, nframes).transpose(1, 2)   # [B, T, J*F]
         h = self.input_process.poseEmbedding(feats)
         xseq = torch.cat([emb[:, None, :], h], dim=1)
-        xseq = xseq + self.sequence_pos_encoder.pe[:nframes + 1, 0].to(x.dtype)
-        out = self.seqTransEncoder(xseq.contiguous(), self.use_kernels)[:, 1:]
+        xseq = self.sequence_pos_encoder(xseq, train, generator)
+        out = self.seqTransEncoder(xseq.contiguous(), self.use_kernels, train, generator)[:, 1:]
         out = self.output_process.poseFinal(out)
         out = out.reshape(bs, nframes, self.njoints, self.nfeats)
         return out.permute(0, 2, 3, 1).float()

@@ -3,7 +3,7 @@
 PyTorch counterpart of gesturediffusion_tpu/sample/generate.py:main
 (:94-378): load the checkpoint and its args.json, take the val split of
 the dataset, collate every chunk of every take, run chunked
-autoregressive sampling (``--sampler ddpm|ddim``) with the fast CFG model
+autoregressive sampling (``--sampler ddpm|ddim|plms|dpmpp``) with the fast CFG model
 function (the last ``seed_poses`` frames of a chunk seed the next, the
 first chunk seeded by the dataset's poses), invert the normalisation,
 split positions from rotations and write ``results.npy`` (+

@@ -13,7 +13,8 @@ audio only up to "now", so a session generates the take chunk by chunk:
     and a chunk's latency is measured up to that readback (``.cpu()``
     waits for the device);
   * ``streams`` concurrent takes run batched as one chunk;
-  * ``sample_steps`` respaces the sampler (DDPM or DDIM) for latency.
+  * ``sample_steps`` respaces the sampler (DDPM, DDIM, PLMS or DPM++) for
+    latency.
 
 The session owns a ``torch.Generator`` seeded in ``start()``.  Fed the
 same per-chunk conditioning in order, it draws what

@@ -11,8 +11,10 @@ reference's lagged linear LR anneal, the EMA and the sampler update.  A
 non-finite step changes nothing but the skip count.  Every random draw
 comes from one torch.Generator on the model's device.
 
-``TrainLoop`` is the host shell: data, logging, checkpoints and resume.
-A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
+``TrainLoop`` is the host shell: data, text embedding, logging,
+checkpoints and resume.  With a ``text_encoder`` each batch's captions are
+embedded on the host into ``text_emb`` (loop.py:517-529); the batch's
+``mask`` (its items' lengths) reaches the loss.  A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
 reference torch layout, which the generate CLI and the JAX package's
 load_torch_checkpoint read) beside ``opt{step:09d}.pt`` (optimizer, LR
 schedule, sampler, EMA, skip count and generator state).
@@ -25,7 +27,7 @@ import json
 import os
 import re
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -195,8 +197,10 @@ class TrainLoop:
         device: torch.device,
         platform: Optional[TrainPlatform] = None,
         args_to_save: Optional[dict] = None,
+        text_encoder: Optional[Callable] = None,
     ):
         self.config = config
+        self.text_encoder = text_encoder
         self.diffusion = diffusion
         self.data = data
         self.device = device
@@ -271,11 +275,15 @@ class TrainLoop:
 
     # ---- the loop ------------------------------------------------------- #
     def _host_batches(self):
-        """Collated batches as tensors on the device.  The raw audio stays
-        on the host: the port's denoiser reads the MFCCs."""
+        """Collated batches as tensors on the device, the captions embedded
+        by the text encoder.  The raw audio stays on the host: the port's
+        denoiser reads the MFCCs."""
         for motion, cond in infinite_batches(self.data):
             dcond = {k: torch.from_numpy(np.asarray(v)).to(self.device)
                      for k, v in device_cond(cond).items() if k != "audio"}
+            if self.text_encoder is not None and "text" in cond:
+                dcond["text_emb"] = torch.as_tensor(
+                    self.text_encoder(cond["text"]), device=self.device)
             yield torch.from_numpy(motion).to(self.device), dcond
 
     def run_loop(self, batch_source=None) -> None:

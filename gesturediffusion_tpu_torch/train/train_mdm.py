@@ -8,8 +8,11 @@ given.  ``--dataset genea2023`` reads the train split of ``--data_dir``
 through the registry, ``synthetic`` is the in-memory set; ``genea2022``
 loads too, but has no seed poses for the model to condition on, and is
 refused before training (the JAX CLI fails on it inside the model).
-The text-to-motion datasets are refused: their training waits (ROADMAP
-A11).
+``--dataset humanml|kit`` trains the text-to-motion MotionMDM (``no_cond``
+under ``--unconstrained``) on HumanML3D / KIT clips, the captions embedded
+by utils/text_embedder.py:get_text_encoder (train_mdm.py:73-82); under
+``--use_fused_train_encoder`` its encoder trains through the training-
+layer kernels.  The action datasets are refused up front (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ import sys
 import numpy as np
 import torch
 
-from gesturediffusion_tpu_torch.data.registry import TEXT_DATASETS, get_dataset_loader
+from gesturediffusion_tpu_torch.data.registry import (
+    TEXT_DATASETS,
+    get_dataset_class,
+    get_dataset_loader,
+)
 from gesturediffusion_tpu_torch.train.loop import (
     TrainConfig,
     TrainLoop,
@@ -31,14 +38,13 @@ from gesturediffusion_tpu_torch.utils import logger as log_lib
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
 from gesturediffusion_tpu_torch.utils.parser import train_args
+from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
 
 
 def main(argv=None) -> TrainLoop:
     args = train_args(argv)
-    if args.dataset in TEXT_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: text-to-motion training (MotionMDM through the "
-            f"training-layer kernels) is not ported yet (ROADMAP A11)")
+    get_dataset_class(args.dataset)  # a dataset that is not ported raises here
+    text_data = args.dataset in TEXT_DATASETS
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)  # the model's initial weights
@@ -54,7 +60,7 @@ def main(argv=None) -> TrainLoop:
                               num_frames=args.num_frames, split="train",
                               datapath=args.data_dir or None, n_seed_poses=args.seed_poses,
                               seed=args.seed)
-    if args.seed_poses and "seed" not in data.dataset[0]:
+    if not text_data and args.seed_poses and "seed" not in data.dataset[0]:
         # the MDM V2 conditions every step on seed poses; the JAX train CLI
         # fails on such a dataset at the model's cond["seed"] (mdm.py:228)
         raise ValueError(f"--dataset {args.dataset} has no seed poses, which the model "
@@ -71,8 +77,10 @@ def main(argv=None) -> TrainLoop:
         save_interval=args.save_interval, schedule_sampler=args.schedule_sampler,
         ema_rate=args.ema_rate, microbatch_size=args.microbatch_size, seed=args.seed,
     )
+    text_encoder = (get_text_encoder(device=device)
+                    if text_data and not args.unconstrained else None)
     loop = TrainLoop(config, diffusion, model, data, device, platform=platform,
-                     args_to_save=vars(args))
+                     args_to_save=vars(args), text_encoder=text_encoder)
     if args.resume_checkpoint:
         resume = args.resume_checkpoint
         if resume == "latest":

@@ -5,9 +5,10 @@ Counterpart of gesturediffusion_tpu/utils/model_factory.py (:52-110): the
 gesture datasets get MDM V2 with MFCC input, ``humanml`` and ``kit`` the
 MotionMDM of models/mdm_t2m.py (cond_mode ``text``, or ``no_cond`` under
 ``--unconstrained``; 263 and 251 features), each with ff 1024, 4 heads
-and dropout 0.1 as the reference's get_model_args; the diffusion is
-START_X with MSE loss.  The action datasets raise until their slice
-(ROADMAP A12).
+and dropout 0.1 as the reference's get_model_args, and the fused
+training layer under ``--use_fused_train_encoder`` (model_factory.py:90-99);
+the diffusion is START_X with MSE loss.  The action datasets raise until
+their slice (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ def create_model_and_diffusion(args, dataset, device: torch.device):
             ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1, clip_dim=512,
             cond_mode="no_cond" if getattr(args, "unconstrained", False) else "text",
             cond_mask_prob=args.cond_mask_prob,
+            use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
         )
         return model, create_gaussian_diffusion(args, device)
     if args.dataset not in GESTURE_DATASETS:

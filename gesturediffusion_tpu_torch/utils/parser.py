@@ -9,8 +9,7 @@ to the checkpoint, and ``cond_mask_prob == 0`` forces ``guidance_param = 1``.
 are accepted: an unknown flag is an argparse error, and a training flag
 that the port cannot honour yet raises NotImplementedError.  Left out of
 the JAX set because nothing here would read them: ``--emb_trans_dec``
-(trans_dec only), ``--use_audio`` (read by no model), the train CLI's
-``--unconstrained`` (text-to-motion training waits), ``--prng`` (the port
+(trans_dec only), ``--use_audio`` (read by no model), ``--prng`` (the port
 draws from torch generators), edit's ``--no_fast_sampler`` (a gesture
 model samples through its fast path only), the ``--eval_*`` settings (they go
 with ``--eval_during_training``, which raises) and the train CLI's
@@ -49,10 +48,8 @@ def default_output_dir(model_path: str, prefix: str, *parts: str) -> str:
     )
 
 
-def _add_checkpoint_groups(parser: ArgumentParser, sampling: bool = False) -> None:
-    """The dataset, model and diffusion groups; ``sampling`` adds
-    ``--unconstrained``, which only the sampling CLIs read (a text
-    dataset's MotionMDM; its training waits, ROADMAP A11)."""
+def _add_checkpoint_groups(parser: ArgumentParser) -> None:
+    """The dataset, model and diffusion groups."""
     data = parser.add_argument_group("dataset")
     data.add_argument("--dataset", default="genea2023",
                       choices=["genea2022", "genea2023", "humanml", "kit", "humanact12",
@@ -68,9 +65,8 @@ def _add_checkpoint_groups(parser: ArgumentParser, sampling: bool = False) -> No
     model.add_argument("--lambda_rcxyz", default=0.0, type=float)
     model.add_argument("--lambda_vel", default=0.0, type=float)
     model.add_argument("--lambda_fc", default=0.0, type=float)
-    if sampling:
-        model.add_argument("--unconstrained", action="store_true",
-                           help="A text dataset's MotionMDM without conditioning (no_cond).")
+    model.add_argument("--unconstrained", action="store_true",
+                       help="A text dataset's MotionMDM without conditioning (no_cond).")
     model.add_argument("--use_text", action="store_true")
     model.add_argument("--mfcc_input", action="store_true")
     model.add_argument("--use_wav_enc", action="store_true")
@@ -101,7 +97,7 @@ def _sampling_parser(prog: str) -> ArgumentParser:
 def _parse_and_load_from_model(parser: ArgumentParser, argv) -> argparse.Namespace:
     """Parse, then take the dataset, model and diffusion flags from the
     args.json beside the checkpoint (parser.py:parse_and_load_from_model)."""
-    _add_checkpoint_groups(parser, sampling=True)
+    _add_checkpoint_groups(parser)
     args = parser.parse_args(argv)
 
     args.model_path = os.path.normpath(args.model_path)
@@ -120,7 +116,7 @@ def _parse_and_load_from_model(parser: ArgumentParser, argv) -> argparse.Namespa
     return args
 
 
-SAMPLERS = ["ddpm", "ddim", "plms", "dpmpp"]  # plms and dpmpp raise (ROADMAP A3)
+SAMPLERS = ["ddpm", "ddim", "plms", "dpmpp"]
 
 
 def generate_args(argv=None) -> argparse.Namespace:

@@ -366,12 +366,14 @@ def _check_train_kernels(dev, b, t, d, h, f, rate):
 
 
 @pytest.mark.parametrize("b,t,d,h,f", [(64, 81, 256, 4, 1024), (64, 121, 256, 4, 1024),
-                                       (3, 24, 128, 4, 256), (2, 7, 64, 2, 96)])
+                                       (3, 24, 128, 4, 256), (2, 7, 64, 2, 96),
+                                       (4, 197, 512, 4, 1024)])
 @pytest.mark.parametrize("rate", [0.1, 0.0])
 def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
     """Forward and backward kernels against autograd through the plain
     hash-dropout layer, with the same seed (so the same masks); 121 rows is
-    the train CLI's default of 120 frames and the token."""
+    the train CLI's default of 120 frames and the token, [4, 197, 512] the
+    text-to-motion model's layer (heads of 128, 196 frames and the token)."""
     _check_train_kernels(dev, b, t, d, h, f, rate)
 
 
@@ -535,3 +537,56 @@ def test_plain_train_layer_gradcheck_in_float64(dev):
         return encoder_layer_train_plain(x, *ws, seed=3, num_heads=2, rate=0.25)
 
     assert torch.autograd.gradcheck(layer, (x, *w), eps=1e-6, atol=1e-5)
+
+
+def test_t2m_fused_train_steps_match_the_plain_steps(dev):
+    """Two train steps of the humanml-encoder-512 MotionMDM (2 of its 8
+    layers, heads of 128, 197 rows, dropout 0.1, cond_mask_prob 0.1) through
+    the training kernels against the same steps through the plain
+    hash-dropout layer: the same generator draws every mask.  Losses rel
+    5e-4, the first step's gradients within 2e-3 of each one's largest
+    magnitude (chip_smoke.py's TOL_STEP_LOSS and TOL_STEP_GRAD)."""
+    import copy
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig, TrainState, make_optimizer, train_step
+
+    torch.manual_seed(0)
+    model = MotionMDM(latent_dim=512, num_layers=2, ff_size=1024,
+                      use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(model)
+    plain.use_kernels = False
+    rs = np.random.RandomState(13)
+    b = 4
+    lengths = np.array([196, 120, 41, 77])
+    batches = [(_randn(rs, b, 263, 1, 196, scale=0.5, device=dev),
+                {"text_emb": _randn(rs, b, 512, scale=0.1, device=dev),
+                 "mask": torch.from_numpy(np.arange(196)[None] < lengths[:, None])[:, None, None]
+                 .to(dev)},
+                torch.from_numpy(rs.randint(0, 1000, size=b)).to(dev),
+                _randn(rs, b, 263, 1, 196, device=dev)) for _ in range(2)]
+    diffusion = create_diffusion(steps=1000, device=dev)
+
+    def run(m):
+        cfg = TrainConfig(lr=1e-4)
+        state = TrainState(m, *make_optimizer(m.parameters(), cfg), UniformSampler(1000), {})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        losses, grads = [], None
+        for motion, cond, t, noise in batches:
+            losses.append(train_step(state, diffusion, cfg, motion, cond, gen, t, noise)["loss"]
+                          .item())
+            grads = grads or {n: p.grad.clone() for n, p in m.named_parameters()}
+        return losses, grads
+
+    before = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
+    losses, grads = run(model)
+    torch.cuda.synchronize()
+    assert (encoder_layer_train_fwd.launches - before[0],
+            encoder_layer_train_bwd.launches - before[1]) == (4, 4)
+    p_losses, p_grads = run(plain)
+    for a, e in zip(losses, p_losses):
+        assert abs(a - e) <= 5e-4 * abs(e), (a, e)
+    for n, g in p_grads.items():
+        err = (grads[n] - g).abs().max().item()
+        assert err <= 2e-3 * g.abs().max().item() + 1e-12, (n, err)

@@ -263,12 +263,13 @@ def test_gesture_edit_cli_writes_what_jax_writes(runs, tmp_path, no_clip_no_vide
 
 def test_text_datasets_are_refused_where_they_do_not_belong(runs, tmp_path):
     """generate (the gesture generator, JAX generate.py:109-120) and the
-    serve demo name sample.predict; the train CLI names the text-to-motion
-    training item of the ROADMAP."""
+    serve demo name sample.predict; the train CLI, which trains the text
+    datasets, refuses the action datasets up front, naming their item of
+    the ROADMAP."""
     for cli in (generate, demo):
         with pytest.raises(SystemExit, match="sample.predict"):
             cli.main(["--model_path", runs["t2m"], "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_mdm.main(["--dataset", "humanml", "--data_dir", runs["hml"], "--device", "cpu",
-                        "--save_dir", str(tmp_path / "run")])
+    with pytest.raises(NotImplementedError, match="A12"):
+        train_mdm.main(["--dataset", "humanact12", "--data_dir", runs["hml"], "--device",
+                        "cpu", "--save_dir", str(tmp_path / "run")])
     assert not os.path.exists(tmp_path / "run")

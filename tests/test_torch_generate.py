@@ -48,6 +48,17 @@ def test_cli_writes_results_on_cpu(checkpoint, tmp_path):
         assert f.read().split() == ["20", "20", "20"]
 
 
+@pytest.mark.parametrize("sampler,respacing", [("plms", "3"), ("dpmpp", "logsnr3")])
+def test_cli_samples_with_plms_and_dpmpp(checkpoint, tmp_path, sampler, respacing):
+    out = generate.main([
+        "--model_path", checkpoint, "--num_samples", "2", "--device", "cpu",
+        "--sampler", sampler, "--timestep_respacing", respacing,
+        "--output_dir", str(tmp_path / sampler),
+    ])
+    res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+    assert res["motion"].shape == (2, 83, 3, 20) and np.isfinite(res["motion"]).all()
+
+
 def test_args_json_overrides_checkpoint_groups(checkpoint):
     args = generate_args(["--model_path", checkpoint, "--num_frames", "80",
                           "--diffusion_steps", "1000", "--seed", "3"])

@@ -37,7 +37,8 @@ from tests.torch_port_common import (
 )
 
 ARRAYS = (
-    "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+    "betas", "alphas_cumprod", "alphas_cumprod_prev", "alphas_cumprod_next",
+    "sqrt_alphas_cumprod",
     "sqrt_one_minus_alphas_cumprod", "sqrt_recip_alphas_cumprod",
     "sqrt_recipm1_alphas_cumprod", "posterior_variance",
     "posterior_log_variance_clipped", "posterior_mean_coef1",

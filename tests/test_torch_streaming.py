@@ -48,8 +48,8 @@ RTOL, ATOL = 1e-4, 2e-5
 
 @pytest.fixture(scope="module")
 def pair():
-    """(JAX model, params, port model with the same weights); which PRNG
-    drew the weights does not matter, both packages get them."""
+    """(JAX model, params, port model with the same weights), drawn under
+    threefry2x32 whatever PRNG an earlier file left on the worker."""
     return build_pair()
 
 
@@ -66,7 +66,7 @@ def _session(port, **kw):
     return StreamingGestureSession(port, **args)
 
 
-@pytest.mark.parametrize("sampler", ["ddpm", "ddim"])
+@pytest.mark.parametrize("sampler", ["ddpm", "ddim", "plms", "dpmpp"])
 def test_session_equals_the_batch_take(pair, sampler):
     """Streamed chunk by chunk = the batch take from a generator of the same
     seed: the JAX package's streamed-equals-batch invariant, exactly."""
@@ -88,11 +88,9 @@ def test_session_equals_the_batch_take(pair, sampler):
     np.testing.assert_array_equal(got, want)
 
 
-def test_session_matches_jax_under_its_noise(pair):
-    """A 3-chunk DDPM take respaced to 4 steps, streamed, against JAX's
-    batch loop, the session's draws replaced by the JAX chain's keys
-    (fold_in(fold_in(rng, chunk), step))."""
-    jax_model, params, port = pair
+def _session_against_jax(jax_model, params, port):
+    """(the port's streamed take, JAX's batch take) of
+    test_session_matches_jax_under_its_noise."""
     seed0, mfcc = _inputs(2)
     rng = jax.random.PRNGKey(7)
     jd = jax_create_diffusion(steps=STEPS, timestep_respacing=str(SAMPLE_STEPS))
@@ -109,6 +107,32 @@ def test_session_matches_jax_under_its_noise(pair):
     session = _session(port, noise_fn=noise_fn)
     session.start(seed0)
     got = np.stack([session.feed({"mfcc": mfcc[k]}) for k in range(C)])
+    return got, want
+
+
+def test_session_matches_jax_under_its_noise(pair):
+    """A 3-chunk DDPM take respaced to 4 steps, streamed, against JAX's
+    batch loop, the session's draws replaced by the JAX chain's keys
+    (fold_in(fold_in(rng, chunk), step))."""
+    got, want = _session_against_jax(*pair)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_pair_built_after_rbg_draws_the_threefry_weights(pair):
+    """Every JAX CLI leaves the rbg PRNG on its process; a pair built after
+    that draws the weights the tests were written on (threefry2x32), and
+    the streamed take holds against JAX on them under the same tolerance."""
+    before = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "rbg")
+    try:
+        jax_model, params, port = build_pair()
+        assert jax.config.jax_default_prng_impl == "rbg"  # restored by build_pair
+    finally:
+        jax.config.update("jax_default_prng_impl", before)
+    want = pair[2].state_dict()
+    for k, v in port.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
+    got, want = _session_against_jax(jax_model, params, port)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -148,7 +172,7 @@ def test_ddim_and_ddpm_take_the_same_draws():
     generator in the same state."""
     d = create_diffusion(steps=STEPS, timestep_respacing=str(SAMPLE_STEPS), device="cpu")
     states = []
-    for loop in LOOPS.values():
+    for loop in (LOOPS["ddpm"], LOOPS["ddim"]):
         gen = torch.Generator().manual_seed(0)
         loop(d, lambda x, t, c: torch.zeros_like(x), (B, J, 1, T), {}, generator=gen)
         states.append(gen.get_state())
@@ -198,9 +222,8 @@ def test_validation_errors(pair):
         _session(port, diffusion=prebuilt, sample_steps=None, step_spacing="logsnr")
     with pytest.raises(ValueError, match="unknown sampler"):
         _session(port, sampler="euler")
-    for sampler in ("plms", "dpmpp"):
-        with pytest.raises(NotImplementedError, match="A3"):
-            _session(port, sampler=sampler)
+    for sampler in ("plms", "dpmpp"):  # ported: a session takes them
+        _session(port, sampler=sampler)
     with pytest.raises(NotImplementedError, match="A10"):
         _session(port, mesh=object())
 

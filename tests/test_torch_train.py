@@ -325,7 +325,7 @@ def test_flags_the_port_cannot_honour_raise(flag, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--use_fused_encoder"], ["--eval_batch_size", "8"],
-                                  ["--eval_split", "val"], ["--unconstrained"],
+                                  ["--eval_split", "val"], ["--prng", "rbg"],
                                   ["--use_audio"], ["--emb_trans_dec", "true"]])
 def test_flags_no_code_reads_are_refused(flag, tmp_path):
     with pytest.raises(SystemExit):

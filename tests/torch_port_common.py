@@ -4,16 +4,21 @@ A small gesture MDM is built and initialised in the JAX package; its
 weights are carried into the port with utils/convert.py, and inputs are
 made with numpy from a seed so both packages see the same numbers.
 
-``threefry_prng`` pins JAX's default PRNG implementation for a test: the
-JAX train CLI switches the whole process to ``rbg``
-(gesturediffusion_tpu/utils/fixseed.py:set_prng_impl), and a test that
-runs it in-process leaves that on its pytest worker, where every later key
-(init keys of the models whose weights are carried across, the noise keys
-of the sampling chains) would draw other numbers.  A port module that
-draws JAX keys imports the fixture; it is autouse there.
+``threefry()`` pins JAX's default PRNG implementation to threefry2x32 and
+restores the setting it found: every JAX CLI switches the whole process to
+``rbg`` (gesturediffusion_tpu/utils/fixseed.py:set_prng_impl), and a test
+that runs one in-process leaves that on its pytest worker, where every
+later key (the init keys of the models whose weights are carried across,
+the noise keys of the sampling chains) would draw other numbers.  The
+pair-building functions below draw their weights under it, so a
+module-scoped fixture that builds a pair gets the same weights whatever
+ran before it on the worker; the autouse fixture ``threefry_prng``, which a port module that
+draws JAX keys imports, runs each test under it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -31,14 +36,23 @@ from gesturediffusion_tpu_torch.utils.convert import (
     state_dict_from_params,
 )
 
-@pytest.fixture(autouse=True)
-def threefry_prng():
-    """Run the test under JAX's default threefry2x32 PRNG, whatever an
-    earlier test set, and restore the setting after it."""
+@contextlib.contextmanager
+def threefry():
+    """JAX's default PRNG is threefry2x32 inside, whatever an earlier test
+    set; the setting found is restored on the way out."""
     before = jax.config.jax_default_prng_impl
     jax.config.update("jax_default_prng_impl", "threefry2x32")
-    yield
-    jax.config.update("jax_default_prng_impl", before)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_default_prng_impl", before)
+
+
+@pytest.fixture(autouse=True)
+def threefry_prng():
+    """Run the test under threefry2x32 (``threefry()``)."""
+    with threefry():
+        yield
 
 
 # J=12, D=64, 2 encoder layers of 4 heads, 8 local heads, window 5
@@ -69,9 +83,10 @@ def build_pair(use_text: bool = False, use_fused_encoder: bool = False, t: int =
     kw = dict(SMALL, use_text=use_text, text_dim=16 if use_text else 64, **overrides)
     jax_model = JaxMDM(**kw, use_fused_encoder=use_fused_encoder)
     x, t_ids, cond = make_inputs(2, t, use_text=use_text)
-    params = jax_model.init(
-        jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t_ids), to_jax(cond)
-    )
+    with threefry():
+        params = jax_model.init(
+            jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t_ids), to_jax(cond)
+        )
     params = jax.tree_util.tree_map(np.asarray, params)
     port = MDM(**kw)
     port.load_state_dict(state_dict_from_params(params, cl_head=kw["cl_head"]))
@@ -104,8 +119,9 @@ def build_t2m_pair(cond_mode: str = "text", njoints: int = 263,
     kw = dict(SMALL_T2M, njoints=njoints, cond_mode=cond_mode, **overrides)
     jax_model = JaxMotionMDM(**kw, use_fused_encoder=use_fused_encoder)
     x, t, cond = make_t2m_inputs(2, njoints, cond_mode)
-    params = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t),
-                            to_jax(cond))
+    with threefry():
+        params = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t),
+                                to_jax(cond))
     params = jax.tree_util.tree_map(np.array, params)
     if cond_mode == "action":
         bias = params["params"]["embed_action"]["bias"]
@@ -126,7 +142,8 @@ def to_torch(tree: dict, device="cpu") -> dict:
 def jax_layer_params(d: int, h: int, f: int, seed: int = 0):
     """(flax TransformerEncoderLayer, its params as numpy)."""
     layer = JaxLayer(d_model=d, num_heads=h, dim_feedforward=f, dropout=0.0)
-    params = layer.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4, d)))["params"]
+    with threefry():
+        params = layer.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4, d)))["params"]
     return layer, jax.tree_util.tree_map(np.asarray, params)
 
 

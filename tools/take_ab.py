@@ -14,9 +14,12 @@ steps, CFG batch 82) and the 1200-frame take (41 x 2 x 20 steps), each run
 once to warm up and then timed three times, then the full-width train step
 of chip_smoke.py's phase 5 (batch 256 = 4 x 64 at 80 frames, dropout 0.1,
 the fused training layer, injected timesteps and noise), run six times,
-with the same seeded weights and inputs in every tree.  One line a tree:
-the median ms per denoise step and chunks/s of each take and the median ms
-and samples/s of train steps 2-6, with the card's name and power limit.
+with the same seeded weights and inputs in every tree, then a
+text-to-motion denoise step of phase 10's model at CFG batch 6 and 64
+(three runs of 20 steps by CUDA events).  One line a tree: the median ms
+per denoise step and chunks/s of each take, the median ms and samples/s of
+train steps 2-6 and the median t2m step, with the card's name and power
+limit.
 Needs a CUDA card.
 """
 
@@ -71,7 +74,41 @@ def one_tree(root: str) -> dict:
                                  "chunks_per_s": cs.B_TAKES * cs.CHUNKS / take_s}
     ms = train_step_ms(cs, gen)
     result["train"] = {"ms": ms, "samples_per_s": cs.BATCH / ms * 1e3}
+    result["t2m"] = t2m_step_ms(cs, gen)
     return result
+
+
+def t2m_step_ms(cs, gen) -> dict:
+    """Median ms of a text-to-motion denoise step (chip_smoke.py's phase-10
+    model, CFG batch 6 and 64, through the kernels) over three runs of 20."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample
+    from gesturediffusion_tpu_torch.models.cfg import classifier_free_guidance
+    from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda")
+    torch.manual_seed(4)
+    model = MotionMDM(njoints=cs.T2M_J, latent_dim=cs.T2M_D, ff_size=cs.FF,
+                      num_layers=cs.LAYERS, num_heads=cs.HEADS, cond_mode="text",
+                      cond_mask_prob=0.1).to(dev).eval()
+    guided = classifier_free_guidance(model, 0.1)
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                 timestep_respacing=cs.T2M_RESPACING, device=dev)
+    out = {}
+    for b in (cs.T2M_REPS, cs.T2M_BIG):
+        shape = (b, cs.T2M_J, 1, cs.T2M_FRAMES)
+        x = torch.randn(shape, generator=gen, device=dev)
+        noise = torch.randn(shape, generator=gen, device=dev)
+        cond = {"text_emb": torch.randn(b, 512, generator=gen, device=dev) * 0.1,
+                "scale": torch.full((b,), cs.GUIDANCE, device=dev)}
+        t = torch.full((b,), diffusion.num_timesteps // 2, dtype=torch.long, device=dev)
+        runs = [cs.cuda_time_ms(lambda: p_sample(diffusion, guided, x, t, cond, noise), 20, 3)
+                for _ in range(3)]
+        out[f"CFG {2 * b}"] = sorted(runs)[1]
+    return out
 
 
 def train_step_ms(cs, gen) -> float:
@@ -136,7 +173,8 @@ def main(argv: list[str]) -> int:
         print(f"take A/B {root}: " + ", ".join(
             f"{k} {v['ms_per_step']:.3f} ms/step = {v['chunks_per_s']:.3f} chunks/s"
             for k, v in r.items() if k.startswith("T=")) + f", train step {r['train']['ms']:.3f} "
-            f"ms = {r['train']['samples_per_s']:.1f} samples/s [{smi}]", flush=True)
+            f"ms = {r['train']['samples_per_s']:.1f} samples/s, t2m step " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in r["t2m"].items()) + f" [{smi}]", flush=True)
     return 0
 
 
