@@ -103,6 +103,21 @@ Phases, each fatal on failure:
               predict CLI on its checkpoint (kernel 1 counted) and a batch
               of 32 prompts on it (CFG batch 64); the flash kernel alone at
               [6, 4, 197, 128] and [64, 4, 197, 128]
+ 13. a2m-train action-to-motion training: a synthetic SMPL pickle at 6890
+              vertices (SMPL_MODEL_PATH), synthetic HumanAct12 (128 clips)
+              and UESTC (160 videos) trees; the training losses' SMPL joints
+              (rotation2xyz, the kinematic chain only) on the card against
+              the CPU; kernels 5 and 6 at [64, 61, 512] against their plain
+              versions and their times; 5 steps of the action-mode MotionMDM
+              (25 rows of rot6d, D 512, 8 layers of heads of 128) at batch
+              64 with the recipe's lambdas (rcxyz, vel, fc) through the
+              kernels against the plain steps, a profiled step with its
+              idle share and the fk / SMPL share of its device time; the
+              train CLI --dataset humanact12 and uestc with the recipe's
+              flags (20 steps each, launches counted); the humanact12
+              checkpoint read back in the reference layout, 12 actions
+              sampled from it (DDPM respaced to 50: kernel 1 at
+              [12, 61, 512]) against the plain take, kernel 1's times there
 Every kernel's products run on the tensor cores in 3xTF32.  Kernel times
 (`ms` in the kernels line) are CUDA events over back-to-back calls, the
 wrapper's host work included, for all six kernels; for the band and
@@ -176,6 +191,16 @@ SAMPLER_STEPS, SAMPLER_CHUNKS = 20, 5
 # phase 12: the phase-10 model trained at batch 64 (196 frames + the token);
 # a synthetic HumanML3D tree whose train split holds 80 clips
 T2M_TRAIN_STEPS, T2M_TRAIN_CLIPS = 5, 240
+# phase 13: the action-mode MotionMDM (25 rows of rot6d, D 512, 8 layers of
+# 4 heads of 128) trained at batch 64 on 60 frames + the token, the
+# recipe's geometric losses through SMPL at the real asset's 6890 vertices;
+# synthetic HumanAct12 (128 clips) and UESTC (160 videos, 80 of them in the
+# train split) trees; 12 actions sampled from the trained checkpoint
+A2M_J, A2M_F, A2M_FRAMES, A2M_VERTS = 25, 6, 60, 6890
+A2M_CLIPS, UESTC_VIDEOS, A2M_STEPS, A2M_ACTIONS = 128, 160, 5, 12
+RECIPE = ("--cond_mask_prob", "0", "--lambda_rcxyz", "1", "--lambda_vel", "1",
+          "--lambda_fc", "1")
+TOL_SMPL = 1e-4          # f32 joints on the card against the CPU: 23 chained 4x4 products
 
 
 def log(msg: str) -> None:
@@ -1400,11 +1425,260 @@ def t2m_train_phase(randn, rs, card):
     return out_rows, total, big_launches
 
 
-def device_profile(step, steps, label, card, host_rows=0, groups=None):
+def a2m_train_phase(randn, rs, card):
+    """Phase 13: action-to-motion training on the card.  A synthetic SMPL
+    pickle at 6890 vertices (SMPL_MODEL_PATH), synthetic HumanAct12 and
+    UESTC trees; the training losses' fk_fn (rotation2xyz to SMPL's smpl
+    joints) on the card against the CPU under TOL_SMPL; kernels 5 and 6 at
+    [64, 61, 512] against their plain versions and their times;
+    A2M_STEPS steps of the action-mode MotionMDM at batch 64 with the
+    recipe's lambdas through the training kernels against the plain steps,
+    a profiled step and the fk / SMPL share of its device time; the train
+    CLI on humanact12 and on uestc (20 steps each, launches counted); the
+    humanact12 checkpoint read back in the reference layout and 12 actions
+    sampled from it (DDPM respaced to 50, kernel 1 at [12, 61, 512])
+    against the plain take, and kernel 1's times at that shape.  Returns
+    the kernel rows of these shapes and the launches of the phase's
+    paths."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.a2m import make_synthetic_humanact12
+    from gesturediffusion_tpu_torch.data.uestc import make_synthetic_uestc
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample_loop
+    from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+    from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
+    from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle, save_synthetic_smpl_pickle
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.ops.rotations import (
+        matrix_to_rotation_6d,
+        rotation_6d_to_matrix,
+    )
+    from gesturediffusion_tpu_torch.train import train_mdm
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig, TrainState, make_optimizer
+    from gesturediffusion_tpu_torch.train.loop import train_step
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+
+    dev = torch.device("cuda")
+    counted, total = launch_counter({
+        "encoder_layer": fused_encoder_layer, "flash_attention": fused_self_attention,
+        "encoder_layer_train_fwd": encoder_layer_train_fwd,
+        "encoder_layer_train_bwd": encoder_layer_train_bwd})
+    rows, dh = A2M_FRAMES + 1, T2M_D // HEADS
+
+    # ---- the body model and the trees ---------------------------------------- #
+    base = os.path.join(HERE, "build", "chip_smoke", "a2m")
+    os.makedirs(base, exist_ok=True)
+    t0 = time.perf_counter()
+    smpl_path = save_synthetic_smpl_pickle(os.path.join(base, "smpl.pkl"), n_vertices=A2M_VERTS)
+    os.environ["SMPL_MODEL_PATH"] = smpl_path
+    ha12 = make_synthetic_humanact12(os.path.join(base, "humanact12"), n_clips=A2M_CLIPS)
+    uestc = make_synthetic_uestc(os.path.join(base, "uestc"), n_videos=UESTC_VIDEOS,
+                                 n_actions=40, min_frames=64, max_frames=100)
+    smpl_cpu = load_smpl_pickle(smpl_path)
+    smpl = load_smpl_pickle(smpl_path).to(dev)
+    log(f"a2m: a synthetic SMPL pickle of {A2M_VERTS} vertices "
+        f"({os.path.getsize(smpl_path) / 1e6:.1f} MB), a HumanAct12 tree of {A2M_CLIPS} clips "
+        f"and a UESTC tree of {UESTC_VIDEOS} videos written in {time.perf_counter() - t0:.1f} s")
+
+    def fk_on(body):
+        def fk_fn(sample):
+            return rotation2xyz(body, sample, pose_rep="rot6d", translation=True, glob=True,
+                                jointstype="smpl", vertstrans=False)
+        return fk_fn
+
+    fk_fn = fk_on(smpl)
+
+    def a2m_motion(b):
+        """Rot6d rows of random rotations and a translation row [B, 25, 6, T]."""
+        rot = matrix_to_rotation_6d(rotation_6d_to_matrix(randn(b, 24, A2M_FRAMES, 6, scale=0.3)))
+        trans = torch.zeros(b, 1, A2M_FRAMES, 6, device=dev)
+        trans[..., :3] = torch.cumsum(randn(b, 1, A2M_FRAMES, 3, scale=0.01), dim=2)
+        return torch.cat([rot, trans], dim=1).permute(0, 1, 3, 2).contiguous()
+
+    # ---- SMPL's joints on the card against the CPU ---------------------------- #
+    motion0 = a2m_motion(MB)
+    got = fk_fn(motion0)
+    want = fk_on(smpl_cpu)(motion0.cpu())
+    smpl_err = (got.cpu() - want).abs().max().item()
+    report(f"rotation2xyz smpl joints on the card vs the CPU ([{MB},{A2M_J},{A2M_F},{A2M_FRAMES}]"
+           f" rot6d -> [{MB},24,3,{A2M_FRAMES}], {A2M_VERTS} vertices, the chain only; |xyz| max "
+           f"{want.abs().max().item():.3f})", smpl_err, TOL_SMPL,
+           tuple(got.shape) == (MB, 24, 3, A2M_FRAMES) and bool(torch.isfinite(got).all()))
+
+    # ---- kernels 5 and 6 at the a2m shape -------------------------------------- #
+    w = layer_weights(randn, T2M_D, FF)
+    xt, gt = randn(MB, rows, T2M_D), randn(MB, rows, T2M_D)
+    seed = torch.tensor([20242], dtype=torch.int32, device=dev)
+    fwd_err, bwd_err = check_train_layer(xt, gt, w, seed)
+    times = train_kernel_times(xt, gt, w, seed, iters=20)
+    shape = f"[{MB},{rows},{T2M_D}] heads {HEADS} of {dh}"
+    time_line(f"encoder_layer_train_fwd {shape}", *times["fwd"], card, tf32x3=True)
+    time_line(f"encoder_layer_train_bwd {shape} (plain and library: forward + backward)",
+              *times["bwd"], card, tf32x3=True)
+
+    # ---- train steps through the kernels against the plain steps ------------- #
+    torch.manual_seed(6)
+    model = MotionMDM(njoints=A2M_J, nfeats=A2M_F, latent_dim=T2M_D, ff_size=FF,
+                      num_layers=LAYERS, num_heads=HEADS, dropout=RATE, cond_mode="action",
+                      num_actions=A2M_ACTIONS, cond_mask_prob=0.0,
+                      use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(model)
+    plain.use_kernels = False
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, lambda_rcxyz=1.0,
+                                 lambda_vel=1.0, lambda_fc=1.0, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=MB)
+    lengths = rs.randint(40, A2M_FRAMES + 1, size=MB)
+    mask = torch.from_numpy(np.arange(A2M_FRAMES)[None] < lengths[:, None])[:, None, None]
+    batches = [dict(motion=motion0 if i == 0 else a2m_motion(MB),
+                    cond={"action": torch.from_numpy(rs.randint(0, A2M_ACTIONS, size=MB)).to(dev),
+                          "mask": mask.to(dev)},
+                    t=torch.from_numpy(rs.randint(0, 1000, size=MB)).to(dev),
+                    noise=randn(MB, A2M_J, A2M_F, A2M_FRAMES)) for i in range(A2M_STEPS)]
+    compare_train_steps(model, plain, diffusion, cfg, batches, LAYERS,
+                        f"batch {MB}, [{MB},{rows},{T2M_D}], heads of {dh}, the recipe's "
+                        f"geometric losses through SMPL", f"{LAYERS} layers", card, fk_fn=fk_fn)
+    total["encoder_layer_train_fwd"] += LAYERS * A2M_STEPS
+    total["encoder_layer_train_bwd"] += LAYERS * A2M_STEPS
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg), UniformSampler(1000), {})
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b0 = batches[0]
+
+    def fk_spanned(sample):
+        with torch.profiler.record_function("fk"):
+            return fk_fn(sample)
+
+    step = device_profile(
+        lambda: train_step(state, diffusion, cfg, b0["motion"], b0["cond"], gen, b0["t"],
+                           b0["noise"], fk_fn=fk_spanned),
+        3, f"a2m train step (batch {MB}, [{MB},{rows},{T2M_D}], fk through SMPL)", card,
+        host_rows=8, groups=train_kernel_group, ranges=("fk",))
+    fk_ms, fk_launches = step["ranges"]["fk"]
+    log(f"time a2m train step: fk / SMPL (the target's and the prediction's joints and the "
+        f"prediction's backward through them, in the step's own profile) {fk_ms:.4f} of "
+        f"{step['busy_ms']:.4f} ms of device time = {fk_ms / step['busy_ms']:.3f} of the "
+        f"step's, {fk_launches} of its {step['launches']} launches; idle share "
+        f"{step['idle']:.3f}; {MB / step['ms'] * 1e3:.1f} samples/s profiled {card}")
+    if not 0 < fk_ms < step["busy_ms"]:
+        raise AssertionError("the profile found no fk work in the a2m step")
+
+    # ---- the train CLI on both datasets --------------------------------------- #
+    clis = {}
+    for name, root in (("humanact12", ha12), ("uestc", uestc)):
+        save_dir = os.path.join(base, f"run_{name}")
+        t0 = time.perf_counter()
+        loop, launches = counted(lambda: train_mdm.main([
+            "--dataset", name, "--data_dir", root, "--save_dir", save_dir, "--overwrite",
+            "--latent_dim", str(T2M_D), "--batch_size", str(MB), "--num_frames",
+            str(A2M_FRAMES), "--use_fused_train_encoder", "--num_steps", str(CLI_STEPS),
+            "--log_interval", "10", *RECIPE]))
+        cli_s = time.perf_counter() - t0
+        want = LAYERS * CLI_STEPS
+        ckpt = os.path.join(save_dir, f"model{CLI_STEPS:09d}.pt")
+        ok = (loop.state.step == CLI_STEPS and os.path.exists(ckpt) and loop.fk_fn is not None
+              and launches["encoder_layer_train_fwd"] == want
+              and launches["encoder_layer_train_bwd"] == want
+              and loop.state.nonfinite_skips == 0)
+        log(f"{'OK' if ok else 'FAIL'} train CLI --dataset {name} --latent_dim {T2M_D} "
+            f"--batch_size {MB} --num_frames {A2M_FRAMES} --use_fused_train_encoder "
+            f"{' '.join(RECIPE)}: {CLI_STEPS} steps in {cli_s:.1f} s (data set-up included); "
+            f"{loop.state.model.embed_action.action_embedding.shape[0]} actions; launches fwd "
+            f"{launches['encoder_layer_train_fwd']} bwd {launches['encoder_layer_train_bwd']} "
+            f"(expected {want} each) {card}")
+        if not ok:
+            raise AssertionError(f"the {name} train CLI missed its steps or kernels")
+        clis[name] = ckpt
+
+    # ---- the humanact12 checkpoint, read back and sampled ---------------------- #
+    sd = load_checkpoint(clis["humanact12"])
+    ref = MotionMDM(njoints=A2M_J, nfeats=A2M_F, latent_dim=T2M_D, ff_size=FF,
+                    num_layers=LAYERS, num_heads=HEADS, cond_mode="action",
+                    num_actions=A2M_ACTIONS, cond_mask_prob=0.0)
+    ok = (set(sd) == set(ref.state_dict()) and "embed_action.bias" not in sd
+          and tuple(sd["embed_action.action_embedding"].shape) == (A2M_ACTIONS, T2M_D))
+    ref.load_state_dict(sd)  # strict: the reference layout, the bias folded
+    ref = ref.to(dev).eval()
+    log(f"{'OK' if ok else 'FAIL'} the humanact12 checkpoint holds the reference layout "
+        f"({len(sd)} tensors, embed_action.action_embedding {tuple(sd['embed_action.action_embedding'].shape)}, "
+        f"no bias) and loads strictly")
+    if not ok:
+        raise AssertionError("the a2m checkpoint is not in the reference layout")
+    sampler = create_diffusion(noise_schedule="cosine", steps=1000, timestep_respacing=RESPACING,
+                               device=dev)
+    cond = {"action": torch.arange(A2M_ACTIONS, device=dev)}
+    shape_ = (A2M_ACTIONS, A2M_J, A2M_F, A2M_FRAMES)
+
+    def take():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        return p_sample_loop(sampler, ref, shape_, cond, generator=gen)
+
+    with torch.no_grad():
+        out, launches = counted(take)
+        take_launches = launches
+        ref.use_kernels = False
+        out_plain = take()
+        ref.use_kernels = True
+    want = {"encoder_layer": STEPS * LAYERS, "flash_attention": STEPS * LAYERS,
+            "encoder_layer_train_fwd": 0, "encoder_layer_train_bwd": 0}
+    xyz = fk_fn(out)
+    take_err = (out - out_plain).abs().max().item()
+    report(f"a2m take ({A2M_ACTIONS} actions, one each, DDPM respaced to {STEPS}, "
+           f"[{A2M_ACTIONS},{rows},{T2M_D}]) vs plain versions on the card; launches {launches} "
+           f"(expected {want}); xyz {tuple(xyz.shape)} (|out| max "
+           f"{out_plain.abs().max().item():.3f})", take_err, TOL_TAKE,
+           launches == want and bool(torch.isfinite(xyz).all()))
+
+    # ---- kernel 1 at the sampling shape ---------------------------------------- #
+    x1 = randn(A2M_ACTIONS, rows, T2M_D)
+    got = fused_encoder_layer(x1, *w, num_heads=HEADS)
+    enc_err = (got - encoder_layer_plain(x1, *w, num_heads=HEADS)).abs().max().item()
+    report(f"encoder_layer [{A2M_ACTIONS},{rows},{T2M_D}] heads {HEADS} of {dh} ff {FF}",
+           enc_err, TOL_ENCODER, got.shape == x1.shape)
+    ms = cuda_time_ms(lambda: fused_encoder_layer(x1, *w, num_heads=HEADS), 50, 5)
+    plain_ms = cuda_time_ms(lambda: encoder_layer_plain(x1, *w, num_heads=HEADS), 20, 3)
+    lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(x1, *w, HEADS), 20, 3)
+    m = A2M_ACTIONS * rows
+    flops = 2 * m * (4 * T2M_D * T2M_D + 2 * T2M_D * FF) + 4 * A2M_ACTIONS * rows**2 * T2M_D
+    nbytes = 4 * (2 * m * T2M_D + sum(t.numel() for t in w))
+    bound, by = bound_ms(flops, nbytes, tf32x3=True)
+    time_line(f"encoder_layer [{A2M_ACTIONS},{rows},{T2M_D}] heads {HEADS} of {dh}", ms,
+              plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+
+    out_rows = [
+        {"name": f"encoder_layer_train_{k}_a2m_{MB}x{rows}x{T2M_D}", "route": "cuda",
+         "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
+         "replaces": f"gesturediffusion_tpu/ops/pallas_encoder_train.py:{line}",
+         "launches": total[f"encoder_layer_train_{k}"], "max_abs_err": err,
+         **time_keys(times[k])}
+        for k, line, err in (("fwd", 249, fwd_err), ("bwd", 273, bwd_err))]
+    out_rows.append({
+        "name": f"encoder_layer_a2m_{A2M_ACTIONS}x{rows}x{T2M_D}", "route": "cuda",
+        "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
+        "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
+        "launches": take_launches["encoder_layer"], "max_abs_err": enc_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    return out_rows, total
+
+
+def device_profile(step, steps, label, card, host_rows=0, groups=None, ranges=()):
     """Device time by kernel over ``steps`` calls of ``step`` (torch.profiler,
     CUPTI), the device's idle share of an unprofiled call, with ``groups``
     (kernel name -> label or None) the time summed by label and, with
-    ``host_rows``, the host ops with the most self CPU time."""
+    ``host_rows``, the host ops with the most self CPU time.  Returns the
+    call's ms, the device's busy ms, the idle share, the device kernels a
+    call launches and, for each ``record_function`` range named in
+    ``ranges``, the device ms and launches a call of its work
+    (``range_device_time``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1419,6 +1693,8 @@ def device_profile(step, steps, label, card, host_rows=0, groups=None):
             # an op's device time repeats the time of the kernels it launched
             host.append((e.self_cpu_time_total / steps / 1e3, e.count // steps, e.key))
             continue
+        if e.key in ranges:
+            continue  # a range's span on the device, not a kernel
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -1426,9 +1702,10 @@ def device_profile(step, steps, label, card, host_rows=0, groups=None):
             rows.append((us / steps / 1e3, e.count // steps, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    idle = max(0.0, 1 - busy_ms / step_ms)
     log(f"profile: {label} {step_ms:.4f} ms (CUDA events, unprofiled); kernels "
-        f"{busy_ms:.4f} ms/step on the device -> idle share "
-        f"{max(0.0, 1 - busy_ms / step_ms):.3f} {card}")
+        f"{busy_ms:.4f} ms/step on the device, {sum(r[1] for r in rows)} launches a step -> "
+        f"idle share {idle:.3f} {card}")
     for ms, n, name in rows[:14]:
         log(f"  {ms:.4f} ms/step {100 * ms / busy_ms:5.1f}%  x{n}  {name[:90]}")
     if groups is not None:
@@ -1445,6 +1722,52 @@ def device_profile(step, steps, label, card, host_rows=0, groups=None):
         log(f"  host: {sum(h[0] for h in host):.4f} ms/step of self CPU time in ops; top:")
         for ms, n, name in host[:host_rows]:
             log(f"  host {ms:.4f} ms/step  x{n}  {name[:80]}")
+    spans = {}
+    if ranges:
+        events = prof.events()
+        for name in ranges:
+            ms, n = range_device_time(events, name)
+            spans[name] = (ms / steps, n // steps)
+    return {"ms": step_ms, "busy_ms": busy_ms, "idle": idle,
+            "launches": sum(r[1] for r in rows), "ranges": spans}
+
+
+def range_device_time(events, name):
+    """(device ms, launches) of the kernels that the ops inside the
+    ``record_function`` ranges called ``name`` launched, and of those that
+    their autograd nodes launched in the backward: a node is the range's
+    where its sequence number and forward thread are those of an op inside
+    it.  A kernel belongs to the innermost op that launched it."""
+    import bisect
+
+    import torch
+
+    by_thread = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and not e.is_async:
+            by_thread.setdefault(e.thread, []).append(e)
+    starts = {}
+    for th, evs in by_thread.items():
+        evs.sort(key=lambda e: e.time_range.start)
+        starts[th] = [e.time_range.start for e in evs]
+
+    def inside(span):
+        evs, st = by_thread[span.thread], starts[span.thread]
+        i = bisect.bisect_left(st, span.time_range.start)
+        while i < len(evs) and evs[i].time_range.start <= span.time_range.end:
+            if evs[i].time_range.end <= span.time_range.end:
+                yield evs[i]
+            i += 1
+
+    spans = [e for evs in by_thread.values() for e in evs if e.name == name]
+    ops = [op for span in spans for op in inside(span)]
+    seqs = {(op.thread, op.sequence_nr) for op in ops if op.sequence_nr >= 0}
+    nodes = [e for evs in by_thread.values() for e in evs
+             if e.name.startswith("autograd::engine::evaluate_function: ")
+             and (e.fwd_thread, e.sequence_nr) in seqs]
+    kernels = [k for op in ops for k in op.kernels]
+    kernels += [k for node in nodes for op in inside(node) for k in op.kernels]
+    return sum(k.duration for k in kernels) / 1e3, len(kernels)
 
 
 def profile_denoise_step(model, diffusion, chunk_conds, init_seed, card, steps=10):
@@ -1763,10 +2086,11 @@ def train_phase(dev, randn, rs, card):
     return model, diffusion, cfg, batches[0]
 
 
-def run_train_steps(model, diffusion, cfg, batches):
-    """train_step over ``batches`` (injected t and noise) from a fresh
-    optimizer and generator: (losses, the first step's gradients, the
-    median ms of steps 2 on, (peak MiB, MiB above the start))."""
+def run_train_steps(model, diffusion, cfg, batches, fk_fn=None):
+    """train_step over ``batches`` (injected t and noise; ``fk_fn`` to the
+    geometric losses) from a fresh optimizer and generator: (losses, the
+    first step's gradients, the median ms of steps 2 on, (peak MiB, MiB
+    above the start))."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
@@ -1783,7 +2107,7 @@ def run_train_steps(model, diffusion, cfg, batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
-                             b["noise"])
+                             b["noise"], fk_fn=fk_fn)
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -1796,7 +2120,8 @@ def run_train_steps(model, diffusion, cfg, batches):
             (peak / 2**20, (peak - base) / 2**20))
 
 
-def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, why, card):
+def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, why, card,
+                        fk_fn=None):
     """The steps through the training kernels (``per_step`` forward and
     backward launches a step, counted) against the same steps through the
     plain layers, under TOL_STEP_LOSS and TOL_STEP_GRAD; prints ms a step,
@@ -1808,7 +2133,7 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
 
     n, b = len(batches), batches[0]["motion"].shape[0]
     encoder_layer_train_fwd.launches = encoder_layer_train_bwd.launches = 0
-    losses, grads, step_ms, peak = run_train_steps(model, diffusion, cfg, batches)
+    losses, grads, step_ms, peak = run_train_steps(model, diffusion, cfg, batches, fk_fn)
     launches = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
     want = per_step * n
     finite = all(math.isfinite(x) for x in losses)
@@ -1817,7 +2142,7 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
         f"bwd {launches[1]} (expected {want} each: {why} a step)")
     if launches != (want, want) or not finite:
         raise AssertionError("train steps: wrong launch counts or a non-finite loss")
-    p_losses, p_grads, p_step_ms, p_peak = run_train_steps(plain, diffusion, cfg, batches)
+    p_losses, p_grads, p_step_ms, p_peak = run_train_steps(plain, diffusion, cfg, batches, fk_fn)
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, p_losses))
     grad_err = max((grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
                    for k, g in p_grads.items())
@@ -2152,6 +2477,9 @@ def main() -> int:
     t2m_rows[0]["launches"] += t2m_train["encoder_layer"] - t2m_big["encoder_layer"]
     t2m_rows[1]["launches"] += t2m_big["encoder_layer"]
 
+    # ---- 13. action-to-motion training ---------------------------------- #
+    a2m_rows, a2m = a2m_train_phase(randn, rs, card)
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
@@ -2185,8 +2513,8 @@ def main() -> int:
         *long_rows,
     ]
     kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
-                                + samplers["flash_attention"])
-    kernels += t2m_rows + t2m_train_rows
+                                + samplers["flash_attention"] + a2m["flash_attention"])
+    kernels += t2m_rows + t2m_train_rows + a2m_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

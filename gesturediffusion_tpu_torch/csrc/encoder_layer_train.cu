@@ -35,7 +35,12 @@
 //   * the wgmma GEMM of gemm_tf32x3.cuh (shared with the inference layer),
 //     which takes either operand along K or transposed, so the forward
 //     products (A . W^T), the data gradients (dY . W) and the weight
-//     gradients (dY^T . X, a reduction over all B*T rows) share it.  The
+//     gradients (dY^T . X, a reduction over all B*T rows) share it.  Every
+//     product here flushes its accumulator into an f32 sum every 128 of K
+//     (kFwdFlush, kDataGradFlush, kWeightGradFlush): unflushed, the
+//     action-to-motion step's gradients stood ~8x further from the exact
+//     ones than plain f32's, and the rot6d losses amplify that past the
+//     step tolerance (tools/a2m_f64_check.py).  The
 //     weight gradients split the row reduction into chunks that fill the
 //     card and add the partial sums in a second pass, in a fixed order:
 //     deterministic, no atomics.  Fused epilogues apply bias, GELU-tanh,
@@ -717,11 +722,21 @@ struct Dims {
   int B, T, D, F, H, M;
 };
 
+// K slices of kTcBK between the GEMM accumulator's flushes into its f32
+// sum (gemm_tf32x3.cuh), for the forward products (also recomputed in the
+// backward), the data gradients and the weight gradients.  Measured on an
+// H100 by tools/flush_ab.py: every 256 of K saves ~1% and doubles the a2m
+// gradients' distance from float64; every 64 halves it for 1-3% more time;
+// every 32 brings the model output to plain f32's error for 12-28% more;
+// flushing only the gradients' products leaves them where the unflushed
+// GEMM had them (the forward's error is the one the rot6d losses amplify).
+constexpr int kFwdFlush = 4, kDataGradFlush = 4, kWeightGradFlush = 4;
+
 // C[M, N] = epi(A[M, K] . W[K, N]): the data gradients (W in [out, in])
 template <int EPI>
 cudaError_t gemm_nn(const float* A, const float* W, float* C, int M, int N, int K,
                     const EpiArgs& ep, cudaStream_t s) {
-  return gemm_tf32x3<true, false, EPI>(A, W, C, M, N, K, K, N, 1, K, ep, s);
+  return gemm_tf32x3<true, false, EPI, kDataGradFlush>(A, W, C, M, N, K, K, N, 1, K, ep, s);
 }
 
 // How many row chunks a weight gradient [I, J] over M rows is split into,
@@ -743,10 +758,11 @@ cudaError_t weight_grad(const float* dY, const float* X, float* dW, float* part,
   int chunk;
   const int splits = weight_grad_splits(I, J, M, &chunk);
   const EpiArgs ep{};
-  if (splits == 1) return gemm_tf32x3<false, false, kPlain>(dY, X, dW, I, J, M, I, J, 1, chunk,
-                                                            ep, s);
-  const cudaError_t e =
-      gemm_tf32x3<false, false, kPlain>(dY, X, part, I, J, M, I, J, splits, chunk, ep, s);
+  if (splits == 1)
+    return gemm_tf32x3<false, false, kPlain, kWeightGradFlush>(dY, X, dW, I, J, M, I, J, 1,
+                                                               chunk, ep, s);
+  const cudaError_t e = gemm_tf32x3<false, false, kPlain, kWeightGradFlush>(
+      dY, X, part, I, J, M, I, J, splits, chunk, ep, s);
   const int n = I * J;
   sum_splits_kernel<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       part, dW, n, splits);
@@ -791,20 +807,21 @@ cudaError_t forward_chain(const float* x, const Weights& w, const Drop& drop,
   const int M = n.M, D = n.D, F = n.F;
   const long long dh = D / n.H, t = n.T;
   const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
-  cudaError_t e = gemm_nt<kBias>(x, w.wqkv, qkv, M, 3 * D, D, EpiArgs{w.bqkv}, s);
+  cudaError_t e = gemm_nt<kBias, kFwdFlush>(x, w.wqkv, qkv, M, 3 * D, D, EpiArgs{w.bqkv}, s);
   if (e == cudaSuccess)
     e = flash_attention<true>(qkv, qkv + D, qkv + 2 * D, o, packed, packed, packed, rows, n.B,
                               n.H, n.T, D / n.H, scale, drop, lse, s);
   if (e == cudaSuccess)
-    e = gemm_nt<kBiasResid>(o, w.wo, u, M, D, D,
-                            EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn}, s);
+    e = gemm_nt<kBiasResid, kFwdFlush>(o, w.wo, u, M, D, D,
+                                       EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn},
+                                       s);
   if (e != cudaSuccess) return e;
   layernorm(u, w.ln1_w, w.ln1_b, y1, M, D, s);
-  e = gemm_nt<kBiasGelu>(y1, w.w1, hd, M, F, D, EpiArgs{w.b1, nullptr, nullptr, h1, drop,
-                                                        kSiteAct}, s);
+  e = gemm_nt<kBiasGelu, kFwdFlush>(y1, w.w1, hd, M, F, D,
+                                    EpiArgs{w.b1, nullptr, nullptr, h1, drop, kSiteAct}, s);
   if (e == cudaSuccess)
-    e = gemm_nt<kBiasResid>(hd, w.w2, v2, M, D, F,
-                            EpiArgs{w.b2, y1, nullptr, nullptr, drop, kSiteFF}, s);
+    e = gemm_nt<kBiasResid, kFwdFlush>(hd, w.w2, v2, M, D, F,
+                                       EpiArgs{w.b2, y1, nullptr, nullptr, drop, kSiteFF}, s);
   if (e == cudaSuccess && out != nullptr) layernorm(v2, w.ln2_w, w.ln2_b, out, M, D, s);
   return e;
 }

@@ -191,13 +191,17 @@ struct EpiArgs {
 // The tensor cores add each product into the f32 accumulator without
 // rounding to nearest (the sum is truncated), so the accumulator's error
 // grows with the number of wgmma steps: ~2.3e-5 at the gesture layer's K
-// of 1024 (PERF.md section 6).  The GENERAL instantiation serves every
-// call the main path's shapes do not: a reduction longer than kTcFlushK
-// (wide layers, unsplit weight gradients), whose accumulator it flushes
-// into an f32 sum every kTcFlushSlices slices, bounding the error at that
-// of 128 terms, and operands or outputs that are not aligned for the
-// 16-byte copies and float2 stores.  The main path's instantiation is the
-// kernel without those branches.
+// of 1024 (PERF.md section 6).  FLUSH > 0 adds the accumulator into an
+// f32 sum every FLUSH slices of kTcBK, bounding the error at that of
+// FLUSH * 32 terms.  The training layer flushes its products: its
+// gradients, which the rot6d training losses amplify where a predicted 6D
+// half is short, otherwise sit ~8x further from the exact ones than plain f32's
+// (tools/a2m_f64_check.py).  The GENERAL instantiation, which always
+// flushes every kTcFlushSlices, serves every call the main path's shapes do not: a reduction
+// longer than kTcFlushK (wide layers, unsplit weight gradients) and
+// operands or outputs that are not aligned for the 16-byte copies and
+// float2 stores.  The main path's instantiation is the kernel without the
+// alignment branches, and the inference layer's without the flush.
 constexpr int kTcFlushK = 1024;
 constexpr int kTcFlushSlices = 4;
 
@@ -212,7 +216,7 @@ constexpr int kTcFlushSlices = 4;
 // `pair` (N even, its pointers 8-byte aligned), else floats.  Both flags
 // are read by the GENERAL instantiation only; the other takes them true.
 // grid (ceil(N / kTcBN), ceil(M / kTcBM), splits).
-template <bool A_KC, bool B_KC, int EPI, bool GENERAL>
+template <bool A_KC, bool B_KC, int EPI, bool GENERAL, int FLUSH>
 __global__ void __launch_bounds__(kTcThreads)
 gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    float* __restrict__ C, int M, int N, int K, int lda, int ldb,
@@ -273,11 +277,11 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   };
 
   float acc[32];
-  float sum[GENERAL ? 32 : 1];  // the flushed sum (GENERAL)
+  float sum[FLUSH ? 32 : 1];  // the flushed sum
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < (GENERAL ? 32 : 1); ++i) sum[i] = 0.0f;
+  for (int i = 0; i < (FLUSH ? 32 : 1); ++i) sum[i] = 0.0f;
 
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
@@ -366,8 +370,8 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
       reg_fence(a_big[s]);
       reg_fence(a_small[s]);
     }
-    if constexpr (GENERAL) {
-      if (kt % kTcFlushSlices == kTcFlushSlices - 1 || kt == ktiles - 1) {
+    if constexpr (FLUSH > 0) {
+      if (kt % FLUSH == FLUSH - 1 || kt == ktiles - 1) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           sum[i] += acc[i];
@@ -376,7 +380,7 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
       }
     }
   }
-  if constexpr (GENERAL) {
+  if constexpr (FLUSH > 0) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = sum[i];
   }
@@ -438,22 +442,23 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <bool A_KC, bool B_KC, int EPI, bool GENERAL>
+template <bool A_KC, bool B_KC, int EPI, bool GENERAL, int FLUSH>
 cudaError_t gemm_tf32x3_launch(const float* A, const float* B, float* C, int M, int N, int K,
                                int lda, int ldb, int splits, int k_chunk, bool vec, bool pair,
                                const EpiArgs& ep, cudaStream_t s) {
-  const cudaError_t e = set_smem(gemm_tf32x3_kernel<A_KC, B_KC, EPI, GENERAL>, kTcSmem);
+  const cudaError_t e = set_smem(gemm_tf32x3_kernel<A_KC, B_KC, EPI, GENERAL, FLUSH>, kTcSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
-  gemm_tf32x3_kernel<A_KC, B_KC, EPI, GENERAL><<<grid, kTcThreads, kTcSmem, s>>>(
+  gemm_tf32x3_kernel<A_KC, B_KC, EPI, GENERAL, FLUSH><<<grid, kTcThreads, kTcSmem, s>>>(
       A, B, C, M, N, K, lda, ldb, k_chunk, vec, pair, ep);
   return cudaSuccess;
 }
 
 // Queues C = epi(A . B^T) on `s` (operand layouts as gemm_tf32x3_kernel),
 // the GENERAL instantiation where a block's K range passes kTcFlushK or an
-// operand or output is not aligned for the vector copies and stores.
-template <bool A_KC, bool B_KC, int EPI>
+// operand or output is not aligned for the vector copies and stores, else
+// the main path's, flushing every FLUSH slices where FLUSH > 0.
+template <bool A_KC, bool B_KC, int EPI, int FLUSH = 0>
 cudaError_t gemm_tf32x3(const float* A, const float* B, float* C, int M, int N, int K,
                         int lda, int ldb, int splits, int k_chunk, const EpiArgs& ep,
                         cudaStream_t s) {
@@ -464,18 +469,18 @@ cudaError_t gemm_tf32x3(const float* A, const float* B, float* C, int M, int N, 
   const bool pair = N % 2 == 0 && at(C, 8) && at(ep.bias, 8) && at(ep.resid, 8) &&
                     at(ep.aux, 8) && at(ep.pre, 8);
   if (!vec || !pair || std::min(K, k_chunk) > kTcFlushK)
-    return gemm_tf32x3_launch<A_KC, B_KC, EPI, true>(A, B, C, M, N, K, lda, ldb, splits,
-                                                     k_chunk, vec, pair, ep, s);
-  return gemm_tf32x3_launch<A_KC, B_KC, EPI, false>(A, B, C, M, N, K, lda, ldb, splits,
-                                                    k_chunk, true, true, ep, s);
+    return gemm_tf32x3_launch<A_KC, B_KC, EPI, true, kTcFlushSlices>(
+        A, B, C, M, N, K, lda, ldb, splits, k_chunk, vec, pair, ep, s);
+  return gemm_tf32x3_launch<A_KC, B_KC, EPI, false, FLUSH>(A, B, C, M, N, K, lda, ldb, splits,
+                                                           k_chunk, true, true, ep, s);
 }
 
 // C[M, N] = epi(A[M, K] . W[N, K]^T): the forward products, W in PyTorch's
 // [out, in] layout
-template <int EPI>
+template <int EPI, int FLUSH = 0>
 cudaError_t gemm_nt(const float* A, const float* W, float* C, int M, int N, int K,
                     const EpiArgs& ep, cudaStream_t s) {
-  return gemm_tf32x3<true, true, EPI>(A, W, C, M, N, K, K, K, 1, K, ep, s);
+  return gemm_tf32x3<true, true, EPI, FLUSH>(A, W, C, M, N, K, K, K, 1, K, ep, s);
 }
 
 }  // namespace

@@ -3,10 +3,11 @@
 Counterpart of gesturediffusion_tpu/data/registry.py (get_dataset_class,
 get_dataset, get_dataset_loader) for the datasets the port loads: the
 gesture sets ``genea2023``, ``genea2022`` and the in-memory ``synthetic``
-set, and the text-to-motion sets ``humanml`` and ``kit``
-(data/humanml.py:Text2MotionDatasetV2).  The action datasets
-``humanact12`` and ``uestc`` raise NotImplementedError until their slice
-(ROADMAP A12, after the rot6d / SMPL geometry of A6).
+set, the text-to-motion sets ``humanml`` and ``kit``
+(data/humanml.py:Text2MotionDatasetV2) and the action-to-motion sets
+``humanact12`` (data/a2m.py:HumanAct12Poses) and ``uestc``
+(data/uestc.py:UESTC), whose items collate_a2m pads to ``num_frames``
+(registry.py:30-37,59-63,102-105).
 """
 
 from __future__ import annotations
@@ -14,15 +15,16 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional
 
+from gesturediffusion_tpu_torch.data.a2m import HumanAct12Poses, collate_a2m
 from gesturediffusion_tpu_torch.data.collate import collate_gesture
 from gesturediffusion_tpu_torch.data.genea import Genea2022, Genea2023
 from gesturediffusion_tpu_torch.data.humanml import Text2MotionDatasetV2
 from gesturediffusion_tpu_torch.data.loader import DataLoader
 from gesturediffusion_tpu_torch.data.synthetic import SyntheticGesture
+from gesturediffusion_tpu_torch.data.uestc import UESTC
 
 TEXT_DATASETS = ("humanml", "kit")
-# the action datasets need the rot6d / SMPL geometry of ROADMAP A6
-_WAITING = {"humanact12": "A12", "uestc": "A12"}
+ACTION_DATASETS = ("humanact12", "uestc")
 
 
 def get_dataset_class(name: str):
@@ -34,9 +36,10 @@ def get_dataset_class(name: str):
         return SyntheticGesture
     if name in TEXT_DATASETS:
         return Text2MotionDatasetV2
-    if name in _WAITING:
-        raise NotImplementedError(
-            f"dataset [{name}] is not ported yet (ROADMAP {_WAITING[name]})")
+    if name == "humanact12":
+        return HumanAct12Poses
+    if name == "uestc":
+        return UESTC
     raise ValueError(f"Unsupported dataset name [{name}]")
 
 
@@ -56,6 +59,11 @@ def get_dataset(
             datapath or f"./dataset/{'HumanML3D' if name == 'humanml' else 'KIT-ML'}",
             split=split, dataset_name="t2m" if name == "humanml" else "kit", **kwargs,
         )
+    if name in ACTION_DATASETS:
+        kw = dict(split=split, num_frames=num_frames, **kwargs)
+        if datapath:
+            kw["datapath"] = datapath
+        return cls(**kw)
     kw = dict(split=split, window=num_frames, **kwargs)
     if datapath:
         kw["datapath"] = datapath
@@ -93,7 +101,9 @@ def get_dataset_loader(
     # samples a frame holds only at 22050 Hz and 30 fps)
     spf = (round(dataset.sr / dataset.fps)
            if hasattr(dataset, "sr") and hasattr(dataset, "fps") else None)
-    if name in TEXT_DATASETS:
+    if name in ACTION_DATASETS:
+        collate_fn = partial(collate_a2m, max_frames=num_frames)
+    elif name in TEXT_DATASETS:
         # a text clip's items are padded to 196 frames, whatever num_frames
         collate_fn = partial(collate_gesture, max_frames=196)
     elif spf:

@@ -7,10 +7,10 @@ x0/eps converters, p_mean_variance with fixed or learned variances,
 inpainting, ``clip_denoised`` and ``denoised_fn``, the classifier-guidance
 shifts ``condition_mean`` and ``condition_score``, and the training losses
 (masked MSE for START_X / EPSILON / PREVIOUS_X, the learned-variance ``vb``
-term, the velocity term).  Every array is computed in float64 numpy and
-cast to float32, as the JAX package does.  The geometric terms
-(``lambda_rcxyz``, ``lambda_fc``, ``lambda_vel_rcxyz``) need the body
-model, which waits for a later slice.
+term, the velocity term, and the geometric terms on the xyz joints that
+the caller's ``fk_fn`` gives: ``rcxyz_mse``, ``vel_xyz_mse`` and the
+foot-contact ``fc``).  Every array is computed in float64 numpy and cast
+to float32, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -59,6 +59,10 @@ class LossType(enum.Enum):
 ModelFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
 # cond_fn(x, t_model, cond) -> grad_x log p(y | x), same shape as x
 CondFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
+
+# SMPL's ankles and feet (left ankle, left foot, right ankle, right foot):
+# the joints of the foot-contact term
+FOOT_JOINTS = (7, 10, 8, 11)
 
 
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -255,14 +259,14 @@ class GaussianDiffusion:
         *,
         mask: torch.Tensor,
         noise: torch.Tensor,
+        fk_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> dict[str, torch.Tensor]:
-        """Per-sample training losses [B] for one sampled timestep batch.
-        ``terms["loss"]`` sums rot_mse, vb (learned variances) and
-        lambda_vel * vel_mse."""
-        if self.lambda_rcxyz > 0 or self.lambda_fc > 0 or self.lambda_vel_rcxyz > 0:
-            raise NotImplementedError(
-                "the geometric losses need the body model, which waits for a later slice"
-            )
+        """Per-sample training losses [B] for one sampled timestep batch
+        (gaussian.py:307-424).  ``fk_fn`` maps a sample to xyz joints
+        [B, J, 3, T]; a nonzero geometric lambda without it raises.
+        ``terms["loss"]`` sums rot_mse, vb (learned variances) and the
+        lambda-weighted vel_mse, rcxyz_mse and fc; vel_xyz_mse is reported
+        and, as in the reference, not summed."""
         x_t = self.q_sample(x_start, t, noise)
         terms: dict[str, torch.Tensor] = {}
         if self.loss_type.is_vb():
@@ -289,7 +293,30 @@ class GaussianDiffusion:
             target = noise
 
         terms["rot_mse"] = self.masked_l2(target, model_output, mask)
-        loss = terms["rot_mse"] + terms.get("vb", 0.0)
+
+        if self.lambda_rcxyz > 0 or self.lambda_vel_rcxyz > 0 or self.lambda_fc > 0:
+            if fk_fn is None:
+                raise ValueError("geometric losses require fk_fn")
+            target_xyz = fk_fn(target)
+            model_output_xyz = fk_fn(model_output)
+        if self.lambda_rcxyz > 0:
+            terms["rcxyz_mse"] = self.masked_l2(target_xyz, model_output_xyz, mask)
+        if self.lambda_vel_rcxyz > 0:
+            t_vel = target_xyz[..., 1:] - target_xyz[..., :-1]
+            m_vel = model_output_xyz[..., 1:] - model_output_xyz[..., :-1]
+            terms["vel_xyz_mse"] = self.masked_l2(t_vel, m_vel, mask[..., 1:])
+        if self.lambda_fc > 0:
+            # the predicted feet's velocity where the ground-truth foot is
+            # (nearly) still: a speed of at most 0.01 a frame
+            feet = list(FOOT_JOINTS)
+            gt_joint = target_xyz[:, feet]
+            gt_step = gt_joint[..., 1:] - gt_joint[..., :-1]
+            gt_vel = torch.sqrt((gt_step * gt_step).sum(dim=2))  # [B, 4, T-1]
+            fc_mask = (gt_vel <= 0.01)[:, :, None, :]            # [B, 4, 1, T-1]
+            pred_joint = model_output_xyz[:, feet]
+            pred_vel = pred_joint[..., 1:] - pred_joint[..., :-1]
+            pred_vel = torch.where(fc_mask, pred_vel, pred_vel.new_zeros(()))
+            terms["fc"] = self.masked_l2(pred_vel, torch.zeros_like(pred_vel), mask[..., 1:])
         if self.lambda_vel > 0:
             # the last joint row is the root location and takes no part
             target_vel = target[..., 1:] - target[..., :-1]
@@ -297,7 +324,13 @@ class GaussianDiffusion:
             terms["vel_mse"] = self.masked_l2(
                 target_vel[:, :-1], model_vel[:, :-1], mask[..., 1:]
             )
-            loss = loss + self.lambda_vel * terms["vel_mse"]
+
+        # summed in the reference's order
+        loss = terms["rot_mse"] + terms.get("vb", 0.0)
+        for lam, name in ((self.lambda_vel, "vel_mse"), (self.lambda_rcxyz, "rcxyz_mse"),
+                          (self.lambda_fc, "fc")):
+            if name in terms:
+                loss = loss + lam * terms[name]
         terms["loss"] = loss
         return terms
 

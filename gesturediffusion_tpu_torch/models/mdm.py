@@ -69,7 +69,8 @@ class MDM(nn.Module):
     ``use_kernels=False`` runs the plain PyTorch versions of the CUDA
     kernels on any device; by default a CUDA model launches the kernels.
     ``use_fused_train_encoder`` trains through the fused training layer
-    (the parameters are the same either way)."""
+    (the parameters are the same either way); ``remat`` recomputes the
+    plain training layers in the backward pass."""
 
     def __init__(
         self,
@@ -90,6 +91,7 @@ class MDM(nn.Module):
         window_size: int = 10,
         use_kernels: bool = True,
         use_fused_train_encoder: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if use_text and text_dim >= latent_dim:
@@ -115,7 +117,7 @@ class MDM(nn.Module):
             self.embed_text = nn.Linear(clip_dim, text_dim)
         self.seqTransEncoder = TransformerEncoder(
             num_layers, d, num_heads, ff_size, dropout,
-            use_fused_train_layer=use_fused_train_encoder,
+            use_fused_train_layer=use_fused_train_encoder, remat=remat,
         )
         self.rel_pos = RotaryInvFreq(d // cl_head)
 

@@ -10,8 +10,13 @@ the action's row of ``embed_action`` (``action``), or the timestep alone
 encoder of models/transformer.py and the output projection.  Parameter
 and buffer names follow the upstream torch state dict that
 gesturediffusion_tpu/utils/convert_torch.py:export_motion_mdm_state_dict
-writes; the upstream action embedding is a bare [num_actions, D] matrix,
-into whose rows that exporter folds the JAX Dense's bias.
+writes.  The action embedding trains in JAX's layout, a Dense over the
+one-hot with a kernel [num_actions, D] and a bias [D] (mdm_t2m.py:101-103):
+under AdamW the bias takes every action's gradient and a row only its own,
+so folding the bias into the rows would train differently.  Its state
+dict is the upstream bare [num_actions, D] matrix, the bias folded into
+every row as that exporter does (convert_torch.py:338-340); loading one
+sets the kernel to the rows and the bias to 0 (convert_torch.py:202-205).
 
 Shape flow: [B,J,F,T] -> input_process [B,T,D] -> prepend token 0
 [B,T+1,D] + pe -> encoder (each layer one launch of the encoder-layer
@@ -50,14 +55,49 @@ COND_MODES = ("text", "action", "no_cond")
 
 
 class EmbedAction(nn.Module):
-    """The upstream action embedding: one row of D per action id."""
+    """The action embedding: one_hot(action) @ kernel + bias, as a row
+    lookup.  ``action_embedding`` is the kernel; the state dict holds the
+    upstream matrix, kernel + bias."""
 
     def __init__(self, num_actions: int, latent_dim: int):
         super().__init__()
         self.action_embedding = nn.Parameter(torch.randn(num_actions, latent_dim))
+        self.bias = nn.Parameter(torch.zeros(latent_dim))
 
     def forward(self, action: torch.Tensor) -> torch.Tensor:
-        return self.action_embedding[action.reshape(-1).long()]
+        return self.action_embedding[action.reshape(-1).long()] + self.bias
+
+    def unfolded_state(self) -> dict[str, torch.Tensor]:
+        """The kernel and bias as they train (the state dict folds them)."""
+        return {"kernel": self.action_embedding.detach(), "bias": self.bias.detach()}
+
+    @torch.no_grad()
+    def load_unfolded_state(self, state: dict[str, torch.Tensor]) -> None:
+        self.action_embedding.copy_(state["kernel"])
+        self.bias.copy_(state["bias"])
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        rows = self.action_embedding + self.bias[None, :]
+        destination[prefix + "action_embedding"] = rows if keep_vars else rows.detach()
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
+                              missing_keys, unexpected_keys, error_msgs):
+        key = prefix + "action_embedding"
+        if key not in state_dict:
+            missing_keys.append(key)
+            return
+        rows = state_dict[key]
+        if rows.shape != self.action_embedding.shape:
+            error_msgs.append(f"size mismatch for {key}: copying a param with shape "
+                              f"{tuple(rows.shape)}, the model holds "
+                              f"{tuple(self.action_embedding.shape)}")
+            return
+        with torch.no_grad():
+            self.action_embedding.copy_(rows)
+            self.bias.zero_()
+        if strict:
+            unexpected_keys.extend(k for k in state_dict
+                                   if k.startswith(prefix) and k != key)
 
 
 class MotionMDM(nn.Module):
@@ -81,6 +121,7 @@ class MotionMDM(nn.Module):
         num_actions: int = 12,
         use_kernels: bool = True,
         use_fused_train_encoder: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if cond_mode not in COND_MODES:
@@ -100,7 +141,7 @@ class MotionMDM(nn.Module):
             self.embed_action = EmbedAction(num_actions, d)
         self.seqTransEncoder = TransformerEncoder(
             num_layers, d, num_heads, ff_size, dropout,
-            use_fused_train_layer=use_fused_train_encoder,
+            use_fused_train_layer=use_fused_train_encoder, remat=remat,
         )
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict,

@@ -20,7 +20,16 @@ CPU tensors).  Training (``train=True``):
     tensors.
 ``use_kernels=False`` runs the plain versions on any device (the card-side
 reference the kernels are held against).  GELU only (the activation of
-every configuration the repo ships); rematerialisation waits.
+every configuration the repo ships).
+
+``remat`` (transformer.py:308-319, 370-399): each plain training layer
+runs under ``torch.utils.checkpoint``, so its activations are recomputed
+in the backward pass instead of kept.  The recompute replays the layer's
+dropout masks: ``preserve_rng_state`` restores the global generators only,
+not the explicit generator the masks come from, so the layer saves that
+generator's state before its forward and the recompute draws from a copy
+set to it.  The caller's generator advances once, as without remat.  As
+in JAX, the fused training layer ignores it (it keeps only its input).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gesturediffusion_tpu_torch.ops.dropout import dropout
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
@@ -118,19 +128,42 @@ class FusedTrainEncoderLayer(TransformerEncoderLayer):
                      num_heads=self.num_heads, rate=rate)
 
 
+def rematerialised(layer: TransformerEncoderLayer, x: torch.Tensor, use_kernels: bool,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer.train_forward`` under torch.utils.checkpoint, the recompute
+    drawing the forward's dropout masks again from a copy of
+    ``generator`` set to its state before the forward."""
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(h):
+        g = generator
+        if calls and generator is not None:  # the recompute
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+        calls.append(1)
+        return layer.train_forward(h, use_kernels, g)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  dim_feedforward: int, dropout: float = 0.1,
-                 use_fused_train_layer: bool = False):
+                 use_fused_train_layer: bool = False, remat: bool = False):
         super().__init__()
         cls = FusedTrainEncoderLayer if use_fused_train_layer else TransformerEncoderLayer
         self.layers = nn.ModuleList(
             cls(d_model, num_heads, dim_feedforward, dropout)
             for _ in range(num_layers)
         )
+        self.remat = remat and not use_fused_train_layer
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, use_kernels, train, generator)
+            if train and self.remat and torch.is_grad_enabled():
+                x = rematerialised(layer, x, use_kernels, generator)
+            else:
+                x = layer(x, use_kernels, train, generator)
         return x

@@ -9,12 +9,17 @@ backward (averaged over ``microbatch_size`` microbatches), then, unless
 the loss or the gradient norm is not finite, the AdamW update with the
 reference's lagged linear LR anneal, the EMA and the sampler update.  A
 non-finite step changes nothing but the skip count.  Every random draw
-comes from one torch.Generator on the model's device.
+comes from one torch.Generator on the model's device.  ``use_bf16`` rounds
+the model's input x_t to bfloat16 and back, as JAX's step does (loop.py:154
+casts it, and the model's first act casts it back to float32): every
+product stays float32.  ``fk_fn`` (xyz joints of a sample) goes to the
+geometric loss terms (loop.py:114,172-174).
 
 ``TrainLoop`` is the host shell: data, text embedding, logging,
 checkpoints and resume.  With a ``text_encoder`` each batch's captions are
 embedded on the host into ``text_emb`` (loop.py:517-529); the batch's
-``mask`` (its items' lengths) reaches the loss.  A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
+``mask`` (its items' lengths) reaches the loss; string fields (captions,
+``action_text``) stay on the host.  A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
 reference torch layout, which the generate CLI and the JAX package's
 load_torch_checkpoint read) beside ``opt{step:09d}.pt`` (optimizer, LR
 schedule, sampler, EMA, skip count and generator state).
@@ -54,6 +59,7 @@ class TrainConfig:
     save_interval: int = 50_000
     schedule_sampler: str = "uniform"
     ema_rate: float = 0.0  # 0 disables EMA
+    use_bf16: bool = False  # round the model input to bfloat16
     # gradient accumulation: split each batch into microbatches of this
     # size (0 = off)
     microbatch_size: int = 0
@@ -113,6 +119,7 @@ def train_step(
     generator: torch.Generator,
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    fk_fn: Optional[Callable] = None,
 ) -> dict:
     """One update.  ``t`` and ``noise`` default to the sampler's and the
     generator's draws; passing them replays a step exactly.  Returns the
@@ -130,6 +137,8 @@ def train_step(
                             dtype=motion.dtype)
 
     def model_fn(x, tt, cc):
+        if config.use_bf16:
+            x = x.to(torch.bfloat16).to(x.dtype)
         return model(x, tt, cc, train=True, generator=generator).to(motion.dtype)
 
     mb = config.microbatch_size
@@ -147,7 +156,7 @@ def train_step(
         cc = {key: v[sl] for key, v in cond.items()}
         with torch.enable_grad():  # whatever the caller's grad mode
             terms_i = diffusion.training_losses(
-                model_fn, motion[sl], t[sl], cc, mask=cc["mask"], noise=noise[sl])
+                model_fn, motion[sl], t[sl], cc, mask=cc["mask"], noise=noise[sl], fk_fn=fk_fn)
             loss_i = (terms_i["loss"] * weights[sl]).mean()
             (loss_i / k).backward()
         loss = loss + loss_i.detach() / k
@@ -198,9 +207,11 @@ class TrainLoop:
         platform: Optional[TrainPlatform] = None,
         args_to_save: Optional[dict] = None,
         text_encoder: Optional[Callable] = None,
+        fk_fn: Optional[Callable] = None,
     ):
         self.config = config
         self.text_encoder = text_encoder
+        self.fk_fn = fk_fn
         self.diffusion = diffusion
         self.data = data
         self.device = device
@@ -239,6 +250,10 @@ class TrainLoop:
             "ema": s.ema,
             "nonfinite_skips": s.nonfinite_skips,
             "generator": self.generator.get_state(),
+            # parameters as they train where the model file holds them
+            # folded (models/mdm_t2m.py:EmbedAction)
+            "unfolded": {n: m.unfolded_state() for n, m in s.model.named_modules()
+                         if hasattr(m, "unfolded_state")},
         }, self._path("opt", s.step))
         log_lib.log(f"saved checkpoint {path}")
         return path
@@ -261,6 +276,9 @@ class TrainLoop:
             s.ema = {n: e.to(self.device) for n, e in ck["ema"].items()}
             s.nonfinite_skips = int(ck["nonfinite_skips"])
             self.generator.set_state(ck["generator"].cpu())
+            modules = dict(s.model.named_modules())
+            for n, state in ck.get("unfolded", {}).items():
+                modules[n].load_unfolded_state(state)
             log_lib.log(f"resumed from {path} at step {step}")
         else:
             s.optimizer, s.scheduler = make_optimizer(s.model.parameters(), self.config)
@@ -302,7 +320,8 @@ class TrainLoop:
         t_start = time.time()
         for step in range(self.state.step, cfg.num_steps):
             motion, dcond = next(batch_source)
-            metrics = train_step(self.state, self.diffusion, cfg, motion, dcond, self.generator)
+            metrics = train_step(self.state, self.diffusion, cfg, motion, dcond, self.generator,
+                                 fk_fn=self.fk_fn)
 
             if step % cfg.log_interval == 0:
                 skips = self.state.nonfinite_skips

@@ -12,11 +12,18 @@ refused before training (the JAX CLI fails on it inside the model).
 under ``--unconstrained``) on HumanML3D / KIT clips, the captions embedded
 by utils/text_embedder.py:get_text_encoder (train_mdm.py:73-82); under
 ``--use_fused_train_encoder`` its encoder trains through the training-
-layer kernels.  The action datasets are refused up front (ROADMAP A12).
+layer kernels.  ``--dataset humanact12|uestc`` trains the action-mode
+MotionMDM (``no_cond`` under ``--unconstrained``) on rot6d poses; with
+``--lambda_rcxyz`` or ``--lambda_fc`` above 0 the geometric losses read
+xyz joints through SMPL (the pickle named by ``SMPL_MODEL_PATH``, else
+body_models/smpl/SMPL_NEUTRAL.pkl) and models/rotation2xyz.py
+(train_mdm.py:104-116).  ``--device_batch_pool N`` stages N batches on the
+device and cycles them (train_mdm.py:276-301).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 
@@ -24,10 +31,13 @@ import numpy as np
 import torch
 
 from gesturediffusion_tpu_torch.data.registry import (
+    ACTION_DATASETS,
     TEXT_DATASETS,
     get_dataset_class,
     get_dataset_loader,
 )
+from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
+from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle
 from gesturediffusion_tpu_torch.train.loop import (
     TrainConfig,
     TrainLoop,
@@ -43,8 +53,9 @@ from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
 
 def main(argv=None) -> TrainLoop:
     args = train_args(argv)
-    get_dataset_class(args.dataset)  # a dataset that is not ported raises here
+    get_dataset_class(args.dataset)  # an unknown dataset raises here
     text_data = args.dataset in TEXT_DATASETS
+    motion_data = text_data or args.dataset in ACTION_DATASETS
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)  # the model's initial weights
@@ -60,7 +71,7 @@ def main(argv=None) -> TrainLoop:
                               num_frames=args.num_frames, split="train",
                               datapath=args.data_dir or None, n_seed_poses=args.seed_poses,
                               seed=args.seed)
-    if not text_data and args.seed_poses and "seed" not in data.dataset[0]:
+    if not motion_data and args.seed_poses and "seed" not in data.dataset[0]:
         # the MDM V2 conditions every step on seed poses; the JAX train CLI
         # fails on such a dataset at the model's cond["seed"] (mdm.py:228)
         raise ValueError(f"--dataset {args.dataset} has no seed poses, which the model "
@@ -75,12 +86,22 @@ def main(argv=None) -> TrainLoop:
         lr_anneal_steps=args.lr_anneal_steps, num_steps=args.num_steps,
         batch_size=args.batch_size, log_interval=args.log_interval,
         save_interval=args.save_interval, schedule_sampler=args.schedule_sampler,
-        ema_rate=args.ema_rate, microbatch_size=args.microbatch_size, seed=args.seed,
+        ema_rate=args.ema_rate, use_bf16=args.use_bf16,
+        microbatch_size=args.microbatch_size, seed=args.seed,
     )
     text_encoder = (get_text_encoder(device=device)
                     if text_data and not args.unconstrained else None)
+    fk_fn = None
+    if args.lambda_rcxyz > 0 or args.lambda_fc > 0:
+        smpl = load_smpl_pickle(os.environ.get(
+            "SMPL_MODEL_PATH", "body_models/smpl/SMPL_NEUTRAL.pkl")).to(device)
+
+        def fk_fn(sample):
+            return rotation2xyz(smpl, sample, pose_rep="rot6d", translation=True, glob=True,
+                                jointstype="smpl", vertstrans=False)
+
     loop = TrainLoop(config, diffusion, model, data, device, platform=platform,
-                     args_to_save=vars(args), text_encoder=text_encoder)
+                     args_to_save=vars(args), text_encoder=text_encoder, fk_fn=fk_fn)
     if args.resume_checkpoint:
         resume = args.resume_checkpoint
         if resume == "latest":
@@ -89,10 +110,28 @@ def main(argv=None) -> TrainLoop:
                 raise FileNotFoundError(
                     f"--resume_checkpoint latest: no model*.pt under {args.save_dir}")
         loop.load(resume)
+    batch_source = None
+    if args.device_batch_pool > 0:
+        batch_source = build_device_batch_pool(loop, args.device_batch_pool)
     log_lib.log("training...")
-    loop.run_loop()
+    loop.run_loop(batch_source=batch_source)
     platform.close()
     return loop
+
+
+def build_device_batch_pool(loop: TrainLoop, n_batches: int):
+    """Stage ``n_batches`` collated batches on the loop's device once and
+    cycle them for the whole run (train_mdm.py:276-301)."""
+    log_lib.log(f"staging {n_batches}-batch device pool...")
+    src = loop._host_batches()
+    try:
+        pool = [next(src) for _ in range(n_batches)]
+    finally:
+        src.close()  # stops the loader's producer thread
+    nbytes = sum(t.numel() * t.element_size()
+                 for motion, cond in pool for t in (motion, *cond.values()))
+    log_lib.log(f"device pool staged: {n_batches} batches, {nbytes / 1e6:.1f} MB")
+    return itertools.cycle(pool)
 
 
 if __name__ == "__main__":

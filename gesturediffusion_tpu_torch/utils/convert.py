@@ -10,8 +10,11 @@ the ``pe`` and ``inv_freq`` buffers).  ``load_checkpoint`` reads a
 ``model*.pt`` file of that layout.  ``motion_mdm_state_dict_from_params``
 does the same for the JAX MotionMDM (models/mdm_t2m.py), in the layout of
 convert_torch.py:export_motion_mdm_state_dict: the action embedding's
-Dense bias is folded into its rows, as that exporter does (:334-341).  The
-wav encoder waits for a later slice.
+Dense bias is folded into its rows, as that exporter does (:334-341).
+Loading that state dict sets the trainable kernel to the rows and its
+bias to 0 (models/mdm_t2m.py:EmbedAction).  The other way, a port
+checkpoint holds the folded rows, which JAX's load_torch_checkpoint reads
+as kernel = rows, bias = 0.  The wav encoder waits for a later slice.
 """
 
 from __future__ import annotations

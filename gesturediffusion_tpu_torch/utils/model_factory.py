@@ -4,11 +4,13 @@ generate and edit CLIs.
 Counterpart of gesturediffusion_tpu/utils/model_factory.py (:52-110): the
 gesture datasets get MDM V2 with MFCC input, ``humanml`` and ``kit`` the
 MotionMDM of models/mdm_t2m.py (cond_mode ``text``, or ``no_cond`` under
-``--unconstrained``; 263 and 251 features), each with ff 1024, 4 heads
-and dropout 0.1 as the reference's get_model_args, and the fused
-training layer under ``--use_fused_train_encoder`` (model_factory.py:90-99);
-the diffusion is START_X with MSE loss.  The action datasets raise until
-their slice (ROADMAP A12).
+``--unconstrained``; 263 and 251 features), ``humanact12`` and ``uestc``
+the action-mode MotionMDM (12 and 40 actions, ``no_cond`` under
+``--unconstrained``) on 25 rows of 6 (24 SMPL joints in rot6d and the
+translation row; model_factory.py:101-109,128-137), each with ff 1024, 4
+heads and dropout 0.1 as the reference's get_model_args, the fused
+training layer under ``--use_fused_train_encoder`` (model_factory.py:90-99)
+and ``--remat``; the diffusion is START_X with MSE loss.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
 GESTURE_DATASETS = ("genea2022", "genea2023", "synthetic")
 # features a frame of the text-to-motion codecs (12 J - 1)
 TEXT_NJOINTS = {"humanml": 263, "kit": 251}
+# the action datasets' label counts
+NUM_ACTIONS = {"humanact12": 12, "uestc": 40}
 
 
 def create_gaussian_diffusion(args, device: torch.device,
@@ -56,26 +60,28 @@ def create_model_and_diffusion(args, dataset, device: torch.device):
     diffusion (on ``device``)."""
     if getattr(args, "arch", "trans_enc") != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch!r}: only 'trans_enc' can be built")
-    if args.dataset in TEXT_NJOINTS:
+    train_kw = dict(use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
+                    remat=getattr(args, "remat", False))
+    unconstrained = getattr(args, "unconstrained", False)
+    if args.dataset in TEXT_NJOINTS or args.dataset in NUM_ACTIONS:
+        text = args.dataset in TEXT_NJOINTS
         model = MotionMDM(
-            njoints=TEXT_NJOINTS[args.dataset], nfeats=1, latent_dim=args.latent_dim,
-            ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1, clip_dim=512,
-            cond_mode="no_cond" if getattr(args, "unconstrained", False) else "text",
-            cond_mask_prob=args.cond_mask_prob,
-            use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
+            njoints=TEXT_NJOINTS[args.dataset] if text else 25, nfeats=1 if text else 6,
+            latent_dim=args.latent_dim, ff_size=1024, num_layers=args.layers, num_heads=4,
+            dropout=0.1, clip_dim=512,
+            cond_mode="no_cond" if unconstrained else ("text" if text else "action"),
+            num_actions=NUM_ACTIONS.get(args.dataset, 12),
+            cond_mask_prob=args.cond_mask_prob, **train_kw,
         )
         return model, create_gaussian_diffusion(args, device)
     if args.dataset not in GESTURE_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: the action-to-motion MotionMDM is not ported yet "
-            f"(ROADMAP A12)")
+        raise ValueError(f"Unsupported dataset name [{args.dataset}]")
     if args.use_wav_enc:
         raise NotImplementedError("the wav-encoder audio input waits for a later slice")
     model = MDM(
         njoints=dataset.pose_dim, nfeats=1, latent_dim=args.latent_dim,
         ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1,
         cond_mask_prob=args.cond_mask_prob, use_text=args.use_text,
-        seed_poses=args.seed_poses,
-        use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
+        seed_poses=args.seed_poses, **train_kw,
     )
     return model, create_gaussian_diffusion(args, device)

@@ -187,7 +187,9 @@ def train_args(argv=None) -> argparse.Namespace:
     train.add_argument("--resume_checkpoint", default="", type=str,
                        help="'latest' or a model*.pt path.")
     perf = parser.add_argument_group("performance")
-    perf.add_argument("--use_bf16", action="store_true")
+    perf.add_argument("--use_bf16", action="store_true",
+                      help="Round the model input to bfloat16, as the JAX step does; "
+                           "every product stays float32.")
     perf.add_argument("--ema_rate", default=0.0, type=float,
                       help="EMA decay for params (0 disables).")
     perf.add_argument("--schedule_sampler", default="uniform",
@@ -199,18 +201,21 @@ def train_args(argv=None) -> argparse.Namespace:
                            "layer input saved for backward).")
     perf.add_argument("--microbatch_size", default=0, type=int,
                       help="Gradient-accumulation microbatch size (0 = whole batch).")
-    perf.add_argument("--device_batch_pool", default=0, type=int)
-    perf.add_argument("--remat", action="store_true")
+    perf.add_argument("--device_batch_pool", default=0, type=int,
+                      help="Stage this many batches on the device once and cycle them "
+                           "for the whole run (0 = off).")
+    perf.add_argument("--remat", action="store_true",
+                      help="Recompute the plain training layers in the backward pass "
+                           "(a memory knob; the fused training layer keeps only its input).")
     args = parser.parse_args(argv)
 
     waiting = {
-        "--use_bf16 (bf16 training)": args.use_bf16,
-        "--remat (rematerialised encoder layers)": args.remat,
-        "--mesh_model_axis > 1 (tensor parallelism)": args.mesh_model_axis > 1,
-        "--device_batch_pool": args.device_batch_pool > 0,
-        "--eval_during_training (the evaluators)": args.eval_during_training,
+        "--mesh_model_axis > 1 (tensor parallelism, ROADMAP A10)": args.mesh_model_axis > 1,
+        "--eval_during_training (the evaluators, ROADMAP A8)": args.eval_during_training,
     }
     for flag, asked in waiting.items():
         if asked:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP)")
+            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.device_batch_pool < 0:
+        parser.error(f"--device_batch_pool must be >= 0, got {args.device_batch_pool}")
     return args

@@ -367,13 +367,15 @@ def _check_train_kernels(dev, b, t, d, h, f, rate):
 
 @pytest.mark.parametrize("b,t,d,h,f", [(64, 81, 256, 4, 1024), (64, 121, 256, 4, 1024),
                                        (3, 24, 128, 4, 256), (2, 7, 64, 2, 96),
-                                       (4, 197, 512, 4, 1024)])
+                                       (4, 197, 512, 4, 1024), (4, 61, 512, 4, 1024)])
 @pytest.mark.parametrize("rate", [0.1, 0.0])
 def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
     """Forward and backward kernels against autograd through the plain
     hash-dropout layer, with the same seed (so the same masks); 121 rows is
     the train CLI's default of 120 frames and the token, [4, 197, 512] the
-    text-to-motion model's layer (heads of 128, 196 frames and the token)."""
+    text-to-motion model's layer (heads of 128, 196 frames and the token),
+    [4, 61, 512] the action-to-motion model's (60 frames and the token: one
+    partial 64-row tile)."""
     _check_train_kernels(dev, b, t, d, h, f, rate)
 
 
@@ -590,3 +592,149 @@ def test_t2m_fused_train_steps_match_the_plain_steps(dev):
     for n, g in p_grads.items():
         err = (grads[n] - g).abs().max().item()
         assert err <= 2e-3 * g.abs().max().item() + 1e-12, (n, err)
+
+
+def _a2m_batch(rs, b, t, device):
+    """Rot6d rows of random rotations and a translation row [B, 25, 6, T]."""
+    from gesturediffusion_tpu_torch.ops.rotations import (
+        matrix_to_rotation_6d,
+        rotation_6d_to_matrix,
+    )
+
+    d6 = _randn(rs, b, 24, t, 6, scale=0.3, device=device)
+    rot = matrix_to_rotation_6d(rotation_6d_to_matrix(d6))
+    trans = torch.zeros(b, 1, t, 6, device=device)
+    trans[..., :3] = torch.cumsum(_randn(rs, b, 1, t, 3, scale=0.01, device=device), dim=2)
+    return torch.cat([rot, trans], dim=1).permute(0, 1, 3, 2).contiguous()
+
+
+def test_smpl_joints_on_the_card_match_the_cpu(dev):
+    """The training losses' fk_fn (rot6d -> SMPL's chain -> smpl joints) at
+    6890 vertices on the card against the same call on the CPU: f32 with
+    TF32 off, atol 1e-4; the joints-only path there equals the full one."""
+    from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
+    from gesturediffusion_tpu_torch.models.smpl import make_synthetic_smpl
+
+    smpl = make_synthetic_smpl(6890)
+    x = _a2m_batch(np.random.RandomState(21), 8, 60, "cpu")
+    kw = dict(pose_rep="rot6d", translation=True, glob=True, jointstype="smpl",
+              vertstrans=False)
+    want = rotation2xyz(smpl, x, **kw)
+    got = rotation2xyz(smpl.to(dev), x.to(dev), **kw)
+    assert got.shape == (8, 24, 3, 60)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    mats = torch.eye(3, device=dev).expand(4, 24, 3, 3).contiguous()
+    full = smpl(mats[:, 1:], mats[:, 0])
+    assert torch.equal(smpl(mats[:, 1:], mats[:, 0], sets=("smpl",))["smpl"], full["smpl"])
+
+
+def test_a2m_fused_train_steps_match_the_plain_steps(dev):
+    """Two train steps of the action-mode MotionMDM (2 of its 8 layers,
+    heads of 128, 61 rows, dropout 0.1) with the recipe's geometric losses
+    through SMPL at 6890 vertices, through the training kernels against the
+    plain hash-dropout layer; chip_smoke.py's TOL_STEP_LOSS and
+    TOL_STEP_GRAD."""
+    import copy
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
+    from gesturediffusion_tpu_torch.models.smpl import make_synthetic_smpl
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig, TrainState, make_optimizer, train_step
+
+    torch.manual_seed(0)
+    model = MotionMDM(njoints=25, nfeats=6, latent_dim=512, num_layers=2, ff_size=1024,
+                      cond_mode="action", cond_mask_prob=0.0,
+                      use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(model)
+    plain.use_kernels = False
+    smpl = make_synthetic_smpl(6890).to(dev)
+
+    def fk_fn(sample):
+        return rotation2xyz(smpl, sample, pose_rep="rot6d", translation=True, glob=True,
+                            jointstype="smpl", vertstrans=False)
+
+    rs = np.random.RandomState(14)
+    b = 4
+    batches = [(_a2m_batch(rs, b, 60, dev),
+                {"action": torch.from_numpy(rs.randint(0, 12, size=b)).to(dev),
+                 "mask": torch.ones(b, 1, 1, 60, dtype=torch.bool, device=dev)},
+                torch.from_numpy(rs.randint(0, 1000, size=b)).to(dev),
+                _randn(rs, b, 25, 6, 60, device=dev)) for _ in range(2)]
+    diffusion = create_diffusion(steps=1000, lambda_rcxyz=1.0, lambda_vel=1.0,
+                                 lambda_fc=1.0, device=dev)
+
+    def run(m):
+        cfg = TrainConfig(lr=1e-4)
+        state = TrainState(m, *make_optimizer(m.parameters(), cfg), UniformSampler(1000), {})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        losses, grads = [], None
+        for motion, cond, t, noise in batches:
+            metrics = train_step(state, diffusion, cfg, motion, cond, gen, t, noise, fk_fn=fk_fn)
+            assert {"rcxyz_mse", "vel_mse", "fc"} <= set(metrics)
+            losses.append(metrics["loss"].item())
+            grads = grads or {n: p.grad.clone() for n, p in m.named_parameters()}
+        return losses, grads
+
+    before = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
+    losses, grads = run(model)
+    torch.cuda.synchronize()
+    assert (encoder_layer_train_fwd.launches - before[0],
+            encoder_layer_train_bwd.launches - before[1]) == (4, 4)
+    p_losses, p_grads = run(plain)
+    for a, e in zip(losses, p_losses):
+        assert abs(a - e) <= 5e-4 * abs(e), (a, e)
+    for n, g in p_grads.items():
+        err = (grads[n] - g).abs().max().item()
+        assert err <= 2e-3 * g.abs().max().item() + 1e-12, (n, err)
+
+
+# How far the kernels' a2m gradients may stand from float64, in multiples
+# of plain f32's distance, at tools/a2m_f64_check.py's default seed.  On an
+# H100 (tools/flush_ab.py, PERF.md section 6): the shipped flush every 128
+# of K 2.3x, every 64 1.25x, every 512 7.5x, the unflushed GEMM 8.1x.
+A2M_F64_RATIO = 5.0
+
+
+def test_a2m_kernel_gradients_stay_near_float64(dev):
+    """One action-to-motion step at the configuration where the unflushed
+    training GEMM missed the step tolerance (batch 64, 8 layers, D 512, 60
+    frames, the recipe's lambdas through SMPL at 6890 vertices;
+    tools/a2m_f64_check.py): the kernels' worst gradient stands from the
+    float64 step within A2M_F64_RATIO times plain f32's distance."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "a2m_f64_check.py")
+    spec = importlib.util.spec_from_file_location("a2m_f64_check", path)
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    gaps = check.main(["--device", "cuda"])
+    recipe = next(v for k, v in gaps.items() if k.startswith("recipe"))
+    kernels = recipe["kernels f32 vs plain f64"][1]
+    plain = recipe["plain f32   vs plain f64"][1]
+    assert kernels <= A2M_F64_RATIO * plain, (kernels, plain)
+
+def test_remat_replays_the_masks_from_a_card_generator(dev):
+    """--remat with the plain layers on the card: the recompute draws the
+    forward's masks again from a CUDA generator's saved state, so the
+    gradients equal the stored path's and the generator advances once."""
+    kw = dict(njoints=25, nfeats=6, latent_dim=128, num_layers=2, ff_size=256,
+              cond_mode="action", cond_mask_prob=0.0, dropout=0.1)
+    torch.manual_seed(0)
+    stored = MotionMDM(**kw).to(dev)
+    remat = MotionMDM(**kw, remat=True).to(dev)
+    remat.load_state_dict(stored.state_dict())
+    rs = np.random.RandomState(15)
+    x = _a2m_batch(rs, 3, 60, dev)
+    t, cond = torch.tensor([1, 50, 900], device=dev), {"action": torch.tensor([0, 5, 11], device=dev)}
+    grads, states = [], []
+    for m in (stored, remat):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        m(x, t, cond, train=True, generator=gen).square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        states.append(gen.get_state())
+    assert torch.equal(states[0], states[1])
+    for n, g in grads[0].items():
+        torch.testing.assert_close(grads[1][n], g, rtol=0, atol=0, msg=n)

@@ -40,7 +40,6 @@ from gesturediffusion_tpu_torch.models.cfg import classifier_free_guidance
 from gesturediffusion_tpu_torch.models.mdm import MDM
 from gesturediffusion_tpu_torch.sample import edit, generate, predict
 from gesturediffusion_tpu_torch.serve import demo
-from gesturediffusion_tpu_torch.train import train_mdm
 from tests.torch_port_common import (
     build_t2m_pair,
     threefry_prng,  # noqa: F401 (autouse fixture)
@@ -263,13 +262,16 @@ def test_gesture_edit_cli_writes_what_jax_writes(runs, tmp_path, no_clip_no_vide
 
 def test_text_datasets_are_refused_where_they_do_not_belong(runs, tmp_path):
     """generate (the gesture generator, JAX generate.py:109-120) and the
-    serve demo name sample.predict; the train CLI, which trains the text
-    datasets, refuses the action datasets up front, naming their item of
-    the ROADMAP."""
+    serve demo name sample.predict for a text checkpoint, and refuse an
+    action-to-motion checkpoint too (no audio takes), as JAX's generate
+    does; the train CLI trains both kinds since A11 and A12."""
     for cli in (generate, demo):
         with pytest.raises(SystemExit, match="sample.predict"):
             cli.main(["--model_path", runs["t2m"], "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_mdm.main(["--dataset", "humanact12", "--data_dir", runs["hml"], "--device",
-                        "cpu", "--save_dir", str(tmp_path / "run")])
-    assert not os.path.exists(tmp_path / "run")
+    a2m = tmp_path / "a2m"
+    a2m.mkdir()
+    with open(a2m / "args.json", "w") as f:
+        json.dump({"dataset": "humanact12", "layers": 2, "latent_dim": 64}, f)
+    for cli in (generate, demo):
+        with pytest.raises(SystemExit, match="--dataset humanact12 has no audio takes"):
+            cli.main(["--model_path", str(a2m / "model000000001.pt"), "--device", "cpu"])

@@ -149,12 +149,32 @@ def test_factory_builds_motion_mdm_as_jax(dataset, unconstrained, njoints, cond_
 
 
 def test_factory_keeps_gesture_datasets_and_refuses_action_ones():
+    """The gesture datasets keep MDM V2; the action datasets, refused
+    before their slice, now get the action-mode MotionMDM as JAX builds it
+    (25 rows of 6, 12 and 40 actions; no_cond under --unconstrained) and
+    the recipe's geometric lambdas; an unknown dataset is refused."""
+    from gesturediffusion_tpu.utils.model_factory import create_model as jax_create
+
     class Data:
         pose_dim = 24
 
     model, _ = create_model_and_diffusion(_flags(dataset="synthetic"), Data(),
                                           torch.device("cpu"))
     assert isinstance(model, MDM)
-    for name in ("humanact12", "uestc"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            create_model_and_diffusion(_flags(dataset=name), None, torch.device("cpu"))
+    for name, actions in (("humanact12", 12), ("uestc", 40)):
+        for unconstrained in (False, True):
+            args = _flags(dataset=name, unconstrained=unconstrained, lambda_rcxyz=1.0,
+                          lambda_vel=1.0, lambda_fc=1.0)
+            model, diffusion = create_model_and_diffusion(args, None, torch.device("cpu"))
+            want = jax_create(args)
+            assert isinstance(model, MotionMDM)
+            assert (model.njoints, model.nfeats, model.cond_mode) == (
+                want.njoints, want.nfeats, want.cond_mode) == (
+                25, 6, "no_cond" if unconstrained else "action")
+            if not unconstrained:
+                assert model.embed_action.action_embedding.shape == (
+                    want.num_actions, 64) == (actions, 64)
+            assert (diffusion.lambda_rcxyz, diffusion.lambda_vel, diffusion.lambda_fc) == (
+                1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match="Unsupported"):
+        create_model_and_diffusion(_flags(dataset="h36m"), None, torch.device("cpu"))

@@ -103,11 +103,26 @@ def test_training_losses_match_jax(mean_type, lambda_vel, learned):
 
 
 def test_geometric_losses_raise_until_the_body_model_is_ported():
-    dp = pg.create_diffusion(steps=10, lambda_rcxyz=1.0)
+    """A geometric lambda needs the body model's forward kinematics: without
+    an fk_fn both packages raise the same ValueError; with one the terms
+    appear (tests/test_torch_a2m_train.py holds them against JAX)."""
     x0, noise, mask, t = _loss_inputs()
-    with pytest.raises(NotImplementedError, match="body model"):
-        dp.training_losses(lambda x, tt, c: x, torch.from_numpy(x0), torch.from_numpy(t), {},
-                           mask=torch.from_numpy(mask), noise=torch.from_numpy(noise))
+    for lam in ("lambda_rcxyz", "lambda_fc", "lambda_vel_rcxyz"):
+        dj = jg.create_diffusion(steps=10, **{lam: 1.0})
+        dp = pg.create_diffusion(steps=10, **{lam: 1.0})
+        with pytest.raises(ValueError, match="require fk_fn") as want:
+            dj.training_losses(lambda x, tt, c: x, jnp.asarray(x0), jnp.asarray(t), {},
+                               mask=jnp.asarray(mask), noise=jnp.asarray(noise))
+        with pytest.raises(ValueError, match="require fk_fn") as got:
+            dp.training_losses(lambda x, tt, c: x, torch.from_numpy(x0), torch.from_numpy(t), {},
+                               mask=torch.from_numpy(mask), noise=torch.from_numpy(noise))
+        assert str(got.value) == str(want.value)
+        terms = dp.training_losses(
+            lambda x, tt, c: x * 0.5, torch.from_numpy(x0), torch.from_numpy(t), {},
+            mask=torch.from_numpy(mask), noise=torch.from_numpy(noise),
+            fk_fn=lambda s: s.repeat(1, 2, 3, 1))  # 12 "joints" of 3
+        assert {"lambda_rcxyz": "rcxyz_mse", "lambda_fc": "fc",
+                "lambda_vel_rcxyz": "vel_xyz_mse"}[lam] in terms
 
 
 def test_samplers_match_jax():
@@ -317,11 +332,36 @@ def test_jax_package_loads_the_port_checkpoint(trained):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--use_bf16"], ["--remat"], ["--mesh_model_axis", "2"],
-                                  ["--device_batch_pool", "2"], ["--eval_during_training"]])
+@pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"], ["--eval_during_training"]])
 def test_flags_the_port_cannot_honour_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A10" if "--mesh_model_axis" in flag else "A8"):
         train_args(["--save_dir", str(tmp_path / "x"), *flag])
+
+
+@pytest.mark.parametrize("flag", [["--use_bf16"], ["--remat"], ["--device_batch_pool", "2"]])
+def test_a4_flags_parse_and_train(flag, tmp_path, monkeypatch):
+    """The train CLI's last single-card flags run: --use_bf16 rounds the
+    model input to bfloat16 (every product f32), --remat recomputes the
+    plain layers in the backward pass, --device_batch_pool stages 2
+    batches and cycles them for 3 steps."""
+    seen = []
+    step = ploop.train_step
+
+    def recording(state, diffusion, config, motion, cond, *args, **kwargs):
+        seen.append((config.use_bf16, motion.clone()))
+        return step(state, diffusion, config, motion, cond, *args, **kwargs)
+
+    monkeypatch.setattr(ploop, "train_step", recording)
+    loop = train_mdm.main(["--device", "cpu", "--dataset", "synthetic", "--layers", "1",
+                           "--latent_dim", "32", "--num_frames", "20", "--batch_size", "4",
+                           "--num_steps", "3", "--save_dir", str(tmp_path / "run"), *flag])
+    assert loop.state.step == 3 and len(seen) == 3
+    assert {bf16 for bf16, _ in seen} == {flag[0] == "--use_bf16"}
+    assert loop.state.model.seqTransEncoder.remat == (flag[0] == "--remat")
+    same = torch.equal(seen[2][1], seen[0][1])
+    assert same == (flag[0] == "--device_batch_pool")  # the pool of 2 came round again
+    with open(tmp_path / "run" / "args.json") as f:
+        assert json.load(f)[flag[0][2:]] == ({"--device_batch_pool": 2}.get(flag[0], True))
 
 
 @pytest.mark.parametrize("flag", [["--use_fused_encoder"], ["--eval_batch_size", "8"],

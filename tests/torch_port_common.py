@@ -131,6 +131,18 @@ def build_t2m_pair(cond_mode: str = "text", njoints: int = 263,
     return jax_model, params, port.eval()
 
 
+def load_motion_mdm_params(model: MotionMDM, params: dict) -> MotionMDM:
+    """Load JAX MotionMDM params into ``model`` (a port MotionMDM of the
+    same configuration) with the action Dense's kernel and bias kept apart,
+    as both packages train them, not folded.  Returns the model."""
+    model.load_state_dict(motion_mdm_state_dict_from_params(params))
+    P = params.get("params", params)
+    if "embed_action" in P:
+        model.embed_action.load_unfolded_state(
+            {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in P["embed_action"].items()})
+    return model
+
+
 def to_jax(tree: dict) -> dict:
     return {k: jnp.asarray(v) for k, v in tree.items()}
 

@@ -16,10 +16,13 @@ of chip_smoke.py's phase 5 (batch 256 = 4 x 64 at 80 frames, dropout 0.1,
 the fused training layer, injected timesteps and noise), run six times,
 with the same seeded weights and inputs in every tree, then a
 text-to-motion denoise step of phase 10's model at CFG batch 6 and 64
-(three runs of 20 steps by CUDA events).  One line a tree: the median ms
-per denoise step and chunks/s of each take, the median ms and samples/s of
-train steps 2-6 and the median t2m step, with the card's name and power
-limit.
+(three runs of 20 steps by CUDA events), then the training layer's forward
+and backward kernels (5 and 6) alone at the three training shapes of the
+smoke run, [64, 81, 256], [64, 197, 512] and [64, 61, 512] (CUDA events
+over 20 calls, median of three).  One line a tree: the median ms per
+denoise step and chunks/s of each take, the median ms and samples/s of
+train steps 2-6, the median t2m step and the kernels' ms, with the card's
+name and power limit.
 Needs a CUDA card.
 """
 
@@ -75,7 +78,35 @@ def one_tree(root: str) -> dict:
     ms = train_step_ms(cs, gen)
     result["train"] = {"ms": ms, "samples_per_s": cs.BATCH / ms * 1e3}
     result["t2m"] = t2m_step_ms(cs, gen)
+    result["train_kernels"] = train_kernel_ms(cs, gen)
     return result
+
+
+def train_kernel_ms(cs, gen) -> dict:
+    """Median ms of the training forward and backward kernels (rate 0.1)
+    at [64, 81, 256], [64, 197, 512] and [64, 61, 512], ff 1024."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+
+    dev = torch.device("cuda")
+    seed = torch.tensor([20241], dtype=torch.int32, device=dev)
+    out = {}
+    for t, d in ((cs.T + 1, cs.D), (cs.T2M_FRAMES + 1, cs.T2M_D), (cs.A2M_FRAMES + 1, cs.T2M_D)):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * scale
+
+        w = cs.layer_weights(rn, d, cs.FF)
+        x, g = rn(cs.MB, t, d), rn(cs.MB, t, d)
+        kw = dict(seed=seed, num_heads=cs.HEADS, rate=cs.RATE)
+        for name, fn in (("fwd", lambda: encoder_layer_train_fwd(x, *w, **kw)),
+                         ("bwd", lambda: encoder_layer_train_bwd(x, *w, g=g, **kw))):
+            runs = [cs.cuda_time_ms(fn, 20, 3) for _ in range(3)]
+            out[f"{name} [{cs.MB},{t},{d}]"] = sorted(runs)[1]
+    return out
 
 
 def t2m_step_ms(cs, gen) -> dict:
@@ -174,7 +205,8 @@ def main(argv: list[str]) -> int:
             f"{k} {v['ms_per_step']:.3f} ms/step = {v['chunks_per_s']:.3f} chunks/s"
             for k, v in r.items() if k.startswith("T=")) + f", train step {r['train']['ms']:.3f} "
             f"ms = {r['train']['samples_per_s']:.1f} samples/s, t2m step " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in r["t2m"].items()) + f" [{smi}]", flush=True)
+            f"{k} {v:.4f} ms" for k, v in r["t2m"].items()) + ", kernels " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in r["train_kernels"].items()) + f" [{smi}]", flush=True)
     return 0
 
 
