@@ -118,6 +118,30 @@ Phases, each fatal on failure:
               checkpoint read back in the reference layout, 12 actions
               sampled from it (DDPM respaced to 50: kernel 1 at
               [12, 61, 512]) against the plain take, kernel 1's times there
+ 14. a2m-eval action-to-motion evaluation: a third checkpoint (humanact12,
+              --unconstrained); with PyTorch's TF32 defaults (cuDNN's on),
+              the eval CLI --eval_mode debug --batch_size 64 on the
+              humanact12, uestc and unconstrained checkpoints (the YAML's
+              protocol keys, finite where the protocol is, kernels 1 and 4
+              launched 8 x 1000 a generated batch, the wall time); seed 0's
+              generated batch (kernel 1 at [64, 61, 512]) against the plain
+              path; the GRU, recognition ST-GCN and MoDi ST-GCN features and
+              the gt metrics on the card against the CPU (the modules with
+              cuDNN's TF32 on as a control that must fail); kernel 1's times at
+              [64, 61, 512]; the train CLI --eval_during_training on
+              humanact12 (the benchmark after the save at step 10) and on
+              the phase-9 GENEA tree (the validation loss), launches counted
+Every train-step comparison (phases 5, 12, 13) holds the kernel steps
+against the plain steps two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
+free-running (the losses of every step, the first step's gradients), with
+the gap of a plain run from weights nudged by one ulp printed beside it;
+and teacher-forced (each kernel step from the plain run's weights,
+optimizer and generator states before it: its loss and every gradient,
+with float32's own floor, the plain step from those weights nudged by one
+ulp, beside it).  Phase 13's teacher-forced gradients miss TOL_STEP_GRAD
+at some steps where the rot6d losses amplify the training GEMM's forward
+error (ROADMAP C6): printed as a MISS up to TOL_STEP_GRAD_C6, a FAIL past
+it; their losses stay under TOL_STEP_LOSS.
 Every kernel's products run on the tensor cores in 3xTF32.  Kernel times
 (`ms` in the kernels line) are CUDA events over back-to-back calls, the
 wrapper's host work included, for all six kernels; for the band and
@@ -163,6 +187,11 @@ TOL_TRAIN_FWD = 1e-4     # f32; as the inference layer, the same dropout masks
 TOL_TRAIN_GRAD = 5e-4    # of each gradient's max |value|; weight grads sum 5184 rows
 TOL_STEP_LOSS = 5e-4     # relative; 5 steps at batch 256 through 8 layers
 TOL_STEP_GRAD = 2e-3     # of each parameter gradient's max |value|, first step
+# phase 13's teacher-forced a2m gradients: a hard cap at ~1.3x the kernels' recorded error
+# there (ROADMAP C6: worst 7.444e-03, at step 2, where float32's own one-ulp floor is
+# 1.255e-03).  Past TOL_STEP_GRAD and within it the step prints a MISS naming C6; past
+# it, a FAIL.  Every other step comparison and every teacher-forced loss keep TOL_STEP_*.
+TOL_STEP_GRAD_C6 = 1e-2
 T_LONG, LONG_RESPACING, LONG_STEPS, LONG_SAMPLES = 1200, "20", 20, 8
 TOL_BAND = 1e-4          # f32; <= 20-term softmax sums, as the local block
 TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online rescaling
@@ -201,6 +230,12 @@ A2M_CLIPS, UESTC_VIDEOS, A2M_STEPS, A2M_ACTIONS = 128, 160, 5, 12
 RECIPE = ("--cond_mask_prob", "0", "--lambda_rcxyz", "1", "--lambda_vel", "1",
           "--lambda_fc", "1")
 TOL_SMPL = 1e-4          # f32 joints on the card against the CPU: 23 chained 4x4 products
+# phase 14: the eval classifiers' features (and the gt metrics) on the card against the
+# CPU, relative to their max |value|: f32 GRU over 60 frames and up to ten blocks of
+# convolutions, sums in another order (TF32 off by the eval itself).  Between the sound
+# readings (<= 2.389e-06) and the modules with cuDNN's TF32 on (>= 9.953e-05), which the
+# phase runs as a control that must exceed it
+TOL_EVAL_FEATS = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1547,7 +1582,10 @@ def a2m_train_phase(randn, rs, card):
                     noise=randn(MB, A2M_J, A2M_F, A2M_FRAMES)) for i in range(A2M_STEPS)]
     compare_train_steps(model, plain, diffusion, cfg, batches, LAYERS,
                         f"batch {MB}, [{MB},{rows},{T2M_D}], heads of {dh}, the recipe's "
-                        f"geometric losses through SMPL", f"{LAYERS} layers", card, fk_fn=fk_fn)
+                        f"geometric losses through SMPL", f"{LAYERS} layers", card, fk_fn=fk_fn,
+                        grad_miss=("ROADMAP C6 (the rot6d losses' conditioning and the "
+                                   "training GEMM's forward error; tools/a2m_f64_check.py)",
+                                   TOL_STEP_GRAD_C6))
     total["encoder_layer_train_fwd"] += LAYERS * A2M_STEPS
     total["encoder_layer_train_bwd"] += LAYERS * A2M_STEPS
     state = TrainState(model, *make_optimizer(model.parameters(), cfg), UniformSampler(1000), {})
@@ -1668,6 +1706,352 @@ def a2m_train_phase(randn, rs, card):
         "launches": take_launches["encoder_layer"], "max_abs_err": enc_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     return out_rows, total
+
+
+def read_metrics_yaml(path: str) -> dict:
+    """The eval CLI's flat YAML of floats (.nan, .inf as PyYAML writes them)."""
+    special = {".nan": math.nan, ".inf": math.inf, "-.inf": -math.inf}
+    out = {}
+    with open(path) as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            out[k.strip()] = special.get(v.strip(), None) or float(v)
+    return out
+
+
+def a2m_protocol_keys(name: str) -> set:
+    """The metric keys of JAX's a2m protocol in an eval YAML: accuracy, FID,
+    diversity, multimodality of gt and gen (per split on UESTC), each with
+    its 95% interval, and the unconstrained branch's five."""
+    keys = {f"{m}_{k}" for m in ("accuracy", "diversity", "multimodality", "fid")
+            for k in ("gt", "gen")}
+    if name == "uestc":
+        keys = {f"{k}_{split}" for k in keys for split in ("train", "test")}
+    keys |= {f"{k}_conf" for k in keys}
+    if name == "unconstrained":
+        keys |= {f"{k}_unconstrained" for k in ("fid", "kid_mean", "kid_std", "diversity_gen",
+                                                "diversity_gt")}
+    return keys
+
+
+def a2m_eval_phase(randn, card):
+    """Phase 14: the action-to-motion evaluation on the card.  A third
+    phase-13 checkpoint (humanact12, --unconstrained, 20 steps); with
+    PyTorch's TF32 defaults back on (cuDNN's TF32 on; restored at the end),
+    the eval CLI in debug mode (2 seeds x 64 samples, --batch_size 64) on
+    the humanact12, uestc and unconstrained checkpoints: the YAML's keys,
+    finite values (NaN only where the protocol makes it: accuracy and
+    multimodality under no_cond), kernels 1 and 4 launched 8 x 1000 steps
+    a generated batch; seed 0's generated batch against the plain path
+    under TOL_TAKE; the GRU, recognition ST-GCN and MoDi ST-GCN features on
+    the card against the CPU for the same batches under TOL_EVAL_FEATS (the
+    eval's own TF32 guard; the modules called without it, cuDNN's TF32 on,
+    are a control the check must fail), and the gt metrics card against
+    CPU under the same tolerance; kernel 1 at
+    [64, 61, 512] and its times; the train CLI --eval_during_training on
+    humanact12 (the benchmark after the save at step 10) and on the phase-9
+    GENEA tree (the validation loss).  Returns the kernel row of
+    [64, 61, 512] and the launches of the phase's main paths by kernel (the
+    training kernels' of the a2m CLIs under ``a2m_``)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.a2m import HumanAct12Poses
+    from gesturediffusion_tpu_torch.data.uestc import UESTC
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample_loop
+    from gesturediffusion_tpu_torch.eval import eval_a2m
+    from gesturediffusion_tpu_torch.eval.eval_a2m import (
+        NUM_FRAMES,
+        UNCONSTRAINED_15_JOINTS,
+        A2MEvaluation,
+        STGCNA2MEvaluation,
+        make_fk_fn,
+        make_generated_batches,
+        make_gt_batches,
+    )
+    from gesturediffusion_tpu_torch.eval.eval_unconstrained import UnconstrainedEvaluator
+    from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+    from gesturediffusion_tpu_torch.train import train_mdm
+    from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+    from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
+    from gesturediffusion_tpu_torch.utils.parser import evaluation_args
+
+    dev = torch.device("cuda")
+    counted, _ = launch_counter({
+        "encoder_layer": fused_encoder_layer, "flash_attention": fused_self_attention,
+        "local_block": fused_local_block, "encoder_layer_train_fwd": encoder_layer_train_fwd,
+        "encoder_layer_train_bwd": encoder_layer_train_bwd})
+    rows, dh = A2M_FRAMES + 1, T2M_D // HEADS
+    base = os.path.join(HERE, "build", "chip_smoke", "a2m")
+    roots = {name: os.path.join(base, name) for name in ("humanact12", "uestc")}
+    smpl_path = os.environ["SMPL_MODEL_PATH"]  # phase 13's
+    ckpts = {name: os.path.join(base, f"run_{name}", f"model{CLI_STEPS:09d}.pt") for name in roots}
+    args = evaluation_args(["--model_path", ckpts["humanact12"]])
+    steps = args.diffusion_steps  # the chain the checkpoints were trained for
+    debug = eval_a2m.EVAL_MODES_A2M["debug"]
+    per_seed = -(-debug["num_samples"] // MB)  # generated batches a seed and split
+
+    # ---- the unconstrained checkpoint ----------------------------------------- #
+    save_dir = os.path.join(base, "run_unconstrained")
+    t0 = time.perf_counter()
+    loop, launches = counted(lambda: train_mdm.main([
+        "--dataset", "humanact12", "--data_dir", roots["humanact12"], "--save_dir", save_dir,
+        "--overwrite", "--latent_dim", str(T2M_D), "--batch_size", str(MB), "--num_frames",
+        str(A2M_FRAMES), "--use_fused_train_encoder", "--num_steps", str(CLI_STEPS),
+        "--log_interval", "10", "--unconstrained", *RECIPE]))
+    ckpts["unconstrained"] = os.path.join(save_dir, f"model{CLI_STEPS:09d}.pt")
+    uncon = launches
+    want = LAYERS * CLI_STEPS
+    ok = (loop.state.model.cond_mode == "no_cond" and os.path.exists(ckpts["unconstrained"])
+          and launches["encoder_layer_train_fwd"] == want
+          and launches["encoder_layer_train_bwd"] == want)
+    log(f"{'OK' if ok else 'FAIL'} train CLI --dataset humanact12 --unconstrained: {CLI_STEPS} "
+        f"steps in {time.perf_counter() - t0:.1f} s; launches fwd "
+        f"{launches['encoder_layer_train_fwd']} bwd {launches['encoder_layer_train_bwd']} "
+        f"(expected {want} each) {card}")
+    if not ok:
+        raise AssertionError("the unconstrained train CLI missed its steps or kernels")
+
+    smoke_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    log(f"a2m-eval: PyTorch's TF32 defaults for the phase: matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+    try:
+        # ---- the eval CLI on the three checkpoints ------------------------------ #
+        eval_launches = dict.fromkeys(("encoder_layer", "flash_attention"), 0)
+        seeds = debug["num_seeds"]  # the seeds' batches (x 2 splits) (+ the branch's)
+        chains = {"humanact12": seeds * per_seed, "uestc": 2 * seeds * per_seed,
+                  "unconstrained": (seeds + 1) * per_seed}
+        for name, ckpt in ckpts.items():
+            argv = ["--model_path", ckpt, "--eval_mode", "debug", "--batch_size", str(MB)]
+            t0 = time.perf_counter()
+            summary, launches = counted(lambda: eval_a2m.main(argv))
+            wall = time.perf_counter() - t0
+            dataset = "uestc" if name == "uestc" else "humanact12"
+            got = read_metrics_yaml(os.path.join(os.path.dirname(ckpt),
+                                                 f"eval_{dataset}_debug.yaml"))
+            nan_by_design = {k for k in got if name == "unconstrained"
+                             and k.startswith(("accuracy_", "multimodality_"))}
+            want = LAYERS * steps * chains[name]
+            ok = (set(got) == a2m_protocol_keys(name) and got.keys() == summary.keys()
+                  and all(math.isnan(v) == (k in nan_by_design) for k, v in got.items())
+                  and all(math.isfinite(v) for k, v in got.items() if k not in nan_by_design)
+                  and launches["encoder_layer"] == want and launches["flash_attention"] == want)
+            for k in eval_launches:
+                eval_launches[k] += launches[k]
+            log(f"{'OK' if ok else 'FAIL'} eval CLI {name} --eval_mode debug --batch_size {MB}: "
+                f"{len(got)} protocol keys ({len(nan_by_design)} NaN by design), {wall:.1f} s "
+                f"wall, {MB * chains[name] / wall:.2f} generated samples/s of CLI wall time; "
+                f"launches {launches['encoder_layer']} / {launches['flash_attention']} (expected "
+                f"{want} each: {LAYERS} x {steps} steps x {chains[name]} batches); fid_gen "
+                f"{got.get('fid_gen', got.get('fid_gen_test'))}, diversity_gt "
+                f"{got.get('diversity_gt', got.get('diversity_gt_test'))} {card}")
+            if not ok:
+                raise AssertionError(f"the eval CLI on {name} wrote the wrong metrics or "
+                                     f"missed its kernels: {sorted(got.items())}")
+
+        # ---- seed 0's generated batch against the plain path --------------------- #
+        ds = HumanAct12Poses(roots["humanact12"], num_frames=NUM_FRAMES, pose_rep="rot6d",
+                             split="test")
+        model, diffusion = create_model_and_diffusion(args, ds, dev)
+        model.load_state_dict(load_checkpoint(ckpts["humanact12"]))
+        model.to(dev).eval()
+        smpl = load_smpl_pickle(smpl_path).to(dev)
+        fk_fn = make_fk_fn(smpl)
+
+        def sample_fn(generator, shape, cond):
+            return p_sample_loop(diffusion, model, shape, cond, generator=generator)
+
+        ds.reset_shuffle()
+        ds.shuffle()  # seed 0's order, as evaluate_humanact12 draws it
+        order = ds.rng.getstate()
+
+        def generated():
+            ds.rng.setstate(order)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = make_generated_batches(sample_fn, fk_fn, ds, MB, MB, NUM_FRAMES, seed=0,
+                                         device=dev)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (gen, kernel_s), launches = counted(generated)
+        model.use_kernels = False
+        gen_plain, plain_s = generated()
+        model.use_kernels = True
+        want = {"encoder_layer": LAYERS * steps, "flash_attention": LAYERS * steps,
+                "local_block": 0, "encoder_layer_train_fwd": 0, "encoder_layer_train_bwd": 0}
+        err = np.abs(gen[0]["output_rot"] - gen_plain[0]["output_rot"]).max()
+        xyz_err = np.abs(gen[0]["output_xyz"] - gen_plain[0]["output_xyz"]).max()
+        report(f"a2m eval: seed 0's generated batch ({MB} samples, DDPM {steps} steps, "
+               f"[{MB},{rows},{T2M_D}]) vs the plain path on the card; launches {launches} "
+               f"(expected {want}); SMPL xyz max|diff| {xyz_err:.3e} (|sample| max "
+               f"{np.abs(gen_plain[0]['output_rot']).max():.3f})", float(err), TOL_TAKE,
+               launches == want and np.isfinite(gen[0]["output_xyz"]).all())
+        log(f"time a2m eval sampling ({MB} samples, {steps} DDPM steps, FK included): kernels "
+            f"{kernel_s:.3f} s = {MB / kernel_s:.2f} samples/s, {kernel_s / steps * 1e3:.3f} "
+            f"ms/step; plain {plain_s:.3f} s = {MB / plain_s:.2f} samples/s, "
+            f"{plain_s / steps * 1e3:.3f} ms/step {card}")
+
+        # ---- the classifiers' features, card against CPU ------------------------- #
+        ds.rng.setstate(order)
+        gt = make_gt_batches(fk_fn, ds, MB, MB, NUM_FRAMES, device=dev)
+        ds.rng.setstate(order)
+        gt_cpu = make_gt_batches(make_fk_fn(load_smpl_pickle(smpl_path)), ds, MB, MB,
+                                 NUM_FRAMES)
+        batches = [gen[0], gt[0]]
+        modi_in = np.concatenate([b["output_xyz"][:, UNCONSTRAINED_15_JOINTS] for b in batches])
+        modi_in = modi_in - modi_in[:, 8:9]
+        evaluations = {
+            "GRU": [A2MEvaluation(device=d) for d in (dev, "cpu")],
+            "recognition ST-GCN": [STGCNA2MEvaluation(device=d) for d in (dev, "cpu")],
+            "MoDi ST-GCN": [UnconstrainedEvaluator(device=d) for d in (dev, "cpu")],
+        }
+
+        def features(name, ev):
+            if name == "MoDi ST-GCN":
+                return ev.compute_features(modi_in)[0]
+            return ev.compute_features(batches, with_labels=False)[0]
+
+        def module_features(name, ev):
+            """The classifier module called directly, without the eval's guard."""
+            with torch.no_grad():
+                if name == "MoDi ST-GCN":
+                    x = torch.as_tensor(modi_in.transpose(0, 2, 3, 1).copy(), device=dev)
+                    return ev.model(x, return_features=True)[1].cpu().numpy()
+                if name == "GRU":
+                    return np.concatenate([ev.classifier(
+                        torch.as_tensor(b["output_xyz"], device=dev),
+                        torch.as_tensor(b["lengths"], device=dev))[1].cpu().numpy()
+                        for b in batches])
+                return np.concatenate([ev.model(
+                    torch.as_tensor(b["output_rot"], device=dev).permute(0, 2, 3, 1),
+                    return_features=True)[1].cpu().numpy() for b in batches])
+
+        feat_errs, clf_ms = {}, {}
+        for name, (ev, ev_cpu) in evaluations.items():
+            want_f = features(name, ev_cpu)
+            scale = np.abs(want_f).max()
+            feat_errs[name] = float(np.abs(features(name, ev) - want_f).max() / scale)
+            tf32_err = float(np.abs(module_features(name, ev) - want_f).max() / scale)
+            one = (lambda: ev.compute_features(modi_in[:MB])) if name == "MoDi ST-GCN" else (
+                lambda: ev.forward(batches[0]))
+            clf_ms[name] = cuda_time_ms(one, 20, 3)
+            report(f"a2m eval: {name} features on the card vs the CPU ({len(want_f)} samples, "
+                   f"{want_f.shape[1]} features, the eval's TF32 guard; max|f| {scale:.3f})",
+                   feat_errs[name], TOL_EVAL_FEATS, bool(np.isfinite(want_f).all()))
+            # the control: without the guard the same check must fail
+            caught = tf32_err > TOL_EVAL_FEATS
+            log(f"{'OK' if caught else 'FAIL'} control: the {name} module with cuDNN's TF32 on "
+                f"vs the CPU: max|diff| {tf32_err:.3e} of max|f| (tol {TOL_EVAL_FEATS:g}): "
+                f"{'FAIL, as it must' if caught else 'passes: the check cannot see the fault'}")
+            if not caught:
+                raise AssertionError(f"TOL_EVAL_FEATS does not separate the {name} with "
+                                     "cuDNN's TF32 on")
+        log(f"time a2m eval classifiers, one batch of {MB} (host copies included): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in clf_ms.items()) + f" {card}")
+
+        # ---- the gt metrics, card against CPU ------------------------------------ #
+        uestc = UESTC(roots["uestc"], num_frames=NUM_FRAMES, pose_rep="rot6d", split="test")
+        u_order = uestc.rng.getstate()  # the items' frame windows, alike on both
+        u_gt = make_gt_batches(fk_fn, uestc, MB, MB, NUM_FRAMES, device=dev)
+        uestc.rng.setstate(u_order)
+        u_gt_cpu = make_gt_batches(make_fk_fn(load_smpl_pickle(smpl_path)), uestc, MB, MB,
+                                   NUM_FRAMES)
+        for name, (on_card, on_cpu) in (("GRU", (gt, gt_cpu)),
+                                        ("recognition ST-GCN", (u_gt, u_gt_cpu))):
+            ev, ev_cpu = evaluations[name]
+            np.random.seed(0)
+            m = ev.evaluate({"gt": on_card})
+            np.random.seed(0)
+            m_cpu = ev_cpu.evaluate({"gt": on_cpu})
+            gap = max(abs(m[k] - v) / max(1.0, abs(v)) for k, v in m_cpu.items())
+            report(f"a2m eval: gt metrics of the {name} on the card vs the CPU ({MB} samples, "
+                   f"SMPL and the classifier on each; {m})", gap, TOL_EVAL_FEATS)
+
+        # ---- kernel 1 at the eval's shape ---------------------------------------- #
+        w = layer_weights(randn, T2M_D, FF)
+        x1 = randn(MB, rows, T2M_D)
+        got_x = fused_encoder_layer(x1, *w, num_heads=HEADS)
+        enc_err = (got_x - encoder_layer_plain(x1, *w, num_heads=HEADS)).abs().max().item()
+        report(f"encoder_layer [{MB},{rows},{T2M_D}] heads {HEADS} of {dh} ff {FF}", enc_err,
+               TOL_ENCODER, got_x.shape == x1.shape)
+        ms = cuda_time_ms(lambda: fused_encoder_layer(x1, *w, num_heads=HEADS), 50, 5)
+        plain_ms = cuda_time_ms(lambda: encoder_layer_plain(x1, *w, num_heads=HEADS), 20, 3)
+        lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(x1, *w, HEADS), 20, 3)
+        m_rows = MB * rows
+        flops = 2 * m_rows * (4 * T2M_D * T2M_D + 2 * T2M_D * FF) + 4 * MB * rows**2 * T2M_D
+        nbytes = 4 * (2 * m_rows * T2M_D + sum(t.numel() for t in w))
+        bound, by = bound_ms(flops, nbytes, tf32x3=True)
+        time_line(f"encoder_layer [{MB},{rows},{T2M_D}] heads {HEADS} of {dh}", ms, plain_ms,
+                  lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+
+        # ---- the train CLI's eval hook ------------------------------------------- #
+        n_evals = sum(1 for s in range(CLI_STEPS) if s > 0 and s % 10 == 0)
+        hook = {}
+        for name, data_dir, flags, per_eval in (
+                ("humanact12", roots["humanact12"],
+                 ["--latent_dim", str(T2M_D), "--num_frames", str(A2M_FRAMES), *RECIPE],
+                 {"encoder_layer": LAYERS * steps, "flash_attention": LAYERS * steps,
+                  "local_block": 0}),
+                ("genea2023", os.path.join(HERE, "build", "chip_smoke", "genea2023"),
+                 ["--num_frames", str(T_CLI)],
+                 {"encoder_layer": LAYERS, "flash_attention": LAYERS, "local_block": 1})):
+            save_dir = os.path.join(base, f"run_hook_{name}")
+            shutil.rmtree(save_dir, ignore_errors=True)  # progress.json appends
+            t0 = time.perf_counter()
+            loop, launches = counted(lambda: train_mdm.main([
+                "--dataset", name, "--data_dir", data_dir, "--save_dir", save_dir, "--overwrite",
+                "--batch_size", str(MB), "--use_fused_train_encoder", "--num_steps",
+                str(CLI_STEPS), "--log_interval", "10", "--save_interval", "10",
+                "--eval_during_training", "--eval_num_samples", str(MB), "--eval_batch_size",
+                str(MB), "--eval_rep_times", "1", *flags]))
+            cli_s = time.perf_counter() - t0
+            with open(os.path.join(save_dir, "progress.json")) as f:
+                evals = [r for r in map(json.loads, f) if "eval/wall_s" in r]
+            key = "eval/fid_gen" if name == "humanact12" else "eval/val_loss"
+            want = {k: n_evals * v for k, v in per_eval.items()}
+            ok = (len(evals) == n_evals and all(math.isfinite(r.get(key, math.nan)) for r in evals)
+                  and all(launches[k] == v for k, v in want.items())
+                  and launches["encoder_layer_train_fwd"] == LAYERS * CLI_STEPS)
+            hook[name] = launches
+            log(f"{'OK' if ok else 'FAIL'} train CLI --dataset {name} --eval_during_training "
+                f"--save_interval 10 ({CLI_STEPS} steps, {len(evals)} evals, expected {n_evals}): "
+                f"{key} {[r.get(key) for r in evals]}, eval wall "
+                f"{[round(r['eval/wall_s'], 3) for r in evals]} s, CLI {cli_s:.1f} s; launches "
+                f"{launches} (the eval's expected {want}) {card}")
+            if not ok:
+                raise AssertionError(f"the {name} train CLI's eval hook misfired")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = smoke_tf32
+
+    row = {"name": f"encoder_layer_a2m_eval_{MB}x{rows}x{T2M_D}", "route": "cuda",
+           "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
+           "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
+           "launches": eval_launches["encoder_layer"] + hook["humanact12"]["encoder_layer"],
+           "max_abs_err": enc_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": lib_ms}
+    # the main paths' launches (the CLIs and the hooks; not the comparisons)
+    a2m_train, gesture = (uncon, hook["humanact12"]), hook["genea2023"]
+    return row, {
+        "encoder_layer": gesture["encoder_layer"], "local_block": gesture["local_block"],
+        "flash_attention": (eval_launches["flash_attention"]
+                            + hook["humanact12"]["flash_attention"] + gesture["flash_attention"]),
+        **{f"a2m_{k}": sum(c[k] for c in a2m_train)
+           for k in ("encoder_layer_train_fwd", "encoder_layer_train_bwd")},
+        **{k: gesture[k] for k in ("encoder_layer_train_fwd", "encoder_layer_train_bwd")}}
 
 
 def device_profile(step, steps, label, card, host_rows=0, groups=None, ranges=()):
@@ -2086,11 +2470,13 @@ def train_phase(dev, randn, rs, card):
     return model, diffusion, cfg, batches[0]
 
 
-def run_train_steps(model, diffusion, cfg, batches, fk_fn=None):
+def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False):
     """train_step over ``batches`` (injected t and noise; ``fk_fn`` to the
     geometric losses) from a fresh optimizer and generator: (losses, the
     first step's gradients, the median ms of steps 2 on, (peak MiB, MiB
-    above the start))."""
+    above the start), and with ``record`` each step's record: the weights,
+    optimizer, schedule and generator states before it, and its loss and
+    gradients after)."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
@@ -2100,10 +2486,15 @@ def run_train_steps(model, diffusion, cfg, batches, fk_fn=None):
     opt, sched = make_optimizer(model.parameters(), cfg)
     state = TrainState(model, opt, sched, UniformSampler(1000), {})
     gen = torch.Generator(device=dev).manual_seed(7)
-    losses, times, grads = [], [], None
+    losses, times, grads, records = [], [], None, []
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     for b in batches:
+        if record:  # kept on the host, out of the run's device memory
+            records.append({"params": {n: on_host(p) for n, p in model.named_parameters()},
+                            "opt": on_host(opt.state_dict()),
+                            "sched": copy.deepcopy(sched.state_dict()),
+                            "gen": gen.get_state()})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
@@ -2111,21 +2502,83 @@ def run_train_steps(model, diffusion, cfg, batches, fk_fn=None):
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if record:
+            records[-1].update(loss=losses[-1], grads={n: on_host(p.grad)
+                                                       for n, p in model.named_parameters()})
         if grads is None:
             grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     peak = torch.cuda.max_memory_allocated()
     # the step's working memory above what was allocated before it
     # (models, optimizer state after step 1 aside, the staged batches)
-    return (losses, grads, sorted(times[1:])[len(times[1:]) // 2] * 1e3,
-            (peak / 2**20, (peak - base) / 2**20))
+    out = (losses, grads, sorted(times[1:])[len(times[1:]) // 2] * 1e3,
+           (peak / 2**20, (peak - base) / 2**20))
+    return (*out, records) if record else out
+
+
+def on_host(tree):
+    """A copy of a nested dict / list of tensors with every tensor on the host."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: on_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(on_host(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+def grad_gap(grads, want) -> tuple[float, str]:
+    """The worst parameter gradient's max|diff| over its max|value|, and its name."""
+    return max(((grads[k].to(g.device) - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30), k) for k, g in want.items())
+
+
+def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None):
+    """Each step k of the kernel model from the plain run's weights,
+    optimizer, schedule and generator states before its step k (records of
+    run_train_steps), on batch k: [(loss, gradients)] a step.  Each step
+    reads the kernels' error of one step alone, not the float32 chaos that
+    free-running steps amplify (ROADMAP C5)."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.train.loop import TrainState, make_optimizer, train_step
+
+    opt, sched = make_optimizer(model.parameters(), cfg)
+    state = TrainState(model, opt, sched, UniformSampler(1000), {})
+    gen = torch.Generator(device=torch.device("cuda"))
+    out = []
+    for b, rec in zip(batches, records):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(rec["params"][n])
+        opt.load_state_dict(on_host(rec["opt"]))  # moved to the parameters' device
+        sched.load_state_dict(rec["sched"])
+        gen.set_state(rec["gen"])
+        metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
+                             b["noise"], fk_fn=fk_fn)
+        out.append((metrics["loss"].item(), {n: on_host(p.grad)
+                                             for n, p in model.named_parameters()}))
+    return out
 
 
 def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, why, card,
-                        fk_fn=None):
+                        fk_fn=None, grad_miss=None):
     """The steps through the training kernels (``per_step`` forward and
     backward launches a step, counted) against the same steps through the
-    plain layers, under TOL_STEP_LOSS and TOL_STEP_GRAD; prints ms a step,
-    samples/s and peak memory of both.  Returns the kernels' ms a step."""
+    plain layers, two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
+    free-running (the losses of every step, the first step's gradients),
+    beside the gap of a plain run from weights nudged by one ulp (what
+    float32 chaos alone moves); and teacher-forced (each kernel step from
+    the plain run's state before it: its loss and every gradient, at every
+    step).  Prints ms a step, samples/s and peak memory of both.  Where
+    ``grad_miss`` is (a recorded ROADMAP item, a cap), teacher-forced
+    gradients past TOL_STEP_GRAD but within the cap print a MISS naming the
+    item and the run goes on; past the cap they fail, and the losses stay
+    gated.  Returns the kernels' ms a step."""
+    import torch
+
     from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
         encoder_layer_train_bwd,
         encoder_layer_train_fwd,
@@ -2142,16 +2595,51 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
         f"bwd {launches[1]} (expected {want} each: {why} a step)")
     if launches != (want, want) or not finite:
         raise AssertionError("train steps: wrong launch counts or a non-finite loss")
-    p_losses, p_grads, p_step_ms, p_peak = run_train_steps(plain, diffusion, cfg, batches, fk_fn)
+    p_losses, p_grads, p_step_ms, p_peak, records = run_train_steps(
+        plain, diffusion, cfg, batches, fk_fn, record=True)
+    nudged = copy.deepcopy(plain)
+    with torch.no_grad():
+        for name, p in nudged.named_parameters():
+            w = records[0]["params"][name].to(p.device)
+            p.copy_(torch.nextafter(w, torch.full_like(w, math.inf)))
+    n_losses, n_grads, _, _ = run_train_steps(nudged, diffusion, cfg, batches, fk_fn)
+    del nudged
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, p_losses))
-    grad_err = max((grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-                   for k, g in p_grads.items())
+    grad_err = grad_gap(grads, p_grads)[0]
+    ulp_loss = max(abs(x - y) / abs(y) for x, y in zip(n_losses, p_losses))
     ok = loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
-    log(f"{'OK' if ok else 'FAIL'} train steps vs plain versions on the card (same seeds, t, "
-        f"noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's grads worst "
-        f"max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g})")
+    log(f"{'OK' if ok else 'FAIL'} train steps vs plain versions on the card, free-running (same "
+        f"seeds, t, noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's grads "
+        f"worst max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g}); beside it, plain from "
+        f"weights nudged by one ulp: losses rel {ulp_loss:.3e}, first step's grads "
+        f"{grad_gap(n_grads, p_grads)[0]:.3e}")
     if not ok:
         raise AssertionError("kernel train steps disagree with the plain steps")
+    forced = teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn)
+    tf_loss = [abs(x - r["loss"]) / abs(r["loss"]) for (x, _), r in zip(forced, records)]
+    tf_grad = [grad_gap(g, r["grads"]) for (_, g), r in zip(forced, records)]
+    # beside it, float32's own floor at each state: the plain step from the
+    # recorded weights nudged by one ulp
+    floor = [grad_gap(g, r["grads"])[0] for (_, g), r in zip(teacher_forced_steps(
+        plain, diffusion, cfg, batches, [{**r, "params": {
+            n: torch.nextafter(w, torch.full_like(w, math.inf)) for n, w in r["params"].items()}}
+            for r in records], fk_fn), records)]
+    loss_ok = max(tf_loss) <= TOL_STEP_LOSS
+    worst = max(x for x, _ in tf_grad)
+    grad_ok = worst <= TOL_STEP_GRAD
+    verdict = ("OK" if loss_ok and grad_ok else
+               "MISS" if loss_ok and grad_miss and worst <= grad_miss[1] else "FAIL")
+    log(f"{verdict} train steps vs plain versions on the card, teacher-forced "
+        f"(each kernel step from the plain run's weights, optimizer and generator before it): "
+        f"losses rel {', '.join(f'{x:.3e}' for x in tf_loss)} (tol {TOL_STEP_LOSS:g}); grads "
+        f"worst max|diff|/max|grad| {', '.join(f'{x:.3e} ({n})' for x, n in tf_grad)} (tol "
+        f"{TOL_STEP_GRAD:g}); beside them, plain from those weights nudged by one ulp: grads "
+        f"{', '.join(f'{x:.3e}' for x in floor)} (the kernels' gap "
+        f"{', '.join(f'{x / max(f, 1e-30):.1f}' for (x, _), f in zip(tf_grad, floor))} x it)"
+        + (f"; the gradients' miss is recorded as {grad_miss[0]}, capped at {grad_miss[1]:g}"
+           if grad_miss and not grad_ok else ""))
+    if verdict == "FAIL":
+        raise AssertionError("a teacher-forced kernel train step disagrees with the plain step")
     log(f"time train step ({label}, median of steps 2-{n}): kernels {step_ms:.3f} ms = "
         f"{b / step_ms * 1e3:.1f} samples/s, peak {peak[0]:.1f} MiB ({peak[1]:.1f} above the "
         f"start); plain {p_step_ms:.3f} ms = {b / p_step_ms * 1e3:.1f} samples/s, peak "
@@ -2480,12 +2968,19 @@ def main() -> int:
     # ---- 13. action-to-motion training ---------------------------------- #
     a2m_rows, a2m = a2m_train_phase(randn, rs, card)
 
+    # ---- 14. action-to-motion evaluation and the train CLI's eval hook -- #
+    a2m_eval_row, a2m_eval = a2m_eval_phase(randn, card)
+    for row, k in ((a2m_rows[0], "encoder_layer_train_fwd"),
+                   (a2m_rows[1], "encoder_layer_train_bwd")):
+        row["launches"] += a2m_eval[f"a2m_{k}"]
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
          "launches": launches["local_block"] + genea["local_block"]
-                     + gesture_edit["local_block"] + samplers["local_block"],
+                     + gesture_edit["local_block"] + samplers["local_block"]
+                     + a2m_eval["local_block"],
          "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
@@ -2494,27 +2989,30 @@ def main() -> int:
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
          "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
                       + genea["encoder_layer"] + gesture_edit["encoder_layer"]
-                      + samplers["encoder_layer"]),
+                      + samplers["encoder_layer"] + a2m_eval["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
         {"name": "encoder_layer_train_fwd", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:249",
-         "launches": train_launches[0] + genea["encoder_layer_train_fwd"],
+         "launches": (train_launches[0] + genea["encoder_layer_train_fwd"]
+                      + a2m_eval["encoder_layer_train_fwd"]),
          "max_abs_err": train_fwd_err,
          **time_keys(train_times[T + 1]["fwd"])},
         {"name": "encoder_layer_train_bwd", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
-         "launches": train_launches[1] + genea["encoder_layer_train_bwd"],
+         "launches": (train_launches[1] + genea["encoder_layer_train_bwd"]
+                      + a2m_eval["encoder_layer_train_bwd"]),
          "max_abs_err": train_bwd_err,
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
     ]
     kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
-                                + samplers["flash_attention"] + a2m["flash_attention"])
-    kernels += t2m_rows + t2m_train_rows + a2m_rows
+                                + samplers["flash_attention"] + a2m["flash_attention"]
+                                + a2m_eval["flash_attention"])
+    kernels += t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -19,7 +19,10 @@ geometric loss terms (loop.py:114,172-174).
 checkpoints and resume.  With a ``text_encoder`` each batch's captions are
 embedded on the host into ``text_emb`` (loop.py:517-529); the batch's
 ``mask`` (its items' lengths) reaches the loss; string fields (captions,
-``action_text``) stay on the host.  A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
+``action_text``) stay on the host.  ``eval_fn(state, step)`` runs after
+every save inside the loop (loop.py:599-610; not after the last one), its
+metrics logged as ``eval/<name>`` beside ``eval/wall_s`` and reported to
+the platform's ``Eval`` group.  A checkpoint is ``model{step:09d}.pt`` (the model's state dict in the
 reference torch layout, which the generate CLI and the JAX package's
 load_torch_checkpoint read) beside ``opt{step:09d}.pt`` (optimizer, LR
 schedule, sampler, EMA, skip count and generator state).
@@ -194,6 +197,18 @@ def train_step(
     return metrics
 
 
+def batch_to_device(motion: np.ndarray, cond: dict, device: torch.device,
+                    text_encoder: Optional[Callable] = None):
+    """A collated (motion, cond) as tensors on ``device``, the captions
+    embedded by ``text_encoder`` into ``text_emb``; host-only fields and
+    the raw audio stay behind (the port's denoiser reads the MFCCs)."""
+    dcond = {k: torch.from_numpy(np.asarray(v)).to(device)
+             for k, v in device_cond(cond).items() if k != "audio"}
+    if text_encoder is not None and "text" in cond:
+        dcond["text_emb"] = torch.as_tensor(text_encoder(cond["text"]), device=device)
+    return torch.from_numpy(motion).to(device), dcond
+
+
 class TrainLoop:
     """Host-side training shell: data, logging, checkpoints, resume."""
 
@@ -208,9 +223,11 @@ class TrainLoop:
         args_to_save: Optional[dict] = None,
         text_encoder: Optional[Callable] = None,
         fk_fn: Optional[Callable] = None,
+        eval_fn: Optional[Callable] = None,
     ):
         self.config = config
         self.text_encoder = text_encoder
+        self.eval_fn = eval_fn
         self.fk_fn = fk_fn
         self.diffusion = diffusion
         self.data = data
@@ -293,16 +310,9 @@ class TrainLoop:
 
     # ---- the loop ------------------------------------------------------- #
     def _host_batches(self):
-        """Collated batches as tensors on the device, the captions embedded
-        by the text encoder.  The raw audio stays on the host: the port's
-        denoiser reads the MFCCs."""
+        """Collated batches as tensors on the device (batch_to_device)."""
         for motion, cond in infinite_batches(self.data):
-            dcond = {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                     for k, v in device_cond(cond).items() if k != "audio"}
-            if self.text_encoder is not None and "text" in cond:
-                dcond["text_emb"] = torch.as_tensor(
-                    self.text_encoder(cond["text"]), device=self.device)
-            yield torch.from_numpy(motion).to(self.device), dcond
+            yield batch_to_device(motion, cond, self.device, self.text_encoder)
 
     def run_loop(self, batch_source=None) -> None:
         """Train to ``num_steps``; ``batch_source`` yields ready
@@ -348,9 +358,19 @@ class TrainLoop:
 
             if step > 0 and step % cfg.save_interval == 0:
                 self.save()
+                if self.eval_fn is not None:
+                    self._evaluate(step)
                 if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
                     return
         self.save()
+
+    def _evaluate(self, step: int) -> None:
+        t_eval = time.time()
+        for k, v in (self.eval_fn(self.state, step) or {}).items():
+            log_lib.logkv(f"eval/{k}", float(v))
+            self.platform.report_scalar(k, float(v), iteration=step, group_name="Eval")
+        log_lib.logkv("eval/wall_s", time.time() - t_eval)
+        log_lib.dumpkvs()
 
 
 def parse_resume_step_from_filename(path: str) -> int:

@@ -18,7 +18,11 @@ MotionMDM (``no_cond`` under ``--unconstrained``) on rot6d poses; with
 xyz joints through SMPL (the pickle named by ``SMPL_MODEL_PATH``, else
 body_models/smpl/SMPL_NEUTRAL.pkl) and models/rotation2xyz.py
 (train_mdm.py:104-116).  ``--device_batch_pool N`` stages N batches on the
-device and cycles them (train_mdm.py:276-301).
+device and cycles them (train_mdm.py:276-301).  ``--eval_during_training``
+evaluates after every in-loop save (train_mdm.py:151-229): the a2m
+benchmark on humanact12 / uestc (eval/eval_a2m.py), else, or where SMPL is
+missing, the validation loss over a fixed set of batches; on humanml / kit
+the text benchmark is not ported yet and the flag raises.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import itertools
 import os
 import sys
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -36,11 +41,13 @@ from gesturediffusion_tpu_torch.data.registry import (
     get_dataset_class,
     get_dataset_loader,
 )
+from gesturediffusion_tpu_torch.eval.eval_a2m import make_a2m_training_eval_fn
 from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
 from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle
 from gesturediffusion_tpu_torch.train.loop import (
     TrainConfig,
     TrainLoop,
+    batch_to_device,
     find_latest_checkpoint,
 )
 from gesturediffusion_tpu_torch.train.platforms import create_platform
@@ -100,8 +107,11 @@ def main(argv=None) -> TrainLoop:
             return rotation2xyz(smpl, sample, pose_rep="rot6d", translation=True, glob=True,
                                 jointstype="smpl", vertstrans=False)
 
+    eval_fn = (make_eval_fn(args, diffusion, data.dataset, device)
+               if args.eval_during_training else None)
     loop = TrainLoop(config, diffusion, model, data, device, platform=platform,
-                     args_to_save=vars(args), text_encoder=text_encoder, fk_fn=fk_fn)
+                     args_to_save=vars(args), text_encoder=text_encoder, fk_fn=fk_fn,
+                     eval_fn=eval_fn)
     if args.resume_checkpoint:
         resume = args.resume_checkpoint
         if resume == "latest":
@@ -117,6 +127,65 @@ def main(argv=None) -> TrainLoop:
     loop.run_loop(batch_source=batch_source)
     platform.close()
     return loop
+
+
+def make_eval_fn(args, diffusion, dataset, device) -> Optional[Callable]:
+    """The ``--eval_during_training`` hook (train_mdm.py:151-229): the a2m
+    benchmark on the action datasets, else (or without SMPL) the
+    validation loss; None, logged, when the eval split cannot be read."""
+    if args.dataset in ACTION_DATASETS:
+        try:
+            return make_a2m_training_eval_fn(args, diffusion, dataset, device)
+        except FileNotFoundError as e:
+            log_lib.log(f"a2m eval_during_training unavailable ({e}); "
+                        "falling back to val-loss eval")
+    try:
+        return make_val_loss_eval_fn(args, diffusion, device)
+    except (OSError, ValueError) as e:  # no such split, or too few items
+        log_lib.log(f"eval_during_training disabled: {e}")
+        return None
+
+
+def make_val_loss_eval_fn(args, diffusion, device) -> Callable:
+    """The mean diffusion loss of the model (no dropout) over the first
+    ceil(eval_num_samples / eval_batch_size) batches of the val split (the
+    train split of ``synthetic``), the timesteps and noise drawn from a
+    generator seeded alike at every eval: eval_fn(state, step) ->
+    {"val_loss": float}."""
+    split = "train" if args.dataset == "synthetic" else "val"
+    val_data = get_dataset_loader(args.dataset, batch_size=args.eval_batch_size,
+                                  num_frames=args.num_frames, split=split,
+                                  datapath=args.data_dir or None, n_seed_poses=args.seed_poses,
+                                  seed=args.seed + 1)
+    batches = iter(val_data)
+    try:
+        n = -(-args.eval_num_samples // args.eval_batch_size)
+        val_batches = [batch_to_device(m, c, device) for m, c in itertools.islice(batches, n)]
+    finally:
+        batches.close()  # stops the loader's producer thread
+    if not val_batches:
+        raise ValueError(f"{split} split smaller than eval_batch_size")
+
+    def eval_fn(state, step):
+        model = state.model
+        was_training = model.training
+        model.eval()
+        generator = torch.Generator(device=device).manual_seed(args.seed + 12345)
+        losses = []
+        try:
+            with torch.no_grad():
+                for motion, cond in val_batches:
+                    t = torch.randint(0, diffusion.num_timesteps, (motion.shape[0],),
+                                      generator=generator, device=device)
+                    noise = torch.randn(motion.shape, generator=generator, device=device)
+                    terms = diffusion.training_losses(model, motion, t, cond, mask=cond["mask"],
+                                                      noise=noise)
+                    losses.append(terms["loss"].mean().item())
+        finally:
+            model.train(was_training)
+        return {"val_loss": float(np.mean(losses))}
+
+    return eval_fn
 
 
 def build_device_batch_pool(loop: TrainLoop, n_batches: int):

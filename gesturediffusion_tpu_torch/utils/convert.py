@@ -1,4 +1,4 @@
-"""Carry MDM and MotionMDM weights into the port.
+"""Carry MDM, MotionMDM and evaluator-classifier weights into the port.
 
 ``state_dict_from_params`` turns the JAX package's MDM parameter tree
 (nested dicts of arrays: flax Dense ``kernel`` [in, out] / ``bias``,
@@ -14,7 +14,13 @@ Dense bias is folded into its rows, as that exporter does (:334-341).
 Loading that state dict sets the trainable kernel to the rows and its
 bias to 0 (models/mdm_t2m.py:EmbedAction).  The other way, a port
 checkpoint holds the folded rows, which JAX's load_torch_checkpoint reads
-as kernel = rows, bias = 0.  The wav encoder waits for a later slice.
+as kernel = rows, bias = 0.  ``motion_discriminator_state_dict_from_params``
+and ``stgcn_state_dict_from_variables`` carry the JAX evaluator classifiers
+(eval/networks.py:MotionDiscriminator, eval/stgcn.py:STGCN) into the
+reference torch layout the port's classifiers load: the inverse of
+networks.py:convert_motion_discriminator (:333) and stgcn.py:convert_stgcn
+(:290), BatchNorm ``batch_stats`` as ``running_mean`` / ``running_var``.
+The wav encoder waits for a later slice.
 """
 
 from __future__ import annotations
@@ -107,6 +113,60 @@ def motion_mdm_state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
             _f32(P["embed_action"]["kernel"]) + _f32(P["embed_action"]["bias"])[None, :])
     _encoder_layers(out, P["seqTransEncoder"])
     _pe(out, out["input_process.poseEmbedding.weight"].shape[0])
+    return _tensors(out)
+
+
+def motion_discriminator_state_dict_from_params(params: dict, hidden_layer: int = 2
+                                                 ) -> dict[str, torch.Tensor]:
+    """JAX MotionDiscriminator params ({'params': tree} or the tree) ->
+    the port's (the reference's) state dict: ``recurrent.{weight,bias}_{ih,hh}_l{i}``,
+    ``linear1``, ``linear2``."""
+    P = params.get("params", params)
+    out: dict = {}
+    for layer in range(hidden_layer):
+        for short, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                            ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            out[f"recurrent.{name}_l{layer}"] = _f32(P[f"gru_l{layer}_{short}"])
+    _linear(out, "linear1", P["linear1"])
+    _linear(out, "linear2", P["linear2"])
+    return _tensors(out)
+
+
+def _conv2d(out: dict, name: str, p: dict) -> None:
+    """flax Conv kernel [kh, kw, in, out] -> torch Conv2d weight [out, in, kh, kw]."""
+    out[f"{name}.weight"] = _f32(p["kernel"]).transpose(3, 2, 0, 1)
+    out[f"{name}.bias"] = _f32(p["bias"])
+
+
+def _batchnorm(out: dict, name: str, p: dict, stats: dict) -> None:
+    _layernorm(out, name, p)
+    out[f"{name}.running_mean"] = _f32(stats["mean"])
+    out[f"{name}.running_var"] = _f32(stats["var"])
+
+
+def stgcn_state_dict_from_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX STGCN variables ({'params', 'batch_stats'}) -> the port's (the
+    reference's) state dict: ``data_bn``, ``st_gcn_networks.{i}.gcn.conv``,
+    ``.tcn.{0,2,3}``, ``.residual.{0,1}``, ``edge_importance.{i}``, ``fcn``
+    (a 1x1 Conv2d)."""
+    P, S = variables["params"], variables["batch_stats"]
+    out: dict = {}
+    _batchnorm(out, "data_bn", P["data_bn"], S["data_bn"])
+    out["fcn.weight"] = _f32(P["fcn"]["kernel"]).T[:, :, None, None]
+    out["fcn.bias"] = _f32(P["fcn"]["bias"])
+    i = 0
+    while f"st_gcn_{i}" in P:
+        blk, st, p = P[f"st_gcn_{i}"], S[f"st_gcn_{i}"], f"st_gcn_networks.{i}"
+        _conv2d(out, f"{p}.gcn.conv", blk["gcn"]["conv"])
+        _batchnorm(out, f"{p}.tcn.0", blk["tcn_bn1"], st["tcn_bn1"])
+        _conv2d(out, f"{p}.tcn.2", blk["tcn_conv"])
+        _batchnorm(out, f"{p}.tcn.3", blk["tcn_bn2"], st["tcn_bn2"])
+        if "res_conv" in blk:
+            _conv2d(out, f"{p}.residual.0", blk["res_conv"])
+            _batchnorm(out, f"{p}.residual.1", blk["res_bn"], st["res_bn"])
+        if f"edge_importance_{i}" in P:
+            out[f"edge_importance.{i}"] = _f32(P[f"edge_importance_{i}"])
+        i += 1
     return _tensors(out)
 
 

@@ -1,6 +1,9 @@
-"""Device choice for the port's entry points: the card unless asked."""
+"""Device choice for the port's entry points: the card unless asked; and
+float32 products on it."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,3 +21,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 products inside: cuBLAS's and cuDNN's TF32 switched off (PyTorch
+    leaves cuDNN's on by default, and one TF32 pass rounds to ~1e-3), the
+    settings found restored on the way out."""
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before

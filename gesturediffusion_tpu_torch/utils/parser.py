@@ -1,21 +1,20 @@
-"""Flags of the train, generate, edit and serve CLIs and the checkpoint-args
-override.
+"""Flags of the train, generate, edit, serve and a2m-eval CLIs and the
+checkpoint-args override.
 
 PyTorch-port counterpart of gesturediffusion_tpu/utils/parser.py, with the
-JAX flag names for the gesture paths.  As there, generation and serving
-re-read the dataset, model and diffusion groups from the ``args.json`` next
-to the checkpoint, and ``cond_mask_prob == 0`` forces ``guidance_param = 1``.
-``--device`` defaults to the CUDA card.  Only flags that the port reads
-are accepted: an unknown flag is an argparse error, and a training flag
-that the port cannot honour yet raises NotImplementedError.  Left out of
-the JAX set because nothing here would read them: ``--emb_trans_dec``
-(trans_dec only), ``--use_audio`` (read by no model), ``--prng`` (the port
-draws from torch generators), edit's ``--no_fast_sampler`` (a gesture
-model samples through its fast path only), the ``--eval_*`` settings (they go
-with ``--eval_during_training``, which raises) and the train CLI's
-``--use_fused_encoder`` (the inference layer takes no part in training).
-A JAX ``args.json`` that carries them still loads: generation copies only
-the keys its parser has.
+JAX flag names for the gesture paths.  As there, generation, serving and
+evaluation re-read the dataset, model and diffusion groups from the
+``args.json`` next to the checkpoint, and ``cond_mask_prob == 0`` forces
+``guidance_param = 1``.  ``--device`` defaults to the CUDA card.  Only
+flags that the port reads are accepted: an unknown flag is an argparse
+error, and a training flag that the port cannot honour yet raises
+NotImplementedError.  Left out of the JAX set because nothing here would
+read them: ``--emb_trans_dec`` (trans_dec only), ``--use_audio`` (read by
+no model), ``--prng`` (the port draws from torch generators), edit's
+``--no_fast_sampler`` (a gesture model samples through its fast path only)
+and the train CLI's ``--use_fused_encoder`` (the inference layer takes no
+part in training).  A JAX ``args.json`` that carries them still loads:
+generation copies only the keys its parser has.
 """
 
 from __future__ import annotations
@@ -180,7 +179,12 @@ def train_args(argv=None) -> argparse.Namespace:
     train.add_argument("--lr", default=1e-4, type=float)
     train.add_argument("--weight_decay", default=0.0, type=float)
     train.add_argument("--lr_anneal_steps", default=0, type=int)
-    train.add_argument("--eval_during_training", action="store_true")
+    train.add_argument("--eval_batch_size", default=32, type=int)
+    train.add_argument("--eval_during_training", action="store_true",
+                       help="Evaluate after every in-loop save: the a2m benchmark on "
+                            "humanact12 / uestc, the validation loss elsewhere.")
+    train.add_argument("--eval_rep_times", default=3, type=int)
+    train.add_argument("--eval_num_samples", default=1_000, type=int)
     train.add_argument("--log_interval", default=1_000, type=int)
     train.add_argument("--save_interval", default=10_000, type=int)
     train.add_argument("--num_steps", default=600_000, type=int)
@@ -211,7 +215,8 @@ def train_args(argv=None) -> argparse.Namespace:
 
     waiting = {
         "--mesh_model_axis > 1 (tensor parallelism, ROADMAP A10)": args.mesh_model_axis > 1,
-        "--eval_during_training (the evaluators, ROADMAP A8)": args.eval_during_training,
+        "--eval_during_training on humanml / kit (the T2M evaluators, ROADMAP A8b)":
+            args.eval_during_training and args.dataset in ("humanml", "kit"),
     }
     for flag, asked in waiting.items():
         if asked:
@@ -219,3 +224,24 @@ def train_args(argv=None) -> argparse.Namespace:
     if args.device_batch_pool < 0:
         parser.error(f"--device_batch_pool must be >= 0, got {args.device_batch_pool}")
     return args
+
+
+def evaluation_args(argv=None) -> argparse.Namespace:
+    """Flags of ``python -m gesturediffusion_tpu_torch.eval.eval_a2m``
+    (parser.py:evaluation_parser: the base flags and
+    add_evaluation_options :280-289), the model's from its args.json.  The
+    a2m benchmark runs ``debug`` and ``full``; the other modes are the text
+    benchmark's."""
+    parser = ArgumentParser(prog="python -m gesturediffusion_tpu_torch.eval.eval_a2m")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu (the plain PyTorch path).")
+    parser.add_argument("--seed", default=10, type=int)
+    parser.add_argument("--batch_size", default=256, type=int)
+    ev = parser.add_argument_group("eval")
+    ev.add_argument("--model_path", required=True, type=str)
+    ev.add_argument("--eval_mode", default="wo_mm", choices=["wo_mm", "mm_short", "debug", "full"],
+                    type=str)
+    ev.add_argument("--guidance_param", default=2.5, type=float)
+    ev.add_argument("--use_fused_encoder", action="store_true",
+                    help="Accepted for JAX command lines; the device decides which code runs.")
+    return _parse_and_load_from_model(parser, argv)

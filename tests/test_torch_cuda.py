@@ -738,3 +738,32 @@ def test_remat_replays_the_masks_from_a_card_generator(dev):
     assert torch.equal(states[0], states[1])
     for n, g in grads[0].items():
         torch.testing.assert_close(grads[1][n], g, rtol=0, atol=0, msg=n)
+
+
+def test_eval_classifier_features_on_the_card_match_the_cpu(dev):
+    """The a2m evaluation's three classifiers (the GRU, the recognition
+    ST-GCN, the MoDi ST-GCN; seeded random weights) through their
+    evaluation objects on the card against the CPU, called with cuDNN's
+    TF32 at PyTorch's default (on): the evaluation's own guard keeps the
+    GRU and the convolutions in float32, within 1e-5 of the features' max
+    |value| (sums in another order; the modules with cuDNN's TF32 on stand
+    ~1e-4 off in chip_smoke.py's phase 14), and hands the setting back."""
+    from gesturediffusion_tpu_torch.eval.eval_a2m import A2MEvaluation, STGCNA2MEvaluation
+    from gesturediffusion_tpu_torch.eval.eval_unconstrained import UnconstrainedEvaluator
+
+    rs = np.random.RandomState(0)
+    batch = {"output_xyz": (rs.randn(64, 24, 3, 60) * 0.3).astype(np.float32),
+             "output_rot": (rs.randn(64, 24, 6, 60) * 0.5).astype(np.float32),
+             "lengths": rs.randint(30, 61, size=64).astype(np.int32),
+             "y": rs.randint(0, 12, size=64)}
+    motions = (rs.randn(64, 15, 3, 60) * 0.3).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for cls in (A2MEvaluation, STGCNA2MEvaluation, UnconstrainedEvaluator):
+            feats = [cls(device=d).compute_features(
+                motions if cls is UnconstrainedEvaluator else [batch])[0] for d in (dev, "cpu")]
+            scale = np.abs(feats[1]).max()
+            assert np.abs(feats[0] - feats[1]).max() <= 1e-5 * scale, cls.__name__
+            assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False

@@ -300,23 +300,28 @@ def test_checkpoint_is_read_by_predict_and_jax(trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("dataset", ["humanact12", "uestc"])
-def test_action_datasets_still_raise_naming_a12(dataset, tmp_path):
+def test_action_datasets_still_raise_naming_a12(dataset, tmp_path, monkeypatch):
     """The A12 refusal is lifted: the train CLI trains the action datasets
     (tests/test_torch_a2m_train.py holds them against JAX) as action-mode
-    MotionMDMs with no text encoder; what still raises before any directory
-    is made is their in-training evaluation, naming ROADMAP A8."""
+    MotionMDMs with no text encoder.  Since A8a their in-training
+    evaluation runs too: the a2m benchmark (the GRU classifier on
+    humanact12, the ST-GCN on both UESTC splits) after the in-loop save."""
     from gesturediffusion_tpu_torch.data.a2m import make_synthetic_humanact12
     from gesturediffusion_tpu_torch.data.uestc import make_synthetic_uestc
+    from gesturediffusion_tpu_torch.models.smpl import save_synthetic_smpl_pickle
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        train_mdm.main(["--device", "cpu", "--dataset", dataset, "--eval_during_training",
-                        "--save_dir", str(tmp_path / "run")])
-    assert not os.path.exists(tmp_path / "run")
+    monkeypatch.setenv("SMPL_MODEL_PATH",
+                       save_synthetic_smpl_pickle(str(tmp_path / "smpl.pkl"), 128))
     root = str(tmp_path / dataset)
     (make_synthetic_humanact12 if dataset == "humanact12" else make_synthetic_uestc)(root)
     loop = train_mdm.main(["--device", "cpu", "--dataset", dataset, "--data_dir", root,
                            "--layers", "1", "--latent_dim", "32", "--batch_size", "4",
-                           "--num_frames", "40", "--num_steps", "1",
-                           "--save_dir", str(tmp_path / "run")])
+                           "--num_frames", "40", "--num_steps", "2", "--save_interval", "1",
+                           "--diffusion_steps", "4", "--eval_during_training",
+                           "--eval_num_samples", "4", "--eval_batch_size", "4",
+                           "--eval_rep_times", "1", "--save_dir", str(tmp_path / "run")])
     assert loop.state.model.cond_mode == "action" and loop.text_encoder is None
-    assert loop.state.step == 1
+    assert loop.state.step == 2
+    seen = loop.eval_fn(loop.state, 2)
+    suffix = "_test" if dataset == "uestc" else ""
+    assert {f"accuracy_gen{suffix}", f"fid_gen{suffix}"} <= set(seen)

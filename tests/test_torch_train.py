@@ -332,10 +332,16 @@ def test_jax_package_loads_the_port_checkpoint(trained):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"], ["--eval_during_training"]])
+@pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"],
+                                  ["--eval_during_training", "--dataset", "humanml"]])
 def test_flags_the_port_cannot_honour_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="A10" if "--mesh_model_axis" in flag else "A8"):
+    """Tensor parallelism (A10), and the in-training eval of a text dataset,
+    whose T2M evaluators are A8b's; the gesture and action datasets'
+    --eval_during_training runs (tests/test_torch_eval_train_hook.py)."""
+    with pytest.raises(NotImplementedError, match="A10" if "--mesh_model_axis" in flag else "A8b"):
         train_args(["--save_dir", str(tmp_path / "x"), *flag])
+    assert train_args(["--save_dir", str(tmp_path / "x"), "--eval_during_training"]
+                      ).eval_during_training
 
 
 @pytest.mark.parametrize("flag", [["--use_bf16"], ["--remat"], ["--device_batch_pool", "2"]])
@@ -364,10 +370,15 @@ def test_a4_flags_parse_and_train(flag, tmp_path, monkeypatch):
         assert json.load(f)[flag[0][2:]] == ({"--device_batch_pool": 2}.get(flag[0], True))
 
 
-@pytest.mark.parametrize("flag", [["--use_fused_encoder"], ["--eval_batch_size", "8"],
+@pytest.mark.parametrize("flag", [["--use_fused_encoder"], ["--eval_mode", "debug"],
                                   ["--eval_split", "val"], ["--prng", "rbg"],
-                                  ["--use_audio"], ["--emb_trans_dec", "true"]])
+                                  ["--use_audio"], ["--emb_trans_dec", "true"],
+                                  ["--guidance_param", "2.5"]])
 def test_flags_no_code_reads_are_refused(flag, tmp_path):
+    """JAX train flags the port does not read (--eval_split is the text
+    benchmark's, ROADMAP A8b), and the eval CLI's flags (the train CLI's
+    other --eval_* settings are read since the eval hook,
+    tests/test_torch_eval_train_hook.py)."""
     with pytest.raises(SystemExit):
         train_args(["--save_dir", str(tmp_path / "x"), *flag])
 

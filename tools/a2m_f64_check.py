@@ -27,7 +27,11 @@ the comparison reads.  With ``--steps N`` (N > 1) it then trains N steps
 batches from the seed) in the same three ways and prints each step's loss
 and the relative gaps between them, as chip_smoke.py phase 13 compares its
 5 steps: whether a gap that opens after the first update opens for plain
-float32 too.
+float32 too; and, teacher-forced, from the plain float32 run's weights
+before each step k, step k's loss and gradients four ways (the kernels in
+float32, the plain layer in float32, in float64, and in float32 from
+weights nudged by one ulp), as chip_smoke.py's teacher-forced comparison
+holds the kernels' step against the plain step.
 """
 
 from __future__ import annotations
@@ -121,7 +125,8 @@ def main(argv=None) -> dict:
                                 jointstype="smpl", vertstrans=False)
         return diffusion, fk_fn
 
-    def run(m, dtype, lambdas):
+    def run(m, dtype, lambdas, batch=None):
+        motion, mask, action, tt, noise = batch or batches[0]
         diffusion, fk_fn = setup(dtype, lambdas)
         m = m.to(dtype)
 
@@ -176,7 +181,62 @@ def main(argv=None) -> dict:
               f"median {norms.median().item():.3f}")
     if a.steps > 1:
         result["steps"] = train_steps(model, batches, setup, dev)
+        result["teacher_forced"] = teacher_forced(model, batches, run, gap, setup, dev)
     return result
+
+
+def teacher_forced(model, batches, run, gap, setup, dev) -> list:
+    """Step k's gradients from the plain float32 run's weights before step
+    k (AdamW at lr 1e-4, the recipe's lambdas): the kernels in float32, the
+    plain layer in float32 and float64, and the plain layer from those
+    weights nudged by one ulp.  Prints each pair's loss rel and worst
+    gradient max|diff| / max|grad| (with its parameter), returns them."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.train.loop import (
+        TrainConfig,
+        TrainState,
+        make_optimizer,
+        train_step,
+    )
+
+    recipe = dict(lambda_rcxyz=1.0, lambda_vel=1.0, lambda_fc=1.0)
+    cfg = TrainConfig(lr=1e-4, batch_size=batches[0][0].shape[0])
+    m = copy.deepcopy(model)
+    m.use_kernels = False
+    diffusion, fk_fn = setup(torch.float32, recipe)
+    state = TrainState(m, *make_optimizer(m.parameters(), cfg), UniformSampler(1000), {})
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    print("teacher-forced: step k from the plain f32 run's weights before it")
+    for k, batch in enumerate(batches):
+        ways = {}
+        for name, kernels, dtype, nudge in (("kernels f32", True, torch.float32, False),
+                                            ("plain f32", False, torch.float32, False),
+                                            ("plain f64", False, torch.float64, False),
+                                            ("plain f32 +1ulp", False, torch.float32, True)):
+            c = copy.deepcopy(m)
+            c.use_kernels = kernels
+            if nudge:
+                with torch.no_grad():
+                    for p in c.parameters():
+                        p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+            ways[name] = run(c, dtype, recipe, batch)
+        row = {}
+        for name, x, y in (("kernels f32 vs plain f32", "kernels f32", "plain f32"),
+                           ("kernels f32 vs plain f64", "kernels f32", "plain f64"),
+                           ("plain f32   vs plain f64", "plain f32", "plain f64"),
+                           ("+1ulp f32   vs plain f32", "plain f32 +1ulp", "plain f32")):
+            loss_rel, (grad_rel, worst) = gap(ways[x], ways[y])
+            row[name] = (loss_rel, grad_rel, worst)
+        print(f"  step {k + 1}: " + "; ".join(
+            f"{name} loss {v[0]:.3e} grad {v[1]:.3e} ({v[2]})" for name, v in row.items()))
+        out.append(row)
+        x, mask, action, tt, noise = batch
+        train_step(state, diffusion, cfg, x, {"action": action, "mask": mask}, gen, tt, noise,
+                   fk_fn=fk_fn)
+    return out
 
 
 def train_steps(model, batches, setup, dev) -> dict:

@@ -28,7 +28,9 @@ in a process of its own, in the order given and again in reverse:
     TOL_STEP_GRAD, and each step's loss gap; beside them the same gaps
     between the plain steps and plain steps from weights nudged by one ulp
     (every weight times 1 +- 2^-23): how far float32 rounding alone carries
-    the 5 steps apart;
+    the 5 steps apart; and teacher-forced (chip_smoke.py's comparison),
+    each step's worst gradient gap from the plain run's state before it,
+    the kernels' and the plain layer's from those weights nudged by one ulp;
   - both passes: kernels 5 and 6 at [64, 81, 256], [64, 197, 512] and
     [64, 61, 512] (tools/take_ab.py:train_kernel_ms, median of three).
 
@@ -158,12 +160,22 @@ def a2m_steps(cs, seed: int) -> tuple[float, float, list, list]:
                     noise=randn(cs.MB, cs.A2M_J, cs.A2M_F, cs.A2M_FRAMES))
                for _ in range(cs.A2M_STEPS)]
     losses, grads, _, _ = cs.run_train_steps(model, diffusion, cfg, batches, fk_fn)
-    p_losses, p_grads, _, _ = cs.run_train_steps(plain, diffusion, cfg, batches, fk_fn)
+    p_losses, p_grads, _, _, records = cs.run_train_steps(plain, diffusion, cfg, batches, fk_fn,
+                                                          record=True)
     n_losses = cs.run_train_steps(nudged, diffusion, cfg, batches, fk_fn)[0]
     each = [abs(x - y) / abs(y) for x, y in zip(losses, p_losses)]
     grad_err = max((grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
                    for k, g in p_grads.items())
-    return max(each), grad_err, each, [abs(x - y) / abs(y) for x, y in zip(n_losses, p_losses)]
+    # teacher-forced (chip_smoke.py:teacher_forced_steps): each step's worst
+    # gradient gap from the plain run's state before it, the kernels' and
+    # that of the plain layer from those weights nudged by one ulp
+    nudged_records = [{**r, "params": {n: torch.nextafter(w, torch.full_like(w, float("inf")))
+                                       for n, w in r["params"].items()}} for r in records]
+    forced = {name: [cs.grad_gap(g, r["grads"])[0] for (_, g), r in zip(
+        cs.teacher_forced_steps(m, diffusion, cfg, batches, recs, fk_fn), records)]
+        for name, m, recs in (("kernels", model, records), ("nudged", plain, nudged_records))}
+    return (max(each), grad_err, each, [abs(x - y) / abs(y) for x, y in zip(n_losses, p_losses)],
+            forced["kernels"], forced["nudged"])
 
 
 def one_tree(root: str, accuracy: bool, flags=()) -> dict:
@@ -242,10 +254,13 @@ def main(argv: list[str]) -> int:
                                   f"{g['steps'][2]:.3e}" for g in r["f64"])
             if "steps" in r:
                 line += "; a2m steps vs plain (losses, grads; each step's loss; nudged " \
+                        "plain's; teacher-forced each step's worst grad, kernels | nudged " \
                         "plain's) " + ", ".join(
                             f"{lo:.3e} {gr:.3e} ({' '.join(f'{e:.1e}' for e in each)}; "
-                            f"{' '.join(f'{e:.1e}' for e in nudge)})"
-                            for lo, gr, each, nudge in r["steps"])
+                            f"{' '.join(f'{e:.1e}' for e in nudge)}; "
+                            f"{' '.join(f'{e:.1e}' for e in tf)} | "
+                            f"{' '.join(f'{e:.1e}' for e in tf_n)})"
+                            for lo, gr, each, nudge, tf, tf_n in r["steps"])
             print(f"{line} [{smi}]", flush=True)
     return 0
 
