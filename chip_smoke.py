@@ -131,6 +131,19 @@ Phases, each fatal on failure:
               [64, 61, 512]; the train CLI --eval_during_training on
               humanact12 (the benchmark after the save at step 10) and on
               the phase-9 GENEA tree (the validation loss), launches counted
+ 15. t2m-eval text-to-motion evaluation, with PyTorch's TF32 defaults:
+              the eval_humanml CLI --eval_mode debug --guidance_param 2.5 on
+              the phase-12 humanml checkpoint over its tree's test split (5
+              replications of 2 batches of 32; kernels 1 and 4 at CFG batch
+              64 launched 8 x 1000 a batch; every metric finite, the wall
+              time); one generated batch against the plain path, its ms a
+              CFG-64 denoise step; the T2M evaluators' text and motion
+              embeddings and the ground truth's metrics on the card against
+              the CPU (the modules with cuDNN's TF32 on as a control that must
+              fail), their ms a batch; kernel 1 at [64, 197, 512] and
+              [32, 197, 512] and its times; the train CLI --dataset humanml
+              --eval_during_training (the benchmark at scale 1 after the save
+              at step 10: kernel 1 at [32, 197, 512]), launches counted
 Every train-step comparison (phases 5, 12, 13) holds the kernel steps
 against the plain steps two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
 free-running (the losses of every step, the first step's gradients), with
@@ -236,6 +249,8 @@ TOL_SMPL = 1e-4          # f32 joints on the card against the CPU: 23 chained 4x
 # readings (<= 2.389e-06) and the modules with cuDNN's TF32 on (>= 9.953e-05), which the
 # phase runs as a control that must exceed it
 TOL_EVAL_FEATS = 1e-5
+# phase 15: the text benchmark's train hook scores this many samples (2 batches of 32)
+EVAL_HOOK_SAMPLES = 64
 
 
 def log(msg: str) -> None:
@@ -2054,6 +2069,285 @@ def a2m_eval_phase(randn, card):
         **{k: gesture[k] for k in ("encoder_layer_train_fwd", "encoder_layer_train_bwd")}}
 
 
+def t2m_eval_phase(randn, card):
+    """Phase 15: the text-to-motion benchmark on the card, with PyTorch's
+    TF32 defaults back on (cuDNN's TF32 on; restored at the end).  The eval
+    CLI --eval_mode debug at --guidance_param 2.5 on phase 12's humanml
+    checkpoint over the test split of its tree (5 replications of 2
+    batches of 32: kernels 1 and 4 at CFG batch 64 launched 8 x 1000 a
+    batch; the mean of every metric finite, the wall time); one generated
+    batch (CFG 64, 1000 DDPM steps) against the plain path under TOL_TAKE,
+    its ms a denoise step; the T2M evaluators' text and motion embeddings
+    on the card against the CPU under TOL_EVAL_FEATS (the modules called
+    without the eval's guard, cuDNN's TF32 on, are a control the check must
+    fail) and the ground truth's metrics card against CPU under the same
+    tolerance, the evaluators' ms a batch of 32; kernel 1 at [64, 197, 512]
+    and [32, 197, 512] and its times; the train CLI --dataset humanml
+    --eval_during_training (the benchmark at scale 1 after the save at step
+    10: kernel 1 at [32, 197, 512]).  Returns the kernel row of
+    [32, 197, 512] and the launches of the phase's main paths by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.humanml import HashVectorizer, Text2MotionDatasetV2
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample_loop
+    from gesturediffusion_tpu_torch.eval import eval_humanml
+    from gesturediffusion_tpu_torch.eval.eval_humanml import (
+        BATCH_SIZE,
+        EVAL_MODES,
+        GeneratedMotionSet,
+        GroundTruthMotionSet,
+        evaluate_diversity,
+        evaluate_fid,
+        evaluate_matching_score,
+        load_eval_renorm,
+    )
+    from gesturediffusion_tpu_torch.eval.evaluator_wrapper import EvaluatorWrapper
+    from gesturediffusion_tpu_torch.models.cfg import classifier_free_guidance
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import (
+        encoder_layer_plain,
+        fused_encoder_layer,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.train import train_mdm
+    from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+    from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
+    from gesturediffusion_tpu_torch.utils.parser import evaluation_args
+    from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
+
+    dev = torch.device("cuda")
+    counted, _ = launch_counter({
+        "encoder_layer": fused_encoder_layer, "flash_attention": fused_self_attention,
+        "encoder_layer_train_fwd": encoder_layer_train_fwd,
+        "encoder_layer_train_bwd": encoder_layer_train_bwd})
+    rows, dh = T2M_FRAMES + 1, T2M_D // HEADS
+    base = os.path.join(HERE, "build", "chip_smoke", "t2m_train")  # phase 12's
+    root = os.path.join(base, "humanml")
+    ckpt = os.path.join(base, "run", f"model{CLI_STEPS:09d}.pt")
+    args = evaluation_args(["--model_path", ckpt, "--guidance_param", str(GUIDANCE)])
+    steps = args.diffusion_steps
+    debug = EVAL_MODES["debug"]
+    split = Text2MotionDatasetV2(root, split="test")
+    per_rep = min(len(split), debug["num_samples_limit"]) // BATCH_SIZE  # generated batches
+
+    smoke_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    log(f"t2m-eval: PyTorch's TF32 defaults for the phase: matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+    try:
+        # ---- the eval CLI in debug mode ----------------------------------------- #
+        argv = ["--model_path", ckpt, "--eval_mode", "debug", "--guidance_param", str(GUIDANCE)]
+        t0 = time.perf_counter()
+        means, cli_launches = counted(lambda: eval_humanml.main(argv))
+        wall = time.perf_counter() - t0
+        chains = debug["replication_times"] * per_rep
+        want = LAYERS * steps * chains
+        keys = {f"{m}_{k}" for m in ("Matching Score", "R_precision", "FID", "Diversity")
+                for k in ("ground truth", "vald")}
+        ok = (set(means) == keys and all(np.isfinite(np.asarray(v)).all() for v in means.values())
+              and cli_launches["encoder_layer"] == want and cli_launches["flash_attention"] == want)
+        log(f"{'OK' if ok else 'FAIL'} eval_humanml CLI --eval_mode debug --guidance_param "
+            f"{GUIDANCE}: {len(means)} means, {wall:.1f} s wall for {chains} generated batches of "
+            f"{BATCH_SIZE} (CFG batch {2 * BATCH_SIZE}), {BATCH_SIZE * chains / wall:.2f} "
+            f"generated samples/s of CLI wall time; launches {cli_launches['encoder_layer']} / "
+            f"{cli_launches['flash_attention']} (expected {want} each: {LAYERS} x {steps} steps x "
+            f"{chains} batches); FID_vald {means.get('FID_vald')}, R_precision_vald "
+            f"{means.get('R_precision_vald')}, Diversity_ground truth "
+            f"{means.get('Diversity_ground truth')} {card}")
+        if not ok:
+            raise AssertionError(f"the eval_humanml CLI wrote the wrong metrics or missed its "
+                                 f"kernels: {means}")
+
+        # ---- one generated batch against the plain path ------------------------- #
+        ds = Text2MotionDatasetV2(root, split="test", w_vectorizer=HashVectorizer())
+        model, diffusion = create_model_and_diffusion(args, ds, dev)
+        model.load_state_dict(load_checkpoint(ckpt))
+        model.to(dev).eval()
+        model_fn = classifier_free_guidance(model, args.cond_mask_prob)
+        text_encoder = get_text_encoder(device=dev)
+        shape = (BATCH_SIZE, ds.pose_dim, 1, T2M_FRAMES)
+
+        def sample_fn(generator, cond):
+            return p_sample_loop(diffusion, model_fn, shape, cond, generator=generator,
+                                 clip_denoised=False)
+
+        order = ds.rng.getstate()
+
+        def generated(renorm=None):
+            ds.rng.setstate(order)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = GeneratedMotionSet(sample_fn, ds, text_encoder=text_encoder, scale=GUIDANCE,
+                                     renorm=renorm, seed=0, num_samples_limit=BATCH_SIZE,
+                                     device=dev)
+            torch.cuda.synchronize()
+            return gen.batches[0], time.perf_counter() - t0
+
+        (gen, kernel_s), launches = counted(generated)
+        model.use_kernels = False
+        gen_plain, plain_s = generated()
+        model.use_kernels = True
+        want = {"encoder_layer": LAYERS * steps, "flash_attention": LAYERS * steps,
+                "encoder_layer_train_fwd": 0, "encoder_layer_train_bwd": 0}
+        err = float(np.abs(gen["motions"] - gen_plain["motions"]).max())
+        report(f"t2m eval: a generated batch ({BATCH_SIZE} captions, CFG batch "
+               f"{2 * BATCH_SIZE} at {GUIDANCE}, DDPM {steps} steps, [{2 * BATCH_SIZE},{rows},"
+               f"{T2M_D}]) vs the plain path on the card; launches {launches} (expected {want}) "
+               f"(|sample| max {np.abs(gen_plain['motions']).max():.3f})", err, TOL_TAKE,
+               launches == want and np.isfinite(gen["motions"]).all())
+        log(f"time t2m eval sampling (a batch of {BATCH_SIZE}, CFG {2 * BATCH_SIZE}, {steps} "
+            f"DDPM steps, CLIP captions included): kernels {kernel_s:.3f} s = "
+            f"{BATCH_SIZE / kernel_s:.2f} samples/s, {kernel_s / steps * 1e3:.4f} ms a CFG-"
+            f"{2 * BATCH_SIZE} denoise step; plain {plain_s:.3f} s, "
+            f"{plain_s / steps * 1e3:.4f} ms a step {card}")
+
+        # ---- the evaluators' embeddings, card against CPU ----------------------- #
+        renorm = load_eval_renorm(ds, log)
+        ds.rng.setstate(order)
+        gt = list(GroundTruthMotionSet(ds, renorm=renorm))
+        ds.rng.setstate(order)
+        gen_renormed = generated(renorm)[0]
+        batches = [*gt, gen_renormed]
+        ev, ev_cpu = (EvaluatorWrapper("humanml", dim_pose=ds.pose_dim, device=d)
+                      for d in (dev, "cpu"))
+
+        def embeddings(w):
+            text, motion = zip(*(w.get_co_embeddings(b["word_embs"], b["pos_ohot"], b["cap_lens"],
+                                                     b["motions"], b["m_lens"]) for b in batches))
+            kept = [w.get_motion_embeddings(b["motions"], b["m_lens"], keep_order=True)
+                    for b in batches]
+            return {"text": np.concatenate(text), "motion": np.concatenate(motion),
+                    "motion, input order": np.concatenate(kept)}
+
+        def module_embeddings(w, device):
+            """The three modules called directly, without the eval's guard."""
+            out = {"text": [], "motion, input order": []}
+            with torch.no_grad():
+                for b in batches:
+                    motions, word_embs, pos_ohot = (
+                        torch.as_tensor(b[k], dtype=torch.float32, device=device)
+                        for k in ("motions", "word_embs", "pos_ohot"))
+                    movements = w.movement_encoder(motions[..., :-4])
+                    out["motion, input order"].append(w.motion_encoder(
+                        movements, b["m_lens"] // w.UNIT_LENGTH).cpu().numpy())
+                    out["text"].append(w.text_encoder(word_embs, pos_ohot, b["cap_lens"])
+                                       .cpu().numpy())
+            return {k: np.concatenate(v) for k, v in out.items()}
+
+        want_e, got_e = embeddings(ev_cpu), embeddings(ev)
+        control, control_cpu = module_embeddings(ev, dev), module_embeddings(ev_cpu, "cpu")
+        n = sum(len(b["m_lens"]) for b in batches)
+        for name, want_f in want_e.items():
+            scale = np.abs(want_f).max()
+            report(f"t2m eval: {name} embeddings on the card vs the CPU ({n} samples, "
+                   f"{want_f.shape[1]} features, the eval's TF32 guard; max|f| {scale:.3f})",
+                   float(np.abs(got_e[name] - want_f).max() / scale), TOL_EVAL_FEATS,
+                   bool(np.isfinite(want_f).all()))
+        for name, want_f in control_cpu.items():
+            tf32_err = float(np.abs(control[name] - want_f).max() / np.abs(want_f).max())
+            caught = tf32_err > TOL_EVAL_FEATS
+            log(f"{'OK' if caught else 'FAIL'} control: the {name} modules with cuDNN's TF32 on "
+                f"vs the CPU: max|diff| {tf32_err:.3e} of max|f| (tol {TOL_EVAL_FEATS:g}): "
+                f"{'FAIL, as it must' if caught else 'passes: the check cannot see the fault'}")
+            if not caught:
+                raise AssertionError(f"TOL_EVAL_FEATS does not separate the {name} modules with "
+                                     "cuDNN's TF32 on")
+        b0 = batches[0]
+        co_ms = cuda_time_ms(lambda: ev.get_co_embeddings(
+            b0["word_embs"], b0["pos_ohot"], b0["cap_lens"], b0["motions"], b0["m_lens"]), 20, 3)
+        motion_ms = cuda_time_ms(lambda: ev.get_motion_embeddings(b0["motions"], b0["m_lens"]),
+                                 20, 3)
+        log(f"time t2m evaluators, one batch of {BATCH_SIZE} (host copies included): "
+            f"co-embeddings {co_ms:.4f} ms, motion embeddings {motion_ms:.4f} ms {card}")
+
+        # ---- the ground truth's metrics, card against CPU ----------------------- #
+        metrics = []
+        for w in (ev, ev_cpu):
+            np.random.seed(0)
+            match, rprec, acti = evaluate_matching_score(w, {"ground truth": gt}, lambda *a: None)
+            fid = evaluate_fid(w, gt, acti, lambda *a: None)
+            div = evaluate_diversity(acti, 300, lambda *a: None)
+            metrics.append({"Matching Score": match["ground truth"], "FID": fid["ground truth"],
+                            "Diversity": div["ground truth"],
+                            **{f"R_precision top {i + 1}": v
+                               for i, v in enumerate(rprec["ground truth"])}})
+        gap = max(abs(metrics[0][k] - v) / max(1.0, abs(v)) for k, v in metrics[1].items())
+        report(f"t2m eval: the ground truth's metrics on the card vs the CPU ({len(gt)} batches "
+               f"of {BATCH_SIZE}; {metrics[0]})", gap, TOL_EVAL_FEATS)
+
+        # ---- kernel 1 at the benchmark's two shapes ----------------------------- #
+        w = layer_weights(randn, T2M_D, FF)
+        out_rows = {}
+        for b in (2 * BATCH_SIZE, BATCH_SIZE):
+            x1 = randn(b, rows, T2M_D)
+            got_x = fused_encoder_layer(x1, *w, num_heads=HEADS)
+            enc_err = (got_x - encoder_layer_plain(x1, *w, num_heads=HEADS)).abs().max().item()
+            report(f"encoder_layer [{b},{rows},{T2M_D}] heads {HEADS} of {dh} ff {FF}", enc_err,
+                   TOL_ENCODER, got_x.shape == x1.shape)
+            ms = cuda_time_ms(lambda: fused_encoder_layer(x1, *w, num_heads=HEADS), 50, 5)
+            plain_ms = cuda_time_ms(lambda: encoder_layer_plain(x1, *w, num_heads=HEADS), 20, 3)
+            lib_ms = cuda_time_ms(lambda: encoder_layer_sdpa(x1, *w, HEADS), 20, 3)
+            m_rows = b * rows
+            flops = 2 * m_rows * (4 * T2M_D * T2M_D + 2 * T2M_D * FF) + 4 * b * rows**2 * T2M_D
+            nbytes = 4 * (2 * m_rows * T2M_D + sum(t.numel() for t in w))
+            bound, by = bound_ms(flops, nbytes, tf32x3=True)
+            time_line(f"encoder_layer [{b},{rows},{T2M_D}] heads {HEADS} of {dh} (t2m eval)", ms,
+                      plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+            out_rows[b] = {"max_abs_err": enc_err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+        # ---- the train CLI's eval hook on humanml -------------------------------- #
+        n_evals = sum(1 for s in range(CLI_STEPS) if s > 0 and s % 10 == 0)
+        hook_n = EVAL_HOOK_SAMPLES // BATCH_SIZE  # generated batches an eval
+        save_dir = os.path.join(base, "run_hook")
+        shutil.rmtree(save_dir, ignore_errors=True)  # progress.json appends
+        t0 = time.perf_counter()
+        loop, hook = counted(lambda: train_mdm.main([
+            "--dataset", "humanml", "--data_dir", root, "--save_dir", save_dir, "--overwrite",
+            "--latent_dim", str(T2M_D), "--batch_size", str(MB), "--use_fused_train_encoder",
+            "--num_steps", str(CLI_STEPS), "--log_interval", "10", "--save_interval", "10",
+            "--eval_during_training", "--eval_num_samples", str(EVAL_HOOK_SAMPLES),
+            "--eval_rep_times", "1"]))
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(save_dir, "progress.json")) as f:
+            evals = [r for r in map(json.loads, f) if "eval/wall_s" in r]
+        hook_steps = loop.diffusion.num_timesteps
+        want = {"encoder_layer": n_evals * hook_n * LAYERS * hook_steps,
+                "flash_attention": n_evals * hook_n * LAYERS * hook_steps,
+                "encoder_layer_train_fwd": LAYERS * CLI_STEPS,
+                "encoder_layer_train_bwd": LAYERS * CLI_STEPS}
+        ok = (len(evals) == n_evals and hook == want
+              and all(math.isfinite(r.get("eval/FID_vald", math.nan)) for r in evals))
+        log(f"{'OK' if ok else 'FAIL'} train CLI --dataset humanml --eval_during_training "
+            f"--eval_num_samples {EVAL_HOOK_SAMPLES} --eval_rep_times 1 ({CLI_STEPS} steps, "
+            f"{len(evals)} evals, expected {n_evals}): eval/FID_vald "
+            f"{[r.get('eval/FID_vald') for r in evals]}, eval/R_precision_vald_top3 "
+            f"{[r.get('eval/R_precision_vald_top3') for r in evals]}, eval wall "
+            f"{[round(r['eval/wall_s'], 3) for r in evals]} s, CLI {cli_s:.1f} s; launches "
+            f"{hook} (expected {want}) {card}")
+        if not ok:
+            raise AssertionError("the humanml train CLI's eval hook misfired")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = smoke_tf32
+
+    row = {"name": f"encoder_layer_t2m_eval_{BATCH_SIZE}x{rows}x{T2M_D}", "route": "cuda",
+           "source": "gesturediffusion_tpu_torch/csrc/encoder_layer.cu",
+           "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
+           "launches": hook["encoder_layer"], **out_rows[BATCH_SIZE]}
+    # the main paths' launches (the CLIs and the hook; not the comparisons): kernel 1 and
+    # flash at CFG batch 64 (the eval CLI), flash at 32 (the hook), the hook's training
+    return row, {"encoder_layer_64": cli_launches["encoder_layer"],
+                 "flash_attention_64": cli_launches["flash_attention"],
+                 "flash_attention": hook["flash_attention"],
+                 **{k: hook[k] for k in ("encoder_layer_train_fwd", "encoder_layer_train_bwd")}}
+
+
 def device_profile(step, steps, label, card, host_rows=0, groups=None, ranges=()):
     """Device time by kernel over ``steps`` calls of ``step`` (torch.profiler,
     CUPTI), the device's idle share of an unprofiled call, with ``groups``
@@ -2607,14 +2901,13 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, p_losses))
     grad_err = grad_gap(grads, p_grads)[0]
     ulp_loss = max(abs(x - y) / abs(y) for x, y in zip(n_losses, p_losses))
-    ok = loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
-    log(f"{'OK' if ok else 'FAIL'} train steps vs plain versions on the card, free-running (same "
-        f"seeds, t, noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's grads "
-        f"worst max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g}); beside it, plain from "
-        f"weights nudged by one ulp: losses rel {ulp_loss:.3e}, first step's grads "
+    free_ok = loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
+    log(f"{'OK' if free_ok else 'FAIL'} train steps vs plain versions on the card, free-running "
+        f"(same seeds, t, noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's "
+        f"grads worst max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g}); beside it, plain "
+        f"from weights nudged by one ulp: losses rel {ulp_loss:.3e}, first step's grads "
         f"{grad_gap(n_grads, p_grads)[0]:.3e}")
-    if not ok:
-        raise AssertionError("kernel train steps disagree with the plain steps")
+    # the teacher-forced pass runs (and prints) before either failure is raised
     forced = teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn)
     tf_loss = [abs(x - r["loss"]) / abs(r["loss"]) for (x, _), r in zip(forced, records)]
     tf_grad = [grad_gap(g, r["grads"]) for (_, g), r in zip(forced, records)]
@@ -2638,6 +2931,8 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
         f"{', '.join(f'{x / max(f, 1e-30):.1f}' for (x, _), f in zip(tf_grad, floor))} x it)"
         + (f"; the gradients' miss is recorded as {grad_miss[0]}, capped at {grad_miss[1]:g}"
            if grad_miss and not grad_ok else ""))
+    if not free_ok:
+        raise AssertionError("kernel train steps disagree with the plain steps")
     if verdict == "FAIL":
         raise AssertionError("a teacher-forced kernel train step disagrees with the plain step")
     log(f"time train step ({label}, median of steps 2-{n}): kernels {step_ms:.3f} ms = "
@@ -2974,6 +3269,13 @@ def main() -> int:
                    (a2m_rows[1], "encoder_layer_train_bwd")):
         row["launches"] += a2m_eval[f"a2m_{k}"]
 
+    # ---- 15. text-to-motion evaluation and the humanml eval hook -------- #
+    t2m_eval_row, t2m_eval = t2m_eval_phase(randn, card)
+    t2m_rows[1]["launches"] += t2m_eval["encoder_layer_64"]        # [64, 197, 512]
+    t2m_train_rows[3]["launches"] += t2m_eval["flash_attention_64"]  # [64, 4, 197, 128]
+    t2m_train_rows[0]["launches"] += t2m_eval["encoder_layer_train_fwd"]
+    t2m_train_rows[1]["launches"] += t2m_eval["encoder_layer_train_bwd"]
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
@@ -3011,8 +3313,8 @@ def main() -> int:
     ]
     kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
                                 + samplers["flash_attention"] + a2m["flash_attention"]
-                                + a2m_eval["flash_attention"])
-    kernels += t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row]
+                                + a2m_eval["flash_attention"] + t2m_eval["flash_attention"])
+    kernels += t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row, t2m_eval_row]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

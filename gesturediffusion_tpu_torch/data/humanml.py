@@ -1,14 +1,18 @@
-"""HumanML3D / KIT text-to-motion data, as the edit and predict paths read it.
+"""HumanML3D / KIT text-to-motion data, as the edit, predict, train and
+text-benchmark paths read it.
 
 Copy of the parts of gesturediffusion_tpu/data/humanml.py that motion
-editing and text-to-motion sampling use: ``Text2MotionDatasetV2`` (:121;
-length-sorted clips, unit-length crops, z-normalisation), ``TextOnlyDataset``
-(:427) and ``make_synthetic_humanml`` (:466).  The GloVe / part-of-speech
-word vectors of the evaluators (``WordVectorizer``, ``HashVectorizer``,
-``MotionDatasetV2``, ``Text2MotionDatasetBaseline``, ``RawTextDataset``)
-wait for the evaluation slice.  Items draw from the same
-``random.Random(0)`` in the same order as the JAX package's, so both
-packages give the same crops.
+editing, text-to-motion sampling and training and the text benchmark use:
+``POS_ENUMERATOR`` and ``VIP_DICT`` (:27, :33), ``WordVectorizer`` (:53; the
+released GloVe files ``{prefix}_words.pkl``, ``_idx.pkl``, ``_data.npy``),
+``HashVectorizer`` (:94; its md5-seeded stand-in), ``Text2MotionDatasetV2``
+(:121; length-sorted clips, unit-length crops, z-normalisation, and with a
+``w_vectorizer`` the evaluators' word vectors, part-of-speech one-hots and
+sentence length), ``TextOnlyDataset`` (:427) and ``make_synthetic_humanml``
+(:466).  ``MotionDatasetV2``, ``Text2MotionDatasetBaseline`` and
+``RawTextDataset`` serve the evaluator retraining and the CompV6 baseline,
+which are not ported.  Items draw from the same ``random.Random(0)`` in the
+same order as the JAX package's, so both packages give the same crops.
 
 On-disk layout: <root>/{new_joint_vecs/*.npy, texts/*.txt, Mean.npy,
 Std.npy, train.txt / val.txt / test.txt}.
@@ -16,18 +20,106 @@ Std.npy, train.txt / val.txt / test.txt}.
 
 from __future__ import annotations
 
+import hashlib
 import os
+import pickle
 import random
 from os.path import join as pjoin
 from typing import Optional
 
 import numpy as np
 
+# the evaluators' 15 part-of-speech classes (the reference's word_vectorizer.py)
+POS_ENUMERATOR = {
+    "VERB": 0, "NOUN": 1, "DET": 2, "ADP": 3, "NUM": 4, "AUX": 5,
+    "PRON": 6, "ADJ": 7, "ADV": 8, "Loc_VIP": 9, "Body_VIP": 10,
+    "Obj_VIP": 11, "Act_VIP": 12, "Desc_VIP": 13, "OTHER": 14,
+}
+
+# words whose class the vectorizer takes from this table, not from the tagger
+VIP_DICT = {
+    "Loc_VIP": ("left", "right", "clockwise", "counterclockwise",
+                "anticlockwise", "forward", "back", "backward", "up",
+                "down", "straight", "curve"),
+    "Body_VIP": ("arm", "chin", "foot", "feet", "face", "hand", "mouth",
+                 "leg", "waist", "eye", "knee", "shoulder", "thigh"),
+    "Obj_VIP": ("stair", "dumbbell", "chair", "window", "floor", "car",
+                "ball", "handrail", "baseball", "basketball"),
+    "Act_VIP": ("walk", "run", "swing", "pick", "bring", "kick", "put",
+                "squat", "throw", "hop", "dance", "jump", "turn",
+                "stumble", "dance", "stop", "sit", "lift", "lower",
+                "raise", "wash", "stand", "kneel", "stroll", "rub",
+                "bend", "balance", "flap", "jog", "shuffle", "lean",
+                "rotate", "spin", "spread", "climb"),
+    "Desc_VIP": ("slowly", "carefully", "fast", "careful", "slow",
+                 "quickly", "happy", "angry", "sad", "happily",
+                 "angrily", "sadly"),
+}
+
+
+def _pos_one_hot(pos: str) -> np.ndarray:
+    vec = np.zeros(len(POS_ENUMERATOR))
+    vec[POS_ENUMERATOR.get(pos, POS_ENUMERATOR["OTHER"])] = 1
+    return vec
+
+
+class WordVectorizer:
+    """GloVe vectors and the 15-way part-of-speech one-hot of a "word/POS"
+    token, from the released files under ``meta_root``:
+    ``{prefix}_words.pkl`` (the words), ``{prefix}_idx.pkl`` (word -> row)
+    and ``{prefix}_data.npy`` (the vectors).  An unknown word takes the
+    "unk" vector (zeros without one) and the class OTHER."""
+
+    def __init__(self, meta_root: str, prefix: str):
+        with open(pjoin(meta_root, f"{prefix}_words.pkl"), "rb") as f:
+            words = pickle.load(f)
+        with open(pjoin(meta_root, f"{prefix}_idx.pkl"), "rb") as f:
+            word2idx = pickle.load(f)
+        vectors = np.load(pjoin(meta_root, f"{prefix}_data.npy"))
+        self.word2vec = {w: vectors[word2idx[w]] for w in words}
+
+    def __len__(self):
+        return len(self.word2vec)
+
+    def __getitem__(self, item: str):
+        word, pos = item.split("/")
+        if word not in self.word2vec:
+            return self.word2vec.get("unk", np.zeros(300)), _pos_one_hot("OTHER")
+        vip = next((key for key, words in VIP_DICT.items() if word in words), None)
+        return self.word2vec[word], _pos_one_hot(vip or pos)
+
+
+class HashVectorizer:
+    """The GloVe-free stand-in: a vector of 300 normals x 0.1 from
+    ``np.random.RandomState`` seeded by the word's md5 (the same in every
+    process, unlike ``hash()``), and the token's own class; not the
+    reference's numbers."""
+
+    def __getitem__(self, item: str):
+        word, pos = item.split("/")
+        seed = int.from_bytes(hashlib.md5(word.encode()).digest()[:4], "little")
+        word_vec = np.random.RandomState(seed).randn(300).astype(np.float32) * 0.1
+        return word_vec, _pos_one_hot(pos).astype(np.float32)
+
+
+def load_word_vectorizer(log):
+    """The GloVe vectorizer where its files are (``./glove/our_vab_*``),
+    else (logged) the hash stand-in, as the JAX benchmark picks them."""
+    try:
+        return WordVectorizer("./glove", "our_vab")
+    except OSError:
+        log("GloVe assets not found — using hash vectorizer (NOT metric-parity)")
+        return HashVectorizer()
+
 
 class Text2MotionDatasetV2:
     """Text-to-motion clips of one split, sorted by length.  An item is
     {"text": caption, "motion": [max_motion_length, D] z-normalised and
-    zero-padded, "length": frames kept}."""
+    zero-padded, "length": frames kept}; with a ``w_vectorizer`` also the
+    caption's tokens between sos and eos, cut to ``max_text_len`` and
+    padded with unk to ``max_text_len + 2``: "word_embeddings" [L, 300],
+    "pos_one_hots" [L, 15], "sent_len" (sos and eos counted) and
+    "tokens"."""
 
     def __init__(
         self,
@@ -37,14 +129,18 @@ class Text2MotionDatasetV2:
         dataset_name: str = "t2m",
         max_motion_length: int = 196,
         unit_length: int = 4,
+        max_text_len: int = 20,
         mean: Optional[np.ndarray] = None,
         std: Optional[np.ndarray] = None,
+        w_vectorizer=None,
         rng: Optional[random.Random] = None,
     ):
         self.root = root
         self.dataset_name = dataset_name
         self.max_motion_length = max_motion_length
         self.unit_length = unit_length
+        self.max_text_len = max_text_len
+        self.w_vectorizer = w_vectorizer
         self.rng = rng or random.Random(0)
         self.max_length = 20
         self.pointer = 0
@@ -125,7 +221,10 @@ class Text2MotionDatasetV2:
     def __getitem__(self, item: int) -> dict:
         data = self.data_dict[self.name_list[self.pointer + item]]
         motion, m_length = data["motion"], data["length"]
-        caption = self.rng.choice(data["text"])["caption"]
+        text = self.rng.choice(data["text"])
+        out: dict = {"text": text["caption"]}
+        if self.w_vectorizer is not None:
+            out.update(self._word_vectors(text["tokens"]))
 
         # a crop of whole units; with probability 1/3 one unit shorter
         # when units are short (the reference's augmentation, which the
@@ -139,7 +238,18 @@ class Text2MotionDatasetV2:
         if m_length < self.max_motion_length:
             motion = np.concatenate(
                 [motion, np.zeros((self.max_motion_length - m_length, motion.shape[1]))], axis=0)
-        return {"text": caption, "motion": motion.astype(np.float32), "length": int(m_length)}
+        out["motion"] = motion.astype(np.float32)
+        out["length"] = int(m_length)
+        return out
+
+    def _word_vectors(self, tokens: list) -> dict:
+        tokens = ["sos/OTHER", *tokens[:self.max_text_len], "eos/OTHER"]
+        sent_len = len(tokens)
+        tokens += ["unk/OTHER"] * (self.max_text_len + 2 - sent_len)
+        embs, ohs = zip(*(self.w_vectorizer[t] for t in tokens))
+        return {"word_embeddings": np.stack(embs).astype(np.float32),
+                "pos_one_hots": np.stack(ohs).astype(np.float32), "sent_len": sent_len,
+                "tokens": "_".join(tokens)}
 
 
 class TextOnlyDataset:

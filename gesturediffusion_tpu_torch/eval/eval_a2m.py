@@ -498,6 +498,18 @@ def make_fk_fn(smpl) -> Callable:
     return fk_fn
 
 
+def ema_model(state):
+    """The train state's model, or a copy of it holding the EMA weights
+    where the state keeps them: what an in-training evaluation samples."""
+    if not state.ema:
+        return state.model
+    net = copy.deepcopy(state.model)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.copy_(state.ema[name])
+    return net
+
+
 def make_a2m_training_eval_fn(args, diffusion, dataset, device, log=None):
     """The a2m benchmark as the train CLI's ``--eval_during_training``
     hook (the reference's training_loop.py:188-199): ``eval_rep_times``
@@ -516,12 +528,7 @@ def make_a2m_training_eval_fn(args, diffusion, dataset, device, log=None):
     cond_mode = "no_cond" if args.unconstrained else "action"
 
     def eval_fn(state, step):
-        net = state.model
-        if state.ema:
-            net = copy.deepcopy(state.model)
-            with torch.no_grad():
-                for name, p in net.named_parameters():
-                    p.copy_(state.ema[name])
+        net = ema_model(state)
         was_training = net.training
         net.eval()
 

@@ -19,10 +19,11 @@ xyz joints through SMPL (the pickle named by ``SMPL_MODEL_PATH``, else
 body_models/smpl/SMPL_NEUTRAL.pkl) and models/rotation2xyz.py
 (train_mdm.py:104-116).  ``--device_batch_pool N`` stages N batches on the
 device and cycles them (train_mdm.py:276-301).  ``--eval_during_training``
-evaluates after every in-loop save (train_mdm.py:151-229): the a2m
-benchmark on humanact12 / uestc (eval/eval_a2m.py), else, or where SMPL is
-missing, the validation loss over a fixed set of batches; on humanml / kit
-the text benchmark is not ported yet and the flag raises.
+evaluates after every in-loop save (train_mdm.py:134-229): the text
+benchmark on humanml / kit over ``--eval_split`` (eval/eval_humanml.py),
+the a2m benchmark on humanact12 / uestc (eval/eval_a2m.py), else, or where
+a benchmark cannot run (SMPL missing, a split under 32 clips), the
+validation loss over a fixed set of batches.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from gesturediffusion_tpu_torch.data.registry import (
     get_dataset_loader,
 )
 from gesturediffusion_tpu_torch.eval.eval_a2m import make_a2m_training_eval_fn
+from gesturediffusion_tpu_torch.eval.eval_humanml import make_training_eval_fn
 from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
 from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle
 from gesturediffusion_tpu_torch.train.loop import (
@@ -107,7 +109,7 @@ def main(argv=None) -> TrainLoop:
             return rotation2xyz(smpl, sample, pose_rep="rot6d", translation=True, glob=True,
                                 jointstype="smpl", vertstrans=False)
 
-    eval_fn = (make_eval_fn(args, diffusion, data.dataset, device)
+    eval_fn = (make_eval_fn(args, diffusion, data.dataset, device, text_encoder)
                if args.eval_during_training else None)
     loop = TrainLoop(config, diffusion, model, data, device, platform=platform,
                      args_to_save=vars(args), text_encoder=text_encoder, fk_fn=fk_fn,
@@ -129,10 +131,18 @@ def main(argv=None) -> TrainLoop:
     return loop
 
 
-def make_eval_fn(args, diffusion, dataset, device) -> Optional[Callable]:
-    """The ``--eval_during_training`` hook (train_mdm.py:151-229): the a2m
-    benchmark on the action datasets, else (or without SMPL) the
-    validation loss; None, logged, when the eval split cannot be read."""
+def make_eval_fn(args, diffusion, dataset, device, text_encoder=None) -> Optional[Callable]:
+    """The ``--eval_during_training`` hook (train_mdm.py:134-229): the text
+    benchmark on humanml / kit (its captions through ``text_encoder``), the
+    a2m benchmark on the action datasets, else (or where the benchmark
+    cannot run) the validation loss; None, logged, when the eval split
+    cannot be read."""
+    if args.dataset in TEXT_DATASETS:
+        try:
+            return make_training_eval_fn(args, diffusion, device, text_encoder=text_encoder)
+        except (OSError, ValueError) as e:  # no such split, or under 32 clips
+            log_lib.log(f"benchmark eval_during_training unavailable ({e}); "
+                        "falling back to val-loss eval")
     if args.dataset in ACTION_DATASETS:
         try:
             return make_a2m_training_eval_fn(args, diffusion, dataset, device)
@@ -140,19 +150,21 @@ def make_eval_fn(args, diffusion, dataset, device) -> Optional[Callable]:
             log_lib.log(f"a2m eval_during_training unavailable ({e}); "
                         "falling back to val-loss eval")
     try:
-        return make_val_loss_eval_fn(args, diffusion, device)
+        return make_val_loss_eval_fn(args, diffusion, device, text_encoder)
     except (OSError, ValueError) as e:  # no such split, or too few items
         log_lib.log(f"eval_during_training disabled: {e}")
         return None
 
 
-def make_val_loss_eval_fn(args, diffusion, device) -> Callable:
+def make_val_loss_eval_fn(args, diffusion, device, text_encoder=None) -> Callable:
     """The mean diffusion loss of the model (no dropout) over the first
     ceil(eval_num_samples / eval_batch_size) batches of the val split (the
-    train split of ``synthetic``), the timesteps and noise drawn from a
+    train split of ``synthetic``, ``--eval_split`` of humanml / kit, whose
+    captions ``text_encoder`` embeds), the timesteps and noise drawn from a
     generator seeded alike at every eval: eval_fn(state, step) ->
     {"val_loss": float}."""
-    split = "train" if args.dataset == "synthetic" else "val"
+    split = {"synthetic": "train", "humanml": args.eval_split, "kit": args.eval_split}.get(
+        args.dataset, "val")
     val_data = get_dataset_loader(args.dataset, batch_size=args.eval_batch_size,
                                   num_frames=args.num_frames, split=split,
                                   datapath=args.data_dir or None, n_seed_poses=args.seed_poses,
@@ -160,7 +172,8 @@ def make_val_loss_eval_fn(args, diffusion, device) -> Callable:
     batches = iter(val_data)
     try:
         n = -(-args.eval_num_samples // args.eval_batch_size)
-        val_batches = [batch_to_device(m, c, device) for m, c in itertools.islice(batches, n)]
+        val_batches = [batch_to_device(m, c, device, text_encoder)
+                       for m, c in itertools.islice(batches, n)]
     finally:
         batches.close()  # stops the loader's producer thread
     if not val_batches:

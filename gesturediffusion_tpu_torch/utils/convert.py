@@ -19,8 +19,10 @@ and ``stgcn_state_dict_from_variables`` carry the JAX evaluator classifiers
 (eval/networks.py:MotionDiscriminator, eval/stgcn.py:STGCN) into the
 reference torch layout the port's classifiers load: the inverse of
 networks.py:convert_motion_discriminator (:333) and stgcn.py:convert_stgcn
-(:290), BatchNorm ``batch_stats`` as ``running_mean`` / ``running_var``.
-The wav encoder waits for a later slice.
+(:290), BatchNorm ``batch_stats`` as ``running_mean`` / ``running_var``;
+``t2m_evaluator_state_dicts_from_params`` carries the JAX T2M evaluators
+into the released finest.tar's layout.  The wav encoder waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -168,6 +170,38 @@ def stgcn_state_dict_from_variables(variables: dict) -> dict[str, torch.Tensor]:
             out[f"edge_importance.{i}"] = _f32(P[f"edge_importance_{i}"])
         i += 1
     return _tensors(out)
+
+
+def _bigru_co(out: dict, trunk: dict) -> None:
+    _linear(out, "input_emb", trunk["input_emb"])
+    out["hidden"] = _f32(trunk["hidden"])
+    for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        for short, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                            ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            out[f"gru.{name}_l0{suffix}"] = _f32(trunk[f"gru_{direction}_{short}"])
+    _linear(out, "output_net.0", trunk["output_net_0"])
+    _layernorm(out, "output_net.1", trunk["output_net_1"])
+    _linear(out, "output_net.3", trunk["output_net_3"])
+
+
+def t2m_evaluator_state_dicts_from_params(params: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX T2M evaluators' params ({'text', 'motion', 'movement'}, as
+    eval/evaluator_wrapper.py holds them) -> the released finest.tar's
+    ``text_encoder``, ``motion_encoder`` and ``movement_encoder`` state
+    dicts, which the port's modules load: the inverse of
+    networks.py:convert_text_encoder, convert_motion_encoder (:256-310) and
+    convert_movement_encoder (:313; flax Conv [k, in, out] -> Conv1d
+    [out, in, k] at ``main.0`` and ``main.3``)."""
+    text, motion, movement = {}, {}, {}
+    _linear(text, "pos_emb", params["text"]["pos_emb"])
+    _bigru_co(text, params["text"]["trunk"])
+    _bigru_co(motion, params["motion"]["trunk"])
+    for name, key in (("main.0", "conv0"), ("main.3", "conv1")):
+        movement[f"{name}.weight"] = _f32(params["movement"][key]["kernel"]).transpose(2, 1, 0)
+        movement[f"{name}.bias"] = _f32(params["movement"][key]["bias"])
+    _linear(movement, "out_net", params["movement"]["out_net"])
+    return {"text_encoder": _tensors(text), "motion_encoder": _tensors(motion),
+            "movement_encoder": _tensors(movement)}
 
 
 def load_checkpoint(path: str) -> dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Flags of the train, generate, edit, serve and a2m-eval CLIs and the
+"""Flags of the train, generate, edit, serve and eval CLIs and the
 checkpoint-args override.
 
 PyTorch-port counterpart of gesturediffusion_tpu/utils/parser.py, with the
@@ -180,9 +180,13 @@ def train_args(argv=None) -> argparse.Namespace:
     train.add_argument("--weight_decay", default=0.0, type=float)
     train.add_argument("--lr_anneal_steps", default=0, type=int)
     train.add_argument("--eval_batch_size", default=32, type=int)
+    train.add_argument("--eval_split", default="test", choices=["val", "test"], type=str,
+                       help="The split the text benchmark of --eval_during_training scores "
+                            "on humanml / kit.")
     train.add_argument("--eval_during_training", action="store_true",
-                       help="Evaluate after every in-loop save: the a2m benchmark on "
-                            "humanact12 / uestc, the validation loss elsewhere.")
+                       help="Evaluate after every in-loop save: the text benchmark on "
+                            "humanml / kit, the a2m benchmark on humanact12 / uestc, the "
+                            "validation loss elsewhere.")
     train.add_argument("--eval_rep_times", default=3, type=int)
     train.add_argument("--eval_num_samples", default=1_000, type=int)
     train.add_argument("--log_interval", default=1_000, type=int)
@@ -215,8 +219,8 @@ def train_args(argv=None) -> argparse.Namespace:
 
     waiting = {
         "--mesh_model_axis > 1 (tensor parallelism, ROADMAP A10)": args.mesh_model_axis > 1,
-        "--eval_during_training on humanml / kit (the T2M evaluators, ROADMAP A8b)":
-            args.eval_during_training and args.dataset in ("humanml", "kit"),
+        "--use_wav_enc on a gesture dataset (the wav encoder, ROADMAP A5)":
+            args.use_wav_enc and args.dataset in ("genea2022", "genea2023", "synthetic"),
     }
     for flag, asked in waiting.items():
         if asked:
@@ -226,13 +230,14 @@ def train_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def evaluation_args(argv=None) -> argparse.Namespace:
-    """Flags of ``python -m gesturediffusion_tpu_torch.eval.eval_a2m``
+def evaluation_args(argv=None, prog: str = "python -m gesturediffusion_tpu_torch.eval.eval_a2m"
+                    ) -> argparse.Namespace:
+    """Flags of the eval CLIs, ``eval.eval_a2m`` and ``eval.eval_humanml``
     (parser.py:evaluation_parser: the base flags and
     add_evaluation_options :280-289), the model's from its args.json.  The
-    a2m benchmark runs ``debug`` and ``full``; the other modes are the text
-    benchmark's."""
-    parser = ArgumentParser(prog="python -m gesturediffusion_tpu_torch.eval.eval_a2m")
+    a2m benchmark runs ``debug`` and ``full``, the text benchmark
+    ``debug``, ``wo_mm`` and ``mm_short``."""
+    parser = ArgumentParser(prog=prog)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain PyTorch path).")
     parser.add_argument("--seed", default=10, type=int)

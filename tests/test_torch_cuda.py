@@ -716,6 +716,35 @@ def test_a2m_kernel_gradients_stay_near_float64(dev):
     plain = recipe["plain f32   vs plain f64"][1]
     assert kernels <= A2M_F64_RATIO * plain, (kernels, plain)
 
+# Each teacher-forced step's worst kernel gradient from the float64 step
+# (tools/a2m_f64_check.py --steps 5 at its default seed 6, from the plain
+# f32 run's states): the shipped GEMM (one accumulator, flushed every 128 of
+# K) on an H100, tools/flush_ab.py, PERF.md section 6.  Plain f32 stands
+# 5.0e-05, 3.3e-04, 2.3e-04, 2.1e-04, 9.7e-05 there (ROADMAP C6).
+A2M_F64_FORCED = (1.158e-04, 2.782e-03, 2.473e-03, 8.310e-04, 1.590e-03)
+
+
+def test_a2m_teacher_forced_gradients_stay_where_they_were_measured(dev):
+    """Five teacher-forced a2m steps (batch 64, 8 layers, D 512, 60 frames,
+    the recipe's lambdas through SMPL at 6890 vertices): each step's worst
+    kernel gradient stands from the float64 step within 1.5x the distance
+    measured for the shipped design (A2M_F64_FORCED; the states come from
+    the plain f32 run, whose library products may round otherwise on
+    another build), so a coarser accumulation fails here."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "a2m_f64_check.py")
+    spec = importlib.util.spec_from_file_location("a2m_f64_check", path)
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    forced = check.main(["--device", "cuda", "--steps", "5"])["teacher_forced"]
+    got = [row["kernels f32 vs plain f64"][1] for row in forced]
+    assert len(got) == len(A2M_F64_FORCED)
+    assert all(g <= 1.5 * w for g, w in zip(got, A2M_F64_FORCED)), (got, A2M_F64_FORCED)
+
+
 def test_remat_replays_the_masks_from_a_card_generator(dev):
     """--remat with the plain layers on the card: the recompute draws the
     forward's masks again from a CUDA generator's saved state, so the
@@ -765,5 +794,35 @@ def test_eval_classifier_features_on_the_card_match_the_cpu(dev):
             scale = np.abs(feats[1]).max()
             assert np.abs(feats[0] - feats[1]).max() <= 1e-5 * scale, cls.__name__
             assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def test_t2m_evaluator_embeddings_on_the_card_match_the_cpu(dev):
+    """The text benchmark's T2M evaluators (the text and motion BiGRUs on
+    cuDNN's packed GRU, the movement convolutions; seeded random weights)
+    through EvaluatorWrapper on the card against the CPU, called with
+    cuDNN's TF32 on: the wrapper's guard keeps them in float32, the text
+    and motion co-embeddings and the motion embeddings in the input order
+    within 1e-5 of their max |value| (sums in another order over up to 49
+    GRU steps), and hands the setting back."""
+    from gesturediffusion_tpu_torch.eval.evaluator_wrapper import EvaluatorWrapper
+
+    rs = np.random.RandomState(0)
+    m_lens = rs.randint(10, 50, size=32) * 4
+    batch = dict(motions=rs.randn(32, 196, 263).astype(np.float32), m_lens=m_lens,
+                 word_embs=(rs.randn(32, 22, 300) * 0.1).astype(np.float32),
+                 pos_ohot=np.eye(15, dtype=np.float32)[rs.randint(0, 15, (32, 22))],
+                 cap_lens=rs.randint(3, 23, size=32))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = []
+        for d in (dev, "cpu"):
+            w = EvaluatorWrapper("humanml", device=d)
+            out.append((*w.get_co_embeddings(**batch),
+                        w.get_motion_embeddings(batch["motions"], m_lens, keep_order=True)))
+            assert torch.backends.cudnn.allow_tf32
+        for got, want in zip(*out):
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     finally:
         torch.backends.cudnn.allow_tf32 = False

@@ -1,23 +1,27 @@
 """The train CLI's ``--eval_during_training`` on the CPU: the a2m benchmark
 on humanact12 (the port's classifiers, random weights) and, without SMPL,
 the validation-loss fallback; the validation loss on a GENEA-2023 tree;
-each logged as ``eval/<metric>`` beside ``eval/wall_s`` after every save
-inside the loop (JAX train/loop.py:599-610: not after the last save), and
-the validation loss the same at every call on the same weights; on humanml
-and kit the flag raises, naming ROADMAP A8b (the T2M evaluators).
+the text benchmark on humanml and kit (the T2M evaluators, random
+weights) over ``--eval_split``; each logged as ``eval/<metric>`` beside
+``eval/wall_s`` after every save inside the loop (JAX
+train/loop.py:599-610: not after the last save), and the validation loss
+the same at every call on the same weights.
 """
 
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from gesturediffusion_tpu_torch.data.a2m import make_synthetic_humanact12
+from gesturediffusion_tpu_torch.data.humanml import make_synthetic_humanml
 from gesturediffusion_tpu_torch.data.synthetic import make_synthetic_genea2023
 from gesturediffusion_tpu_torch.models.smpl import save_synthetic_smpl_pickle
 from gesturediffusion_tpu_torch.train import train_mdm
 from gesturediffusion_tpu_torch.utils.parser import train_args
+from tests.torch_port_common import one_torch_thread  # noqa: F401 (fixture)
 
 TINY = ["--device", "cpu", "--layers", "1", "--latent_dim", "32", "--batch_size", "4",
         "--num_steps", "5", "--save_interval", "2", "--log_interval", "10",
@@ -32,6 +36,9 @@ def roots(tmp_path_factory):
         humanact12=make_synthetic_humanact12(str(root / "ha12"), n_clips=12),
         genea2023=make_synthetic_genea2023(str(root / "g2023"), n_takes=3, frames_per_take=240,
                                            pose_dim=24, seed=1),
+        # 32 clips a split: one protocol batch
+        humanml=make_synthetic_humanml(str(root / "humanml"), n_clips=96, seed=1),
+        kit=make_synthetic_humanml(str(root / "kit"), n_clips=96, dim=251, seed=2),
     )
 
 
@@ -102,12 +109,27 @@ def test_gesture_val_loss_is_logged_and_repeatable(roots, tmp_path, monkeypatch)
     assert loop.state.model.training
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("dataset", ["humanml", "kit"])
-def test_text_datasets_raise_naming_a8b(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="A8b"):
-        train_args(["--save_dir", str(tmp_path / "x"), "--dataset", dataset,
-                    "--eval_during_training"])
-    assert not os.path.exists(tmp_path / "x")
+def test_text_datasets_raise_naming_a8b(roots, dataset, tmp_path, monkeypatch):
+    """Since ROADMAP A8b the flag no longer raises on the text datasets: the
+    text benchmark (eval_humanml.make_training_eval_fn, scale 1) runs after
+    the saves at steps 2 and 4 over --eval_split's 32 clips, one
+    replication, its log beside the checkpoints; R-precision as _top1..3."""
+    save_dir = str(tmp_path / "run")
+    loop, calls = _train(monkeypatch, dataset, roots[dataset], save_dir,
+                         "--diffusion_steps", "4", "--eval_num_samples", "32",
+                         "--eval_split", "val")
+    assert [step for step, _, _ in calls] == [2, 4] and loop.state.step == 5
+    assert all(training for _, training, _ in calls)
+    for _, _, metrics in calls:
+        assert {"FID_vald", "Diversity_ground truth", "Matching Score_vald",
+                "R_precision_vald_top3"} <= set(metrics)
+        assert all(np.isfinite(v) for v in metrics.values())
+    rows = _evals(save_dir)
+    assert [r["eval/FID_vald"] for r in rows] == [m["FID_vald"] for _, _, m in calls]
+    assert os.path.exists(os.path.join(save_dir, "eval_humanml_000000004.log"))
+    assert train_args(["--save_dir", save_dir, "--dataset", dataset]).eval_split == "test"
 
 
 def test_eval_flags_parse_with_jax_defaults(tmp_path):

@@ -29,7 +29,8 @@ assert {"gesturediffusion_tpu_torch." + m for m in (
     "utils.text_embedder", "sample.predict", "sample.edit", "ops.rotations",
     "ops.rotations_np", "ops.quaternion_np", "models.smpl", "models.rotation2xyz",
     "data.a2m", "data.uestc", "eval", "eval.metrics", "eval.networks", "eval.stgcn",
-    "eval.eval_unconstrained", "eval.eval_a2m")} <= set(names), names
+    "eval.eval_unconstrained", "eval.eval_a2m", "eval.evaluator_wrapper",
+    "eval.eval_humanml", "utils.get_opt")} <= set(names), names
 # the tokenizer takes re where regex is missing
 import gzip, os, tempfile
 from gesturediffusion_tpu_torch.models.clip_text import SimpleTokenizer
@@ -45,7 +46,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 67  # every module of the port was imported
+    assert int(r.stdout.split()[-1]) >= 70  # every module of the port was imported
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

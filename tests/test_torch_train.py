@@ -333,15 +333,20 @@ def test_jax_package_loads_the_port_checkpoint(trained):
 
 
 @pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"],
-                                  ["--eval_during_training", "--dataset", "humanml"]])
+                                  ["--use_wav_enc", "--dataset", "genea2023"]])
 def test_flags_the_port_cannot_honour_raise(flag, tmp_path):
-    """Tensor parallelism (A10), and the in-training eval of a text dataset,
-    whose T2M evaluators are A8b's; the gesture and action datasets'
-    --eval_during_training runs (tests/test_torch_eval_train_hook.py)."""
-    with pytest.raises(NotImplementedError, match="A10" if "--mesh_model_axis" in flag else "A8b"):
+    """Tensor parallelism (A10), and the wav encoder of a gesture model (A5),
+    refused before anything is written; --eval_during_training runs on
+    every dataset (tests/test_torch_eval_train_hook.py), and a text
+    dataset takes --use_wav_enc as JAX does, unread."""
+    with pytest.raises(NotImplementedError, match="A10" if "--mesh_model_axis" in flag else "A5"):
         train_args(["--save_dir", str(tmp_path / "x"), *flag])
-    assert train_args(["--save_dir", str(tmp_path / "x"), "--eval_during_training"]
-                      ).eval_during_training
+    assert not os.path.exists(tmp_path / "x")
+    for dataset in ("genea2023", "humanml"):
+        assert train_args(["--save_dir", str(tmp_path / "x"), "--eval_during_training",
+                           "--dataset", dataset]).eval_during_training
+    assert train_args(["--save_dir", str(tmp_path / "x"), "--use_wav_enc", "--dataset",
+                       "humanml"]).use_wav_enc
 
 
 @pytest.mark.parametrize("flag", [["--use_bf16"], ["--remat"], ["--device_batch_pool", "2"]])
@@ -371,14 +376,13 @@ def test_a4_flags_parse_and_train(flag, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--use_fused_encoder"], ["--eval_mode", "debug"],
-                                  ["--eval_split", "val"], ["--prng", "rbg"],
+                                  ["--no_fast_sampler"], ["--prng", "rbg"],
                                   ["--use_audio"], ["--emb_trans_dec", "true"],
                                   ["--guidance_param", "2.5"]])
 def test_flags_no_code_reads_are_refused(flag, tmp_path):
-    """JAX train flags the port does not read (--eval_split is the text
-    benchmark's, ROADMAP A8b), and the eval CLI's flags (the train CLI's
-    other --eval_* settings are read since the eval hook,
-    tests/test_torch_eval_train_hook.py)."""
+    """JAX train flags the port does not read, and the sampling and eval
+    CLIs' flags (the train CLI's --eval_* settings, --eval_split among
+    them, are read by the eval hooks, tests/test_torch_eval_train_hook.py)."""
     with pytest.raises(SystemExit):
         train_args(["--save_dir", str(tmp_path / "x"), *flag])
 

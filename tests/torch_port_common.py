@@ -55,6 +55,20 @@ def threefry_prng():
         yield
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Run the test with torch on one CPU thread, the setting found
+    restored after: the suite's workers share the cores, and a pool of
+    every core's threads in each of them slows the evaluators' CPU GRUs
+    (widths 512 and 1024) ~20x."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 # J=12, D=64, 2 encoder layers of 4 heads, 8 local heads, window 5
 SMALL = dict(njoints=12, latent_dim=64, num_layers=2, ff_size=128, num_heads=4,
              seed_poses=4, cond_mask_prob=0.1, mfcc_dim=8, window_size=5, cl_head=8)

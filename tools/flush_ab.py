@@ -9,17 +9,24 @@ package, tools/ and chip_smoke.py) under build/flush_ab/<name>/ with the
 flush constants of csrc/encoder_layer_train.cu (kFwdFlush, kDataGradFlush,
 kWeightGradFlush: K slices of 32 between the accumulator's flushes into its
 f32 sum, for the forward products, the data gradients and the weight
-gradients; 0 = never) set as VARIANTS says.  The GEMM's GENERAL
+gradients; 0 = never) set as VARIANTS says, and where VARIANTS asks for it
+csrc/gemm_tf32x3.cuh patched by CORR_PATCHES: the two correction products
+of each k8 step of a flushed GEMM (big . small, small . big) in an
+accumulator of their own, the big . big product alone in ``acc``, both
+added into the f32 sum at each flush (tried for ROADMAP C6; 142-154
+registers a thread against 128 for two blocks an SM).  The GEMM's GENERAL
 instantiation (a reduction past K 1024, unaligned operands) flushes every
 128 of K in every variant.  All variants are built at once; then each runs
 in a process of its own, in the order given and again in reverse:
 
   - first pass only: tools/a2m_f64_check.py at full size (batch 64, 8
     layers, D 512, 60 frames, 6890 vertices, the recipe's lambdas) for each
-    of F64_SEEDS: one step's worst gradient and model output against
-    float64, the kernels' beside plain f32's, and A2M_STEPS train steps'
+    of F64_SEEDS (or those of ``--f64-seeds=6,0,1,2``): one step's worst
+    gradient and model output against float64, the kernels' beside plain
+    f32's, A2M_STEPS train steps'
     losses against float64's (the largest relative gap of any step), the
-    kernels' beside plain f32's;
+    kernels' beside plain f32's, and each teacher-forced step's worst
+    gradient against float64's, the kernels' beside plain f32's;
   - first pass only: A2M_STEPS train steps at chip_smoke.py phase 13's
     configuration (the action-mode MotionMDM at batch 64, the recipe's
     lambdas through SMPL's chain) through the kernels against the plain
@@ -53,18 +60,81 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu"
 PATTERN = re.compile(r"constexpr int kFwdFlush = \d+, kDataGradFlush = \d+, "
                      r"kWeightGradFlush = \d+;")
+GEMM = "gesturediffusion_tpu_torch/csrc/gemm_tf32x3.cuh"
+CORR_PATCHES = (
+    ("""  float acc[32];
+  float sum[FLUSH ? 32 : 1];  // the flushed sum
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+""", """  constexpr bool kCorr = FLUSH > 0;
+  float acc[32];
+  float corr[kCorr ? 32 : 1];  // the correction products' accumulator
+  float sum[FLUSH ? 32 : 1];   // the flushed sum
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (kCorr ? 32 : 1); ++i) corr[i] = 0.0f;
+"""),
+    ("""    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t step = (uint64_t)(s * kTcSlice * sizeof(float)) >> 4;
+      wgmma_m64n64k8_tf32(acc, a_big[s], desc_small + step);
+      wgmma_m64n64k8_tf32(acc, a_small[s], desc_big + step);
+      wgmma_m64n64k8_tf32(acc, a_big[s], desc_big + step);
+    }
+    wgmma_commit();
+    wgmma_wait_all();  // the B tiles and A fragments are read
+    reg_fence(acc);
+""", """    reg_fence(acc);
+    if constexpr (kCorr) reg_fence(corr);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t step = (uint64_t)(s * kTcSlice * sizeof(float)) >> 4;
+      if constexpr (kCorr) {
+        wgmma_m64n64k8_tf32(corr, a_big[s], desc_small + step);
+        wgmma_m64n64k8_tf32(corr, a_small[s], desc_big + step);
+      } else {
+        wgmma_m64n64k8_tf32(acc, a_big[s], desc_small + step);
+        wgmma_m64n64k8_tf32(acc, a_small[s], desc_big + step);
+      }
+      wgmma_m64n64k8_tf32(acc, a_big[s], desc_big + step);
+    }
+    wgmma_commit();
+    wgmma_wait_all();  // the B tiles and A fragments are read
+    reg_fence(acc);
+    if constexpr (kCorr) reg_fence(corr);
+"""),
+    ("""        for (int i = 0; i < 32; ++i) {
+          sum[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+""", """        for (int i = 0; i < 32; ++i) {
+          if constexpr (kCorr) {
+            sum[i] += corr[i];
+            corr[i] = 0.0f;
+          }
+          sum[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+"""),
+)
 
-# (forward products, data gradients, weight gradients): slices between flushes
+# (forward products, data gradients, weight gradients): slices between
+# flushes; then whether the correction products have their own accumulator
 VARIANTS = {
-    "none": (0, 0, 0),       # the unflushed main path, before the C4 repair
-    "k128": (4, 4, 4),       # every product every 128 of K: shipped
-    "k256": (8, 8, 8),
-    "k512": (16, 16, 16),
-    "bwd128": (0, 4, 4),     # the gradients' products only
-    "wgrad128": (0, 0, 4),   # the weight gradients only
-    "k32": (1, 1, 1),        # every product every slice
-    "k64": (2, 2, 2),
-    "fwd32": (1, 4, 4),      # the forward products every slice
+    "none": (0, 0, 0, False),       # the unflushed main path, before the C4 repair
+    "k128": (4, 4, 4, False),       # every product every 128 of K, one accumulator
+    "k128c": (4, 4, 4, True),       # the same, the corrections apart
+    "k256": (8, 8, 8, False),
+    "k512": (16, 16, 16, False),
+    "bwd128": (0, 4, 4, False),     # the gradients' products only
+    "wgrad128": (0, 0, 4, False),   # the weight gradients only
+    "k32": (1, 1, 1, False),        # every product every slice
+    "k64": (2, 2, 2, False),
+    "fwd32": (1, 4, 4, False),      # the forward products every slice
 }
 F64_SEEDS = (6, 0, 2, 3, 4)  # 6: a2m_f64_check.py's default
 
@@ -84,15 +154,23 @@ def make_tree(name: str) -> str:
     for sub in ("gesturediffusion_tpu_torch", "tools"):
         shutil.copytree(os.path.join(HERE, sub), os.path.join(root, sub), ignore=ignore)
     shutil.copy(os.path.join(HERE, "chip_smoke.py"), root)
+    fwd, dgrad, wgrad, corr = VARIANTS[name]
     path = os.path.join(root, SOURCE)
-    src = open(path).read()
-    fwd, dgrad, wgrad = VARIANTS[name]
     new, n = PATTERN.subn(f"constexpr int kFwdFlush = {fwd}, kDataGradFlush = {dgrad}, "
-                          f"kWeightGradFlush = {wgrad};", src)
+                          f"kWeightGradFlush = {wgrad};", open(path).read())
     if n != 1:
         raise RuntimeError(f"{SOURCE}: the flush constants' line is not there to patch")
     with open(path, "w") as f:
         f.write(new)
+    if corr:
+        path = os.path.join(root, GEMM)
+        text = open(path).read()
+        for old, new in CORR_PATCHES:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{GEMM}: a correction-accumulator patch does not match")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
     return root
 
 
@@ -194,8 +272,10 @@ def one_tree(root: str, accuracy: bool, flags=()) -> dict:
         def worst(x, y):
             return max(abs(u - v) / abs(v) for u, v in zip(x, y))
 
+        seeds = next((tuple(int(x) for x in f.split("=", 1)[1].split(","))
+                      for f in flags if f.startswith("--f64-seeds=")), F64_SEEDS)
         out["f64"] = []
-        for seed in F64_SEEDS:
+        for seed in seeds:
             gaps = f64.main(["--seed", str(seed), "--steps", str(cs.A2M_STEPS)])
             one = next(v for k, v in gaps.items() if k.startswith("recipe"))
             k, p = one["kernels f32 vs plain f64"], one["plain f32   vs plain f64"]
@@ -204,7 +284,9 @@ def one_tree(root: str, accuracy: bool, flags=()) -> dict:
                 "seed": seed, "grad": [k[1], p[1]], "output": [k[3], p[3]],
                 "steps": [worst(losses["kernels f32"], losses["plain f64"]),
                           worst(losses["plain f32"], losses["plain f64"]),
-                          worst(losses["kernels f32"], losses["plain f32"])]})
+                          worst(losses["kernels f32"], losses["plain f32"])],
+                "forced": [(r["kernels f32 vs plain f64"][1], r["plain f32   vs plain f64"][1])
+                           for r in gaps["teacher_forced"]]})
     if accuracy:
         out["steps"] = [a2m_steps(cs, seed) for seed in (0, 1, 2)]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -251,7 +333,9 @@ def main(argv: list[str]) -> int:
                         ", ".join(f"{g['seed']}: {g['grad'][0]:.3e} / {g['grad'][1]:.3e}, "
                                   f"{g['output'][0]:.3e} / {g['output'][1]:.3e}; "
                                   f"{g['steps'][0]:.3e} / {g['steps'][1]:.3e}; "
-                                  f"{g['steps'][2]:.3e}" for g in r["f64"])
+                                  f"{g['steps'][2]:.3e}; teacher-forced each step's worst "
+                                  "grad " + " ".join(f"{k:.3e}/{p:.3e}" for k, p in g["forced"])
+                                  for g in r["f64"])
             if "steps" in r:
                 line += "; a2m steps vs plain (losses, grads; each step's loss; nudged " \
                         "plain's; teacher-forced each step's worst grad, kernels | nudged " \
