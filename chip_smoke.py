@@ -144,6 +144,19 @@ Phases, each fatal on failure:
               [32, 197, 512] and its times; the train CLI --dataset humanml
               --eval_during_training (the benchmark at scale 1 after the save
               at step 10: kernel 1 at [32, 197, 512]), launches counted
+ 16. mesh     the mesh export: the predict CLI on the phase-12 checkpoint at
+              3 repetitions of 6 s (120 frames; kernels 1 and 4 at CFG batch
+              6 counted 8 x 1000); the render-mesh CLI on sample 0 with the
+              phase-13 SMPL at 6890 vertices (13776 synthetic triangles) and
+              the synthetic GMM (150 Adam steps a stage): 120 OBJs of 6890
+              vertices and their faces, smpl_params.npy, stage 2's keypoint
+              error below stage 1's; the joints2smpl CLI's _rot.npy
+              [3, 25, 6, 120] and motions2hik's JSON; the fit card against
+              CPU teacher-forced (the stage-2 objective's gradient at the
+              same states) and free-running (the final keypoint error, a CPU
+              fit from a one-ulp-nudged target beside it); ms an iteration of
+              each stage, the fit's and the CLIs' wall times, a profiled
+              iteration of each stage (launches, idle share)
 Every train-step comparison (phases 5, 12, 13) holds the kernel steps
 against the plain steps two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
 free-running (the losses of every step, the first step's gradients), with
@@ -251,6 +264,15 @@ TOL_SMPL = 1e-4          # f32 joints on the card against the CPU: 23 chained 4x
 TOL_EVAL_FEATS = 1e-5
 # phase 15: the text benchmark's train hook scores this many samples (2 batches of 32)
 EVAL_HOOK_SAMPLES = 64
+# phase 16: the predict CLI on phase 12's checkpoint at 3 repetitions of 6 s (120 frames at
+# 20 fps), then the SMPLify fit at the real SMPL's vertex and triangle counts with the
+# synthetic gmm_08 (8 components of 69), 150 Adam steps a stage as the reference's CLIs
+MESH_REPS, MESH_SECONDS, MESH_FRAMES, MESH_ITERS, MESH_FACES = 3, 6, 120, 150, 13776
+TOL_FIT_GRAD = 1e-5      # the stage-2 gradient card vs CPU at one state, of its max |value|
+# the whole fit's final keypoint error card vs CPU, relative: 300 Adam steps, each moving a
+# parameter by ~lr whatever its gradient's size, read float32 chaos in the poses (the port
+# on the CPU against JAX at T 20: poses 2.7e-2 apart, the error 6e-4 of itself)
+TOL_FIT_FREE = 2e-2
 
 
 def log(msg: str) -> None:
@@ -1925,7 +1947,7 @@ def a2m_eval_phase(randn, card):
         gt = make_gt_batches(fk_fn, ds, MB, MB, NUM_FRAMES, device=dev)
         ds.rng.setstate(order)
         gt_cpu = make_gt_batches(make_fk_fn(load_smpl_pickle(smpl_path)), ds, MB, MB,
-                                 NUM_FRAMES)
+                                 NUM_FRAMES, device="cpu")
         batches = [gen[0], gt[0]]
         modi_in = np.concatenate([b["output_xyz"][:, UNCONSTRAINED_15_JOINTS] for b in batches])
         modi_in = modi_in - modi_in[:, 8:9]
@@ -1984,7 +2006,7 @@ def a2m_eval_phase(randn, card):
         u_gt = make_gt_batches(fk_fn, uestc, MB, MB, NUM_FRAMES, device=dev)
         uestc.rng.setstate(u_order)
         u_gt_cpu = make_gt_batches(make_fk_fn(load_smpl_pickle(smpl_path)), uestc, MB, MB,
-                                   NUM_FRAMES)
+                                   NUM_FRAMES, device="cpu")
         for name, (on_card, on_cpu) in (("GRU", (gt, gt_cpu)),
                                         ("recognition ST-GCN", (u_gt, u_gt_cpu))):
             ev, ev_cpu = evaluations[name]
@@ -2346,6 +2368,249 @@ def t2m_eval_phase(randn, card):
                  "flash_attention_64": cli_launches["flash_attention"],
                  "flash_attention": hook["flash_attention"],
                  **{k: hook[k] for k in ("encoder_layer_train_fwd", "encoder_layer_train_bwd")}}
+
+
+def mesh_phase(card):
+    """Phase 16: the mesh export on the card.  The predict CLI on phase 12's
+    humanml-encoder-512 checkpoint at MESH_REPS repetitions of MESH_SECONDS
+    (120 frames; CFG batch 6, kernels 1 and 4 counted 8 x 1000); the
+    render-mesh CLI (viz.vis_utils) on sample 0 with phase 13's synthetic
+    SMPL at 6890 vertices given MESH_FACES triangles and the synthetic GMM
+    as GMM_PRIOR_PATH (150 Adam steps a stage): 120 OBJs of 6890 vertices
+    and their faces, smpl_params.npy, stage 2's keypoint error below stage
+    1's; the joints2smpl CLI's _rot.npy and motions2hik's JSON for the three
+    repetitions; the fit card against CPU, teacher-forced (the stage-2
+    objective and its gradient where stage 2 starts under TOL_FIT_GRAD; where
+    the fit ends, beside float32's floor) and free-running (the final keypoint error under TOL_FIT_FREE, a CPU fit
+    from a target nudged by one ulp beside it as float32's floor, max
+    |dtheta| of both); ms per iteration of each stage, the fit's and the
+    CLIs' wall times, and the launches and idle share of one profiled
+    iteration of each stage.  Returns the predict CLI's launches."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.sample import predict
+    from gesturediffusion_tpu_torch.utils.device import full_f32
+    from gesturediffusion_tpu_torch.viz import joints2smpl as j2s
+    from gesturediffusion_tpu_torch.viz import vis_utils
+    from gesturediffusion_tpu_torch.viz.motions2hik import HIK_JOINT_MAP, motions2hik
+    from gesturediffusion_tpu_torch.viz.prior import load_gmm_prior, make_synthetic_gmm
+
+    dev = torch.device("cuda")
+    counted, _ = launch_counter({"encoder_layer": fused_encoder_layer,
+                                 "flash_attention": fused_self_attention})
+    base = os.path.join(HERE, "build", "chip_smoke", "mesh")
+    os.makedirs(base, exist_ok=True)
+    ckpt = os.path.join(HERE, "build", "chip_smoke", "t2m_train", "run",
+                        f"model{CLI_STEPS:09d}.pt")  # phase 12's
+
+    # ---- predict: the joints the fit consumes --------------------------------- #
+    out_dir = os.path.join(base, "predict")
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: predict.main([
+        "--model_path", ckpt, "--text", PROMPT, "--num_repetitions", str(MESH_REPS),
+        "--motion_length", str(MESH_SECONDS), "--output_dir", out_dir]))
+    predict_s = time.perf_counter() - t0
+    npy = os.path.join(out_dir, "results.npy")
+    res = np.load(npy, allow_pickle=True).item()
+    motions = res["motion"]  # [R, 22, 3, T]
+    want = {"encoder_layer": 1000 * LAYERS, "flash_attention": 1000 * LAYERS}
+    ok = (motions.shape == (MESH_REPS, 22, 3, MESH_FRAMES) and np.isfinite(motions).all()
+          and launches == want)
+    log(f"{'OK' if ok else 'FAIL'} mesh: predict CLI on phase 12's checkpoint (1000 DDPM steps, "
+        f"{MESH_REPS} repetitions of {MESH_SECONDS} s, CFG batch {2 * MESH_REPS}): motion "
+        f"{motions.shape} in {predict_s:.1f} s; launches {launches} (expected {want}) {card}")
+    if not ok:
+        raise AssertionError("the predict CLI of the mesh phase failed")
+
+    # ---- the assets: SMPL with triangles, the synthetic GMM -------------------- #
+    with open(os.environ["SMPL_MODEL_PATH"], "rb") as f:  # phase 13's, 6890 vertices
+        smpl_data = pickle.load(f)
+    smpl_data["f"] = np.random.RandomState(16).randint(
+        0, A2M_VERTS, (MESH_FACES, 3)).astype(np.uint32)
+    smpl_path = os.path.join(base, "smpl_faces.pkl")
+    with open(smpl_path, "wb") as f:
+        pickle.dump(smpl_data, f)
+    gmm_path = os.path.join(base, "gmm_08.pkl")
+    with open(gmm_path, "wb") as f:
+        pickle.dump(make_synthetic_gmm(), f)
+    os.environ["GMM_PRIOR_PATH"] = gmm_path
+
+    # ---- the render-mesh CLI on sample 0 -------------------------------------- #
+    t0 = time.perf_counter()
+    conv = vis_utils.main(["--input_path", npy, "--sample_idx", "0", "--smpl_model", smpl_path])
+    render_s = time.perf_counter() - t0
+    obj_dir = npy[: -len(".npy")] + "_obj"
+    objs = sorted(f for f in os.listdir(obj_dir) if f.endswith(".obj"))
+    counts, finite = set(), True
+    for name in objs:
+        with open(os.path.join(obj_dir, name)) as f:
+            text = f.read()
+        lines = text.splitlines()
+        counts.add((sum(ln.startswith("v ") for ln in lines),
+                    sum(ln.startswith("f ") for ln in lines)))
+        finite = finite and "nan" not in text and "inf" not in text
+    params = np.load(os.path.join(obj_dir, "smpl_params.npy"), allow_pickle=True).item()
+    loss1, loss2 = conv.fit["loss"]
+    ok = (len(objs) == MESH_FRAMES and counts == {(A2M_VERTS, MESH_FACES)} and finite
+          and params["vertices"].shape == (MESH_FRAMES, A2M_VERTS, 3)
+          and all(np.isfinite(params[k]).all()
+                  for k in ("vertices", "thetas", "root_translation"))
+          and loss2 < loss1)
+    log(f"{'OK' if ok else 'FAIL'} mesh: render-mesh CLI ({MESH_ITERS} Adam steps a stage, "
+        f"{A2M_VERTS} vertices, {MESH_FACES} faces, the synthetic GMM): {len(objs)} OBJs of "
+        f"(v, f) lines {sorted(counts)}, finite {finite}, smpl_params.npy vertices "
+        f"{params['vertices'].shape}; keypoint error stage 1 {loss1:.6e} -> stage 2 "
+        f"{loss2:.6e}; {render_s:.2f} s wall (the fit, the vertices, {len(objs)} OBJ files) "
+        f"{card}")
+    if not ok:
+        raise AssertionError("the render-mesh CLI wrote the wrong meshes")
+
+    # ---- the joints2smpl CLI (_rot.npy) and HumanIK --------------------------- #
+    t0 = time.perf_counter()
+    (rot_path,) = j2s.main(["--input_path", npy, "--smpl_model", smpl_path])
+    rot_s = time.perf_counter() - t0
+    rot = np.load(rot_path, allow_pickle=True).item()["motion"]
+    ok = (rot.shape == (MESH_REPS, 25, 6, MESH_FRAMES) and np.isfinite(rot).all()
+          and np.array_equal(rot[:, 24, :3], motions[:, 0]) and not rot[:, 24, 3:].any())
+    log(f"{'OK' if ok else 'FAIL'} mesh: joints2smpl CLI -> {os.path.basename(rot_path)} "
+        f"{rot.shape} (rot6d rows, the root's xyz in row 24), {MESH_REPS} fits in "
+        f"{rot_s:.2f} s wall {card}")
+    if not ok:
+        raise AssertionError("the joints2smpl CLI wrote the wrong _rot.npy")
+    smpl = load_smpl_pickle(smpl_path)
+    t0 = time.perf_counter()
+    hik = motions2hik(motions, smpl, device=dev)
+    hik_s = time.perf_counter() - t0
+    frames = hik["frames"]
+    ok = (hik["num_repetitions"] == MESH_REPS and hik["num_frames"] == MESH_FRAMES
+          and len(frames) == MESH_REPS and all(len(r) == MESH_FRAMES for r in frames)
+          and all(sorted(fr) == sorted(HIK_JOINT_MAP + ["HipsTranslation"])
+                  for r in frames for fr in r)
+          and np.isfinite([v for r in frames for fr in r for x in fr.values() for v in x]).all())
+    log(f"{'OK' if ok else 'FAIL'} mesh: motions2hik JSON, {MESH_REPS} repetitions x "
+        f"{MESH_FRAMES} frames x {len(HIK_JOINT_MAP)} joints + HipsTranslation "
+        f"({len(json.dumps(hik))} bytes) in {hik_s:.2f} s {card}")
+    if not ok:
+        raise AssertionError("motions2hik produced the wrong structure")
+
+    # ---- the fit card against CPU --------------------------------------------- #
+    prior = load_gmm_prior(gmm_path)
+    joints = motions[0].transpose(2, 0, 1)  # [T, 22, 3]
+
+    def fit_on(device, target_joints):
+        model = load_smpl_pickle(smpl_path).to(device)
+        dprior = prior.to(device)
+        target, subset, conf = j2s.fit_inputs(target_joints, device)
+        pose, transl = j2s.initial_params(model, target)
+        times, states = [], []
+        for fit_pose in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pose, transl, err = j2s.fit_stage(model, target, subset, conf, pose, transl,
+                                              fit_pose=fit_pose, num_iters=MESH_ITERS,
+                                              pose_prior=dprior)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            states.append((pose, transl, float(err)))
+        return dict(model=model, prior=dprior, inputs=(target, subset, conf), times=times,
+                    states=states)
+
+    t0 = time.perf_counter()
+    card_fit = fit_on(dev, joints)
+    card_wall = time.perf_counter() - t0
+    cpu_fit = fit_on("cpu", joints)
+    nudged_fit = fit_on("cpu", np.nextafter(joints, np.float32(np.inf)))
+
+    def objective_and_grad(fit, pose, transl):
+        pose = pose.detach().clone().requires_grad_(True)
+        transl = transl.detach().clone().requires_grad_(True)
+        with torch.enable_grad(), full_f32():
+            value = j2s.stage_objective(fit["model"], pose, transl, *fit["inputs"],
+                                        fit["prior"], True)
+            value.backward()
+        return float(value.detach()), pose.grad.cpu(), transl.grad.cpu()
+
+    def grad_gap(got, want):
+        gmax = max(want[1].abs().max().item(), want[2].abs().max().item())
+        return max((got[1] - want[1]).abs().max().item(),
+                   (got[2] - want[2]).abs().max().item()) / gmax, gmax
+
+    # the gate: the stage-2 objective and its gradient where stage 2 starts
+    pose, transl, _ = cpu_fit["states"][0]
+    card_v = objective_and_grad(card_fit, pose.to(dev), transl.to(dev))
+    cpu_v = objective_and_grad(cpu_fit, pose, transl)
+    tf_gap, gmax = grad_gap(card_v, cpu_v)
+    log(f"{'OK' if tf_gap <= TOL_FIT_GRAD else 'FAIL'} mesh: teacher-forced stage-2 objective at "
+        f"the CPU fit's state where stage 2 starts, card vs CPU: objective {card_v[0]:.9e} vs "
+        f"{cpu_v[0]:.9e} (rel {abs(card_v[0] - cpu_v[0]) / abs(cpu_v[0]):.3e}); gradient "
+        f"max|diff| {tf_gap:.3e} of its max {gmax:.4e} (tol {TOL_FIT_GRAD:g})")
+    if tf_gap > TOL_FIT_GRAD:
+        raise AssertionError("the stage-2 objective's gradient on the card disagrees with the CPU")
+    # where the fit ends the gradient is a small difference of large terms (the joint
+    # loss against the priors): its gap is printed beside float32's floor there, the
+    # CPU's gradient at the parameters nudged by one ulp
+    pose, transl, _ = cpu_fit["states"][1]
+    cpu_e = objective_and_grad(cpu_fit, pose, transl)
+    end_gap, end_max = grad_gap(objective_and_grad(card_fit, pose.to(dev), transl.to(dev)), cpu_e)
+    end_floor, _ = grad_gap(objective_and_grad(
+        cpu_fit, *(torch.nextafter(x, torch.full_like(x, math.inf)) for x in (pose, transl))),
+        cpu_e)
+    log(f"mesh: teacher-forced stage-2 gradient at the CPU fit's end state, card vs CPU "
+        f"{end_gap:.3e} of its max {end_max:.4e} (the start's max {gmax:.4e}); float32's floor "
+        f"there (the CPU at parameters nudged by one ulp) {end_floor:.3e}")
+
+    def final(fit):
+        pose, transl, err = fit["states"][1]
+        return pose.cpu(), transl.cpu(), err
+
+    (p_card, t_card, e_card), (p_cpu, t_cpu, e_cpu), (p_nud, _, e_nud) = (
+        final(card_fit), final(cpu_fit), final(nudged_fit))
+    free_gap = abs(e_card - e_cpu) / e_cpu
+    floor_gap = abs(e_nud - e_cpu) / e_cpu
+    ok = free_gap <= TOL_FIT_FREE
+    log(f"{'OK' if ok else 'FAIL'} mesh: free-running fit ({2 * MESH_ITERS} Adam steps, "
+        f"T {MESH_FRAMES}), card vs CPU: final keypoint error {e_card:.6e} vs {e_cpu:.6e}, rel "
+        f"{free_gap:.3e} (tol {TOL_FIT_FREE:g}), max|dtheta| "
+        f"{(p_card - p_cpu).abs().max().item():.3e}, max|dtransl| "
+        f"{(t_card - t_cpu).abs().max().item():.3e}; float32's floor (a CPU fit from the target "
+        f"nudged by one ulp): rel {floor_gap:.3e}, max|dtheta| "
+        f"{(p_nud - p_cpu).abs().max().item():.3e}")
+    if not ok:
+        raise AssertionError("the fit on the card parts from the CPU's past TOL_FIT_FREE")
+
+    # ---- times: ms an iteration, launches, idle share ------------------------- #
+    s1, s2 = card_fit["times"]
+    log(f"time mesh fit at T {MESH_FRAMES} ({A2M_VERTS} vertices, the chain only): stage 1 "
+        f"{s1 / MESH_ITERS * 1e3:.4f} ms/iteration, stage 2 {s2 / MESH_ITERS * 1e3:.4f} "
+        f"ms/iteration, the fit {card_wall:.3f} s wall; the CPU's fit "
+        f"{sum(cpu_fit['times']):.3f} s; CLIs: render-mesh {render_s:.2f} s, joints2smpl "
+        f"({MESH_REPS} fits) {rot_s:.2f} s, motions2hik ({MESH_REPS} fits) {hik_s:.2f} s, "
+        f"predict {predict_s:.2f} s {card}")
+    target, subset, conf = card_fit["inputs"]
+    for fit_pose, (pose0, transl0, _) in zip((False, True), ((
+            *j2s.initial_params(card_fit["model"], target), None), card_fit["states"][0])):
+        pose = pose0.detach().clone().requires_grad_(True)
+        transl = transl0.detach().clone().requires_grad_(True)
+        opt = torch.optim.Adam([pose, transl], lr=0.02)
+
+        def iteration(pose=pose, transl=transl, opt=opt, fit_pose=fit_pose):
+            with torch.enable_grad(), full_f32():
+                opt.zero_grad(set_to_none=False)
+                j2s.stage_objective(card_fit["model"], pose, transl, target, subset, conf,
+                                    card_fit["prior"], fit_pose).backward()
+                if not fit_pose:
+                    pose.grad[:, 1:] = 0.0
+                opt.step()
+
+        device_profile(iteration, 10, f"SMPLify stage {2 if fit_pose else 1} iteration (T "
+                       f"{MESH_FRAMES}, GMM prior)", card, host_rows=6)
+    return launches
 
 
 def device_profile(step, steps, label, card, host_rows=0, groups=None, ranges=()):
@@ -3275,6 +3540,11 @@ def main() -> int:
     t2m_train_rows[3]["launches"] += t2m_eval["flash_attention_64"]  # [64, 4, 197, 128]
     t2m_train_rows[0]["launches"] += t2m_eval["encoder_layer_train_fwd"]
     t2m_train_rows[1]["launches"] += t2m_eval["encoder_layer_train_bwd"]
+
+    # ---- 16. the mesh export: predict -> SMPLify -> meshes, rot6d, HumanIK -- #
+    mesh = mesh_phase(card)
+    t2m_rows[0]["launches"] += mesh["encoder_layer"]          # [6, 197, 512]
+    t2m_train_rows[2]["launches"] += mesh["flash_attention"]  # [6, 4, 197, 128]
 
     kernels = [
         {"name": "local_block", "route": "cuda",

@@ -48,7 +48,7 @@ from gesturediffusion_tpu_torch.eval import metrics as M
 from gesturediffusion_tpu_torch.eval.networks import MotionDiscriminator
 from gesturediffusion_tpu_torch.eval.stgcn import STGCN, load_stgcn_checkpoint
 from gesturediffusion_tpu_torch.utils import logger as log_lib
-from gesturediffusion_tpu_torch.utils.device import full_f32
+from gesturediffusion_tpu_torch.utils.device import full_f32, resolve_device
 
 SMPL_DEFAULT = "body_models/smpl/SMPL_NEUTRAL.pkl"
 # the a2m benchmark's clip length (eval_a2m.py:586, the reference's 60 frames)
@@ -86,11 +86,11 @@ class A2MEvaluation:
         state_dict: Optional[dict] = None,
         checkpoint_path: Optional[str] = None,
         seed: int = 0,
-        device="cpu",
+        device=None,
     ):
         self.input_size_raw = input_size_raw
         self.num_classes = num_classes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.classifier = seeded(seed, lambda: MotionDiscriminator(
             input_size_raw, hidden_size=128, hidden_layer=2, output_size=num_classes))
         if state_dict is None and checkpoint_path is not None:
@@ -211,10 +211,10 @@ class STGCNA2MEvaluation(A2MEvaluation):
         state_dict: Optional[dict] = None,
         checkpoint_path: Optional[str] = None,
         seed: int = 0,
-        device="cpu",
+        device=None,
     ):
         self.num_classes = num_classes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = seeded(seed, lambda: STGCN(
             in_channels=in_channels, num_class=num_classes, layout="smpl", strategy="spatial",
             edge_importance_weighting=True, variant="recognition"))
@@ -258,11 +258,12 @@ def make_generated_batches(
     batch_size: int,
     num_frames: int,
     seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> list[dict]:
     """Sample -> FK -> classifier batches.  ``sample_fn(generator, shape,
     cond)`` draws from one ``torch.Generator`` on ``device`` seeded with
     ``seed``; cond holds the items' mask, lengths and action on ``device``."""
+    device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     batches = []
     for idxs, keep in _batch_indices(min(num_samples, len(dataset)), batch_size):
@@ -283,8 +284,9 @@ def make_generated_batches(
 @torch.no_grad()
 def make_gt_batches(
     fk_fn: Callable, dataset, num_samples: int, batch_size: int, num_frames: int,
-    device="cpu",
+    device=None,
 ) -> list[dict]:
+    device = resolve_device(device)
     batches = []
     for idxs, keep in _batch_indices(min(num_samples, len(dataset)), batch_size):
         motion, cond = _collated(dataset, idxs, num_frames)
@@ -319,9 +321,10 @@ def evaluate_humanact12(
     num_frames: int = NUM_FRAMES,
     cond_mode: str = "action",
     log=print,
-    device="cpu",
+    device=None,
 ) -> dict:
     """Multi-seed evaluation loop (the reference's gru_eval.py:76-102)."""
+    device = resolve_device(device)
     all_metrics: dict = {}
     for seed in range(num_seeds):
         dataset.reset_shuffle()
@@ -349,11 +352,12 @@ def evaluate_uestc(
     num_frames: int = NUM_FRAMES,
     cond_mode: str = "action",
     log=print,
-    device="cpu",
+    device=None,
 ) -> dict:
     """UESTC multi-seed evaluation over both the train and the test split
     (the reference's stgcn_eval.py:78-147), keys suffixed ``_train`` /
     ``_test``."""
+    device = resolve_device(device)
     splits = {key: A2MSplitView(dataset, key) for key in ("train", "test")}
     all_metrics: dict = {}
     for seed in range(num_seeds):
@@ -390,7 +394,7 @@ def evaluate_unconstrained_branch(
     evaluator=None,
     seed: int = 12345,
     log=print,
-    device="cpu",
+    device=None,
 ) -> dict:
     """MoDi ST-GCN FID / KID / diversity of unconstrained samples (the
     reference's gru_eval.py:106-121): the 15-joint subset of the generated
@@ -400,6 +404,7 @@ def evaluate_unconstrained_branch(
         evaluate_unconstrained_metrics,
     )
 
+    device = resolve_device(device)
     dataset.reset_shuffle()
     dataset.shuffle()
     gen_batches = make_generated_batches(sample_fn, fk_fn, dataset, num_samples, batch_size,
@@ -420,7 +425,7 @@ def evaluate_unconstrained_branch(
         motion_data = np.concatenate(
             [b["output_xyz"][:, UNCONSTRAINED_15_JOINTS] for b in gt_batches])
     metrics = evaluate_unconstrained_metrics(generated, motion_data, evaluator=evaluator,
-                                             fast=True, log=log)
+                                             fast=True, log=log, device=device)
     return {f"{k}_unconstrained": v for k, v in metrics.items()}
 
 
@@ -472,7 +477,7 @@ def _require_classifier(
     return path
 
 
-def make_a2m_evaluation(dataset_name: str, eval_mode: Optional[str] = None, device="cpu"):
+def make_a2m_evaluation(dataset_name: str, eval_mode: Optional[str] = None, device=None):
     """The benchmark's evaluation object for an a2m dataset on ``device``:
     uestc -> STGCNA2MEvaluation over $UESTC_STGCN_PATH, anything else ->
     A2MEvaluation over $A2M_CLASSIFIER_PATH (each with its default asset

@@ -45,7 +45,7 @@ from gesturediffusion_tpu_torch.eval import metrics as M
 from gesturediffusion_tpu_torch.eval.eval_a2m import ema_model
 from gesturediffusion_tpu_torch.eval.evaluator_wrapper import EvaluatorWrapper
 from gesturediffusion_tpu_torch.utils import logger as log_lib
-from gesturediffusion_tpu_torch.utils.device import full_f32
+from gesturediffusion_tpu_torch.utils.device import full_f32, resolve_device
 
 # R-precision is defined over batches of 32 (the reference's eval_humanml.py:232)
 BATCH_SIZE = 32
@@ -113,9 +113,10 @@ class GeneratedMotionSet:
         renorm: Optional[tuple] = None,
         seed: int = 0,
         num_samples_limit: Optional[int] = None,
-        device="cpu",
+        device=None,
     ):
         self.batches, self.mm_batches = [], []
+        device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(seed)
         n = len(dataset)
         if num_samples_limit:

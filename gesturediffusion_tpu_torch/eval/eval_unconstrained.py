@@ -19,7 +19,7 @@ import torch
 from gesturediffusion_tpu_torch.eval import metrics as M
 from gesturediffusion_tpu_torch.eval.eval_a2m import _warn_random_classifier, seeded
 from gesturediffusion_tpu_torch.eval.stgcn import STGCN, load_stgcn_checkpoint
-from gesturediffusion_tpu_torch.utils.device import full_f32
+from gesturediffusion_tpu_torch.utils.device import full_f32, resolve_device
 
 
 class UnconstrainedEvaluator:
@@ -32,9 +32,9 @@ class UnconstrainedEvaluator:
         state_dict: Optional[dict] = None,
         checkpoint_path: Optional[str] = None,
         seed: int = 0,
-        device="cpu",
+        device=None,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = seeded(seed, lambda: STGCN(
             in_channels=3, num_class=num_classes, layout="openpose15", strategy="spatial",
             edge_importance_weighting=True, variant="modi"))
@@ -69,12 +69,13 @@ def evaluate_unconstrained_metrics(
     evaluator: Optional[UnconstrainedEvaluator] = None,
     fast: bool = True,
     log=print,
+    device=None,
 ) -> dict:
     """FID, KID and diversity (and precision / recall unless ``fast``) of
     the generated motions against the dataset's.  Both are in MoDi's joint
     order (eval_a2m.UNCONSTRAINED_15_JOINTS maps SMPL's); the dataset's
     first 15 joints are taken, as the reference's 16-joint npy needs."""
-    evaluator = evaluator or UnconstrainedEvaluator()
+    evaluator = evaluator or UnconstrainedEvaluator(device=device)
     generated = generated_motions - generated_motions[:, 8:9]
     dataset = dataset_motions[:, :15] - dataset_motions[:, 8:9]
 

@@ -33,7 +33,7 @@ from gesturediffusion_tpu_torch.eval.networks import (
     TextEncoderBiGRUCo,
 )
 from gesturediffusion_tpu_torch.utils import logger as log_lib
-from gesturediffusion_tpu_torch.utils.device import full_f32
+from gesturediffusion_tpu_torch.utils.device import full_f32, resolve_device
 
 STATE_DICT_KEYS = ("text_encoder", "motion_encoder", "movement_encoder")
 
@@ -48,11 +48,11 @@ class EvaluatorWrapper:
         dataset_name: str = "humanml",
         state_dicts: Optional[dict] = None,
         dim_pose: Optional[int] = None,
-        device="cpu",
+        device=None,
     ):
         self.dataset_name = dataset_name
         self.dim_pose = dim_pose or (263 if dataset_name == "humanml" else 251)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         def build():
             return (TextEncoderBiGRUCo(word_size=300, pos_size=15, hidden_size=512,

@@ -254,11 +254,17 @@ def _parents_from_kintree(data) -> tuple:
     return tuple(int(p) for p in parents)
 
 
+def read_smpl_pickle_dict(path: str) -> dict:
+    """The SMPL pickle's dict, read without chumpy (its arrays as numpy)."""
+    with open(path, "rb") as f:
+        data = _SMPLUnpickler(f, encoding="latin1").load()
+    return {k: _to_np(v) if isinstance(v, _ChumpyStub) else v for k, v in data.items()}
+
+
 def load_smpl_pickle(path: str) -> SMPLModel:
     """The official SMPL pickle (or a synthetic one in its layout) ->
     SMPLModel on the CPU, without chumpy (smpl.py:249)."""
-    with open(path, "rb") as f:
-        data = _SMPLUnpickler(f, encoding="latin1").load()
+    data = read_smpl_pickle_dict(path)
     shapedirs = _to_np(data["shapedirs"])[..., :10]
     posedirs = _to_np(data["posedirs"])
     posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # [(J-1)*9, V*3]

@@ -1,7 +1,8 @@
 """The HumanML3D motion codec back to joint positions.
 
 PyTorch counterpart of gesturediffusion_tpu/ops/motion_process.py
-(``recover_root_rot_pos`` :32, ``recover_from_ric`` :68).  The feature
+(``recover_root_rot_pos`` :32, ``recover_from_ric`` :68,
+``recover_from_rot`` :83, ``recover_rot`` :96).  The feature
 layout of a frame, for J joints (263 = 12 * 22 - 1 for HumanML3D, 251 for
 KIT's 21 joints):
 
@@ -13,15 +14,17 @@ KIT's 21 joints):
     [... : ...+J*3]          local joint velocities
     [-4:]                    foot contact labels
 
-Only the root and RIC parts are read.  The velocities are integrated with
-a shifted cumulative sum, so frame i depends on frames before it alone.
+``recover_from_ric`` reads the root and RIC parts, ``recover_from_rot``
+and ``recover_rot`` the root and rotation parts.  The velocities are
+integrated with a shifted cumulative sum, so frame i depends on frames
+before it alone.  The forward codec is ops/motion_features.py.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gesturediffusion_tpu_torch.ops.quaternion import qinv, qrot
+from gesturediffusion_tpu_torch.ops.quaternion import qinv, qrot, quaternion_to_cont6d
 
 
 def joints_of_features(n_features: int) -> int:
@@ -59,3 +62,32 @@ def recover_from_ric(data: torch.Tensor, joints_num: int) -> torch.Tensor:
     offset = torch.stack([r_pos[..., 0], torch.zeros_like(r_pos[..., 0]), r_pos[..., 2]], -1)
     positions = positions + offset[..., None, :]
     return torch.cat([r_pos[..., None, :], positions], dim=-2)
+
+
+def _cont6d_of_features(data: torch.Tensor, joints_num: int, r_rot_quat: torch.Tensor):
+    """The root's yaw and the joints' rotation features as cont6d
+    [..., T, J * 6]."""
+    start = 1 + 2 + 1 + (joints_num - 1) * 3
+    end = start + (joints_num - 1) * 6
+    return torch.cat([quaternion_to_cont6d(r_rot_quat), data[..., start:end]], dim=-1)
+
+
+def recover_from_rot(data: torch.Tensor, joints_num: int, skeleton, offsets: torch.Tensor
+                     ) -> torch.Tensor:
+    """Rotation features [..., T, D] -> world joint positions [N, J, 3]
+    (N the leading dims flattened) through ``skeleton``'s cont6d FK
+    (ops/skeleton.py)."""
+    r_rot_quat, r_pos = recover_root_rot_pos(data)
+    cont6d = _cont6d_of_features(data, joints_num, r_rot_quat).reshape(-1, joints_num, 6)
+    return skeleton.forward_kinematics_cont6d(cont6d, r_pos.reshape(-1, 3), offsets)
+
+
+def recover_rot(data: torch.Tensor) -> torch.Tensor:
+    """Features [..., T, D] -> each joint's cont6d and a last row of the
+    root translation padded with zeros, [..., T, J + 1, 6]."""
+    joints_num = 22 if data.shape[-1] == 263 else 21
+    r_rot_quat, r_pos = recover_root_rot_pos(data)
+    r_pos_pad = torch.cat([r_pos, torch.zeros_like(r_pos)], dim=-1)[..., None, :]
+    cont6d = _cont6d_of_features(data, joints_num, r_rot_quat)
+    cont6d = cont6d.reshape(data.shape[:-1] + (joints_num, 6))
+    return torch.cat([cont6d, r_pos_pad], dim=-2)

@@ -14,10 +14,11 @@ generator seeded with ``--seed``.  A text model is conditioned on
 unconditional pass).  A gesture model runs its fast CFG path (the
 encoder-layer and local-block kernels on the card).  ``results.npy``
 holds xyz joints for the text datasets and the raw features for the
-gesture ones.  The stick-figure videos of the text datasets need
-viz/plot.py, which is not ported yet (ROADMAP A9): each is skipped with
-the JAX CLI's own log line.  It runs on the CUDA card unless ``--device
-cpu`` is given.
+gesture ones.  The text datasets also get a stick-figure video a sample
+and repetition (viz/plot.py, ``sampleNN_repMM.mp4`` or ``.gif``), the
+ground truth's frames tinted blue under ``in_between``; each is skipped
+with the JAX CLI's log line where matplotlib is not installed.  It runs
+on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ from gesturediffusion_tpu_torch.diffusion.sampling import p_sample_loop
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
 from gesturediffusion_tpu_torch.ops.motion_process import joints_of_features, recover_from_ric
 from gesturediffusion_tpu_torch.utils import logger as log_lib
+from gesturediffusion_tpu_torch.utils import paramutil
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
 from gesturediffusion_tpu_torch.utils.parser import default_output_dir, edit_args
 from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
+from gesturediffusion_tpu_torch.viz.plot import render_or_log
 
 
 def build_edit_masks(
@@ -151,10 +154,21 @@ def run(argv=None) -> dict:
     with open(npy_path.replace(".npy", ".txt"), "w") as fw:
         fw.write("\n".join(all_text))
     if text_data:
+        chains = (paramutil.t2m_kinematic_chain if args.dataset == "humanml"
+                  else paramutil.kit_kinematic_chain)
+        fps = 12.5 if args.dataset == "kit" else 20
+        motions = np.concatenate(all_motions, axis=0)
         for rep_i in range(args.num_repetitions):
             for i in range(n):
-                log_lib.log(f"  (video skipped: sample{i:02d}_rep{rep_i:02d}.mp4 needs the "
-                            f"stick-figure renderer, not ported yet (ROADMAP A9))")
+                length = int(np.asarray(cond["lengths"])[i])
+                gt_frames = (list(range(int(length * args.prefix_end)))
+                             + list(range(int(length * args.suffix_start), length))
+                             if args.edit_mode == "in_between" else [])
+                render_or_log(
+                    log_lib.log, os.path.join(out_path, f"sample{i:02d}_rep{rep_i:02d}.mp4"),
+                    chains, motions[rep_i * n + i, :, :, :length].transpose(2, 0, 1),
+                    dataset=args.dataset, title=all_text[rep_i * n + i], fps=fps,
+                    vis_mode=args.edit_mode, gt_frames=gt_frames)
     log_lib.log(f"[Done] Results are at [{os.path.abspath(out_path)}]")
     return {"out_path": out_path, "samples": np.concatenate(samples, axis=0), "gt": motion,
             "mask": inpainting_mask}

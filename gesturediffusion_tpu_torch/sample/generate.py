@@ -9,17 +9,20 @@ first chunk seeded by the dataset's poses), invert the normalisation,
 split positions from rotations and write ``results.npy`` (+
 ``results.txt``, ``results_len.txt``), a ``<take>.bvh`` and
 ``<take>_gt.bvh`` per take (on the dataset's reference skeleton when it
-has one) and the take's audio as ``<take>.wav``.  A GENEA split generates
-as many chunks a take as its shortest take holds; a dataset without take
-structure (``synthetic``) one chunk a take.  It runs on the CUDA card
-unless ``--device cpu`` is given.  The stick-figure video and its audio
-mux are not ported yet (ROADMAP A9).
+has one), the take's audio as ``<take>.wav`` and its stick-figure video
+(viz/plot.py: ``<take>.mp4`` through ffmpeg, else ``<take>.gif``; skipped
+with a log line where matplotlib is not installed), muxed with the audio
+into ``<take>_audio.mp4`` where ffmpeg is on the PATH.  A GENEA split
+generates as many chunks a take as its shortest take holds; a dataset
+without take structure (``synthetic``) one chunk a take.  It runs on the
+CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -33,6 +36,8 @@ from gesturediffusion_tpu_torch.diffusion.sampling import (
     sample_loop,
 )
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+from gesturediffusion_tpu_torch.utils import logger as log_lib
+from gesturediffusion_tpu_torch.utils import paramutil
 from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import (
@@ -41,6 +46,7 @@ from gesturediffusion_tpu_torch.utils.model_factory import (
 )
 from gesturediffusion_tpu_torch.utils.parser import default_output_dir, generate_args
 from gesturediffusion_tpu_torch.viz.bvh import export_gesture_bvh, read_bvh
+from gesturediffusion_tpu_torch.viz.plot import render_or_log
 
 FPS = 30
 SR = 22050
@@ -202,17 +208,30 @@ def main(argv=None) -> str:
     with open(npy_path.replace(".npy", "_len.txt"), "w") as fw:
         fw.write("\n".join(str(int(n)) for n in lengths))
 
+    chains = (paramutil.genea2022_kinematic_chain if n_joints >= 83
+              else [[i, i + 1] for i in range(n_joints - 1)])
     takes = getattr(dataset, "takes", [f"take_{i}" for i in range(n_takes)])
     reference = load_reference_skeleton(dataset)
     for i in range(n_takes):
         t = int(take_ids[i])
-        anim_path = os.path.join(out_path, str(takes[t] if t < len(takes) else f"take_{t}"))
+        save_file = str(takes[t] if t < len(takes) else f"take_{t}")
+        anim_path = os.path.join(out_path, save_file)
+        log_lib.log(f"Saving take {i}: {save_file}")
+        render_or_log(log_lib.log, anim_path + ".mp4", chains, motions[i],
+                      dataset=args.dataset, title="", fps=FPS)
         export_gesture_bvh(anim_path + ".bvh", rotations[i], motions[i][:, 0, :],
                            reference=reference, fps=FPS)
         export_gesture_bvh(anim_path + "_gt.bvh", gt_rot[i], gt_pos[i][:, 0, :],
                            reference=reference, fps=FPS)
         if audios is not None:
             wavfile.write(anim_path + ".wav", SR, (audios[i] * 32767).astype(np.int16))
+            if shutil.which("ffmpeg") and os.path.isfile(anim_path + ".mp4"):
+                r = subprocess.run(
+                    ["ffmpeg", "-y", "-loglevel", "warning", "-i", anim_path + ".mp4",
+                     "-i", anim_path + ".wav", "-c:v", "copy", "-map", "0:v:0",
+                     "-map", "1:a:0", "-c:a", "aac", "-b:a", "192k", anim_path + "_audio.mp4"])
+                if r.returncode != 0:
+                    log_lib.log(f"  (audio mux failed: ffmpeg rc {r.returncode})")
     print(f"saved {npy_path} and {n_takes} takes")
     return out_path
 

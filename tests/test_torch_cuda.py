@@ -826,3 +826,76 @@ def test_t2m_evaluator_embeddings_on_the_card_match_the_cpu(dev):
             assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     finally:
         torch.backends.cudnn.allow_tf32 = False
+
+
+def _smplify_case(t, seed=0):
+    """A synthetic SMPL at 6890 vertices, SMPL joints of random poses as the
+    target [T, 22, 3], and the synthetic GMM prior."""
+    from gesturediffusion_tpu_torch.models.smpl import make_synthetic_smpl
+    from gesturediffusion_tpu_torch.viz import joints2smpl as j2s
+    from gesturediffusion_tpu_torch.viz.prior import MaxMixturePrior, make_synthetic_gmm
+
+    rs = np.random.RandomState(seed)
+    smpl = make_synthetic_smpl(6890)
+    pose = _randn(rs, t, 24, 3, scale=0.3)
+    joints = j2s.fk_joints(smpl, pose, _randn(rs, t, 3, scale=0.2)).numpy()[:, :22]
+    gmm = make_synthetic_gmm()
+    return smpl, joints, MaxMixturePrior(gmm["means"], gmm["covars"], gmm["weights"])
+
+
+def test_smplify_stage2_gradient_on_the_card_matches_the_cpu(dev):
+    """The SMPLify body stage's objective (the Geman-McClure joint loss, the
+    angle prior, the GMM prior) and its gradient at one state of 120 frames,
+    on the card against the CPU: the objective rtol 1e-6, the gradient
+    within 1e-5 of its max |value| (one float32 chain of 23 links and a
+    [120, 8, 69] quadratic form, summed in another order)."""
+    from gesturediffusion_tpu_torch.viz import joints2smpl as j2s
+
+    smpl, joints, prior = _smplify_case(120)
+    rs = np.random.RandomState(1)
+    pose, transl = _randn(rs, 120, 24, 3, scale=0.2), _randn(rs, 120, 3, scale=0.1)
+    out = []
+    for d in (dev, "cpu"):
+        target, subset, conf = j2s.fit_inputs(joints, d, fix_foot=True)
+        p = pose.to(d).requires_grad_(True)
+        tr = transl.to(d).requires_grad_(True)
+        value = j2s.stage_objective(smpl.to(d), p, tr, target, subset, conf, prior.to(d), True)
+        value.backward()
+        out.append((value.item(), p.grad.cpu(), tr.grad.cpu()))
+    (v_card, gp_card, gt_card), (v_cpu, gp_cpu, gt_cpu) = out
+    assert abs(v_card - v_cpu) <= 1e-6 * abs(v_cpu)
+    gmax = max(gp_cpu.abs().max().item(), gt_cpu.abs().max().item())
+    assert (gp_card - gp_cpu).abs().max().item() <= 1e-5 * gmax
+    assert (gt_card - gt_cpu).abs().max().item() <= 1e-5 * gmax
+
+
+def test_smplify_fit_on_the_card_stays_near_the_cpu(dev, monkeypatch, tmp_path):
+    """A whole two-stage fit (30 Adam steps a stage, 20 frames) on the card
+    and on the CPU: the stage-2 keypoint error below stage 1's on both, and
+    the final errors within 2e-2 of each other (the chip smoke's
+    TOL_FIT_FREE: Adam's steps read float32 chaos in the poses)."""
+    from gesturediffusion_tpu_torch.viz import joints2smpl as j2s
+
+    smpl, joints, prior = _smplify_case(20, seed=2)
+    monkeypatch.setenv("SMPL_MEAN_PATH", str(tmp_path / "absent.h5"))
+    fits = [j2s.joints2smpl(smpl, joints, num_smplify_iters=30, pose_prior=prior, device=d)
+            for d in (dev, "cpu")]
+    for fit in fits:
+        assert fit["loss"][1] < fit["loss"][0] and np.isfinite(fit["thetas"]).all()
+    assert abs(fits[0]["loss"][1] - fits[1]["loss"][1]) <= 2e-2 * fits[1]["loss"][1]
+
+
+def test_npy2obj_vertices_on_the_card_match_the_cpu(dev, tmp_path):
+    """Npy2Obj's rot6d route (no fit): SMPL's skinned vertices [T, 6890, 3]
+    on the card against the CPU within 1e-4 (f32 skinning over 24 joints
+    and 207 pose blendshapes)."""
+    from gesturediffusion_tpu_torch.viz.vis_utils import Npy2Obj
+
+    smpl, _, _ = _smplify_case(1)
+    rs = np.random.RandomState(3)
+    motion = rs.randn(1, 25, 6, 16).astype(np.float32)
+    path = str(tmp_path / "results_rot.npy")
+    np.save(path, {"motion": motion, "num_samples": 1})
+    verts = [Npy2Obj(path, 0, 0, smpl, device=d).vertices for d in (dev, "cpu")]
+    assert verts[0].shape == (16, 6890, 3)
+    assert np.abs(verts[0] - verts[1]).max() <= 1e-4

@@ -53,8 +53,9 @@ VIDEO = (".mp4", ".gif")
 
 @pytest.fixture
 def no_clip_no_video(monkeypatch, tmp_path):
-    """Both packages take the hash text embedder, and the JAX CLI's
-    stick-figure video (not ported) is skipped through its own fallback."""
+    """Both packages take the hash text embedder, and neither draws its
+    stick-figure videos (test_torch_viz.py holds them): the JAX CLI's is
+    skipped through its own fallback, the port's renderer draws nothing."""
     monkeypatch.delenv("CLIP_CHECKPOINT", raising=False)
     monkeypatch.delenv("CLIP_BPE_PATH", raising=False)
     monkeypatch.chdir(tmp_path)
@@ -63,6 +64,8 @@ def no_clip_no_video(monkeypatch, tmp_path):
         raise RuntimeError("video not compared")
 
     monkeypatch.setattr("gesturediffusion_tpu.viz.plot.plot_3d_motion", skip)
+    monkeypatch.setattr("gesturediffusion_tpu_torch.viz.plot.plot_3d_motion",
+                        lambda *args, **kwargs: None)
 
 
 def _inpaint_case(seed=0):

@@ -149,11 +149,13 @@ def evaluations(gru_params):
     return {
         "humanact12": (jev.A2MEvaluation(classifier_params=gru_params),
                        pev.A2MEvaluation(state_dict=motion_discriminator_state_dict_from_params(
-                           gru_params))),
+                           gru_params), device="cpu")),
         "uestc": (jev.STGCNA2MEvaluation(variables=rec),
-                  pev.STGCNA2MEvaluation(state_dict=stgcn_state_dict_from_variables(rec))),
+                  pev.STGCNA2MEvaluation(state_dict=stgcn_state_dict_from_variables(rec),
+                                         device="cpu")),
         "modi": (junc.UnconstrainedEvaluator(variables=modi),
-                 punc.UnconstrainedEvaluator(state_dict=stgcn_state_dict_from_variables(modi))),
+                 punc.UnconstrainedEvaluator(state_dict=stgcn_state_dict_from_variables(modi),
+                                           device="cpu")),
     }
 
 
@@ -167,8 +169,9 @@ def test_evaluation_object_matches_jax(trees, fks, evaluations, kind, cond_mode)
     out = []
     for pkg, ds, fk, sample, ev in ((jev, jds, fks[0], jsample, evaluations[kind][0]),
                                     (pev, pds, fks[1], psample, evaluations[kind][1])):
-        gt = pkg.make_gt_batches(fk, ds, 10, 4, 60)
-        gen = pkg.make_generated_batches(sample, fk, ds, 10, 4, 60, seed=0)
+        cpu = {"device": "cpu"} if pkg is pev else {}
+        gt = pkg.make_gt_batches(fk, ds, 10, 4, 60, **cpu)
+        gen = pkg.make_generated_batches(sample, fk, ds, 10, 4, 60, seed=0, **cpu)
         assert [len(b["y"]) for b in gen] == [4, 4, 2]  # the padded last block cut on the host
         np.random.seed(0)
         out.append(ev.evaluate({"gt": gt, "gen": gen}, cond_mode=cond_mode))
@@ -187,8 +190,9 @@ def test_multi_seed_loops_match_jax(trees, fks, evaluations, kind):
                                     (pev, pds, fks[1], psample, evaluations[kind][1])):
         loop = pkg.evaluate_uestc if kind == "uestc" else pkg.evaluate_humanact12
         np.random.seed(10)
+        cpu = {"device": "cpu"} if pkg is pev else {}
         out.append(loop(sample, fk, ds, ev, num_seeds=2, num_samples=6, batch_size=4,
-                        num_frames=60, log=_quiet))
+                        num_frames=60, log=_quiet, **cpu))
     _assert_metrics(out[1], out[0])
     if kind == "uestc":
         assert {"fid_gen_train", "fid_gen_test", "accuracy_gt_test_conf"} <= set(out[1])
@@ -210,7 +214,7 @@ def test_unconstrained_branch_matches_jax(trees, fks, evaluations, gt_source):
         np.random.seed(11)
         out.append(pkg.evaluate_unconstrained_branch(
             sample, fk, ds, num_samples=8, batch_size=4, num_frames=60, dataset_npy_path=npy,
-            evaluator=ev, log=_quiet))
+            evaluator=ev, log=_quiet, **({"device": "cpu"} if pkg is pev else {})))
     _assert_metrics(out[1], out[0])
     assert set(out[1]) == {f"{k}_unconstrained" for k in (
         "fid", "kid_mean", "kid_std", "diversity_gen", "diversity_gt")}
@@ -223,11 +227,11 @@ def test_eval_modes_and_the_full_protocol_refusal(tmp_path, monkeypatch):
     assert pev.EVAL_MODES_A2M == jev.EVAL_MODES_A2M
     monkeypatch.setenv("A2M_CLASSIFIER_PATH", str(tmp_path / "absent.tar"))
     with pytest.raises(FileNotFoundError, match="A2M_CLASSIFIER_PATH"):
-        pev.make_a2m_evaluation("humanact12", eval_mode="full")
-    assert isinstance(pev.make_a2m_evaluation("humanact12", eval_mode="debug"),
+        pev.make_a2m_evaluation("humanact12", eval_mode="full", device="cpu")
+    assert isinstance(pev.make_a2m_evaluation("humanact12", eval_mode="debug", device="cpu"),
                       pev.A2MEvaluation)
     monkeypatch.setenv("UESTC_STGCN_PATH", str(tmp_path / "absent.tar"))
-    assert isinstance(pev.make_a2m_evaluation("uestc"), pev.STGCNA2MEvaluation)
+    assert isinstance(pev.make_a2m_evaluation("uestc", device="cpu"), pev.STGCNA2MEvaluation)
 
 
 @pytest.fixture(scope="module")

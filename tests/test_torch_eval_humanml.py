@@ -77,7 +77,7 @@ def evaluators(tmp_path_factory):
     sds = t2m_evaluator_state_dicts_from_params(jax.tree_util.tree_map(np.asarray, jw.params))
     tar = str(tmp_path_factory.mktemp("t2m_tar") / "finest.tar")
     torch.save(sds, tar)
-    return jw, pew.EvaluatorWrapper("humanml", state_dicts=sds), tar
+    return jw, pew.EvaluatorWrapper("humanml", state_dicts=sds, device="cpu"), tar
 
 
 def _stubs(dim):
@@ -148,7 +148,8 @@ def test_evaluation_matches_jax(tree, evaluators, tmp_path, run_mm):
         def make_loader(replication, pkg=pkg, ds=ds, sample=sample, embed=embed,
                         renorm=renorm):
             gen = pkg.GeneratedMotionSet(sample, ds, text_encoder=embed, renorm=renorm,
-                                         seed=replication, **mode)
+                                         seed=replication, **mode,
+                                         **({"device": "cpu"} if pkg is peh else {}))
             return gen, gen.mm_batches
 
         log_file = str(tmp_path / f"{name}.log")

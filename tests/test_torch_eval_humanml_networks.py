@@ -257,7 +257,7 @@ def test_the_released_finest_tar_layout_loads_as_it_is(evaluators, tmp_path):
     jax.tree_util.tree_map(np.testing.assert_array_equal, back, params)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("T2M_EVALUATOR_PATH", tar)
-        wrapper = pew.EvaluatorWrapper("humanml")
+        wrapper = pew.EvaluatorWrapper("humanml", device="cpu")
     for key, module in zip(pew.STATE_DICT_KEYS, wrapper.modules()):
         for name, t in module.state_dict().items():
             torch.testing.assert_close(t, sds[key][name], rtol=0, atol=0, msg=name)
@@ -266,7 +266,7 @@ def test_the_released_finest_tar_layout_loads_as_it_is(evaluators, tmp_path):
 @pytest.fixture(scope="module")
 def wrappers(evaluators):
     jw, _, sds = evaluators
-    return jw, pew.EvaluatorWrapper("humanml", state_dicts=sds)
+    return jw, pew.EvaluatorWrapper("humanml", state_dicts=sds, device="cpu")
 
 
 def _eval_batch(seed, b=12):

@@ -104,7 +104,7 @@ def test_the_released_gru_tar_layout_loads_as_it_is(discriminator, tmp_path):
     jm, _, params, port = discriminator
     path = str(tmp_path / "humanact12_gru.tar")
     torch.save({"model": port.state_dict()}, path)
-    ev = A2MEvaluation(checkpoint_path=path)
+    ev = A2MEvaluation(checkpoint_path=path, device="cpu")
     for k, v in port.state_dict().items():
         assert torch.equal(ev.classifier.state_dict()[k], v), k
     from gesturediffusion_tpu.eval.eval_a2m import A2MEvaluation as JaxA2MEvaluation
@@ -187,12 +187,12 @@ def test_the_released_stgcn_tar_layout_loads_as_it_is(stgcn_pair, tmp_path):
     path = str(tmp_path / "stgcn.tar")
     torch.save({"model": {**port.state_dict(), "A": port.A.clone()}}, path)
     if name == "recognition":
-        ev = STGCNA2MEvaluation(checkpoint_path=path)
+        ev = STGCNA2MEvaluation(checkpoint_path=path, device="cpu")
         model = ev.model
     else:
         from gesturediffusion_tpu_torch.eval.eval_unconstrained import UnconstrainedEvaluator
 
-        model = UnconstrainedEvaluator(checkpoint_path=path).model
+        model = UnconstrainedEvaluator(checkpoint_path=path, device="cpu").model
     for k, v in port.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
     back = jst.load_stgcn_checkpoint(path)

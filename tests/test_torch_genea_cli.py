@@ -51,12 +51,15 @@ def run(tmp_path_factory):
 
 @pytest.fixture
 def no_video(monkeypatch):
-    """The JAX generate CLI's stick-figure video, left out by the port, is
-    skipped (its own fallback for a headless machine)."""
+    """Neither generate CLI draws its stick-figure videos (test_torch_viz.py
+    holds them): the JAX CLI's is skipped through its own fallback for a
+    headless machine, the port's renderer draws nothing."""
     def skip(*args, **kwargs):
         raise RuntimeError("video not compared")
 
     monkeypatch.setattr("gesturediffusion_tpu.viz.plot.plot_3d_motion", skip)
+    monkeypatch.setattr("gesturediffusion_tpu_torch.viz.plot.plot_3d_motion",
+                        lambda *args, **kwargs: None)
 
 
 def _files(path):
