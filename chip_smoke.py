@@ -157,7 +157,26 @@ Phases, each fatal on failure:
               fit from a one-ulp-nudged target beside it); ms an iteration of
               each stage, the fit's and the CLIs' wall times, a profiled
               iteration of each stage (launches, idle share)
-Every train-step comparison (phases 5, 12, 13) holds the kernel steps
+ 17. wav/V1  the last two gesture denoisers: MDMOld (MDM V1: J 498 + MFCC 26,
+              D 256, 8 layers) with seeded weights written as a reference-layout
+              V1 .pt and read back (the V2 loader refusing it) samples the
+              phase-4 take (kernel 1 counted 8 a step, no local block) against
+              the plain take; the wav-encoder MDM at the V2 width samples it
+              from raw audio (80 x 735 samples a chunk: 59 frames of features
+              padded to 80; kernels 1 and 2 counted) against the plain take;
+              its wav encoder on the card against the CPU under its own float32
+              guard with cuDNN's TF32 on outside it (the stack unguarded with
+              TF32 allowed printed as a control); 5 wav-encoder train steps at
+              batch 256 (4 x 64) through kernels 5 and 6 against the plain
+              steps, the BatchNorm running statistics compared after each (the
+              conv biases before the BatchNorms, whose gradient is zero in
+              exact arithmetic, held against the model's largest gradient,
+              grad_gap); the train CLI
+              --use_wav_enc --use_fused_train_encoder on --dataset synthetic
+              (launches counted) and the generate CLI on its checkpoint; a
+              wav-encoder CFG denoise step's time, idle share and conv-stack
+              share, an MDMOld step's and phase 4's fast-path step's
+Every train-step comparison (phases 5, 12, 13, 17) holds the kernel steps
 against the plain steps two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
 free-running (the losses of every step, the first step's gradients), with
 the gap of a plain run from weights nudged by one ulp printed beside it;
@@ -264,6 +283,13 @@ TOL_SMPL = 1e-4          # f32 joints on the card against the CPU: 23 chained 4x
 TOL_EVAL_FEATS = 1e-5
 # phase 15: the text benchmark's train hook scores this many samples (2 batches of 32)
 EVAL_HOOK_SAMPLES = 64
+# phase 17: the wav encoder's raw audio at the gesture contract's 22050 Hz / 30 fps, and
+# the frames its four strided convolutions give for an 80-frame chunk
+WAV_SPF, WAV_FRAMES = 735, 59
+# the wav encoder's features on the card against the CPU, of their max |value|: four
+# f32 convolutions, sums in another order (as TOL_EVAL_FEATS); the stack with cuDNN's TF32
+# allowed and no guard is printed beside it as a control
+TOL_WAV = 1e-5
 # phase 16: the predict CLI on phase 12's checkpoint at 3 repetitions of 6 s (120 frames at
 # 20 fps), then the SMPLify fit at the real SMPL's vertex and triangle counts with the
 # synthetic gmm_08 (8 components of 69), 150 Adam steps a stage as the reference's CLIs
@@ -464,9 +490,10 @@ def launch_counter(counters: dict):
     return counted, total
 
 
-def run_take(model, diffusion, chunk_conds, init_seed, seed):
+def run_take(model, diffusion, chunk_conds, init_seed, seed, t=None):
     """One chunked-AR CFG take through select_sampling_model_fn ->
-    autoregressive_sample_loop, synchronised."""
+    autoregressive_sample_loop, synchronised; ``t`` frames a chunk (by
+    default the MFCCs')."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
@@ -474,7 +501,7 @@ def run_take(model, diffusion, chunk_conds, init_seed, seed):
 
     precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
     gen = torch.Generator(device=init_seed.device).manual_seed(seed)
-    b, t = init_seed.shape[0], chunk_conds["mfcc"].shape[-1]
+    b, t = init_seed.shape[0], t or chunk_conds["mfcc"].shape[-1]
     out = autoregressive_sample_loop(
         diffusion, model_fn, (b, J, 1, t), chunk_conds, init_seed, S,
         generator=gen, cond_precompute=precompute,
@@ -2613,6 +2640,207 @@ def mesh_phase(card):
     return launches
 
 
+def wav_old_phase(fast_model, chunk_conds, init_seed, randn, card):
+    """Phase 17: the last two gesture denoisers on the card.  MDMOld (MDM
+    V1) at full width with seeded weights, written as a reference-layout V1
+    ``.pt`` and read back through utils/convert.py:load_weights (the V2
+    loader must refuse it), samples phase 4's 41-take, 2-chunk CFG take
+    (kernel 1 counted 8 a step, no local block) against the plain take; the
+    wav-encoder MDM at the gesture V2 width samples the same take from raw
+    audio (80 x 735 samples a chunk: 59 frames of features, padded to 80;
+    kernels 1 and 2 counted) against the plain take, and its wav encoder on
+    the card against the CPU under its own float32 guard with PyTorch's
+    TF32 default (cuDNN's on) outside it, the stack unguarded printed as a
+    control; 5 wav-encoder
+    train steps at batch 256 (4 x 64) through the training kernels against
+    the plain steps, the BatchNorm running statistics compared after each;
+    the train CLI --use_wav_enc --use_fused_train_encoder on --dataset
+    synthetic (launches counted) and the generate CLI on its checkpoint;
+    the times and profiles of a wav-encoder CFG denoise step (the conv
+    stack's share), an MDMOld step and phase 4's fast-path step.  Returns
+    the launches of the phase's main paths by kernel."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+    from gesturediffusion_tpu_torch.models.mdm_old import MDMOld
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig
+    from gesturediffusion_tpu_torch.utils.convert import load_checkpoint, load_weights
+
+    dev = torch.device("cuda")
+    counted, total = launch_counter({"local_block": fused_local_block,
+                                     "encoder_layer": fused_encoder_layer,
+                                     "flash_attention": fused_self_attention})
+    base = os.path.join(HERE, "build", "chip_smoke", "wav_old")
+    os.makedirs(base, exist_ok=True)
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                 timestep_respacing=RESPACING, device=dev)
+    scale = torch.full((CHUNKS, B_TAKES), GUIDANCE, device=dev)
+    per_step = {"encoder_layer": STEPS * CHUNKS * LAYERS,
+                "flash_attention": STEPS * CHUNKS * LAYERS}
+
+    def take_vs_plain(model, conds, label, want):
+        out, launches = counted(lambda: run_take(model, diffusion, conds, init_seed, 1, t=T))
+        model.use_kernels = False
+        out_plain = run_take(model, diffusion, conds, init_seed, 1, t=T)
+        model.use_kernels = True
+        ok = (launches == want and tuple(out.shape) == (CHUNKS, B_TAKES, J, 1, T)
+              and bool(torch.isfinite(out).all()))
+        report(f"{label} take ({B_TAKES} takes x {CHUNKS} chunks x {STEPS} DDPM steps, CFG "
+               f"batch {2 * B_TAKES}) vs plain versions on the card; launches {launches} "
+               f"(expected {want}; |out| max {out_plain.abs().max().item():.3f})",
+               (out - out_plain).abs().max().item(), TOL_TAKE, ok)
+
+    def step_fn(model, conds):
+        """One CFG denoise step of ``model`` on chunk 0 of ``conds``."""
+        precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
+        cond = {**{k: v[0] for k, v in conds.items()}, "seed": init_seed}
+        cond = precompute(cond) if precompute is not None else cond
+        x = torch.zeros((B_TAKES, J, 1, T), device=dev)
+        noise = torch.randn_like(x)
+        t = torch.full((B_TAKES,), diffusion.num_timesteps // 2, dtype=torch.long, device=dev)
+        return lambda: p_sample(diffusion, model_fn, x, t, cond, noise)
+
+    # ---- MDMOld: a reference-layout V1 file read back, then the take ------- #
+    old_kw = dict(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
+                  cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A)
+    torch.manual_seed(17)
+    v1_path = os.path.join(base, "model000000000.pt")
+    torch.save(MDMOld(**old_kw).state_dict(), v1_path)
+    old = load_weights(MDMOld(**old_kw), v1_path).to(dev).eval()
+    try:
+        load_weights(MDM(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS,
+                         num_heads=HEADS, seed_poses=S, mfcc_dim=A), v1_path)
+        refusal = "none"
+    except ValueError as e:
+        refusal = str(e)
+    ok = "MDM V1" in refusal
+    log(f"{'OK' if ok else 'FAIL'} a reference-layout V1 state dict "
+        f"({len(load_checkpoint(v1_path))} tensors, no project_to_lat) loads onto MDMOld; the V2 "
+        f"loader refuses it: {refusal[:90]}")
+    if not ok:
+        raise AssertionError("the V2 loader took a V1 state dict")
+    old_conds = {"mfcc": chunk_conds["mfcc"], "scale": scale}
+    take_vs_plain(old, old_conds, f"MDMOld (J {J} + MFCC {A}, D {D}, {LAYERS} layers)",
+                  {"local_block": 0, **per_step})
+
+    # ---- the wav-encoder MDM: the conv stack, the take ---------------------- #
+    torch.manual_seed(18)
+    wav = MDM(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
+              cond_mask_prob=0.1, seed_poses=S, cl_head=CL_HEADS, window_size=WINDOW,
+              mfcc_input=False, use_wav_enc=True)
+    with torch.no_grad():  # running statistics off their start, as a trained model's
+        for bn in (m for m in wav.modules() if hasattr(m, "running_var")):
+            bn.running_mean.normal_(0.0, 0.1)
+            bn.running_var.uniform_(0.5, 1.5)
+    wav = wav.to(dev).eval()
+    audio = randn(CHUNKS, B_TAKES, T * WAV_SPF, scale=0.3)
+    wav_conds = {"audio": audio, "scale": scale}
+    frames = wav.wav_encoder(audio[0]).shape[-1]
+    ok = frames == WAV_FRAMES
+    log(f"{'OK' if ok else 'FAIL'} the wav encoder gives {frames} frames for {T} x {WAV_SPF} "
+        f"samples (expected {WAV_FRAMES}, zero-padded to {T})")
+    if not ok:
+        raise AssertionError("the wav encoder's frame count")
+    take_vs_plain(wav, wav_conds, f"wav-encoder MDM (J {J}, D {D}, {LAYERS} layers, audio "
+                  f"{T} x {WAV_SPF} samples)", {"local_block": STEPS * CHUNKS, **per_step})
+
+    smoke_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the encoder's guard must hold
+    try:
+        enc_cpu = copy.deepcopy(wav.wav_encoder).cpu()
+        a0 = audio[0]
+        want = enc_cpu(a0.cpu())
+        got = wav.wav_encoder(a0).cpu()
+        unguarded = wav.wav_encoder.features(a0).cpu()
+        still_on = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = smoke_tf32
+    mx = want.abs().max().item()
+    report(f"wav encoder [{B_TAKES},{T * WAV_SPF}]->[{B_TAKES},32,{WAV_FRAMES}] on the card vs the "
+           f"CPU under its float32 guard, cuDNN's TF32 on outside it (max|f| {mx:.3f}; relative)",
+           (got - want).abs().max().item() / mx, TOL_WAV, still_on)
+    # the control, printed: cuDNN may or may not pick a TF32 algorithm for these
+    # convolutions when allowed (on an H100 with torch 2.11 it did not: the same
+    # max|diff| as under the guard), so it decides nothing
+    tf32_err = (unguarded - want).abs().max().item() / mx
+    same = torch.equal(unguarded, got)
+    log(f"control: the conv stack with cuDNN's TF32 on, unguarded, vs the CPU: max|diff| "
+        f"{tf32_err:.3e} of max|f| (tol {TOL_WAV:g}; "
+        + ("bit for bit the guarded output: cuDNN ran it without TF32 here)" if same else
+           f"{'over' if tf32_err > TOL_WAV else 'under'} the tolerance, "
+           f"{'not ' if not tf32_err > TOL_WAV else ''}separated by it)"))
+
+    # ---- training: steps against the plain steps, the train CLI ------------- #
+    torch.manual_seed(19)
+    tmodel = MDM(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
+                 dropout=RATE, cond_mask_prob=0.1, seed_poses=S, cl_head=CL_HEADS,
+                 window_size=WINDOW, mfcc_input=False, use_wav_enc=True,
+                 use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(tmodel)
+    plain.use_kernels = False
+    tdiffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=BATCH, microbatch_size=MB)
+    mask = torch.ones((BATCH, 1, 1, T), dtype=torch.bool, device=dev)
+    rs = np.random.RandomState(17)
+    batches = [dict(motion=randn(BATCH, J, 1, T, scale=0.5),
+                    cond={"audio": randn(BATCH, T * WAV_SPF, scale=0.3),
+                          "seed": randn(BATCH, J, 1, S, scale=0.5), "mask": mask},
+                    t=torch.from_numpy(rs.randint(0, 1000, size=BATCH)).to(dev),
+                    noise=randn(BATCH, J, 1, T)) for _ in range(TRAIN_STEPS)]
+    compare_train_steps(tmodel, plain, tdiffusion, cfg, batches, LAYERS * (BATCH // MB),
+                        f"batch {BATCH} ({BATCH // MB} x {MB}), raw audio through the wav "
+                        f"encoder", f"{LAYERS} layers x {BATCH // MB} microbatches", card,
+                        stats=True, zero_grads=tuple(f"wav_encoder.feat_extractor.{i}.bias"
+                                                     for i in (0, 3, 6)))
+    del plain, batches
+    cli_launches = train_cli_phase(card, extra=("--use_wav_enc",), name="train_wav")
+    sd = load_checkpoint(os.path.join(HERE, "build", "chip_smoke", "train_wav",
+                                      f"model{CLI_STEPS:09d}.pt"))
+    tracked = int(sd["wav_encoder.feat_extractor.1.num_batches_tracked"])
+    ok = (tracked == CLI_STEPS * BATCH // MB
+          and bool(sd["wav_encoder.feat_extractor.7.running_var"].ne(1).all()))
+    log(f"{'OK' if ok else 'FAIL'} the wav-encoder checkpoint carries its running statistics "
+        f"(num_batches_tracked {tracked}: {CLI_STEPS} steps x {BATCH // MB} microbatches)")
+    if not ok:
+        raise AssertionError("the wav-encoder train CLI's running statistics")
+
+    # ---- times ---------------------------------------------------------------- #
+    enc_forward = wav.wav_encoder.forward
+
+    def spanned(a):
+        with torch.profiler.record_function("wav_encoder"):
+            return enc_forward(a)
+
+    wav.wav_encoder.forward = spanned
+    try:
+        wstep = device_profile(step_fn(wav, wav_conds), 10,
+                               f"wav-encoder CFG denoise step (batch {2 * B_TAKES}, T = {T}, "
+                               f"{T * WAV_SPF} samples)", card, ranges=("wav_encoder",))
+    finally:
+        del wav.wav_encoder.forward
+    conv_ms, conv_launches = wstep["ranges"]["wav_encoder"]
+    ostep = device_profile(step_fn(old, old_conds), 10,
+                           f"MDMOld CFG denoise step (batch {2 * B_TAKES}, T = {T})", card)
+    fast_ms = cuda_time_ms(step_fn(fast_model, {"mfcc": chunk_conds["mfcc"], "scale": scale}),
+                           iters=20, warmup=2)
+    log(f"time gesture CFG denoise step (batch {2 * B_TAKES}, T = {T}): wav-encoder MDM "
+        f"{wstep['ms']:.4f} ms (idle {wstep['idle']:.3f}; the conv stack {conv_ms:.4f} ms of "
+        f"{wstep['busy_ms']:.4f} ms of device time = {conv_ms / wstep['busy_ms']:.3f}, "
+        f"{conv_launches} launches), MDMOld {ostep['ms']:.4f} ms (idle {ostep['idle']:.3f}), "
+        f"phase 4's fast path {fast_ms:.4f} ms {card}")
+    if not 0 < conv_ms < wstep["busy_ms"]:
+        raise AssertionError("the profile found no conv-stack work in the wav-encoder step")
+    return {**total, "encoder_layer_train_fwd": cli_launches[0],
+            "encoder_layer_train_bwd": cli_launches[1]}
+
+
 def device_profile(step, steps, label, card, host_rows=0, groups=None, ranges=()):
     """Device time by kernel over ``steps`` calls of ``step`` (torch.profiler,
     CUPTI), the device's idle share of an unprofiled call, with ``groups``
@@ -3029,13 +3257,14 @@ def train_phase(dev, randn, rs, card):
     return model, diffusion, cfg, batches[0]
 
 
-def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False):
+def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False, stats_out=None):
     """train_step over ``batches`` (injected t and noise; ``fk_fn`` to the
     geometric losses) from a fresh optimizer and generator: (losses, the
     first step's gradients, the median ms of steps 2 on, (peak MiB, MiB
     above the start), and with ``record`` each step's record: the weights,
     optimizer, schedule and generator states before it, and its loss and
-    gradients after)."""
+    gradients after).  A list ``stats_out`` gets the BatchNorm running
+    statistics after each step (running_stats)."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
@@ -3064,6 +3293,8 @@ def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False):
         if record:
             records[-1].update(loss=losses[-1], grads={n: on_host(p.grad)
                                                        for n, p in model.named_parameters()})
+        if stats_out is not None:
+            stats_out.append(running_stats(model))
         if grads is None:
             grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     peak = torch.cuda.max_memory_allocated()
@@ -3072,6 +3303,18 @@ def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False):
     out = (losses, grads, sorted(times[1:])[len(times[1:]) // 2] * 1e3,
            (peak / 2**20, (peak - base) / 2**20))
     return (*out, records) if record else out
+
+
+def running_stats(model) -> dict:
+    """The model's BatchNorm running statistics, on the host."""
+    return {n: on_host(b) for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def stats_gap(got: dict, want: dict) -> float:
+    """The worst running statistic's max|diff| over its max|value|."""
+    return max((got[k] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+               for k, w in want.items())
 
 
 def on_host(tree):
@@ -3087,10 +3330,16 @@ def on_host(tree):
     return copy.deepcopy(tree)
 
 
-def grad_gap(grads, want) -> tuple[float, str]:
-    """The worst parameter gradient's max|diff| over its max|value|, and its name."""
+def grad_gap(grads, want, zero=()) -> tuple[float, str]:
+    """The worst parameter gradient's max|diff| over its max|value|, and its
+    name.  A parameter named in ``zero`` has a gradient that is zero in
+    exact arithmetic (a bias before a training BatchNorm, which takes the
+    mean off), so float32 leaves rounding noise of its own size there: its
+    gap is over the model's largest gradient instead."""
+    top = max(g.abs().max().item() for g in want.values())
     return max(((grads[k].to(g.device) - g).abs().max().item()
-                / max(g.abs().max().item(), 1e-30), k) for k, g in want.items())
+                / max(top if k in zero else g.abs().max().item(), 1e-30), k)
+               for k, g in want.items())
 
 
 def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None):
@@ -3123,7 +3372,7 @@ def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None):
 
 
 def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, why, card,
-                        fk_fn=None, grad_miss=None):
+                        fk_fn=None, grad_miss=None, stats=False, zero_grads=()):
     """The steps through the training kernels (``per_step`` forward and
     backward launches a step, counted) against the same steps through the
     plain layers, two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
@@ -3135,7 +3384,11 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
     ``grad_miss`` is (a recorded ROADMAP item, a cap), teacher-forced
     gradients past TOL_STEP_GRAD but within the cap print a MISS naming the
     item and the run goes on; past the cap they fail, and the losses stay
-    gated.  Returns the kernels' ms a step."""
+    gated.  With ``stats`` the BatchNorm running statistics after every
+    free-running step are held against the plain run's too, relative to
+    their max, under TOL_STEP_LOSS (the one-ulp run's gap beside it).
+    ``zero_grads`` names the parameters whose gradient is zero in exact
+    arithmetic (grad_gap).  Returns the kernels' ms a step."""
     import torch
 
     from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
@@ -3145,7 +3398,9 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
 
     n, b = len(batches), batches[0]["motion"].shape[0]
     encoder_layer_train_fwd.launches = encoder_layer_train_bwd.launches = 0
-    losses, grads, step_ms, peak = run_train_steps(model, diffusion, cfg, batches, fk_fn)
+    k_stats, p_stats, n_stats = ([] if stats else None for _ in range(3))
+    losses, grads, step_ms, peak = run_train_steps(model, diffusion, cfg, batches, fk_fn,
+                                                   stats_out=k_stats)
     launches = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
     want = per_step * n
     finite = all(math.isfinite(x) for x in losses)
@@ -3154,31 +3409,45 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
         f"bwd {launches[1]} (expected {want} each: {why} a step)")
     if launches != (want, want) or not finite:
         raise AssertionError("train steps: wrong launch counts or a non-finite loss")
+    stats0 = running_stats(plain)
     p_losses, p_grads, p_step_ms, p_peak, records = run_train_steps(
-        plain, diffusion, cfg, batches, fk_fn, record=True)
+        plain, diffusion, cfg, batches, fk_fn, record=True, stats_out=p_stats)
     nudged = copy.deepcopy(plain)
     with torch.no_grad():
         for name, p in nudged.named_parameters():
             w = records[0]["params"][name].to(p.device)
             p.copy_(torch.nextafter(w, torch.full_like(w, math.inf)))
-    n_losses, n_grads, _, _ = run_train_steps(nudged, diffusion, cfg, batches, fk_fn)
+        for name, buf in nudged.named_buffers():  # the statistics the plain run started from
+            if name in stats0:
+                buf.copy_(stats0[name])
+    n_losses, n_grads, _, _ = run_train_steps(nudged, diffusion, cfg, batches, fk_fn,
+                                              stats_out=n_stats)
     del nudged
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, p_losses))
-    grad_err = grad_gap(grads, p_grads)[0]
+    grad_err = grad_gap(grads, p_grads, zero_grads)[0]
     ulp_loss = max(abs(x - y) / abs(y) for x, y in zip(n_losses, p_losses))
     free_ok = loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
     log(f"{'OK' if free_ok else 'FAIL'} train steps vs plain versions on the card, free-running "
         f"(same seeds, t, noise): losses rel {loss_err:.3e} (tol {TOL_STEP_LOSS:g}); first step's "
         f"grads worst max|diff|/max|grad| {grad_err:.3e} (tol {TOL_STEP_GRAD:g}); beside it, plain "
         f"from weights nudged by one ulp: losses rel {ulp_loss:.3e}, first step's grads "
-        f"{grad_gap(n_grads, p_grads)[0]:.3e}")
+        f"{grad_gap(n_grads, p_grads, zero_grads)[0]:.3e}")
+    if stats:
+        gaps = [stats_gap(k, p) for k, p in zip(k_stats, p_stats)]
+        stats_ok = max(gaps) <= TOL_STEP_LOSS
+        free_ok = free_ok and stats_ok
+        log(f"{'OK' if stats_ok else 'FAIL'} train steps vs plain versions on the card, "
+            f"free-running: the BatchNorm running statistics after each step, worst "
+            f"max|diff|/max|value| {', '.join(f'{x:.3e}' for x in gaps)} (tol "
+            f"{TOL_STEP_LOSS:g}); beside them, the one-ulp run "
+            f"{', '.join(f'{stats_gap(n, p):.3e}' for n, p in zip(n_stats, p_stats))}")
     # the teacher-forced pass runs (and prints) before either failure is raised
     forced = teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn)
     tf_loss = [abs(x - r["loss"]) / abs(r["loss"]) for (x, _), r in zip(forced, records)]
-    tf_grad = [grad_gap(g, r["grads"]) for (_, g), r in zip(forced, records)]
+    tf_grad = [grad_gap(g, r["grads"], zero_grads) for (_, g), r in zip(forced, records)]
     # beside it, float32's own floor at each state: the plain step from the
     # recorded weights nudged by one ulp
-    floor = [grad_gap(g, r["grads"])[0] for (_, g), r in zip(teacher_forced_steps(
+    floor = [grad_gap(g, r["grads"], zero_grads)[0] for (_, g), r in zip(teacher_forced_steps(
         plain, diffusion, cfg, batches, [{**r, "params": {
             n: torch.nextafter(w, torch.full_like(w, math.inf)) for n, w in r["params"].items()}}
             for r in records], fk_fn), records)]
@@ -3207,9 +3476,10 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
     return step_ms
 
 
-def train_cli_phase(card):
-    """The train CLI in this process (its launches counted), then the
-    generate CLI on the checkpoint it writes."""
+def train_cli_phase(card, extra=(), name="train"):
+    """The train CLI in this process (its launches counted; ``extra``: more
+    flags), then the generate CLI on the checkpoint it writes; the run under
+    build/chip_smoke/``name``."""
     import numpy as np
 
     from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
@@ -3218,21 +3488,22 @@ def train_cli_phase(card):
     )
     from gesturediffusion_tpu_torch.train import train_mdm
 
-    save_dir = os.path.join(HERE, "build", "chip_smoke", "train")
+    save_dir = os.path.join(HERE, "build", "chip_smoke", name)
     encoder_layer_train_fwd.launches = encoder_layer_train_bwd.launches = 0
     t0 = time.perf_counter()
     loop = train_mdm.main([
         "--dataset", "synthetic", "--save_dir", save_dir, "--overwrite",
         "--num_frames", str(T_CLI), "--batch_size", str(BATCH), "--microbatch_size", str(MB),
         "--num_steps", str(CLI_STEPS), "--log_interval", "10",
-        "--use_fused_train_encoder"])
+        "--use_fused_train_encoder", *extra])
     cli_s = time.perf_counter() - t0
     launches = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
     want = LAYERS * (BATCH // MB) * CLI_STEPS
     ckpt = os.path.join(save_dir, f"model{CLI_STEPS:09d}.pt")
     ok = launches == (want, want) and loop.state.step == CLI_STEPS and os.path.exists(ckpt)
-    log(f"{'OK' if ok else 'FAIL'} train CLI on the card: {CLI_STEPS} steps at batch {BATCH}, "
-        f"--num_frames {T_CLI}, in {cli_s:.1f} s (data set-up included); launches fwd "
+    log(f"{'OK' if ok else 'FAIL'} train CLI {' '.join(extra)} on the card: {CLI_STEPS} steps "
+        f"at batch {BATCH}, --num_frames {T_CLI}, in {cli_s:.1f} s (data set-up included); "
+        f"launches fwd "
         f"{launches[0]} bwd "
         f"{launches[1]} (expected {want} each); wrote {os.path.basename(ckpt)} {card}")
     if not ok:
@@ -3546,13 +3817,16 @@ def main() -> int:
     t2m_rows[0]["launches"] += mesh["encoder_layer"]          # [6, 197, 512]
     t2m_train_rows[2]["launches"] += mesh["flash_attention"]  # [6, 4, 197, 128]
 
+    # ---- 17. the wav-encoder MDM and MDMOld: takes, training, times ---- #
+    wav_old = wav_old_phase(model, chunk_conds, init_seed, randn, card)
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
          "launches": launches["local_block"] + genea["local_block"]
                      + gesture_edit["local_block"] + samplers["local_block"]
-                     + a2m_eval["local_block"],
+                     + a2m_eval["local_block"] + wav_old["local_block"],
          "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
@@ -3561,7 +3835,8 @@ def main() -> int:
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder.py:98",
          "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
                       + genea["encoder_layer"] + gesture_edit["encoder_layer"]
-                      + samplers["encoder_layer"] + a2m_eval["encoder_layer"]),
+                      + samplers["encoder_layer"] + a2m_eval["encoder_layer"]
+                      + wav_old["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
@@ -3569,21 +3844,24 @@ def main() -> int:
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:249",
          "launches": (train_launches[0] + genea["encoder_layer_train_fwd"]
-                      + a2m_eval["encoder_layer_train_fwd"]),
+                      + a2m_eval["encoder_layer_train_fwd"]
+                      + wav_old["encoder_layer_train_fwd"]),
          "max_abs_err": train_fwd_err,
          **time_keys(train_times[T + 1]["fwd"])},
         {"name": "encoder_layer_train_bwd", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
          "launches": (train_launches[1] + genea["encoder_layer_train_bwd"]
-                      + a2m_eval["encoder_layer_train_bwd"]),
+                      + a2m_eval["encoder_layer_train_bwd"]
+                      + wav_old["encoder_layer_train_bwd"]),
          "max_abs_err": train_bwd_err,
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
     ]
     kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
                                 + samplers["flash_attention"] + a2m["flash_attention"]
-                                + a2m_eval["flash_attention"] + t2m_eval["flash_attention"])
+                                + a2m_eval["flash_attention"] + t2m_eval["flash_attention"]
+                                + wav_old["flash_attention"])
     kernels += t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row, t2m_eval_row]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

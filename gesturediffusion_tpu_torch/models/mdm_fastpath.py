@@ -164,13 +164,14 @@ def select_sampling_model_fn(
 ) -> tuple[Optional[Callable], Callable]:
     """Returns (cond_precompute, model_fn) as
     mdm_fastpath.py:select_sampling_model_fn (:231-261) does: for the
-    gesture MDM the fast path unless ``no_fast``, for any other denoiser
-    (the MotionMDM of models/mdm_t2m.py) the module's own forward; either
+    gesture MDM with MFCC input the fast path unless ``no_fast``, for any
+    other denoiser (a wav-encoder MDM, MDMOld, the MotionMDM of
+    models/mdm_t2m.py) the module's own forward; either
     CFG-wrapped when guidance != 1 (for guidance 0, where the scale returns
     the unconditional pass exactly, the cond_mask_prob guard is clamped
     away from zero)."""
     p = max(cond_mask_prob, 1e-9) if guidance == 0 else cond_mask_prob
-    if not no_fast and isinstance(model, MDM):
+    if not no_fast and isinstance(model, MDM) and model.mfcc_input:
         if guidance != 1:
             return make_fast_cfg_fn(model, p)
         return make_fast_model_fn(model)

@@ -38,7 +38,7 @@ from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model
 from gesturediffusion_tpu_torch.ops.motion_process import joints_of_features, recover_from_ric
 from gesturediffusion_tpu_torch.utils import logger as log_lib
 from gesturediffusion_tpu_torch.utils import paramutil
-from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+from gesturediffusion_tpu_torch.utils.convert import load_weights
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
 from gesturediffusion_tpu_torch.utils.parser import default_output_dir, edit_args
@@ -102,7 +102,7 @@ def run(argv=None) -> dict:
 
     log_lib.log("Creating model and diffusion...")
     model, diffusion = create_model_and_diffusion(args, dataset, device)
-    model.load_state_dict(load_checkpoint(args.model_path))
+    load_weights(model, args.model_path)
     model.to(device).eval()
 
     # an empty prompt edits unconditioned (guidance 0), but only for a text

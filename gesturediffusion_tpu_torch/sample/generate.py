@@ -38,7 +38,7 @@ from gesturediffusion_tpu_torch.diffusion.sampling import (
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
 from gesturediffusion_tpu_torch.utils import logger as log_lib
 from gesturediffusion_tpu_torch.utils import paramutil
-from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+from gesturediffusion_tpu_torch.utils.convert import load_weights
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import (
     GESTURE_DATASETS,
@@ -135,7 +135,7 @@ def main(argv=None) -> str:
           f"{args.num_frames} frames on {device} ({args.sampler})")
 
     model, diffusion = create_model_and_diffusion(args, dataset, device)
-    model.load_state_dict(load_checkpoint(args.model_path))
+    load_weights(model, args.model_path)
     model.to(device).eval()
     cond_precompute, model_fn = select_sampling_model_fn(
         model, args.guidance_param, args.cond_mask_prob

@@ -44,7 +44,7 @@ from gesturediffusion_tpu_torch.sample.generate import (
     take_layout,
 )
 from gesturediffusion_tpu_torch.serve.streaming import StreamingGestureSession
-from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+from gesturediffusion_tpu_torch.utils.convert import load_weights
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import (
     GESTURE_DATASETS,
@@ -139,7 +139,14 @@ def main(argv=None) -> str:
     dataset = get_dataset(args.dataset, args.num_frames, split="val",
                           datapath=args.data_dir or None, n_seed_poses=args.seed_poses)
     model, _ = create_model_and_diffusion(args, dataset, device)
-    model.load_state_dict(load_checkpoint(args.model_path))
+    if args.wav and model.reads_audio:
+        # the wav front end makes MFCCs (streaming.py:feed_audio), which a
+        # wav-encoder model does not read: JAX's demo fails on it with a
+        # KeyError at the model's cond['audio']; refused here before any work
+        raise KeyError("audio: --wav streams MFCCs, and this checkpoint's model reads raw "
+                       "audio (--use_wav_enc); stream the val split's own windows instead "
+                       "(no --wav)")
+    load_weights(model, args.model_path)
     # the checkpoint's own diffusion flags with the serving respacing
     diffusion = create_gaussian_diffusion(
         args, device,

@@ -203,6 +203,11 @@ class StreamingGestureSession:
         MFCCs (ops/mfcc.py), z-normalised with the training statistics
         (data/genea.py), padded or cut to the chunk length.  ``audio`` is
         [L] (given to every stream) or [streams, L]."""
+        if getattr(self._model, "reads_audio", False):
+            # JAX's session hands the model MFCCs here, which a wav-encoder
+            # model does not read: a KeyError at its cond['audio']
+            raise KeyError("audio: feed_audio makes MFCCs, and a wav-encoder model reads raw "
+                           "audio; feed({'audio': [streams, L]}) instead")
         if (mfcc_mean is None) != (mfcc_std is None):
             raise ValueError("pass mfcc_mean and mfcc_std together")
         audio = np.asarray(audio, np.float32)

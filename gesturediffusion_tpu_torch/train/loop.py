@@ -8,8 +8,14 @@ run the model in train mode, the importance-weighted masked-MSE loss,
 backward (averaged over ``microbatch_size`` microbatches), then, unless
 the loss or the gradient norm is not finite, the AdamW update with the
 reference's lagged linear LR anneal, the EMA and the sampler update.  A
-non-finite step changes nothing but the skip count.  Every random draw
-comes from one torch.Generator on the model's device.  ``use_bf16`` rounds
+non-finite step changes nothing but the skip count, the BatchNorm running
+statistics that its forward moved included (JAX keeps the old
+``model_state``, loop.py:262).  The running statistics move once per
+microbatch, in microbatch order (loop.py:218-230); the EMA covers the
+parameters only, as JAX's ``ema_params``, so a checkpoint carries the live
+statistics.  The step's convolutions (the wav encoder's) run in float32,
+cuDNN's TF32 off, forward and backward (utils/device.py:full_f32).  Every
+random draw comes from one torch.Generator on the model's device.  ``use_bf16`` rounds
 the model's input x_t to bfloat16 and back, as JAX's step does (loop.py:154
 casts it, and the model's first act casts it back to float32): every
 product stays float32.  ``fk_fn`` (xyz joints of a sample) goes to the
@@ -47,7 +53,11 @@ from gesturediffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from gesturediffusion_tpu_torch.diffusion.resample import create_named_schedule_sampler
 from gesturediffusion_tpu_torch.train.platforms import TrainPlatform
 from gesturediffusion_tpu_torch.utils import logger as log_lib
-from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+from gesturediffusion_tpu_torch.utils.convert import load_weights
+from gesturediffusion_tpu_torch.utils.device import full_f32
+
+# the buffers a training forward moves (BatchNorm's running statistics)
+RUNNING_STATS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 @dataclasses.dataclass
@@ -152,12 +162,14 @@ def train_step(
     else:
         k, mb = 1, b
     state.optimizer.zero_grad(set_to_none=True)
+    stats = [buf for n, buf in model.named_buffers() if n.rsplit(".", 1)[-1] in RUNNING_STATS]
+    stats_before = [buf.clone() for buf in stats]
     loss = torch.zeros((), device=motion.device)
     terms: dict = {}
     for i in range(k):
         sl = slice(i * mb, (i + 1) * mb)
         cc = {key: v[sl] for key, v in cond.items()}
-        with torch.enable_grad():  # whatever the caller's grad mode
+        with torch.enable_grad(), full_f32():  # whatever the caller's grad mode
             terms_i = diffusion.training_losses(
                 model_fn, motion[sl], t[sl], cc, mask=cc["mask"], noise=noise[sl], fk_fn=fk_fn)
             loss_i = (terms_i["loss"] * weights[sl]).mean()
@@ -182,6 +194,9 @@ def train_step(
                     state.ema[name].mul_(config.ema_rate).add_(p, alpha=1 - config.ema_rate)
         state.sampler.update_with_losses(t, terms["loss"])
     else:
+        with torch.no_grad():
+            for buf, before in zip(stats, stats_before):
+                buf.copy_(before)
         state.nonfinite_skips += 1
     state.step += 1
 
@@ -198,12 +213,13 @@ def train_step(
 
 
 def batch_to_device(motion: np.ndarray, cond: dict, device: torch.device,
-                    text_encoder: Optional[Callable] = None):
+                    text_encoder: Optional[Callable] = None, audio: bool = False):
     """A collated (motion, cond) as tensors on ``device``, the captions
-    embedded by ``text_encoder`` into ``text_emb``; host-only fields and
-    the raw audio stay behind (the port's denoiser reads the MFCCs)."""
+    embedded by ``text_encoder`` into ``text_emb``; host-only fields stay
+    behind, and the raw audio too unless ``audio`` (a model that reads it:
+    the wav encoder's; the others read the MFCCs)."""
     dcond = {k: torch.from_numpy(np.asarray(v)).to(device)
-             for k, v in device_cond(cond).items() if k != "audio"}
+             for k, v in device_cond(cond).items() if audio or k != "audio"}
     if text_encoder is not None and "text" in cond:
         dcond["text_emb"] = torch.as_tensor(text_encoder(cond["text"]), device=device)
     return torch.from_numpy(motion).to(device), dcond
@@ -281,7 +297,7 @@ class TrainLoop:
         it (a reference or JAX-exported file) the optimizer starts fresh
         and only the LR schedule resumes at the file's step."""
         s = self.state
-        s.model.load_state_dict(load_checkpoint(path))
+        load_weights(s.model, path)
         step = parse_resume_step_from_filename(path)
         opt_path = os.path.join(os.path.dirname(path),
                                 os.path.basename(path).replace("model", "opt", 1))
@@ -311,8 +327,9 @@ class TrainLoop:
     # ---- the loop ------------------------------------------------------- #
     def _host_batches(self):
         """Collated batches as tensors on the device (batch_to_device)."""
+        audio = getattr(self.state.model, "reads_audio", False)
         for motion, cond in infinite_batches(self.data):
-            yield batch_to_device(motion, cond, self.device, self.text_encoder)
+            yield batch_to_device(motion, cond, self.device, self.text_encoder, audio)
 
     def run_loop(self, batch_source=None) -> None:
         """Train to ``num_steps``; ``batch_source`` yields ready

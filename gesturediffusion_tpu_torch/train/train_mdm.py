@@ -172,7 +172,8 @@ def make_val_loss_eval_fn(args, diffusion, device, text_encoder=None) -> Callabl
     batches = iter(val_data)
     try:
         n = -(-args.eval_num_samples // args.eval_batch_size)
-        val_batches = [batch_to_device(m, c, device, text_encoder)
+        audio = args.use_wav_enc and not args.mfcc_input  # the wav encoder reads it
+        val_batches = [batch_to_device(m, c, device, text_encoder, audio)
                        for m, c in itertools.islice(batches, n)]
     finally:
         batches.close()  # stops the loader's producer thread

@@ -21,8 +21,15 @@ reference torch layout the port's classifiers load: the inverse of
 networks.py:convert_motion_discriminator (:333) and stgcn.py:convert_stgcn
 (:290), BatchNorm ``batch_stats`` as ``running_mean`` / ``running_var``;
 ``t2m_evaluator_state_dicts_from_params`` carries the JAX T2M evaluators
-into the released finest.tar's layout.  The wav encoder waits for a later
-slice.
+into the released finest.tar's layout.  A wav-encoder MDM's variables
+({'params', 'batch_stats'}) carry the wav encoder across as
+convert_torch.py:export_mdm_state_dict does (flax Conv [K, in, out] ->
+Conv1d [out, in, K]; BatchNorm scale / bias -> weight / bias, mean / var ->
+the running buffers).  ``mdm_old_state_dict_from_params`` carries the JAX
+MDMOld (models/mdm_old.py) into the reference V1 layout that
+convert_torch.py:convert_mdm_old_state_dict reads.  ``load_weights`` loads
+a ``model*.pt`` onto a model and refuses a V1 file for the V2 MDM, as the
+JAX CLIs do (convert_torch.py:112-119).
 """
 
 from __future__ import annotations
@@ -70,13 +77,25 @@ def _tensors(out: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
 
+# the wav encoder's Sequential indices: Conv1d at 0/3/6/9, BatchNorm1d at 1/4/7
+WAV_CONVS, WAV_NORMS = (0, 3, 6, 9), (1, 4, 7)
+
+
+def _wav_encoder(out: dict, p: dict, stats: dict) -> None:
+    for i, ci in enumerate(WAV_CONVS):
+        out[f"wav_encoder.feat_extractor.{ci}.weight"] = _f32(
+            p[f"conv_{i}"]["kernel"]).transpose(2, 1, 0)
+        out[f"wav_encoder.feat_extractor.{ci}.bias"] = _f32(p[f"conv_{i}"]["bias"])
+    for i, bi in enumerate(WAV_NORMS):
+        _batchnorm(out, f"wav_encoder.feat_extractor.{bi}", p[f"bn_{i}"], stats[f"bn_{i}"])
+
+
 def state_dict_from_params(params: dict, *, cl_head: int = 8) -> dict[str, torch.Tensor]:
-    """JAX MDM params ({'params': tree} or the tree) -> port state dict.
-    ``cl_head`` (the local-attention head count) sizes the rotary buffer;
-    everything else is read off the tree."""
+    """JAX MDM variables ({'params': tree[, 'batch_stats': ...]} or the
+    params tree) -> port state dict.  ``cl_head`` (the local-attention head
+    count) sizes the rotary buffer; everything else is read off the tree.
+    A wav-encoder MDM needs its ``batch_stats`` (the running statistics)."""
     P = params.get("params", params)
-    if "wav_encoder" in P:
-        raise NotImplementedError("the wav encoder waits for a later slice")
     out: dict = {}
     _linear(out, "input_process.poseEmbedding", P["input_process"])
     _linear(out, "project_to_lat", P["project_to_lat"])
@@ -93,6 +112,33 @@ def state_dict_from_params(params: dict, *, cl_head: int = 8) -> dict[str, torch
     out["rel_pos.inv_freq"] = (
         1.0 / (10000 ** (np.arange(0, dh, 2, dtype=np.float64) / dh))
     ).astype(np.float32)
+    if "wav_encoder" in P:
+        stats = params.get("batch_stats", {}).get("wav_encoder")
+        if stats is None:
+            raise ValueError("a wav-encoder MDM needs the 'batch_stats' collection (the "
+                             "BatchNorm running statistics) beside its 'params'")
+        _wav_encoder(out, P["wav_encoder"], stats)
+    sd = _tensors(out)
+    if "wav_encoder" in P:  # an integer buffer, as JAX's exporter writes it (:314)
+        for bi in WAV_NORMS:
+            sd[f"wav_encoder.feat_extractor.{bi}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def mdm_old_state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
+    """JAX MDMOld params ({'params': tree} or the tree) -> the reference V1
+    state dict the port's MDMOld loads (models/mdm_old.py): the inverse of
+    convert_torch.py:convert_mdm_old_state_dict, the ``pe`` buffers
+    included."""
+    P = params.get("params", params)
+    out: dict = {}
+    _linear(out, "input_process.poseEmbedding", P["input_process"])
+    _linear(out, "output_process.poseFinal", P["output_process"])
+    _linear(out, "embed_timestep.time_embed.0", P["embed_timestep"]["time_embed_0"])
+    _linear(out, "embed_timestep.time_embed.2", P["embed_timestep"]["time_embed_1"])
+    _linear(out, "seed_pose_encoder.seed_embed", P["seed_pose_encoder"]["seed_embed"])
+    _encoder_layers(out, P["seqTransEncoder"])
+    _pe(out, out["input_process.poseEmbedding.weight"].shape[0])
     return _tensors(out)
 
 
@@ -202,6 +248,22 @@ def t2m_evaluator_state_dicts_from_params(params: dict) -> dict[str, dict[str, t
     _linear(movement, "out_net", params["movement"]["out_net"])
     return {"text_encoder": _tensors(text), "motion_encoder": _tensors(motion),
             "movement_encoder": _tensors(movement)}
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the ``model*.pt`` at ``path`` onto ``model`` and return it.  A
+    V1 (MDMOld) state dict, which has no ``project_to_lat.*``, is refused
+    for the V2 MDM with the JAX converter's answer (convert_torch.py:
+    112-119): the CLIs build V2 only, and a V1 file loads onto
+    models/mdm_old.py:MDMOld."""
+    sd = load_checkpoint(path)
+    if hasattr(model, "project_to_lat") and "project_to_lat.weight" not in sd:
+        raise ValueError(
+            "checkpoint has no 'project_to_lat.*' — this looks like an MDM V1 (mdm_old) "
+            "state dict; load it onto gesturediffusion_tpu_torch.models.mdm_old.MDMOld "
+            "(the CLIs build the V2 model only, matching the reference)")
+    model.load_state_dict(sd)
+    return model
 
 
 def load_checkpoint(path: str) -> dict[str, torch.Tensor]:

@@ -2,7 +2,9 @@
 generate and edit CLIs.
 
 Counterpart of gesturediffusion_tpu/utils/model_factory.py (:52-110): the
-gesture datasets get MDM V2 with MFCC input, ``humanml`` and ``kit`` the
+gesture datasets get MDM V2 with MFCC input, or with the wav encoder under
+``--use_wav_enc`` (``--mfcc_input`` with it is refused as JAX refuses it,
+:68-90), ``humanml`` and ``kit`` the
 MotionMDM of models/mdm_t2m.py (cond_mode ``text``, or ``no_cond`` under
 ``--unconstrained``; 263 and 251 features), ``humanact12`` and ``uestc``
 the action-mode MotionMDM (12 and 40 actions, ``no_cond`` under
@@ -31,6 +33,18 @@ GESTURE_DATASETS = ("genea2022", "genea2023", "synthetic")
 TEXT_NJOINTS = {"humanml": 263, "kit": 251}
 # the action datasets' label counts
 NUM_ACTIONS = {"humanact12": 12, "uestc": 40}
+
+
+def gesture_audio_input(args) -> tuple[bool, bool]:
+    """(mfcc_input, use_wav_enc) of a gesture model from the flags: MFCCs
+    unless the wav encoder is asked for; both asked for is refused
+    (model_factory.py:70-80)."""
+    use_wav_enc = getattr(args, "use_wav_enc", False)
+    if getattr(args, "mfcc_input", False) and use_wav_enc:
+        # the model would run the MFCC branch and leave the wav encoder inert
+        raise ValueError("--mfcc_input and --use_wav_enc are mutually exclusive "
+                         "(the model consumes ONE audio representation)")
+    return getattr(args, "mfcc_input", False) or not use_wav_enc, use_wav_enc
 
 
 def create_gaussian_diffusion(args, device: torch.device,
@@ -76,12 +90,11 @@ def create_model_and_diffusion(args, dataset, device: torch.device):
         return model, create_gaussian_diffusion(args, device)
     if args.dataset not in GESTURE_DATASETS:
         raise ValueError(f"Unsupported dataset name [{args.dataset}]")
-    if args.use_wav_enc:
-        raise NotImplementedError("the wav-encoder audio input waits for a later slice")
+    mfcc_input, use_wav_enc = gesture_audio_input(args)
     model = MDM(
         njoints=dataset.pose_dim, nfeats=1, latent_dim=args.latent_dim,
         ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1,
         cond_mask_prob=args.cond_mask_prob, use_text=args.use_text,
-        seed_poses=args.seed_poses, **train_kw,
+        seed_poses=args.seed_poses, mfcc_input=mfcc_input, use_wav_enc=use_wav_enc, **train_kw,
     )
     return model, create_gaussian_diffusion(args, device)

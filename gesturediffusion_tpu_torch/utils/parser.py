@@ -24,6 +24,8 @@ import json
 import os
 from argparse import ArgumentParser
 
+from gesturediffusion_tpu_torch.utils.model_factory import GESTURE_DATASETS, gesture_audio_input
+
 
 def str2bool(v) -> bool:
     if isinstance(v, bool):
@@ -217,14 +219,11 @@ def train_args(argv=None) -> argparse.Namespace:
                            "(a memory knob; the fused training layer keeps only its input).")
     args = parser.parse_args(argv)
 
-    waiting = {
-        "--mesh_model_axis > 1 (tensor parallelism, ROADMAP A10)": args.mesh_model_axis > 1,
-        "--use_wav_enc on a gesture dataset (the wav encoder, ROADMAP A5)":
-            args.use_wav_enc and args.dataset in ("genea2022", "genea2023", "synthetic"),
-    }
-    for flag, asked in waiting.items():
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.mesh_model_axis > 1:
+        raise NotImplementedError(
+            "--mesh_model_axis > 1 (tensor parallelism, ROADMAP A10) is not ported yet")
+    if args.dataset in GESTURE_DATASETS:
+        gesture_audio_input(args)  # refused before anything is written
     if args.device_batch_pool < 0:
         parser.error(f"--device_batch_pool must be >= 0, got {args.device_batch_pool}")
     return args

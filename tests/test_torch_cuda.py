@@ -899,3 +899,42 @@ def test_npy2obj_vertices_on_the_card_match_the_cpu(dev, tmp_path):
     verts = [Npy2Obj(path, 0, 0, smpl, device=d).vertices for d in (dev, "cpu")]
     assert verts[0].shape == (16, 6890, 3)
     assert np.abs(verts[0] - verts[1]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_wav_encoder_on_the_card_matches_the_cpu(dev, train):
+    """The wav encoder (models/mdm.py:WavEncoder, seeded weights and moved
+    running statistics) on a chunk of raw audio at the gesture contract's
+    80 x 735 samples, on the card against the CPU, called with cuDNN's TF32
+    at PyTorch's default (on): its own guard keeps the convolutions in
+    float32, within 1e-5 of the features' max |value| (sums in another
+    order), hands the setting back, and in training moves the running
+    statistics alike (rtol 1e-5)."""
+    import copy
+
+    from gesturediffusion_tpu_torch.models.mdm import WavEncoder
+
+    torch.manual_seed(0)
+    cpu = WavEncoder()
+    with torch.no_grad():
+        for bi in (1, 4, 7):
+            bn = cpu.feat_extractor[bi]
+            bn.running_mean.normal_(0, 0.1)
+            bn.running_var.uniform_(0.5, 1.5)
+    card = copy.deepcopy(cpu).to(dev)
+    wav = _randn(np.random.RandomState(5), 8, 80 * 735, scale=0.3)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got = card.train(train)(wav.to(dev)).cpu()
+            want = cpu.train(train)(wav)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert got.shape == want.shape == (8, 32, 59)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    for bi in (1, 4, 7):
+        for name in ("running_mean", "running_var"):
+            torch.testing.assert_close(getattr(card.feat_extractor[bi], name).cpu(),
+                                       getattr(cpu.feat_extractor[bi], name), rtol=1e-5,
+                                       atol=1e-6)

@@ -333,13 +333,19 @@ def test_jax_package_loads_the_port_checkpoint(trained):
 
 
 @pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"],
-                                  ["--use_wav_enc", "--dataset", "genea2023"]])
+                                  ["--mfcc_input", "--use_wav_enc", "--dataset", "genea2023"]])
 def test_flags_the_port_cannot_honour_raise(flag, tmp_path):
-    """Tensor parallelism (A10), and the wav encoder of a gesture model (A5),
-    refused before anything is written; --eval_during_training runs on
-    every dataset (tests/test_torch_eval_train_hook.py), and a text
-    dataset takes --use_wav_enc as JAX does, unread."""
-    with pytest.raises(NotImplementedError, match="A10" if "--mesh_model_axis" in flag else "A5"):
+    """Tensor parallelism (A10) is not ported, and a gesture model's two
+    audio inputs at once are refused with JAX's ValueError
+    (model_factory.py:72-79), each before anything is written;
+    --eval_during_training runs on every dataset
+    (tests/test_torch_eval_train_hook.py), and a text dataset takes
+    --use_wav_enc as JAX does, unread."""
+    if "--mesh_model_axis" in flag:
+        error, match = NotImplementedError, "A10"
+    else:
+        error, match = ValueError, "mutually exclusive"
+    with pytest.raises(error, match=match):
         train_args(["--save_dir", str(tmp_path / "x"), *flag])
     assert not os.path.exists(tmp_path / "x")
     for dataset in ("genea2023", "humanml"):

@@ -55,18 +55,25 @@ def threefry_prng():
         yield
 
 
-@pytest.fixture
-def one_torch_thread():
-    """Run the test with torch on one CPU thread, the setting found
-    restored after: the suite's workers share the cores, and a pool of
-    every core's threads in each of them slows the evaluators' CPU GRUs
-    (widths 512 and 1024) ~20x."""
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch on ``n`` CPU threads inside, the setting found restored after."""
     before = torch.get_num_threads()
-    torch.set_num_threads(1)
+    torch.set_num_threads(n)
     try:
         yield
     finally:
         torch.set_num_threads(before)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run the test with torch on one CPU thread: the suite's workers share
+    the cores, and a pool of every core's threads in each of them slows the
+    evaluators' CPU GRUs (widths 512 and 1024) ~20x, and the wav encoder's
+    convolutions as much."""
+    with torch_threads(1):
+        yield
 
 
 # J=12, D=64, 2 encoder layers of 4 heads, 8 local heads, window 5
