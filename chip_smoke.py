@@ -23,7 +23,9 @@ Phases, each fatal on failure:
               rows not 16-byte aligned) at T 81 and 1201 (training 81 and
               121); the band kernel and the local block at local heads of
               136 and 264, the local block at heads of 128 and 256 frames
-              (past a block's shared memory)
+              (past a block's shared memory); the training layer at 81
+              rows also at row offset 64 (rank 1's share of phase 18's
+              global batch of 128)
   4. sample   the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
               seeded random weights samples a 41-take, 2-chunk CFG take
               (batch 82) through select_sampling_model_fn ->
@@ -176,6 +178,22 @@ Phases, each fatal on failure:
               (launches counted) and the generate CLI on its checkpoint; a
               wav-encoder CFG denoise step's time, idle share and conv-stack
               share, an MDMOld step's and phase 4's fast-path step's
+ 18. parallel the multi-rank paths, ranks spawned as subprocesses of this
+              script (``--parallel-rank``) with the GDT_* variables: the
+              train CLI as a world of one rank on NCCL
+              (--use_fused_train_encoder, launches counted); two ranks
+              sharing the card over gloo (NCCL refuses two ranks on one
+              device) take 5 steps of the phase-4 model's training variant
+              at global batch 128 through kernels 5 and 6 with dropout on,
+              at 2 x 1 (64 rows a rank, rank 1 at row offset 64) and at
+              1 x 2 (each weight of the shape rule and its moments as
+              halves), each held against the single-process steps on the
+              card free-running and teacher-forced under TOL_STEP_LOSS and
+              TOL_STEP_GRAD, launches counted per rank; a 42-take, 2-chunk
+              take split over the two ranks and a 4-stream mesh= session
+              against the single-process ones under TOL_TAKE (kernels 1
+              and 2 counted).  The two-ranks-on-one-card times are a
+              functional reading, not a scaling figure
 Every train-step comparison (phases 5, 12, 13, 17) holds the kernel steps
 against the plain steps two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
 free-running (the losses of every step, the first step's gradients), with
@@ -3070,11 +3088,13 @@ def c1_widths_parity(randn, seed):
     return errs
 
 
-def check_train_layer(xt, gt, enc_w, seed, heads=HEADS):
+def check_train_layer(xt, gt, enc_w, seed, heads=HEADS, row0=0):
     """Training-layer kernels against the plain layer (microbatch 64 on the
     main path): forward at rates 0.1 and 0, rate 0 against the inference
-    kernel, and the backward's 13 gradients against autograd.  Returns the
-    forward's and the gradients' largest absolute differences."""
+    kernel, and the backward's 13 gradients against autograd; ``row0``: the
+    rows' offset in the batch the dropout counts (a data rank's share of a
+    global batch).  Returns the forward's and the gradients' largest
+    absolute differences."""
     import torch
 
     from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
@@ -3085,10 +3105,14 @@ def check_train_layer(xt, gt, enc_w, seed, heads=HEADS):
     )
 
     shape = f"[{xt.shape[0]},{xt.shape[1]},{xt.shape[2]}] heads {heads} ff {enc_w[6].shape[0]}"
+    if row0:
+        shape += f" row offset {row0}"
     fwd_err = {}
     for rate in (RATE, 0.0):
-        got = encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=heads, rate=rate)
-        want = encoder_layer_train_plain(xt, *enc_w, seed=seed, num_heads=heads, rate=rate)
+        got = encoder_layer_train_fwd(xt, *enc_w, seed=seed, num_heads=heads, rate=rate,
+                                      row0=row0)
+        want = encoder_layer_train_plain(xt, *enc_w, seed=seed, num_heads=heads, rate=rate,
+                                         row0=row0)
         torch.cuda.synchronize()
         fwd_err[rate] = (got - want).abs().max().item()
         ok = got.shape == xt.shape and fwd_err[rate] <= TOL_TRAIN_FWD
@@ -3103,10 +3127,12 @@ def check_train_layer(xt, gt, enc_w, seed, heads=HEADS):
     if not ok:
         raise AssertionError("rate-0 training forward disagrees with the inference kernel")
 
-    got = encoder_layer_train_bwd(xt, *enc_w, seed=seed, g=gt, num_heads=heads, rate=RATE)
+    got = encoder_layer_train_bwd(xt, *enc_w, seed=seed, g=gt, num_heads=heads, rate=RATE,
+                                  row0=row0)
     with torch.enable_grad():
         leaves = [t.detach().clone().requires_grad_() for t in (xt, *enc_w)]
-        encoder_layer_train_plain(*leaves, seed=seed, num_heads=heads, rate=RATE).backward(gt)
+        encoder_layer_train_plain(*leaves, seed=seed, num_heads=heads, rate=RATE,
+                                  row0=row0).backward(gt)
     torch.cuda.synchronize()
     names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dln1_w", "dln1_b", "dw1", "db1",
              "dw2", "db2", "dln2_w", "dln2_b")
@@ -3257,27 +3283,44 @@ def train_phase(dev, randn, rs, card):
     return model, diffusion, cfg, batches[0]
 
 
-def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False, stats_out=None):
+def rank_batch(batch, mesh):
+    """This data rank's rows of a global batch (its loader's slice); the
+    batch itself without a mesh."""
+    if mesh is None or mesh.data == 1:
+        return batch
+    per = batch["motion"].shape[0] // mesh.data
+    rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+    return {k: {n: x[rows] for n, x in v.items()} if k == "cond" else v[rows]
+            for k, v in batch.items()}
+
+
+def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False, stats_out=None,
+                    mesh=None, states=None):
     """train_step over ``batches`` (injected t and noise; ``fk_fn`` to the
     geometric losses) from a fresh optimizer and generator: (losses, the
     first step's gradients, the median ms of steps 2 on, (peak MiB, MiB
     above the start), and with ``record`` each step's record: the weights,
     optimizer, schedule and generator states before it, and its loss and
     gradients after).  A list ``stats_out`` gets the BatchNorm running
-    statistics after each step (running_stats)."""
+    statistics after each step (running_stats).  With ``mesh`` (a rank of
+    a multi-rank run) each step takes this rank's rows of the global
+    batch, and the gradients are the ranks' average; a list ``states``
+    gets the train state."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
-    from gesturediffusion_tpu_torch.train.loop import TrainState, make_optimizer, train_step
+    from gesturediffusion_tpu_torch.train.loop import make_train_state, train_step
 
-    dev = torch.device("cuda")
-    opt, sched = make_optimizer(model.parameters(), cfg)
-    state = TrainState(model, opt, sched, UniformSampler(1000), {})
+    dev = next(model.parameters()).device
+    state = make_train_state(model, cfg, UniformSampler(1000), mesh)
+    if states is not None:
+        states.append(state)
+    opt, sched = state.optimizer, state.scheduler
     gen = torch.Generator(device=dev).manual_seed(7)
     losses, times, grads, records = [], [], None, []
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for b in batches:
+    for b in (rank_batch(b, mesh) for b in batches):
         if record:  # kept on the host, out of the run's device memory
             records.append({"params": {n: on_host(p) for n, p in model.named_parameters()},
                             "opt": on_host(opt.state_dict()),
@@ -3342,26 +3385,31 @@ def grad_gap(grads, want, zero=()) -> tuple[float, str]:
                for k, g in want.items())
 
 
-def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None):
+def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None, mesh=None):
     """Each step k of the kernel model from the plain run's weights,
     optimizer, schedule and generator states before its step k (records of
     run_train_steps), on batch k: [(loss, gradients)] a step.  Each step
     reads the kernels' error of one step alone, not the float32 chaos that
-    free-running steps amplify (ROADMAP C5)."""
+    free-running steps amplify (ROADMAP C5).  With ``mesh`` the steps run
+    on this rank's rows, a sharded weight and its moments as its block."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
-    from gesturediffusion_tpu_torch.train.loop import TrainState, make_optimizer, train_step
+    from gesturediffusion_tpu_torch.train.loop import make_train_state, train_step
 
-    opt, sched = make_optimizer(model.parameters(), cfg)
-    state = TrainState(model, opt, sched, UniformSampler(1000), {})
-    gen = torch.Generator(device=torch.device("cuda"))
+    state = make_train_state(model, cfg, UniformSampler(1000), mesh)
+    opt, sched = state.optimizer, state.scheduler
+    gen = torch.Generator(device=next(model.parameters()).device)
     out = []
-    for b, rec in zip(batches, records):
+    for b, rec in zip((rank_batch(b, mesh) for b in batches), records):
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(rec["params"][n])
-        opt.load_state_dict(on_host(rec["opt"]))  # moved to the parameters' device
+        opt_state = on_host(rec["opt"])  # moved to the parameters' device
+        if state.tp is not None:
+            state.tp.refill_shards()
+            opt_state = state.tp.local_optimizer_state(opt_state)
+        opt.load_state_dict(opt_state)
         sched.load_state_dict(rec["sched"])
         gen.set_state(rec["gen"])
         metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
@@ -3524,6 +3572,337 @@ def train_cli_phase(card, extra=(), name="train"):
     return launches
 
 
+# ---- phase 18: the multi-rank paths ---------------------------------------- #
+
+P_BATCH, P_TAKES, P_STREAMS, P_CLI_STEPS = 128, 42, 4, 3
+
+
+def parallel_model(train: bool):
+    """Phase 18's full-width gesture MDM V2 from seed 18 (the training
+    variant with dropout and the fused training layer)."""
+    import torch
+
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+
+    kw = dict(njoints=J, latent_dim=D, ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
+              cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
+              window_size=WINDOW)
+    if train:
+        kw.update(dropout=RATE, use_fused_train_encoder=True)
+    torch.manual_seed(18)
+    return MDM(**kw)
+
+
+def parallel_inputs(dev):
+    """Phase 18's inputs, the same in every process: TRAIN_STEPS batches of
+    P_BATCH at T frames (timesteps and noise injected), a P_TAKES-take,
+    CHUNKS-chunk take's conditioning and seed poses, a P_STREAMS-stream
+    session's seed poses and MFCC windows."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(18)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * scale).to(dev)
+
+    mask = torch.ones((P_BATCH, 1, 1, T), dtype=torch.bool, device=dev)
+    batches = [dict(motion=randn(P_BATCH, J, 1, T, scale=0.5),
+                    cond={"mfcc": randn(P_BATCH, A, 1, T),
+                          "seed": randn(P_BATCH, J, 1, S, scale=0.5), "mask": mask},
+                    t=torch.from_numpy(rs.randint(0, 1000, size=P_BATCH)).to(dev),
+                    noise=randn(P_BATCH, J, 1, T)) for _ in range(TRAIN_STEPS)]
+    take = ({"mfcc": randn(CHUNKS, P_TAKES, A, 1, T),
+             "scale": torch.full((CHUNKS, P_TAKES), GUIDANCE, device=dev)},
+            randn(P_TAKES, J, 1, S, scale=0.5))
+    stream = (randn(P_STREAMS, J, 1, S, scale=0.5).cpu().numpy(),
+              [randn(P_STREAMS, A, 1, T).cpu().numpy() for _ in range(CHUNKS)])
+    return batches, take, stream
+
+
+def parallel_session(model, mesh, dev):
+    from gesturediffusion_tpu_torch.serve.streaming import StreamingGestureSession
+
+    return StreamingGestureSession(model, guidance_param=GUIDANCE, cond_mask_prob=0.1,
+                                   sampler="ddim", sample_steps=STEPS, streams=P_STREAMS,
+                                   chunk_frames=T, seed_poses=S, fps=30.0, mesh=mesh,
+                                   device=dev)
+
+
+def parallel_counters():
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+
+    return launch_counter({
+        "local_block": fused_local_block, "encoder_layer": fused_encoder_layer,
+        "flash_attention": fused_self_attention,
+        "encoder_layer_train_fwd": encoder_layer_train_fwd,
+        "encoder_layer_train_bwd": encoder_layer_train_bwd})
+
+
+def parallel_rank(spec_path: str) -> int:
+    """One rank of phase 18 (a subprocess with GDT_COORDINATOR_ADDRESS,
+    GDT_NUM_PROCESSES and GDT_PROCESS_ID set): the train CLI (``cli``), or
+    the training steps at 2 x 1 and 1 x 2 against the single-process
+    reference, the take and the session (``grid``).  Writes its readings
+    beside the spec."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.parallel import distributed as pdist
+    from gesturediffusion_tpu_torch.parallel.mesh import make_mesh
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig
+
+    spec = torch.load(spec_path, weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    pdist.maybe_initialize()
+    dev, rank = pdist.rank_device(), pdist.process_index()
+    out = {"backend": dist.get_backend(), "world": pdist.process_count(), "device": str(dev)}
+    counted, _ = parallel_counters()
+    if spec["kind"] == "cli":
+        from gesturediffusion_tpu_torch.train import train_mdm
+
+        t0 = time.perf_counter()
+        loop, out["launches"] = counted(lambda: train_mdm.main(spec["argv"]))
+        out.update(step=loop.state.step, cli_s=time.perf_counter() - t0)
+    else:
+        batches, (conds, seed0), (stream_seed, stream_mfcc) = parallel_inputs(dev)
+        ref = torch.load(spec["reference"], weights_only=False)
+        diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+        cfg = TrainConfig(lr=1e-4, batch_size=P_BATCH)
+        for name, grid in (("dp", (2, 1)), ("tp", (1, 2))):
+            mesh = make_mesh(*grid)
+            model = parallel_model(True).to(dev)
+            model.load_state_dict(ref["state"])
+            states = []
+            (losses, grads, step_ms, _), launches = counted(lambda: run_train_steps(
+                model, diffusion, cfg, batches, mesh=mesh, states=states))
+            tp = states[0].tp
+            shards = {} if tp is None else {
+                n: (tuple(s.shape), tuple(states[0].optimizer.state[s]["exp_avg"].shape))
+                for n, s in tp.shards.items()}
+            forced = teacher_forced_steps(model, diffusion, cfg, batches, ref["records"],
+                                          mesh=mesh)
+            out[name] = dict(
+                losses=losses, step_ms=step_ms, launches=launches, shards=shards,
+                loss_err=max(abs(x - y) / abs(y) for x, y in zip(losses, ref["losses"])),
+                grad_err=grad_gap(grads, ref["grads"])[0],
+                tf_loss=[abs(x - r["loss"]) / abs(r["loss"])
+                         for (x, _), r in zip(forced, ref["records"])],
+                tf_grad=[grad_gap(g, r["grads"]) for (_, g), r in zip(forced, ref["records"])])
+            del model, states, forced
+        mesh = make_mesh(2, 1)
+        model = parallel_model(False).to(dev).eval()
+        model.load_state_dict(torch.load(spec["model_path"], map_location=dev))
+        take_diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                          timestep_respacing=RESPACING, device=dev)
+        per = P_TAKES // mesh.data
+        rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+        t0 = time.perf_counter()
+        with pdist.global_rows(rows.start, per, P_TAKES):
+            take, out["take_launches"] = counted(lambda: run_take(
+                model, take_diffusion, {k: v[:, rows] for k, v in conds.items()},
+                seed0[rows], 1))
+        out["take_s"] = time.perf_counter() - t0
+        out["take"] = pdist.all_gather_cat(take.transpose(0, 1), mesh.data_group).transpose(
+            0, 1).cpu()
+        session = parallel_session(model, mesh, dev)
+        session.start(stream_seed, rng=10)
+        out["chunks"], out["stream_launches"] = counted(
+            lambda: [session.feed({"mfcc": m}) for m in stream_mfcc])
+    torch.save(out, spec_path.replace(".pt", f".rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(spec_path: str, world: int, backend=None, timeout=900) -> list:
+    """Phase 18's ranks as subprocesses of this script on a free localhost
+    port; each rank's readings."""
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, GDT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+               GDT_NUM_PROCESSES=str(world))
+    env.pop("GDT_DIST_BACKEND", None)
+    if backend:
+        env["GDT_DIST_BACKEND"] = backend
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--parallel-rank", spec_path],
+                              env=dict(env, GDT_PROCESS_ID=str(r)), cwd=HERE)
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"parallel ranks exited with {codes}")
+    return [torch.load(spec_path.replace(".pt", f".rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def parallel_phase(model_path, card):
+    """Phase 18: the multi-rank paths on the card.  The train CLI on NCCL at
+    world size 1; two ranks sharing the card over gloo (NCCL refuses two
+    ranks on one device) for TRAIN_STEPS steps at global batch P_BATCH
+    through kernels 5 and 6 with dropout on, at 2 x 1 (64 rows a rank, rank
+    1 at row offset 64) and at 1 x 2 (each weight of the shape rule as its
+    half), each held against the single-process steps on the card
+    free-running and teacher-forced under TOL_STEP_LOSS and TOL_STEP_GRAD;
+    a P_TAKES-take, CHUNKS-chunk take split over the two ranks and a
+    P_STREAMS-stream session on mesh= against the single-process ones under
+    TOL_TAKE.  Launches are counted per rank.  Returns the launches of the
+    phase's main paths by kernel, summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig
+
+    base = os.path.join(HERE, "build", "chip_smoke", "parallel")
+    os.makedirs(base, exist_ok=True)
+    dev = torch.device("cuda")
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # the train CLI as a world of one rank on NCCL
+    cli_dir = os.path.join(base, "cli")
+    spec = os.path.join(base, "cli.pt")
+    torch.save({"kind": "cli", "argv": [
+        "--dataset", "synthetic", "--save_dir", cli_dir, "--overwrite", "--num_frames",
+        str(T_CLI), "--batch_size", str(MB), "--num_steps", str(P_CLI_STEPS),
+        "--log_interval", "1", "--use_fused_train_encoder"]}, spec)
+    (r0,) = spawn_ranks(spec, 1)
+    want = LAYERS * P_CLI_STEPS
+    got = (r0["launches"]["encoder_layer_train_fwd"], r0["launches"]["encoder_layer_train_bwd"])
+    ok = (r0["backend"] == "nccl" and r0["world"] == 1 and r0["step"] == P_CLI_STEPS
+          and got == (want, want)
+          and os.path.exists(os.path.join(cli_dir, f"model{P_CLI_STEPS:09d}.pt")))
+    log(f"{'OK' if ok else 'FAIL'} parallel: train CLI as rank 0 of 1 on {r0['backend']} "
+        f"({r0['device']}): {r0['step']} steps at batch {MB}, --num_frames {T_CLI}, in "
+        f"{r0['cli_s']:.1f} s; launches fwd {got[0]} bwd {got[1]} (expected {want} each) {card}")
+    if not ok:
+        raise AssertionError("the train CLI on NCCL at world size 1 failed")
+    add(r0["launches"])
+
+    # the single-process references on the card
+    batches, (conds, seed0), (stream_seed, stream_mfcc) = parallel_inputs(dev)
+    model = parallel_model(True).to(dev)
+    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=P_BATCH)
+    losses, grads, step_ms, _, records = run_train_steps(model, diffusion, cfg, batches,
+                                                         record=True)
+    ref_path = os.path.join(base, "reference.pt")
+    torch.save({"state": state0, "losses": losses, "grads": on_host(grads),
+                "records": records}, ref_path)
+    del model, records
+    tmodel = parallel_model(False).to(dev).eval()
+    tmodel.load_state_dict(torch.load(model_path, map_location=dev))
+    take_diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                      timestep_respacing=RESPACING, device=dev)
+    t0 = time.perf_counter()
+    take = run_take(tmodel, take_diffusion, conds, seed0, 1).cpu()
+    take_s = time.perf_counter() - t0
+    session = parallel_session(tmodel, None, dev)
+    session.start(stream_seed, rng=10)
+    chunks = [session.feed({"mfcc": m}) for m in stream_mfcc]
+    del tmodel, batches
+
+    # two ranks on the card over gloo
+    spec = os.path.join(base, "grid.pt")
+    torch.save({"kind": "grid", "reference": ref_path, "model_path": model_path}, spec)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(spec, 2, backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    want = LAYERS * TRAIN_STEPS
+    for name, grid in (("dp", f"2 x 1 ({P_BATCH // 2} rows a rank)"),
+                       ("tp", f"1 x 2 ({P_BATCH} rows a rank)")):
+        runs = [r[name] for r in ranks]
+        launches = [(x["launches"]["encoder_layer_train_fwd"],
+                     x["launches"]["encoder_layer_train_bwd"]) for x in runs]
+        for x in runs:
+            add(x["launches"])
+        agree = max(abs(a - b) / abs(b) for x in runs for a, b in zip(x["losses"],
+                                                                       runs[0]["losses"]))
+        # each weight of the shape rule as its half, its moments too
+        rule = {n for n, s in shapes.items()
+                if len(s) == 2 and s[0] * s[1] >= 1 << 16 and s[0] % 2 == 0}
+        shards_ok = name == "dp" or all(set(x["shards"]) == rule and all(
+            s == m == (shapes[n][0] // 2, shapes[n][1]) for n, (s, m) in x["shards"].items())
+            for x in runs)
+        free_ok = all(x["loss_err"] <= TOL_STEP_LOSS and x["grad_err"] <= TOL_STEP_GRAD
+                      for x in runs)
+        tf_ok = all(max(x["tf_loss"]) <= TOL_STEP_LOSS
+                    and max(g for g, _ in x["tf_grad"]) <= TOL_STEP_GRAD for x in runs)
+        ok = (free_ok and tf_ok and shards_ok and agree <= TOL_STEP_LOSS
+              and all(n == (want, want) for n in launches)
+              and all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks))
+        x = runs[0]
+        log(f"{'OK' if ok else 'FAIL'} parallel: {TRAIN_STEPS} steps at global batch "
+            f"{P_BATCH} on 2 ranks over gloo, grid {grid}, against the single-process "
+            f"steps on the card: free-running losses rel "
+            f"{', '.join(f'{r[name]['loss_err']:.3e}' for r in ranks)} (tol "
+            f"{TOL_STEP_LOSS:g}), first step's grads "
+            f"{', '.join(f'{r[name]['grad_err']:.3e}' for r in ranks)} (tol {TOL_STEP_GRAD:g}); "
+            f"teacher-forced losses rel {', '.join(f'{v:.3e}' for v in x['tf_loss'])}, grads "
+            f"{', '.join(f'{v:.3e} ({n})' for v, n in x['tf_grad'])}; the ranks' losses "
+            f"{agree:.3e} apart; launches a rank fwd/bwd {launches} (expected {want} each)"
+            + ("" if name == "dp" else
+               f"; {len(x['shards'])} weights as halves, each block and its moments "
+               f"{sorted(set(s for s, _ in x['shards'].values()))}"))
+        if not ok:
+            raise AssertionError(f"the {grid} multi-rank steps disagree with the "
+                                 "single-process steps")
+        log(f"time parallel train step ({grid}, 2 ranks sharing one card over gloo, a "
+            f"functional reading, not a scaling figure; median of steps 2-{TRAIN_STEPS}): "
+            f"{', '.join(f'{r[name]['step_ms']:.3f}' for r in ranks)} ms a rank; the "
+            f"single process at batch {P_BATCH}: {step_ms:.3f} ms {card}")
+    want = {"local_block": STEPS * CHUNKS, "encoder_layer": STEPS * CHUNKS * LAYERS,
+            "flash_attention": STEPS * CHUNKS * LAYERS}
+    take_err = max((r["take"] - take).abs().max().item() for r in ranks)
+    counts = [{k: r["take_launches"][k] for k in want} for r in ranks]
+    for r in ranks:
+        add(r["take_launches"])
+        add(r["stream_launches"])
+    ok = take_err <= TOL_TAKE and all(c == want for c in counts)
+    log(f"{'OK' if ok else 'FAIL'} parallel: a {P_TAKES}-take, {CHUNKS}-chunk CFG take split "
+        f"over 2 ranks (CFG batch {P_TAKES} a rank) against the single-process take: "
+        f"max|diff| {take_err:.3e} (tol {TOL_TAKE:g}); launches a rank {counts} (expected "
+        f"{want}); {max(r['take_s'] for r in ranks):.3f} s a rank, single process "
+        f"{take_s:.3f} s {card}")
+    if not ok:
+        raise AssertionError("the multi-rank take disagrees with the single-process take")
+    stream_err = max(float(np.abs(g - w).max()) for r in ranks
+                     for g, w in zip(r["chunks"], chunks))
+    ok = stream_err <= TOL_TAKE and all(len(r["chunks"]) == CHUNKS for r in ranks)
+    log(f"{'OK' if ok else 'FAIL'} parallel: a {P_STREAMS}-stream session on mesh= (2 data "
+        f"ranks, DDIM-{STEPS}) against the single-process session, every rank the whole "
+        f"chunk: max|diff| {stream_err:.3e} (tol {TOL_TAKE:g}); launches a rank "
+        f"{[r['stream_launches']['encoder_layer'] for r in ranks]} encoder layers; the "
+        f"2-rank run {ranks_s:.1f} s in all")
+    if not ok:
+        raise AssertionError("the mesh= session disagrees with the single-process session")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3627,6 +4006,10 @@ def main() -> int:
     train_fwd_err = max(e[0] for e in train_errs)
     train_bwd_err = max(e[1] for e in train_errs)
     xt, gt = train_x[T + 1]
+    # a data rank's share of a global batch: rank 1 of 2 at phase 18's 128 rows
+    off_fwd_err, off_bwd_err = check_train_layer(xt, gt, enc_w, seed, row0=MB)
+    train_fwd_err = max(train_fwd_err, off_fwd_err)
+    train_bwd_err = max(train_bwd_err, off_bwd_err)
     edge_lb_err, edge_band_err = band_edges_parity(randn)
     lb_err = max(lb_err, edge_lb_err)
     c1_errs = c1_widths_parity(randn, seed)
@@ -3820,13 +4203,17 @@ def main() -> int:
     # ---- 17. the wav-encoder MDM and MDMOld: takes, training, times ---- #
     wav_old = wav_old_phase(model, chunk_conds, init_seed, randn, card)
 
+    # ---- 18. the multi-rank paths: NCCL at one rank, two ranks on gloo -- #
+    par = parallel_phase(model_path, card)
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
          "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
          "launches": launches["local_block"] + genea["local_block"]
                      + gesture_edit["local_block"] + samplers["local_block"]
-                     + a2m_eval["local_block"] + wav_old["local_block"],
+                     + a2m_eval["local_block"] + wav_old["local_block"]
+                     + par["local_block"],
          "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
@@ -3836,7 +4223,7 @@ def main() -> int:
          "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
                       + genea["encoder_layer"] + gesture_edit["encoder_layer"]
                       + samplers["encoder_layer"] + a2m_eval["encoder_layer"]
-                      + wav_old["encoder_layer"]),
+                      + wav_old["encoder_layer"] + par["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
@@ -3845,7 +4232,8 @@ def main() -> int:
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:249",
          "launches": (train_launches[0] + genea["encoder_layer_train_fwd"]
                       + a2m_eval["encoder_layer_train_fwd"]
-                      + wav_old["encoder_layer_train_fwd"]),
+                      + wav_old["encoder_layer_train_fwd"]
+                      + par["encoder_layer_train_fwd"]),
          "max_abs_err": train_fwd_err,
          **time_keys(train_times[T + 1]["fwd"])},
         {"name": "encoder_layer_train_bwd", "route": "cuda",
@@ -3853,7 +4241,8 @@ def main() -> int:
          "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
          "launches": (train_launches[1] + genea["encoder_layer_train_bwd"]
                       + a2m_eval["encoder_layer_train_bwd"]
-                      + wav_old["encoder_layer_train_bwd"]),
+                      + wav_old["encoder_layer_train_bwd"]
+                      + par["encoder_layer_train_bwd"]),
          "max_abs_err": train_bwd_err,
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,
@@ -3861,7 +4250,7 @@ def main() -> int:
     kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
                                 + samplers["flash_attention"] + a2m["flash_attention"]
                                 + a2m_eval["flash_attention"] + t2m_eval["flash_attention"]
-                                + wav_old["flash_attention"])
+                                + wav_old["flash_attention"] + par["flash_attention"])
     kernels += t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row, t2m_eval_row]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3869,4 +4258,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

@@ -80,9 +80,15 @@ enum Site { kSiteAttn = 0, kSitePostAttn = 1, kSiteAct = 2, kSiteFF = 3 };
 
 // Dropout parameters; seed == nullptr means no dropout (rate 0, inference).
 struct Drop {
-  const int* seed;  // one int32 on the device
-  uint32_t thresh;  // keep iff hash < thresh
-  float inv_keep;   // f32(1 / keep_prob)
+  const int* seed;     // one int32 on the device
+  uint32_t thresh;     // keep iff hash < thresh
+  float inv_keep;      // f32(1 / keep_prob)
+  // The global index of the call's first element when its batch holds rows
+  // [r0, r0 + B) of a larger batch (a rank's share): site 0's r0 H T T, and
+  // the token rows' r0 T (times the row width at the other sites).  Zero
+  // for a whole batch.
+  uint32_t attn_base;
+  uint32_t row_base;
 };
 
 __device__ __forceinline__ uint32_t hash_u32(uint32_t idx, uint32_t salt) {

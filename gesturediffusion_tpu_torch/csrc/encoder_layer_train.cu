@@ -284,7 +284,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ do
         float pd = p, dp = dpt[n][e];
         if constexpr (DROP) {
           const uint32_t key = k0 + kr + 8 * (e >> 1);
-          const uint32_t idx = (static_cast<uint32_t>(bh) * T + j0 + jl) * T + key;
+          const uint32_t idx = drop.attn_base + (static_cast<uint32_t>(bh) * T + j0 + jl) * T + key;
           const bool keep = hash_u32(idx, salt) < drop.thresh;
           pd = keep ? p * drop.inv_keep : 0.0f;
           dp = keep ? dp * drop.inv_keep : 0.0f;
@@ -414,7 +414,8 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout
         const float p = key < T ? exp2f(s[n][e] * scale_log2 - lse_r[hi]) : 0.0f;
         float dpz = dp[n][e];
         if constexpr (DROP) {
-          const uint32_t idx = (static_cast<uint32_t>(bh) * T + r0 + 8 * hi) * T + key;
+          const uint32_t idx =
+              drop.attn_base + (static_cast<uint32_t>(bh) * T + r0 + 8 * hi) * T + key;
           dpz = dropped(dpz, idx, salt, drop);
         }
         s[n][e] = p * (dpz - d_r[hi]) * scale;  // dS
@@ -491,7 +492,8 @@ attn_bwd_dq_wide_kernel(const float* __restrict__ qkv, const float* __restrict__
         const float p = key < T ? exp2f(s[n][e] * scale_log2 - lse_r[hi]) : 0.0f;
         float dpz = dp[n][e];
         if constexpr (DROP) {
-          const uint32_t idx = (static_cast<uint32_t>(bh) * T + r0 + 8 * hi) * T + key;
+          const uint32_t idx =
+              drop.attn_base + (static_cast<uint32_t>(bh) * T + r0 + 8 * hi) * T + key;
           dpz = dropped(dpz, idx, salt, drop);
         }
         s[n][e] = p * (dpz - d_r[hi]) * scale;  // dS
@@ -544,7 +546,7 @@ attn_bwd_dkdv_wide_kernel(const float* __restrict__ qkv, const float* __restrict
         float pd = p, dp = dpt[n][e];
         if constexpr (DROP) {
           const uint32_t key = k0 + g + 8 * (e >> 1);
-          const uint32_t idx = (static_cast<uint32_t>(bh) * T + j) * T + key;
+          const uint32_t idx = drop.attn_base + (static_cast<uint32_t>(bh) * T + j) * T + key;
           const bool keep = hash_u32(idx, salt) < drop.thresh;
           pd = keep ? p * drop.inv_keep : 0.0f;
           dp = keep ? dp * drop.inv_keep : 0.0f;
@@ -676,11 +678,12 @@ ln_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G,
   const float mean_gy = warp_sum(s1) / D, mean_gyx = warp_sum(s2) / D;
   const bool has_drop = drop.seed != nullptr;
   const uint32_t salt = has_drop ? site_salt(drop.seed, site) : 0u;
+  const uint32_t base = drop.row_base * static_cast<uint32_t>(D);
   for (int d = lane; d < D; d += 32) {
     const float xhat = (x[d] - mu) * rs;
     const float dx = rs * (g[d] * w[d] - mean_gy - xhat * mean_gyx);
     dX[off + d] = dx;
-    dXd[off + d] = has_drop ? dropped(dx, static_cast<uint32_t>(off + d), salt, drop) : dx;
+    dXd[off + d] = has_drop ? dropped(dx, base + static_cast<uint32_t>(off + d), salt, drop) : dx;
     P[off + d] = g[d] * xhat;
   }
 }
@@ -826,8 +829,13 @@ cudaError_t forward_chain(const float* x, const Weights& w, const Drop& drop,
   return e;
 }
 
-Drop make_drop(const int* seed, unsigned thresh, float inv_keep, int use_dropout) {
-  return Drop{use_dropout ? seed : nullptr, thresh, inv_keep};
+// rows [row0, row0 + B) of a larger batch: the sites' global indices start
+// at row0's (uint32 arithmetic wraps as the indices do)
+Drop make_drop(const int* seed, unsigned thresh, float inv_keep, int use_dropout, int row0,
+               const Dims& n) {
+  const uint32_t r0 = static_cast<uint32_t>(row0), t = static_cast<uint32_t>(n.T);
+  return Drop{use_dropout ? seed : nullptr, thresh, inv_keep,
+              r0 * static_cast<uint32_t>(n.H) * t * t, r0 * t};
 }
 
 // floats of the partial sums of a weight gradient or a column sum
@@ -921,7 +929,8 @@ size_t gdt_encoder_layer_train_workspace(int B, int T, int D, int F, int H,
 }
 
 // Forward: x [B, T, D] -> out [B, T, D].  `seed` points at one int32 on the
-// device; thresh and inv_keep come from the caller (rate 0: use_dropout 0).
+// device; thresh and inv_keep come from the caller (rate 0: use_dropout 0);
+// x holds rows [row0, row0 + B) of the batch the dropout indices count.
 // Any D and F, any head width D / H.  Returns
 // cudaGetLastError() after queueing the chain on `stream`.
 int gdt_encoder_layer_train_fwd_f32(
@@ -930,7 +939,7 @@ int gdt_encoder_layer_train_fwd_f32(
     const float* b1, const float* w2, const float* b2, const float* ln2_w,
     const float* ln2_b, const int* seed, float* out, float* ws, int B, int T,
     int D, int F, int H, float scale, unsigned thresh, float inv_keep,
-    int use_dropout, void* stream) {
+    int use_dropout, int row0, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims n{B, T, D, F, H, B * T};
   const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
@@ -941,9 +950,9 @@ int gdt_encoder_layer_train_fwd_f32(
   float* y1 = u + M * D;
   float* v2 = y1 + M * D;
   float* hd = v2 + M * D;
-  const cudaError_t e = forward_chain(x, w, make_drop(seed, thresh, inv_keep, use_dropout),
-                                      n, scale, qkv, o, nullptr, u, y1, nullptr, hd, v2, out,
-                                      s);
+  const Drop drop = make_drop(seed, thresh, inv_keep, use_dropout, row0, n);
+  const cudaError_t e =
+      forward_chain(x, w, drop, n, scale, qkv, o, nullptr, u, y1, nullptr, hd, v2, out, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -958,12 +967,13 @@ int gdt_encoder_layer_train_bwd_f32(
     float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* dln1_w,
     float* dln1_b, float* dw1, float* db1, float* dw2, float* db2,
     float* dln2_w, float* dln2_b, float* ws, int B, int T, int D, int F, int H,
-    float scale, unsigned thresh, float inv_keep, int use_dropout,
+    float scale, unsigned thresh, float inv_keep, int use_dropout, int row0,
     void* stream) {
   const Dims n{B, T, D, F, H, B * T};
   const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
   const cudaError_t e = backward_chain(
-      x, w, make_drop(seed, thresh, inv_keep, use_dropout), n, scale, g, dx, dwqkv, dbqkv,
+      x, w, make_drop(seed, thresh, inv_keep, use_dropout, row0, n), n, scale, g, dx, dwqkv,
+      dbqkv,
       dwo, dbo, dln1_w, dln1_b, dw1, db1, dw2, db2, dln2_w, dln2_b, ws,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

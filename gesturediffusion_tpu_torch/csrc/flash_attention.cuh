@@ -179,7 +179,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m_lo = -FLT_MAX, m_hi = -FLT_MAX, l_lo = 0.0f, l_hi = 0.0f;
   const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
   // the site-0 index of (row r0, key 2t of the first tile); r1 is 8 T on
-  const uint32_t idx0 = (static_cast<uint32_t>(blockIdx.y) * T + r0) * T + 2 * t;
+  const uint32_t idx0 = drop.attn_base + (static_cast<uint32_t>(blockIdx.y) * T + r0) * T + 2 * t;
 
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<1>();  // tile it has landed

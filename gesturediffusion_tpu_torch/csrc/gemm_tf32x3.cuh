@@ -390,6 +390,7 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const bool drop = (EPI == kBiasResid || EPI == kBiasGelu || EPI == kDropGeluGrad) &&
                     ep.drop.seed != nullptr;
   const uint32_t salt = drop ? site_salt(ep.drop.seed, ep.site) : 0u;
+  const uint32_t base = ep.drop.row_base * static_cast<uint32_t>(N);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int c = n0 + 8 * j + 2 * t;
@@ -424,8 +425,8 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
         v1 = gelu_tanh(v1);
       }
       if (drop) {
-        v0 = dropped(v0, static_cast<uint32_t>(off), salt, ep.drop);
-        v1 = dropped(v1, static_cast<uint32_t>(off + 1), salt, ep.drop);
+        v0 = dropped(v0, base + static_cast<uint32_t>(off), salt, ep.drop);
+        v1 = dropped(v1, base + static_cast<uint32_t>(off + 1), salt, ep.drop);
       }
       if (EPI == kDropGeluGrad) {
         const float2 h2 = ld2(ep.aux + off);

@@ -217,7 +217,7 @@ flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
   const int r0 = q0 + g;
   // the site-0 index of (row r0, key 2t of the first step); r0 + 8 is 8 T on
-  const uint32_t idx0 = (static_cast<uint32_t>(bh) * T + r0) * T + 2 * t;
+  const uint32_t idx0 = drop.attn_base + (static_cast<uint32_t>(bh) * T + r0) * T + 2 * t;
 
   float o[kWideNO][4];
 #pragma unroll

@@ -1,8 +1,12 @@
 """Threaded prefetching data loader.
 
-Copy of gesturediffusion_tpu/data/loader.py for one process: item fetch and
-collation of batch k+1 run on a thread pool while the card works on batch
-k.  The shuffled index order comes from a numpy RandomState seeded once.
+Copy of gesturediffusion_tpu/data/loader.py: item fetch and collation of
+batch k+1 run on a thread pool while the card works on batch k.  The
+shuffled index order comes from a numpy RandomState seeded once.  With
+``process_count`` > 1 every process (the data ranks of a run) builds the
+same order and loads only its contiguous slice of each global batch
+(parallel/distributed.py:local_batch_slice); the ranks of one model group
+share a data index and load the same rows.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from queue import Full, Queue
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
+
+from gesturediffusion_tpu_torch.parallel.distributed import local_batch_slice
 
 
 class DataLoader:
@@ -26,7 +32,10 @@ class DataLoader:
         num_workers: int = 8,
         seed: int = 0,
         prefetch: int = 2,
+        process_count: int = 1,
+        process_index: int = 0,
     ):
+        """``batch_size`` is the global batch."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -35,6 +44,18 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self._rng = np.random.RandomState(seed)
+        self._local_slice = None
+        if process_count > 1:
+            if not drop_last:
+                raise ValueError(
+                    "process-sharded loading requires drop_last=True "
+                    "(a short final batch would yield unequal or empty "
+                    "local shards)"
+                )
+            # validates divisibility + process_index range
+            self._local_slice = local_batch_slice(batch_size, process_count, process_index)
+        self.process_count = process_count
+        self.process_index = process_index
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -46,7 +67,10 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(idx)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        if self._local_slice is not None:
+            batches = [b[self._local_slice] for b in batches]
+        return batches
 
     def __iter__(self) -> Iterator:
         batches = self._batches()

@@ -81,6 +81,8 @@ def get_dataset_loader(
     num_workers: int = 8,
     n_seed_poses: int = 10,
     seed: int = 0,
+    process_count: int = 1,
+    process_index: int = 0,
     **kwargs,
 ) -> DataLoader:
     if name == "synthetic" and "n_items" not in kwargs:
@@ -118,4 +120,6 @@ def get_dataset_loader(
         drop_last=True,
         num_workers=num_workers,
         seed=seed,
+        process_count=process_count,
+        process_index=process_index,
     )

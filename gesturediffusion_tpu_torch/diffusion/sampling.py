@@ -18,7 +18,9 @@ then ``init_image`` (zeros if not given) noised to the first step run.
 prediction where mask is set (motion editing), with the same draws;
 ``clip_denoised`` and ``denoised_fn`` process every x0 prediction, and
 ``cond_fn`` guides the DDPM mean (``condition_mean``) or the other loops'
-score (``condition_score``), as in diffusion/gaussian.py.
+score (``condition_score``), as in diffusion/gaussian.py.  Under
+parallel/distributed.py:global_rows (a take split over ranks) every draw,
+``noise_fn``'s too, is of the global batch, and the rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from gesturediffusion_tpu_torch.diffusion.gaussian import (
     ModelFn,
     _extract,
 )
+from gesturediffusion_tpu_torch.parallel.distributed import draw_rows
 
 NoiseFn = Callable[[int, int, tuple], torch.Tensor]
 # (mask, motion): the x0 prediction takes motion where mask is set
@@ -53,8 +56,9 @@ def _drawer(diffusion: GaussianDiffusion, shape: tuple, generator: torch.Generat
 
     def draw(step: int) -> torch.Tensor:
         if noise_fn is not None:
-            return noise_fn(chunk, step, shape).to(device=device, dtype=torch.float32)
-        return torch.randn(shape, generator=generator, device=device)
+            return draw_rows(shape, lambda s: noise_fn(chunk, step, s)).to(
+                device=device, dtype=torch.float32)
+        return draw_rows(shape, lambda s: torch.randn(s, generator=generator, device=device))
 
     return draw
 

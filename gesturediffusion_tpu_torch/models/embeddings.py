@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from gesturediffusion_tpu_torch.ops.dropout import dropout as drop
+from gesturediffusion_tpu_torch.parallel.distributed import draw_rows
 
 
 def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
@@ -111,11 +112,14 @@ def mask_cond(
 ) -> torch.Tensor:
     """Zero the conditioning rows [B, C] where ``uncond`` [B] is set (the
     CFG unconditional branch) and, in training, rows drawn with probability
-    ``cond_mask_prob`` from ``generator`` (embeddings.py:mask_cond)."""
+    ``cond_mask_prob`` from ``generator`` (embeddings.py:mask_cond), drawn
+    for the global batch under parallel/distributed.py:global_rows."""
     out = cond2d * (1.0 - uncond.to(cond2d.dtype))[:, None]
     if train and cond_mask_prob > 0.0:
         if generator is None:
             raise ValueError("training conditioning dropout needs a torch.Generator")
-        bern = torch.empty((cond2d.shape[0], 1), dtype=cond2d.dtype, device=cond2d.device)
-        out = out * (1.0 - bern.bernoulli_(cond_mask_prob, generator=generator))
+        bern = draw_rows((cond2d.shape[0], 1), lambda shape: torch.empty(
+            shape, dtype=cond2d.dtype, device=cond2d.device).bernoulli_(
+                cond_mask_prob, generator=generator))
+        out = out * (1.0 - bern)
     return out

@@ -44,6 +44,7 @@ from gesturediffusion_tpu_torch.ops.fused_local_block import (
     fused_local_block,
     pre_encoder_local_block,
 )
+from gesturediffusion_tpu_torch.parallel.distributed import all_reduce_sum, current_rows
 from gesturediffusion_tpu_torch.utils.device import full_f32
 
 WAV_FEATURES = 32  # the wav encoder's output channels, the audio width it gives the model
@@ -70,7 +71,11 @@ class BatchNorm1d(nn.Module):
     variance.  In evaluation the running statistics normalise.  Either way
     y = (x - mean) * (rsqrt(var + eps) * weight) + bias, flax's order.
     ``num_batches_tracked`` counts the training calls as torch's does; the
-    reference layout carries it and nothing reads it."""
+    reference layout carries it and nothing reads it.  Where the batch is
+    split over ranks (parallel/distributed.py:global_rows with a group) the
+    sums of x and x^2 are reduced over them, so every rank normalises with,
+    and moves its running statistics towards, the global batch's; torch's
+    SyncBatchNorm follows torch's rule and would not do."""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -83,8 +88,15 @@ class BatchNorm1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2)) - mean * mean, 0.0)
+            rows = current_rows()
+            if rows is not None and rows.group is not None:
+                # the global batch's statistics: sums over the ranks' rows
+                sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2))]),
+                                      rows.group)
+                mean, sq = sums / (x.shape[2] * x.shape[0] * rows.total / rows.count)
+            else:
+                mean, sq = x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -30,6 +30,9 @@ not the explicit generator the masks come from, so the layer saves that
 generator's state before its forward and the recompute draws from a copy
 set to it.  The caller's generator advances once, as without remat.  As
 in JAX, the fused training layer ignores it (it keeps only its input).
+The recompute runs under the forward's parallel/distributed.py:global_rows
+(a rank's share of the batch draws its rows of the global masks), and the
+fused training layer's hash dropout counts from the share's first row.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
     encoder_layer_train_plain,
     fused_encoder_layer_train,
 )
+from gesturediffusion_tpu_torch.parallel.distributed import current_rows, row_offset, using_rows
 
 INT32_MAX = 2**31 - 1
 
@@ -125,7 +129,7 @@ class FusedTrainEncoderLayer(TransformerEncoderLayer):
             seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
         layer = fused_encoder_layer_train if use_kernels else encoder_layer_train_plain
         return layer(x.contiguous(), *self.weights(), seed=seed,
-                     num_heads=self.num_heads, rate=rate)
+                     num_heads=self.num_heads, rate=rate, row0=row_offset())
 
 
 def rematerialised(layer: TransformerEncoderLayer, x: torch.Tensor, use_kernels: bool,
@@ -134,6 +138,7 @@ def rematerialised(layer: TransformerEncoderLayer, x: torch.Tensor, use_kernels:
     drawing the forward's dropout masks again from a copy of
     ``generator`` set to its state before the forward."""
     state = None if generator is None else generator.get_state()
+    rows = current_rows()  # the backward may run on another thread
     calls = []
 
     def run(h):
@@ -142,7 +147,8 @@ def rematerialised(layer: TransformerEncoderLayer, x: torch.Tensor, use_kernels:
             g = torch.Generator(device=generator.device)
             g.set_state(state)
         calls.append(1)
-        return layer.train_forward(h, use_kernels, g)
+        with using_rows(rows):
+            return layer.train_forward(h, use_kernels, g)
 
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 

@@ -20,8 +20,11 @@ the seed, and whose backward recomputes the layer from x (launches counted
 in ``encoder_layer_train_fwd.launches`` and ``encoder_layer_train_bwd.launches``).
 
 Weights use PyTorch's [out, in] layout, as ops/fused_encoder.py; their
-gradients come back in it.  The global indices restart at batch row 0 in
-every call, as a separate TPU kernel call does.
+gradients come back in it.  The global indices count from batch row
+``row0``: 0 for a whole batch, as a separate TPU kernel call does, and a
+rank's first row of the global batch when the batch is split over ranks
+(a pallas_call under a mesh runs on the global batch, so its indices are
+global).
 
 The kernels' attention is flash-style in both directions (the flash kernel
 of ops/flash_attention.py with site-0 dropout, and a tiled backward), so T
@@ -97,18 +100,20 @@ def hash_dropout_mask(shape, base: int, seed, site: int, keep_prob: float,
 
 def encoder_layer_train_plain(
     x, wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
-    *, seed, num_heads: int, rate: float,
+    *, seed, num_heads: int, rate: float, row0: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch training layer.  x [B, T, D] -> [B, T, D]; ``seed`` is
     an int or an integer tensor of one element; rate 0 draws nothing.  The
     global indices are those of each site's row-major layout: [B, H, T, T]
-    for the probabilities, [B, T, width] for the other three."""
+    for the probabilities, [B, T, width] for the other three, x being rows
+    ``row0`` on of the batch they count."""
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(())
     keep = 1.0 - rate
 
     def drop(z, site):
-        mask = hash_dropout_mask(z.shape, 0, seed, site, keep, device=z.device)
+        base = row0 * math.prod(z.shape[1:])
+        mask = hash_dropout_mask(z.shape, base, seed, site, keep, device=z.device)
         # times 1 / keep (not divided by keep), as the kernels
         return torch.where(mask, z * (1.0 / keep), torch.zeros((), dtype=z.dtype, device=z.device))
 
@@ -119,9 +124,9 @@ def encoder_layer_train_plain(
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
@@ -142,8 +147,10 @@ def _check_cuda_args(x, weights, seed, num_heads):
         raise ValueError("seed must be one int32 element on the device of x")
 
 
-def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float):
+def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float, row0: int):
     _check_cuda_args(x, weights, seed, num_heads)
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     b, t, d = x.shape
     f = weights[6].shape[0]
     keep = 1.0 - rate
@@ -151,7 +158,7 @@ def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float):
     ws = torch.empty(ws_floats(b, t, d, f, num_heads, int(backward)),
                      dtype=torch.float32, device=x.device)
     tail = (b, t, d, f, num_heads, (d // num_heads) ** -0.5,
-            keep_threshold(keep), 1.0 / keep, int(rate > 0.0))
+            keep_threshold(keep), 1.0 / keep, int(rate > 0.0), row0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [x.data_ptr(), *(w.data_ptr() for w in weights), seed.data_ptr()]
@@ -168,19 +175,21 @@ def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float):
     return outs
 
 
-def encoder_layer_train_fwd(x, *weights, seed, num_heads: int, rate: float) -> torch.Tensor:
-    """The forward kernel on CUDA tensors (seed: one int32 on the device),
-    counted in ``encoder_layer_train_fwd.launches``."""
-    (out,) = _launch(False, x, weights, seed, None, num_heads, rate)
+def encoder_layer_train_fwd(x, *weights, seed, num_heads: int, rate: float,
+                            row0: int = 0) -> torch.Tensor:
+    """The forward kernel on CUDA tensors (seed: one int32 on the device; x
+    rows ``row0`` on of the batch the dropout counts), counted in
+    ``encoder_layer_train_fwd.launches``."""
+    (out,) = _launch(False, x, weights, seed, None, num_heads, rate, row0)
     encoder_layer_train_fwd.launches += 1
     return out
 
 
-def encoder_layer_train_bwd(x, *weights, seed, g, num_heads: int, rate: float):
+def encoder_layer_train_bwd(x, *weights, seed, g, num_heads: int, rate: float, row0: int = 0):
     """The backward kernel on CUDA tensors: recomputes the layer from x and
     returns (dx, 12 weight gradients) for the output gradient g, counted
     in ``encoder_layer_train_bwd.launches``."""
-    outs = _launch(True, x, weights, seed, g, num_heads, rate)
+    outs = _launch(True, x, weights, seed, g, num_heads, rate, row0)
     encoder_layer_train_bwd.launches += 1
     return outs
 
@@ -191,37 +200,42 @@ encoder_layer_train_bwd.launches = 0
 
 class _EncoderLayerTrain(torch.autograd.Function):
     """Forward kernel; the backward kernel recomputes from x.  Saved for
-    backward: x, the 12 weights and the seed tensor, nothing else."""
+    backward: x, the 12 weights and the seed tensor (and the row offset),
+    nothing else."""
 
     @staticmethod
-    def forward(ctx, x, seed, num_heads, rate, *weights):
-        ctx.num_heads, ctx.rate = num_heads, rate
+    def forward(ctx, x, seed, num_heads, rate, row0, *weights):
+        ctx.num_heads, ctx.rate, ctx.row0 = num_heads, rate, row0
         ctx.save_for_backward(x, seed, *weights)
-        return encoder_layer_train_fwd(x, *weights, seed=seed, num_heads=num_heads, rate=rate)
+        return encoder_layer_train_fwd(x, *weights, seed=seed, num_heads=num_heads, rate=rate,
+                                       row0=row0)
 
     @staticmethod
     def backward(ctx, g):
         x, seed, *weights = ctx.saved_tensors
         dx, *dws = encoder_layer_train_bwd(x, *weights, seed=seed, g=g.contiguous(),
-                                           num_heads=ctx.num_heads, rate=ctx.rate)
-        return (dx, None, None, None, *dws)
+                                           num_heads=ctx.num_heads, rate=ctx.rate,
+                                           row0=ctx.row0)
+        return (dx, None, None, None, None, *dws)
 
 
 def fused_encoder_layer_train(
     x, wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
-    *, seed, num_heads: int, rate: float,
+    *, seed, num_heads: int, rate: float, row0: int = 0,
 ) -> torch.Tensor:
     """One training encoder layer.  CPU tensors run
     ``encoder_layer_train_plain``; CUDA tensors run the forward kernel and,
     under autograd, the backward kernel.  On the card ``seed`` is one int32
-    element on the device (an int is moved there)."""
+    element on the device (an int is moved there).  x holds rows ``row0``
+    on of the batch the dropout indices count."""
     weights = (wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if x.device.type == "cpu":
-        return encoder_layer_train_plain(x, *weights, seed=seed, num_heads=num_heads, rate=rate)
+        return encoder_layer_train_plain(x, *weights, seed=seed, num_heads=num_heads, rate=rate,
+                                         row0=row0)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not isinstance(seed, torch.Tensor):
         seed = torch.tensor([seed], dtype=torch.int32, device=x.device)
     seed = seed.reshape(1)
-    return _EncoderLayerTrain.apply(x, seed, num_heads, float(rate), *weights)
+    return _EncoderLayerTrain.apply(x, seed, num_heads, float(rate), int(row0), *weights)
 

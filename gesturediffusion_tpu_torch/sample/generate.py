@@ -16,6 +16,14 @@ into ``<take>_audio.mp4`` where ffmpeg is on the PATH.  A GENEA split
 generates as many chunks a take as its shortest take holds; a dataset
 without take structure (``synthetic``) one chunk a take.  It runs on the
 CUDA card unless ``--device cpu`` is given.
+
+Several ranks (GDT_COORDINATOR_ADDRESS, GDT_NUM_PROCESSES, GDT_PROCESS_ID;
+parallel/distributed.py) split the takes over the data ranks
+(generate.py:225-246): each samples its rows, drawing the global initial
+and chain noise from the generator all ranks seed alike and keeping its
+rows, so the take equals the single-process take; rank 0 gathers the takes
+and writes every file, the others write none.  A take count the data width
+does not divide raises, as JAX's multi-process mesh does.
 """
 
 from __future__ import annotations
@@ -36,10 +44,18 @@ from gesturediffusion_tpu_torch.diffusion.sampling import (
     sample_loop,
 )
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+from gesturediffusion_tpu_torch.parallel.distributed import (
+    GlobalRows,
+    all_gather_cat,
+    maybe_initialize,
+    process_index,
+    rank_device,
+    using_rows,
+)
+from gesturediffusion_tpu_torch.parallel.mesh import make_data_mesh_for_batch
 from gesturediffusion_tpu_torch.utils import logger as log_lib
 from gesturediffusion_tpu_torch.utils import paramutil
 from gesturediffusion_tpu_torch.utils.convert import load_weights
-from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import (
     GESTURE_DATASETS,
     create_model_and_diffusion,
@@ -97,7 +113,8 @@ def main(argv=None) -> str:
             f"the reference fork's; --dataset {args.dataset} has no audio takes. Use "
             f"gesturediffusion_tpu_torch.sample.predict (text-to-motion) or "
             f"gesturediffusion_tpu_torch.sample.edit instead.")
-    device = resolve_device(args.device)
+    maybe_initialize(args.device)  # before anything touches the card
+    device = rank_device(args.device)
     loop = sample_loop(args.sampler)
     out_path = args.output_dir or default_output_dir(
         args.model_path, "samples", f"seed{args.seed}"
@@ -170,11 +187,28 @@ def main(argv=None) -> str:
             (chunks_per_take, n_takes), args.guidance_param, device=device
         )
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    outs = autoregressive_sample_loop(
-        diffusion, model_fn, (n_takes, dataset.pose_dim, 1, args.num_frames),
-        stacked_conds, init_seed, args.seed_poses,
-        generator=generator, cond_precompute=cond_precompute, loop=loop,
-    ).cpu().numpy()  # [C, B, J, 1, T]
+    # several ranks: the takes split over the data ranks, each drawing the
+    # global noise and keeping its rows
+    mesh = make_data_mesh_for_batch(n_takes)
+    rows, per = None, n_takes
+    if mesh.data > 1:
+        per = n_takes // mesh.data
+        rows = GlobalRows(mesh.data_index * per, per, n_takes)
+        mine = slice(rows.start, rows.start + per)
+        stacked_conds = {k: v[:, mine] for k, v in stacked_conds.items()}
+        init_seed = init_seed[mine]
+        log_lib.log(f"sampling data-parallel over {mesh.data} ranks")
+    with using_rows(rows):
+        outs = autoregressive_sample_loop(
+            diffusion, model_fn, (per, dataset.pose_dim, 1, args.num_frames),
+            stacked_conds, init_seed, args.seed_poses,
+            generator=generator, cond_precompute=cond_precompute, loop=loop,
+        )
+    # [C, B, J, 1, T], the takes of every rank in rank order
+    outs = all_gather_cat(outs.transpose(0, 1), mesh.data_group).transpose(0, 1)
+    outs = outs.cpu().numpy()
+    if process_index() != 0:
+        return out_path
 
     def poses(motion):  # [B, J, 1, T] in model space -> (positions, rotations)
         return split_pose_vector(dataset.inv_transform(motion[:, :, 0, :].transpose(0, 2, 1)),

@@ -14,7 +14,11 @@ audio only up to "now", so a session generates the take chunk by chunk:
     waits for the device);
   * ``streams`` concurrent takes run batched as one chunk;
   * ``sample_steps`` respaces the sampler (DDPM, DDIM, PLMS or DPM++) for
-    latency.
+    latency;
+  * ``mesh=`` (parallel/mesh.py) splits the streams over the data ranks
+    (serve/streaming.py:188-201): each rank denoises its rows, draws the
+    global noise and keeps its rows (parallel/distributed.py:global_rows),
+    and every chunk is gathered so that every rank returns the whole chunk.
 
 The session owns a ``torch.Generator`` seeded in ``start()``.  Fed the
 same per-chunk conditioning in order, it draws what
@@ -44,6 +48,7 @@ from gesturediffusion_tpu_torch.diffusion.sampling import NoiseFn, ar_chunk_step
 from gesturediffusion_tpu_torch.diffusion.schedules import respacing_string
 from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
 from gesturediffusion_tpu_torch.ops.mfcc import mfcc_for_window
+from gesturediffusion_tpu_torch.parallel.distributed import GlobalRows, all_gather_cat, using_rows
 from gesturediffusion_tpu_torch.utils.device import resolve_device
 
 
@@ -84,7 +89,9 @@ class StreamingGestureSession:
     ``feed_audio`` takes a raw mono window instead and runs the dataset's
     MFCC and z-normalisation on the host (ops/mfcc.py).  The model is moved
     to ``device`` (the CUDA card unless ``"cpu"`` is asked for) and put in
-    eval mode.  Multi-card serving (``mesh=``) is not ported yet.
+    eval mode.  With ``mesh=`` every rank of the mesh runs the session with
+    the same arguments and the same ``feed`` calls (all the streams each
+    time), and each gets the whole chunk back.
     """
 
     def __init__(
@@ -107,9 +114,18 @@ class StreamingGestureSession:
         device=None,
         noise_fn: Optional[NoiseFn] = None,
     ):
+        self._rows, self._group = None, None
         if mesh is not None:
-            raise NotImplementedError("multi-card serving (mesh=) is not ported yet "
-                                      "(ROADMAP A10)")
+            dp = mesh.shape["data"]
+            if streams % dp != 0:
+                raise ValueError(
+                    f"streams={streams} is not divisible by the mesh's "
+                    f"data axis ({dp})"
+                )
+            if dp > 1:
+                per = streams // dp
+                self._rows = GlobalRows(mesh.data_index * per, per, streams)
+                self._group = mesh.data_group
         if diffusion is not None and (sample_steps is not None or step_spacing != "uniform"):
             raise ValueError(
                 "pass either a prebuilt `diffusion` or "
@@ -135,8 +151,9 @@ class StreamingGestureSession:
         self._seed_poses = seed_poses
         self._fps = fps
         self._nfeats = getattr(model, "nfeats", 1)
-        self._shape = (streams, model.njoints, self._nfeats, chunk_frames)
-        self._scale = (torch.full((streams,), guidance_param, device=self._device)
+        local = streams if self._rows is None else self._rows.count
+        self._shape = (local, model.njoints, self._nfeats, chunk_frames)
+        self._scale = (torch.full((local,), guidance_param, device=self._device)
                        if guidance_param != 1 else None)
         self._noise_fn = noise_fn
         self._generator = torch.Generator(device=self._device)
@@ -156,7 +173,7 @@ class StreamingGestureSession:
                 f"init_seed shape {tuple(init_seed.shape)} != {want} "
                 "(streams, njoints, nfeats, seed_poses)"
             )
-        self._seed = init_seed.to(self._device)
+        self._seed = self._local(init_seed.to(self._device))
         self._generator.manual_seed(rng)
         self._k = 0
         self.reset_stats()
@@ -173,15 +190,16 @@ class StreamingGestureSession:
         if self._seed is None:
             raise RuntimeError("call start() before feed()")
         t0 = time.perf_counter()
-        dc = {k: torch.as_tensor(v, device=self._device) for k, v in cond.items()}
+        dc = {k: self._local(torch.as_tensor(v, device=self._device)) for k, v in cond.items()}
         if self._scale is not None and "scale" not in dc:
             dc["scale"] = self._scale
-        out, self._seed = ar_chunk_step(
-            self._diffusion, self._model_fn, self._shape, self._k, dc, self._seed,
-            self._seed_poses, generator=self._generator, noise_fn=self._noise_fn,
-            cond_precompute=self._precompute, loop=self._loop,
-        )
-        out_np = out.cpu().numpy()
+        with using_rows(self._rows):
+            out, self._seed = ar_chunk_step(
+                self._diffusion, self._model_fn, self._shape, self._k, dc, self._seed,
+                self._seed_poses, generator=self._generator, noise_fn=self._noise_fn,
+                cond_precompute=self._precompute, loop=self._loop,
+            )
+        out_np = all_gather_cat(out, self._group).cpu().numpy()
         dt = time.perf_counter() - t0
         self._k += 1
         s = self._stats
@@ -226,6 +244,11 @@ class StreamingGestureSession:
         for i, feats in enumerate(rows):
             mf[i, :, 0, : feats.shape[0]] = feats.T
         return self.feed({"mfcc": mf})
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's streams of an all-streams tensor."""
+        r = self._rows
+        return x if r is None else x[r.start:r.start + r.count]
 
     def reset_stats(self) -> None:
         """Zero the latency accounting; the take (seed carry, generator,

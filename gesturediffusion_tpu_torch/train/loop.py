@@ -21,6 +21,22 @@ casts it, and the model's first act casts it back to float32): every
 product stays float32.  ``fk_fn`` (xyz joints of a sample) goes to the
 geometric loss terms (loop.py:114,172-174).
 
+Over several ranks (parallel/, ``TrainState.mesh``) each data rank holds
+its rows of the global batch and the step equals the single-process step
+on that batch: every draw is of the global batch from the generator all
+ranks seed alike (parallel/distributed.py:global_rows), the microbatches
+are the global batch's contiguous ones (loop.py:182-199; with several
+microbatches the ranks gather the batch and each keeps its rows of every
+microbatch), the gradients are averaged over the data group once a step
+in one flat bucket, and the logged loss, the finiteness check, the
+metrics and the sampler's (t, loss) are the global batch's, so every rank
+keeps or skips the same step and holds the same EMA and sampler state.
+Under tensor parallelism (``mesh.model`` > 1, loop.py:387-400) each weight
+of parallel/mesh.py:shard_params_tp trains as its row block with its AdamW
+moments (``TrainState.tp``): the step keeps its block of the averaged
+gradient, updates the block, and gathers the whole weight over the model
+group for the next forward, the fused layers taking whole weights.
+
 ``TrainLoop`` is the host shell: data, text embedding, logging,
 checkpoints and resume.  With a ``text_encoder`` each batch's captions are
 embedded on the host into ``text_emb`` (loop.py:517-529); the batch's
@@ -36,6 +52,7 @@ schedule, sampler, EMA, skip count and generator state).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,6 +68,19 @@ from gesturediffusion_tpu_torch.data.collate import device_cond
 from gesturediffusion_tpu_torch.data.loader import DataLoader, infinite_batches
 from gesturediffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from gesturediffusion_tpu_torch.diffusion.resample import create_named_schedule_sampler
+from gesturediffusion_tpu_torch.parallel.distributed import (
+    all_gather_cat,
+    all_reduce_mean,
+    barrier,
+    global_rows,
+    make_global_batch,
+    process_index,
+)
+from gesturediffusion_tpu_torch.parallel.mesh import (
+    Mesh,
+    ShardedParams,
+    make_data_mesh_for_batch,
+)
 from gesturediffusion_tpu_torch.train.platforms import TrainPlatform
 from gesturediffusion_tpu_torch.utils import logger as log_lib
 from gesturediffusion_tpu_torch.utils.convert import load_weights
@@ -88,6 +118,8 @@ class TrainState:
     ema: dict  # parameter name -> EMA tensor; empty when EMA is off
     step: int = 0
     nonfinite_skips: int = 0
+    mesh: Optional[Mesh] = None          # the ranks' grid; None: one process
+    tp: Optional[ShardedParams] = None   # the sharded weights' blocks (mesh.model > 1)
 
 
 def quartile_means(t: torch.Tensor, values: torch.Tensor, num_timesteps: int) -> dict:
@@ -123,6 +155,28 @@ def make_optimizer(params, config: TrainConfig):
     return opt, sched
 
 
+def make_train_state(model: nn.Module, config: TrainConfig, sampler,
+                     mesh: Optional[Mesh] = None) -> TrainState:
+    """A fresh state: AdamW over the model's parameters (each weight tensor
+    parallelism shards as its block), the EMA from the weights."""
+    tp = ShardedParams(model, mesh) if mesh is not None and mesh.model > 1 else None
+    opt, sched = make_optimizer(tp.optimizer_params() if tp else model.parameters(), config)
+    ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+           if config.ema_rate > 0 else {})
+    return TrainState(model, opt, sched, sampler, ema, mesh=mesh, tp=tp)
+
+
+def average_grads(params, group) -> None:
+    """Each gradient averaged over the group, in one flat bucket."""
+    if group is None:
+        return
+    flat = all_reduce_mean(torch.cat([p.grad.reshape(-1) for p in params]), group)
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+
+
 def train_step(
     state: TrainState,
     diffusion: GaussianDiffusion,
@@ -135,25 +189,17 @@ def train_step(
     fk_fn: Optional[Callable] = None,
 ) -> dict:
     """One update.  ``t`` and ``noise`` default to the sampler's and the
-    generator's draws; passing them replays a step exactly.  Returns the
-    metrics as tensors (one host sync decides whether the step is kept)."""
+    generator's draws; passing them replays a step exactly.  Over several
+    data ranks ``motion``, ``cond``, ``t`` and ``noise`` are this rank's
+    rows of the global batch (its loader slice).  Returns the metrics as
+    tensors, the global batch's (one host sync decides whether the step is
+    kept)."""
     model = state.model
     model.train()
-    b = motion.shape[0]
-    if t is None:
-        t, weights = state.sampler.sample(b, generator)
-    else:
-        # injected timesteps: uniform importance weights
-        weights = torch.ones((b,), dtype=torch.float32, device=motion.device)
-    if noise is None:
-        noise = torch.randn(motion.shape, generator=generator, device=motion.device,
-                            dtype=motion.dtype)
-
-    def model_fn(x, tt, cc):
-        if config.use_bf16:
-            x = x.to(torch.bfloat16).to(x.dtype)
-        return model(x, tt, cc, train=True, generator=generator).to(motion.dtype)
-
+    mesh = state.mesh
+    dp, r, group = (1, 0, None) if mesh is None else (mesh.data, mesh.data_index,
+                                                      mesh.data_group)
+    b = motion.shape[0] * dp  # the global batch
     mb = config.microbatch_size
     if mb and mb < b:
         if b % mb:
@@ -161,15 +207,51 @@ def train_step(
         k = b // mb
     else:
         k, mb = 1, b
+    if mb % dp:
+        raise ValueError(f"microbatch {mb} not divisible by the {dp} data ranks")
+    mbl = mb // dp  # this rank's rows of a microbatch
+
+    def mine(x):
+        """This rank's rows of each global microbatch from the global batch."""
+        return x.reshape(k, dp, mbl, *x.shape[1:])[:, r].reshape(k * mbl, *x.shape[1:])
+
+    def in_order(x):
+        """The global batch from every rank's rows (mine's inverse)."""
+        x = all_gather_cat(x, group)
+        return x.reshape(dp, k, mbl, *x.shape[1:]).transpose(0, 1).reshape(b, *x.shape[1:])
+
+    if k > 1 and dp > 1:
+        # a rank's slice of the batch spans whole microbatches: regroup
+        def regroup(x):
+            return None if x is None else mine(make_global_batch(mesh, x))
+
+        motion, t, noise = regroup(motion), regroup(t), regroup(noise)
+        cond = {key: regroup(v) for key, v in cond.items()}
+    if t is None:
+        t, weights = (mine(x) for x in state.sampler.sample(b, generator))
+    else:
+        # injected timesteps: uniform importance weights
+        weights = torch.ones(t.shape, dtype=torch.float32, device=motion.device)
+    if noise is None:
+        noise = mine(torch.randn((b,) + motion.shape[1:], generator=generator,
+                                 device=motion.device, dtype=motion.dtype))
+
+    def model_fn(x, tt, cc):
+        if config.use_bf16:
+            x = x.to(torch.bfloat16).to(x.dtype)
+        return model(x, tt, cc, train=True, generator=generator).to(motion.dtype)
+
+    model.zero_grad(set_to_none=True)
     state.optimizer.zero_grad(set_to_none=True)
     stats = [buf for n, buf in model.named_buffers() if n.rsplit(".", 1)[-1] in RUNNING_STATS]
     stats_before = [buf.clone() for buf in stats]
     loss = torch.zeros((), device=motion.device)
     terms: dict = {}
     for i in range(k):
-        sl = slice(i * mb, (i + 1) * mb)
+        sl = slice(i * mbl, (i + 1) * mbl)
         cc = {key: v[sl] for key, v in cond.items()}
-        with torch.enable_grad(), full_f32():  # whatever the caller's grad mode
+        rows = (global_rows(r * mbl, mbl, mb, group) if dp > 1 else contextlib.nullcontext())
+        with torch.enable_grad(), full_f32(), rows:  # whatever the caller's grad mode
             terms_i = diffusion.training_losses(
                 model_fn, motion[sl], t[sl], cc, mask=cc["mask"], noise=noise[sl], fk_fn=fk_fn)
             loss_i = (terms_i["loss"] * weights[sl]).mean()
@@ -183,11 +265,22 @@ def train_step(
     for p in params:
         if p.grad is None:  # a parameter the loss does not reach
             p.grad = torch.zeros_like(p)
+    if dp > 1:  # the global batch's gradients, loss, timesteps and terms
+        average_grads(params, group)
+        loss = all_reduce_mean(loss, group)
+        names = list(terms)
+        cols = in_order(torch.stack([t.float(), weights, *(terms[n] for n in names)], dim=1))
+        t, weights = cols[:, 0].long(), cols[:, 1]
+        terms = {n: cols[:, 2 + j] for j, n in enumerate(names)}
     grad_norm = global_norm(p.grad for p in params)
     ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
     if ok:
+        if state.tp is not None:
+            state.tp.keep_grad_blocks()
         state.optimizer.step()
         state.scheduler.step()
+        if state.tp is not None:
+            state.tp.gather()
         if config.ema_rate > 0:
             with torch.no_grad():
                 for name, p in model.named_parameters():
@@ -240,7 +333,12 @@ class TrainLoop:
         text_encoder: Optional[Callable] = None,
         fk_fn: Optional[Callable] = None,
         eval_fn: Optional[Callable] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """``data`` yields this rank's rows of each global batch of
+        ``config.batch_size``; ``mesh`` defaults to every rank on the data
+        axis.  Rank 0 alone writes files, logs progress and runs
+        ``eval_fn``."""
         self.config = config
         self.text_encoder = text_encoder
         self.eval_fn = eval_fn
@@ -248,16 +346,17 @@ class TrainLoop:
         self.diffusion = diffusion
         self.data = data
         self.device = device
+        self.mesh = mesh if mesh is not None else make_data_mesh_for_batch(config.batch_size)
+        self.writes = process_index() == 0
         self.platform = platform or TrainPlatform(config.save_dir)
-        self.logger = log_lib.configure(config.save_dir)
+        self.logger = log_lib.configure(config.save_dir if self.writes else None)
         model = model.to(device)
-        opt, sched = make_optimizer(model.parameters(), config)
         sampler = create_named_schedule_sampler(
             config.schedule_sampler, diffusion.num_timesteps, device)
-        self.state = TrainState(model, opt, sched, sampler, self._fresh_ema(model))
+        self.state = make_train_state(model, config, sampler, self.mesh)
         self.generator = torch.Generator(device=device).manual_seed(config.seed)
         os.makedirs(config.save_dir, exist_ok=True)
-        if args_to_save is not None:
+        if args_to_save is not None and self.writes:
             with open(os.path.join(config.save_dir, "args.json"), "w") as f:
                 json.dump(args_to_save, f, indent=4, sort_keys=True)
         self.resume_step = 0
@@ -273,11 +372,19 @@ class TrainLoop:
         return os.path.abspath(os.path.join(self.config.save_dir, f"{kind}{step:09d}.pt"))
 
     def save(self) -> str:
+        """Rank 0 writes the checkpoint (the optimizer's sharded moments
+        gathered whole first), the others wait for it."""
         s = self.state
         path = self._path("model", s.step)
+        opt_state = s.optimizer.state_dict()
+        if s.tp is not None:
+            opt_state = s.tp.full_optimizer_state(opt_state)
+        if not self.writes:
+            barrier()
+            return path
         torch.save(s.model.state_dict(), path)
         torch.save({
-            "optimizer": s.optimizer.state_dict(),
+            "optimizer": opt_state,
             "scheduler": s.scheduler.state_dict(),
             "sampler": s.sampler.state_dict(),
             "ema": s.ema,
@@ -289,21 +396,26 @@ class TrainLoop:
                          if hasattr(m, "unfolded_state")},
         }, self._path("opt", s.step))
         log_lib.log(f"saved checkpoint {path}")
+        barrier()
         return path
 
     def load(self, path: str) -> None:
         """Resume from ``model*.pt``.  With its ``opt*.pt`` beside it the
         optimizer, schedule, sampler, EMA and generator continue; without
         it (a reference or JAX-exported file) the optimizer starts fresh
-        and only the LR schedule resumes at the file's step."""
+        and only the LR schedule resumes at the file's step.  Every rank
+        reads the files; a sharded weight keeps its block."""
         s = self.state
         load_weights(s.model, path)
+        if s.tp is not None:
+            s.tp.refill_shards()
         step = parse_resume_step_from_filename(path)
         opt_path = os.path.join(os.path.dirname(path),
                                 os.path.basename(path).replace("model", "opt", 1))
         if os.path.exists(opt_path):
             ck = torch.load(opt_path, map_location=self.device, weights_only=True)
-            s.optimizer.load_state_dict(ck["optimizer"])
+            s.optimizer.load_state_dict(ck["optimizer"] if s.tp is None
+                                        else s.tp.local_optimizer_state(ck["optimizer"]))
             s.scheduler.load_state_dict(ck["scheduler"])
             s.sampler.load_state_dict(ck["sampler"])
             s.ema = {n: e.to(self.device) for n, e in ck["ema"].items()}
@@ -314,7 +426,8 @@ class TrainLoop:
                 modules[n].load_unfolded_state(state)
             log_lib.log(f"resumed from {path} at step {step}")
         else:
-            s.optimizer, s.scheduler = make_optimizer(s.model.parameters(), self.config)
+            s.optimizer, s.scheduler = make_optimizer(
+                s.tp.optimizer_params() if s.tp else s.model.parameters(), self.config)
             s.scheduler.last_epoch = step
             for group, base in zip(s.optimizer.param_groups, s.scheduler.base_lrs):
                 group["lr"] = base * lr_factor(step, self.config.lr_anneal_steps)
@@ -375,8 +488,9 @@ class TrainLoop:
 
             if step > 0 and step % cfg.save_interval == 0:
                 self.save()
-                if self.eval_fn is not None:
+                if self.eval_fn is not None and self.writes:
                     self._evaluate(step)
+                barrier()  # the other ranks wait for rank 0's evaluation
                 if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
                     return
         self.save()

@@ -24,6 +24,14 @@ benchmark on humanml / kit over ``--eval_split`` (eval/eval_humanml.py),
 the a2m benchmark on humanact12 / uestc (eval/eval_a2m.py), else, or where
 a benchmark cannot run (SMPL missing, a split under 32 clips), the
 validation loss over a fixed set of batches.
+
+Several ranks (train_mdm.py:41-43, 66-67, 231-240): with GDT_COORDINATOR_ADDRESS,
+GDT_NUM_PROCESSES and GDT_PROCESS_ID set, each process joins the group
+before it touches the card (parallel/distributed.py:maybe_initialize; rank r
+on card r % device_count unless ``--device`` names one), the ranks form a
+(data, model) grid with ``--mesh_model_axis`` on the model axis, each data
+rank loads its slice of every global ``--batch_size`` batch, and rank 0
+alone writes the files, reports to the platform and evaluates.
 """
 
 from __future__ import annotations
@@ -46,15 +54,21 @@ from gesturediffusion_tpu_torch.eval.eval_a2m import make_a2m_training_eval_fn
 from gesturediffusion_tpu_torch.eval.eval_humanml import make_training_eval_fn
 from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
 from gesturediffusion_tpu_torch.models.smpl import load_smpl_pickle
+from gesturediffusion_tpu_torch.parallel.distributed import (
+    barrier,
+    maybe_initialize,
+    process_index,
+    rank_device,
+)
+from gesturediffusion_tpu_torch.parallel.mesh import make_data_mesh_for_batch
 from gesturediffusion_tpu_torch.train.loop import (
     TrainConfig,
     TrainLoop,
     batch_to_device,
     find_latest_checkpoint,
 )
-from gesturediffusion_tpu_torch.train.platforms import create_platform
+from gesturediffusion_tpu_torch.train.platforms import TrainPlatform, create_platform
 from gesturediffusion_tpu_torch.utils import logger as log_lib
-from gesturediffusion_tpu_torch.utils.device import resolve_device
 from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
 from gesturediffusion_tpu_torch.utils.parser import train_args
 from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
@@ -65,21 +79,29 @@ def main(argv=None) -> TrainLoop:
     get_dataset_class(args.dataset)  # an unknown dataset raises here
     text_data = args.dataset in TEXT_DATASETS
     motion_data = text_data or args.dataset in ACTION_DATASETS
-    device = resolve_device(args.device)
+    maybe_initialize(args.device)  # before anything touches the card
+    device = rank_device(args.device)
+    mesh = make_data_mesh_for_batch(args.batch_size, model=args.mesh_model_axis)
     np.random.seed(args.seed)
-    torch.manual_seed(args.seed)  # the model's initial weights
+    torch.manual_seed(args.seed)  # the model's initial weights, alike on every rank
 
     if os.path.exists(args.save_dir) and not args.overwrite:
         raise FileExistsError(f"save_dir [{args.save_dir}] already exists.")
-    os.makedirs(args.save_dir, exist_ok=True)
-    platform = create_platform(args.train_platform_type, args.save_dir)
-    platform.report_args(vars(args), name="Args")
+    barrier()  # every rank has looked before rank 0 creates it
+    writes = process_index() == 0
+    if writes:
+        os.makedirs(args.save_dir, exist_ok=True)
+        platform = create_platform(args.train_platform_type, args.save_dir)
+        platform.report_args(vars(args), name="Args")
+    else:
+        platform = TrainPlatform(args.save_dir)
 
     log_lib.log("creating data loader...")
     data = get_dataset_loader(args.dataset, batch_size=args.batch_size,
                               num_frames=args.num_frames, split="train",
                               datapath=args.data_dir or None, n_seed_poses=args.seed_poses,
-                              seed=args.seed)
+                              seed=args.seed, process_count=mesh.data,
+                              process_index=mesh.data_index)
     if not motion_data and args.seed_poses and "seed" not in data.dataset[0]:
         # the MDM V2 conditions every step on seed poses; the JAX train CLI
         # fails on such a dataset at the model's cond["seed"] (mdm.py:228)
@@ -110,10 +132,10 @@ def main(argv=None) -> TrainLoop:
                                 jointstype="smpl", vertstrans=False)
 
     eval_fn = (make_eval_fn(args, diffusion, data.dataset, device, text_encoder)
-               if args.eval_during_training else None)
+               if args.eval_during_training and writes else None)
     loop = TrainLoop(config, diffusion, model, data, device, platform=platform,
                      args_to_save=vars(args), text_encoder=text_encoder, fk_fn=fk_fn,
-                     eval_fn=eval_fn)
+                     eval_fn=eval_fn, mesh=mesh)
     if args.resume_checkpoint:
         resume = args.resume_checkpoint
         if resume == "latest":

@@ -204,7 +204,9 @@ def train_args(argv=None) -> argparse.Namespace:
                       help="EMA decay for params (0 disables).")
     perf.add_argument("--schedule_sampler", default="uniform",
                       choices=["uniform", "loss-second-moment"])
-    perf.add_argument("--mesh_model_axis", default=1, type=int)
+    perf.add_argument("--mesh_model_axis", default=1, type=int,
+                      help="Ranks on the model axis: each large weight trains as a "
+                           "1/N row block of it (tensor parallelism).")
     perf.add_argument("--use_fused_train_encoder", action="store_true",
                       help="Train the encoder through the fused training "
                            "layer (CUDA forward and backward kernels, only the "
@@ -219,9 +221,8 @@ def train_args(argv=None) -> argparse.Namespace:
                            "(a memory knob; the fused training layer keeps only its input).")
     args = parser.parse_args(argv)
 
-    if args.mesh_model_axis > 1:
-        raise NotImplementedError(
-            "--mesh_model_axis > 1 (tensor parallelism, ROADMAP A10) is not ported yet")
+    if args.mesh_model_axis < 1:
+        parser.error(f"--mesh_model_axis must be >= 1, got {args.mesh_model_axis}")
     if args.dataset in GESTURE_DATASETS:
         gesture_audio_input(args)  # refused before anything is written
     if args.device_batch_pool < 0:

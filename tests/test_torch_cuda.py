@@ -347,12 +347,12 @@ def _train_layer_value_and_grads(layer, x, w, g, **kw):
     return out.detach(), [x.grad] + [t.grad for t in w]
 
 
-def _check_train_kernels(dev, b, t, d, h, f, rate):
+def _check_train_kernels(dev, b, t, d, h, f, rate, row0=0):
     w = _encoder_weights(d, f, dev, seed=7)
     rs = np.random.RandomState(8)
     x, g = _randn(rs, b, t, d, device=dev), _randn(rs, b, t, d, device=dev)
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
-    kw = dict(seed=seed, num_heads=h, rate=rate)
+    kw = dict(seed=seed, num_heads=h, rate=rate, row0=row0)
     before = (encoder_layer_train_fwd.launches, encoder_layer_train_bwd.launches)
     got, got_grads = _train_layer_value_and_grads(fused_encoder_layer_train, x, w, g, **kw)
     want, want_grads = _train_layer_value_and_grads(encoder_layer_train_plain, x, w, g, **kw)
@@ -377,6 +377,14 @@ def test_train_kernels_match_plain(dev, b, t, d, h, f, rate):
     [4, 61, 512] the action-to-motion model's (60 frames and the token: one
     partial 64-row tile)."""
     _check_train_kernels(dev, b, t, d, h, f, rate)
+
+
+@pytest.mark.parametrize("b,t,d,h,f,row0", [(64, 81, 256, 4, 1024, 64),
+                                            (64, 121, 256, 4, 1024, 192), (2, 7, 64, 2, 96, 3)])
+def test_train_kernels_at_a_row_offset(dev, b, t, d, h, f, row0):
+    """A data rank's share of a global batch: the kernels' hash dropout
+    counts from the share's first row, as the plain twin's does."""
+    _check_train_kernels(dev, b, t, d, h, f, 0.1, row0)
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.0])

@@ -34,6 +34,7 @@ from gesturediffusion_tpu_torch.models.mdm_fastpath import (
     select_sampling_model_fn,
 )
 from gesturediffusion_tpu_torch.ops.mfcc import mfcc_for_window
+from gesturediffusion_tpu_torch.parallel.mesh import Mesh
 from gesturediffusion_tpu_torch.serve.streaming import StreamingGestureSession
 from tests.torch_port_common import (
     SMALL,
@@ -224,8 +225,10 @@ def test_validation_errors(pair):
         _session(port, sampler="euler")
     for sampler in ("plms", "dpmpp"):  # ported: a session takes them
         _session(port, sampler=sampler)
-    with pytest.raises(NotImplementedError, match="A10"):
-        _session(port, mesh=object())
+    # a mesh splits the streams over its data ranks: they must divide
+    with pytest.raises(ValueError, match="not divisible"):
+        _session(port, mesh=Mesh(data=3, model=1))
+    _session(port, mesh=Mesh(data=1, model=1))
 
 
 def test_latency_accounting_and_reset_stats(pair):

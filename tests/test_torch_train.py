@@ -332,17 +332,20 @@ def test_jax_package_loads_the_port_checkpoint(trained):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"],
+@pytest.mark.parametrize("flag", [["--mesh_model_axis", "0"],
                                   ["--mfcc_input", "--use_wav_enc", "--dataset", "genea2023"]])
 def test_flags_the_port_cannot_honour_raise(flag, tmp_path):
-    """Tensor parallelism (A10) is not ported, and a gesture model's two
-    audio inputs at once are refused with JAX's ValueError
+    """A model axis under 1 is refused (tensor parallelism takes 2 and up,
+    tests/test_torch_multiprocess.py), and a gesture model's two audio
+    inputs at once are refused with JAX's ValueError
     (model_factory.py:72-79), each before anything is written;
     --eval_during_training runs on every dataset
     (tests/test_torch_eval_train_hook.py), and a text dataset takes
     --use_wav_enc as JAX does, unread."""
     if "--mesh_model_axis" in flag:
-        error, match = NotImplementedError, "A10"
+        error, match = SystemExit, None
+        assert train_args(["--save_dir", str(tmp_path / "x"), "--mesh_model_axis",
+                           "2"]).mesh_model_axis == 2
     else:
         error, match = ValueError, "mutually exclusive"
     with pytest.raises(error, match=match):
