@@ -194,6 +194,32 @@ Phases, each fatal on failure:
               against the single-process ones under TOL_TAKE (kernels 1
               and 2 counted).  The two-ranks-on-one-card times are a
               functional reading, not a scaling figure
+ 19. evaluators the last modules, on phase 12's humanml tree at the released
+              widths: (a) CompV6 (text BiGRU 512, snippet GRUs 1024, movement
+              latent 512, z 128, pose 263) on a Text2MotionDatasetBaseline
+              batch of 32, lengths drawn from its length estimator, generate
+              over max(m_lens) / 4 snippets, card against CPU with the noise
+              injected (sub-networks TOL_CV6_NET, the take TOL_CV6_TAKE),
+              ms, launches and idle share of a snippet step; (b) the four
+              evaluator trainers, 5 steps each at batch 32 (the a2m
+              classifier at 64 on phase 14's gt batch), card against CPU:
+              the first step's loss and gradients TOL_TRAINER_GRAD, the
+              losses TOL_TRAINER_LOSS, ms a step; (c) save_finest's
+              finest.tar read by EvaluatorWrapper through T2M_EVALUATOR_PATH
+              (a ground-truth batch's embeddings bit for bit the in-memory
+              modules', the ground truth's metrics card vs CPU under
+              TOL_EVAL_FEATS), a generated batch of 32 from phase 12's
+              checkpoint (CFG 64, 1000 steps, kernels 1 and 4 counted) scored
+              by evaluation() with the retrained and the random evaluators,
+              the a2m tar through A2M_CLASSIFIER_PATH on phase 14's batches;
+              (d) 5 gesture train steps at batch 256 (4 x 64) through kernels
+              5 and 6 in four runs, GDT_SEED_DROPOUT unset, 1, 1, unset:
+              losses, gradients and weights bit for bit equal, peak memory,
+              the bytes autograd saved and ms a step of each; (e) the native
+              library built with cc, its batch fills byte-equal to
+              collate_gesture's numpy fills, ms a batch of both in PAIRS
+              pairs of alternating order.  Every reading of (a) and (b) prints float32's one-ulp
+              floor (a CPU run from inputs nudged by one ulp) beside it
 Every train-step comparison (phases 5, 12, 13, 17) holds the kernel steps
 against the plain steps two ways under TOL_STEP_LOSS and TOL_STEP_GRAD:
 free-running (the losses of every step, the first step's gradients), with
@@ -245,6 +271,7 @@ TOL_ENCODER = 5e-4       # f32; K<=1024 sums in another order, LN rescaling
 TOL_TAKE = 1e-3          # f32; 100 chained denoise steps of 8 layers each
 MB, BATCH, RATE, TRAIN_STEPS, CLI_STEPS = 64, 256, 0.1, 5, 20
 T_CLI = 120              # the train CLI's default --num_frames
+PAIRS = 20               # phase 19 (e): timed pairs of the two collate fills
 TRAIN_ROWS = (T + 1, T_CLI + 1, 201)  # training-layer parity; 201 = 3 x 64 + 9
 TOL_TRAIN_FWD = 1e-4     # f32; as the inference layer, the same dropout masks
 TOL_TRAIN_GRAD = 5e-4    # of each gradient's max |value|; weight grads sum 5184 rows
@@ -317,6 +344,17 @@ TOL_FIT_GRAD = 1e-5      # the stage-2 gradient card vs CPU at one state, of its
 # parameter by ~lr whatever its gradient's size, read float32 chaos in the poses (the port
 # on the CPU against JAX at T 20: poses 2.7e-2 apart, the error 6e-4 of itself)
 TOL_FIT_FREE = 2e-2
+# phase 19: the CompV6 baseline and the evaluator trainers at the released widths on phase
+# 12's humanml tree, a batch of 32 (R-precision's; the a2m classifier at MB), 5 steps each.
+# Card against CPU, of each output's or gradient's max |value|: a sub-network (GRUs over
+# <= 49 steps, convolutions, products in another order) and a trainer's first-step loss and
+# gradients TOL_CV6_NET / TOL_TRAINER_GRAD, as TOL_EVAL_FEATS; the whole take (<= 49
+# chained snippets) TOL_CV6_TAKE; the five losses, relative, TOL_TRAINER_LOSS (each Adam
+# step rounds its update in another order).  Each reading prints float32's one-ulp floor
+# beside it.  diversity draws 30 pairs of the batch's 32 samples
+EV_BATCH, EV_DIVERSITY, TRAINER_STEPS = 32, 30, 5
+TOL_CV6_NET, TOL_CV6_TAKE = 1e-5, 1e-4
+TOL_TRAINER_GRAD, TOL_TRAINER_LOSS = 1e-5, 1e-4
 
 
 def log(msg: str) -> None:
@@ -1834,7 +1872,8 @@ def a2m_eval_phase(randn, card):
     humanact12 (the benchmark after the save at step 10) and on the phase-9
     GENEA tree (the validation loss).  Returns the kernel row of
     [64, 61, 512] and the launches of the phase's main paths by kernel (the
-    training kernels' of the a2m CLIs under ``a2m_``)."""
+    training kernels' of the a2m CLIs under ``a2m_``), with seed 0's generated
+    and ground-truth batches under ``batches``."""
     import shutil
 
     import numpy as np
@@ -2125,9 +2164,10 @@ def a2m_eval_phase(randn, card):
            "launches": eval_launches["encoder_layer"] + hook["humanact12"]["encoder_layer"],
            "max_abs_err": enc_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": by, "library_ms": lib_ms}
-    # the main paths' launches (the CLIs and the hooks; not the comparisons)
+    # the main paths' launches (the CLIs and the hooks; not the comparisons), and seed 0's
+    # generated and ground-truth batches, which phase 19 scores again
     a2m_train, gesture = (uncon, hook["humanact12"]), hook["genea2023"]
-    return row, {
+    return row, {"batches": {"gen": gen[0], "gt": gt[0]},
         "encoder_layer": gesture["encoder_layer"], "local_block": gesture["local_block"],
         "flash_attention": (eval_launches["flash_attention"]
                             + hook["humanact12"]["flash_attention"] + gesture["flash_attention"]),
@@ -3903,6 +3943,532 @@ def parallel_phase(model_path, card):
     return total
 
 
+def rel_gap(got, want) -> float:
+    """max|got - want| over max|want| (numpy or tensors)."""
+    import numpy as np
+
+    got, want = (np.asarray(a.detach().cpu() if hasattr(a, "detach") else a, np.float64)
+                 for a in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def one_ulp_up(a):
+    """A float32 array nudged by one ulp (integers as they are): float32's own floor."""
+    import numpy as np
+
+    a = np.asarray(a)
+    return np.nextafter(a, np.float32(np.inf)).astype(np.float32) if a.dtype == np.float32 else a
+
+
+def report_floor(name, err, floor, tol, ok_shape=True):
+    """``report`` with float32's one-ulp floor (the same CPU run from inputs
+    nudged by one ulp) beside the reading."""
+    report(f"{name} (one-ulp floor {floor:.3e})", err, tol, ok_shape)
+
+
+def comp_v6_phase(root, card):
+    """Phase 19 (a): CompV6 at the released widths on the card against the
+    same module on the CPU, the noise injected: a Text2MotionDatasetBaseline
+    batch of EV_BATCH, lengths drawn from the length estimator's softmax as
+    the reference draws them (twice more below 10 units), then ``generate``
+    over max(m_lens) // 4 snippets.  Sub-networks under TOL_CV6_NET, the take
+    under TOL_CV6_TAKE, each beside float32's one-ulp floor; the take's wall
+    time, and a snippet step's ms, launches and idle share."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.humanml import HashVectorizer, Text2MotionDatasetBaseline
+    from gesturediffusion_tpu_torch.eval.comp_v6 import CompV6Generator
+    from gesturediffusion_tpu_torch.utils.device import full_f32
+
+    dev = torch.device("cuda")
+    ds = Text2MotionDatasetBaseline(root, split="test", w_vectorizer=HashVectorizer())
+    items = [ds[i] for i in range(EV_BATCH)]
+    word = np.stack([it["word_embeddings"] for it in items])
+    pos = np.stack([it["pos_one_hots"] for it in items])
+    lens = np.asarray([it["sent_len"] for it in items])
+    src = np.stack([it["src_motion"] for it in items])
+    torch.manual_seed(0)
+    cpu = CompV6Generator(device="cpu")
+    gpu = CompV6Generator(device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+
+    logits = cpu.estimate_length_logits(word, pos, lens)
+    report_floor(f"comp_v6 length estimator [{EV_BATCH},{word.shape[1]},300] -> 50 on the card "
+                 f"vs the CPU", rel_gap(gpu.estimate_length_logits(word, pos, lens), logits),
+                 rel_gap(cpu.estimate_length_logits(one_ulp_up(word), pos, lens), logits),
+                 TOL_CV6_NET)
+    probs = torch.softmax(logits.double(), -1).numpy()
+    rs = np.random.RandomState(0)
+    units = np.zeros(EV_BATCH, np.int64)
+    for i, p in enumerate(probs):
+        for _ in range(3):  # the reference's draw: again while under 10 units, twice at most
+            units[i] = rs.choice(len(p), p=p / p.sum())
+            if units[i] >= 10:
+                break
+    m_lens, mov_len = units * 4, int(units.max())
+    noise = rs.randn(mov_len, EV_BATCH, 128).astype(np.float32)
+
+    state_c = cpu.begin(word, pos, lens)
+    state_g = gpu.begin(word, pos, lens)
+    state_n = cpu.begin(one_ulp_up(word), pos, lens)
+    report_floor(f"comp_v6 text encoder word outputs [{EV_BATCH},{word.shape[1]},1024] on the "
+                 f"card vs the CPU", rel_gap(state_g[1], state_c[1]),
+                 rel_gap(state_n[1], state_c[1]), TOL_CV6_NET)
+    ml_c, ml_g = torch.as_tensor(m_lens), torch.as_tensor(m_lens, device=dev)
+    noise_c, noise_g = torch.as_tensor(noise), torch.as_tensor(noise, device=dev)
+    mov_c, _ = cpu.snippet(0, state_c, ml_c, noise=noise_c[0])
+    mov_g, _ = gpu.snippet(0, state_g, ml_g, noise=noise_g[0])
+    mov_n, _ = cpu.snippet(0, state_n, ml_c, noise=noise_c[0])
+    report_floor(f"comp_v6 snippet step (attention, prior, decoder) [{EV_BATCH},512] on the "
+                 f"card vs the CPU", rel_gap(mov_g, mov_c), rel_gap(mov_n, mov_c), TOL_CV6_NET)
+    lat = rs.randn(EV_BATCH, mov_len, 512).astype(np.float32)
+    with torch.no_grad(), full_f32():
+        dec_c = cpu.mov_dec(torch.as_tensor(lat))
+        dec_g = gpu.mov_dec(torch.as_tensor(lat, device=dev))
+        dec_n = cpu.mov_dec(torch.as_tensor(one_ulp_up(lat)))
+    report_floor(f"comp_v6 movement decoder [{EV_BATCH},{mov_len},512] -> [{EV_BATCH},"
+                 f"{4 * mov_len},263] on the card vs the CPU", rel_gap(dec_g, dec_c),
+                 rel_gap(dec_n, dec_c), TOL_CV6_NET)
+
+    take_c = cpu.generate(word, pos, lens, m_lens, mov_len, noise=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    take_g = gpu.generate(word, pos, lens, m_lens, mov_len, noise=noise)
+    torch.cuda.synchronize()
+    take_s = time.perf_counter() - t0
+    take_n = cpu.generate(one_ulp_up(word), pos, lens, m_lens, mov_len, noise=noise)
+    shape_ok = (tuple(take_g.shape) == (EV_BATCH, 4 * mov_len, 263)
+                and bool(torch.isfinite(take_g).all()) and src.shape == (EV_BATCH, 20, 263))
+    report_floor(f"comp_v6 take ({EV_BATCH} captions, {mov_len} snippets, m_lens "
+                 f"{int(m_lens.min())}-{int(m_lens.max())}) on the card vs the CPU, the noise "
+                 f"injected (|take| max {take_c.abs().max().item():.3f})", rel_gap(take_g, take_c),
+                 rel_gap(take_n, take_c), TOL_CV6_TAKE, shape_ok)
+    i = min(5, mov_len - 1)
+    prof = device_profile(lambda: gpu.snippet(i, state_g, ml_g, noise=noise_g[i]), 20,
+                          f"comp_v6 snippet step (batch {EV_BATCH})", card)
+    log(f"time comp_v6 take: {take_s:.3f} s for {mov_len} snippets = "
+        f"{take_s / mov_len * 1e3:.4f} ms a snippet step (the text encoder and the movement "
+        f"decoder included); a snippet step alone {prof['ms']:.4f} ms, {prof['launches']} "
+        f"launches, idle share {prof['idle']:.3f} {card}")
+
+
+def trainers_phase(root, a2m_gt, card):
+    """Phase 19 (b): the four evaluator trainers at the released widths,
+    TRAINER_STEPS steps each at EV_BATCH (the a2m classifier at MB), on the
+    card against the same trainer on the CPU: the first step's loss and
+    every gradient under TOL_TRAINER_GRAD, the losses under
+    TOL_TRAINER_LOSS relative, each beside a CPU run from one-ulp-nudged
+    inputs.  Returns the card's trained modules."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.humanml import (
+        HashVectorizer,
+        MotionDatasetV2,
+        Text2MotionDatasetV2,
+    )
+    from gesturediffusion_tpu_torch.eval import trainers as tr
+    from gesturediffusion_tpu_torch.eval.comp_v6 import (
+        MotionLenEstimatorBiGRU,
+        MovementConvDecoder,
+    )
+    from gesturediffusion_tpu_torch.eval.eval_humanml import collate_humanml_eval
+    from gesturediffusion_tpu_torch.eval.networks import (
+        MotionDiscriminator,
+        MotionEncoderBiGRUCo,
+        MovementConvEncoder,
+        TextEncoderBiGRUCo,
+    )
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(19)
+    windows = MotionDatasetV2(root, "train", window_size=64)
+    texts = Text2MotionDatasetV2(root, "train", w_vectorizer=HashVectorizer())
+    decomp_b = [(np.stack([windows[int(i)]["motion"]
+                           for i in rs.randint(0, len(windows), EV_BATCH)]),)
+                for _ in range(TRAINER_STEPS)]
+    text_b = [collate_humanml_eval([texts[int(i)] for i in rs.randint(0, len(texts), EV_BATCH)])
+              for _ in range(TRAINER_STEPS)]
+    len_b = [(b["word_embs"], b["pos_ohot"], b["cap_lens"], b["m_lens"]) for b in text_b]
+    match_b = [(b["word_embs"], b["pos_ohot"], b["cap_lens"], b["motions"], b["m_lens"],
+                int(rs.randint(1, EV_BATCH))) for b in text_b]
+    xyz = np.asarray(a2m_gt["output_xyz"], np.float32)
+    clf_b = [(xyz + rs.randn(*xyz.shape).astype(np.float32) * 0.01 * k,
+              np.asarray(a2m_gt["lengths"]), np.asarray(a2m_gt["y"]))
+             for k in range(TRAINER_STEPS)]
+
+    def seeded(build):
+        def make(device):
+            torch.manual_seed(19)
+            return build(device)
+        return make
+
+    trained = {}
+
+    def compare(name, make, batches):
+        cpu, gpu, nud = make("cpu"), make(dev), make("cpu")
+        first = [t.backward(*b) for t, b in ((cpu, batches[0]), (gpu, batches[0]),
+                                             (nud, tuple(one_ulp_up(a) for a in batches[0])))]
+        grads = [{n: p.grad.detach().cpu().clone() for n, p in t.named_parameters()}
+                 for t in (cpu, gpu, nud)]
+        gap, worst = max((rel_gap(grads[1][n], g), n) for n, g in grads[0].items())
+        floor = max(rel_gap(grads[2][n], g) for n, g in grads[0].items())
+        loss0 = [m["loss"].item() for m in first]
+        report_floor(f"trainer {name}: the first step's loss on the card vs the CPU "
+                     f"({loss0[0]:.6f})", abs(loss0[1] - loss0[0]) / abs(loss0[0]),
+                     abs(loss0[2] - loss0[0]) / abs(loss0[0]), TOL_TRAINER_GRAD)
+        report_floor(f"trainer {name}: the first step's {len(grads[0])} gradients on the card "
+                     f"vs the CPU, of each one's max (worst {worst})", gap, floor,
+                     TOL_TRAINER_GRAD)
+        losses = [[x] for x in loss0]
+        times = []
+        for t in (cpu, gpu, nud):
+            t.update()
+        for b in batches[1:]:
+            for k, (t, bb) in enumerate(((cpu, b), (gpu, b), (nud, tuple(map(one_ulp_up, b))))):
+                if k == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                losses[k].append(t.step(*bb)["loss"].item())
+                if k == 1:
+                    times.append(time.perf_counter() - t0)
+        rel = [max(abs(a - w) / abs(w) for a, w in zip(run, losses[0])) for run in losses[1:]]
+        report_floor(f"trainer {name}: {len(batches)} losses on the card vs the CPU "
+                     f"({', '.join(f'{x:.6f}' for x in losses[1])}), relative", rel[0], rel[1],
+                     TOL_TRAINER_LOSS)
+        log(f"time trainer {name}: {sorted(times)[len(times) // 2] * 1e3:.3f} ms a step "
+            f"(median of steps 2-{len(batches)}, host sync included) {card}")
+        return cpu, gpu
+
+    decomp_c, decomp_g = compare("decomp (movement autoencoder 259 -> 512 -> 263, [32,64,263])",
+                                 seeded(lambda d: tr.DecompTrainer(
+                                     MovementConvEncoder(259, 512, 512),
+                                     MovementConvDecoder(512, 512, 263), device=d)), decomp_b)
+    compare("length estimator (BiGRU 512, 50 buckets, clip 0.5)",
+            seeded(lambda d: tr.LengthEstTrainer(MotionLenEstimatorBiGRU(), device=d)), len_b)
+    movement = decomp_c.modules["enc"].state_dict()
+
+    def match(d):
+        enc = MovementConvEncoder(259, 512, 512)
+        enc.load_state_dict(movement)
+        return tr.TextMotionMatchTrainer(TextEncoderBiGRUCo(), MotionEncoderBiGRUCo(), enc,
+                                         device=d)
+
+    _, match_g = compare("text-motion match (text BiGRU 512, motion BiGRU 1024, the decomp's "
+                         "frozen movement encoder, clip 0.5)", seeded(match), match_b)
+    _, clf_g = compare(f"action classifier (GRU 72 -> 128 x 2 -> 12, phase 14's gt batch of "
+                       f"{xyz.shape[0]})", seeded(lambda d: tr.ActionClassifierTrainer(
+                           MotionDiscriminator(72, 128, 2, 12), device=d)), clf_b)
+    trained.update(text_encoder=match_g.modules["text"], motion_encoder=match_g.modules["motion"],
+                   movement_encoder=match_g.movement_encoder, a2m=clf_g.modules["classifier"])
+    return trained
+
+
+def closed_loop_phase(root, trained, a2m_batches, card):
+    """Phase 19 (c): ``save_finest`` writes finest.tar and the a2m tar; the
+    T2M wrapper from T2M_EVALUATOR_PATH embeds a ground-truth batch bit for
+    bit as the in-memory modules do and gives the ground truth's metrics on
+    the card within TOL_EVAL_FEATS of the CPU; one generated batch of
+    EV_BATCH from phase 12's checkpoint (CFG 2 x EV_BATCH, 1000 steps,
+    kernels 1 and 4 counted) scored by ``evaluation`` with the retrained
+    evaluators beside the random ones; the a2m tar through
+    A2M_CLASSIFIER_PATH on phase 14's batches.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.data.humanml import HashVectorizer, Text2MotionDatasetV2
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample_loop
+    from gesturediffusion_tpu_torch.eval.eval_a2m import A2MEvaluation, make_a2m_evaluation
+    from gesturediffusion_tpu_torch.eval.eval_humanml import (
+        GeneratedMotionSet,
+        GroundTruthMotionSet,
+        evaluate_diversity,
+        evaluate_fid,
+        evaluate_matching_score,
+        evaluation,
+        load_eval_renorm,
+    )
+    from gesturediffusion_tpu_torch.eval.evaluator_wrapper import STATE_DICT_KEYS, EvaluatorWrapper
+    from gesturediffusion_tpu_torch.eval.trainers import save_finest
+    from gesturediffusion_tpu_torch.models.cfg import classifier_free_guidance
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.utils.convert import load_checkpoint
+    from gesturediffusion_tpu_torch.utils.model_factory import create_model_and_diffusion
+    from gesturediffusion_tpu_torch.utils.parser import evaluation_args
+    from gesturediffusion_tpu_torch.utils.text_embedder import get_text_encoder
+
+    dev = torch.device("cuda")
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "evaluators")
+    os.makedirs(out_dir, exist_ok=True)
+    finest, a2m_tar = os.path.join(out_dir, "finest.tar"), os.path.join(out_dir, "gru.tar")
+    save_finest(finest, {k: trained[k] for k in STATE_DICT_KEYS})
+    save_finest(a2m_tar, {"model": trained["a2m"]})
+    saved = {k: os.environ.get(k) for k in ("T2M_EVALUATOR_PATH", "A2M_CLASSIFIER_PATH")}
+    try:
+        os.environ["T2M_EVALUATOR_PATH"], os.environ["A2M_CLASSIFIER_PATH"] = finest, a2m_tar
+        loaded, loaded_cpu = (EvaluatorWrapper("humanml", dim_pose=T2M_J, device=d)
+                              for d in (dev, "cpu"))
+        a2m_loaded = make_a2m_evaluation("humanact12", device=dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    memory = EvaluatorWrapper("humanml", dim_pose=T2M_J, device=dev, state_dicts={
+        k: trained[k].state_dict() for k in STATE_DICT_KEYS})
+    random_ev = EvaluatorWrapper("humanml", dim_pose=T2M_J, device=dev)
+
+    ds = Text2MotionDatasetV2(root, split="test", w_vectorizer=HashVectorizer())
+    renorm = load_eval_renorm(ds, log)
+    order = ds.rng.getstate()
+    gt = list(GroundTruthMotionSet(ds, renorm=renorm))
+    b0 = gt[0]
+    embs = [w.get_co_embeddings(b0["word_embs"], b0["pos_ohot"], b0["cap_lens"], b0["motions"],
+                                b0["m_lens"]) for w in (loaded, memory)]
+    same = all(np.array_equal(a, b) for a, b in zip(*embs))
+    log(f"{'OK' if same else 'FAIL'} closed loop: finest.tar through T2M_EVALUATOR_PATH embeds "
+        f"a ground-truth batch of {EV_BATCH} bit for bit as the in-memory trained modules "
+        f"(text {embs[0][0].shape}, motion {embs[0][1].shape})")
+    if not same:
+        raise AssertionError("the retrained finest.tar does not read back as written")
+    metrics = []
+    for w in (loaded, loaded_cpu):
+        np.random.seed(0)
+        match, rprec, acti = evaluate_matching_score(w, {"ground truth": gt}, lambda *a: None)
+        fid = evaluate_fid(w, gt, acti, lambda *a: None)
+        div = evaluate_diversity(acti, EV_DIVERSITY, lambda *a: None)
+        metrics.append({"Matching Score": match["ground truth"], "FID": fid["ground truth"],
+                        "Diversity": div["ground truth"],
+                        **{f"R_precision top {i + 1}": v
+                           for i, v in enumerate(rprec["ground truth"])}})
+    gap = max(abs(metrics[0][k] - v) / max(1.0, abs(v)) for k, v in metrics[1].items())
+    report(f"closed loop: the ground truth's metrics with the retrained evaluators on the card "
+           f"vs the CPU ({len(gt)} batches of {EV_BATCH}; {metrics[0]})", gap, TOL_EVAL_FEATS)
+
+    base = os.path.join(HERE, "build", "chip_smoke", "t2m_train")  # phase 12's
+    ckpt = os.path.join(base, "run", f"model{CLI_STEPS:09d}.pt")
+    args = evaluation_args(["--model_path", ckpt, "--guidance_param", str(GUIDANCE)])
+    model, diffusion = create_model_and_diffusion(args, ds, dev)
+    model.load_state_dict(load_checkpoint(ckpt))
+    model.to(dev).eval()
+    model_fn = classifier_free_guidance(model, args.cond_mask_prob)
+    shape = (EV_BATCH, ds.pose_dim, 1, T2M_FRAMES)
+
+    def sample_fn(generator, cond):
+        return p_sample_loop(diffusion, model_fn, shape, cond, generator=generator,
+                             clip_denoised=False)
+
+    counted, _ = launch_counter({"encoder_layer": fused_encoder_layer,
+                                 "flash_attention": fused_self_attention})
+    ds.rng.setstate(order)
+    t0 = time.perf_counter()
+    gen, launches = counted(lambda: GeneratedMotionSet(
+        sample_fn, ds, text_encoder=get_text_encoder(device=dev), scale=GUIDANCE, renorm=renorm,
+        seed=0, num_samples_limit=EV_BATCH, device=dev).batches)
+    gen_s = time.perf_counter() - t0
+    steps = diffusion.num_timesteps
+    want = {"encoder_layer": LAYERS * steps, "flash_attention": LAYERS * steps}
+    ok = launches == want and np.isfinite(gen[0]["motions"]).all()
+    log(f"{'OK' if ok else 'FAIL'} closed loop: a generated batch of {EV_BATCH} from phase 12's "
+        f"checkpoint (CFG batch {2 * EV_BATCH}, {steps} DDPM steps) in {gen_s:.3f} s; launches "
+        f"{launches} (expected {want}) {card}")
+    if not ok:
+        raise AssertionError("the generated batch missed its kernels or is not finite")
+    scores = {}
+    for name, w in (("retrained", loaded), ("random", random_ev)):
+        np.random.seed(0)
+        means = evaluation(w, gt, {"vald": lambda rep: (gen, {})},
+                           os.path.join(out_dir, f"eval_{name}.log"), replication_times=1,
+                           diversity_times=EV_DIVERSITY)
+        scores[name] = {k: means[f"{k}_vald"] for k in ("FID", "R_precision", "Matching Score")}
+        scores[name]["FID_ground truth"] = means["FID_ground truth"]
+    finite = all(np.isfinite(np.asarray(v)).all() for s in scores.values() for v in s.values())
+    log(f"{'OK' if finite else 'FAIL'} closed loop: the generated batch scored by evaluation(): "
+        + "; ".join(f"{n} evaluators FID {s['FID']:.4f} (ground truth {s['FID_ground truth']:.4f}"
+                    f"), R-precision {np.round(s['R_precision'], 4).tolist()}, matching score "
+                    f"{s['Matching Score']:.4f}" for n, s in scores.items()) + f" {card}")
+    if not finite:
+        raise AssertionError("the closed loop's metrics are not finite")
+
+    with torch.no_grad():
+        a2m_same = all(torch.equal(a2m_loaded.classifier.state_dict()[k], v.to(dev))
+                       for k, v in trained["a2m"].state_dict().items())
+    a2m = {}
+    for name, ev in (("retrained", a2m_loaded), ("random", A2MEvaluation(device=dev))):
+        m = ev.evaluate({"gt": [a2m_batches["gt"]], "gen": [a2m_batches["gen"]]})
+        a2m[name] = {k: m[k] for k in ("accuracy_gt", "accuracy_gen", "fid_gen")}
+    finite = all(np.isfinite(v) for s in a2m.values() for v in s.values())
+    log(f"{'OK' if a2m_same and finite else 'FAIL'} closed loop: the a2m tar through "
+        f"A2M_CLASSIFIER_PATH loads the trained classifier bit for bit; phase 14's seed-0 "
+        f"batches: " + "; ".join(f"{n} classifier {s}" for n, s in a2m.items()) + f" {card}")
+    if not (a2m_same and finite):
+        raise AssertionError("the retrained a2m classifier does not read back or score")
+    return launches
+
+
+def seed_dropout_phase(tmodel, diffusion, cfg, randn, rs, card):
+    """Phase 19 (d): TRAIN_STEPS gesture train steps at batch BATCH (MB a
+    microbatch) through kernels 5 and 6 from the same weights, in four runs
+    with GDT_SEED_DROPOUT unset, 1, 1, unset (an order effect falls on both
+    sides alike): every run's losses, first-step gradients and weights after
+    the last step bit for bit the first's; peak memory and ms a step of each
+    run, the bytes autograd saved in a step (saved_tensors_hooks) for both.
+    Returns the launches of the four runs."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        encoder_layer_train_bwd,
+        encoder_layer_train_fwd,
+    )
+    from gesturediffusion_tpu_torch.train.loop import make_train_state, train_step
+
+    dev = torch.device("cuda")
+    mask = torch.ones((BATCH, 1, 1, T), dtype=torch.bool, device=dev)
+    batches = [dict(motion=randn(BATCH, J, 1, T, scale=0.5),
+                    cond={"mfcc": randn(BATCH, A, 1, T), "seed": randn(BATCH, J, 1, S, scale=0.5),
+                          "mask": mask},
+                    t=torch.from_numpy(rs.randint(0, 1000, size=BATCH)).to(dev),
+                    noise=randn(BATCH, J, 1, T)) for _ in range(TRAIN_STEPS)]
+    counted, total = launch_counter({"encoder_layer_train_fwd": encoder_layer_train_fwd,
+                                     "encoder_layer_train_bwd": encoder_layer_train_bwd})
+    runs, saved = [], {}
+    before = os.environ.pop("GDT_SEED_DROPOUT", None)
+    try:
+        for flag in ("unset", "1", "1", "unset"):
+            os.environ.pop("GDT_SEED_DROPOUT", None)
+            if flag == "1":
+                os.environ["GDT_SEED_DROPOUT"] = "1"
+            model = copy.deepcopy(tmodel)
+            (losses, grads, ms, (peak, above)), launches = counted(
+                lambda: run_train_steps(model, diffusion, cfg, batches))
+            if flag not in saved:
+                sizes = []
+                probe = copy.deepcopy(tmodel)
+                state = make_train_state(probe, cfg, UniformSampler(1000), None)
+                gen = torch.Generator(device=dev).manual_seed(7)
+                b = batches[0]
+                with torch.autograd.graph.saved_tensors_hooks(
+                        lambda x: sizes.append(x.numel() * x.element_size()) or x, lambda x: x):
+                    train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
+                               b["noise"])
+                del probe, state
+                saved[flag] = sum(sizes)
+            runs.append(dict(flag=flag, losses=losses, grads=grads, ms=ms, peak=peak,
+                             above=above, launches=launches,
+                             weights={k: v.clone() for k, v in model.state_dict().items()}))
+    finally:
+        os.environ.pop("GDT_SEED_DROPOUT", None)
+        if before is not None:
+            os.environ["GDT_SEED_DROPOUT"] = before
+    a = runs[0]
+    want = LAYERS * (BATCH // MB) * TRAIN_STEPS
+    same = all(b["losses"] == a["losses"]
+               and all(torch.equal(a["grads"][k], b["grads"][k]) for k in a["grads"])
+               and all(torch.equal(a["weights"][k], b["weights"][k]) for k in a["weights"])
+               for b in runs[1:])
+    ok = same and all(r["launches"] == {"encoder_layer_train_fwd": want,
+                                        "encoder_layer_train_bwd": want} for r in runs)
+    log(f"{'OK' if ok else 'FAIL'} seed-redrawn dropout: {TRAIN_STEPS} gesture train steps at "
+        f"batch {BATCH} ({BATCH // MB} x {MB}, [{MB},{T + 1},{D}]) in four runs, "
+        f"GDT_SEED_DROPOUT unset, =1, =1, unset: losses "
+        + " / ".join(str(r["losses"]) for r in runs) + f", the first step's {len(a['grads'])} "
+        f"gradients and the last weights {'bit for bit equal' if same else 'DIFFER'}; launches "
+        + " / ".join(str(r["launches"]) for r in runs) + f" (expected {want} each)")
+    if not ok:
+        raise AssertionError("GDT_SEED_DROPOUT=1 changed the training step or missed kernels 5/6")
+    for flag in ("unset", "1"):
+        mine = [r for r in runs if r["flag"] == flag]
+        log(f"time seed-redrawn dropout, GDT_SEED_DROPOUT {flag}: "
+            + " and ".join(f"{r['ms']:.3f}" for r in mine)
+            + f" ms a step (median of steps 2-{TRAIN_STEPS}, runs in the order unset, 1, 1, "
+            f"unset); peak memory " + " and ".join(f"{r['peak']:.1f}" for r in mine)
+            + " MiB (" + " and ".join(f"{r['above']:.1f}" for r in mine)
+            + f" above the start); autograd saved {saved[flag] / 2**20:.3f} MiB in a step {card}")
+    return total
+
+
+def native_phase(card):
+    """Phase 19 (e): the host C library built with the system compiler, held
+    against the port's numpy collate, which it does not serve: the motion
+    and MFCC batches and the mask of MB gesture items at the released widths
+    (J 498, MFCC 26, 80 frames) as collate_gesture fills them by numpy and
+    as JAX's collate fills them through the library (JAX
+    data/collate.py:28-31,47-57), byte-equal; ms a batch of both fills, in
+    PAIRS pairs whose order alternates, median and range."""
+    import numpy as np
+
+    from gesturediffusion_tpu_torch.data import native
+    from gesturediffusion_tpu_torch.data.collate import collate_gesture, lengths_to_mask
+
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("the native data library did not build (see the log line above)")
+    rs = np.random.RandomState(190)
+    items = [{"motion": rs.randn(int(rs.randint(60, T + 20)), J).astype(np.float32),
+              "length": T, "mfcc": rs.randn(T + 20, A).astype(np.float32),
+              "seed": rs.randn(S, J).astype(np.float32),
+              "audio": rs.randn(T * 735).astype(np.float32), "text": f"take {i}"}
+             for i in range(MB)]
+    lengths = np.asarray([min(int(it["length"]), T) for it in items], np.int32)
+
+    def fill(by_library):
+        out = []
+        for key in ("motion", "mfcc"):
+            c = items[0][key].shape[1]
+            dst = np.zeros((MB, c, 1, T), np.float32)
+            zeros, ones = np.zeros(c, np.float32), np.ones(c, np.float32)
+            for i, it in enumerate(items):
+                src = it[key][:T]
+                if by_library:
+                    dst[i, :, 0, :] = native.window_znorm_transpose(src, 0, T, zeros, ones)
+                else:
+                    dst[i, :, 0, :src.shape[0]] = src.T
+            out.append(dst)
+        out.append(native.lengths_to_mask_native(lengths, T) if by_library
+                   else lengths_to_mask(lengths, T))
+        return out
+
+    motion, cond = collate_gesture(items, T)
+    want = [motion, cond["mfcc"], cond["mask"][:, 0, 0]]
+    same = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+               for side in (fill(True), fill(False)) for a, b in zip(side, want))
+    times = {"library": [], "numpy": []}
+    for r in range(PAIRS):
+        for name in (("library", "numpy") if r % 2 == 0 else ("numpy", "library")):
+            t0 = time.perf_counter()
+            fill(name == "library")
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    spans = {n: (sorted(v)[len(v) // 2], min(v), max(v)) for n, v in times.items()}
+    log(f"{'OK' if same else 'FAIL'} native: {native.library_path()} built by "
+        f"{os.environ.get('CC', 'cc')}; the motion, MFCC and mask fills of {MB} items (J {J}, "
+        f"MFCC {A}, {T} frames) through it byte-equal to collate_gesture's numpy fills: {same}; "
+        + ", ".join(f"{n} {m:.3f} ms a batch (range {lo:.3f}-{hi:.3f})"
+                    for n, (m, lo, hi) in spans.items())
+        + f", medians of {PAIRS} pairs in alternating order {card}")
+    if not same:
+        raise AssertionError("the native library's fills differ from collate_gesture's")
+
+
+def evaluator_phase(randn, rs, card, a2m_batches, tmodel, tdiffusion, tcfg):
+    """Phase 19: the CompV6 baseline, the evaluator trainers and the closed
+    loop on phase 12's humanml tree, the seed-redrawn dropout on the phase-5
+    model, the native collate library.  Returns the main paths' launches by
+    kernel."""
+    root = os.path.join(HERE, "build", "chip_smoke", "t2m_train", "humanml")  # phase 12's
+    t0 = time.perf_counter()
+    comp_v6_phase(root, card)
+    trained = trainers_phase(root, a2m_batches["gt"], card)
+    loop = closed_loop_phase(root, trained, a2m_batches, card)
+    dropout = seed_dropout_phase(tmodel, tdiffusion, tcfg, randn, rs, card)
+    native_phase(card)
+    log(f"phase 19 in {time.perf_counter() - t0:.1f} s {card}")
+    return {**loop, **dropout}
+
+
 def main() -> int:
     import torch
 
@@ -4206,6 +4772,11 @@ def main() -> int:
     # ---- 18. the multi-rank paths: NCCL at one rank, two ranks on gloo -- #
     par = parallel_phase(model_path, card)
 
+    # ---- 19. CompV6, evaluator retraining, seed-redrawn dropout, native collate -- #
+    ev19 = evaluator_phase(randn, rs, card, a2m_eval["batches"], tmodel, tdiffusion, tcfg)
+    t2m_rows[1]["launches"] += ev19["encoder_layer"]          # [64, 197, 512]
+    t2m_train_rows[3]["launches"] += ev19["flash_attention"]  # [64, 4, 197, 128]
+
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",
@@ -4233,7 +4804,7 @@ def main() -> int:
          "launches": (train_launches[0] + genea["encoder_layer_train_fwd"]
                       + a2m_eval["encoder_layer_train_fwd"]
                       + wav_old["encoder_layer_train_fwd"]
-                      + par["encoder_layer_train_fwd"]),
+                      + par["encoder_layer_train_fwd"] + ev19["encoder_layer_train_fwd"]),
          "max_abs_err": train_fwd_err,
          **time_keys(train_times[T + 1]["fwd"])},
         {"name": "encoder_layer_train_bwd", "route": "cuda",
@@ -4242,7 +4813,7 @@ def main() -> int:
          "launches": (train_launches[1] + genea["encoder_layer_train_bwd"]
                       + a2m_eval["encoder_layer_train_bwd"]
                       + wav_old["encoder_layer_train_bwd"]
-                      + par["encoder_layer_train_bwd"]),
+                      + par["encoder_layer_train_bwd"] + ev19["encoder_layer_train_bwd"]),
          "max_abs_err": train_bwd_err,
          **time_keys(train_times[T + 1]["bwd"])},
         *long_rows,

@@ -8,11 +8,14 @@ released GloVe files ``{prefix}_words.pkl``, ``_idx.pkl``, ``_data.npy``),
 ``HashVectorizer`` (:94; its md5-seeded stand-in), ``Text2MotionDatasetV2``
 (:121; length-sorted clips, unit-length crops, z-normalisation, and with a
 ``w_vectorizer`` the evaluators' word vectors, part-of-speech one-hots and
-sentence length), ``TextOnlyDataset`` (:427) and ``make_synthetic_humanml``
-(:466).  ``MotionDatasetV2``, ``Text2MotionDatasetBaseline`` and
-``RawTextDataset`` serve the evaluator retraining and the CompV6 baseline,
-which are not ported.  Items draw from the same ``random.Random(0)`` in the
-same order as the JAX package's, so both packages give the same crops.
+sentence length), ``MotionDatasetV2`` (:287; motion-only windows for the
+movement autoencoder of eval/trainers.py), ``Text2MotionDatasetBaseline``
+(:329; adds ``src_motion`` at ``max_length`` for the CompV6 baseline of
+eval/comp_v6.py), ``RawTextDataset`` (:349; prompts from a text file,
+tagged by spacy where it is installed, else every word OTHER),
+``TextOnlyDataset`` (:427) and ``make_synthetic_humanml`` (:466).  Items draw
+from the same ``random.Random(0)`` in the same order as the JAX package's,
+so both packages give the same crops.
 
 On-disk layout: <root>/{new_joint_vecs/*.npy, texts/*.txt, Mean.npy,
 Std.npy, train.txt / val.txt / test.txt}.
@@ -24,6 +27,7 @@ import hashlib
 import os
 import pickle
 import random
+import warnings
 from os.path import join as pjoin
 from typing import Optional
 
@@ -110,6 +114,20 @@ def load_word_vectorizer(log):
     except OSError:
         log("GloVe assets not found — using hash vectorizer (NOT metric-parity)")
         return HashVectorizer()
+
+
+def word_vectors(tokens: list, w_vectorizer, max_text_len: int) -> dict:
+    """A caption's tokens between sos and eos, cut to ``max_text_len`` and
+    padded with unk to ``max_text_len + 2``: their word vectors [L, 300],
+    part-of-speech one-hots [L, 15], the sentence length (sos and eos
+    counted) and the tokens joined by "_"."""
+    tokens = ["sos/OTHER", *tokens[:max_text_len], "eos/OTHER"]
+    sent_len = len(tokens)
+    tokens += ["unk/OTHER"] * (max_text_len + 2 - sent_len)
+    embs, ohs = zip(*(w_vectorizer[t] for t in tokens))
+    return {"word_embeddings": np.stack(embs).astype(np.float32),
+            "pos_one_hots": np.stack(ohs).astype(np.float32), "sent_len": sent_len,
+            "tokens": "_".join(tokens)}
 
 
 class Text2MotionDatasetV2:
@@ -224,7 +242,7 @@ class Text2MotionDatasetV2:
         text = self.rng.choice(data["text"])
         out: dict = {"text": text["caption"]}
         if self.w_vectorizer is not None:
-            out.update(self._word_vectors(text["tokens"]))
+            out.update(word_vectors(text["tokens"], self.w_vectorizer, self.max_text_len))
 
         # a crop of whole units; with probability 1/3 one unit shorter
         # when units are short (the reference's augmentation, which the
@@ -242,14 +260,121 @@ class Text2MotionDatasetV2:
         out["length"] = int(m_length)
         return out
 
-    def _word_vectors(self, tokens: list) -> dict:
-        tokens = ["sos/OTHER", *tokens[:self.max_text_len], "eos/OTHER"]
-        sent_len = len(tokens)
-        tokens += ["unk/OTHER"] * (self.max_text_len + 2 - sent_len)
-        embs, ohs = zip(*(self.w_vectorizer[t] for t in tokens))
-        return {"word_embeddings": np.stack(embs).astype(np.float32),
-                "pos_one_hots": np.stack(ohs).astype(np.float32), "sent_len": sent_len,
-                "tokens": "_".join(tokens)}
+
+class MotionDatasetV2:
+    """Every window of ``window_size`` frames of a split's clips,
+    z-normalised: {"motion": [window_size, D], "length": window_size}
+    (humanml.py:MotionDatasetV2; the reference's dataset.py:503)."""
+
+    def __init__(self, root: str, split: str = "train", window_size: int = 64,
+                 rng: Optional[random.Random] = None):
+        self.window_size = window_size
+        self.rng = rng or random.Random(0)
+        self.mean = np.load(pjoin(root, "Mean.npy"))
+        self.std = np.load(pjoin(root, "Std.npy"))
+        with open(pjoin(root, f"{split}.txt")) as f:
+            id_list = [line.strip() for line in f if line.strip()]
+        self.data, self.lengths = [], []
+        for name in id_list:
+            try:
+                motion = np.load(pjoin(root, "new_joint_vecs", name + ".npy"))
+            except FileNotFoundError:
+                continue
+            if motion.shape[0] < window_size:
+                continue
+            self.lengths.append(motion.shape[0] - window_size)
+            self.data.append(motion)
+        self.cumsum = np.cumsum([0] + self.lengths)
+
+    def inv_transform(self, data):
+        return data * self.std + self.mean
+
+    def __len__(self):
+        return int(self.cumsum[-1])
+
+    def __getitem__(self, item):
+        if item != 0:
+            motion_id = int(np.searchsorted(self.cumsum, item) - 1)
+            idx = item - self.cumsum[motion_id] - 1
+        else:
+            motion_id, idx = 0, 0
+        motion = self.data[motion_id][idx:idx + self.window_size]
+        return {"motion": ((motion - self.mean) / self.std).astype(np.float32),
+                "length": self.window_size}
+
+
+class Text2MotionDatasetBaseline(Text2MotionDatasetV2):
+    """A ``Text2MotionDatasetV2`` item with "src_motion": its motion cut or
+    zero-padded to ``max_length`` frames, the CompV6 baseline's input
+    (humanml.py:Text2MotionDatasetBaseline)."""
+
+    def __getitem__(self, item):
+        out = super().__getitem__(item)
+        motion, m_length = out["motion"], out["length"]
+        src = motion[:min(m_length, self.max_length)]
+        if m_length < self.max_length:
+            src = np.concatenate(
+                [src, np.zeros((self.max_length - m_length, motion.shape[1]), np.float32)], axis=0)
+        out["src_motion"] = src.astype(np.float32)
+        return out
+
+
+class RawTextDataset:
+    """User prompts, one a line of ``text_file``, tagged for the evaluators
+    (humanml.py:RawTextDataset): spacy's part of speech and, for nouns and
+    verbs other than "left", the lemma where spacy's ``en_core_web_sm``
+    loads, else every lower-cased word as OTHER (with a warning).  An item
+    is {"text", "tokens"} and, with a ``w_vectorizer``, the word vectors,
+    part-of-speech one-hots and sentence length of Text2MotionDatasetV2."""
+
+    def __init__(self, text_file: str, mean=None, std=None, w_vectorizer=None,
+                 max_text_len: int = 20):
+        self.mean, self.std = mean, std
+        self.w_vectorizer = w_vectorizer
+        self.max_text_len = max_text_len
+        try:
+            import spacy
+
+            self.nlp = spacy.load("en_core_web_sm")
+        except (ImportError, OSError):  # spacy or its model missing: the OTHER tags below
+            self.nlp = None
+            warnings.warn(
+                "spacy (en_core_web_sm) unavailable — POS-tagging every prompt token as OTHER.  "
+                "Evaluator text embeddings will silently degrade vs the reference protocol; "
+                "install the model for metric parity.", stacklevel=2)
+        self.data_dict = []
+        with open(text_file) as f:
+            for line in f:
+                caption = line.strip()
+                if caption:
+                    self.data_dict.append({"caption": caption, "tokens": [
+                        f"{w}/{p}" for w, p in self.process_text(caption)]})
+
+    def process_text(self, sentence: str):
+        sentence = sentence.replace("-", "")
+        if self.nlp is None:
+            return [(w, "OTHER") for w in sentence.lower().split()]
+        out = []
+        for token in self.nlp(sentence):
+            word = token.text
+            if not word.isalpha():
+                continue
+            if token.pos_ in ("NOUN", "VERB") and word != "left":
+                out.append((token.lemma_, token.pos_))
+            else:
+                out.append((word, token.pos_))
+        return out
+
+    def __len__(self):
+        return len(self.data_dict)
+
+    def __getitem__(self, item):
+        entry = self.data_dict[item]
+        out = {"text": entry["caption"], "tokens": "_".join(entry["tokens"])}
+        if self.w_vectorizer is not None:
+            words = word_vectors(entry["tokens"], self.w_vectorizer, self.max_text_len)
+            out.update({k: v for k, v in words.items() if k != "tokens"})
+        return out
 
 
 class TextOnlyDataset:

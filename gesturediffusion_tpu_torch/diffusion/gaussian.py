@@ -100,10 +100,16 @@ class GaussianDiffusion:
     lambda_vel: float = 0.0
     lambda_fc: float = 0.0
     lambda_vel_rcxyz: float = 0.0
+    rescale_timesteps: bool = False
 
     def model_t(self, t: torch.Tensor) -> torch.Tensor:
-        """Translate internal timesteps to the ids the model was trained on."""
-        return self.timestep_map[t]
+        """Translate internal timesteps to the ids the model was trained on;
+        with ``rescale_timesteps`` as float32 on a 1000-step scale
+        (gaussian.py:126-130)."""
+        new_t = self.timestep_map[t]
+        if self.rescale_timesteps:
+            return new_t.float() * (1000.0 / self.original_num_steps)
+        return new_t
 
     def q_sample(self, x_start, t, noise):
         nd = x_start.dim()
@@ -347,10 +353,13 @@ def create_diffusion(
     lambda_vel: float = 0.0,
     lambda_fc: float = 0.0,
     lambda_vel_rcxyz: float = 0.0,
+    rescale_timesteps: bool = False,
     device=None,
 ) -> GaussianDiffusion:
     """Build a (optionally respaced) GaussianDiffusion on ``device``
-    (gaussian.py:create_diffusion)."""
+    (gaussian.py:create_diffusion).  ``rescale_timesteps`` hands the model
+    ``timestep_map[t] * 1000 / steps`` (:437,520); the model factory leaves
+    it off, as JAX's does."""
     betas = schedules.get_named_beta_schedule(noise_schedule, steps)
     original_num_steps = len(betas)
     if timestep_respacing:
@@ -412,4 +421,5 @@ def create_diffusion(
         lambda_vel=lambda_vel,
         lambda_fc=lambda_fc,
         lambda_vel_rcxyz=lambda_vel_rcxyz,
+        rescale_timesteps=rescale_timesteps,
     )

@@ -21,7 +21,16 @@ reference torch layout the port's classifiers load: the inverse of
 networks.py:convert_motion_discriminator (:333) and stgcn.py:convert_stgcn
 (:290), BatchNorm ``batch_stats`` as ``running_mean`` / ``running_var``;
 ``t2m_evaluator_state_dicts_from_params`` carries the JAX T2M evaluators
-into the released finest.tar's layout.  A wav-encoder MDM's variables
+into the released finest.tar's layout, ``comp_v6_state_dicts_from_params``
+the JAX CompV6 generator into the released CompV6 and length-estimator
+tars' (the inverse of comp_v6.py:convert_comp_v6_checkpoint, the
+``positional_encoder.pe`` buffers included), and
+``movement_encoder_state_dict_from_params``,
+``movement_decoder_state_dict_from_params`` and
+``len_estimator_state_dict_from_params`` the modules the evaluator trainers
+train alone (eval/trainers.py: the movement autoencoder, the length
+estimator; the text-motion trainer's encoders go through the finest.tar
+converter, the action classifier's through the MotionDiscriminator's).  A wav-encoder MDM's variables
 ({'params', 'batch_stats'}) carry the wav encoder across as
 convert_torch.py:export_mdm_state_dict does (flax Conv [K, in, out] ->
 Conv1d [out, in, K]; BatchNorm scale / bias -> weight / bias, mean / var ->
@@ -238,16 +247,107 @@ def t2m_evaluator_state_dicts_from_params(params: dict) -> dict[str, dict[str, t
     networks.py:convert_text_encoder, convert_motion_encoder (:256-310) and
     convert_movement_encoder (:313; flax Conv [k, in, out] -> Conv1d
     [out, in, k] at ``main.0`` and ``main.3``)."""
-    text, motion, movement = {}, {}, {}
+    text, motion = {}, {}
     _linear(text, "pos_emb", params["text"]["pos_emb"])
     _bigru_co(text, params["text"]["trunk"])
     _bigru_co(motion, params["motion"]["trunk"])
-    for name, key in (("main.0", "conv0"), ("main.3", "conv1")):
-        movement[f"{name}.weight"] = _f32(params["movement"][key]["kernel"]).transpose(2, 1, 0)
-        movement[f"{name}.bias"] = _f32(params["movement"][key]["bias"])
-    _linear(movement, "out_net", params["movement"]["out_net"])
     return {"text_encoder": _tensors(text), "motion_encoder": _tensors(motion),
-            "movement_encoder": _tensors(movement)}
+            "movement_encoder": movement_encoder_state_dict_from_params(params["movement"])}
+
+
+def movement_encoder_state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
+    """JAX MovementConvEncoder params -> the reference's state dict: the
+    inverse of networks.py:convert_movement_encoder (:313; flax Conv
+    [k, in, out] -> Conv1d [out, in, k] at ``main.0`` and ``main.3``)."""
+    out: dict = {}
+    for name, key in (("main.0", "conv0"), ("main.3", "conv1")):
+        out[f"{name}.weight"] = _f32(params[key]["kernel"]).transpose(2, 1, 0)
+        out[f"{name}.bias"] = _f32(params[key]["bias"])
+    _linear(out, "out_net", params["out_net"])
+    return _tensors(out)
+
+
+def movement_decoder_state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
+    """JAX MovementConvDecoder params (comp_v6.py:175) -> the reference's
+    state dict: the inverse of comp_v6.py:convert_movement_decoder (:326;
+    flax ConvTranspose [k, in, out], flipped in k -> ConvTranspose1d
+    [in, out, k] at ``main.0`` and ``main.2``)."""
+    out: dict = {}
+    for name, key in (("main.0", "deconv0"), ("main.2", "deconv1")):
+        out[f"{name}.weight"] = _f32(params[key]["kernel"])[::-1].transpose(1, 2, 0)
+        out[f"{name}.bias"] = _f32(params[key]["bias"])
+    _linear(out, "out_net", params["out_net"])
+    return _tensors(out)
+
+
+def _bigru(out: dict, p: dict) -> None:
+    """The flat ``gru_{fwd,bwd}_*`` of comp_v6.py's BiGRUs -> nn.GRU's
+    ``gru.*_l0[_reverse]``, with ``pos_emb``, ``input_emb`` and ``hidden``."""
+    _linear(out, "pos_emb", p["pos_emb"])
+    _linear(out, "input_emb", p["input_emb"])
+    out["hidden"] = _f32(p["hidden"])
+    for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        for short, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                            ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            out[f"gru.{name}_l0{suffix}"] = _f32(p[f"gru_{direction}_{short}"])
+
+
+def len_estimator_state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
+    """JAX MotionLenEstimatorBiGRU params (comp_v6.py:197) -> the
+    reference's state dict: the inverse of comp_v6.py:convert_len_estimator
+    (:341)."""
+    out: dict = {}
+    _bigru(out, params)
+    for i in (0, 3, 6, 9):
+        _linear(out, f"output.{i}", params[f"output_{i}"])
+        if i < 9:
+            _layernorm(out, f"output.{i + 1}", params[f"output_{i + 1}"])
+    return _tensors(out)
+
+
+def _snippet_rnn(out: dict, p: dict, z2init: dict) -> None:
+    """emb, the GRU cells, z2init and the 300-row positional table of
+    comp_v6.py's TextDecoder / TextVAEDecoder."""
+    _linear(out, "emb.0", p["emb_0"])
+    _layernorm(out, "emb.1", p["emb_1"])
+    cells = p["gru"]
+    i = 0
+    while f"gru_{i}_w_ih" in cells:
+        for short, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                            ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            out[f"gru.{i}.{name}"] = _f32(cells[f"gru_{i}_{short}"])
+        i += 1
+    _linear(out, "z2init", z2init)
+    out["positional_encoder.pe"] = sinusoidal_table(300, out["emb.0.weight"].shape[0])
+
+
+def comp_v6_state_dicts_from_params(params: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX CompV6Generator.params (comp_v6.py:379; numpy or JAX arrays) ->
+    the released tars' state dicts, keyed as the tars key them
+    (``text_enc``, ``seq_pri``, ``seq_dec``, ``att_layer``, ``mov_enc``,
+    ``mov_dec``, and the length estimator tar's ``estimator``), which
+    eval/comp_v6.py:CompV6Generator loads: the inverse of
+    comp_v6.py:convert_comp_v6_checkpoint (:355)."""
+    text: dict = {}
+    _bigru(text, params["text_enc"])
+    pri: dict = {}
+    _snippet_rnn(pri, params["seq_pri"], params["z2init_pri"])
+    _linear(pri, "mu_net", params["seq_pri"]["mu_net"])
+    _linear(pri, "logvar_net", params["seq_pri"]["logvar_net"])
+    dec: dict = {}
+    _snippet_rnn(dec, params["seq_dec"], params["z2init_dec"])
+    _linear(dec, "output.0", params["seq_dec"]["output_0"])
+    _layernorm(dec, "output.1", params["seq_dec"]["output_1"])
+    _linear(dec, "output.3", params["seq_dec"]["output_3"])
+    att: dict = {}
+    _linear(att, "W_q", params["att_layer"]["W_q"])
+    att["W_k.weight"] = _f32(params["att_layer"]["W_k"]["kernel"]).T
+    _linear(att, "W_v", params["att_layer"]["W_v"])
+    return {"text_enc": _tensors(text), "seq_pri": _tensors(pri), "seq_dec": _tensors(dec),
+            "att_layer": _tensors(att),
+            "mov_enc": movement_encoder_state_dict_from_params(params["mov_enc"]),
+            "mov_dec": movement_decoder_state_dict_from_params(params["mov_dec"]),
+            "estimator": len_estimator_state_dict_from_params(params["len_estimator"])}
 
 
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:

@@ -946,3 +946,75 @@ def test_wav_encoder_on_the_card_matches_the_cpu(dev, train):
             torch.testing.assert_close(getattr(card.feat_extractor[bi], name).cpu(),
                                        getattr(cpu.feat_extractor[bi], name), rtol=1e-5,
                                        atol=1e-6)
+
+
+def test_seed_dropout_redraws_from_a_cuda_generators_state(dev, monkeypatch):
+    """GDT_SEED_DROPOUT=1 on the card: the output, the gradient and the CUDA
+    generator's state after the draw equal the default path's bit for bit,
+    and the bytes autograd saves drop (the mask stays out)."""
+    from gesturediffusion_tpu_torch.ops.dropout import dropout
+
+    x = _randn(np.random.RandomState(3), 64, 4, 81, 81, device=dev).requires_grad_()
+    w = _randn(np.random.RandomState(4), 64, 4, 81, 81, device=dev)
+    runs = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("GDT_SEED_DROPOUT", flag)
+        g = torch.Generator(device=dev).manual_seed(5)
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t.numel() * t.element_size()) or t, lambda t: t):
+            y = dropout(x, 0.1, g)
+            loss = (y * w).sum()
+        (grad,) = torch.autograd.grad(loss, x)
+        runs[flag] = (y.detach(), grad, g.get_state(), sum(saved))
+    (y0, g0, s0, b0), (y1, g1, s1, b1) = runs["0"], runs["1"]
+    assert torch.equal(y0, y1) and torch.equal(g0, g1) and torch.equal(s0, s1)
+    assert b1 < b0
+
+
+def test_comp_v6_on_the_card_matches_the_cpu(dev):
+    """The CompV6 take at the released widths (batch 4, 6 snippets, the noise
+    injected) on the card within 1e-4 of the CPU's largest magnitude, the
+    length logits within 1e-5."""
+    from gesturediffusion_tpu_torch.eval.comp_v6 import CompV6Generator
+
+    torch.manual_seed(0)
+    cpu = CompV6Generator(device="cpu")
+    card = CompV6Generator(device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(6)
+    word = rs.randn(4, 22, 300).astype(np.float32)
+    pos = np.eye(15, dtype=np.float32)[rs.randint(0, 15, (4, 22))]
+    lens, m_lens = np.asarray([22, 9, 14, 3]), np.asarray([24, 20, 16, 24])
+    noise = rs.randn(6, 4, 128).astype(np.float32)
+    want, got = (g.generate(word, pos, lens, m_lens, 6, noise=noise).cpu() for g in (cpu, card))
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    want, got = (g.estimate_length_logits(word, pos, lens).cpu() for g in (cpu, card))
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_evaluator_trainer_gradients_on_the_card_match_the_cpu(dev):
+    """The text-motion trainer's first step at the released widths: loss
+    rel 1e-5, every gradient within 1e-5 of its largest magnitude."""
+    from gesturediffusion_tpu_torch.eval.networks import (
+        MotionEncoderBiGRUCo,
+        MovementConvEncoder,
+        TextEncoderBiGRUCo,
+    )
+    from gesturediffusion_tpu_torch.eval.trainers import TextMotionMatchTrainer
+
+    def build(device):
+        torch.manual_seed(0)
+        return TextMotionMatchTrainer(TextEncoderBiGRUCo(), MotionEncoderBiGRUCo(),
+                                      MovementConvEncoder(259), device=device)
+
+    rs = np.random.RandomState(7)
+    batch = (rs.randn(8, 22, 300).astype(np.float32),
+             np.eye(15, dtype=np.float32)[rs.randint(0, 15, (8, 22))],
+             rs.randint(3, 23, 8), rs.randn(8, 196, 263).astype(np.float32),
+             rs.randint(10, 50, 8) * 4, 3)
+    cpu, card = build("cpu"), build(dev)
+    want, got = cpu.backward(*batch), card.backward(*batch)
+    assert abs(got["loss"].item() - want["loss"].item()) <= 1e-5 * abs(want["loss"].item())
+    for (name, pw), (_, pg) in zip(cpu.named_parameters(), card.named_parameters()):
+        assert (pg.grad.cpu() - pw.grad).abs().max() <= 1e-5 * pw.grad.abs().max(), name

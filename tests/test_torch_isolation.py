@@ -33,7 +33,8 @@ assert {"gesturediffusion_tpu_torch." + m for m in (
     "eval.eval_humanml", "utils.get_opt", "utils.paramutil", "ops.skeleton",
     "ops.motion_features", "viz.plot", "viz.prior", "viz.joints2smpl", "viz.vis_utils",
     "viz.motions2hik", "models.mdm_old", "parallel", "parallel.distributed",
-    "parallel.mesh")} <= set(names), names
+    "parallel.mesh", "eval.comp_v6", "eval.trainers", "data.native", "ops.dropout",
+    "data.collate")} <= set(names), names
 # the tokenizer takes re where regex is missing
 import gzip, os, tempfile
 from gesturediffusion_tpu_torch.models.clip_text import SimpleTokenizer
@@ -49,7 +50,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 82  # every module of the port was imported
+    assert int(r.stdout.split()[-1]) >= 85  # every module of the port was imported
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
