@@ -18,8 +18,8 @@ Phases, each fatal on failure:
               block and the band kernel at tile edges (lengths, windows,
               head widths, aliased and separate operands); kernels 1, 4, 5
               and 6 at the head widths the kernels pad (8, 66, 80, 96) and
-              at those past 128 that run in 128-column slices (136, 256,
-              264, 520, ff 4 D), and at D = 130, F = 1030 (2 heads of 65:
+              at those past 128 (136, 256, 264, 520, ff 4 D: the wide flash
+              forward, the sliced backward), and at D = 130, F = 1030 (2 heads of 65:
               rows not 16-byte aligned) at T 81 and 1201 (training 81 and
               121); the band kernel and the local block at local heads of
               136 and 264, the local block at heads of 128 and 256 frames
@@ -61,9 +61,13 @@ Phases, each fatal on failure:
               2 layers) takes one denoise step at T = 1200 through the
               kernels (launches counted) against the plain path, then the
               generate CLI samples --num_frames 1200 from its checkpoint;
-              a --latent_dim 1024 model (heads of 256) takes the same step;
-              the flash kernel's times at heads of 256 and 520 and the
-              --latent_dim 1024 encoder layer's, at CFG batch 82, T = 1201
+              a --latent_dim 1024 model (heads of 256) takes the same step,
+              its flash launches printed with their route; the wide
+              flash forward's times at heads of 256 and 520 and the
+              --latent_dim 1024 encoder layer's, at CFG batch 82, T = 1201,
+              and the training layer's forward and backward at [64, 81,
+              1024] (heads of 256) beside SDPA's forward and forward +
+              backward
   9. genea    the GENEA data path and streaming serve at full width on the
               phase-4 model: a synthetic GENEA-2023 tree (41 takes of 480
               frames a split, pose 498; the val MFCC cache's build time),
@@ -286,7 +290,8 @@ T_LONG, LONG_RESPACING, LONG_STEPS, LONG_SAMPLES = 1200, "20", 20, 8
 TOL_BAND = 1e-4          # f32; <= 20-term softmax sums, as the local block
 TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online rescaling
 C1_WIDTHS = (8, 66, 80, 96)  # head widths the kernels pad: --latent_dim 32, 264, 320, 384
-# head widths past 128, in 128-column slices: --latent_dim 544, 1024, 1056, 2080
+# head widths past 128 (the wide flash forward, the sliced backward): --latent_dim 544,
+# 1024, 1056, 2080
 WIDE_WIDTHS = (136, 256, 264, 520)
 WIDE_LOCAL = (136, 264)      # local heads past 128: --latent_dim 1088, 2112
 D_C1, C1_LAYERS = 320, 2     # phase 8's model: 4 heads of 80, 8 local heads of 40
@@ -814,6 +819,11 @@ def c1_model_phase(randn, root, card, d=D_C1, cli=True):
     launches = {name: fn.launches for name, fn in counters.items()}
     want = {"band_attention": 1, "flash_attention": C1_LAYERS, "encoder_layer": C1_LAYERS,
             "local_block": 0}
+    # the flash forward's route at this head width (csrc/wide_attention.cuh's
+    # flash_wide_launch past 128)
+    dh = d // HEADS
+    route = ("the narrow kernel" if dh <= 128 else "the wide route, one block" if dh <= 272
+             else "the wide route, a cluster of two" if dh <= 544 else "128-column slices")
     model.use_kernels = False
     plain = step()
     model.use_kernels = True
@@ -822,7 +832,8 @@ def c1_model_phase(randn, root, card, d=D_C1, cli=True):
     log(f"{'OK' if ok else 'FAIL'} --latent_dim {d} ({HEADS} heads of {d // HEADS}, "
         f"{CL_HEADS} local heads of {d // CL_HEADS}, {C1_LAYERS} layers): one denoise step "
         f"at T = {T_LONG}, CFG batch {2 * B_TAKES}, kernels vs plain versions max|diff| "
-        f"{err:.3e} (tol {TOL_TAKE:g}); launches {launches} (expected {want}) {card}")
+        f"{err:.3e} (tol {TOL_TAKE:g}); launches {launches} (expected {want}), the "
+        f"{launches['flash_attention']} flash launches at heads of {dh} through {route} {card}")
     if not ok:
         raise AssertionError(f"the --latent_dim {d} step disagrees or missed its kernels")
     if not cli:
@@ -845,10 +856,13 @@ def c1_model_phase(randn, root, card, d=D_C1, cli=True):
 
 
 def wide_times(randn, card):
-    """Times past a head width of 128 (the sliced kernels): flash at
-    [82, 4, 1201, dh] for dh 256 and 520 (--latent_dim 1024 and 2080), and
-    the encoder layer of --latent_dim 1024 (ff 1024) at [82, 1201, 1024],
-    against their plain versions and library calls."""
+    """Times past a head width of 128: the wide flash forward at [82, 4,
+    1201, dh] for dh 256 and 520 (--latent_dim 1024 and 2080; one block,
+    a cluster of two), the encoder layer of --latent_dim 1024 (ff 1024) at
+    [82, 1201, 1024], and the training layer's forward and backward at
+    [64, 81, 1024] (heads of 256), against their plain versions and library
+    calls (the training rows: SDPA's forward, and forward and backward), and
+    the band kernel at the long chunk's local heads of 136."""
     import torch
 
     from gesturediffusion_tpu_torch.ops.flash_attention import (
@@ -863,14 +877,15 @@ def wide_times(randn, card):
     bb, tl = 2 * B_TAKES, T_LONG + 1
     for dh in (256, 520):
         q, k, v = (randn(bb, HEADS, tl, dh) for _ in range(3))
-        ms = cuda_time_ms(lambda: fused_self_attention(q, k, v), 3, 1)
+        ms = cuda_time_ms(lambda: fused_self_attention(q, k, v), 10, 2)
         plain_ms = cuda_time_ms(lambda: self_attention_reference(q, k, v), 3, 1)
         lib_ms = cuda_time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 3, 1)
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10, 2)
         flops, nbytes = 4 * bb * HEADS * tl**2 * dh, 4 * 4 * q.numel()
         bound, by = bound_ms(flops, nbytes, tf32x3=True)
-        time_line(f"flash_attention [{bb},{HEADS},{tl},{dh}] (128-column slices)", ms, plain_ms,
-                  lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+        route = "one block" if dh <= 272 else "a cluster of two blocks"
+        time_line(f"flash_attention [{bb},{HEADS},{tl},{dh}] (wide route, {route})", ms,
+                  plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
         del q, k, v
     w = layer_weights(randn, D_WIDE, FF)
     x = randn(bb, tl, D_WIDE)
@@ -883,6 +898,47 @@ def wide_times(randn, card):
     bound, by = bound_ms(flops, nbytes, tf32x3=True)
     time_line(f"encoder_layer [{bb},{tl},{D_WIDE}] heads {HEADS} of {D_WIDE // HEADS} ff {FF}",
               ms, plain_ms, lib_ms, bound, by, flops, nbytes, card, tf32x3=True)
+    del x
+    # the rows below draw from their own stream and leave torch's generators
+    # as they found them (SDPA's dropout draws): the later phases keep the
+    # inputs the shared streams gave them before these rows existed
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        wide_train_and_band_times(w, bb, card)
+
+
+def wide_train_and_band_times(w, bb, card):
+    """The training layer at [64, 81, 1024] (heads of 256) and the band
+    kernel at the long chunk's local heads of 136, for wide_times, on their
+    own seeded stream."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+    from gesturediffusion_tpu_torch.ops.local_attention import local_attention
+
+    own = np.random.RandomState(17)
+
+    def own_randn(*shape):
+        return torch.from_numpy(own.randn(*shape).astype(np.float32)).to("cuda")
+
+    seed = torch.tensor([20240], dtype=torch.int32, device="cuda")
+    xt, gt = own_randn(MB, T + 1, D_WIDE), own_randn(MB, T + 1, D_WIDE)
+    times = train_kernel_times(xt, gt, w, seed, iters=10)
+    shape = f"[{MB},{T + 1},{D_WIDE}] heads {HEADS} of {D_WIDE // HEADS} ff {FF}"
+    time_line(f"encoder_layer_train_fwd {shape}", *times["fwd"], card, tf32x3=True)
+    time_line(f"encoder_layer_train_bwd {shape} (plain and library: forward + backward)",
+              *times["bwd"], card, tf32x3=True)
+    del xt, gt
+    dl = WIDE_LOCAL[0]  # the local block's strided heads: the sliced route
+    qb = own_randn(bb, T_LONG, CL_HEADS, dl).transpose(1, 2)
+    ms = cuda_time_ms(lambda: local_attention_band(qb, qb, qb, window_size=WINDOW), 3, 1)
+    plain_ms = cuda_time_ms(lambda: local_attention(qb, qb, qb, window_size=WINDOW), 3, 1)
+    lib_ms = cuda_time_ms(lambda: band_sdpa(qb, WINDOW), 3, 1)
+    flops = 4 * bb * CL_HEADS * band_keys(T_LONG, WINDOW) * dl
+    nbytes = 4 * 2 * qb.numel()  # q = k = v: the input read once, the output written once
+    bound, by = bound_ms(flops, nbytes)
+    time_line(f"band_attention [{bb},{CL_HEADS},{T_LONG},{dl}] (128-column slices)", ms,
+              plain_ms, lib_ms, bound, by, flops, nbytes, card)
 
 
 def genea_serve_phase(model, model_path, card):
@@ -3089,8 +3145,8 @@ def band_edges_parity(randn):
 
 def c1_widths_parity(randn, seed):
     """Kernels 1, 4, 5 and 6 at the head widths the kernels pad (C1_WIDTHS,
-    4 heads), at the widths past 128 that run in slices (WIDE_WIDTHS, ff 4
-    D), and at D = 130, F = 1030 with 2 heads of 65 (rows not 16-byte
+    4 heads), at the widths past 128 (WIDE_WIDTHS, ff 4 D), and at D =
+    130, F = 1030 with 2 heads of 65 (rows not 16-byte
     aligned), at T 81 and 1201 (training 81 and 121), each against its
     plain version under the main path's tolerances.  Returns the largest
     differences {kernel: err}."""
@@ -4526,7 +4582,8 @@ def main() -> int:
             product = any(k in fn for k in (
                 "gemm_tf32x3_kernel", "flash_attention_kernel", "attn_bwd_dq_kernel",
                 "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel",
-                "flash_wide_kernel", "band_wide_kernel", "attn_bwd_dq_wide_kernel",
+                "flash_fwd_wide_kernel", "flash_sliced_kernel", "band_wide_kernel",
+                "attn_bwd_dq_wide_kernel",
                 "attn_bwd_dkdv_wide_kernel"))
             if not product:
                 continue
@@ -4723,7 +4780,7 @@ def main() -> int:
     long_rows[0]["max_abs_err"] = max(long_rows[0]["max_abs_err"], edge_band_err)
     long_rows[1]["max_abs_err"] = max(long_rows[1]["max_abs_err"], c1_errs["flash_attention"])
 
-    # ---- 8. the widths the kernels pad or slice, end to end ------------ #
+    # ---- 8. the widths the kernels pad or take wide, end to end -------- #
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card)
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card, d=D_WIDE, cli=False)
     wide_times(randn, card)

@@ -63,8 +63,9 @@
 //
 // Any head width: up to 128 the kernel is built for the padded widths DHP,
 // every multiple of 16 up to 128, and takes the real dh at run time; wider
-// heads run the sliced kernel of wide_attention.cuh (same function, same
-// dropout and log-sum-exp).  K and
+// heads run wide_attention.cuh's flash_fwd_wide_kernel (same function, same
+// dropout and log-sum-exp; a block of two warpgroups over the whole width,
+// a cluster of two past 272 columns).  K and
 // V rows are staged with columns dh .. DHP - 1 zero-filled (cp.async's
 // zero fill), q's fragments read those columns as zeros, and only the
 // columns below dh are stored: zero columns add nothing to q . k and give
@@ -347,11 +348,11 @@ cudaError_t flash_dhp(const FlashArgs& a, cudaStream_t s) {
 }
 
 // Queues flash_attention_kernel on `s` for any head width dh <= 128 (the
-// kernel of the next multiple of 16), flash_wide_kernel for wider heads,
-// with site-0 dropout when drop.seed is
-// set (TRAIN: the training layer's instantiation; the inference ones build
-// no dropout kernel) and the rows' log-sum-exp (log2 units, [B*H, T]) when
-// lse is not null.
+// kernel of the next multiple of 16), wide_attention.cuh's flash_wide_launch
+// for wider heads, with site-0 dropout when drop.seed is set (TRAIN: the
+// training layer's instantiation; the inference ones build no dropout
+// kernel) and the rows' log-sum-exp (log2 units, [B*H, T]) when lse is not
+// null.
 template <bool TRAIN>
 cudaError_t flash_attention(const float* q, const float* k, const float* v, float* out,
                             const AttnStrides& sq, const AttnStrides& sk,

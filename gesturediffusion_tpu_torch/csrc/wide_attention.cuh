@@ -1,8 +1,8 @@
-// Attention at head widths past 128: the forward of the flash kernel
-// (flash_attention.cuh) and of the band kernels (band_attention.cu,
-// local_block.cu) for heads the narrow kernels' registers and shared memory
-// do not hold, and the tile products the training layer's wide attention
-// backward shares (encoder_layer_train.cu).
+// Attention at head widths past 128: the flash forward (flash_attention.cuh's
+// function) and the band forward (band_attention.cu, local_block.cu) for
+// heads the narrow kernels' registers and shared memory do not hold, and the
+// tile products the training layer's wide attention backward shares
+// (encoder_layer_train.cu).
 //
 // Replaces, for those widths: gesturediffusion_tpu/ops/pallas_flash.py::
 // _flash_kernel (which pads any head width to a multiple of 128,
@@ -12,27 +12,61 @@
 // band) and, for the flash forward in training, the same site-0 dropout and
 // log-sum-exp.
 //
-// Design: the narrow kernels keep a query tile's q fragments and its whole
-// output row in registers and stage whole key rows in shared memory, which
-// stops at a padded width of 128.  Here the head width is walked in slices:
-//   * the scores S = q k^T of a warp's 16 rows against 8 keys accumulate
-//     over the whole width in k8 steps, each fragment read from device
-//     memory (L1 and L2 serve the re-reads of a block's 4 warps), so no
-//     width is too wide;
-//   * the output is cut into column slices of kWideSlice (128), one slice a
-//     block (grid z): each block recomputes the scores and the softmax of
-//     its rows and accumulates only its slice of p v in registers.
-// Every product is mma.sync.m16n8k8 TF32 in three passes (mma_tf32x3.cuh),
-// with the k permutation of flash_attention.cuh, so P stays in registers.
-// The price of the simplicity is work and traffic: the scores are computed
-// once per output slice (ceil(dh / 128) times), and every fragment comes
-// from L1 or L2; no shipped configuration has heads wider than 128, and
-// these kernels are held for correctness, not speed (PERF.md gives their
-// times).  Rows past T and columns past dh read as zeros; only real rows
-// and columns are stored.
+// The flash forward (flash_fwd_wide_kernel), heads of 129 to 544.  What
+// bounds it on an H100: at [82, 4, 1201, 256] a call is 484 GFLOP of
+// products against 0.5 GB of q, k, v and out, so the tensor cores: 2.94 ms
+// at three passes of the 495 TFLOP/s TF32 rate.  Its design:
+//   * a block is 64 query rows of one (batch, head), two warpgroups of 4
+//     warps (16 rows a warp), and the whole width up to 272 columns; past
+//     that a cluster of two blocks, each taking a share of 272 columns
+//     (registers hold q's rows and the output over a warpgroup's half of a
+//     share: 64 + 64 floats a thread at dh 256, 68 + 68 at 520);
+//   * the scores are computed once: each warp takes S = q k^T for its 16
+//     rows over its warpgroup's half of the share; the partial sums meet in
+//     shared memory, each warpgroup adding its block's two in the same
+//     order, and in a cluster warpgroup 0 publishes its block's sum, which
+//     the peer reads through distributed shared memory (mapa,
+//     ld.shared::cluster) and adds in rank order: every warpgroup holds the
+//     same bits of S and runs the same online softmax;
+//   * o += p v is wgmma m64nNk8 TF32, N the warpgroup's 72, 128 or 136
+//     output columns, A = P from registers (the S accumulator of a key
+//     slice is its A fragment under flash_attention.cuh's k permutation), B
+//     from shared memory; S = q k^T is mma.sync.m16n8k8, a warp's 16 rows
+//     against 8-key slices, q's A fragments split a k8 step at a time from
+//     registers: with a 32-key tile (all that shared memory holds at 272
+//     columns) S as m64n32k8 wgmma measured slower on the card than the
+//     four warps' mma.sync;
+//   * K and V rows of a 32-key tile land by cp.async (16 bytes a copy where
+//     rows are aligned, `vec`, else one float a copy), the next tile in
+//     flight while one is used; the block splits each landed element into
+//     big and small once (mma_tf32x3.cuh's split), into wgmma's K-major
+//     core matrices without swizzle: K as it lies along the width (the
+//     mma.sync B fragment is two floats of them), V transposed along the
+//     keys and k permuted.  Every product is three TF32 passes, big . small
+//     + small . big + big . big.  Shared memory at dh 256: raw K and V 2 x
+//     32 x 260 floats, split K and V 4 x 32 x 256, partial scores 16 KB, 209
+//     KB of the 227 KB a block may use; at dh 520 each block of the cluster
+//     the same at 272 columns, 221 KB;
+//   * the block index runs over (batch * head, query tile) in one grid
+//     dimension, so B * H is not bounded by the grid's second dimension.
+// Rows past T and columns past dh read as zeros; only real rows and
+// columns are stored.
+//
+// Heads wider than 544 (no configuration comes near them) and the band and
+// backward kernels walk the head width in 128-column slices, each block of
+// 4 warps recomputing the scores of its slice from fragments read from
+// device memory (L1 and L2 serve the re-reads): flash_sliced_kernel,
+// band_wide_kernel and the helpers below.  Their products are
+// mma.sync.m16n8k8 TF32 in three passes, with the k permutation of
+// flash_attention.cuh, so P stays in registers.
 #pragma once
 
+#include <limits.h>
+
+#include <algorithm>
+
 #include "common.cuh"
+#include "gemm_tf32x3.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -195,13 +229,495 @@ __device__ __forceinline__ void wide_store(float* ob, long long ld, int q0, int 
   }
 }
 
-// The flash forward (flash_attention.cuh's function) at any head width:
-// grid (ceil(T / 64), B * H, ceil(dh / 128)).  With DROP, p is dropped at
+// ---- the flash forward, heads of 129 to 544 ------------------------------- //
+
+constexpr int kWgThreads = 256;  // 2 warpgroups
+constexpr int kWgRows = 64;      // query rows a block: wgmma's M, shared by both warpgroups
+constexpr int kWgKeys = 32;      // keys a tile
+
+// d += a . b for a warpgroup, m64n72k8 TF32: a from registers (mma.sync's
+// m16n8k8 A fragment, each warp its 16 rows), b 72 x 8 from shared memory
+// through `desc`, d 36 floats a thread (mma.sync's accumulator, per n8 tile)
+__device__ __forceinline__ void wgmma_n72(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += a . b for a warpgroup, m64n128k8 TF32: a from registers (mma.sync's
+// m16n8k8 A fragment, each warp its 16 rows), b 128 x 8 from shared memory
+// through `desc`, d 64 floats a thread (mma.sync's accumulator, per n8 tile)
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += a . b for a warpgroup, m64n136k8 TF32: a from registers (mma.sync's
+// m16n8k8 A fragment, each warp its 16 rows), b 136 x 8 from shared memory
+// through `desc`, d 68 floats a thread (mma.sync's accumulator, per n8 tile)
+__device__ __forceinline__ void wgmma_n136(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67}, "
+      "{%68, %69, %70, %71}, %72, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[0 .. 3] += a . b on one m16n8k8 tile (mma_tf32x3.cuh's mma_tf32 on four
+// floats of a larger accumulator)
+__device__ __forceinline__ void mma_tf32_at(float* d, const uint32_t (&a)[4],
+                                            const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b at N = 72, 128 or 136
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  static_assert(N == 72 || N == 128 || N == 136, "an instantiated wgmma width");
+  if constexpr (N == 72)
+    wgmma_n72(d, a, desc);
+  else if constexpr (N == 128)
+    wgmma_n128(d, a, desc);
+  else
+    wgmma_n136(d, a, desc);
+}
+
+// wait until at most N committed groups of this warp's wgmma are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// big and small of x[0 .. 3] at big + off, small + off (16-byte aligned)
+__device__ __forceinline__ void store_split4(float* big, float* small, int off, float4 x) {
+  uint32_t bg[4], sm[4];
+  split_tf32(x.x, bg[0], sm[0]);
+  split_tf32(x.y, bg[1], sm[1]);
+  split_tf32(x.z, bg[2], sm[2]);
+  split_tf32(x.w, bg[3], sm[3]);
+  *reinterpret_cast<uint4*>(big + off) = make_uint4(bg[0], bg[1], bg[2], bg[3]);
+  *reinterpret_cast<uint4*>(small + off) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+}
+
+// Rows [r0, r0 + n) of a [T, dh] operand (row stride ld floats) into n
+// shared rows of ldd floats, w columns: one float a copy, rows past T and
+// columns past dh zero-filled (rows that are not 16-byte aligned)
+__device__ __noinline__ void wide_copy_scalar(float* dst, int ldd, const float* src, long long ld,
+                                              int r0, int n, int T, int dh, int w) {
+  for (int f = threadIdx.x; f < n * w; f += blockDim.x) {
+    const int r = f / w, c = f % w;
+    const bool in = r0 + r < T && c < dh;
+    cp_async4(dst + r * ldd + c, in ? src + (r0 + r) * ld + c : src, in);
+  }
+}
+
+// a float4 of block `rank`'s shared memory in the cluster, at the offset of
+// this block's p
+__device__ __forceinline__ float4 ld_cluster(const float4* p, uint32_t rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(r)
+               : "memory");
+  return v;
+}
+
+// every thread of the cluster's blocks waits for the others; shared-memory
+// writes before it are visible to the peers' reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the same wait without ordering memory: every thread has reached it
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared memory of flash_fwd_wide_kernel<DROP, KS, CL> at a block's
+// share w <= 16 KS of the padded head width, in floats (BK = kWgKeys): raw K
+// and V [BK][w + 4] as cp.async lands them; K big and small [w / 8][BK * 8]
+// and V big and small [2][BK / 8][8 KS * 8] in wgmma's K-major core
+// matrices; the partial scores [8 warps][BK / 8][32 lanes][4].
+template <int KS>
+size_t wide_fwd_floats(int w) {
+  constexpr size_t BK = kWgKeys;
+  return 2 * BK * (w + 4) + 2 * w * BK + 32 * KS * BK + 128 * BK;
+}
+
+// grid (B * H * ceil(T / 64), CL), 256 threads, clusters of the CL blocks of
+// a query tile: 64 query rows of one (batch, head).  The padded width is cut
+// into CL shares of w = 16 ks columns (ks <= KS); block `rank` takes the
+// share [rank w, (rank + 1) w), warpgroup c its half [8 ks c, 8 ks (c + 1))
+// of it, for both the scores and the output.  With DROP, p is dropped at
+// site 0 after the row sums took it; lse (log2 units) is written by
+// warpgroup 0 of block 0.
+template <bool DROP, int KS, int CL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out, AttnStrides sq,
+                      AttnStrides sk, AttnStrides sv, AttnStrides so, int H, int T, int dh,
+                      bool vec, float scale, Drop drop, float* __restrict__ lse) {
+  constexpr int BK = kWgKeys, WO = 8 * KS;  // keys a tile, a warpgroup's accumulator columns
+  constexpr int NSL = BK / 8;               // 8-key slices of a tile
+  extern __shared__ __align__(16) float smem[];
+  const int w = (dh + 16 * CL - 1) / (16 * CL) * 16, ks = w / 16;
+  const int ld = w + 4;  // raw rows: = 4 mod 16, conflict-free float4 reads down the keys
+  const uint32_t rank = CL > 1 ? blockIdx.y : 0;
+  const int col0 = rank * w;  // the block's first column
+  float* kraw = smem;
+  float* vraw = kraw + BK * ld;
+  float* kbig = vraw + BK * ld;
+  float* ksmall = kbig + w * BK;
+  float* vbig = ksmall + w * BK;
+  float* vsmall = vbig + 2 * WO * BK;
+  float4* xch = reinterpret_cast<float4*>(vsmall + 2 * WO * BK);
+  const int qtiles = (T + kWgRows - 1) / kWgRows;
+  const int bh = blockIdx.x / qtiles, b = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int c = warp >> 2, wi = warp & 3;  // warpgroup, warp in it
+  const int r0 = (blockIdx.x % qtiles) * kWgRows + 16 * wi + g, r1 = r0 + 8;
+  const int dw = dh - col0;  // real columns from the block's first on
+  const float* qb = q + b * sq.b + h * sq.h + col0;
+  const float* kb = k + b * sk.b + h * sk.h + col0;
+  const float* vb = v + b * sv.b + h * sv.h + col0;
+  const int ntiles = (T + BK - 1) / BK;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  // K and V rows j0 .. j0 + BK - 1 over the block's share of the width
+  auto load_tile = [&](int j0) {
+    if (vec) {
+      const int w4 = w / 4;
+      for (int f = threadIdx.x; f < BK * w4; f += kWgThreads) {
+        const int rr = f / w4, cc = (f % w4) * 4;
+        const bool in = j0 + rr < T && cc < dw;
+        cp_async16(kraw + rr * ld + cc, in ? kb + (j0 + rr) * sk.t + cc : kb, in);
+        cp_async16(vraw + rr * ld + cc, in ? vb + (j0 + rr) * sv.t + cc : vb, in);
+      }
+    } else {
+      wide_copy_scalar(kraw, ld, kb, sk.t, j0, BK, T, dw, w);
+      wide_copy_scalar(vraw, ld, vb, sv.t, j0, BK, T, dw, w);
+    }
+  };
+  // the landed tile into the big and small tiles: K as it lies (K-major
+  // along the head width, core matrix 0 of a k8 step its columns 0 .. 3), V
+  // transposed (K-major along the keys, k permuted: core 0 the keys 0, 2, 4,
+  // 6 of the step, core 1 keys 1, 3, 5, 7, so that p's accumulator is its A
+  // fragment); warpgroup c's V columns are 8 ks c .. 8 ks c + WO - 1, zero
+  // past the share
+  auto split_tile = [&]() {
+    for (int f = threadIdx.x; f < BK * (w / 4); f += kWgThreads) {
+      const int key = f % BK, c4 = f / BK;  // columns 4 c4 .. 4 c4 + 3
+      const int off = (c4 >> 1) * BK * 8 + (key >> 3) * 64 + (c4 & 1) * 32 + (key & 7) * 4;
+      store_split4(kbig, ksmall, off, ld4(kraw + key * ld + 4 * c4));
+    }
+    for (int f = threadIdx.x; f < 2 * WO * NSL * 2; f += kWgThreads) {
+      const int n = f % (2 * WO), j = f / (2 * WO) >> 1, core = (f / (2 * WO)) & 1;
+      const int wg = n / WO, nn = n % WO, src = 8 * ks * wg + nn;
+      const float* vs = vraw + (8 * j + core) * ld + src;
+      const bool in = src < w;
+      const float4 x = in ? make_float4(vs[0], vs[2 * ld], vs[4 * ld], vs[6 * ld])
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int off = wg * WO * BK + j * WO * 8 + (nn >> 3) * 64 + core * 32 + (nn & 7) * 4;
+      store_split4(vbig, vsmall, off, x);
+    }
+  };
+  load_tile(0);
+  cp_async_commit();
+
+  // q[r0 | r1][this warpgroup's half of the block's share] as A fragments
+  // (a0, a1 at column t of a k8 step, a2, a3 at t + 4), zero past T and dh,
+  // split as they are used
+  float qf[KS][4];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    const int col = 8 * (ks * c + i) + t;
+    const bool lo_in = i < ks && r0 < T, hi_in = i < ks && r1 < T;
+    qf[i][0] = lo_in && col < dw ? qb[r0 * sq.t + col] : 0.0f;
+    qf[i][1] = hi_in && col < dw ? qb[r1 * sq.t + col] : 0.0f;
+    qf[i][2] = lo_in && col + 4 < dw ? qb[r0 * sq.t + col + 4] : 0.0f;
+    qf[i][3] = hi_in && col + 4 < dw ? qb[r1 * sq.t + col + 4] : 0.0f;
+  }
+  float o[4 * KS];
+#pragma unroll
+  for (int i = 0; i < 4 * KS; ++i) o[i] = 0.0f;
+  float m_lo = -FLT_MAX, m_hi = -FLT_MAX, l_lo = 0.0f, l_hi = 0.0f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  // the site-0 index of (row r0, key 2t of the first tile); r1 is 8 T on
+  const uint32_t idx0 = drop.attn_base + (static_cast<uint32_t>(bh) * T + r0) * T + 2 * t;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; the last tile's split tiles and partials are read
+    // ... and in a cluster the peer has read this block's sums of the last
+    // tile: it used the values before it arrived, so no release is needed
+    if constexpr (CL > 1) cluster_sync_relaxed();
+    split_tile();
+    fence_proxy_async();
+    __syncthreads();  // the split tiles are visible to wgmma; the raw tiles are free
+    if (it + 1 < ntiles) load_tile(j0 + BK);
+    cp_async_commit();
+
+    // this warp's part of S = q k^T: its 16 rows, BK keys, its warpgroup's
+    // half of the block's share of the width, on mma.sync (at N = BK a
+    // wgmma is dearer than the four warps' mma.sync), the B fragments read
+    // from the split K tiles: b0 at row g, position t of a key group's core
+    // 0, b1 of core 1
+    float s[4 * NSL];
+#pragma unroll
+    for (int i = 0; i < 4 * NSL; ++i) s[i] = 0.0f;
+    const float* kbg = kbig + ks * c * BK * 8 + 4 * g + t;
+    const float* ksm = ksmall + ks * c * BK * 8 + 4 * g + t;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      if (i >= ks) break;
+      uint32_t a_big[4], a_small[4], b_big[NSL][2], b_small[NSL][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(qf[i][e], a_big[e], a_small[e]);
+#pragma unroll
+      for (int n = 0; n < NSL; ++n) {
+        const int off = i * BK * 8 + n * 64;
+        b_big[n][0] = __float_as_uint(kbg[off]);
+        b_big[n][1] = __float_as_uint(kbg[off + 32]);
+        b_small[n][0] = __float_as_uint(ksm[off]);
+        b_small[n][1] = __float_as_uint(ksm[off + 32]);
+      }
+#pragma unroll
+      for (int n = 0; n < NSL; ++n) mma_tf32_at(s + 4 * n, a_big, b_small[n]);
+#pragma unroll
+      for (int n = 0; n < NSL; ++n) mma_tf32_at(s + 4 * n, a_small, b_big[n]);
+#pragma unroll
+      for (int n = 0; n < NSL; ++n) mma_tf32_at(s + 4 * n, a_big, b_big[n]);
+    }
+
+    // the partial sums, added in the same order by every warpgroup of the
+    // cluster: the same S in each.  A block's two first (local reads), then,
+    // in a cluster, the blocks' sums in rank order (the peer's read from its
+    // shared memory, where its warpgroup 0 put it)
+#pragma unroll
+    for (int n = 0; n < NSL; ++n)
+      xch[(warp * NSL + n) * 32 + lane] =
+          make_float4(s[4 * n], s[4 * n + 1], s[4 * n + 2], s[4 * n + 3]);
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NSL; ++n) {
+      const float4 x0 = xch[(wi * NSL + n) * 32 + lane];
+      const float4 x1 = xch[((4 + wi) * NSL + n) * 32 + lane];
+      s[4 * n] = x0.x + x1.x;
+      s[4 * n + 1] = x0.y + x1.y;
+      s[4 * n + 2] = x0.z + x1.z;
+      s[4 * n + 3] = x0.w + x1.w;
+    }
+    if constexpr (CL > 1) {
+      __syncthreads();  // both warpgroups have read the partials
+      if (c == 0)
+#pragma unroll
+        for (int n = 0; n < NSL; ++n)
+          xch[(wi * NSL + n) * 32 + lane] =
+              make_float4(s[4 * n], s[4 * n + 1], s[4 * n + 2], s[4 * n + 3]);
+      cluster_sync();
+#pragma unroll
+      for (int n = 0; n < NSL; ++n) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < CL; ++r) {
+          const float4 x = r == static_cast<int>(rank)
+                               ? make_float4(s[4 * n], s[4 * n + 1], s[4 * n + 2], s[4 * n + 3])
+                               : ld_cluster(xch + (wi * NSL + n) * 32 + lane, r);
+          a.x += x.x;
+          a.y += x.y;
+          a.z += x.z;
+          a.w += x.w;
+        }
+        s[4 * n] = a.x;
+        s[4 * n + 1] = a.y;
+        s[4 * n + 2] = a.z;
+        s[4 * n + 3] = a.w;
+      }
+    }
+
+    // online softmax in log2 units; keys past T score -FLT_MAX (p = 0)
+#pragma unroll
+    for (int i = 0; i < 4 * NSL; ++i)
+      s[i] = j0 + 8 * (i / 4) + 2 * t + (i & 1) < T ? s[i] * scale_log2 : -FLT_MAX;
+    float mx_lo = -FLT_MAX, mx_hi = -FLT_MAX;
+#pragma unroll
+    for (int n = 0; n < NSL; ++n) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NSL; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // a masked key: exp2(-FLT_MAX - m) = 0
+        s[4 * n + e] = exp2f(s[4 * n + e] - mn_lo);
+        s[4 * n + 2 + e] = exp2f(s[4 * n + 2 + e] - mn_hi);
+        sum_lo += s[4 * n + e];
+        sum_hi += s[4 * n + 2 + e];
+      }
+    l_lo = al_lo * l_lo + sum_lo;
+    l_hi = al_hi * l_hi + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      o[4 * i] *= al_lo;
+      o[4 * i + 1] *= al_lo;
+      o[4 * i + 2] *= al_hi;
+      o[4 * i + 3] *= al_hi;
+    }
+
+    // o += p v over this warpgroup's columns: the S accumulator of key slice
+    // n is p's A fragment, dropped at site 0 after the row sums took it; a
+    // slice's split while the last one runs
+    uint32_t p_big[2][4], p_small[2][4];
+    reg_fence(o);
+#pragma unroll
+    for (int n = 0; n < NSL; ++n) {
+      if constexpr (DROP) {
+        const uint32_t i_lo = idx0 + j0 + 8 * n, i_hi = i_lo + 8u * T;
+        s[4 * n] = dropped(s[4 * n], i_lo, salt, drop);
+        s[4 * n + 1] = dropped(s[4 * n + 1], i_lo + 1, salt, drop);
+        s[4 * n + 2] = dropped(s[4 * n + 2], i_hi, salt, drop);
+        s[4 * n + 3] = dropped(s[4 * n + 3], i_hi + 1, salt, drop);
+      }
+      const int set = n & 1;
+      split_tf32(s[4 * n], p_big[set][0], p_small[set][0]);
+      split_tf32(s[4 * n + 2], p_big[set][1], p_small[set][1]);
+      split_tf32(s[4 * n + 1], p_big[set][2], p_small[set][2]);
+      split_tf32(s[4 * n + 3], p_big[set][3], p_small[set][3]);
+      wgmma_fence();
+      const int off = c * WO * BK + n * WO * 8;
+      const uint64_t db = wgmma_desc(vbig + off, 128, 256);
+      const uint64_t ds = wgmma_desc(vsmall + off, 128, 256);
+      wgmma_tf32<WO>(o, p_big[set], ds);
+      wgmma_tf32<WO>(o, p_small[set], db);
+      wgmma_tf32<WO>(o, p_big[set], db);
+      wgmma_commit();
+      wgmma_wait<1>();  // the slice before is read: its registers are free
+    }
+    wgmma_wait<0>();
+    reg_fence(o);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      reg_fence(p_big[i]);
+      reg_fence(p_small[i]);
+    }
+  }
+
+  if constexpr (CL > 1) cluster_sync();  // the peers have read this block's partials
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  if (lse != nullptr && c == 0 && rank == 0 && t == 0) {
+    if (r0 < T) lse[(size_t)bh * T + r0] = m_lo + log2f(l_lo);
+    if (r1 < T) lse[(size_t)bh * T + r1] = m_hi + log2f(l_hi);
+  }
+  float* ob = out + b * so.b + h * so.h + col0;
+  const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    if (i >= ks) break;
+    const int col = 8 * (ks * c + i) + 2 * t;
+    store_pair(ob + r0 * so.t + col, o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo, r0 < T, col, dw,
+               vec);
+    store_pair(ob + r1 * so.t + col, o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi, r1 < T, col,
+               dw, vec);
+  }
+}
+
+// The flash forward past 544 columns (flash_attention.cuh's function at any
+// head width): grid (ceil(T / 64), B * H, ceil(dh / 128)).  With DROP, p is dropped at
 // site 0 after the row sums took it; lse (log2 units) is written by the
 // blocks of slice 0.
 template <bool DROP>
 __global__ void __launch_bounds__(kWideThreads)
-flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+flash_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out, AttnStrides sq,
                   AttnStrides sk, AttnStrides sv, AttnStrides so, int H, int T, int dh,
                   bool vec, float scale, Drop drop, float* __restrict__ lse) {
@@ -266,16 +782,71 @@ flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <bool DROP>
+cudaError_t flash_sliced_launch(const float* q, const float* k, const float* v, float* out,
+                                const AttnStrides& sq, const AttnStrides& sk,
+                                const AttnStrides& sv, const AttnStrides& so, int B, int H,
+                                int T, int dh, bool vec, float scale, const Drop& drop,
+                                float* lse, cudaStream_t s) {
+  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((T + kWideRows - 1) / kWideRows, B * H, (dh + kWideSlice - 1) / kWideSlice);
+  flash_sliced_kernel<DROP><<<grid, kWideThreads, 0, s>>>(q, k, v, out, sq, sk, sv, so, H, T,
+                                                          dh, vec, scale, drop, lse);
+  return cudaSuccess;
+}
+
+template <bool DROP, int KS, int CL>
+cudaError_t flash_fwd_wide_launch(const float* q, const float* k, const float* v, float* out,
+                                  const AttnStrides& sq, const AttnStrides& sk,
+                                  const AttnStrides& sv, const AttnStrides& so, int B, int H,
+                                  int T, int dh, bool vec, float scale, const Drop& drop,
+                                  float* lse, cudaStream_t s) {
+  auto* kernel = flash_fwd_wide_kernel<DROP, KS, CL>;
+  const int w = (dh + 16 * CL - 1) / (16 * CL) * 16;
+  const size_t smem = wide_fwd_floats<KS>(w) * sizeof(float);
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)B * H * ((T + kWgRows - 1) / kWgRows);
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;  // grid.x
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), CL);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = CL;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, out, sq, sk, sv, so, H, T, dh, vec, scale, drop,
+                            lse);
+}
+
+// Queues the flash forward at head width dh > 128: flash_fwd_wide_kernel up
+// to 544, one block to 272 columns (a warpgroup's half of them 72, 128 or
+// 136 wide), a cluster of two past it (shares of 272); flash_sliced_kernel
+// past 544.
+template <bool DROP>
 cudaError_t flash_wide_launch(const float* q, const float* k, const float* v, float* out,
                               const AttnStrides& sq, const AttnStrides& sk,
                               const AttnStrides& sv, const AttnStrides& so, int B, int H,
                               int T, int dh, bool vec, float scale, const Drop& drop,
                               float* lse, cudaStream_t s) {
-  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
-  const dim3 grid((T + kWideRows - 1) / kWideRows, B * H, (dh + kWideSlice - 1) / kWideSlice);
-  flash_wide_kernel<DROP><<<grid, kWideThreads, 0, s>>>(q, k, v, out, sq, sk, sv, so, H, T, dh,
-                                                        vec, scale, drop, lse);
-  return cudaSuccess;
+  if (dh <= 144)
+    return flash_fwd_wide_launch<DROP, 9, 1>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec,
+                                             scale, drop, lse, s);
+  if (dh <= 256)
+    return flash_fwd_wide_launch<DROP, 16, 1>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec,
+                                              scale, drop, lse, s);
+  if (dh <= 272)
+    return flash_fwd_wide_launch<DROP, 17, 1>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec,
+                                              scale, drop, lse, s);
+  if (dh <= 544)
+    return flash_fwd_wide_launch<DROP, 17, 2>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec,
+                                              scale, drop, lse, s);
+  return flash_sliced_launch<DROP>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, vec, scale, drop,
+                                   lse, s);
 }
 
 // The causal look-back-one band (band_tile.cuh's function) at any head

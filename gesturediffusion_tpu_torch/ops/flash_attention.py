@@ -7,10 +7,15 @@ On a CUDA tensor ``fused_self_attention`` launches csrc/flash_attention.cu
 tensor it runs ``self_attention_reference``.  The inference encoder
 layer's chain launches the same device code on its packed qkv buffer as its
 attention stage (ops/fused_encoder.py), and counts those launches here too.
-The kernel takes any head width (``padded_head_width``): up to 128 at the
-next multiple of 16 with zero-filled columns, wider heads in 128-column
-slices (csrc/wide_attention.cuh), as pallas_flash.py pads D to a multiple
-of 128.
+The kernel takes any head width (``padded_head_width``), as pallas_flash.py
+pads D to a multiple of 128: up to 128 at the next multiple of 16 with
+zero-filled columns; from 129 to 544 in csrc/wide_attention.cuh's
+flash_fwd_wide_kernel: one block, or a cluster of two past 272 columns,
+takes 64 query rows over the whole width, each warpgroup a share of the
+columns for both products; the scores are computed once (the shares'
+partial sums added through the cluster's shared memory), each K and V
+element is split into big and small tiles once, S runs on mma.sync and
+o += p v on wgmma; wider heads in 128-column slices.
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ from gesturediffusion_tpu_torch.ops.band_attention import (
     kernel_layout,
     padded_head_width,
 )
-
 
 def self_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T * D**-0.5) v on [B, H, T, D], scores and softmax in

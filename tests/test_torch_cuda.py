@@ -11,8 +11,10 @@ Every product of every kernel runs on the tensor cores in 3xTF32
 (f32-level error): the encoder layers' GEMMs, the flash kernel, the
 training layer's attention backward and the band attention that the band
 kernel and the local block share.  Every head width is taken (up to 128
-padded to the next multiple of 16 in shared memory, wider heads in
-128-column slices), and so are D and F not divisible by 4.
+padded to the next multiple of 16 in shared memory; wider heads in the wide
+flash forward's blocks of the whole width up to 544, or in 128-column
+slices past it and for the band kernels and the attention backward), and
+so are D and F not divisible by 4.
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -412,18 +414,22 @@ def test_train_backward_is_bit_for_bit_repeatable(dev):
 
 def test_train_kernels_reject_a_head_width(dev):
     """The training kernels reject no head width: 2 heads of 136 (past
-    128, in 128-column slices) are taken as 8 heads of 8 at D = 64 are (at
-    the padded width 16), forward and backward against the plain layer."""
+    128: the wide flash forward, the sliced backward) are taken as 8 heads
+    of 8 at D = 64 are (at the padded width 16), forward and backward
+    against the plain layer."""
     _check_train_kernels(dev, 1, 9, 272, 2, 544, 0.1)
     _check_train_kernels(dev, 2, 8, 64, 8, 128, 0.1)
 
 
-# head widths past 128, run in 128-column slices (csrc/wide_attention.cuh):
-# --latent_dim 544, 1024, 1056 and 2080 at 4 heads
+# head widths past 128 (csrc/wide_attention.cuh): --latent_dim 544, 1024,
+# 1056 and 2080 at 4 heads
 WIDE_WIDTHS = (136, 256, 264, 520)
+# past 544 the flash forward runs in 128-column slices (flash_sliced_kernel):
+# --latent_dim 2240 and 4096 at 4 heads
+SLICED_WIDTHS = (560, 1024)
 
 
-@pytest.mark.parametrize("dh", WIDE_WIDTHS)
+@pytest.mark.parametrize("dh", WIDE_WIDTHS + SLICED_WIDTHS)
 @pytest.mark.parametrize("t", [81, 1201])
 def test_flash_kernel_at_wide_widths(dev, t, dh):
     rs = np.random.RandomState(21)
@@ -450,6 +456,128 @@ def test_encoder_kernel_at_wide_widths(dev, t, dh):
 @pytest.mark.parametrize("t", [81, 121])
 def test_train_kernels_at_wide_widths(dev, t, dh, rate):
     _check_train_kernels(dev, 2, t, 4 * dh, 4, 4 * dh, rate)
+
+
+# the flash forward's routes past 128: one block (136, 256), a cluster of two
+# (520), 128-column slices (560)
+WIDE_ROUTES = (136, 256, 520, 560)
+
+
+@pytest.mark.parametrize("dh", WIDE_ROUTES)
+@pytest.mark.parametrize("t", [1, 15, 17, 63, 65, 129, 1201])
+def test_flash_kernel_wide_at_ragged_lengths(dev, t, dh):
+    """Lengths around the 32-key tiles and the 64-row blocks, from one row."""
+    rs = np.random.RandomState(31)
+    q, k, v = (_randn(rs, 1, 2, t, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", [131, 261, 523, 563])
+@pytest.mark.parametrize("t", [17, 300])
+def test_flash_kernel_wide_with_unaligned_rows(dev, t, dh):
+    """Head widths not divisible by 4: rows copied a float at a time."""
+    rs = np.random.RandomState(32)
+    q, k, v = (_randn(rs, 2, 2, t, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", WIDE_ROUTES)
+def test_flash_kernel_wide_reads_a_packed_qkv_buffer(dev, dh):
+    """q, k and v as strided views of one [B, T, 3D] buffer, as the encoder
+    layer's chain passes them."""
+    b, t, h = 2, 97, 2
+    d = h * dh
+    packed = _randn(np.random.RandomState(33), b, t, 3 * d, device=dev)
+    q, k, v = (packed[..., i * d:(i + 1) * d].reshape(b, t, h, dh).transpose(1, 2)
+               for i in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", WIDE_ROUTES)
+def test_flash_kernel_wide_is_bit_for_bit_repeatable(dev, dh):
+    """No atomics, partial scores added in a fixed order: two calls, the
+    same bits."""
+    rs = np.random.RandomState(34)
+    q, k, v = (_randn(rs, 2, 4, 300, dh, device=dev) for _ in range(3))
+    first = fused_self_attention(q, k, v)
+    second = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dh", [136, 520])
+@pytest.mark.parametrize("bh", [65535, 65536])
+def test_flash_kernel_wide_past_the_grid_guard(dev, bh, dh):
+    """B * H at and past 65535, the narrow kernels' grid.y limit: the wide
+    route indexes (batch * head, query tile) in grid.x."""
+    rs = np.random.RandomState(35)
+    q, k, v = (_randn(rs, bh, 1, 3, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+def test_flash_kernel_sliced_stops_at_the_grid_guard(dev):
+    """Past 544 the sliced route keeps B * H in grid.y: 65535 runs, 65536
+    raises (no launch, no fallback)."""
+    rs = np.random.RandomState(35)
+    q, k, v = (_randn(rs, 65535, 1, 3, 560, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+    q = torch.zeros(65536, 1, 3, 560, device=dev)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        fused_self_attention(q, q, q)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("dh", [256, 520, 560])
+def test_train_kernels_wide_lse_is_the_plain_logsumexp(dev, dh, rate):
+    """The training forward's row log-sum-exp (log2 units), read from the
+    backward's workspace (its last two [B*H, T] blocks are the LSE and D;
+    its first [B*T, 3D] the recomputed qkv), against logsumexp of the
+    scores computed from that qkv in plain PyTorch.  The dropout does not
+    touch it (the row sums take p before the drop).  atol 1e-4: scores of
+    magnitude ~10 in another summation order."""
+    from gesturediffusion_tpu_torch.ops import fused_encoder_train as fet
+
+    b, t, h = 2, 81, 2
+    d, f = h * dh, 2 * h * dh
+    w = _encoder_weights(d, f, dev, seed=36)
+    rs = np.random.RandomState(36)
+    x, g = _randn(rs, b, t, d, device=dev), _randn(rs, b, t, d, device=dev)
+    seed = torch.tensor([4242], dtype=torch.int32, device=dev)
+    keep = 1.0 - rate
+    _, bwd, ws_floats = fet._kernels()
+    ws = torch.empty(ws_floats(b, t, d, f, h, 1), dtype=torch.float32, device=dev)
+    outs = [torch.empty_like(x), *(torch.empty_like(y) for y in w)]
+    code = bwd(x.data_ptr(), *(y.data_ptr() for y in w), seed.data_ptr(), g.data_ptr(),
+               *(o.data_ptr() for o in outs), ws.data_ptr(), b, t, d, f, h, dh**-0.5,
+               fet.keep_threshold(keep), 1.0 / keep, int(rate > 0.0), 0,
+               torch.cuda.current_stream().cuda_stream)
+    assert code == 0, code
+    torch.cuda.synchronize()
+    mh = b * t * h
+    lse = ws[ws.numel() - 2 * mh:ws.numel() - mh].reshape(b, h, t)
+    qkv = ws[:b * t * 3 * d].reshape(b, t, 3, h, dh)
+    q, k = qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2)
+    scores = torch.einsum("bhid,bhjd->bhij", q, k) * dh**-0.5
+    want = torch.logsumexp(scores, dim=-1) / np.log(2.0)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dh", [256, 520, 560])
+def test_train_kernels_wide_dropout_at_300_rows(dev, dh):
+    """The training forward's site-0 dropout at the wide route against the
+    plain twin under the same hash masks, over ten 32-key tiles (and the
+    backward, which recomputes it)."""
+    _check_train_kernels(dev, 2, 300, 2 * dh, 2, 2 * dh, 0.1)
 
 
 @pytest.mark.parametrize("layout", ["aliased", "separate", "strided"])

@@ -4,9 +4,11 @@ plain version, the CUDA kernel is held against it in test_torch_cuda.py and
 chip_smoke.py) against the JAX package's ops/pallas_flash.py:
 fused_self_attention in interpret mode, at the shapes of
 tests/test_pallas_flash.py, and the dispatch of every head width the model
-can have (the kernels pad it to the next multiple of 16 up to 128, and run
-wider heads in 128-column slices).  Tolerance atol 2e-5, rtol 2e-5, as the
-JAX test."""
+can have (the kernels pad it to the next multiple of 16 up to 128; wider
+heads run in csrc/wide_attention.cuh's wide flash forward, whose block
+shape tests/torch_port_common.py's ``wide_block_shape`` gives, and in
+128-column slices past 544 and for the band kernels).
+Tolerance atol 2e-5, rtol 2e-5, as the JAX test."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,7 @@ from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
 from gesturediffusion_tpu_torch.ops.fused_local_block import (
     _check_cuda_args as check_local_block_args,
 )
+from tests.torch_port_common import WIDE_MAX_WIDTH, wide_block_shape
 
 TOL = 2e-5
 
@@ -44,6 +47,9 @@ TOL = 2e-5
     (1, 2, 300, 64, 128, 1),    # several key blocks: the online rescale
     (1, 2, 513, 64, 128, 1),
     (1, 1, 130, 32, 128, 2),    # T padded to 256 on the TPU side
+    (1, 2, 81, 136, None, 3),   # heads past 128: one block of the wide kernel on the card,
+    (1, 2, 130, 256, None, 4),  # D padded to a multiple of 128 on the TPU side
+    (1, 1, 65, 520, None, 5),   # a cluster of two blocks on the card
 ])
 def test_cpu_path_matches_pallas_interpret(b, h, t, d, block, seed):
     rs = np.random.RandomState(seed)
@@ -164,3 +170,28 @@ def test_flash_wrapper_rejects_other_devices():
     x = torch.empty(1, 2, 20, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_self_attention(x, x, x)
+
+
+# an H100's shared memory a block may use (csrc/common.cuh:kMaxSmem)
+MAX_SMEM = 232448
+
+
+@pytest.mark.parametrize("dh", [129, 131, 136, 200, 256, 261, 264, 272, 273, 520, 523, 544])
+def test_wide_block_covers_the_width_within_shared_memory(dh):
+    """The wide flash forward's block at every width it takes: one block to
+    272 columns, a cluster of two past it; the blocks' shares (multiples of
+    16, a warpgroup's half a whole number of k8 steps) cover the width, each
+    warpgroup's accumulator holds its half, and the shared memory fits."""
+    shape = wide_block_shape(dh)
+    assert shape["cl"] == (1 if dh <= 272 else 2)
+    assert shape["w"] % 16 == 0 and shape["cl"] * shape["w"] >= dh
+    assert shape["cl"] * shape["w"] - dh < 16 * shape["cl"]
+    assert shape["wo"] >= shape["w"] // 2 and shape["bk"] == 32
+    assert shape["smem"] <= MAX_SMEM
+
+
+@pytest.mark.parametrize("dh", [1, 64, 128, WIDE_MAX_WIDTH + 1, 1024])
+def test_wide_block_is_only_past_128_and_to_its_widest(dh):
+    """Up to 128 the narrow kernels run; past WIDE_MAX_WIDTH the sliced one."""
+    assert wide_block_shape(dh) is None
+

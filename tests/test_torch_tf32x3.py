@@ -12,7 +12,13 @@ ops/pallas_encoder.py:fused_encoder_layer at [3, 24, 128], 4 heads, ff 256,
 within 5e-4 (the card's tolerance for the layer), and
 ops/pallas_flash.py:fused_self_attention at [2, 3, 130, 32], within 2e-4
 (the flash kernel's).  A single TF32 pass is at least 10x further from the
-reference than three: that is why the kernels take three.
+reference than three: that is why the kernels take three.  The flash
+forward past a head width of 128 (csrc/wide_attention.cuh) is emulated
+step by step (``wide_flash``): its 32-key tiles, the scores summed once
+from the partial products over the blocks' and warpgroups' column shares,
+the online softmax in log2 units with its rescale before each tile's p v,
+the output in the warpgroups' column slices, and the training layer's
+site-0 dropout and row log-sum-exp.
 
 The GEMM also takes operands that are not K-contiguous (the training
 layer's data and weight gradients) and splits K into row chunks summed in
@@ -32,12 +38,14 @@ import torch.nn.functional as F
 
 from gesturediffusion_tpu.ops.pallas_encoder import fused_encoder_layer as jax_fused_layer
 from gesturediffusion_tpu.ops.pallas_flash import fused_self_attention as jax_flash
-from gesturediffusion_tpu_torch.ops.fused_encoder import LN_EPS, gelu_tanh
+from gesturediffusion_tpu_torch.ops.fused_encoder import LN_EPS, SITE_ATTN, gelu_tanh
+from gesturediffusion_tpu_torch.ops.fused_encoder_train import hash_dropout_mask
 from tests.torch_port_common import (
     jax_layer_args,
     jax_layer_params,
     threefry_prng,  # noqa: F401 (autouse fixture)
     torch_layer_weights,
+    wide_block_shape,
 )
 
 TOL_LAYER, TOL_FLASH = 5e-4, 2e-4
@@ -142,6 +150,81 @@ def test_flash_in_three_passes_matches_jax(b, h, t, d):
     err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
     assert err3 <= TOL_FLASH, err3
     assert err1 >= 10 * err3, (err1, err3)
+
+
+def wide_flash(q, k, v, mm, keep=None):
+    """(out, lse) of [B, H, T, dh] attention as csrc/wide_attention.cuh's
+    flash_fwd_wide_kernel computes it: the padded width cut into the
+    blocks' shares of w columns and each into two warpgroup halves; per
+    32-key tile the partial scores of the halves (products by ``mm``), each
+    block's two added first and the blocks' sums in rank order; the online
+    softmax in log2 units, o rescaled before it takes the tile's p v in
+    the warpgroups' column halves; with ``keep`` (a [B, H, T, T] keep-mask
+    and its probability) p dropped after the row sums; lse = m + log2(l)."""
+    b, h, t, dh = q.shape
+    shape = wide_block_shape(dh)
+    cl, w, bk = shape["cl"], shape["w"], shape["bk"]
+    qp, kp, vp = (F.pad(x, (0, cl * w - dh)) for x in (q, k, v))
+    halves = [[slice(r * w + c * w // 2, r * w + (c + 1) * w // 2) for c in range(2)]
+              for r in range(cl)]
+    scale_log2 = dh**-0.5 * 1.4426950408889634
+    m = torch.full((b, h, t), -torch.finfo(torch.float32).max)
+    l = torch.zeros(b, h, t)
+    o = torch.zeros(b, h, t, cl * w)
+    for j0 in range(0, t, bk):
+        kt, vt = kp[:, :, j0:j0 + bk], vp[:, :, j0:j0 + bk]
+        s = None
+        for block in halves:
+            part = [mm(qp[..., c], kt[..., c].transpose(-1, -2)) for c in block]
+            s = part[0] + part[1] if s is None else s + (part[0] + part[1])
+        s = s * scale_log2
+        mn = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - mn[..., None])
+        alpha = torch.exp2(m - mn)
+        l, m = alpha * l + p.sum(-1), mn
+        o = o * alpha[..., None]
+        if keep is not None:
+            mask, prob = keep
+            p = torch.where(mask[..., j0:j0 + bk], p * (1.0 / prob), torch.zeros(()))
+        for block in halves:
+            for c in block:
+                o[..., c] = o[..., c] + mm(p, vt[..., c])
+    return o[..., :dh] / l[..., None], m + torch.log2(l)
+
+
+@pytest.mark.parametrize("b,h,t,d", [(1, 2, 81, 136), (1, 2, 130, 256), (1, 1, 65, 520)])
+def test_wide_flash_schedule_in_three_passes_matches_jax(b, h, t, d):
+    """The wide kernel's schedule (one block at 136 and 256, a cluster of two
+    at 520) in 3xTF32 against JAX's flash kernel in interpret mode, within
+    the flash tolerance; one TF32 pass at least 10x further off."""
+    rs = np.random.RandomState(7)
+    q, k, v = (rs.randn(b, h, t, d).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    three = wide_flash(qt, kt, vt, matmul_tf32x3)[0].numpy()
+    one = wide_flash(qt, kt, vt, matmul_tf32)[0].numpy()
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 <= TOL_FLASH, err3
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("d", [256, 520])
+def test_wide_flash_dropout_and_lse_match_the_plain_layer(d):
+    """The training layer's wide forward at rate 0.1: the schedule with the
+    site-0 hash masks against the plain layer's attention (softmax, the same
+    masks times 1 / keep, then v), within the flash tolerance, and the row
+    log-sum-exp against logsumexp of the scores in log2 units, within 2e-5
+    (scores of magnitude ~10 in another order)."""
+    b, h, t, keep = 1, 2, 81, 0.9
+    rs = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rs.randn(b, h, t, d).astype(np.float32)) for _ in range(3))
+    mask = hash_dropout_mask((b, h, t, t), 0, 4242, SITE_ATTN, keep)
+    got, lse = wide_flash(q, k, v, matmul_tf32x3, keep=(mask, keep))
+    scores = torch.einsum("bhid,bhjd->bhij", q, k) * d**-0.5
+    attn = torch.where(mask, scores.softmax(-1) * (1.0 / keep), torch.zeros(()))
+    want = torch.einsum("bhij,bhjd->bhid", attn, v)
+    assert (got - want).abs().max().item() <= TOL_FLASH
+    assert (lse - torch.logsumexp(scores, -1) / np.log(2.0)).abs().max().item() <= 2e-5
 
 
 @pytest.mark.parametrize("product", ["forward", "data_grad", "weight_grad"])

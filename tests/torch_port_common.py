@@ -202,3 +202,26 @@ def jax_layer_args(p: dict) -> tuple:
     return (s["in_proj"]["kernel"], s["in_proj"]["bias"], s["out_proj"]["kernel"],
             s["out_proj"]["bias"], n1["scale"], n1["bias"], l1["kernel"], l1["bias"],
             l2["kernel"], l2["bias"], n2["scale"], n2["bias"])
+
+
+# csrc/wide_attention.cuh's flash forward past a head width of 128: the
+# widest head flash_fwd_wide_kernel takes (wider ones run in 128-column
+# slices, flash_sliced_kernel)
+WIDE_MAX_WIDTH = 544
+
+
+def wide_block_shape(dh: int) -> dict | None:
+    """The blocks of csrc/wide_attention.cuh's flash_fwd_wide_kernel at head
+    width dh, as flash_wide_launch chooses them (129 .. WIDE_MAX_WIDTH;
+    None outside): a cluster of ``cl`` blocks of 64 query rows and two
+    warpgroups; block r takes the scores and the output over its share
+    [r w, (r + 1) w) of the width, each warpgroup half of it (``wo``
+    accumulator columns: 8 KS); key tiles of ``bk`` keys (kWgKeys); ``smem``
+    bytes of shared memory a block (wide_fwd_floats).  The tests emulate
+    the kernel's schedule from it."""
+    if not 128 < dh <= WIDE_MAX_WIDTH:
+        return None
+    ks, cl = (9, 1) if dh <= 144 else (16, 1) if dh <= 256 else (17, 1) if dh <= 272 else (17, 2)
+    bk, w = 32, -(-dh // (16 * cl)) * 16
+    floats = 2 * bk * (w + 4) + 2 * w * bk + 32 * ks * bk + 128 * bk
+    return dict(cl=cl, w=w, bk=bk, wo=8 * ks, smem=4 * floats)

@@ -52,15 +52,27 @@ does):
   local_rows_no_attention  local_rows without its band tiles
   local_rows_no_copies     local_rows without its bulk copies (the units
                      compute on stale shared memory)
+  wide_sliced        the flash forward past a head width of 128 as first
+                     written: flash_wide_launch sent to flash_sliced_launch
+                     at every width (128-column slices, a block each, every
+                     one recomputing the scores from fragments read from
+                     device memory), in the flash, inference and training
+                     libraries
 
 The variants whose errors are not checked (the gemm_* ones, *_no_*,
 *_blocks, band_pv_two_acc) are ablations, timed to see what a phase or a
 choice costs.  One line a case: the encoder layer at [82, 81, 256] and
 [82, 1201, 256] (ff 1024, 4 heads; its products' device time from the
 profiler at 1201 rows), the flash kernel at [82, 4, 1201, 64], the band
-kernel at [82, 8, 1200, 32] (the local block's aliased, transposed heads)
-and the local block at [82, 80, 256] and [82, 80, 320] (heads of 40), with
-the card's name and power limit.
+kernel at [82, 8, 1200, 32] (the local block's aliased, transposed heads),
+the local block at [82, 80, 256] and [82, 80, 320] (heads of 40), and, for
+wide_sliced, the flash kernel at [82, 4, 1201, 256] and [82, 4, 1201, 520],
+the encoder layer at [82, 1201, 1024] (heads of 256, ff 1024) and the
+training layer's forward and forward + backward at [64, 81, 1024] (heads of
+256, ff 1024, rate 0.1) in the turns shipped, variant, variant, shipped
+beside one F.scaled_dot_product_attention call (the training rows: the
+layer around it, chip_smoke.py's encoder_layer_sdpa, forward and forward +
+backward), with the card's name and power limit.
 A patch that no longer matches the sources fails loudly.
 """
 
@@ -78,6 +90,8 @@ sys.path.insert(0, HERE)
 
 G, M = "gemm_tf32x3.cuh", "mma_tf32x3.cuh"
 BAND, LOCAL, TILE = "band_attention.cu", "local_block.cu", "band_tile.cuh"
+WIDE = "wide_attention.cuh"
+WIDE_DISPATCH = "  if (dh <= 144)\n    return flash_fwd_wide_launch<DROP, 9, 1>("
 ZERO_O = "    for (int d = 0; d < NO; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;"
 VARIANTS = {
     "cvt_rounding": [(M, "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
@@ -147,16 +161,22 @@ VARIANTS.update({
     "local_rz_split": RZ_SPLIT,
     "local_rows": [ROWS],
     "local_rows_no_attention": [ROWS, (LOCAL, ROWS_CALL, "  " + ZERO_O)],
+    "wide_sliced": [(WIDE, WIDE_DISPATCH,
+                     "  return flash_sliced_launch<DROP>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, "
+                     "vec, scale, drop,\n                                   lse, s);\n"
+                     + WIDE_DISPATCH)],
     "local_rows_no_copies": [ROWS, (LOCAL, "  if (warp == 0) fetch(blockIdx.x, 0);\n", ""),
                              (LOCAL, "    if (warp == 0 && u + gridDim.x < a.units) "
                                      "fetch(u + gridDim.x, s ^ 1);\n"
                                      "    mbar_wait(&bar[s], (it >> 1) & 1);\n", "")],
 })
 # the libraries each variant is timed through
-LIBS = ("encoder_layer", "flash_attention", "band_attention", "local_block")
+LIBS = ("encoder_layer", "flash_attention", "band_attention", "local_block",
+        "encoder_layer_train")
 VARIANT_LIBS = {name: (("band_attention",) if name.startswith("band_") else
                        ("local_block",) if name.startswith("local_") else
                        ("encoder_layer", "flash_attention")) for name in VARIANTS}
+VARIANT_LIBS["wide_sliced"] += ("encoder_layer_train",)
 
 
 def start_build(name: str, patches, libs=LIBS) -> dict:
@@ -195,6 +215,74 @@ def finish_build(name: str, procs: dict) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"variant {name}: nvcc failed on {k}.cu\n{report}")
         libs[k] = ctypes.CDLL(path)
     return libs
+
+
+def train_layer(lib, x, w, seed, g=None, heads=4, rate=0.1):
+    """Kernel 5 (g None: the output) or kernel 6 (dx and the 12 weight
+    gradients for the output gradient g) of one build, called as
+    ops/fused_encoder_train.py calls them."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops import fused_encoder_train as fet
+
+    backward = g is not None
+    fn = lib.gdt_encoder_layer_train_bwd_f32 if backward else lib.gdt_encoder_layer_train_fwd_f32
+    fn.argtypes = fet._BWD_ARGS if backward else fet._FWD_ARGS
+    ws_floats = lib.gdt_encoder_layer_train_workspace
+    ws_floats.argtypes, ws_floats.restype = [ctypes.c_int] * 6, ctypes.c_size_t
+    b, t, d = x.shape
+    f, keep = w[6].shape[0], 1.0 - rate
+    ws = torch.empty(ws_floats(b, t, d, f, heads, int(backward)), device="cuda")
+    tail = (b, t, d, f, heads, (d // heads) ** -0.5, fet.keep_threshold(keep), 1.0 / keep,
+            int(rate > 0.0), 0, torch.cuda.current_stream().cuda_stream)
+    ptrs = [x.data_ptr(), *(y.data_ptr() for y in w), seed.data_ptr()]
+    if backward:
+        outs = (torch.empty_like(x), *(torch.empty_like(y) for y in w))
+        code = fn(*ptrs, g.data_ptr(), *(o.data_ptr() for o in outs), ws.data_ptr(), *tail)
+    else:
+        outs = (torch.empty_like(x),)
+        code = fn(*ptrs, outs[0].data_ptr(), ws.data_ptr(), *tail)
+    if code:
+        raise RuntimeError(f"training layer variant failed: CUDA error {code}")
+    return outs
+
+
+def train_ab(builds, order, w, rn, cuda_ms, smi, heads=4, rate=0.1):
+    """wide_sliced's training rows: kernels 5 and 6 at [64, 81, 1024] in the
+    turns of ``order``, against the plain layer (forward; autograd's
+    gradients), beside the SDPA layer's forward and forward + backward."""
+    import torch
+
+    from chip_smoke import encoder_layer_sdpa
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import encoder_layer_train_plain
+
+    d = w[0].shape[1]
+    x, g = rn(64, 81, d), rn(64, 81, d)
+    seed = torch.tensor([20240], dtype=torch.int32, device="cuda")
+    tx, tw = x.clone().requires_grad_(), [y.clone().requires_grad_() for y in w]
+    with torch.enable_grad():
+        want_fwd = encoder_layer_train_plain(tx, *tw, seed=seed, num_heads=heads, rate=rate)
+        want_bwd = torch.autograd.grad(want_fwd, [tx, *tw], g)
+
+    def sdpa_fwd_bwd():
+        with torch.enable_grad():
+            encoder_layer_sdpa(tx, *tw, heads, rate=rate).backward(g)
+
+    for what, want, gg, sdpa in (
+            ("forward", (want_fwd.detach(),), None,
+             lambda: encoder_layer_sdpa(x, *w, heads, rate=rate)),
+            ("forward + backward", want_bwd, g, sdpa_fwd_bwd)):
+        parts = []
+        for name in order:
+            lib = builds[name]["encoder_layer_train"]
+            got = train_layer(lib, x, w, seed, gg, heads, rate)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            ms = cuda_ms(lambda: train_layer(lib, x, w, seed, gg, heads, rate), 10)
+            parts.append(f"{name} {ms:.4f} ms (max|diff| {err:.2e})")
+        lib_ms = cuda_ms(sdpa, 10)
+        print(f"training layer {what} [64,81,{d}] heads {heads} of {d // heads} ff "
+              f"{w[6].shape[0]} rate {rate}: " + "; ".join(parts)
+              + f"; the SDPA layer {lib_ms:.4f} ms [{smi}]", flush=True)
 
 
 def main(prefixes: list[str]) -> int:
@@ -244,11 +332,11 @@ def main(prefixes: list[str]) -> int:
          rn(ff, scale=0.02), rn(d, ff, scale=ff**-0.5), rn(d, scale=0.02), 1 + rn(d, scale=0.1),
          rn(d, scale=0.1))
 
-    def layer(lib, x):
+    def layer(lib, x, w=w):
         fn = lib.gdt_encoder_layer_f32
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float, p]
-        b, t, _ = x.shape
+        b, t, d = x.shape
         new = functools.partial(torch.empty, device="cuda")
         bufs = (new(b * t, 3 * d), new(b * t, d), new(b * t, d), new(b * t, d), new(b * t, ff))
         out = new(b, t, d)
@@ -327,6 +415,39 @@ def main(prefixes: list[str]) -> int:
         err = (flash(lib, q, k, v) - want).abs().max().item()
         parts.append(f"{name} {cuda_ms(lambda: flash(lib, q, k, v)):.4f} ms (max|diff| {err:.2e})")
     print(f"flash [82,{heads},1201,{d // heads}]: " + "; ".join(parts) + f" [{smi}]")
+
+    if "wide_sliced" in builds:
+        order = ("shipped", "wide_sliced", "wide_sliced", "shipped")
+        for dh in (256, 520):
+            q, k, v = (rn(82, heads, 1201, dh) for _ in range(3))
+            want = self_attention_reference(q, k, v)
+            parts = []
+            for name in order:
+                lib = builds[name]["flash_attention"]
+                err = (flash(lib, q, k, v) - want).abs().max().item()
+                ms = cuda_ms(lambda: flash(lib, q, k, v), 5)
+                parts.append(f"{name} {ms:.4f} ms (max|diff| {err:.2e})")
+            sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 5)
+            print(f"flash [82,{heads},1201,{dh}]: " + "; ".join(parts)
+                  + f"; F.scaled_dot_product_attention {sdpa:.4f} ms [{smi}]", flush=True)
+            del q, k, v, want
+        dw = 4 * 256
+        ww = (rn(3 * dw, dw, scale=dw**-0.5), rn(3 * dw, scale=0.02), rn(dw, dw, scale=dw**-0.5),
+              rn(dw, scale=0.02), 1 + rn(dw, scale=0.1), rn(dw, scale=0.1),
+              rn(ff, dw, scale=dw**-0.5), rn(ff, scale=0.02), rn(dw, ff, scale=ff**-0.5),
+              rn(dw, scale=0.02), 1 + rn(dw, scale=0.1), rn(dw, scale=0.1))
+        x = rn(82, 1201, dw)
+        want = encoder_layer_plain(x, *ww, num_heads=heads)
+        parts = []
+        for name in order:
+            lib = builds[name]["encoder_layer"]
+            err = (layer(lib, x, ww) - want).abs().max().item()
+            ms = cuda_ms(lambda: layer(lib, x, ww), 3)
+            parts.append(f"{name} {ms:.4f} ms (max|diff| {err:.2e})")
+        print(f"encoder layer [82,1201,{dw}] heads {heads} of {dw // heads} ff {ff}: "
+              + "; ".join(parts) + f" [{smi}]", flush=True)
+        del x, want
+        train_ab(builds, order, ww, rn, cuda_ms, smi)
 
     def band(lib, q):
         fn = lib.gdt_band_attention_f32
