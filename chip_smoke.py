@@ -19,7 +19,7 @@ Phases, each fatal on failure:
               head widths, aliased and separate operands); kernels 1, 4, 5
               and 6 at the head widths the kernels pad (8, 66, 80, 96) and
               at those past 128 (136, 256, 264, 520, ff 4 D: the wide flash
-              forward, the sliced backward), and at D = 130, F = 1030 (2 heads of 65:
+              forward and backward), and at D = 130, F = 1030 (2 heads of 65:
               rows not 16-byte aligned) at T 81 and 1201 (training 81 and
               121); the band kernel and the local block at local heads of
               136 and 264, the local block at heads of 128 and 256 frames
@@ -66,8 +66,15 @@ Phases, each fatal on failure:
               flash forward's times at heads of 256 and 520 and the
               --latent_dim 1024 encoder layer's, at CFG batch 82, T = 1201,
               and the training layer's forward and backward at [64, 81,
-              1024] (heads of 256) beside SDPA's forward and forward +
-              backward
+              1024] (heads of 256) against the plain layer and beside
+              SDPA's forward and forward + backward; two training steps of
+              the --latent_dim 1024 model at batch 64 against the plain
+              steps (kernels 5 and 6 counted: the wide attention
+              backward); the attention backward alone at [64, 4, 81, 256]
+              and [64, 4, 81, 520] (kernel 6 against the plain layer, the
+              profiler's device time of its passes inside a kernel-6 call,
+              its bound by bytes and by operations, the plain twin's and
+              SDPA's attention backward)
   9. genea    the GENEA data path and streaming serve at full width on the
               phase-4 model: a synthetic GENEA-2023 tree (41 takes of 480
               frames a split, pose 498; the val MFCC cache's build time),
@@ -290,12 +297,13 @@ T_LONG, LONG_RESPACING, LONG_STEPS, LONG_SAMPLES = 1200, "20", 20, 8
 TOL_BAND = 1e-4          # f32; <= 20-term softmax sums, as the local block
 TOL_FLASH = 2e-4         # f32; sums over 1201 keys in another order, online rescaling
 C1_WIDTHS = (8, 66, 80, 96)  # head widths the kernels pad: --latent_dim 32, 264, 320, 384
-# head widths past 128 (the wide flash forward, the sliced backward): --latent_dim 544,
+# head widths past 128 (the wide flash forward and backward): --latent_dim 544,
 # 1024, 1056, 2080
 WIDE_WIDTHS = (136, 256, 264, 520)
 WIDE_LOCAL = (136, 264)      # local heads past 128: --latent_dim 1088, 2112
 D_C1, C1_LAYERS = 320, 2     # phase 8's model: 4 heads of 80, 8 local heads of 40
 D_WIDE = 1024                # phase 8's second model: 4 heads of 256, 8 local heads of 128
+D_WIDEST = 2080              # phase 8's attention backward at 4 heads of 520 (a cluster of two)
 G_TAKES, G_FRAMES = 41, 480  # phase 9's synthetic GENEA split: 5 val chunks of 80 a take
 SERVE_CHUNKS = 5
 # phase 10: the humanml-encoder-512 MotionMDM (4 heads of 128; 196 frames
@@ -862,7 +870,11 @@ def wide_times(randn, card):
     [82, 1201, 1024], and the training layer's forward and backward at
     [64, 81, 1024] (heads of 256), against their plain versions and library
     calls (the training rows: SDPA's forward, and forward and backward), and
-    the band kernel at the long chunk's local heads of 136."""
+    the band kernel at the long chunk's local heads of 136; then two
+    training steps of the --latent_dim 1024 model against the plain steps
+    (wide_train_steps) and the attention backward alone at heads of 256 and
+    520 (wide_bwd_rows).  Returns the JSON rows of kernels 5 and 6 at [64,
+    81, 1024] and of the attention backward alone."""
     import torch
 
     from gesturediffusion_tpu_torch.ops.flash_attention import (
@@ -903,13 +915,151 @@ def wide_times(randn, card):
     # as they found them (SDPA's dropout draws): the later phases keep the
     # inputs the shared streams gave them before these rows existed
     with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
-        wide_train_and_band_times(w, bb, card)
+        times, err = wide_train_and_band_times(w, bb, card)
+        launches = wide_train_steps(card)
+        rows = wide_bwd_rows(launches, card)
+    shape = f"{MB}x{T + 1}x{D_WIDE}"
+    return [{"name": f"encoder_layer_train_{k}_wide_{shape}", "route": "cuda",
+             "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
+             "replaces": f"gesturediffusion_tpu/ops/pallas_encoder_train.py:{line}",
+             "launches": launches[f"encoder_layer_train_{k}"], "max_abs_err": err[i],
+             **time_keys(times[k])}
+            for i, (k, line) in enumerate((("fwd", 249), ("bwd", 273)))] + rows
+
+
+def wide_train_steps(card):
+    """Two training steps of the --latent_dim 1024 model (C1_LAYERS layers,
+    4 heads of 256: kernel 6 through the wide attention backward) at batch
+    MB, T frames, through the kernels (launches counted) against the plain
+    steps (compare_train_steps), on their own seeded stream.  Returns the
+    training kernels' launches."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig
+
+    own = np.random.RandomState(19)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(own.randn(*shape).astype(np.float32) * scale).to(dev)
+
+    torch.manual_seed(19)
+    model = MDM(njoints=J, latent_dim=D_WIDE, ff_size=FF, num_layers=C1_LAYERS, num_heads=HEADS,
+                dropout=RATE, cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
+                window_size=WINDOW, use_fused_train_encoder=True).to(dev)
+    plain = copy.deepcopy(model)
+    plain.use_kernels = False
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=MB, microbatch_size=MB)
+    mask = torch.ones((MB, 1, 1, T), dtype=torch.bool, device=dev)
+    batches = [dict(motion=randn(MB, J, 1, T, scale=0.5),
+                    cond={"mfcc": randn(MB, A, 1, T), "seed": randn(MB, J, 1, S, scale=0.5),
+                          "mask": mask},
+                    t=torch.from_numpy(own.randint(0, 1000, size=MB)).to(dev),
+                    noise=randn(MB, J, 1, T)) for _ in range(2)]
+    dh = D_WIDE // HEADS
+    compare_train_steps(model, plain, diffusion, cfg, batches, C1_LAYERS,
+                        f"batch {MB}, --latent_dim {D_WIDE} (heads of {dh})",
+                        f"{C1_LAYERS} layers x 1 microbatch", card)
+    # the launches of the kernel run, which compare_train_steps counts from
+    # zero and holds to these
+    launches = {"encoder_layer_train_fwd": 2 * C1_LAYERS,
+                "encoder_layer_train_bwd": 2 * C1_LAYERS}
+    log(f"the --latent_dim {D_WIDE} steps' {launches['encoder_layer_train_bwd']} backward "
+        f"launches at heads of {dh} take the wide attention backward, one block {card}")
+    del model, plain
+    return launches
+
+
+def plain_attention_backward_ms(b, t, dh, seed, iters=10):
+    """The plain twin's attention backward alone at [b, HEADS, t, dh], rate
+    RATE (encoder_layer_train_plain's attention: scores, softmax, the
+    site-0 hash mask, p v): the autograd backward of one retained forward,
+    CUDA events."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder import SITE_ATTN
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import hash_dropout_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(b, HEADS, t, dh, device="cuda", generator=gen) for _ in range(4))
+    q, k, v = (y.requires_grad_() for y in (q, k, v))
+    keep = 1.0 - RATE
+    mask = hash_dropout_mask((b, HEADS, t, t), 0, seed, SITE_ATTN, keep, device="cuda")
+    with torch.enable_grad():
+        p = torch.softmax(q @ k.transpose(-1, -2) * dh**-0.5, dim=-1)
+        out = torch.where(mask, p * (1.0 / keep), torch.zeros((), device="cuda")) @ v
+    return cuda_time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+                        iters=iters, warmup=2)
+
+
+def wide_bwd_rows(launches, card):
+    """The attention backward alone past a head width of 128, at [MB, 4, T
+    + 1, dh] for dh 256 and 520 (--latent_dim 1024 and 2080): kernel 6 at
+    [MB, T + 1, 4 dh] against the plain layer's 13 gradients
+    (check_train_layer), then the profiler's device time of its attention
+    passes inside a kernel-6 call, their bound by bytes and by operations,
+    the plain twin's attention backward and SDPA's (the autograd backward
+    of a retained forward at the same rate) as the library time.  Returns
+    their JSON rows (``launches``: phase 8's training steps', at heads of
+    256)."""
+    import numpy as np
+    import torch
+
+    own = np.random.RandomState(18)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(own.randn(*shape).astype(np.float32) * scale).to("cuda")
+
+    seed = torch.tensor([20240], dtype=torch.int32, device="cuda")
+    b, t, rows = MB, T + 1, []
+    for d in (D_WIDE, D_WIDEST):
+        dh = d // HEADS
+        w = layer_weights(randn, d, FF)
+        x, g = randn(b, t, d), randn(b, t, d)
+        _, err = check_train_layer(x, g, w, seed)
+        split = attention_backward_split(x, g, w, seed)
+        plain_ms = plain_attention_backward_ms(b, t, dh, 20240)
+        lib_ms = sdpa_backward_ms(b, t, dh)
+        flops, nbytes, bound, by = attention_backward_bound(b, t, d)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        ms = split["passes"]
+        route = "one block" if dh <= 272 else "a cluster of two"
+        log(f"time attention backward alone [{b},{HEADS},{t},{dh}] (the wide passes, {route}): "
+            f"device {ms:.4f} ms inside a kernel-6 call of {split['call']:.4f} ms (device "
+            f"{split['device']:.4f}): D {split['D']:.4f} x{split['D launches']}, dQ "
+            f"{split['dQ']:.4f} x{split['dQ launches']}, dK/dV {split['dK/dV']:.4f} "
+            f"x{split['dK/dV launches']}; plain {plain_ms:.4f} ms, SDPA's backward alone "
+            f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f} ms for "
+            f"{nbytes / 1e6:.3f} MB, operations {t_ops:.4f} ms for {flops / 1e9:.4f} GFLOP in "
+            f"3xTF32), {bound / ms:.3f} of the bound {card}")
+        for name, k_ms in sorted(split["names"].items(), key=lambda kv: -kv[1]):
+            log(f"  {k_ms:.4f} ms  {name}")
+        wide = [n for n in split["names"]
+                if "attn_bwd_dq_wide_kernel" in n or "attn_bwd_dkdv_wide_kernel" in n]
+        if split["dQ launches"] != 1 or split["dK/dV launches"] != 1 or len(wide) != 2:
+            raise AssertionError(f"kernel 6 at heads of {dh} did not take the wide passes once: "
+                                 f"{sorted(split['names'])}")
+        rows.append({"name": f"attention_backward_wide_{b}x{HEADS}x{t}x{dh}", "route": "cuda",
+                     "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
+                     "replaces": "gesturediffusion_tpu/ops/pallas_encoder_train.py:273",
+                     "launches": launches["encoder_layer_train_bwd"] if d == D_WIDE else 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms})
+        del w, x, g
+    return rows
 
 
 def wide_train_and_band_times(w, bb, card):
-    """The training layer at [64, 81, 1024] (heads of 256) and the band
-    kernel at the long chunk's local heads of 136, for wide_times, on their
-    own seeded stream."""
+    """The training layer at [64, 81, 1024] (heads of 256) against the
+    plain layer (check_train_layer) and timed, and the band kernel at the
+    long chunk's local heads of 136, for wide_times, on their own seeded
+    stream.  Returns the training rows' times and (forward, backward)
+    largest absolute differences."""
     import numpy as np
     import torch
 
@@ -923,6 +1073,7 @@ def wide_train_and_band_times(w, bb, card):
 
     seed = torch.tensor([20240], dtype=torch.int32, device="cuda")
     xt, gt = own_randn(MB, T + 1, D_WIDE), own_randn(MB, T + 1, D_WIDE)
+    err = check_train_layer(xt, gt, w, seed)
     times = train_kernel_times(xt, gt, w, seed, iters=10)
     shape = f"[{MB},{T + 1},{D_WIDE}] heads {HEADS} of {D_WIDE // HEADS} ff {FF}"
     time_line(f"encoder_layer_train_fwd {shape}", *times["fwd"], card, tf32x3=True)
@@ -939,6 +1090,77 @@ def wide_train_and_band_times(w, bb, card):
     bound, by = bound_ms(flops, nbytes)
     time_line(f"band_attention [{bb},{CL_HEADS},{T_LONG},{dl}] (128-column slices)", ms,
               plain_ms, lib_ms, bound, by, flops, nbytes, card)
+    return times, err
+
+
+# the device kernels of the training layer's attention backward, by the
+# profiler's names (every route: the narrow passes, the wide ones, the
+# sliced ones past 544): D's row dot products, the dQ pass, the dK/dV pass
+ATTN_BWD_KERNELS = (("D", "attn_bwd_rowdot_"), ("dQ", "attn_bwd_dq_"),
+                    ("dK/dV", "attn_bwd_dkdv_"))
+
+
+def attention_backward_split(x, g, w, seed, iters=5):
+    """Kernel 6 at x's shape (HEADS heads, rate RATE): the call's time
+    (CUDA events) and the profiler's device time of one call, all its
+    kernels and those of its attention backward by pass (ATTN_BWD_KERNELS),
+    with their launches and names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import encoder_layer_train_bwd
+
+    def call():
+        return encoder_layer_train_bwd(x, *w, seed=seed, g=g, num_heads=HEADS, rate=RATE)
+
+    ms = cuda_time_ms(call, iters=2 * iters, warmup=2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    out = {"call": ms, "device": 0.0, "names": {}}
+    for key, _ in ATTN_BWD_KERNELS:
+        out[key], out[key + " launches"] = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                or e.key.startswith(("Memcpy", "Memset"))):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        ms_e = (e.self_cuda_time_total if us is None else us) / iters / 1e3
+        out["device"] += ms_e
+        for key, name in ATTN_BWD_KERNELS:
+            if name in e.key:
+                out[key] += ms_e
+                out[key + " launches"] += e.count // iters
+                out["names"][e.key[:100]] = ms_e
+    out["passes"] = sum(out[key] for key, _ in ATTN_BWD_KERNELS)
+    return out
+
+
+def sdpa_backward_ms(b, t, dh, iters=10):
+    """The library's attention backward alone at [b, HEADS, t, dh], rate
+    RATE: the autograd backward of one retained
+    F.scaled_dot_product_attention forward, CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(b, HEADS, t, dh, device="cuda", generator=gen) for _ in range(4))
+    q, k, v = (y.requires_grad_() for y in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(q, k, v, dropout_p=RATE)
+    return cuda_time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+                        iters=iters, warmup=2)
+
+
+def attention_backward_bound(b, t, d):
+    """(FLOP, bytes, bound ms, bound by) of the attention backward alone at
+    [b, HEADS, t, d / HEADS]: its five products (S, dP, dV, dK, dQ) once in
+    three TF32 passes; q, k, v, o, dO and the LSE read once, dq, dk, dv
+    written once."""
+    flops = 5 * 2 * b * t * t * d
+    nbytes = 4 * (8 * b * t * d + b * HEADS * t)
+    return (flops, nbytes, *bound_ms(flops, nbytes, tf32x3=True))
 
 
 def genea_serve_phase(model, model_path, card):
@@ -4583,8 +4805,8 @@ def main() -> int:
                 "gemm_tf32x3_kernel", "flash_attention_kernel", "attn_bwd_dq_kernel",
                 "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel",
                 "flash_fwd_wide_kernel", "flash_sliced_kernel", "band_wide_kernel",
-                "attn_bwd_dq_wide_kernel",
-                "attn_bwd_dkdv_wide_kernel"))
+                "attn_bwd_dq_wide_kernel", "attn_bwd_dkdv_wide_kernel",
+                "attn_bwd_dq_sliced_kernel", "attn_bwd_dkdv_sliced_kernel"))
             if not product:
                 continue
             log(f"sass {lib} {fn[:110]}: TF32 HGMMA x{ops['HGMMA']}, HMMA x{ops['HMMA']} of "
@@ -4783,7 +5005,7 @@ def main() -> int:
     # ---- 8. the widths the kernels pad or take wide, end to end -------- #
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card)
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card, d=D_WIDE, cli=False)
-    wide_times(randn, card)
+    wide_rows = wide_times(randn, card)
 
     # ---- 9. the GENEA data path and streaming serve -------------------- #
     genea = genea_serve_phase(model, model_path, card)
@@ -4879,7 +5101,8 @@ def main() -> int:
                                 + samplers["flash_attention"] + a2m["flash_attention"]
                                 + a2m_eval["flash_attention"] + t2m_eval["flash_attention"]
                                 + wav_old["flash_attention"] + par["flash_attention"])
-    kernels += t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row, t2m_eval_row]
+    kernels += (t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row, t2m_eval_row]
+                + wide_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -48,8 +48,9 @@
 //   * the flash attention forward of flash_attention.cuh with its site-0
 //     dropout (and, in the backward's recompute, the rows' log-sum-exp),
 //     and here a flash-style attention backward (FlashAttention-2 with
-//     dropout) on mma.sync 3xTF32: neither holds a head's whole sequence,
-//     so T is bounded by device memory only;
+//     dropout) on mma.sync 3xTF32 (past a head width of 128 its outputs on
+//     wgmma): neither holds a head's whole sequence, so T is bounded by
+//     device memory only;
 //   * LayerNorm forward (common.cuh) and backward row kernels (a warp per
 //     row) and a column-sum kernel for the bias and LayerNorm-parameter
 //     gradients: memory-bound passes.
@@ -104,7 +105,8 @@ constexpr int kSumThreads = 256;
 // at the padded width DHP (the next multiple of 16), as the flash forward
 // does: staged columns dh .. DHP - 1 are zero, so the padded columns of dQ,
 // dK and dV are zero, and they are never stored.  Wider heads take the
-// sliced passes below (wide_attention.cuh's design: the products over the
+// wide passes below (two warpgroups over the whole width, a cluster of two
+// past 272 columns), and past 544 the sliced ones (the products over the
 // whole width from device memory, one 128-column slice of dQ, dK and dV a
 // block).
 
@@ -444,11 +446,396 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout
   }
 }
 
-// The dQ pass past a head width of 128: grid (ceil(T / 64), B * H,
+// ---- the attention backward past a head width of 128 ---------------------- //
+//
+// The same function as the passes above (P from the forward's log2-unit
+// LSE, D = rowsum(dO o O), the site-0 mask at each element's physical
+// (query, key) index counted from drop.attn_base, keys >= T masked, 3xTF32
+// products with f32 sums) for heads of 129 to 544: attn_bwd_dq_wide_kernel
+// and attn_bwd_dkdv_wide_kernel, one body, after D's warp-per-row
+// attn_bwd_rowdot_wide_kernel.  What bounds them on an H100: at [64, 4, 81,
+// 256] the five products are 4.3 GFLOP, 0.026 ms in three TF32 passes,
+// against 170 MB of q, k, v, o, dO and the LSE read and dq, dk, dv written,
+// 0.051 ms at 3.35 TB/s: bytes.  In practice one block an SM (8 warps)
+// leaves each tile's steps latency-bound.  The design, wide_attention.cuh's
+// forward turned round:
+//   * a block is 64 resident rows of one (batch, head) (queries for dQ,
+//     keys for dK and dV), two warpgroups of 4 warps (16 rows a warp), and
+//     the whole width up to 272 columns; past that a cluster of two blocks,
+//     each a share of 272 columns.  The block index runs over (batch *
+//     head, row tile) in grid.x, so B * H is not bounded by grid.y;
+//   * the other side streams in tiles of 8 rows (keys for dQ, queries for
+//     dK and dV) landed by cp.async, the next tile in flight while one is
+//     used, and split into big and small once a block, into wgmma's K-major
+//     core matrices along the tile's rows, k permuted (as the forward's V);
+//   * the score tiles (S and dP for dQ, S^T and dP^T for dK and dV) are
+//     computed once a block: each warp takes its 16 rows over its
+//     warpgroup's half of the share on mma.sync (B fragments read from the
+//     split tiles, two accumulators a product, even and odd k8 steps), and
+//     the partial sums meet in shared memory, each block's two warpgroups
+//     added first, then in a cluster the blocks' sums in rank order through
+//     distributed shared memory: every warpgroup holds the same bits.  A
+//     warp whose 16 rows all lie past T skips its products;
+//   * the outputs (dQ += dS K; dV += (Z o P)^T dO and dK += dS^T Q) run on
+//     wgmma m64nNk8, N the warpgroup's 72, 128 or 136 columns, A the score
+//     accumulator (its A fragment under the k permutation), B the split
+//     tile; no atomics, and the sums are taken in a fixed order: two calls
+//     give the same bits.
+// The budget: 64 resident rows of two operands held split as big and small
+// at 256 columns would take 256 KB, past the 227 KB a block may use.  They
+// are held raw (rows of w + 8 floats, = 8 mod 16: conflict-free float2
+// fragment reads) and split a k8 step at a time as the forward splits q;
+// with them the tiles of 8 rows fit: 193 KB at dh 256, 204 KB a block at
+// 272 and 520.  Rows past T and columns past dh read as zeros; only real
+// rows and columns are stored.  Past 544 the sliced passes below run.
+// Tried on an H100 and not kept (tools/kernel_variants.py's wbwd_*
+// ablations locate the time: at [64, 81, 1024] the score products are ~35%
+// of the passes, the split and the loads ~12% each, the output wgmmas ~6%):
+// the dQ pass with Q in registers (as the forward's q) and 16-key tiles,
+// both passes with two staged tiles in flight and the dK/dV tile's LSE and
+// D landed by cp.async: 3-5% slower (the dQ pass spilled at 255 registers).
+
+constexpr int kWbKeys = 8;  // streamed rows a tile
+
+// The shared memory of the wide passes at a block's share w <= 16 KS, in
+// floats: the two resident operands' rows [64][w + 8] and the streamed
+// tile's [BK][w + 8] raw; the streamed tile of both operands split, big and
+// small [2 WO][BK] each (WO = 8 KS, a warpgroup's columns); the partial
+// sums of the two score products [2][8 warps][32 lanes][4].
+template <int KS>
+size_t wide_bwd_floats(int w) {
+  constexpr size_t BK = kWbKeys;
+  return 2 * (kWgRows + BK) * (w + 8) + 4 * 16 * KS * BK + 2 * 8 * 32 * 4;
+}
+
+// Rows [r0, r0 + n) of a head's share (row stride ld floats, dw real
+// columns of w) into n shared rows of ldd floats: 16 bytes a copy where
+// `vec`, else one float; rows past T and columns past dw zero-filled
+__device__ __forceinline__ void wide_rows_async(float* dst, int ldd, const float* src,
+                                                long long ld, int r0, int n, int T, int dw,
+                                                int w, bool vec) {
+  if (vec) {
+    const int w4 = w / 4;
+    for (int f = threadIdx.x; f < n * w4; f += blockDim.x) {
+      const int rr = f / w4, cc = (f % w4) * 4;
+      const bool in = r0 + rr < T && cc < dw;
+      cp_async16(dst + rr * ldd + cc, in ? src + (r0 + rr) * ld + cc : src, in);
+    }
+  } else {
+    wide_copy_scalar(dst, ldd, src, ld, r0, n, T, dw, w);
+  }
+}
+
+// The landed tile x [kWbKeys][ld] into big and small tiles, K-major along
+// its rows: warpgroup c's columns 8 ks c + nn (nn < WO, zero past its half
+// of the share) at c WO BK, core 0 of the k8 step rows 0, 2, 4, 6, core 1
+// rows 1, 3, 5, 7
+template <int WO>
+__device__ __forceinline__ void wide_split_rows(float* big, float* small, const float* x, int ld,
+                                                int ks) {
+  for (int f = threadIdx.x; f < 2 * WO * 2; f += kWgThreads) {
+    const int n = f % (2 * WO), core = f / (2 * WO);
+    const int wg = n / WO, nn = n % WO;
+    const float* xs = x + core * ld + 8 * ks * wg + nn;
+    const float4 v = nn < 8 * ks ? make_float4(xs[0], xs[2 * ld], xs[4 * ld], xs[6 * ld])
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    store_split4(big, small, wg * WO * kWbKeys + (nn >> 3) * 64 + core * 32 + (nn & 7) * 4, v);
+  }
+}
+
+// the split A fragment of rows r, r + 8 (row stride ld) at columns 2t, 2t
+// + 1 of p (k permuted: a0, a1 column 2t, a2, a3 column 2t + 1)
+__device__ __forceinline__ void wide_frag_a(const float* p, int ld, uint32_t (&big)[4],
+                                            uint32_t (&small)[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(p);
+  const float2 hi = *reinterpret_cast<const float2*>(p + 8 * ld);
+  split_tf32(lo.x, big[0], small[0]);
+  split_tf32(hi.x, big[1], small[1]);
+  split_tf32(lo.y, big[2], small[2]);
+  split_tf32(hi.y, big[3], small[3]);
+}
+
+// d += a . b in 3xTF32 on the four floats of an m16n8k8 tile: b's
+// fragments from a split tile of wide_split_rows (b0 at p, b1 at p + 4)
+__device__ __forceinline__ void wide_mma_x3(float* d, const uint32_t (&a_big)[4],
+                                            const uint32_t (&a_small)[4], const float* big,
+                                            const float* small) {
+  const uint32_t bb[2] = {__float_as_uint(big[0]), __float_as_uint(big[4])};
+  const uint32_t bs[2] = {__float_as_uint(small[0]), __float_as_uint(small[4])};
+  mma_tf32_at(d, a_big, bs);
+  mma_tf32_at(d, a_small, bb);
+  mma_tf32_at(d, a_big, bb);
+}
+
+// d += a . b over a warpgroup's WO columns, three passes: a the split score
+// accumulator (its A fragment), b the split tile of a warpgroup at big,
+// small
+template <int WO>
+__device__ __forceinline__ void wide_out_x3(float* d, const uint32_t (&a_big)[4],
+                                            const uint32_t (&a_small)[4], const float* big,
+                                            const float* small) {
+  const uint64_t db = wgmma_desc(big, 128, 256), ds = wgmma_desc(small, 128, 256);
+  wgmma_tf32<WO>(d, a_big, ds);
+  wgmma_tf32<WO>(d, a_small, db);
+  wgmma_tf32<WO>(d, a_big, db);
+}
+
+// One wide pass: DQ, dQ of 64 queries (resident Q and dO, streamed K and
+// V); else dK and dV of 64 keys (resident K and V, streamed Q and dO).
+// grid (B * H * ceil(T / 64), CL), 256 threads, clusters of the CL blocks
+// of a row tile; block `rank` takes the share [rank w, (rank + 1) w) of the
+// padded width, warpgroup c its half [8 ks c, 8 ks (c + 1)) for the scores
+// and the outputs.  qkv, dqkv [B*T, 3D]; dout [B*T, D]; lse, dvec [B*H, T].
+template <bool DQ, bool DROP, int KS, int CL>
+__device__ __forceinline__ void attn_bwd_wide(const float* __restrict__ qkv,
+                                              const float* __restrict__ dout,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ dvec,
+                                              float* __restrict__ dqkv, int T, int D, int H,
+                                              int dh, bool vec, float scale, Drop drop) {
+  constexpr int BK = kWbKeys, WO = 8 * KS;
+  extern __shared__ __align__(16) float smem[];
+  const int w = (dh + 16 * CL - 1) / (16 * CL) * 16, ks = w / 16;
+  const int ld = w + 8;
+  const uint32_t rank = CL > 1 ? blockIdx.y : 0;
+  const int col0 = rank * w, dw = dh - col0;  // the share's first column, its real columns
+  float* res1 = smem;               // resident Q (dQ) or K: [64][ld]
+  float* res2 = res1 + kWgRows * ld;  // resident dO or V
+  float* raw1 = res2 + kWgRows * ld;  // streamed K or Q as it lands: [BK][ld]
+  float* raw2 = raw1 + BK * ld;       // streamed V or dO
+  float* big1 = raw2 + BK * ld;       // streamed K or Q split: [2 WO][BK]
+  float* small1 = big1 + 2 * WO * BK;
+  float* big2 = small1 + 2 * WO * BK;  // streamed V or dO split
+  float* small2 = big2 + 2 * WO * BK;
+  float4* xch = reinterpret_cast<float4*>(small2 + 2 * WO * BK);  // [2][8][32]
+  const int rtiles = (T + kWgRows - 1) / kWgRows;
+  const int bh = blockIdx.x / rtiles, b = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int c = warp >> 2, wi = warp & 3;  // warpgroup, warp in it
+  const int row0 = (blockIdx.x % rtiles) * kWgRows;
+  const int r0 = row0 + 16 * wi + g, r1 = r0 + 8;  // this thread's resident rows
+  const long long ld3 = 3 * (long long)D;
+  const float* qb = qkv + b * T * ld3 + h * dh + col0;
+  const float* ob = dout + (long long)b * T * D + h * dh + col0;
+  const float* s1 = DQ ? qb + D : qb;           // streamed K or Q
+  const float* s2 = DQ ? qb + 2 * D : ob;       // streamed V or dO
+  const long long ls2 = DQ ? ld3 : D;
+  wide_rows_async(res1, ld, DQ ? qb : qb + D, ld3, row0, kWgRows, T, dw, w, vec);
+  wide_rows_async(res2, ld, DQ ? ob : qb + 2 * D, DQ ? D : ld3, row0, kWgRows, T, dw, w, vec);
+  auto load_tile = [&](int j0) {
+    wide_rows_async(raw1, ld, s1, ld3, j0, BK, T, dw, w, vec);
+    wide_rows_async(raw2, ld, s2, ls2, j0, BK, T, dw, w, vec);
+  };
+  load_tile(0);
+  cp_async_commit();
+
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  const float* lb = lse + (size_t)bh * T;
+  const float* db = dvec + (size_t)bh * T;
+  // dQ: the LSE and D of the resident rows
+  float lse_r[2] = {0.0f, 0.0f}, d_r[2] = {0.0f, 0.0f};
+  if constexpr (DQ) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = r0 + 8 * hi;
+      lse_r[hi] = r < T ? lb[r] : 0.0f;
+      d_r[hi] = r < T ? db[r] : 0.0f;
+    }
+  }
+  // dQ, or dV and dK, over this warpgroup's columns
+  float acc1[4 * KS], acc2[DQ ? 1 : 4 * KS];
+#pragma unroll
+  for (int i = 0; i < 4 * KS; ++i) acc1[i] = 0.0f;
+  if constexpr (!DQ)
+#pragma unroll
+    for (int i = 0; i < 4 * KS; ++i) acc2[i] = 0.0f;
+  // this warp's fragments of the resident rows (16 wi + g, + 8) and of the
+  // split tiles (row g of the tile), at its warpgroup's half
+  const float* fa1 = res1 + (16 * wi + g) * ld + 8 * ks * c + 2 * t;
+  const float* fa2 = res2 + (16 * wi + g) * ld + 8 * ks * c + 2 * t;
+  const int fb = c * WO * BK + (g & 1) * 32 + 8 * t + (g >> 1);
+  const bool live = row0 + 16 * wi < T;  // the warp holds a real row
+
+  const int ntiles = (T + BK - 1) / BK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile (and the resident rows) have landed; the last tile is read
+    // ... and in a cluster the peer has read this block's sums of the last
+    // tile: it used the values before it arrived, so no release is needed
+    if constexpr (CL > 1) cluster_sync_relaxed();
+    wide_split_rows<WO>(big1, small1, raw1, ld, ks);
+    wide_split_rows<WO>(big2, small2, raw2, ld, ks);
+    fence_proxy_async();
+    __syncthreads();  // the split tiles are visible to wgmma; the raw tiles are free
+    if (it + 1 < ntiles) load_tile(j0 + BK);
+    cp_async_commit();
+    // dK/dV: the LSE and D of this thread's streamed queries j0 + 2t, + 1
+    float lse_j[2] = {0.0f, 0.0f}, d_j[2] = {0.0f, 0.0f};
+    if constexpr (!DQ) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 2 * t + e;
+        lse_j[e] = j < T ? lb[j] : 0.0f;
+        d_j[e] = j < T ? db[j] : 0.0f;
+      }
+    }
+
+    // this warp's part of the two score tiles (S and dP, or S^T and dP^T):
+    // its 16 rows, the tile's 8, its warpgroup's half of the share; even
+    // and odd k8 steps in two accumulators.  A warp whose rows all lie past
+    // T skips it (those rows are never stored and reach no other row); the
+    // loop without a bound check where the half is KS steps wide (every
+    // width but those between the instantiations), so that its shared
+    // loads run ahead of the products
+    float s[2][4], p2[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = p2[0][e] = p2[1][e] = 0.0f;
+    auto scores = [&](auto whole) {
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        if (!decltype(whole)::value && i >= ks) break;
+        uint32_t x_big[4], x_small[4], y_big[4], y_small[4];
+        wide_frag_a(fa1 + 8 * i, ld, x_big, x_small);
+        wide_frag_a(fa2 + 8 * i, ld, y_big, y_small);
+        const int off = fb + 64 * i;
+        wide_mma_x3(s[i & 1], x_big, x_small, big1 + off, small1 + off);
+        wide_mma_x3(p2[i & 1], y_big, y_small, big2 + off, small2 + off);
+      }
+    };
+    if (live) {
+      if (ks == KS)
+        scores(std::true_type{});
+      else
+        scores(std::false_type{});
+    }
+
+    // the partial sums, added in the same order by every warpgroup of the
+    // cluster: a block's two first, then the blocks' sums in rank order
+    xch[warp * 32 + lane] =
+        make_float4(s[0][0] + s[1][0], s[0][1] + s[1][1], s[0][2] + s[1][2], s[0][3] + s[1][3]);
+    xch[(8 + warp) * 32 + lane] = make_float4(p2[0][0] + p2[1][0], p2[0][1] + p2[1][1],
+                                              p2[0][2] + p2[1][2], p2[0][3] + p2[1][3]);
+    __syncthreads();
+    float sc[4], dp[4];
+    {
+      const float4 x0 = xch[wi * 32 + lane], x1 = xch[(4 + wi) * 32 + lane];
+      const float4 y0 = xch[(8 + wi) * 32 + lane], y1 = xch[(12 + wi) * 32 + lane];
+      sc[0] = x0.x + x1.x, sc[1] = x0.y + x1.y, sc[2] = x0.z + x1.z, sc[3] = x0.w + x1.w;
+      dp[0] = y0.x + y1.x, dp[1] = y0.y + y1.y, dp[2] = y0.z + y1.z, dp[3] = y0.w + y1.w;
+    }
+    if constexpr (CL > 1) {
+      __syncthreads();  // both warpgroups have read the partials
+      if (c == 0) {
+        xch[wi * 32 + lane] = make_float4(sc[0], sc[1], sc[2], sc[3]);
+        xch[(8 + wi) * 32 + lane] = make_float4(dp[0], dp[1], dp[2], dp[3]);
+      }
+      cluster_sync();
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), y = a;
+#pragma unroll
+      for (int r = 0; r < CL; ++r) {
+        const bool own = r == static_cast<int>(rank);
+        const float4 x = own ? make_float4(sc[0], sc[1], sc[2], sc[3])
+                             : ld_cluster(xch + wi * 32 + lane, r);
+        const float4 z = own ? make_float4(dp[0], dp[1], dp[2], dp[3])
+                             : ld_cluster(xch + (8 + wi) * 32 + lane, r);
+        a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+        y.x += z.x, y.y += z.y, y.z += z.z, y.w += z.w;
+      }
+      sc[0] = a.x, sc[1] = a.y, sc[2] = a.z, sc[3] = a.w;
+      dp[0] = y.x, dp[1] = y.y, dp[2] = y.z, dp[3] = y.w;
+    }
+
+    // element e: resident row r0 + 8 (e >> 1), streamed row j0 + 2t + (e & 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hi = e >> 1, j = j0 + 2 * t + (e & 1), r = r0 + 8 * hi;
+      if constexpr (DQ) {  // key j: dS
+        const float p = j < T ? exp2f(sc[e] * scale_log2 - lse_r[hi]) : 0.0f;
+        float dpz = dp[e];
+        if constexpr (DROP)
+          dpz = dropped(dpz, drop.attn_base + (static_cast<uint32_t>(bh) * T + r) * T + j, salt,
+                        drop);
+        sc[e] = p * (dpz - d_r[hi]) * scale;
+      } else {  // query j, key r: (Z o P)^T and dS^T
+        const float p = j < T ? exp2f(sc[e] * scale_log2 - lse_j[e & 1]) : 0.0f;
+        float pd = p, dpz = dp[e];
+        if constexpr (DROP) {
+          const uint32_t idx = drop.attn_base + (static_cast<uint32_t>(bh) * T + j) * T + r;
+          const bool keep = hash_u32(idx, salt) < drop.thresh;
+          pd = keep ? p * drop.inv_keep : 0.0f;
+          dpz = keep ? dpz * drop.inv_keep : 0.0f;
+        }
+        sc[e] = pd;
+        dp[e] = j < T ? p * (dpz - d_j[e & 1]) * scale : 0.0f;
+      }
+    }
+
+    // the outputs on wgmma: dQ += dS K; dV += (Z o P)^T dO, dK += dS^T Q
+    uint32_t a_big[4], a_small[4];
+    acc_a(sc, a_big, a_small);
+    const int wg_off = c * WO * BK;
+    reg_fence(acc1);
+    if constexpr (!DQ) reg_fence(acc2);
+    wgmma_fence();
+    if constexpr (DQ) {
+      wide_out_x3<WO>(acc1, a_big, a_small, big1 + wg_off, small1 + wg_off);
+    } else {
+      uint32_t b_big[4], b_small[4];
+      acc_a(dp, b_big, b_small);
+      wide_out_x3<WO>(acc1, a_big, a_small, big2 + wg_off, small2 + wg_off);
+      wide_out_x3<WO>(acc2, b_big, b_small, big1 + wg_off, small1 + wg_off);
+      reg_fence(b_big);
+      reg_fence(b_small);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc1);
+    if constexpr (!DQ) reg_fence(acc2);
+    reg_fence(a_big);
+    reg_fence(a_small);
+  }
+
+  if constexpr (CL > 1) cluster_sync();  // the peers have read this block's partials
+  float* out1 = dqkv + b * T * ld3 + h * dh + col0 + (DQ ? 0 : 2 * D);  // dQ or dV
+  float* out2 = out1 - D;                                                // dK
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    if (i >= ks) break;
+    const int col = 8 * (ks * c + i) + 2 * t;
+    store_pair(out1 + r0 * ld3 + col, acc1[4 * i], acc1[4 * i + 1], r0 < T, col, dw, vec);
+    store_pair(out1 + r1 * ld3 + col, acc1[4 * i + 2], acc1[4 * i + 3], r1 < T, col, dw, vec);
+    if constexpr (!DQ) {
+      store_pair(out2 + r0 * ld3 + col, acc2[4 * i], acc2[4 * i + 1], r0 < T, col, dw, vec);
+      store_pair(out2 + r1 * ld3 + col, acc2[4 * i + 2], acc2[4 * i + 3], r1 < T, col, dw, vec);
+    }
+  }
+}
+
+template <bool DROP, int KS, int CL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_dq_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ dvec,
+                        float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
+                        float scale, Drop drop) {
+  attn_bwd_wide<true, DROP, KS, CL>(qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
+}
+
+template <bool DROP, int KS, int CL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_dkdv_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dvec,
+                          float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
+                          float scale, Drop drop) {
+  attn_bwd_wide<false, DROP, KS, CL>(qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
+}
+
+// The dQ pass past a head width of 544: grid (ceil(T / 64), B * H,
 // ceil(dh / 128)), each block one 128-column slice of dQ.
 template <bool DROP>
 __global__ void __launch_bounds__(kWideThreads)
-attn_bwd_dq_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+attn_bwd_dq_sliced_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ dvec,
                         float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
                         float scale, Drop drop) {
@@ -503,10 +890,10 @@ attn_bwd_dq_wide_kernel(const float* __restrict__ qkv, const float* __restrict__
   wide_store(dqkv + b * T * ld3 + h * dh, ld3, q0, c0, dq, T, dh, vec);
 }
 
-// The dK/dV pass past a head width of 128, as the dQ pass.
+// The dK/dV pass past a head width of 544, as the dQ pass.
 template <bool DROP>
 __global__ void __launch_bounds__(kWideThreads)
-attn_bwd_dkdv_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+attn_bwd_dkdv_sliced_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dvec,
                           float* __restrict__ dqkv, int T, int D, int H, int dh, bool vec,
                           float scale, Drop drop) {
@@ -578,6 +965,34 @@ attn_bwd_rowdot_kernel(const float* __restrict__ o, const float* __restrict__ do
   dvec[((size_t)b * H + h) * T + (m - b * T)] = s;
 }
 
+// D past a head width of 128: a warp per (row, head), its lanes along the
+// head width (a float4 a load where `vec`), their sums added in a fixed
+// order; dvec as attn_bwd_rowdot_kernel's
+__global__ void __launch_bounds__(kSumThreads)
+attn_bwd_rowdot_wide_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                            float* __restrict__ dvec, int M, int T, int D, int H, bool vec) {
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (e >= M * H) return;
+  const int m = e / H, h = e - m * H, dh = D / H;
+  const float* a = o + (size_t)m * D + h * dh;
+  const float* c = dout + (size_t)m * D + h * dh;
+  float s = 0.0f;
+  if (vec) {
+    for (int d = 4 * lane; d < dh; d += 128) {
+      const float4 x = ld4(a + d), y = ld4(c + d);
+      s = fmaf(x.x, y.x, s);
+      s = fmaf(x.y, y.y, s);
+      s = fmaf(x.z, y.z, s);
+      s = fmaf(x.w, y.w, s);
+    }
+  } else {
+    for (int d = lane; d < dh; d += 32) s = fmaf(a[d], c[d], s);
+  }
+  s = warp_sum(s);
+  const int b = m / T;
+  if (lane == 0) dvec[((size_t)b * H + h) * T + (m - b * T)] = s;
+}
+
 struct BwdArgs {
   const float *qkv, *dout, *lse, *dvec;
   float* dqkv;
@@ -608,37 +1023,86 @@ cudaError_t attention_backward_dhp(const BwdArgs& a, cudaStream_t s) {
                                 : attention_backward_launch<DHP, false>(a, s);
 }
 
+// The wide passes of one block shape: the dQ pass, then the dK/dV pass
+template <bool DROP, int KS, int CL>
+cudaError_t attn_bwd_wide_launch(const BwdArgs& a, cudaStream_t s) {
+  auto* dq = attn_bwd_dq_wide_kernel<DROP, KS, CL>;
+  auto* dkdv = attn_bwd_dkdv_wide_kernel<DROP, KS, CL>;
+  const int w = (a.dh + 16 * CL - 1) / (16 * CL) * 16;
+  const size_t smem = wide_bwd_floats<KS>(w) * sizeof(float);
+  cudaError_t e = set_smem(dq, smem);
+  if (e == cudaSuccess) e = set_smem(dkdv, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)a.B * a.H * ((a.T + kWgRows - 1) / kWgRows);
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;  // grid.x
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), CL);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = CL;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, dq, a.qkv, a.dout, a.lse, a.dvec, a.dqkv, a.T, a.D, a.H, a.dh,
+                         a.vec, a.scale, a.drop);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernelEx(&cfg, dkdv, a.qkv, a.dout, a.lse, a.dvec, a.dqkv, a.T, a.D, a.H, a.dh,
+                           a.vec, a.scale, a.drop);
+  return e;
+}
+
+// The sliced passes: grid (ceil(T / 64), B * H, ceil(dh / 128))
+template <bool DROP>
+cudaError_t attn_bwd_sliced_launch(const BwdArgs& a, cudaStream_t s) {
+  if (a.B * a.H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((a.T + kWideRows - 1) / kWideRows, a.B * a.H,
+                  (a.dh + kWideSlice - 1) / kWideSlice);
+  attn_bwd_dq_sliced_kernel<DROP><<<grid, kWideThreads, 0, s>>>(
+      a.qkv, a.dout, a.lse, a.dvec, a.dqkv, a.T, a.D, a.H, a.dh, a.vec, a.scale, a.drop);
+  attn_bwd_dkdv_sliced_kernel<DROP><<<grid, kWideThreads, 0, s>>>(
+      a.qkv, a.dout, a.lse, a.dvec, a.dqkv, a.T, a.D, a.H, a.dh, a.vec, a.scale, a.drop);
+  return cudaSuccess;
+}
+
+// Both passes at head width dh > 128: the wide passes up to 544, one block
+// to 272 columns (a warpgroup's half of them 72, 128 or 136 wide), a
+// cluster of two past it (shares of 272); the sliced passes past 544.
+template <bool DROP>
+cudaError_t attention_backward_wide(const BwdArgs& a, cudaStream_t s) {
+  if (a.dh <= 144) return attn_bwd_wide_launch<DROP, 9, 1>(a, s);
+  if (a.dh <= 256) return attn_bwd_wide_launch<DROP, 16, 1>(a, s);
+  if (a.dh <= 272) return attn_bwd_wide_launch<DROP, 17, 1>(a, s);
+  if (a.dh <= 544) return attn_bwd_wide_launch<DROP, 17, 2>(a, s);
+  return attn_bwd_sliced_launch<DROP>(a, s);
+}
+
 // Queues D (into dvec) and both passes of the attention backward: qkv [B*T,
 // 3D] and the forward's lse [B*H, T], o and dout [B*T, D] -> dqkv [B*T, 3D].
 cudaError_t attention_backward(const float* qkv, const float* o, const float* dout,
                                const float* lse, float* dvec, float* dqkv, int B, int T,
                                int D, int H, float scale, const Drop& drop, cudaStream_t s) {
   const int rows = B * T * H;
-  attn_bwd_rowdot_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
-      o, dout, dvec, B * T, T, D, H);
   // 16-byte copies where every row of qkv, dout and dqkv and every head's
   // slice of it starts 16-byte aligned
   const int dh = D / H;
   const bool vec = dh % 4 == 0 && D % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dout) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dqkv) % 16 == 0;
-  if (dh > kMaxPaddedWidth) {
-    if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
-    const dim3 grid((T + kWideRows - 1) / kWideRows, B * H, (dh + kWideSlice - 1) / kWideSlice);
-    if (drop.seed != nullptr) {
-      attn_bwd_dq_wide_kernel<true><<<grid, kWideThreads, 0, s>>>(qkv, dout, lse, dvec, dqkv, T,
-                                                                  D, H, dh, vec, scale, drop);
-      attn_bwd_dkdv_wide_kernel<true><<<grid, kWideThreads, 0, s>>>(
-          qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
-    } else {
-      attn_bwd_dq_wide_kernel<false><<<grid, kWideThreads, 0, s>>>(
-          qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
-      attn_bwd_dkdv_wide_kernel<false><<<grid, kWideThreads, 0, s>>>(
-          qkv, dout, lse, dvec, dqkv, T, D, H, dh, vec, scale, drop);
-    }
-    return cudaSuccess;
-  }
   const BwdArgs a{qkv, dout, lse, dvec, dqkv, B, T, D, H, dh, vec, scale, drop};
+  if (dh > kMaxPaddedWidth) {
+    const unsigned blocks = static_cast<unsigned>(((long long)rows * 32 + kSumThreads - 1) /
+                                                  kSumThreads);
+    attn_bwd_rowdot_wide_kernel<<<blocks, kSumThreads, 0, s>>>(
+        o, dout, dvec, B * T, T, D, H, vec && reinterpret_cast<uintptr_t>(o) % 16 == 0);
+    return drop.seed != nullptr ? attention_backward_wide<true>(a, s)
+                                : attention_backward_wide<false>(a, s);
+  }
+  attn_bwd_rowdot_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
+      o, dout, dvec, B * T, T, D, H);
   return with_padded_width(
       dh, [&](auto w) { return attention_backward_dhp<decltype(w)::value>(a, s); });
 }

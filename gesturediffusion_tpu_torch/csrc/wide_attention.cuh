@@ -1,7 +1,7 @@
 // Attention at head widths past 128: the flash forward (flash_attention.cuh's
 // function) and the band forward (band_attention.cu, local_block.cu) for
 // heads the narrow kernels' registers and shared memory do not hold, and the
-// tile products the training layer's wide attention backward shares
+// primitives the training layer's wide attention backward shares
 // (encoder_layer_train.cu).
 //
 // Replaces, for those widths: gesturediffusion_tpu/ops/pallas_flash.py::
@@ -52,11 +52,13 @@
 // Rows past T and columns past dh read as zeros; only real rows and
 // columns are stored.
 //
-// Heads wider than 544 (no configuration comes near them) and the band and
-// backward kernels walk the head width in 128-column slices, each block of
-// 4 warps recomputing the scores of its slice from fragments read from
-// device memory (L1 and L2 serve the re-reads): flash_sliced_kernel,
-// band_wide_kernel and the helpers below.  Their products are
+// Heads wider than 544 (no configuration comes near them; the training
+// layer's attention backward too) and the band kernels walk the head width
+// in 128-column slices, each block of 4 warps recomputing the scores of its
+// slice from fragments read from device memory (L1 and L2 serve the
+// re-reads): flash_sliced_kernel, band_wide_kernel and the helpers below.
+// encoder_layer_train.cu's wide backward passes (heads of 129 to 544) reuse
+// the forward's wgmma widths, splits and cluster exchange.  Their products are
 // mma.sync.m16n8k8 TF32 in three passes, with the k permutation of
 // flash_attention.cuh, so P stays in registers.
 #pragma once

@@ -12,9 +12,9 @@ Every product of every kernel runs on the tensor cores in 3xTF32
 training layer's attention backward and the band attention that the band
 kernel and the local block share.  Every head width is taken (up to 128
 padded to the next multiple of 16 in shared memory; wider heads in the wide
-flash forward's blocks of the whole width up to 544, or in 128-column
-slices past it and for the band kernels and the attention backward), and
-so are D and F not divisible by 4.
+flash forward's and the attention backward's blocks of the whole width up
+to 544, or in 128-column slices past it and for the band kernels), and so
+are D and F not divisible by 4.
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -414,7 +414,7 @@ def test_train_backward_is_bit_for_bit_repeatable(dev):
 
 def test_train_kernels_reject_a_head_width(dev):
     """The training kernels reject no head width: 2 heads of 136 (past
-    128: the wide flash forward, the sliced backward) are taken as 8 heads
+    128: the wide flash forward and backward) are taken as 8 heads
     of 8 at D = 64 are (at the padded width 16), forward and backward
     against the plain layer."""
     _check_train_kernels(dev, 1, 9, 272, 2, 544, 0.1)
@@ -578,6 +578,80 @@ def test_train_kernels_wide_dropout_at_300_rows(dev, dh):
     plain twin under the same hash masks, over ten 32-key tiles (and the
     backward, which recomputes it)."""
     _check_train_kernels(dev, 2, 300, 2 * dh, 2, 2 * dh, 0.1)
+
+
+# the attention backward's routes past 128: the wide passes in one block
+# (136, 256) and in a cluster of two (520); the sliced passes past 544
+WIDE_BWD_ROUTES = (136, 256, 520)
+
+
+@pytest.mark.parametrize("dh", WIDE_BWD_ROUTES)
+@pytest.mark.parametrize("t", [1, 15, 17, 31, 33, 63, 65, 129, 300])
+def test_train_backward_wide_at_ragged_lengths(dev, t, dh):
+    """The wide passes at lengths around their 8-row tiles and 64-row
+    blocks, from one row: the 13 gradients against the plain layer's."""
+    _check_train_kernels(dev, 1, t, 2 * dh, 2, 2 * dh, 0.1)
+
+
+@pytest.mark.parametrize("dh", [131, 261, 523])
+@pytest.mark.parametrize("t", [17, 81])
+def test_train_backward_wide_with_unaligned_rows(dev, t, dh):
+    """Head widths not divisible by 4: rows copied a float at a time."""
+    _check_train_kernels(dev, 2, t, 2 * dh, 2, 2 * dh, 0.1)
+
+
+@pytest.mark.parametrize("dh", WIDE_BWD_ROUTES)
+def test_train_backward_wide_is_bit_for_bit_repeatable(dev, dh):
+    """No atomics, partial scores added in a fixed order: two backward
+    calls, the same bits."""
+    w = _encoder_weights(2 * dh, 2 * dh, dev, seed=37)
+    rs = np.random.RandomState(37)
+    x, g = _randn(rs, 2, 300, 2 * dh, device=dev), _randn(rs, 2, 300, 2 * dh, device=dev)
+    seed = torch.tensor([777], dtype=torch.int32, device=dev)
+    kw = dict(seed=seed, g=g, num_heads=2, rate=0.1)
+    first = encoder_layer_train_bwd(x, *w, **kw)
+    second = encoder_layer_train_bwd(x, *w, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dh", [136, 520])
+@pytest.mark.parametrize("bh", [65535, 65536])
+def test_train_backward_wide_past_the_grid_guard(dev, bh, dh):
+    """B * H at and past 65535, the sliced passes' grid.y limit: the wide
+    passes index (batch * head, row tile) in grid.x."""
+    _check_train_kernels(dev, bh, 3, dh, 1, 64, 0.1)
+
+
+@pytest.mark.parametrize("dh,row0", [(256, 64), (520, 3)])
+def test_train_kernels_wide_at_a_row_offset(dev, dh, row0):
+    """A data rank's share of a global batch at the wide routes: the
+    backward's site-0 mask counts from the share's first row."""
+    _check_train_kernels(dev, 4, 81, 2 * dh, 2, 2 * dh, 0.1, row0)
+
+
+@pytest.mark.parametrize("dh,route", [(256, "wide"), (520, "wide"), (560, "sliced")])
+def test_train_backward_takes_its_route_by_width(dev, dh, route):
+    """The backward's passes by the profiler's kernel names: the wide ones
+    to 544, the sliced ones past it; the gradients against the plain
+    layer's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = _encoder_weights(2 * dh, 2 * dh, dev, seed=38)
+    rs = np.random.RandomState(38)
+    x, g = _randn(rs, 2, 81, 2 * dh, device=dev), _randn(rs, 2, 81, 2 * dh, device=dev)
+    seed = torch.tensor([4242], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        encoder_layer_train_bwd(x, *w, seed=seed, g=g, num_heads=2, rate=0.1)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for part in ("dq", "dkdv"):
+        assert any(f"attn_bwd_{part}_{route}_kernel" in n for n in names), (part, sorted(names))
+    other = "sliced" if route == "wide" else "wide"
+    assert not any(f"attn_bwd_{part}_{other}_kernel" in n for part in ("dq", "dkdv")
+                   for n in names), sorted(names)
+    _check_train_kernels(dev, 2, 81, 2 * dh, 2, 2 * dh, 0.1)
 
 
 @pytest.mark.parametrize("layout", ["aliased", "separate", "strided"])

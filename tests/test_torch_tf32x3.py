@@ -168,9 +168,9 @@ def wide_flash(q, k, v, mm, keep=None):
     halves = [[slice(r * w + c * w // 2, r * w + (c + 1) * w // 2) for c in range(2)]
               for r in range(cl)]
     scale_log2 = dh**-0.5 * 1.4426950408889634
-    m = torch.full((b, h, t), -torch.finfo(torch.float32).max)
-    l = torch.zeros(b, h, t)
-    o = torch.zeros(b, h, t, cl * w)
+    m = torch.full((b, h, t), -torch.finfo(torch.float32).max, dtype=q.dtype)
+    l = q.new_zeros(b, h, t)
+    o = q.new_zeros(b, h, t, cl * w)
     for j0 in range(0, t, bk):
         kt, vt = kp[:, :, j0:j0 + bk], vp[:, :, j0:j0 + bk]
         s = None

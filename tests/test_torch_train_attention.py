@@ -19,7 +19,20 @@ encoder_layer_train_reference, at lengths around the 64-row blocks and the
 magnitude, float32 level against the float32 reference (measured 1.0e-06
 to 1.5e-06 in both arithmetics); the single-TF32-pass control (1e-03 to
 2e-03 measured) is held to be 10x further off.
+
+Past a head width of 128 the backward runs in the wide passes
+(``wide_backward``): 64 resident rows of a (batch, head) and the whole
+width, a cluster of two blocks past 272 columns; the other side streamed in
+tiles of 8 rows; each score tile (S and dP, or S^T and dP^T) summed once
+from the partial products over the blocks' and warpgroups' column shares,
+each block's two halves first and the blocks in rank order; dQ, dV and dK
+accumulated tile by tile.  It runs in the same layer, after the wide flash
+forward's emulation (tests/test_torch_tf32x3.py:wide_flash), against the
+same JAX gradients at head widths 136 and 256 (one block) and 520 (a
+cluster of two), within the same tolerance.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,12 +56,14 @@ from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
     keep_threshold,
     salt,
 )
-from tests.test_torch_tf32x3 import matmul_tf32, matmul_tf32x3
+from tests.test_torch_tf32x3 import matmul_tf32, matmul_tf32x3, wide_flash
+from tests.torch_port_common import WIDE_MAX_WIDTH, wide_bwd_block_shape
 
 LOG2E = 1.4426950408889634
 FLT_MAX = float(np.finfo(np.float32).max)
 ROWS = 64  # resident rows a block of the backward (encoder_layer_train.cu:kBwdRows)
 TOL = 1e-5
+MAX_SMEM = 232448  # an H100's shared memory a block may use (csrc/common.cuh:kMaxSmem)
 
 
 def tiles(dh: int) -> tuple[int, int]:
@@ -169,8 +184,99 @@ class TiledAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def tile(x: torch.Tensor, r0: int, n: int) -> torch.Tensor:
+    """Rows [r0, r0 + n) of x [N, T, ...] along dim 1, zero past its end."""
+    out = x.new_zeros((x.shape[0], n) + x.shape[2:])
+    part = x[:, r0:r0 + n]
+    out[:, :part.shape[1]] = part
+    return out
+
+
+def wide_backward(q, k, v, o, do, lse, seed, rate, mm):
+    """[N, T, dh] heads (head n the (batch, head) index n) -> (dq, dk, dv)
+    as csrc/encoder_layer_train.cu's wide passes compute them past a head
+    width of 128: the padded width cut into the blocks' shares of w columns
+    and each into two warpgroup halves (wide_bwd_block_shape); 64 resident
+    rows (queries for dQ, keys for dK and dV) against tiles of ``bk``
+    streamed rows; each score tile summed from the halves' partial products
+    (by ``mm``), each block's two first and the blocks' sums in rank order;
+    P from the LSE, the site-0 mask at the physical (query, key) index, and
+    the outputs accumulated tile by tile."""
+    n, t, dh = q.shape
+    shape = wide_bwd_block_shape(dh)
+    cl, w, bk = shape["cl"], shape["w"], shape["bk"]
+    qp, kp, vp, dop = (F.pad(x, (0, cl * w - dh)) for x in (q, k, v, do))
+    halves = [[slice(r * w + c * w // 2, r * w + (c + 1) * w // 2) for c in range(2)]
+              for r in range(cl)]
+    scale = dh**-0.5
+    sl = scale * LOG2E
+    dvec = (do * o).sum(-1)
+    bh = torch.arange(n)[:, None, None]
+    zero = torch.tensor(0.0, dtype=q.dtype)
+
+    def scores(a, b):
+        s = None
+        for block in halves:
+            part = [mm(a[..., c], b[..., c].transpose(-1, -2)) for c in block]
+            s = part[0] + part[1] if s is None else s + (part[0] + part[1])
+        return s
+
+    dq, dk, dv = (torch.zeros_like(x) for x in (qp, kp, vp))
+    for r0 in range(0, t, ROWS):
+        rs, nr = torch.arange(r0, r0 + ROWS), min(ROWS, t - r0)
+        # the dQ pass: queries rs resident, key tiles streamed
+        qr, dor = tile(qp, r0, ROWS), tile(dop, r0, ROWS)
+        lr, dr = tile(lse, r0, ROWS)[..., None], tile(dvec, r0, ROWS)[..., None]
+        dqb = torch.zeros_like(qr)
+        for j0 in range(0, t, bk):
+            js = torch.arange(j0, j0 + bk)
+            kt, vt = tile(kp, j0, bk), tile(vp, j0, bk)
+            s, dp = scores(qr, kt), scores(dor, vt)
+            p = torch.where(js < t, torch.exp2(s * sl - lr), zero)
+            z = site0_scale(bh, t, rs, js, seed, rate, q.dtype)
+            dqb = dqb + mm(p * (dp * z - dr) * scale, kt)
+        # the dK/dV pass: keys rs resident, query tiles streamed
+        kr, vr = tile(kp, r0, ROWS), tile(vp, r0, ROWS)
+        dkb, dvb = torch.zeros_like(kr), torch.zeros_like(vr)
+        for j0 in range(0, t, bk):
+            js = torch.arange(j0, j0 + bk)
+            qt, ot = tile(qp, j0, bk), tile(dop, j0, bk)
+            lt, dt = tile(lse, j0, bk)[:, None, :], tile(dvec, j0, bk)[:, None, :]
+            st, dpt = scores(kr, qt), scores(vr, ot)
+            p = torch.where(js < t, torch.exp2(st * sl - lt), zero)
+            z = site0_scale(bh, t, js, rs, seed, rate, q.dtype).transpose(-1, -2)
+            dvb = dvb + mm(p * z, ot)
+            dkb = dkb + mm(torch.where(js < t, p * (dpt * z - dt) * scale, zero), qt)
+        dq[:, r0:r0 + nr], dk[:, r0:r0 + nr], dv[:, r0:r0 + nr] = dqb[:, :nr], dkb[:, :nr], dvb[:, :nr]
+    return dq[..., :dh], dk[..., :dh], dv[..., :dh]
+
+
+class WideAttention(torch.autograd.Function):
+    """[B, H, T, dh] q, k, v past a head width of 128 -> the dropped
+    attention output: the wide flash forward's emulation, then the wide
+    passes'."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, rate, mm):
+        b, h, t, _ = q.shape
+        keep = (None if rate == 0.0 else
+                (hash_dropout_mask((b, h, t, t), 0, seed, SITE_ATTN, 1.0 - rate), 1.0 - rate))
+        o, lse = wide_flash(q, k, v, mm, keep)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (seed, rate, mm)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, h, t, dh = q.shape
+        flat = [x.reshape(b * h, t, dh) for x in (q, k, v, o, do)]
+        grads = wide_backward(*flat, lse.reshape(b * h, t), *ctx.args)
+        return (*(g.reshape(q.shape) for g in grads), None, None, None)
+
+
 def layer(x, wqkv, bqkv, wo, bo, l1w, l1b, w1, b1, w2, b2, l2w, l2b, *, seed, num_heads,
-          rate, mm):
+          rate, mm, attention=TiledAttention):
     """The training layer (ops/fused_encoder_train.py:encoder_layer_train_plain)
     with its attention by the emulated kernels."""
     b, t, d = x.shape
@@ -184,43 +290,53 @@ def layer(x, wqkv, bqkv, wo, bo, l1w, l1b, w1, b1, w2, b2, l2w, l2b, *, seed, nu
 
     q, k, v = (y.reshape(b, t, num_heads, -1).transpose(1, 2)
                for y in F.linear(x, wqkv, bqkv).chunk(3, dim=-1))
-    a = TiledAttention.apply(q, k, v, seed, rate, mm).transpose(1, 2).reshape(b, t, d)
+    a = attention.apply(q, k, v, seed, rate, mm).transpose(1, 2).reshape(b, t, d)
     x = F.layer_norm(x + drop(F.linear(a, wo, bo), SITE_POST_ATTN), (d,), l1w, l1b, LN_EPS)
     hd = drop(gelu_tanh(F.linear(x, w1, b1)), SITE_ACT)
     return F.layer_norm(x + drop(F.linear(hd, w2, b2), SITE_FF), (d,), l2w, l2b, LN_EPS)
 
 
-def _weights(d, f, seed):
-    """JAX [in, out] layer weights from numpy."""
+def _weights(d, f, seed, fan_in=False):
+    """JAX [in, out] layer weights from numpy: 0.2 randn, or with
+    ``fan_in`` the matrices at 1 / sqrt(their fan-in), as a layer is
+    initialised."""
     rs = np.random.RandomState(seed)
     shapes = [(d, 3 * d), (3 * d,), (d, d), (d,), (d,), (d,),
               (d, f), (f,), (f, d), (d,), (d,), (d,)]
     ws = []
     for i, s in enumerate(shapes):
-        w = 0.2 * rs.randn(*s)
+        w = (s[0] ** -0.5 if fan_in and len(s) == 2 else 0.2) * rs.randn(*s)
         ws.append((w + 1.0 if i in (4, 10) else w).astype(np.float32))
     return ws
 
 
-def _max_rel_errors(t, rate, mm, dtype, b=2, d=64, h=2, f=128, seed=17):
+@functools.lru_cache(maxsize=None)
+def _case(t, rate, b, d, h, f, seed, fan_in):
+    """The inputs of a comparison and jax.grad of the reference layer (one
+    compiled call: both arithmetics of a case share it)."""
     rs = np.random.RandomState(t)
     x = rs.randn(b, t, d).astype(np.float32)
     g = rs.randn(b, t, d).astype(np.float32)
-    ws = _weights(d, f, seed=t + 1)
+    ws = _weights(d, f, seed=t + 1, fan_in=fan_in)
 
     def ref(x, *ws):
         return jnp.sum(jet.encoder_layer_train_reference(x, ws, seed, num_heads=h, rate=rate) * g)
 
-    want = jax.grad(ref, argnums=tuple(range(13)))(jnp.asarray(x), *map(jnp.asarray, ws))
+    want = jax.jit(jax.grad(ref, argnums=tuple(range(13))))(jnp.asarray(x), *map(jnp.asarray, ws))
+    return x, g, ws, [np.asarray(e, np.float64) for e in want]
+
+
+def _max_rel_errors(t, rate, mm, dtype, b=2, d=64, h=2, f=128, seed=17,
+                    attention=TiledAttention, fan_in=False):
+    x, g, ws, want = _case(t, rate, b, d, h, f, seed, fan_in)
     xt = torch.from_numpy(x).to(dtype).requires_grad_()
     wt = [torch.from_numpy(np.ascontiguousarray(w.T if w.ndim == 2 else w)).to(dtype)
           .requires_grad_() for w in ws]
-    out = layer(xt, *wt, seed=seed, num_heads=h, rate=rate, mm=mm)
+    out = layer(xt, *wt, seed=seed, num_heads=h, rate=rate, mm=mm, attention=attention)
     (out * torch.from_numpy(g).to(dtype)).sum().backward()
     got = [xt.grad] + [w.grad.T if w.dim() == 2 else w.grad for w in wt]
     errs = []
     for a, e in zip(got, want):
-        e = np.asarray(e, np.float64)
         errs.append(np.abs(a.double().numpy() - e).max() / np.abs(e).max())
     return errs
 
@@ -247,3 +363,68 @@ def test_one_tf32_pass_in_the_attention_is_another_result():
     three = max(_max_rel_errors(65, 0.1, matmul_tf32x3, torch.float32))
     one = max(_max_rel_errors(65, 0.1, matmul_tf32, torch.float32))
     assert one >= 10 * three, (one, three)
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the wide emulation (the suite runs in several
+    workers), restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# (head width, heads): one block at 136 and 256 columns, a cluster of two at 520
+WIDE = [(136, 2), (256, 2), (520, 1)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t", [9, 65])
+@pytest.mark.parametrize("dh,h", WIDE)
+@pytest.mark.parametrize("arith", ["f64", "tf32x3"])
+def test_wide_backward_matches_jax_autodiff(one_thread, arith, dh, h, t, rate):
+    """dx and the 12 parameter gradients of the layer with the wide passes'
+    schedule, against jax.grad of the reference layer: one 8-row tile and
+    a ragged one, one 64-row block and a ragged 1-row block.  The weights
+    are drawn at 1 / sqrt(fan-in), as a layer is initialised: with the
+    narrow test's 0.2 at D 512 the scores reach ~20 and the float32
+    reference's own error against float64 JAX is 2.7e-05 of a gradient,
+    past the tolerance; at 1 / sqrt(fan-in) it is under 1e-06 (measured),
+    and both arithmetics sit within 1.2e-06 of it (one TF32 pass: 4e-04)."""
+    mm, dtype = ((torch.matmul, torch.float64) if arith == "f64"
+                 else (matmul_tf32x3, torch.float32))
+    errs = _max_rel_errors(t, rate, mm, dtype, b=2, d=h * dh, h=h, f=64, attention=WideAttention,
+                           fan_in=True)
+    assert len(errs) == 13
+    assert max(errs) <= TOL, [f"{e:.2e}" for e in errs]
+
+
+def test_one_tf32_pass_in_the_wide_backward_is_another_result(one_thread):
+    """The control at heads of 256: one TF32 pass a product lands at least
+    10x further from the reference than three."""
+    kw = dict(b=2, d=512, h=2, f=64, attention=WideAttention, fan_in=True)
+    three = max(_max_rel_errors(65, 0.1, matmul_tf32x3, torch.float32, **kw))
+    one = max(_max_rel_errors(65, 0.1, matmul_tf32, torch.float32, **kw))
+    assert one >= 10 * three, (one, three)
+
+
+@pytest.mark.parametrize("dh", [129, 131, 136, 200, 256, 261, 264, 272, 273, 520, 523, 544])
+def test_wide_backward_block_covers_the_width_within_shared_memory(dh):
+    """The wide passes' block at every width they take: one block to 272
+    columns, a cluster of two past it; the shares (multiples of 16, a
+    warpgroup's half a whole number of k8 steps) cover the width, each
+    warpgroup's accumulators hold its half, the streamed tile is one k8
+    step of wgmma, and the shared memory fits."""
+    shape = wide_bwd_block_shape(dh)
+    assert shape["cl"] == (1 if dh <= 272 else 2)
+    assert shape["w"] % 16 == 0 and shape["cl"] * shape["w"] >= dh
+    assert shape["cl"] * shape["w"] - dh < 16 * shape["cl"]
+    assert shape["wo"] >= shape["w"] // 2 and shape["bk"] == 8
+    assert shape["smem"] <= MAX_SMEM
+
+
+@pytest.mark.parametrize("dh", [64, 128, WIDE_MAX_WIDTH + 1, 1024])
+def test_wide_backward_is_only_past_128_and_to_its_widest(dh):
+    """Up to 128 the narrow passes run; past WIDE_MAX_WIDTH the sliced ones."""
+    assert wide_bwd_block_shape(dh) is None

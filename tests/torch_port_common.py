@@ -225,3 +225,21 @@ def wide_block_shape(dh: int) -> dict | None:
     bk, w = 32, -(-dh // (16 * cl)) * 16
     floats = 2 * bk * (w + 4) + 2 * w * bk + 32 * ks * bk + 128 * bk
     return dict(cl=cl, w=w, bk=bk, wo=8 * ks, smem=4 * floats)
+
+
+def wide_bwd_block_shape(dh: int) -> dict | None:
+    """The blocks of csrc/encoder_layer_train.cu's wide attention backward
+    (attn_bwd_dq_wide_kernel, attn_bwd_dkdv_wide_kernel) at head width dh,
+    as attention_backward_wide chooses them (129 .. WIDE_MAX_WIDTH; None
+    outside: the narrow passes to 128, the sliced ones past): a cluster of
+    ``cl`` blocks of 64 resident rows and two warpgroups; block r takes the
+    scores and the outputs over its share [r w, (r + 1) w) of the width,
+    each warpgroup half of it (``wo`` accumulator columns: 8 KS); tiles of
+    ``bk`` streamed rows (kWbKeys); ``smem`` bytes of shared memory a block
+    (wide_bwd_floats).  The tests emulate the passes' schedule from it."""
+    if not 128 < dh <= WIDE_MAX_WIDTH:
+        return None
+    ks, cl = (9, 1) if dh <= 144 else (16, 1) if dh <= 256 else (17, 1) if dh <= 272 else (17, 2)
+    bk, w = 8, -(-dh // (16 * cl)) * 16
+    floats = 2 * (64 + bk) * (w + 8) + 4 * 16 * ks * bk + 2 * 8 * 32 * 4
+    return dict(cl=cl, w=w, bk=bk, wo=8 * ks, smem=4 * floats)

@@ -58,6 +58,20 @@ does):
                      one recomputing the scores from fragments read from
                      device memory), in the flash, inference and training
                      libraries
+  wide_bwd_sliced    the training layer's attention backward past a head
+                     width of 128 as first written: attention_backward_wide
+                     sent to the sliced passes at every width (in the
+                     training library)
+  wbwd_no_scores     the wide passes without their score products (the
+                     scores read as zeros)
+  wbwd_no_outputs    the wide passes without their output wgmmas (the
+                     split score fragments folded into the accumulators)
+  wbwd_no_split      the wide passes without splitting their streamed tiles
+                     (the products read stale split tiles)
+  wbwd_no_loads      the wide passes without loading their streamed tiles
+                     after the first (the split reads stale rows)
+  wbwd_bounded       the wide passes' score loop with its bound check at
+                     every width (shipped: none where the half is KS steps)
 
 The variants whose errors are not checked (the gemm_* ones, *_no_*,
 *_blocks, band_pv_two_acc) are ablations, timed to see what a phase or a
@@ -72,7 +86,15 @@ training layer's forward and forward + backward at [64, 81, 1024] (heads of
 256, ff 1024, rate 0.1) in the turns shipped, variant, variant, shipped
 beside one F.scaled_dot_product_attention call (the training rows: the
 layer around it, chip_smoke.py's encoder_layer_sdpa, forward and forward +
-backward), with the card's name and power limit.
+backward), with the card's name and power limit.  wide_bwd_sliced times
+kernel 6 at [64, 81, 1024] and [64, 81, 2080] (heads of 256 and 520, ff
+1024, rate 0.1) by CUDA events and its attention backward's passes inside
+it by the profiler's device time, in the same turns, beside the SDPA
+layer's forward + backward and SDPA's attention backward alone
+(chip_smoke.py's sdpa_backward_ms); the wbwd_* variants (the wbwd_no_*
+ablations unchecked) in the turns shipped, each variant, each again in
+reverse order, shipped.  Given alone (no other variant
+chosen) they build and time only the training library.
 A patch that no longer matches the sources fails loudly.
 """
 
@@ -92,6 +114,10 @@ G, M = "gemm_tf32x3.cuh", "mma_tf32x3.cuh"
 BAND, LOCAL, TILE = "band_attention.cu", "local_block.cu", "band_tile.cuh"
 WIDE = "wide_attention.cuh"
 WIDE_DISPATCH = "  if (dh <= 144)\n    return flash_fwd_wide_launch<DROP, 9, 1>("
+TRAIN = "encoder_layer_train.cu"
+WIDE_BWD_DISPATCH = "  if (a.dh <= 144) return attn_bwd_wide_launch<DROP, 9, 1>(a, s);\n"
+# keeps a split score fragment alive where an ablation drops its product
+KEEP_A = " ^ ".join(f"a_{p}[{i}]" for p in ("big", "small") for i in range(4))
 ZERO_O = "    for (int d = 0; d < NO; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;"
 VARIANTS = {
     "cvt_rounding": [(M, "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
@@ -165,6 +191,23 @@ VARIANTS.update({
                      "  return flash_sliced_launch<DROP>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, "
                      "vec, scale, drop,\n                                   lse, s);\n"
                      + WIDE_DISPATCH)],
+    "wide_bwd_sliced": [(TRAIN, WIDE_BWD_DISPATCH,
+                         "  return attn_bwd_sliced_launch<DROP>(a, s);\n" + WIDE_BWD_DISPATCH)],
+    "wbwd_no_scores": [(TRAIN, "    if (live) {\n      if (ks == KS)",
+                        "    if (false) {\n      if (ks == KS)")],
+    "wbwd_no_outputs": [
+        (TRAIN, "      wide_out_x3<WO>(acc1, a_big, a_small, big1 + wg_off, small1 + wg_off);\n",
+         "      acc1[0] += __uint_as_float(" + KEEP_A + ");\n"),
+        (TRAIN, "      wide_out_x3<WO>(acc1, a_big, a_small, big2 + wg_off, small2 + wg_off);\n"
+                "      wide_out_x3<WO>(acc2, b_big, b_small, big1 + wg_off, small1 + wg_off);\n",
+         "      acc1[0] += __uint_as_float(" + KEEP_A + ");\n"
+         "      acc2[0] += __uint_as_float(" + KEEP_A.replace("a_", "b_") + ");\n")],
+    "wbwd_no_split": [(TRAIN, "    wide_split_rows<WO>(big1, small1, raw1, ld, ks);\n"
+                              "    wide_split_rows<WO>(big2, small2, raw2, ld, ks);\n", "")],
+    "wbwd_no_loads": [(TRAIN, "    if (it + 1 < ntiles) load_tile(j0 + BK);\n", "")],
+    "wbwd_bounded": [(TRAIN, "      if (ks == KS)\n        scores(std::true_type{});\n      else\n"
+                             "        scores(std::false_type{});\n",
+                      "      scores(std::false_type{});\n")],
     "local_rows_no_copies": [ROWS, (LOCAL, "  if (warp == 0) fetch(blockIdx.x, 0);\n", ""),
                              (LOCAL, "    if (warp == 0 && u + gridDim.x < a.units) "
                                      "fetch(u + gridDim.x, s ^ 1);\n"
@@ -177,6 +220,11 @@ VARIANT_LIBS = {name: (("band_attention",) if name.startswith("band_") else
                        ("local_block",) if name.startswith("local_") else
                        ("encoder_layer", "flash_attention")) for name in VARIANTS}
 VARIANT_LIBS["wide_sliced"] += ("encoder_layer_train",)
+# the variants of the wide attention backward (the training library alone)
+BWD_VARIANTS = ("wide_bwd_sliced", "wbwd_no_scores", "wbwd_no_outputs", "wbwd_no_split",
+                "wbwd_no_loads", "wbwd_bounded")
+for _name in BWD_VARIANTS:
+    VARIANT_LIBS[_name] = ("encoder_layer_train",)
 
 
 def start_build(name: str, patches, libs=LIBS) -> dict:
@@ -285,6 +333,69 @@ def train_ab(builds, order, w, rn, cuda_ms, smi, heads=4, rate=0.1):
               + f"; the SDPA layer {lib_ms:.4f} ms [{smi}]", flush=True)
 
 
+def wide_bwd_ab(builds, order, rn, cuda_ms, smi, heads=4, rate=0.1, ff=1024):
+    """wide_bwd_sliced's rows: kernel 6 at [64, 81, d] for d 1024 and 2080
+    in the turns of ``order`` (CUDA events, and its attention backward's
+    passes by the profiler's device time inside it), against autograd
+    through the plain layer, beside the SDPA layer's forward + backward and
+    SDPA's attention backward alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import ATTN_BWD_KERNELS, encoder_layer_sdpa, sdpa_backward_ms
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import encoder_layer_train_plain
+
+    def passes_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CPU
+                    and any(k in e.key for _, k in ATTN_BWD_KERNELS)):
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+        return us / iters / 1e3
+
+    seed = torch.tensor([20240], dtype=torch.int32, device="cuda")
+    for d in (1024, 2080):
+        w = (rn(3 * d, d, scale=d**-0.5), rn(3 * d, scale=0.02), rn(d, d, scale=d**-0.5),
+             rn(d, scale=0.02), 1 + rn(d, scale=0.1), rn(d, scale=0.1), rn(ff, d, scale=d**-0.5),
+             rn(ff, scale=0.02), rn(d, ff, scale=ff**-0.5), rn(d, scale=0.02),
+             1 + rn(d, scale=0.1), rn(d, scale=0.1))
+        x, g = rn(64, 81, d), rn(64, 81, d)
+        tx, tw = x.clone().requires_grad_(), [y.clone().requires_grad_() for y in w]
+        with torch.enable_grad():
+            want = torch.autograd.grad(
+                encoder_layer_train_plain(tx, *tw, seed=seed, num_heads=heads, rate=rate),
+                [tx, *tw], g)
+        parts = []
+        for name in order:
+            lib = builds[name]["encoder_layer_train"]
+            got = train_layer(lib, x, w, seed, g, heads, rate)
+            err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+            note = "not checked" if name.startswith("wbwd_no_") else f"{err:.2e}"
+            ms = cuda_ms(lambda: train_layer(lib, x, w, seed, g, heads, rate), 10)
+            p_ms = passes_ms(lambda: train_layer(lib, x, w, seed, g, heads, rate))
+            parts.append(f"{name} {ms:.4f} ms, its attention passes {p_ms:.4f} ms (worst "
+                         f"max|diff|/max|grad| {note})")
+
+        def sdpa_layer():
+            with torch.enable_grad():
+                encoder_layer_sdpa(tx, *tw, heads, rate=rate).backward(g)
+
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            lib_ms = cuda_ms(sdpa_layer, 10)
+            bwd_ms = sdpa_backward_ms(64, 81, d // heads)
+        print(f"kernel 6 [64,81,{d}] heads {heads} of {d // heads} ff {ff} rate {rate}: "
+              + "; ".join(parts) + f"; the SDPA layer forward + backward {lib_ms:.4f} ms, "
+              f"SDPA's attention backward alone {bwd_ms:.4f} ms [{smi}]", flush=True)
+        del w, x, g, tx, tw, want
+
+
 def main(prefixes: list[str]) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -303,11 +414,14 @@ def main(prefixes: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
+    chosen = [name for name in VARIANTS if not prefixes or name.startswith(tuple(prefixes))]
+    # the backward's variants alone need only the training library
+    only_bwd = all(name in BWD_VARIANTS for name in chosen)
     # every variant's nvcc runs at once
-    started = {"shipped": start_build("shipped", None)}
-    started.update({name: start_build(name, patches, VARIANT_LIBS[name])
-                    for name, patches in VARIANTS.items()
-                    if not prefixes or name.startswith(tuple(prefixes))})
+    started = {"shipped": start_build("shipped", None,
+                                      ("encoder_layer_train",) if only_bwd else LIBS)}
+    started.update({name: start_build(name, VARIANTS[name], VARIANT_LIBS[name])
+                    for name in chosen})
     builds = {name: finish_build(name, procs) for name, procs in started.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -325,6 +439,16 @@ def main(prefixes: list[str]) -> int:
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
+
+    if "wide_bwd_sliced" in builds:
+        wide_bwd_ab(builds, ("shipped", "wide_bwd_sliced", "wide_bwd_sliced", "shipped"), rn,
+                    cuda_ms, smi)
+    ablations = [name for name in BWD_VARIANTS[1:] if name in builds]
+    if ablations:
+        wide_bwd_ab(builds, ("shipped", *ablations, *ablations[::-1], "shipped"), rn, cuda_ms,
+                    smi)
+    if only_bwd:
+        return 0
 
     d, ff, heads = 256, 1024, 4
     w = (rn(3 * d, d, scale=d**-0.5), rn(3 * d, scale=0.02), rn(d, d, scale=d**-0.5),
