@@ -301,6 +301,7 @@ C1_WIDTHS = (8, 66, 80, 96)  # head widths the kernels pad: --latent_dim 32, 264
 # 1024, 1056, 2080
 WIDE_WIDTHS = (136, 256, 264, 520)
 WIDE_LOCAL = (136, 264)      # local heads past 128: --latent_dim 1088, 2112
+D_LOCAL = 1088               # phase 8's local block and band past 128: 8 local heads of 136
 D_C1, C1_LAYERS = 320, 2     # phase 8's model: 4 heads of 80, 8 local heads of 40
 D_WIDE = 1024                # phase 8's second model: 4 heads of 256, 8 local heads of 128
 D_WIDEST = 2080              # phase 8's attention backward at 4 heads of 520 (a cluster of two)
@@ -415,34 +416,53 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
-    """The device time of one launch of the kernels whose name holds
-    ``kernel``, from the profiler over ``iters`` calls of ``fn`` (after a
-    warm up), per launch it traced: the kernel's own time where the
-    wrapper's host work outlasts it, as the local block's does, and CUDA
-    events would time the host."""
+def device_split(fn, iters: int = 20, want: str = "") -> tuple[float, dict]:
+    """The profiler's device time over ``iters`` calls of ``fn`` (after a
+    warm up): (ms a call in all, {kernel name: (ms a call, launches a
+    call)}), copies and fills left out.  The profiler may drop a run's
+    device records (on an H100 it traced 0 to 2 of 10 launches of a 2.5 ms
+    kernel): a run that traced no kernel whose name holds ``want`` is run
+    again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key and e.device_type != torch.autograd.DeviceType.CPU:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    or e.key.startswith(("Memcpy", "Memset"))):
+                continue
             t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-            n += e.count
-    if us <= 0.0 or n == 0:
+            us = e.self_cuda_time_total if t is None else t
+            if us > 0:
+                names[e.key] = (us / iters / 1e3, e.count / iters)
+        if any(want in k for k in names):
+            break
+    return sum(ms for ms, _ in names.values()), names
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """The device time of one launch of the kernels whose name holds
+    ``kernel``, from the profiler over ``iters`` calls of ``fn``
+    (device_split), per launch it traced: the kernel's own time where the
+    wrapper's host work outlasts it, as the local block's does, and CUDA
+    events would time the host."""
+    _, names = device_split(fn, iters, want=kernel)
+    hits = [v for k, v in names.items() if kernel in k]
+    n = round(sum(c for _, c in hits) * iters)
+    if not n:
         raise AssertionError(f"the profiler traced no {kernel} on the device")
     if n != iters:
         log(f"note: the profiler traced {n} of {iters} {kernel} launches; the time is per "
             f"traced launch")
-    return us / n / 1e3
+    return sum(ms for ms, _ in hits) * iters / n
 
 
 def bound_ms(flops: float, nbytes: float, tf32x3: bool = False) -> tuple[float, str]:
@@ -915,16 +935,85 @@ def wide_times(randn, card):
     # as they found them (SDPA's dropout draws): the later phases keep the
     # inputs the shared streams gave them before these rows existed
     with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
-        times, err = wide_train_and_band_times(w, bb, card)
+        times, err, band_rows = wide_train_and_band_times(w, bb, card)
         launches = wide_train_steps(card)
         rows = wide_bwd_rows(launches, card)
+        local_launches = wide_local_steps(card)
+    for row in band_rows:  # both band rows: the T = 1200 step runs local heads of 136
+        if row["name"].startswith("local_block") or row["name"].endswith(f"x{WIDE_LOCAL[0]}"):
+            row["launches"] = local_launches[row["name"].split("_wide_")[0]]
     shape = f"{MB}x{T + 1}x{D_WIDE}"
     return [{"name": f"encoder_layer_train_{k}_wide_{shape}", "route": "cuda",
              "source": "gesturediffusion_tpu_torch/csrc/encoder_layer_train.cu",
              "replaces": f"gesturediffusion_tpu/ops/pallas_encoder_train.py:{line}",
              "launches": launches[f"encoder_layer_train_{k}"], "max_abs_err": err[i],
              **time_keys(times[k])}
-            for i, (k, line) in enumerate((("fwd", 249), ("bwd", 273)))] + rows
+            for i, (k, line) in enumerate((("fwd", 249), ("bwd", 273)))] + rows + band_rows
+
+
+def wide_local_steps(card):
+    """One CFG denoise step of a --latent_dim D_LOCAL model (C1_LAYERS
+    layers of 4 heads of 272, 8 local heads of 136) at T = 80 (the local
+    block through local_block_wide_kernel, one launch) and at T = 1200 (the
+    band through band_wide_kernel) against the same step through the plain
+    versions, launches counted, on its own seeded stream.  Returns the
+    launches of the local block and the band kernel."""
+    import numpy as np
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.sampling import p_sample
+    from gesturediffusion_tpu_torch.models.mdm import MDM
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import select_sampling_model_fn
+    from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+
+    own = np.random.RandomState(16)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(own.randn(*shape).astype(np.float32) * scale).to(dev)
+
+    torch.manual_seed(16)
+    model = MDM(njoints=J, latent_dim=D_LOCAL, ff_size=FF, num_layers=C1_LAYERS,
+                num_heads=HEADS, cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
+                window_size=WINDOW).to(dev).eval()
+    diffusion = create_diffusion(noise_schedule="cosine", steps=1000, timestep_respacing="50",
+                                 device=dev)
+    counters = {"local_block": fused_local_block, "band_attention": local_attention_band,
+                "flash_attention": fused_self_attention, "encoder_layer": fused_encoder_layer}
+    counted, total = launch_counter(counters)
+    for t_len, path in ((T, "local_block"), (T_LONG, "band_attention")):
+        chunk = {"mfcc": randn(B_TAKES, A, 1, t_len), "seed": randn(B_TAKES, J, 1, S, scale=0.5),
+                 "scale": torch.full((B_TAKES,), GUIDANCE, device=dev)}
+        x, noise = randn(B_TAKES, J, 1, t_len), randn(B_TAKES, J, 1, t_len)
+        t = torch.full((B_TAKES,), diffusion.num_timesteps // 2, dtype=torch.long, device=dev)
+
+        def step():
+            precompute, model_fn = select_sampling_model_fn(model, GUIDANCE, 0.1)
+            return p_sample(diffusion, model_fn, x, t, precompute(chunk), noise)["sample"]
+
+        got, launches = counted(step)
+        model.use_kernels = False
+        plain = step()
+        model.use_kernels = True
+        err = (got - plain).abs().max().item()
+        want = {"local_block": int(path == "local_block"),
+                "band_attention": int(path == "band_attention"),
+                "flash_attention": C1_LAYERS, "encoder_layer": C1_LAYERS}
+        ok = launches == want and err <= TOL_TAKE and bool(torch.isfinite(got).all())
+        log(f"{'OK' if ok else 'FAIL'} --latent_dim {D_LOCAL} ({HEADS} heads of "
+            f"{D_LOCAL // HEADS}, {CL_HEADS} local heads of {D_LOCAL // CL_HEADS}, {C1_LAYERS} "
+            f"layers): one denoise step at T = {t_len}, CFG batch {2 * B_TAKES}, kernels vs plain "
+            f"versions max|diff| {err:.3e} (tol {TOL_TAKE:g}); launches {launches} (expected "
+            f"{want}): the {path} through its wide kernel {card}")
+        if not ok:
+            raise AssertionError(f"the --latent_dim {D_LOCAL} step at T = {t_len} disagrees or "
+                                 f"missed its kernels")
+    del model
+    return total
 
 
 def wide_train_steps(card):
@@ -1056,14 +1145,21 @@ def wide_bwd_rows(launches, card):
 
 def wide_train_and_band_times(w, bb, card):
     """The training layer at [64, 81, 1024] (heads of 256) against the
-    plain layer (check_train_layer) and timed, and the band kernel at the
-    long chunk's local heads of 136, for wide_times, on their own seeded
-    stream.  Returns the training rows' times and (forward, backward)
-    largest absolute differences."""
+    plain layer (check_train_layer) and timed, the band kernel at the long
+    chunk's local heads of 136 and 264 (WIDE_LOCAL) and the local block at
+    [bb, T, 8 x 136], against their plain versions and timed, for
+    wide_times, on their own seeded stream.  Returns the training rows'
+    times, their (forward, backward) largest absolute differences and the
+    JSON rows of the band and the local block past 128 (launches to be
+    filled in)."""
     import numpy as np
     import torch
 
     from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
+    from gesturediffusion_tpu_torch.ops.fused_local_block import (
+        fused_local_block,
+        pre_encoder_local_block,
+    )
     from gesturediffusion_tpu_torch.ops.local_attention import local_attention
 
     own = np.random.RandomState(17)
@@ -1080,17 +1176,63 @@ def wide_train_and_band_times(w, bb, card):
     time_line(f"encoder_layer_train_bwd {shape} (plain and library: forward + backward)",
               *times["bwd"], card, tf32x3=True)
     del xt, gt
-    dl = WIDE_LOCAL[0]  # the local block's strided heads: the sliced route
-    qb = own_randn(bb, T_LONG, CL_HEADS, dl).transpose(1, 2)
-    ms = cuda_time_ms(lambda: local_attention_band(qb, qb, qb, window_size=WINDOW), 3, 1)
-    plain_ms = cuda_time_ms(lambda: local_attention(qb, qb, qb, window_size=WINDOW), 3, 1)
-    lib_ms = cuda_time_ms(lambda: band_sdpa(qb, WINDOW), 3, 1)
-    flops = 4 * bb * CL_HEADS * band_keys(T_LONG, WINDOW) * dl
-    nbytes = 4 * 2 * qb.numel()  # q = k = v: the input read once, the output written once
+    rows = []
+    for dl in WIDE_LOCAL:  # the local block's strided heads, q = k = v
+        qb = own_randn(bb, T_LONG, CL_HEADS, dl).transpose(1, 2)
+
+        def band(qb=qb):
+            return local_attention_band(qb, qb, qb, window_size=WINDOW)
+
+        b_err = (band() - local_attention(qb, qb, qb, window_size=WINDOW)).abs().max().item()
+        report(f"band_attention [{bb},{CL_HEADS},{T_LONG},{dl}] w {WINDOW} (strided heads)",
+               b_err, TOL_BAND)
+        ms = cuda_time_ms(band, 10, 2)
+        dev_ms = device_ms(band, "band_wide_kernel", iters=10)
+        plain_ms = cuda_time_ms(lambda: local_attention(qb, qb, qb, window_size=WINDOW), 3, 1)
+        lib_ms = cuda_time_ms(lambda: band_sdpa(qb, WINDOW), 3, 1)
+        flops = 4 * bb * CL_HEADS * band_keys(T_LONG, WINDOW) * dl
+        nbytes = 4 * 2 * qb.numel()  # q = k = v: the input read once, the output written once
+        bound, by = bound_ms(flops, nbytes)
+        time_line(f"band_attention [{bb},{CL_HEADS},{T_LONG},{dl}] (band_wide_kernel, one "
+                  f"block)", ms, plain_ms, lib_ms, bound, by, flops, nbytes, card)
+        log(f"time band_attention [{bb},{CL_HEADS},{T_LONG},{dl}] kernel's device time "
+            f"(profiler) {dev_ms:.4f} ms, {bound / dev_ms:.3f} of the bound {card}")
+        rows.append({"name": f"band_attention_wide_{bb}x{CL_HEADS}x{T_LONG}x{dl}", "route": "cuda",
+                     "source": "gesturediffusion_tpu_torch/csrc/wide_attention.cuh",
+                     "replaces": "gesturediffusion_tpu/ops/pallas_attention.py:33",
+                     "launches": 0, "max_abs_err": b_err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib_ms})
+        del qb
+    d = CL_HEADS * WIDE_LOCAL[0]  # --latent_dim 1088's local block
+    x, coa = own_randn(bb, T, d), own_randn(bb, d)
+    def block():
+        return fused_local_block(x, coa, num_heads=CL_HEADS, window=WINDOW)
+
+    def plain():
+        return pre_encoder_local_block(x, coa, num_heads=CL_HEADS, window_size=WINDOW)
+
+    l_err = (block() - plain()).abs().max().item()
+    report(f"local_block [{bb},{T},{d}] heads {CL_HEADS} of {d // CL_HEADS} w {WINDOW}", l_err,
+           TOL_LOCAL_BLOCK)
+    ms = cuda_time_ms(block, 20, 3)
+    dev_ms = device_ms(block, "local_block_wide_kernel", iters=20)
+    plain_ms = cuda_time_ms(plain, 10, 2)
+    lib_ms = cuda_time_ms(lambda: local_block_sdpa(x, coa, CL_HEADS, WINDOW), 10, 2)
+    dl = d // CL_HEADS
+    flops = bb * CL_HEADS * band_keys(T, WINDOW) * dl * 4 + 3 * bb * (2 * T + 1) * d
+    nbytes = 4 * (bb * T * d + bb * d + bb * (T + 1) * d)  # x and coa read, out written once
     bound, by = bound_ms(flops, nbytes)
-    time_line(f"band_attention [{bb},{CL_HEADS},{T_LONG},{dl}] (128-column slices)", ms,
-              plain_ms, lib_ms, bound, by, flops, nbytes, card)
-    return times, err
+    time_line(f"local_block [{bb},{T},{d}] heads {CL_HEADS} of {dl} (local_block_wide_kernel, "
+              f"one launch)", ms, plain_ms, lib_ms, bound, by, flops, nbytes, card)
+    log(f"time local_block [{bb},{T},{d}] kernel's device time (profiler) {dev_ms:.4f} ms, "
+        f"{bound / dev_ms:.3f} of the bound {card}")
+    rows.append({"name": f"local_block_wide_{bb}x{T}x{d}", "route": "cuda",
+                 "source": "gesturediffusion_tpu_torch/csrc/wide_attention.cuh",
+                 "replaces": "gesturediffusion_tpu/ops/pallas_local_block.py:82",
+                 "launches": 0, "max_abs_err": l_err, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    return times, err, rows
 
 
 # the device kernels of the training layer's attention backward, by the
@@ -1105,34 +1247,22 @@ def attention_backward_split(x, g, w, seed, iters=5):
     (CUDA events) and the profiler's device time of one call, all its
     kernels and those of its attention backward by pass (ATTN_BWD_KERNELS),
     with their launches and names."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from gesturediffusion_tpu_torch.ops.fused_encoder_train import encoder_layer_train_bwd
 
     def call():
         return encoder_layer_train_bwd(x, *w, seed=seed, g=g, num_heads=HEADS, rate=RATE)
 
     ms = cuda_time_ms(call, iters=2 * iters, warmup=2)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    out = {"call": ms, "device": 0.0, "names": {}}
+    device, names = device_split(call, iters, want="attn_bwd_")
+    out = {"call": ms, "device": device, "names": {}}
     for key, _ in ATTN_BWD_KERNELS:
         out[key], out[key + " launches"] = 0.0, 0
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CPU
-                or e.key.startswith(("Memcpy", "Memset"))):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        ms_e = (e.self_cuda_time_total if us is None else us) / iters / 1e3
-        out["device"] += ms_e
+    for k, (ms_e, n) in names.items():
         for key, name in ATTN_BWD_KERNELS:
-            if name in e.key:
+            if name in k:
                 out[key] += ms_e
-                out[key + " launches"] += e.count // iters
-                out["names"][e.key[:100]] = ms_e
+                out[key + " launches"] += round(n)
+                out["names"][k[:100]] = ms_e
     out["passes"] = sum(out[key] for key, _ in ATTN_BWD_KERNELS)
     return out
 
@@ -3320,8 +3450,12 @@ def band_edges_parity(randn):
     of 6 (a float a copy), 40, 128 at 256 frames and WIDE_LOCAL; the band
     kernel around its 64-query tiles and 40-key chunks (T 20, 70, 1210),
     at windows 5 and 16, head widths 6, 40 and WIDE_LOCAL, with q, k, v one
-    tensor, three, and strided views.  Returns the largest differences
-    (local block, band)."""
+    tensor, three, and strided views; the band at heads of 560 (the sliced
+    route) and the local block at local heads of 280 (three launches).
+    Returns the largest differences (local block, band)."""
+    import numpy as np
+    import torch
+
     from gesturediffusion_tpu_torch.ops.band_attention import local_attention_band
     from gesturediffusion_tpu_torch.ops.fused_local_block import (
         fused_local_block,
@@ -3331,7 +3465,7 @@ def band_edges_parity(randn):
 
     lb_err = 0.0
     # local heads past 128 (WIDE_LOCAL) and of 128 at 256 frames run the
-    # kernel's sliced path
+    # kernel's wide path (local_block_wide_kernel)
     wide = tuple((4, 80, CL_HEADS * dh, CL_HEADS, WINDOW) for dh in WIDE_LOCAL)
     for b, t, d, h, w in ((8, 10, D, CL_HEADS, WINDOW), (8, 90, D, CL_HEADS, WINDOW),
                           (4, 256, D, CL_HEADS, WINDOW), (8, 80, 48, CL_HEADS, 5),
@@ -3362,7 +3496,27 @@ def band_edges_parity(randn):
         report(f"band_attention [4,{CL_HEADS},{t},{dh}] w {w} ({layout})", err, TOL_BAND,
                got.shape == q.shape)
         band_err = max(band_err, err)
-    return lb_err, band_err
+    # the routes past 544 columns and past local heads of 272: band_sliced_kernel,
+    # and the local block's three launches (rope_in_kernel, the band,
+    # rope_out_kernel), from their own stream: the later phases keep the
+    # inputs the shared one gave them
+    own = np.random.RandomState(19)
+
+    def own_randn(*shape):
+        return torch.from_numpy(own.randn(*shape).astype(np.float32)).to("cuda")
+
+    q = own_randn(1, 300, 2, 560).transpose(1, 2)
+    err = (local_attention_band(q, q, q, window_size=WINDOW)
+           - local_attention(q, q, q, window_size=WINDOW)).abs().max().item()
+    report(f"band_attention [1,2,300,560] w {WINDOW} (strided; band_sliced_kernel)", err, TOL_BAND)
+    band_err = max(band_err, err)
+    x, coa = own_randn(2, T, CL_HEADS * 280), own_randn(2, CL_HEADS * 280)
+    got = fused_local_block(x, coa, num_heads=CL_HEADS, window=WINDOW)
+    err = (got - pre_encoder_local_block(x, coa, num_heads=CL_HEADS, window_size=WINDOW)
+           ).abs().max().item()
+    report(f"local_block [2,{T},{CL_HEADS * 280}] heads {CL_HEADS} of 280 w {WINDOW} (three "
+           f"launches)", err, TOL_LOCAL_BLOCK, got.shape == (2, T + 1, CL_HEADS * 280))
+    return max(lb_err, err), band_err
 
 
 def c1_widths_parity(randn, seed):
@@ -4737,13 +4891,11 @@ def evaluator_phase(randn, rs, card, a2m_batches, tmodel, tdiffusion, tcfg):
     model, the native collate library.  Returns the main paths' launches by
     kernel."""
     root = os.path.join(HERE, "build", "chip_smoke", "t2m_train", "humanml")  # phase 12's
-    t0 = time.perf_counter()
     comp_v6_phase(root, card)
     trained = trainers_phase(root, a2m_batches["gt"], card)
     loop = closed_loop_phase(root, trained, a2m_batches, card)
     dropout = seed_dropout_phase(tmodel, tdiffusion, tcfg, randn, rs, card)
     native_phase(card)
-    log(f"phase 19 in {time.perf_counter() - t0:.1f} s {card}")
     return {**loop, **dropout}
 
 
@@ -4787,6 +4939,16 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     card = f"[{smi}]"
     dev = torch.device("cuda")
+    phase_start = [time.perf_counter()]
+
+    def phase_done(n: int) -> None:
+        """Logs phase n's wall time (the ledger of where the script's own
+        time limit goes)."""
+        now = time.perf_counter()
+        log(f"phase {n} in {now - phase_start[0]:.1f} s {card}")
+        phase_start[0] = now
+
+    phase_done(1)
 
     # ---- 2. build ------------------------------------------------------ #
     t0 = time.perf_counter()
@@ -4805,6 +4967,7 @@ def main() -> int:
                 "gemm_tf32x3_kernel", "flash_attention_kernel", "attn_bwd_dq_kernel",
                 "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel",
                 "flash_fwd_wide_kernel", "flash_sliced_kernel", "band_wide_kernel",
+                "band_sliced_kernel", "local_block_wide_kernel",
                 "attn_bwd_dq_wide_kernel", "attn_bwd_dkdv_wide_kernel",
                 "attn_bwd_dq_sliced_kernel", "attn_bwd_dkdv_sliced_kernel"))
             if not product:
@@ -4819,6 +4982,8 @@ def main() -> int:
 
     def randn(*shape, scale=1.0):
         return torch.from_numpy(rs.randn(*shape).astype(np.float32) * scale).to(dev)
+
+    phase_done(2)
 
     # ---- 3. kernel parity at the main-path shapes ---------------------- #
     bb = 2 * B_TAKES
@@ -4861,6 +5026,8 @@ def main() -> int:
     enc_err = max(enc_err, c1_errs["encoder_layer"])
     train_fwd_err = max(train_fwd_err, c1_errs["encoder_layer_train_fwd"])
     train_bwd_err = max(train_bwd_err, c1_errs["encoder_layer_train_bwd"])
+
+    phase_done(3)
 
     # ---- 4. main path: full-width CFG chunked-AR take ------------------ #
     torch.manual_seed(0)
@@ -4931,9 +5098,13 @@ def main() -> int:
     if not cli_ok:
         raise AssertionError("generate CLI output has the wrong shape or non-finite values")
 
+    phase_done(4)
+
     # ---- 5. training: steps, plain comparison, train CLI -------------- #
     tmodel, tdiffusion, tcfg, tbatch = train_phase(dev, randn, rs, card)
     train_launches = train_cli_phase(card)
+
+    phase_done(5)
 
     # ---- 6. times ------------------------------------------------------ #
     lb_ms = cuda_time_ms(
@@ -4995,6 +5166,8 @@ def main() -> int:
     device_profile(one_train_step, 2, f"train step (batch {BATCH} = {BATCH // MB} x {MB})",
                    card, host_rows=8, groups=train_kernel_group)
 
+    phase_done(6)
+
     # ---- 7. long chunks: band and flash kernels, T = 1200 take, CLI ---- #
     long_rows, long_launches = long_chunk_phase(model, model_path, enc_w, randn, card)
     # launches of the two sampling paths: the 80-frame take, then the long take
@@ -5002,20 +5175,30 @@ def main() -> int:
     long_rows[0]["max_abs_err"] = max(long_rows[0]["max_abs_err"], edge_band_err)
     long_rows[1]["max_abs_err"] = max(long_rows[1]["max_abs_err"], c1_errs["flash_attention"])
 
+    phase_done(7)
+
     # ---- 8. the widths the kernels pad or take wide, end to end -------- #
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card)
     c1_model_phase(randn, os.path.dirname(ckpt_dir), card, d=D_WIDE, cli=False)
     wide_rows = wide_times(randn, card)
 
+    phase_done(8)
+
     # ---- 9. the GENEA data path and streaming serve -------------------- #
     genea = genea_serve_phase(model, model_path, card)
+
+    phase_done(9)
 
     # ---- 10. text-to-motion sampling and motion editing ---------------- #
     t2m_rows, t2m, gesture_edit = t2m_phase(
         randn, os.path.join(HERE, "build", "chip_smoke", "genea", "model000000000.pt"), card)
 
+    phase_done(10)
+
     # ---- 11. the PLMS and DPM++ samplers -------------------------------- #
     samplers = samplers_phase(model, model_path, chunk_conds, init_seed, randn, card)
+
+    phase_done(11)
 
     # ---- 12. text-to-motion training ----------------------------------- #
     t2m_train_rows, t2m_train, t2m_big = t2m_train_phase(randn, rs, card)
@@ -5024,14 +5207,20 @@ def main() -> int:
     t2m_rows[0]["launches"] += t2m_train["encoder_layer"] - t2m_big["encoder_layer"]
     t2m_rows[1]["launches"] += t2m_big["encoder_layer"]
 
+    phase_done(12)
+
     # ---- 13. action-to-motion training ---------------------------------- #
     a2m_rows, a2m = a2m_train_phase(randn, rs, card)
+
+    phase_done(13)
 
     # ---- 14. action-to-motion evaluation and the train CLI's eval hook -- #
     a2m_eval_row, a2m_eval = a2m_eval_phase(randn, card)
     for row, k in ((a2m_rows[0], "encoder_layer_train_fwd"),
                    (a2m_rows[1], "encoder_layer_train_bwd")):
         row["launches"] += a2m_eval[f"a2m_{k}"]
+
+    phase_done(14)
 
     # ---- 15. text-to-motion evaluation and the humanml eval hook -------- #
     t2m_eval_row, t2m_eval = t2m_eval_phase(randn, card)
@@ -5040,22 +5229,31 @@ def main() -> int:
     t2m_train_rows[0]["launches"] += t2m_eval["encoder_layer_train_fwd"]
     t2m_train_rows[1]["launches"] += t2m_eval["encoder_layer_train_bwd"]
 
+    phase_done(15)
+
     # ---- 16. the mesh export: predict -> SMPLify -> meshes, rot6d, HumanIK -- #
     mesh = mesh_phase(card)
     t2m_rows[0]["launches"] += mesh["encoder_layer"]          # [6, 197, 512]
     t2m_train_rows[2]["launches"] += mesh["flash_attention"]  # [6, 4, 197, 128]
 
+    phase_done(16)
+
     # ---- 17. the wav-encoder MDM and MDMOld: takes, training, times ---- #
     wav_old = wav_old_phase(model, chunk_conds, init_seed, randn, card)
 
+    phase_done(17)
+
     # ---- 18. the multi-rank paths: NCCL at one rank, two ranks on gloo -- #
     par = parallel_phase(model_path, card)
+
+    phase_done(18)
 
     # ---- 19. CompV6, evaluator retraining, seed-redrawn dropout, native collate -- #
     ev19 = evaluator_phase(randn, rs, card, a2m_eval["batches"], tmodel, tdiffusion, tcfg)
     t2m_rows[1]["launches"] += ev19["encoder_layer"]          # [64, 197, 512]
     t2m_train_rows[3]["launches"] += ev19["flash_attention"]  # [64, 4, 197, 128]
 
+    phase_done(19)
     kernels = [
         {"name": "local_block", "route": "cuda",
          "source": "gesturediffusion_tpu_torch/csrc/local_block.cu",

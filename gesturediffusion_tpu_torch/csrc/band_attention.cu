@@ -39,8 +39,10 @@
 // when every row is 16-byte aligned (dh % 4 == 0) and one float a copy
 // otherwise; output columns past dh are never stored.  Heads wider than 128,
 // and rings that would not fit a block's shared memory (three separate
-// operands at DHP 128, or windows past ~50 frames), take the sliced kernel
-// of wide_attention.cuh, which reads its fragments from device memory.
+// operands at DHP 128, or windows past ~50 frames), take wide_attention.cuh's
+// band_wide_kernel: 64 queries a block over the whole width, the band's key
+// tiles landed and split once, the scores once (its 128-column sliced
+// kernel past 544).
 
 #include "band_tile.cuh"
 #include "wide_attention.cuh"
@@ -229,7 +231,7 @@ int gdt_band_attention_f32(const float* q, const float* k, const float* v, float
   const cudaError_t e =
       dh > kMaxPaddedWidth || ring_bytes > kMaxSmem
           ? band_wide_launch(q, k, v, out, oq.s, ok.s, ov.s, a.so, B, H, T, dh, window, a.vec,
-                             a.scale_log2, s)
+                             scale, s)
           : with_padded_width(dh,
                               [&](auto w) { return band_launch<decltype(w)::value>(a, s); });
   if (e != cudaSuccess) return static_cast<int>(e);

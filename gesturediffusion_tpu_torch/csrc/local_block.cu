@@ -42,8 +42,12 @@
 // the gesture shape).  The products of rope are rounded as PyTorch's
 // (no fused multiply-add), so rope here is bit for bit the plain version's.
 // A head whose rows do not fit a block's shared memory (local heads wider
-// than 128, or 128 past 216 frames) takes three launches instead:
-// the first rotary pass into a workspace, the sliced band kernel of
+// than 128, or 128 past 216 frames) takes wide_attention.cuh's
+// local_block_wide_kernel up to local heads of 272: one launch, no
+// workspace, 64 queries a block over the whole width, x's rows roped as
+// they land, the band's scores once, the output tile staged in shared
+// memory for the second rotary pass and the token.  Wider heads take three
+// launches: the first rotary pass into a workspace, the band kernel of
 // wide_attention.cuh on it, and the token and second rotary pass.
 
 #include <algorithm>
@@ -56,22 +60,6 @@ namespace {
 // the most warps a block, a 16-query tile a warp (5 at T 80); see above
 template <int DHP>
 constexpr int kMaxLocalWarps = DHP <= 32 ? 5 : 16;
-
-// rope of the pair (x1, x2) = (column k, column k + dh / 2) with cos c and
-// sin s: x * cos + rotate_half(x) * sin, each product rounded on its own
-__device__ __forceinline__ void rope_pair(float x1, float x2, float c, float s, float& y1,
-                                         float& y2) {
-  y1 = __fadd_rn(__fmul_rn(x1, c), __fmul_rn(-x2, s));
-  y2 = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
-}
-
-__device__ __forceinline__ void rope4(const float4& x1, const float4& x2, const float4& c,
-                                      const float4& s, float4& y1, float4& y2) {
-  rope_pair(x1.x, x2.x, c.x, s.x, y1.x, y2.x);
-  rope_pair(x1.y, x2.y, c.y, s.y, y1.y, y2.y);
-  rope_pair(x1.z, x2.z, c.z, s.z, y1.z, y2.z);
-  rope_pair(x1.w, x2.w, c.w, s.w, y1.w, y2.w);
-}
 
 struct LocalArgs {
   const float *x, *coa, *cos_t, *sin_t;  // [B, T, D], [B, D], [T + 1, dh / 2] x 2
@@ -211,6 +199,31 @@ bool fits_block(int T, int dh) {
          (2 * (size_t)T + 8) * ((dh + 15) / 16 * 16 + 4) * sizeof(float) <= kMaxSmem;
 }
 
+// whether a head that does not fit the one-block kernel runs in one launch
+// of local_block_wide_kernel (its rows over the whole width in one block)
+bool wide_in_one_launch(int dh) { return dh <= 272; }
+
+// The local block at a head that does not fit the one-block kernel, up to
+// 272 columns: local_block_wide_kernel, a warpgroup's half of the padded
+// width 72, 128 or 136 wide
+cudaError_t local_wide_launch(const LocalArgs& la, float scale, int B, cudaStream_t s) {
+  const int dh = la.D / la.H;
+  const AttnStrides rows{(long long)la.T * la.D, dh, la.D};
+  WideFwdArgs a = wide_args(la.x, la.x, la.x, la.out, rows, rows, rows,
+                            AttnStrides{(long long)(la.T + 1) * la.D, dh, la.D}, la.H, la.T, dh,
+                            la.vec, scale);
+  a.window = la.window;
+  a.kv_same = a.qkv_same = true;
+  a.coa = la.coa;
+  a.cos_t = la.cos_t;
+  a.sin_t = la.sin_t;
+  if (dh <= 144)
+    return wide_fwd_launch<9, 1, kBandKeys, true>(local_block_wide_kernel<9>, a, B, s);
+  if (dh <= 256)
+    return wide_fwd_launch<16, 1, kBandKeys, true>(local_block_wide_kernel<16>, a, B, s);
+  return wide_fwd_launch<17, 1, kBandKeys, true>(local_block_wide_kernel<17>, a, B, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -220,10 +233,10 @@ const char* gdt_error_string(int code) {
 }
 
 // Float32 elements of the workspace the block needs: 0 where a head fits
-// the one-block kernel, else the rotated rows and the attention [B, T, D]
-// of the wide path.
+// the one-block kernel or runs in one launch of the wide kernel, else the
+// rotated rows and the attention [B, T, D] of the three launches.
 size_t gdt_local_block_workspace(int B, int T, int D, int H) {
-  return fits_block(T, D / H) ? 0 : 2 * (size_t)B * T * D;
+  return fits_block(T, D / H) || wide_in_one_launch(D / H) ? 0 : 2 * (size_t)B * T * D;
 }
 
 // x [B, T, D] and coa [B, D] contiguous, cos_t and sin_t [T + 1, dh / 2]
@@ -239,6 +252,11 @@ int gdt_local_block_f32(const float* x, const float* coa, const float* cos_t,
                    aligned(sin_t) && aligned(out);
   const LocalArgs a{x, coa, cos_t, sin_t, out, T, D, H, window, scale * 1.4426950408889634f, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fits_block(T, dh) && wide_in_one_launch(dh)) {
+    const cudaError_t e = local_wide_launch(a, scale, B, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (!fits_block(T, dh)) {
     if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     float *r = ws, *att = ws + (size_t)B * T * D;
@@ -248,7 +266,7 @@ int gdt_local_block_f32(const float* x, const float* coa, const float* cos_t,
     const AttnStrides rows{(long long)T * D, dh, D};
     const bool wvec = dh % 4 == 0 && D % 4 == 0 && aligned(ws);
     const cudaError_t e = band_wide_launch(r, r, r, att, rows, rows, rows, rows, B, H, T, dh,
-                                           window, wvec, a.scale_log2, s);
+                                           window, wvec, scale, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     rope_out_kernel<<<(pairs_out + 255) / 256, 256, 0, s>>>(att, coa, cos_t, sin_t, out, B, T,
                                                             D, H);

@@ -1,21 +1,24 @@
 // Attention at head widths past 128: the flash forward (flash_attention.cuh's
-// function) and the band forward (band_attention.cu, local_block.cu) for
-// heads the narrow kernels' registers and shared memory do not hold, and the
-// primitives the training layer's wide attention backward shares
-// (encoder_layer_train.cu).
+// function), the band (band_attention.cu's) and the local block
+// (local_block.cu's) for heads the narrow kernels' registers and shared
+// memory do not hold, and the primitives the training layer's wide
+// attention backward shares (encoder_layer_train.cu).
 //
 // Replaces, for those widths: gesturediffusion_tpu/ops/pallas_flash.py::
 // _flash_kernel (which pads any head width to a multiple of 128,
-// pallas_flash.py:93-109), pallas_attention.py::_band_kernel and the band
-// stage of pallas_local_block.py::_local_block_kernel.  Same functions, f32
-// scores and softmax, the same masks (keys >= T, the causal look-back-one
-// band) and, for the flash forward in training, the same site-0 dropout and
+// pallas_flash.py:93-109), pallas_attention.py::_band_kernel and
+// pallas_local_block.py::_local_block_kernel.  Same functions, f32 scores
+// and softmax, the same masks (keys >= T, the causal look-back-one band)
+// and, for the flash forward in training, the same site-0 dropout and
 // log-sum-exp.
 //
-// The flash forward (flash_fwd_wide_kernel), heads of 129 to 544.  What
-// bounds it on an H100: at [82, 4, 1201, 256] a call is 484 GFLOP of
-// products against 0.5 GB of q, k, v and out, so the tensor cores: 2.94 ms
-// at three passes of the 495 TFLOP/s TF32 rate.  Its design:
+// The wide forward (wide_fwd: flash_fwd_wide_kernel, band_wide_kernel,
+// local_block_wide_kernel), heads of 129 to 544.  What bounds it on an
+// H100: the flash forward at [82, 4, 1201, 256] is 484 GFLOP of products
+// against 0.5 GB of q, k, v and out, so the tensor cores: 2.94 ms at three
+// passes of the 495 TFLOP/s TF32 rate; the band at [82, 8, 1200, 136]
+// (window 10, q = k = v) is 0.86 GB of input and output against 6.6
+// GFLOP of band products, so memory: 0.26 ms at 3.35 TB/s.  Its design:
 //   * a block is 64 query rows of one (batch, head), two warpgroups of 4
 //     warps (16 rows a warp), and the whole width up to 272 columns; past
 //     that a cluster of two blocks, each taking a share of 272 columns
@@ -49,14 +52,41 @@
 //     the same at 272 columns, 221 KB;
 //   * the block index runs over (batch * head, query tile) in one grid
 //     dimension, so B * H is not bounded by the grid's second dimension.
+// The band (band_wide_kernel) is the same loop over the key tiles from the
+// block's first band key, (q0 / w - 1) w, to its last row, under the band
+// mask; a warp skips the score products of the 8-key slices that none of
+// its 16 rows sees, and the block the p v of the slices past its last row.
+// It bounds by bytes (the band at window 10 is ~15 keys a query), and its
+// blocks are short (six 16-key tiles at window 10), so what it pays for
+// is each block's latency: its tiles are 16 keys, q's 64 rows sit in
+// shared memory (no q fragments held in registers: 113 registers at 144
+// columns, so two blocks share an SM, 102 KB each) and, where q = k = v
+// (the model's path) and the band's rows up to the block's last fit 96
+// rows (windows up to 16), those rows land once, resident, and each tile
+// is split where it lies.  The local block (local_block_wide_kernel) is
+// that band over x's head rows, roped in shared memory once as they land
+// (the rotate-half partner of column k is column k + dh / 2 of the same
+// row, both resident), the output tile staged in shared memory for the
+// second rotary pass (position i + 1) and written with the conditioning
+// token's row: one launch and no workspace up to local heads of 272.
+// Tried and not kept (PERF.md section 6; an H100 80GB HBM3 at 700 W): the
+// flash forward's 32-key tiles with q in registers (one block an SM; 1.49
+// ms at [82, 8, 1200, 136] against 1.03-1.08), p v on mma.sync over a
+// warp's live slices instead of wgmma (slower).  The shared body costs the
+// flash forward at heads of 136 ~9% against its own kernel before the band
+// modes (7.54-7.62 ms against 6.90-6.98 at [82, 4, 1201, 136]; at 272
+// 11.75 against 11.78-11.86): ptxas now issues all of a tile's
+// exponentials before its first p v wgmma, where it used to interleave
+// them.  Taking the arguments one by one or as this struct, and computing
+// a slice's exponentials inside the p v loop, left that time unchanged.
 // Rows past T and columns past dh read as zeros; only real rows and
 // columns are stored.
 //
 // Heads wider than 544 (no configuration comes near them; the training
-// layer's attention backward too) and the band kernels walk the head width
-// in 128-column slices, each block of 4 warps recomputing the scores of its
-// slice from fragments read from device memory (L1 and L2 serve the
-// re-reads): flash_sliced_kernel, band_wide_kernel and the helpers below.
+// layer's attention backward too) walk the head width in 128-column
+// slices, each block of 4 warps recomputing the scores of its slice from
+// fragments read from device memory (L1 and L2 serve the re-reads):
+// flash_sliced_kernel, band_sliced_kernel and the helpers below.
 // encoder_layer_train.cu's wide backward passes (heads of 129 to 544) reuse
 // the forward's wgmma widths, splits and cluster exchange.  Their products are
 // mma.sync.m16n8k8 TF32 in three passes, with the k permutation of
@@ -409,69 +439,170 @@ __device__ __forceinline__ void cluster_sync_relaxed() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// The shared memory of flash_fwd_wide_kernel<DROP, KS, CL> at a block's
-// share w <= 16 KS of the padded head width, in floats (BK = kWgKeys): raw K
-// and V [BK][w + 4] as cp.async lands them; K big and small [w / 8][BK * 8]
-// and V big and small [2][BK / 8][8 KS * 8] in wgmma's K-major core
-// matrices; the partial scores [8 warps][BK / 8][32 lanes][4].
-template <int KS>
-size_t wide_fwd_floats(int w) {
-  constexpr size_t BK = kWgKeys;
-  return 2 * BK * (w + 4) + 2 * w * BK + 32 * KS * BK + 128 * BK;
+// rope of the pair (x1, x2) = (column k, column k + dh / 2) with cos c and
+// sin s: x * cos + rotate_half(x) * sin, each product rounded on its own (no
+// fused multiply-add), as PyTorch rounds the plain version's
+__device__ __forceinline__ void rope_pair(float x1, float x2, float c, float s, float& y1,
+                                         float& y2) {
+  y1 = __fadd_rn(__fmul_rn(x1, c), __fmul_rn(-x2, s));
+  y2 = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
 }
 
-// grid (B * H * ceil(T / 64), CL), 256 threads, clusters of the CL blocks of
-// a query tile: 64 query rows of one (batch, head).  The padded width is cut
-// into CL shares of w = 16 ks columns (ks <= KS); block `rank` takes the
-// share [rank w, (rank + 1) w), warpgroup c its half [8 ks c, 8 ks (c + 1))
-// of it, for both the scores and the output.  With DROP, p is dropped at
-// site 0 after the row sums took it; lse (log2 units) is written by
-// warpgroup 0 of block 0.
-template <bool DROP, int KS, int CL>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, AttnStrides sq,
-                      AttnStrides sk, AttnStrides sv, AttnStrides so, int H, int T, int dh,
-                      bool vec, float scale, Drop drop, float* __restrict__ lse) {
-  constexpr int BK = kWgKeys, WO = 8 * KS;  // keys a tile, a warpgroup's accumulator columns
+__device__ __forceinline__ void rope4(const float4& x1, const float4& x2, const float4& c,
+                                      const float4& s, float4& y1, float4& y2) {
+  rope_pair(x1.x, x2.x, c.x, s.x, y1.x, y2.x);
+  rope_pair(x1.y, x2.y, c.y, s.y, y1.y, y2.y);
+  rope_pair(x1.z, x2.z, c.z, s.z, y1.z, y2.z);
+  rope_pair(x1.w, x2.w, c.w, s.w, y1.w, y2.w);
+}
+
+// Rows [0, n) of a [.][ld] shared tile, positions p0 .. p0 + n - 1 of a head
+// of width dh, roped in place (rows at positions >= T are left as they are:
+// zeros); cos_t and sin_t [T + 1, dh / 2].  `vec`: dh % 8 == 0 and aligned
+// tables, a float4 of each half a thread.
+__device__ __forceinline__ void rope_rows(float* x, int ld, int n, int p0, int T, int dh,
+                                          const float* cos_t, const float* sin_t, bool vec) {
+  const int half = dh / 2;
+  if (vec) {
+    const int h4 = half / 4;
+    for (int f = threadIdx.x; f < n * h4; f += blockDim.x) {
+      const int r = f / h4, k = (f - r * h4) * 4, pos = p0 + r;
+      if (pos >= T) continue;
+      float* row = x + r * ld;
+      float4 y1, y2;
+      rope4(ld4(row + k), ld4(row + k + half), ld4(cos_t + pos * half + k),
+            ld4(sin_t + pos * half + k), y1, y2);
+      *reinterpret_cast<float4*>(row + k) = y1;
+      *reinterpret_cast<float4*>(row + k + half) = y2;
+    }
+  } else {
+    for (int f = threadIdx.x; f < n * half; f += blockDim.x) {
+      const int r = f / half, k = f - r * half, pos = p0 + r;
+      if (pos >= T) continue;
+      float* row = x + r * ld;
+      rope_pair(row[k], row[k + half], cos_t[pos * half + k], sin_t[pos * half + k], row[k],
+                row[k + half]);
+    }
+  }
+}
+
+// The three functions of the wide forward: the flash forward (all keys
+// below T), the causal look-back-one band (band_tile.cuh's function,
+// kernel 3) and the local block (local_block.cu's function, kernel 2: the
+// band over the roped rows, then the token and the second rotary pass)
+enum WideMode { kWideFlash, kWideBand, kWideLocal };
+
+// The wide forward's arguments: q, k, v and out [B, H, T, dh] through their
+// strides.  The local block reads x [B, T, D] as q = k = v (strides {T D,
+// dh, D}) and writes [B, T + 1, D] (strides {(T + 1) D, dh, D}): row i's
+// output at row i + 1, the token at row 0.
+struct WideFwdArgs {
+  const float *q, *k, *v;
+  float* out;
+  AttnStrides sq, sk, sv, so;
+  int H, T, dh;
+  bool vec;      // 16-byte copies, float2 stores (float4 in the local block's epilogue)
+  float scale;
+  Drop drop;     // the flash forward in training: site-0 dropout ...
+  float* lse;    // ... and the rows' log-sum-exp (log2 units), where not null
+  int window;    // the band and the local block
+  bool kv_same;  // k and v one operand: its rows land once (the local block's always)
+  bool qkv_same; // q, k and v one operand (the local block's always)
+  const float *coa, *cos_t, *sin_t;  // the local block: the token [B, D], tables [T + 1, dh / 2]
+};
+
+// The shared memory of the wide forward at a block's share w <= 16 KS of
+// the padded head width, in floats, key tiles of BK keys: `raws` raw tiles
+// (K and V, or their one operand) [BK][w + 4] as cp.async lands them; K big
+// and small [w / 8][BK * 8] and V big and small [2][BK / 8][8 KS * 8] in
+// wgmma's K-major core matrices; the partial scores [8 warps][BK / 8][32
+// lanes][4].  In the band the raw tiles and q's 64 rows share one area of
+// kResRows rows: 2 BK raw rows and 64 of q, or, where q = k = v and the
+// block's band is at most kResRows keys, the band's rows resident.
+constexpr int kResRows = 96;
+template <int KS, int BK, bool BAND>
+size_t wide_fwd_floats(int w, int raws) {
+  static_assert(!BAND || 2 * BK + kWgRows <= kResRows, "the raw tiles and q share the area");
+  return (BAND ? kResRows : (size_t)raws * BK) * (w + 4) + 2 * w * BK + 32 * KS * BK + 128 * BK;
+}
+
+// The wide forward of one block, grid (B * H * ceil(T / 64), CL), 256
+// threads, clusters of the CL blocks of a query tile: 64 query rows of one
+// (batch, head).  The padded width is cut into CL shares of w = 16 ks
+// columns (ks <= KS); block `rank` takes the share [rank w, (rank + 1) w),
+// warpgroup c its half [8 ks c, 8 ks (c + 1)) of it, for both the scores
+// and the output.  The flash forward walks every key tile; with DROP, p is
+// dropped at site 0 after the row sums took it; lse (log2 units) is written
+// by warpgroup 0 of block 0.  The band walks the key tiles from the
+// block's first band key on, (q0 / w - 1) w, to its last row, masks each
+// row's band and skips a warp's key slices that none of its rows sees; the
+// local block does the same over x's rows roped as they land, then stages
+// the output tile in shared memory for the second rotary pass, a row on,
+// and the token.  Tiles of BK keys; the band reads q's rows from shared
+// memory, the flash forward holds them in registers.
+template <int MODE, bool DROP, int KS, int CL, int BK>
+__device__ __forceinline__ void wide_fwd(const WideFwdArgs& a) {
+  constexpr int WO = 8 * KS;  // a warpgroup's accumulator columns
   constexpr int NSL = BK / 8;               // 8-key slices of a tile
+  constexpr bool BAND = MODE != kWideFlash, LOCAL = MODE == kWideLocal;
   extern __shared__ __align__(16) float smem[];
+  const float *__restrict__ q = a.q, *__restrict__ k = a.k, *__restrict__ v = a.v;
+  const AttnStrides sq = a.sq, sk = a.sk, sv = a.sv, so = a.so;
+  const int H = a.H, T = a.T, dh = a.dh;
+  const bool vec = a.vec;
   const int w = (dh + 16 * CL - 1) / (16 * CL) * 16, ks = w / 16;
   const int ld = w + 4;  // raw rows: = 4 mod 16, conflict-free float4 reads down the keys
   const uint32_t rank = CL > 1 ? blockIdx.y : 0;
   const int col0 = rank * w;  // the block's first column
+  const bool one_raw = LOCAL || (BAND && a.kv_same);  // k and v land once
   float* kraw = smem;
-  float* vraw = kraw + BK * ld;
-  float* kbig = vraw + BK * ld;
+  float* vraw = kraw + (one_raw ? 0 : BK * ld);
+  float* kbig = BAND ? smem + kResRows * ld : vraw + BK * ld;
   float* ksmall = kbig + w * BK;
   float* vbig = ksmall + w * BK;
   float* vsmall = vbig + 2 * WO * BK;
   float4* xch = reinterpret_cast<float4*>(vsmall + 2 * WO * BK);
+  float* qs = smem + 2 * BK * ld;  // the band's q rows, beside the raw tiles
   const int qtiles = (T + kWgRows - 1) / kWgRows;
   const int bh = blockIdx.x / qtiles, b = bh / H, h = bh % H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int c = warp >> 2, wi = warp & 3;  // warpgroup, warp in it
-  const int r0 = (blockIdx.x % qtiles) * kWgRows + 16 * wi + g, r1 = r0 + 8;
+  const int q0 = (blockIdx.x % qtiles) * kWgRows, r0 = q0 + 16 * wi + g, r1 = r0 + 8;
   const int dw = dh - col0;  // real columns from the block's first on
   const float* qb = q + b * sq.b + h * sq.h + col0;
   const float* kb = k + b * sk.b + h * sk.h + col0;
   const float* vb = v + b * sv.b + h * sv.h + col0;
-  const int ntiles = (T + BK - 1) / BK;
-  const float scale_log2 = scale * 1.4426950408889634f;
+  // the keys [jbeg, jend) the block's rows see: all of them, or the band of
+  // rows q0 .. q0 + 63 (window `window`, look-back one)
+  const int win = BAND ? a.window : 1;
+  const int jbeg = BAND ? max(0, (q0 / win - 1) * win) : 0;
+  const int jend = BAND ? min(q0 + kWgRows, T) : T;
+  const int ntiles = (jend - jbeg + BK - 1) / BK;
+  // where q = k = v and the band's rows up to the block's last (window <=
+  // 16) fit the area, they land once, resident, and every tile is read
+  // where it lies (no copy, and in the local block no rotary pass, a tile)
+  const bool res = BAND && (LOCAL || a.qkv_same) && q0 + kWgRows - jbeg <= kResRows;
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  // rows r0 and r1 see the keys [lo, row]; the warp's rows the keys
+  // [lo_w, hi_w]
+  const int lo0 = max(0, (r0 / win - 1) * win), lo1 = max(0, (r1 / win - 1) * win);
+  const int lo_w = max(0, ((q0 + 16 * wi) / win - 1) * win), hi_w = min(q0 + 16 * wi + 15, T - 1);
 
-  // K and V rows j0 .. j0 + BK - 1 over the block's share of the width
+  // K and V rows j0 .. j0 + BK - 1 over the block's share of the width (one
+  // operand's rows, into kraw, where they alias)
   auto load_tile = [&](int j0) {
+    const bool two = !one_raw;
     if (vec) {
       const int w4 = w / 4;
       for (int f = threadIdx.x; f < BK * w4; f += kWgThreads) {
         const int rr = f / w4, cc = (f % w4) * 4;
         const bool in = j0 + rr < T && cc < dw;
         cp_async16(kraw + rr * ld + cc, in ? kb + (j0 + rr) * sk.t + cc : kb, in);
-        cp_async16(vraw + rr * ld + cc, in ? vb + (j0 + rr) * sv.t + cc : vb, in);
+        if (two) cp_async16(vraw + rr * ld + cc, in ? vb + (j0 + rr) * sv.t + cc : vb, in);
       }
     } else {
       wide_copy_scalar(kraw, ld, kb, sk.t, j0, BK, T, dw, w);
-      wide_copy_scalar(vraw, ld, vb, sv.t, j0, BK, T, dw, w);
+      if (two) wide_copy_scalar(vraw, ld, vb, sv.t, j0, BK, T, dw, w);
     }
   };
   // the landed tile into the big and small tiles: K as it lies (K-major
@@ -497,42 +628,91 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
       store_split4(vbig, vsmall, off, x);
     }
   };
-  load_tile(0);
+  // the band stages q's 64 rows (or, resident, the band's rows) in shared
+  // memory (the local block ropes them there); the flash forward reads its
+  // fragments from device memory
+  if constexpr (BAND) {
+    const int r_first = res ? jbeg : q0, n = res ? kResRows : kWgRows;
+    float* dst = res ? smem : qs;
+    if (vec) {
+      const int w4 = w / 4;
+      for (int f = threadIdx.x; f < n * w4; f += kWgThreads) {
+        const int rr = f / w4, cc = (f % w4) * 4;
+        const bool in = r_first + rr < T && cc < dw;
+        cp_async16(dst + rr * ld + cc, in ? qb + (r_first + rr) * sq.t + cc : qb, in);
+      }
+    } else {
+      wide_copy_scalar(dst, ld, qb, sq.t, r_first, n, T, dw, w);
+    }
+    cp_async_commit();
+    if (res) qs = smem + (q0 - jbeg) * ld;
+  }
+  if (!res) load_tile(jbeg);
   cp_async_commit();
 
   // q[r0 | r1][this warpgroup's half of the block's share] as A fragments
   // (a0, a1 at column t of a k8 step, a2, a3 at t + 4), zero past T and dh,
-  // split as they are used
-  float qf[KS][4];
+  // split as they are used: the flash forward's in registers, the band's
+  // read from q's rows in shared memory
+  float qf[BAND ? 1 : KS][4];
+  const float* q_lo = qs + (16 * wi + g) * ld + 8 * ks * c + t;
+  if constexpr (BAND) {
+    cp_async_wait<1>();
+    __syncthreads();  // q's rows (the band's rows) have landed
+    if constexpr (LOCAL) {
+      rope_rows(res ? smem : qs, ld, res ? kResRows : kWgRows, res ? jbeg : q0, T, dh, a.cos_t,
+                a.sin_t, vec);
+      __syncthreads();
+    }
+  }
+  if constexpr (!BAND) {
+    auto q_at = [&](int r, int col) -> float {
+      return r < T && col < dw ? qb[r * sq.t + col] : 0.0f;
+    };
 #pragma unroll
-  for (int i = 0; i < KS; ++i) {
-    const int col = 8 * (ks * c + i) + t;
-    const bool lo_in = i < ks && r0 < T, hi_in = i < ks && r1 < T;
-    qf[i][0] = lo_in && col < dw ? qb[r0 * sq.t + col] : 0.0f;
-    qf[i][1] = hi_in && col < dw ? qb[r1 * sq.t + col] : 0.0f;
-    qf[i][2] = lo_in && col + 4 < dw ? qb[r0 * sq.t + col + 4] : 0.0f;
-    qf[i][3] = hi_in && col + 4 < dw ? qb[r1 * sq.t + col + 4] : 0.0f;
+    for (int i = 0; i < KS; ++i) {
+      const int col = 8 * (ks * c + i) + t;
+      const bool in = i < ks;
+      qf[i][0] = in ? q_at(r0, col) : 0.0f;
+      qf[i][1] = in ? q_at(r1, col) : 0.0f;
+      qf[i][2] = in ? q_at(r0, col + 4) : 0.0f;
+      qf[i][3] = in ? q_at(r1, col + 4) : 0.0f;
+    }
   }
   float o[4 * KS];
 #pragma unroll
   for (int i = 0; i < 4 * KS; ++i) o[i] = 0.0f;
   float m_lo = -FLT_MAX, m_hi = -FLT_MAX, l_lo = 0.0f, l_hi = 0.0f;
-  const uint32_t salt = DROP ? site_salt(drop.seed, kSiteAttn) : 0u;
+  const uint32_t salt = DROP ? site_salt(a.drop.seed, kSiteAttn) : 0u;
   // the site-0 index of (row r0, key 2t of the first tile); r1 is 8 T on
-  const uint32_t idx0 = drop.attn_base + (static_cast<uint32_t>(bh) * T + r0) * T + 2 * t;
+  const uint32_t idx0 = a.drop.attn_base + (static_cast<uint32_t>(bh) * T + r0) * T + 2 * t;
 
   for (int it = 0; it < ntiles; ++it) {
-    const int j0 = it * BK;
+    const int j0 = jbeg + it * BK;
+    if (res) kraw = vraw = smem + (j0 - jbeg) * ld;
     cp_async_wait<0>();
     __syncthreads();  // tile it has landed; the last tile's split tiles and partials are read
     // ... and in a cluster the peer has read this block's sums of the last
     // tile: it used the values before it arrived, so no release is needed
     if constexpr (CL > 1) cluster_sync_relaxed();
+    if (LOCAL && !res) {
+      rope_rows(kraw, ld, BK, j0, T, dh, a.cos_t, a.sin_t, vec);
+      __syncthreads();
+    }
     split_tile();
     fence_proxy_async();
     __syncthreads();  // the split tiles are visible to wgmma; the raw tiles are free
-    if (it + 1 < ntiles) load_tile(j0 + BK);
+    if (!res && it + 1 < ntiles) load_tile(j0 + BK);
     cp_async_commit();
+
+    // the key slices a row of this warp sees (the band: keys [lo_w, hi_w])
+    uint32_t live = (1u << NSL) - 1;
+    if constexpr (BAND) {
+      live = 0;
+#pragma unroll
+      for (int n = 0; n < NSL; ++n)
+        if (j0 + 8 * n <= hi_w && j0 + 8 * n + 7 >= lo_w) live |= 1u << n;
+    }
 
     // this warp's part of S = q k^T: its 16 rows, BK keys, its warpgroup's
     // half of the block's share of the width, on mma.sync (at N = BK a
@@ -546,10 +726,17 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* ksm = ksmall + ks * c * BK * 8 + 4 * g + t;
 #pragma unroll
     for (int i = 0; i < KS; ++i) {
-      if (i >= ks) break;
+      if (i >= ks || live == 0) break;
       uint32_t a_big[4], a_small[4], b_big[NSL][2], b_small[NSL][2];
+      if constexpr (BAND) {
+        split_tf32(q_lo[8 * i], a_big[0], a_small[0]);
+        split_tf32(q_lo[8 * ld + 8 * i], a_big[1], a_small[1]);
+        split_tf32(q_lo[8 * i + 4], a_big[2], a_small[2]);
+        split_tf32(q_lo[8 * ld + 8 * i + 4], a_big[3], a_small[3]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(qf[i][e], a_big[e], a_small[e]);
+        for (int e = 0; e < 4; ++e) split_tf32(qf[i][e], a_big[e], a_small[e]);
+      }
 #pragma unroll
       for (int n = 0; n < NSL; ++n) {
         const int off = i * BK * 8 + n * 64;
@@ -559,11 +746,14 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
         b_small[n][1] = __float_as_uint(ksm[off + 32]);
       }
 #pragma unroll
-      for (int n = 0; n < NSL; ++n) mma_tf32_at(s + 4 * n, a_big, b_small[n]);
+      for (int n = 0; n < NSL; ++n)
+        if (live >> n & 1) mma_tf32_at(s + 4 * n, a_big, b_small[n]);
 #pragma unroll
-      for (int n = 0; n < NSL; ++n) mma_tf32_at(s + 4 * n, a_small, b_big[n]);
+      for (int n = 0; n < NSL; ++n)
+        if (live >> n & 1) mma_tf32_at(s + 4 * n, a_small, b_big[n]);
 #pragma unroll
-      for (int n = 0; n < NSL; ++n) mma_tf32_at(s + 4 * n, a_big, b_big[n]);
+      for (int n = 0; n < NSL; ++n)
+        if (live >> n & 1) mma_tf32_at(s + 4 * n, a_big, b_big[n]);
     }
 
     // the partial sums, added in the same order by every warpgroup of the
@@ -594,28 +784,33 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cluster_sync();
 #pragma unroll
       for (int n = 0; n < NSL; ++n) {
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int r = 0; r < CL; ++r) {
           const float4 x = r == static_cast<int>(rank)
                                ? make_float4(s[4 * n], s[4 * n + 1], s[4 * n + 2], s[4 * n + 3])
                                : ld_cluster(xch + (wi * NSL + n) * 32 + lane, r);
-          a.x += x.x;
-          a.y += x.y;
-          a.z += x.z;
-          a.w += x.w;
+          acc.x += x.x;
+          acc.y += x.y;
+          acc.z += x.z;
+          acc.w += x.w;
         }
-        s[4 * n] = a.x;
-        s[4 * n + 1] = a.y;
-        s[4 * n + 2] = a.z;
-        s[4 * n + 3] = a.w;
+        s[4 * n] = acc.x;
+        s[4 * n + 1] = acc.y;
+        s[4 * n + 2] = acc.z;
+        s[4 * n + 3] = acc.w;
       }
     }
 
-    // online softmax in log2 units; keys past T score -FLT_MAX (p = 0)
+    // online softmax in log2 units; keys past T, and in the band keys
+    // outside a row's band, score -FLT_MAX (p = 0)
 #pragma unroll
-    for (int i = 0; i < 4 * NSL; ++i)
-      s[i] = j0 + 8 * (i / 4) + 2 * t + (i & 1) < T ? s[i] * scale_log2 : -FLT_MAX;
+    for (int i = 0; i < 4 * NSL; ++i) {
+      const int j = j0 + 8 * (i / 4) + 2 * t + (i & 1);
+      bool in = j < T;
+      if constexpr (BAND) in = in && j <= (i & 2 ? r1 : r0) && j >= (i & 2 ? lo1 : lo0);
+      s[i] = in ? s[i] * scale_log2 : -FLT_MAX;
+    }
     float mx_lo = -FLT_MAX, mx_hi = -FLT_MAX;
 #pragma unroll
     for (int n = 0; n < NSL; ++n) {
@@ -634,11 +829,19 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NSL; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        // a masked key: exp2(-FLT_MAX - m) = 0
-        s[4 * n + e] = exp2f(s[4 * n + e] - mn_lo);
-        s[4 * n + 2 + e] = exp2f(s[4 * n + 2 + e] - mn_hi);
-        sum_lo += s[4 * n + e];
-        sum_hi += s[4 * n + 2 + e];
+        // a masked key: exp2(-FLT_MAX - m) = 0; in the band a row may have
+        // seen no key yet (m = -FLT_MAX), so its masked keys are set to 0
+        float& x_lo = s[4 * n + e];
+        float& x_hi = s[4 * n + 2 + e];
+        if constexpr (BAND) {
+          x_lo = x_lo == -FLT_MAX ? 0.0f : exp2f(x_lo - mn_lo);
+          x_hi = x_hi == -FLT_MAX ? 0.0f : exp2f(x_hi - mn_hi);
+        } else {
+          x_lo = exp2f(x_lo - mn_lo);
+          x_hi = exp2f(x_hi - mn_hi);
+        }
+        sum_lo += x_lo;
+        sum_hi += x_hi;
       }
     l_lo = al_lo * l_lo + sum_lo;
     l_hi = al_hi * l_hi + sum_hi;
@@ -654,17 +857,19 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // o += p v over this warpgroup's columns: the S accumulator of key slice
     // n is p's A fragment, dropped at site 0 after the row sums took it; a
-    // slice's split while the last one runs
+    // slice's split while the last one runs.  The band's slices past the
+    // block's last row are p = 0 for every row: skipped
     uint32_t p_big[2][4], p_small[2][4];
     reg_fence(o);
 #pragma unroll
     for (int n = 0; n < NSL; ++n) {
+      if (BAND && j0 + 8 * n >= jend) break;
       if constexpr (DROP) {
         const uint32_t i_lo = idx0 + j0 + 8 * n, i_hi = i_lo + 8u * T;
-        s[4 * n] = dropped(s[4 * n], i_lo, salt, drop);
-        s[4 * n + 1] = dropped(s[4 * n + 1], i_lo + 1, salt, drop);
-        s[4 * n + 2] = dropped(s[4 * n + 2], i_hi, salt, drop);
-        s[4 * n + 3] = dropped(s[4 * n + 3], i_hi + 1, salt, drop);
+        s[4 * n] = dropped(s[4 * n], i_lo, salt, a.drop);
+        s[4 * n + 1] = dropped(s[4 * n + 1], i_lo + 1, salt, a.drop);
+        s[4 * n + 2] = dropped(s[4 * n + 2], i_hi, salt, a.drop);
+        s[4 * n + 3] = dropped(s[4 * n + 3], i_hi + 1, salt, a.drop);
       }
       const int set = n & 1;
       split_tf32(s[4 * n], p_big[set][0], p_small[set][0]);
@@ -696,21 +901,146 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
-  if (lse != nullptr && c == 0 && rank == 0 && t == 0) {
-    if (r0 < T) lse[(size_t)bh * T + r0] = m_lo + log2f(l_lo);
-    if (r1 < T) lse[(size_t)bh * T + r1] = m_hi + log2f(l_hi);
+  if (!BAND && a.lse != nullptr && c == 0 && rank == 0 && t == 0) {
+    if (r0 < T) a.lse[(size_t)bh * T + r0] = m_lo + log2f(l_lo);
+    if (r1 < T) a.lse[(size_t)bh * T + r1] = m_hi + log2f(l_hi);
   }
-  float* ob = out + b * so.b + h * so.h + col0;
   const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
+  if constexpr (LOCAL) {
+    // the output tile [64][ld] in the tiles' place (the token's row after
+    // it), then the second rotary pass of its real rows, a row on, and (the
+    // first tile) of the token at position 0
+    __syncthreads();
+    float* os = smem;
 #pragma unroll
-  for (int i = 0; i < KS; ++i) {
-    if (i >= ks) break;
-    const int col = 8 * (ks * c + i) + 2 * t;
-    store_pair(ob + r0 * so.t + col, o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo, r0 < T, col, dw,
-               vec);
-    store_pair(ob + r1 * so.t + col, o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi, r1 < T, col,
-               dw, vec);
+    for (int i = 0; i < KS; ++i) {
+      if (i >= ks) break;
+      const int col = 8 * (ks * c + i) + 2 * t, rr = 16 * wi + g;
+      *reinterpret_cast<float2*>(os + rr * ld + col) =
+          make_float2(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
+      *reinterpret_cast<float2*>(os + (rr + 8) * ld + col) =
+          make_float2(o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi);
+    }
+    if (q0 == 0)  // coa[b, h dh ..] (D = H dh)
+      for (int f = threadIdx.x; f < dh; f += kWgThreads)
+        os[kWgRows * ld + f] = a.coa[(size_t)bh * dh + f];
+    __syncthreads();
+    const int n = min(kWgRows, T - q0);
+    rope_rows(os, ld, n, q0 + 1, T + 1, dh, a.cos_t, a.sin_t, vec);
+    if (q0 == 0) rope_rows(os + kWgRows * ld, ld, 1, 0, T + 1, dh, a.cos_t, a.sin_t, false);
+    __syncthreads();
+    float* ob = a.out + b * so.b + h * so.h;
+    // rows q0 .. q0 + n - 1 to output rows q0 + 1 .., the token to row 0
+    const int first = q0 == 0 ? -1 : 0;
+    if (vec) {
+      const int d4 = dh / 4;
+      for (int f = threadIdx.x; f < (n - first) * d4; f += kWgThreads) {
+        const int rr = f / d4 + first, cc = (f % d4) * 4;
+        const float* src = os + (rr < 0 ? kWgRows : rr) * ld;
+        *reinterpret_cast<float4*>(ob + (q0 + rr + 1) * so.t + cc) = ld4(src + cc);
+      }
+    } else {
+      for (int f = threadIdx.x; f < (n - first) * dh; f += kWgThreads) {
+        const int rr = f / dh + first, cc = f % dh;
+        const float* src = os + (rr < 0 ? kWgRows : rr) * ld;
+        ob[(q0 + rr + 1) * so.t + cc] = src[cc];
+      }
+    }
+  } else {
+    float* ob = a.out + b * so.b + h * so.h + col0;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      if (i >= ks) break;
+      const int col = 8 * (ks * c + i) + 2 * t;
+      store_pair(ob + r0 * so.t + col, o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo, r0 < T, col, dw,
+                 vec);
+      store_pair(ob + r1 * so.t + col, o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi, r1 < T, col,
+                 dw, vec);
+    }
   }
+}
+
+// The flash forward past a head width of 128 (flash_attention.cuh's
+// function), heads of 129 to 544
+template <bool DROP, int KS, int CL>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wide_kernel(const WideFwdArgs a) {
+  wide_fwd<kWideFlash, DROP, KS, CL, kWgKeys>(a);
+}
+
+// The band's blocks: 16-key tiles, q's rows in shared memory (no q
+// fragments held in registers) beside the raw tiles, or the band's rows
+// resident where q = k = v; to 144 columns (102 KB of shared memory)
+// registers capped for two blocks an SM, wider one block an SM
+constexpr int kBandKeys = 16;
+template <int KS>
+constexpr int kBandBlocks = KS <= 9 ? 2 : 1;
+
+// The band (kernel 3) at heads of 129 to 544, and where the narrow ring of
+// band_attention.cu does not fit a block's shared memory
+template <int KS, int CL>
+__global__ void __launch_bounds__(kWgThreads, kBandBlocks<KS>)
+    band_wide_kernel(const WideFwdArgs a) {
+  wide_fwd<kWideBand, false, KS, CL, kBandKeys>(a);
+}
+
+// The local block (kernel 2) at local heads of 129 to 272, and of up to 128
+// where local_block.cu's one-block kernel does not fit shared memory
+template <int KS>
+__global__ void __launch_bounds__(kWgThreads, kBandBlocks<KS>)
+    local_block_wide_kernel(const WideFwdArgs a) {
+  wide_fwd<kWideLocal, false, KS, 1, kBandKeys>(a);
+}
+
+// Queues `kernel` (a wide forward at KS and CL, BK-key tiles, the band's
+// layout with BAND) on `a` over B * H * ceil(T / 64) query tiles in grid.x,
+// the CL blocks of a cluster in grid.y.
+template <int KS, int CL, int BK, bool BAND>
+cudaError_t wide_fwd_launch(void (*kernel)(WideFwdArgs), const WideFwdArgs& a, int B,
+                            cudaStream_t s) {
+  const int w = (a.dh + 16 * CL - 1) / (16 * CL) * 16;
+  const size_t smem = wide_fwd_floats<KS, BK, BAND>(w, a.kv_same ? 1 : 2) * sizeof(float);
+  cudaError_t e = set_smem(kernel, smem);
+  // two blocks an SM (the band's) want all of its 228 KB as shared memory
+  if (e == cudaSuccess && BAND)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)B * a.H * ((a.T + kWgRows - 1) / kWgRows);
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;  // grid.x
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), CL);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = CL;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+// The arguments of a forward over q, k, v and out [B, H, T, dh]
+inline WideFwdArgs wide_args(const float* q, const float* k, const float* v, float* out,
+                             const AttnStrides& sq, const AttnStrides& sk, const AttnStrides& sv,
+                             const AttnStrides& so, int H, int T, int dh, bool vec, float scale) {
+  WideFwdArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = out;
+  a.sq = sq;
+  a.sk = sk;
+  a.sv = sv;
+  a.so = so;
+  a.H = H;
+  a.T = T;
+  a.dh = dh;
+  a.vec = vec;
+  a.scale = scale;
+  return a;
 }
 
 // The flash forward past 544 columns (flash_attention.cuh's function at any
@@ -802,27 +1132,10 @@ cudaError_t flash_fwd_wide_launch(const float* q, const float* k, const float* v
                                   const AttnStrides& sv, const AttnStrides& so, int B, int H,
                                   int T, int dh, bool vec, float scale, const Drop& drop,
                                   float* lse, cudaStream_t s) {
-  auto* kernel = flash_fwd_wide_kernel<DROP, KS, CL>;
-  const int w = (dh + 16 * CL - 1) / (16 * CL) * 16;
-  const size_t smem = wide_fwd_floats<KS>(w) * sizeof(float);
-  cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)B * H * ((T + kWgRows - 1) / kWgRows);
-  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;  // grid.x
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks), CL);
-  cfg.blockDim = dim3(kWgThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = CL;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, out, sq, sk, sv, so, H, T, dh, vec, scale, drop,
-                            lse);
+  WideFwdArgs a = wide_args(q, k, v, out, sq, sk, sv, so, H, T, dh, vec, scale);
+  a.drop = drop;
+  a.lse = lse;
+  return wide_fwd_launch<KS, CL, kWgKeys, false>(flash_fwd_wide_kernel<DROP, KS, CL>, a, B, s);
 }
 
 // Queues the flash forward at head width dh > 128: flash_fwd_wide_kernel up
@@ -851,15 +1164,17 @@ cudaError_t flash_wide_launch(const float* q, const float* k, const float* v, fl
                                    lse, s);
 }
 
-// The causal look-back-one band (band_tile.cuh's function) at any head
-// width and window: grid (ceil(T / 64), B * H, ceil(dh / 128)); a warp's 16
-// queries walk the keys of their band, 40 a step.
+// The causal look-back-one band (band_tile.cuh's function) at head widths
+// past 544 (no configuration comes near them): grid (ceil(T / 64), B * H,
+// ceil(dh / 128)); a warp's 16 queries walk the keys of their band, 40 a
+// step, each block recomputing the scores of its 128-column output slice
+// from fragments read from device memory.
 template <int NT = 5>
 __global__ void __launch_bounds__(kWideThreads)
-band_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, AttnStrides sq,
-                 AttnStrides sk, AttnStrides sv, AttnStrides so, int H, int T, int dh,
-                 int window, bool vec, float scale_log2) {
+band_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out, AttnStrides sq,
+                   AttnStrides sk, AttnStrides sv, AttnStrides so, int H, int T, int dh,
+                   int window, bool vec, float scale_log2) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H, c0 = blockIdx.z * kWideSlice;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kWideRows + warp * 16;
@@ -902,15 +1217,39 @@ band_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int NT = 5>
+cudaError_t band_sliced_launch(const float* q, const float* k, const float* v, float* out,
+                               const AttnStrides& sq, const AttnStrides& sk,
+                               const AttnStrides& sv, const AttnStrides& so, int B, int H, int T,
+                               int dh, int window, bool vec, float scale, cudaStream_t s) {
+  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
+  const dim3 grid((T + kWideRows - 1) / kWideRows, B * H, (dh + kWideSlice - 1) / kWideSlice);
+  band_sliced_kernel<NT><<<grid, kWideThreads, 0, s>>>(q, k, v, out, sq, sk, sv, so, H, T, dh,
+                                                       window, vec, scale * 1.4426950408889634f);
+  return cudaSuccess;
+}
+
+// Queues the band at any head width and window: band_wide_kernel up to 544
+// columns (one block to 272, a cluster of two past it; k and v landed once
+// where they are one operand), band_sliced_kernel past 544.
+template <int NT = 5>
 cudaError_t band_wide_launch(const float* q, const float* k, const float* v, float* out,
                              const AttnStrides& sq, const AttnStrides& sk, const AttnStrides& sv,
                              const AttnStrides& so, int B, int H, int T, int dh, int window,
-                             bool vec, float scale_log2, cudaStream_t s) {
-  if (B * H > 65535) return cudaErrorInvalidValue;  // grid.y
-  const dim3 grid((T + kWideRows - 1) / kWideRows, B * H, (dh + kWideSlice - 1) / kWideSlice);
-  band_wide_kernel<NT><<<grid, kWideThreads, 0, s>>>(q, k, v, out, sq, sk, sv, so, H, T, dh, window,
-                                                 vec, scale_log2);
-  return cudaSuccess;
+                             bool vec, float scale, cudaStream_t s) {
+  if (dh > 544)
+    return band_sliced_launch<NT>(q, k, v, out, sq, sk, sv, so, B, H, T, dh, window, vec, scale,
+                                  s);
+  WideFwdArgs a = wide_args(q, k, v, out, sq, sk, sv, so, H, T, dh, vec, scale);
+  a.window = window;
+  a.kv_same = k == v && sk.b == sv.b && sk.h == sv.h && sk.t == sv.t;
+  a.qkv_same = a.kv_same && q == k && sq.b == sk.b && sq.h == sk.h && sq.t == sk.t;
+  if (dh <= 144)
+    return wide_fwd_launch<9, 1, kBandKeys, true>(band_wide_kernel<9, 1>, a, B, s);
+  if (dh <= 256)
+    return wide_fwd_launch<16, 1, kBandKeys, true>(band_wide_kernel<16, 1>, a, B, s);
+  if (dh <= 272)
+    return wide_fwd_launch<17, 1, kBandKeys, true>(band_wide_kernel<17, 1>, a, B, s);
+  return wide_fwd_launch<17, 2, kBandKeys, true>(band_wide_kernel<17, 2>, a, B, s);
 }
 
 }  // namespace

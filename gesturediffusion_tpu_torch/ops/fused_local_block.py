@@ -15,8 +15,10 @@ launches csrc/local_block.cu (its band attention on the tensor cores in
 tables of ``rotary_table``, built once per shape and device; on a CPU
 tensor it runs the plain version.  A head whose rows do not fit a block's
 shared memory (local heads wider than 128, or 128 past 216 frames) runs
-the kernel's sliced path, in a workspace the wrapper
-allocates for the call.
+the kernel's wide path: one launch up to local heads of 272
+(csrc/wide_attention.cuh's local_block_wide_kernel), three past it, in a
+workspace the wrapper allocates for the call where the library asks for
+one (gdt_local_block_workspace).
 ``pre_encoder_local_block`` takes its attention from
 ops/band_attention.py:local_attention_auto, as mdm.py:70 does: the dense
 form up to 256 frames, beyond that the band kernel on a CUDA tensor

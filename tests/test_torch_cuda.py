@@ -13,8 +13,9 @@ training layer's attention backward and the band attention that the band
 kernel and the local block share.  Every head width is taken (up to 128
 padded to the next multiple of 16 in shared memory; wider heads in the wide
 flash forward's and the attention backward's blocks of the whole width up
-to 544, or in 128-column slices past it and for the band kernels), and so
-are D and F not divisible by 4.
+to 544, the band and the local block in the same blocks over the band's
+key tiles, or in 128-column slices past 544), and so are D and F not
+divisible by 4.
 Tolerances (float32, TF32 off): local block and band attention rtol 2e-4 /
 atol 2e-5 (sums of at most 2w terms); flash attention atol 2e-4 (sums over
 up to 1201 keys in another order, online rescaling); encoder layer atol
@@ -654,36 +655,175 @@ def test_train_backward_takes_its_route_by_width(dev, dh, route):
     _check_train_kernels(dev, 2, 81, 2 * dh, 2, 2 * dh, 0.1)
 
 
+def _band_operands(rs, b, h, t, dh, layout, dev):
+    """q, k, v of one layout: the local block's transposed heads (q = k = v
+    strided), one tensor, or three."""
+    if layout == "strided":
+        q = _randn(rs, b, t, h, dh, device=dev).transpose(1, 2)
+        return q, q, q
+    if layout == "aliased":
+        q = _randn(rs, b, h, t, dh, device=dev)
+        return q, q, q
+    return tuple(_randn(rs, b, h, t, dh, device=dev) for _ in range(3))
+
+
+# lengths on both sides of the wide band's 64-row blocks and 32-key tiles
+# that the window divides, as the band wrapper requires, and the long chunk
+WIDE_BAND_LENGTHS = [(1, 1), (15, 1), (17, 1), (63, 1), (65, 1), (129, 1), (60, 10), (70, 10),
+                     (130, 10), (80, 10), (1200, 10), (64, 64), (128, 64), (192, 64), (320, 64),
+                     (300, 100)]
+
+
 @pytest.mark.parametrize("layout", ["aliased", "separate", "strided"])
 @pytest.mark.parametrize("dh", [136, 264])
-@pytest.mark.parametrize("t,w", [(80, 10), (1200, 10), (320, 64)])
+@pytest.mark.parametrize("t,w", WIDE_BAND_LENGTHS)
 def test_band_kernel_at_wide_widths(dev, t, w, dh, layout):
-    rs = np.random.RandomState(23)
-    if layout == "strided":
-        q = _randn(rs, 2, t, 4, dh, device=dev).transpose(1, 2)
-        k = v = q
-    elif layout == "aliased":
-        q = k = v = _randn(rs, 2, 4, t, dh, device=dev)
-    else:
-        q, k, v = (_randn(rs, 2, 4, t, dh, device=dev) for _ in range(3))
+    """The wide band (band_wide_kernel, one block of the whole width): k and
+    v landed once where they are one operand, twice where not."""
+    q, k, v = _band_operands(np.random.RandomState(23), 2, 4, t, dh, layout, dev)
     got = local_attention_band(q, k, v, window_size=w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, local_attention(q, k, v, window_size=w), rtol=2e-4,
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("t,dh", [(80, 136), (256, 136), (80, 264), (33, 264), (256, 128)])
-def test_local_block_kernel_at_wide_widths(dev, t, dh):
-    """Local heads wider than 128, and of 128 at 256 frames (past a
-    block's shared memory), take the kernel's sliced path."""
+@pytest.mark.parametrize("dh", [520, 560])
+@pytest.mark.parametrize("t,w", [(1, 1), (65, 1), (130, 10), (192, 64), (300, 100)])
+def test_band_kernel_in_a_cluster_and_in_slices(dev, t, w, dh):
+    """The band at 520 (a cluster of two blocks, the scores summed across
+    them) and past 544 (128-column slices)."""
+    q, k, v = _band_operands(np.random.RandomState(26), 1, 2, t, dh, "strided", dev)
+    got = local_attention_band(q, k, v, window_size=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_attention(q, k, v, window_size=w), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", ["aliased", "separate"])
+@pytest.mark.parametrize("dh", [131, 262])
+@pytest.mark.parametrize("t,w", [(17, 1), (130, 10), (192, 64)])
+def test_band_kernel_wide_with_unaligned_rows(dev, t, w, dh, layout):
+    """Head widths not divisible by 4: rows copied a float at a time."""
+    q, k, v = _band_operands(np.random.RandomState(27), 2, 2, t, dh, layout, dev)
+    got = local_attention_band(q, k, v, window_size=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_attention(q, k, v, window_size=w), rtol=2e-4,
+                               atol=2e-5)
+
+
+# where the narrow ring does not fit a block's shared memory: a window of 60
+# at DHP 128, three operands at DHP 128, a window of 480 at DHP 32
+RING_OVERFLOWS = [(1200, 60, 128, "aliased"), (640, 10, 128, "separate"), (960, 480, 32, "aliased")]
+
+
+@pytest.mark.parametrize("t,w,dh,layout", RING_OVERFLOWS)
+def test_band_kernel_past_the_narrow_ring(dev, t, w, dh, layout):
+    q, k, v = _band_operands(np.random.RandomState(28), 2, 3, t, dh, layout, dev)
+    got = local_attention_band(q, k, v, window_size=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_attention(q, k, v, window_size=w), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dh", [136, 264, 520])
+def test_band_kernel_wide_is_bit_for_bit_repeatable(dev, dh):
+    """No atomics, partial scores added in a fixed order: two calls, the
+    same bits."""
+    q, _, _ = _band_operands(np.random.RandomState(29), 2, 4, 300, dh, "strided", dev)
+    first = local_attention_band(q, q, q, window_size=10)
+    second = local_attention_band(q, q, q, window_size=10)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dh", [136, 520])
+@pytest.mark.parametrize("bh", [65535, 65536])
+def test_band_kernel_wide_past_the_grid_guard(dev, bh, dh):
+    """B * H at and past 65535, the sliced kernel's grid.y limit: the wide
+    band indexes (batch * head, query tile) in grid.x."""
+    q, k, v = _band_operands(np.random.RandomState(30), bh, 1, 10, dh, "separate", dev)
+    got = local_attention_band(q, k, v, window_size=5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_attention(q, k, v, window_size=5), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dh,route", [(136, "wide"), (264, "wide"), (520, "wide"),
+                                      (560, "sliced")])
+def test_band_kernel_takes_its_route_by_width(dev, dh, route):
+    """The band's kernel by width, told apart by the grid guard only the
+    sliced launcher has: band_wide_kernel to 544 takes B * H = 65536 (its
+    query tiles in grid.x), band_sliced_kernel past 544 refuses it (no
+    launch, no fallback); each output against the plain twin."""
+    q, _, _ = _band_operands(np.random.RandomState(31), 65536, 1, 10, dh, "strided", dev)
+    if route == "sliced":
+        with pytest.raises(RuntimeError, match="band_attention"):
+            local_attention_band(q, q, q, window_size=5)
+        q = q[:65535]
+    got = local_attention_band(q, q, q, window_size=5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_attention(q, q, q, window_size=5), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dh,one", [(136, True), (264, True), (280, False)])
+def test_local_block_wide_is_one_launch(dev, dh, one):
+    """Local heads of 136 and 264 (--latent_dim 1088, 2112) run in one
+    launch of local_block_wide_kernel: the library asks for no workspace,
+    and the three-launch path (rotary into a workspace, the band, rotary
+    out) refuses to run without one; past 272 it asks for its workspace."""
+    from gesturediffusion_tpu_torch.ops import fused_local_block as flb
+
+    rs = np.random.RandomState(32)
+    x, coa = _randn(rs, 4, 80, 8 * dh, device=dev), _randn(rs, 4, 8 * dh, device=dev)
+    block, ws_floats = flb._kernels()
+    assert (ws_floats(4, 80, 8 * dh, 8) == 0) == one
+    cos, sin = rotary_table(81, dh, dev)
+    out = torch.empty(4, 81, 8 * dh, device=dev)
+    code = block(x.data_ptr(), coa.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                 None, 4, 80, 8 * dh, 8, 10, dh**-0.5, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert (code == 0) == one, code
+    if one:
+        want = pre_encoder_local_block(x, coa, num_heads=8, window_size=10)
+        torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dh", [136, 264, 280, 130])
+@pytest.mark.parametrize("t,w", WIDE_BAND_LENGTHS + [(256, 10)])
+def test_local_block_kernel_at_wide_widths(dev, t, w, dh):
+    """Local heads wider than 128: one launch of the wide kernel up to 272
+    (rows roped as they land, the token and the second rotary pass in its
+    epilogue; 130: a float at a time), three launches past it (280)."""
     rs = np.random.RandomState(24)
     x, coa = _randn(rs, 2, t, 8 * dh, device=dev), _randn(rs, 2, 8 * dh, device=dev)
-    want = pre_encoder_local_block(x, coa, num_heads=8, window_size=10)
+    want = pre_encoder_local_block(x, coa, num_heads=8, window_size=w, use_kernels=False)
     before = fused_local_block.launches
-    got = fused_local_block(x, coa, num_heads=8, window=10)
+    got = fused_local_block(x, coa, num_heads=8, window=w)
     torch.cuda.synchronize()
     assert fused_local_block.launches == before + 1
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("t", [217, 256])
+def test_local_block_kernel_past_a_blocks_rows(dev, t):
+    """Local heads of 128 past 216 frames (past the one-block kernel's
+    shared memory) take the wide kernel."""
+    rs = np.random.RandomState(33)
+    x, coa = _randn(rs, 2, t, 1024, device=dev), _randn(rs, 2, 1024, device=dev)
+    want = pre_encoder_local_block(x, coa, num_heads=8, window_size=10, use_kernels=False)
+    got = fused_local_block(x, coa, num_heads=8, window=10)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_local_block_wide_is_bit_for_bit_repeatable(dev):
+    rs = np.random.RandomState(34)
+    x, coa = _randn(rs, 4, 80, 8 * 136, device=dev), _randn(rs, 4, 8 * 136, device=dev)
+    first = fused_local_block(x, coa, num_heads=8, window=10)
+    second = fused_local_block(x, coa, num_heads=8, window=10)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("t", [81, 121])

@@ -18,7 +18,13 @@ step by step (``wide_flash``): its 32-key tiles, the scores summed once
 from the partial products over the blocks' and warpgroups' column shares,
 the online softmax in log2 units with its rescale before each tile's p v,
 the output in the warpgroups' column slices, and the training layer's
-site-0 dropout and row log-sum-exp.
+site-0 dropout and row log-sum-exp.  The band and the local block past a
+head width of 128 run the same blocks over the band's key tiles only
+(``wide_band``): from the block's first band key, (q0 / w - 1) w, to its
+last row, under the band mask, held against JAX's band kernel
+(ops/pallas_attention.py:local_attention_pallas) and, with the rotary
+passes and the token around it, its local block
+(ops/pallas_local_block.py:fused_local_block), both in interpret mode.
 
 The GEMM also takes operands that are not K-contiguous (the training
 layer's data and weight gradients) and splits K into row chunks summed in
@@ -36,13 +42,17 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from gesturediffusion_tpu.ops.pallas_attention import local_attention_pallas as jax_band
 from gesturediffusion_tpu.ops.pallas_encoder import fused_encoder_layer as jax_fused_layer
 from gesturediffusion_tpu.ops.pallas_flash import fused_self_attention as jax_flash
+from gesturediffusion_tpu.ops.pallas_local_block import fused_local_block as jax_local_block
+from gesturediffusion_tpu_torch.models.embeddings import apply_rotary_pos_emb, rotary_freqs
 from gesturediffusion_tpu_torch.ops.fused_encoder import LN_EPS, SITE_ATTN, gelu_tanh
 from gesturediffusion_tpu_torch.ops.fused_encoder_train import hash_dropout_mask
 from tests.torch_port_common import (
     jax_layer_args,
     jax_layer_params,
+    one_torch_thread,
     threefry_prng,  # noqa: F401 (autouse fixture)
     torch_layer_weights,
     wide_block_shape,
@@ -256,3 +266,122 @@ def test_gemm_operand_layouts_match_jax(product):
     err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
     assert err3 <= 2e-6 * np.abs(want).max(), (err3, np.abs(want).max())
     assert err1 >= 10 * err3, (err1, err3)
+
+
+def wide_band(q, k, v, window, mm):
+    """[B, H, T, dh] causal look-back-one band attention as
+    csrc/wide_attention.cuh's band_wide_kernel computes it: per block of 64
+    query rows q0 .., the key tiles of ``band_bk`` keys from the block's first
+    band key, max(0, (q0 // w - 1) w), to its last row; each tile's scores
+    summed once from the partial products of the blocks' and warpgroups'
+    column shares (products by ``mm``), each block's two first and the
+    blocks' sums in rank order; the band mask (row i sees keys
+    max(0, (i // w - 1) w) .. i); the online softmax in log2 units, a
+    masked key's p 0 even where a row has seen no key yet; o rescaled before
+    it takes the tile's p v in the warpgroups' column halves."""
+    b, h, t, dh = q.shape
+    shape = wide_block_shape(dh)
+    cl, w, bk = shape["cl"], shape["w"], shape["band_bk"]
+    qp, kp, vp = (F.pad(x, (0, cl * w - dh)) for x in (q, k, v))
+    halves = [[slice(r * w + c * w // 2, r * w + (c + 1) * w // 2) for c in range(2)]
+              for r in range(cl)]
+    scale_log2 = dh**-0.5 * 1.4426950408889634
+    lowest = -torch.finfo(torch.float32).max
+    out = q.new_zeros(b, h, t, cl * w)
+    for q0 in range(0, t, 64):
+        rows = torch.arange(q0, min(q0 + 64, t))
+        lo = torch.clamp((rows // window - 1) * window, min=0)
+        jbeg, jend = max(0, (q0 // window - 1) * window), min(q0 + 64, t)
+        qt = qp[:, :, q0:q0 + 64]
+        m = torch.full((b, h, len(rows)), lowest, dtype=q.dtype)
+        l = q.new_zeros(b, h, len(rows))
+        o = q.new_zeros(b, h, len(rows), cl * w)
+        for j0 in range(jbeg, jend, bk):
+            kt, vt = kp[:, :, j0:j0 + bk], vp[:, :, j0:j0 + bk]
+            s = None
+            for block in halves:
+                part = [mm(qt[..., c], kt[..., c].transpose(-1, -2)) for c in block]
+                s = part[0] + part[1] if s is None else s + (part[0] + part[1])
+            j = torch.arange(j0, j0 + kt.shape[2])
+            seen = (j[None, :] <= rows[:, None]) & (j[None, :] >= lo[:, None])
+            s = torch.where(seen, s * scale_log2, torch.tensor(lowest))
+            mn = torch.maximum(m, s.amax(-1))
+            p = torch.where(seen, torch.exp2(s - mn[..., None]), torch.zeros(()))
+            alpha = torch.exp2(m - mn)
+            l, m = alpha * l + p.sum(-1), mn
+            o = o * alpha[..., None]
+            for block in halves:
+                for c in block:
+                    o[..., c] = o[..., c] + mm(p, vt[..., c])
+        out[:, :, q0:q0 + 64] = o / l[..., None]
+    return out[..., :dh]
+
+
+# lengths on both sides of the 64-row blocks and the 32-key tiles that the
+# window divides, as JAX's band kernel requires
+BAND_LENGTHS = [(60, 10), (70, 10), (130, 10), (64, 64), (128, 64), (192, 64)]
+
+
+@pytest.mark.parametrize("d,t,w", [(d, t, w) for d in (136, 264) for t, w in BAND_LENGTHS]
+                         + [(520, 70, 10), (520, 128, 64)])
+def test_wide_band_schedule_in_three_passes_matches_jax(d, t, w, one_torch_thread):
+    """The wide band's schedule (one block at 136 and 264, a cluster of two
+    at 520) in 3xTF32 against JAX's band kernel in interpret mode, within
+    the flash tolerance; one TF32 pass at least 10x further off."""
+    rs = np.random.RandomState(9)
+    q, k, v = (rs.randn(1, 2, t, d).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_band(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window_size=w,
+                               interpret=True))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    three = wide_band(qt, kt, vt, w, matmul_tf32x3).numpy()
+    one = wide_band(qt, kt, vt, w, matmul_tf32).numpy()
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 <= TOL_FLASH, err3
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+def wide_local_block(x, coa, num_heads, window, mm):
+    """The local block as csrc/wide_attention.cuh's local_block_wide_kernel
+    computes it: x's head rows roped (the plain version's rotary, bit for
+    bit: the kernel rounds each product on its own), the wide band over them
+    (``wide_band``, q = k = v), then the token prepended and the second
+    rotary pass at positions 0 .. T."""
+    b, t, d = x.shape
+    dh = d // num_heads
+    heads = x.reshape(b, t, num_heads, dh).transpose(1, 2)
+    heads, _ = apply_rotary_pos_emb(heads, heads, rotary_freqs(t, dh))
+    att = wide_band(heads, heads, heads, window, mm).transpose(1, 2).reshape(b, t, d)
+    y = torch.cat([coa[:, None], att], dim=1).reshape(b, t + 1, num_heads, dh).transpose(1, 2)
+    y, _ = apply_rotary_pos_emb(y, y, rotary_freqs(t + 1, dh))
+    return y.transpose(1, 2).reshape(b, t + 1, d)
+
+
+def test_wide_local_block_schedule_in_three_passes_matches_jax(one_torch_thread):
+    """The wide local block at local heads of 136 (--latent_dim 1088), T 80,
+    window 10, in 3xTF32 against JAX's fused local block in interpret mode,
+    within its rtol 2e-4 / atol 2e-5 (tests/test_torch_local_block.py); one
+    TF32 pass at least 10x further off."""
+    rs = np.random.RandomState(10)
+    x, coa = rs.randn(2, 80, 8 * 136).astype(np.float32), rs.randn(2, 8 * 136).astype(np.float32)
+    want = np.asarray(jax_local_block(jnp.asarray(x), jnp.asarray(coa), num_heads=8, window=10,
+                                      block_b=2, interpret=True))
+    xt, ct = torch.from_numpy(x), torch.from_numpy(coa)
+    three = wide_local_block(xt, ct, 8, 10, matmul_tf32x3).numpy()
+    one = wide_local_block(xt, ct, 8, 10, matmul_tf32).numpy()
+    np.testing.assert_allclose(three, want, rtol=2e-4, atol=2e-5)
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("d", [131, 136, 144, 264, 272, 520, 544])
+def test_wide_band_blocks_cover_the_width_and_fit(d):
+    """The band's blocks (wide_block_shape) cover the head width in shares
+    of whole 16-column steps, two warpgroup halves of at most ``wo``
+    columns each, and fit a block's shared memory, two blocks an SM's 228
+    KB (1 KB each reserved) to 144 columns; the area of 96 rows holds two
+    raw 16-key tiles and q's 64 rows."""
+    shape = wide_block_shape(d)
+    cl, w, wo, bk = shape["cl"], shape["w"], shape["wo"], shape["band_bk"]
+    assert cl * w >= d > cl * (w - 16) and w % 16 == 0 and w // 2 <= wo
+    assert shape["band_smem"] <= 232448 and 2 * bk + 64 <= 96
+    assert (2 * (shape["band_smem"] + 1024) <= 228 * 1024) == (d <= 144)

@@ -204,27 +204,36 @@ def jax_layer_args(p: dict) -> tuple:
             l2["kernel"], l2["bias"], n2["scale"], n2["bias"])
 
 
-# csrc/wide_attention.cuh's flash forward past a head width of 128: the
-# widest head flash_fwd_wide_kernel takes (wider ones run in 128-column
-# slices, flash_sliced_kernel)
+# csrc/wide_attention.cuh's wide forward past a head width of 128: the
+# widest head flash_fwd_wide_kernel and band_wide_kernel take (wider ones
+# run in 128-column slices, flash_sliced_kernel and band_sliced_kernel)
 WIDE_MAX_WIDTH = 544
 
 
-def wide_block_shape(dh: int) -> dict | None:
-    """The blocks of csrc/wide_attention.cuh's flash_fwd_wide_kernel at head
-    width dh, as flash_wide_launch chooses them (129 .. WIDE_MAX_WIDTH;
-    None outside): a cluster of ``cl`` blocks of 64 query rows and two
-    warpgroups; block r takes the scores and the output over its share
-    [r w, (r + 1) w) of the width, each warpgroup half of it (``wo``
-    accumulator columns: 8 KS); key tiles of ``bk`` keys (kWgKeys); ``smem``
-    bytes of shared memory a block (wide_fwd_floats).  The tests emulate
-    the kernel's schedule from it."""
+def wide_block_shape(dh: int, raws: int = 2) -> dict | None:
+    """The blocks of csrc/wide_attention.cuh's wide forward
+    (flash_fwd_wide_kernel, band_wide_kernel, local_block_wide_kernel) at
+    head width dh, as flash_wide_launch and band_wide_launch choose them
+    (129 .. WIDE_MAX_WIDTH; None outside): a cluster of ``cl`` blocks of 64
+    query rows and two warpgroups; block r takes the scores and the output
+    over its share [r w, (r + 1) w) of the width, each warpgroup half of it
+    (``wo`` accumulator columns: 8 KS); key tiles of ``bk`` keys (kWgKeys);
+    ``smem`` bytes of shared memory a block (wide_fwd_floats) with ``raws``
+    raw tiles (1 where k and v are one operand).  The tests emulate the
+    kernel's schedule from it.  The band and the local block take the same
+    blocks with key tiles of ``band_bk`` keys (kBandKeys), q's rows (or
+    the band's, where q = k = v) in an area of kResRows = 96 rows beside
+    them, ``band_smem`` bytes a block (two blocks an SM to 144 columns)."""
     if not 128 < dh <= WIDE_MAX_WIDTH:
         return None
     ks, cl = (9, 1) if dh <= 144 else (16, 1) if dh <= 256 else (17, 1) if dh <= 272 else (17, 2)
     bk, w = 32, -(-dh // (16 * cl)) * 16
-    floats = 2 * bk * (w + 4) + 2 * w * bk + 32 * ks * bk + 128 * bk
-    return dict(cl=cl, w=w, bk=bk, wo=8 * ks, smem=4 * floats)
+
+    def floats(keys, rows):
+        return rows * (w + 4) + 2 * w * keys + 32 * ks * keys + 128 * keys
+
+    return dict(cl=cl, w=w, bk=bk, wo=8 * ks, smem=4 * floats(bk, raws * bk), band_bk=16,
+                band_smem=4 * floats(16, 96))
 
 
 def wide_bwd_block_shape(dh: int) -> dict | None:

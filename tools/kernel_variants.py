@@ -62,6 +62,14 @@ does):
                      width of 128 as first written: attention_backward_wide
                      sent to the sliced passes at every width (in the
                      training library)
+  band_sliced        the band and the local block past a head width of 128
+                     as first written: band_wide_launch sent to
+                     band_sliced_launch at every width (128-column slices,
+                     a block each, every one recomputing the scores from
+                     fragments read from device memory) and the local block
+                     past a block's rows to its three launches (rope_in,
+                     the band, rope_out, in a workspace), in the band and
+                     local-block libraries
   wbwd_no_scores     the wide passes without their score products (the
                      scores read as zeros)
   wbwd_no_outputs    the wide passes without their output wgmmas (the
@@ -94,7 +102,15 @@ layer's forward + backward and SDPA's attention backward alone
 (chip_smoke.py's sdpa_backward_ms); the wbwd_* variants (the wbwd_no_*
 ablations unchecked) in the turns shipped, each variant, each again in
 reverse order, shipped.  Given alone (no other variant
-chosen) they build and time only the training library.
+chosen) they build and time only the training library.  band_sliced times
+the band kernel at [82, 8, 1200, 136] and [82, 8, 1200, 264] (q = k = v the
+local block's transposed heads, window 10) and at [82, 8, 1200, 128]
+window 60 (past the narrow ring's shared memory), and the local block at
+[82, 80, 1088] and [82, 80, 2112] (8 heads of 136 and 264), by the
+profiler's device time of a call (every kernel of it), in the turns
+shipped, band_sliced, band_sliced, shipped, beside the plain twin and the
+library (chip_smoke.py's band_sdpa and local_block_sdpa) by CUDA events;
+given alone it builds and times only those two libraries.
 A patch that no longer matches the sources fails loudly.
 """
 
@@ -193,6 +209,10 @@ VARIANTS.update({
                      + WIDE_DISPATCH)],
     "wide_bwd_sliced": [(TRAIN, WIDE_BWD_DISPATCH,
                          "  return attn_bwd_sliced_launch<DROP>(a, s);\n" + WIDE_BWD_DISPATCH)],
+    "band_sliced": [(WIDE, "  if (dh > 544)\n    return band_sliced_launch<NT>(",
+                     "  if (true)\n    return band_sliced_launch<NT>("),
+                    (LOCAL, "bool wide_in_one_launch(int dh) { return dh <= 272; }",
+                     "bool wide_in_one_launch(int dh) { return false; }")],
     "wbwd_no_scores": [(TRAIN, "    if (live) {\n      if (ks == KS)",
                         "    if (false) {\n      if (ks == KS)")],
     "wbwd_no_outputs": [
@@ -220,6 +240,7 @@ VARIANT_LIBS = {name: (("band_attention",) if name.startswith("band_") else
                        ("local_block",) if name.startswith("local_") else
                        ("encoder_layer", "flash_attention")) for name in VARIANTS}
 VARIANT_LIBS["wide_sliced"] += ("encoder_layer_train",)
+VARIANT_LIBS["band_sliced"] = ("band_attention", "local_block")
 # the variants of the wide attention backward (the training library alone)
 BWD_VARIANTS = ("wide_bwd_sliced", "wbwd_no_scores", "wbwd_no_outputs", "wbwd_no_split",
                 "wbwd_no_loads", "wbwd_bounded")
@@ -396,6 +417,83 @@ def wide_bwd_ab(builds, order, rn, cuda_ms, smi, heads=4, rate=0.1, ff=1024):
         del w, x, g, tx, tw, want
 
 
+def band_ab(builds, order, rn, cuda_ms, smi):
+    """band_sliced's rows: the band kernel at [82, 8, 1200, dh] (dh 136 and
+    264, q = k = v strided, window 10; dh 128 at window 60) and the local
+    block at [82, 80, 8 dh] (dh 136 and 264) in the turns of ``order``,
+    device time a call by the profiler, against the plain twins, beside the
+    plain twins' and the library's times by CUDA events."""
+    import torch
+
+    from chip_smoke import band_sdpa, device_split, local_block_sdpa
+    from gesturediffusion_tpu_torch.ops.fused_local_block import (
+        pre_encoder_local_block,
+        rotary_table,
+    )
+    from gesturediffusion_tpu_torch.ops.local_attention import local_attention
+
+    def band(lib, q, w):
+        fn = lib.gdt_band_attention_f32
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 4 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
+        out = torch.empty_like(q)
+        b, h, t, dh = q.shape
+        code = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *q.stride()[:3] * 3,
+                  *out.stride()[:3], b, h, t, dh, w, dh**-0.5,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"band variant failed: CUDA error {code}")
+        return out
+
+    def local(lib, x, coa):
+        fn = lib.gdt_local_block_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, p]
+        ws_floats = lib.gdt_local_block_workspace
+        ws_floats.argtypes, ws_floats.restype = [i] * 4, ctypes.c_size_t
+        b, t, dd = x.shape
+        cos, sin = rotary_table(t + 1, dd // 8, x.device)
+        out = torch.empty(b, t + 1, dd, device="cuda")
+        n = ws_floats(b, t, dd, 8)
+        ws = torch.empty(n, device="cuda") if n else None
+        code = fn(x.data_ptr(), coa.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                  None if ws is None else ws.data_ptr(), b, t, dd, 8, 10, (dd // 8) ** -0.5,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"local block variant failed: CUDA error {code}")
+        return out
+
+    for dh, w in ((136, 10), (264, 10), (128, 60)):
+        q = rn(82, 1200, 8, dh).transpose(1, 2)
+        want = local_attention(q, q, q, window_size=w)
+        parts = []
+        for name in order:
+            lib = builds[name]["band_attention"]
+            err = (band(lib, q, w) - want).abs().max().item()
+            ms, _ = device_split(lambda: band(lib, q, w))
+            parts.append(f"{name} {ms:.4f} ms (max|diff| {err:.2e})")
+        plain = cuda_ms(lambda: local_attention(q, q, q, window_size=w), 3)
+        sdpa = cuda_ms(lambda: band_sdpa(q, w), 3)
+        print(f"band [82,8,1200,{dh}] w {w} (q = k = v strided), device: " + "; ".join(parts)
+              + f"; plain {plain:.4f} ms, band-masked SDPA {sdpa:.4f} ms [{smi}]", flush=True)
+        del q, want
+    for dh in (136, 264):
+        x, coa = rn(82, 80, 8 * dh), rn(82, 8 * dh)
+        want = pre_encoder_local_block(x, coa, num_heads=8, window_size=10)
+        parts = []
+        for name in order:
+            lib = builds[name]["local_block"]
+            err = (local(lib, x, coa) - want).abs().max().item()
+            ms, names = device_split(lambda: local(lib, x, coa))
+            parts.append(f"{name} {ms:.4f} ms in {sum(n for _, n in names.values()):g} "
+                         f"launches (max|diff| {err:.2e})")
+        plain = cuda_ms(lambda: pre_encoder_local_block(x, coa, num_heads=8, window_size=10))
+        sdpa = cuda_ms(lambda: local_block_sdpa(x, coa, 8, 10))
+        print(f"local block [82,80,{8 * dh}] heads 8 of {dh} w 10, device: " + "; ".join(parts)
+              + f"; plain {plain:.4f} ms, the SDPA block {sdpa:.4f} ms [{smi}]", flush=True)
+        del x, coa, want
+
+
 def main(prefixes: list[str]) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -415,11 +513,14 @@ def main(prefixes: list[str]) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     chosen = [name for name in VARIANTS if not prefixes or name.startswith(tuple(prefixes))]
-    # the backward's variants alone need only the training library
+    # the backward's variants alone need only the training library, the
+    # band's A/B alone the band and local-block libraries
     only_bwd = all(name in BWD_VARIANTS for name in chosen)
+    only_band = chosen == ["band_sliced"]
     # every variant's nvcc runs at once
     started = {"shipped": start_build("shipped", None,
-                                      ("encoder_layer_train",) if only_bwd else LIBS)}
+                                      ("encoder_layer_train",) if only_bwd else
+                                      VARIANT_LIBS["band_sliced"] if only_band else LIBS)}
     started.update({name: start_build(name, VARIANTS[name], VARIANT_LIBS[name])
                     for name in chosen})
     builds = {name: finish_build(name, procs) for name, procs in started.items()}
@@ -440,6 +541,10 @@ def main(prefixes: list[str]) -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
+    if "band_sliced" in builds:
+        band_ab(builds, ("shipped", "band_sliced", "band_sliced", "shipped"), rn, cuda_ms, smi)
+    if only_band:
+        return 0
     if "wide_bwd_sliced" in builds:
         wide_bwd_ab(builds, ("shipped", "wide_bwd_sliced", "wide_bwd_sliced", "shipped"), rn,
                     cuda_ms, smi)
