@@ -31,8 +31,12 @@ Phases, each fatal on failure:
               (batch 82) through select_sampling_model_fn ->
               autoregressive_sample_loop, counting kernel launches; the same
               take re-runs with the plain versions on the card and the two
-              are compared; then the generate CLI runs on a checkpoint
-              written here
+              are compared; the same take through the time-major "btj"
+              fast path (state [B, T, J], time_axis=1) against the "bjft"
+              take under the same injected noise (TOL_BTJ of the take's
+              max, float32's one-ulp floor beside it; launches and ms a
+              denoise step of both layouts); then the generate CLI runs on
+              a checkpoint written here
   5. train    the same model with use_fused_train_encoder takes 5 training
               steps at batch 256 (4 microbatches of 64) with injected
               timesteps and noise, counting 32 forward and 32 backward
@@ -195,15 +199,22 @@ Phases, each fatal on failure:
               (--use_fused_train_encoder, launches counted); two ranks
               sharing the card over gloo (NCCL refuses two ranks on one
               device) take 5 steps of the phase-4 model's training variant
-              at global batch 128 through kernels 5 and 6 with dropout on,
+              at global batch 128 with dropout on: through kernels 5 and 6
               at 2 x 1 (64 rows a rank, rank 1 at row offset 64) and at
-              1 x 2 (each weight of the shape rule and its moments as
-              halves), each held against the single-process steps on the
-              card free-running and teacher-forced under TOL_STEP_LOSS and
-              TOL_STEP_GRAD, launches counted per rank; a 42-take, 2-chunk
-              take split over the two ranks and a 4-stream mesh= session
-              against the single-process ones under TOL_TAKE (kernels 1
-              and 2 counted).  The two-ranks-on-one-card times are a
+              1 x 2, and on the default plain path at 1 x 2 (the column-
+              parallel products on the blocks); at 1 x 2 each weight of
+              the shape rule is held as halves (the weight, its gradient,
+              moments and EMA), its bytes by name printed for each rank
+              beside the single process's (at most 0.5x) with
+              torch.cuda.max_memory_allocated; each run held against the
+              single-process steps of its path on the card free-running
+              and teacher-forced under TOL_STEP_LOSS and TOL_STEP_GRAD,
+              launches counted per rank; a 42-take, 2-chunk take split
+              over the two ranks and a 4-stream mesh= session against the
+              single-process ones under TOL_TAKE (kernels 1 and 2
+              counted); the plain 1 x 2 steps again from ranks launched by
+              torchrun's WORLD_SIZE, RANK and LOCAL_RANK alone, against
+              the GDT_* launch.  The two-ranks-on-one-card times are a
               functional reading, not a scaling figure
  19. evaluators the last modules, on phase 12's humanml tree at the released
               widths: (a) CompV6 (text BiGRU 512, snippet GRUs 1024, movement
@@ -280,6 +291,9 @@ CHUNKS, RESPACING, STEPS, GUIDANCE = 2, "50", 50, 2.5
 TOL_LOCAL_BLOCK = 1e-4   # f32; <= 20-term softmax sums, cos/sin within 2 ulp
 TOL_ENCODER = 5e-4       # f32; K<=1024 sums in another order, LN rescaling
 TOL_TAKE = 1e-3          # f32; 100 chained denoise steps of 8 layers each
+# the btj take against the bjft take under the same noise, of the take's max |value|:
+# the same kernels on the same latents, the glue products on the relaid state
+TOL_BTJ = 1e-5
 MB, BATCH, RATE, TRAIN_STEPS, CLI_STEPS = 64, 256, 0.1, 5, 20
 T_CLI = 120              # the train CLI's default --num_frames
 PAIRS = 20               # phase 19 (e): timed pairs of the two collate fills
@@ -597,6 +611,91 @@ def run_take(model, diffusion, chunk_conds, init_seed, seed, t=None):
     )
     torch.cuda.synchronize()
     return out
+
+
+def layout_take(model, diffusion, chunk_conds, init_seed, layout):
+    """A chunked-AR CFG take through make_fast_cfg_fn(layout=) and
+    autoregressive_sample_loop (time_axis 1 under "btj") from the
+    canonical seed, under injected noise that is the same in either
+    layout: chunk k's draw at step i is the canonical [B, J, 1, T] normal
+    of a generator seeded 1000 k + i, relaid [B, T, J] for "btj".
+    Returns (the take [C, B, J, 1, T], the btj take relaid back; its
+    seconds)."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.sampling import autoregressive_sample_loop
+    from gesturediffusion_tpu_torch.models.mdm_fastpath import make_fast_cfg_fn
+
+    dev = init_seed.device
+    b, t = init_seed.shape[0], chunk_conds["mfcc"].shape[-1]
+    canon = (b, J, 1, t)
+
+    def noise_fn(chunk, step, shape):
+        g = torch.Generator(device=dev).manual_seed(1000 * chunk + step)
+        z = torch.randn(canon, generator=g, device=dev)
+        return z if layout == "bjft" else z.reshape(b, J, t).transpose(1, 2).contiguous()
+
+    precompute, model_fn = make_fast_cfg_fn(model, 0.1, layout=layout)
+    shape, axis = (canon, -1) if layout == "bjft" else ((b, t, J), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = autoregressive_sample_loop(
+        diffusion, model_fn, shape, chunk_conds, init_seed, S,
+        generator=torch.Generator(device=dev), noise_fn=noise_fn, cond_precompute=precompute,
+        time_axis=axis)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if layout == "btj":
+        out = out.transpose(2, 3).reshape(out.shape[0], b, J, 1, t)
+    return out, seconds
+
+
+def btj_take_phase(model, diffusion, chunk_conds, init_seed, card) -> dict:
+    """Phase 4's time-major take: the B_TAKES-take, CHUNKS-chunk CFG take
+    at T frames through the "btj" fast path (state [B, T, J], the seed
+    handed off as out[:, -S:]) against the canonical "bjft" take under the
+    same injected noise (layout_take), within TOL_BTJ of the take's max,
+    float32's one-ulp floor beside it (the bjft take from seed poses
+    nudged by one ulp).  Both layouts run kernels 1 and 2 (and kernel 4
+    inside kernel 1), counted; the ms a denoise step of each, timed in
+    turns.  Returns the btj take's launches."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from gesturediffusion_tpu_torch.ops.fused_local_block import fused_local_block
+
+    counted, _ = launch_counter({"local_block": fused_local_block,
+                                 "encoder_layer": fused_encoder_layer,
+                                 "flash_attention": fused_self_attention})
+
+    def take(layout, seed=init_seed):
+        return counted(lambda: layout_take(model, diffusion, chunk_conds, seed, layout))
+
+    (canon, _), canon_n = take("bjft")
+    (tm, _), tm_n = take("btj")
+    nudged = torch.from_numpy(one_ulp_up(init_seed.cpu().numpy())).to(init_seed.device)
+    (floor_take, _), _ = take("bjft", nudged)
+    secs = {"bjft": [], "btj": []}
+    for layout in ("btj", "bjft", "bjft", "btj"):
+        secs[layout].append(take(layout)[0][1])
+    n_steps = STEPS * CHUNKS
+    ms = {k: min(v) / n_steps * 1e3 for k, v in secs.items()}
+    err, floor = rel_gap(tm, canon), rel_gap(floor_take, canon)
+    want = {"local_block": n_steps, "encoder_layer": n_steps * LAYERS,
+            "flash_attention": n_steps * LAYERS}
+    ok = (tuple(tm.shape) == tuple(canon.shape) and bool(torch.isfinite(tm).all())
+          and err <= TOL_BTJ and tm_n == canon_n == want)
+    log(f"{'OK' if ok else 'FAIL'} btj take ({B_TAKES} takes x {CHUNKS} chunks x {STEPS} DDPM "
+        f"steps, CFG batch {2 * B_TAKES}, state [{B_TAKES},{T},{J}], time_axis=1) against the "
+        f"bjft take under the same injected noise: max|diff| / max|take| {err:.3e} (tol "
+        f"{TOL_BTJ:g}; float32's one-ulp floor, the bjft take from seed poses nudged by one "
+        f"ulp: {floor:.3e}); launches btj {tm_n}, bjft {canon_n} (expected {want}) {card}")
+    if not ok:
+        raise AssertionError("the btj take disagrees with the bjft take")
+    log(f"time btj take: {ms['btj']:.4f} ms a denoise step (CFG batch {2 * B_TAKES}, T {T}), "
+        f"bjft {ms['bjft']:.4f} ms (best of 2 each, in turns) {card}")
+    return tm_n
 
 
 def generate_cli(model_path, args, num_frames, num_samples, respacing, out_dir, extra=()):
@@ -3776,8 +3875,8 @@ def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False, st
     gradients after).  A list ``stats_out`` gets the BatchNorm running
     statistics after each step (running_stats).  With ``mesh`` (a rank of
     a multi-rank run) each step takes this rank's rows of the global
-    batch, and the gradients are the ranks' average; a list ``states``
-    gets the train state."""
+    batch, and the gradients are the ranks' average (a tensor-parallel
+    block's gathered whole); a list ``states`` gets the train state."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
@@ -3812,6 +3911,8 @@ def run_train_steps(model, diffusion, cfg, batches, fk_fn=None, record=False, st
             stats_out.append(running_stats(model))
         if grads is None:
             grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            if state.tp is not None:
+                grads = state.tp.whole_tensors(grads)
     peak = torch.cuda.max_memory_allocated()
     # the step's working memory above what was allocated before it
     # (models, optimizer state after step 1 aside, the staged batches)
@@ -3863,7 +3964,8 @@ def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None, me
     run_train_steps), on batch k: [(loss, gradients)] a step.  Each step
     reads the kernels' error of one step alone, not the float32 chaos that
     free-running steps amplify (ROADMAP C5).  With ``mesh`` the steps run
-    on this rank's rows, a sharded weight and its moments as its block."""
+    on this rank's rows, a sharded weight and its moments as its block
+    (cut from the record's whole ones; the gradients gathered whole)."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
@@ -3874,20 +3976,21 @@ def teacher_forced_steps(model, diffusion, cfg, batches, records, fk_fn=None, me
     gen = torch.Generator(device=next(model.parameters()).device)
     out = []
     for b, rec in zip((rank_batch(b, mesh) for b in batches), records):
-        with torch.no_grad():
+        with torch.no_grad(), state.whole():
             for n, p in model.named_parameters():
                 p.copy_(rec["params"][n])
         opt_state = on_host(rec["opt"])  # moved to the parameters' device
         if state.tp is not None:
-            state.tp.refill_shards()
             opt_state = state.tp.local_optimizer_state(opt_state)
         opt.load_state_dict(opt_state)
         sched.load_state_dict(rec["sched"])
         gen.set_state(rec["gen"])
         metrics = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b["t"],
                              b["noise"], fk_fn=fk_fn)
-        out.append((metrics["loss"].item(), {n: on_host(p.grad)
-                                             for n, p in model.named_parameters()}))
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if state.tp is not None:
+            grads = state.tp.whole_tensors(grads)
+        out.append((metrics["loss"].item(), on_host(grads)))
     return out
 
 
@@ -4049,9 +4152,10 @@ def train_cli_phase(card, extra=(), name="train"):
 P_BATCH, P_TAKES, P_STREAMS, P_CLI_STEPS = 128, 42, 4, 3
 
 
-def parallel_model(train: bool):
+def parallel_model(train: bool, fused: bool = True):
     """Phase 18's full-width gesture MDM V2 from seed 18 (the training
-    variant with dropout and the fused training layer)."""
+    variant with dropout, through the fused training layer unless
+    ``fused`` is False: the default path's plain layers)."""
     import torch
 
     from gesturediffusion_tpu_torch.models.mdm import MDM
@@ -4060,9 +4164,49 @@ def parallel_model(train: bool):
               cond_mask_prob=0.1, seed_poses=S, mfcc_dim=A, cl_head=CL_HEADS,
               window_size=WINDOW)
     if train:
-        kw.update(dropout=RATE, use_fused_train_encoder=True)
+        kw.update(dropout=RATE, use_fused_train_encoder=fused)
     torch.manual_seed(18)
     return MDM(**kw)
+
+
+def parallel_config():
+    """Phase 18's train config: AdamW at lr 1e-4, an EMA, so that each rank
+    holds one of a sharded weight's blocks too."""
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig
+
+    return TrainConfig(lr=1e-4, batch_size=P_BATCH, ema_rate=0.9999)
+
+
+def picked_bytes(state) -> dict:
+    """{name: bytes} a process holds of each weight that tensor parallelism
+    at model width 2 picks (its blocks in a rank of a 1 x 2 grid, whole in
+    one process): the weight, its gradient, its two AdamW moments and its
+    EMA."""
+    from gesturediffusion_tpu_torch.parallel.mesh import Mesh, shard_params_tp
+
+    params = dict(state.model.named_parameters())
+    names = state.tp.blocks if state.tp is not None else shard_params_tp(
+        params.items(), Mesh(data=1, model=2))
+    out = {}
+    for n in names:
+        p = params[n]
+        st = state.optimizer.state[p]
+        out[n] = sum(x.numel() * x.element_size() for x in (
+            p, p.grad, st["exp_avg"], st["exp_avg_sq"], state.ema[n]))
+    return out
+
+
+def held_shapes(state) -> dict:
+    """{name: the shapes of the weight, its gradient, its moments and its
+    EMA} of each sharded weight a rank holds."""
+    params = dict(state.model.named_parameters())
+    out = {}
+    for n in state.tp.blocks:
+        p = params[n]
+        st = state.optimizer.state[p]
+        out[n] = tuple(tuple(x.shape) for x in (p, p.grad, st["exp_avg"], st["exp_avg_sq"],
+                                                 state.ema[n]))
+    return out
 
 
 def parallel_inputs(dev):
@@ -4117,12 +4261,18 @@ def parallel_counters():
         "encoder_layer_train_bwd": encoder_layer_train_bwd})
 
 
+# phase 18's multi-rank training runs: name -> (grid, through the fused layer)
+PARALLEL_RUNS = {"dp": ((2, 1), True), "tp": ((1, 2), True), "tp_plain": ((1, 2), False)}
+
+
 def parallel_rank(spec_path: str) -> int:
-    """One rank of phase 18 (a subprocess with GDT_COORDINATOR_ADDRESS,
-    GDT_NUM_PROCESSES and GDT_PROCESS_ID set): the train CLI (``cli``), or
-    the training steps at 2 x 1 and 1 x 2 against the single-process
-    reference, the take and the session (``grid``).  Writes its readings
-    beside the spec."""
+    """One rank of phase 18 (a subprocess whose environment names the world:
+    GDT_COORDINATOR_ADDRESS with GDT_NUM_PROCESSES and GDT_PROCESS_ID, or
+    with torchrun's WORLD_SIZE, RANK and LOCAL_RANK): the train CLI
+    (``cli``), or the training steps of ``spec["runs"]`` (PARALLEL_RUNS)
+    against the single-process references, and with ``spec["take"]`` the
+    take and the session (``grid``).  Writes its readings beside the
+    spec."""
     import torch
     import torch.distributed as dist
 
@@ -4130,7 +4280,6 @@ def parallel_rank(spec_path: str) -> int:
     from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
     from gesturediffusion_tpu_torch.parallel import distributed as pdist
     from gesturediffusion_tpu_torch.parallel.mesh import make_mesh
-    from gesturediffusion_tpu_torch.train.loop import TrainConfig
 
     spec = torch.load(spec_path, weights_only=False)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -4146,57 +4295,68 @@ def parallel_rank(spec_path: str) -> int:
         out.update(step=loop.state.step, cli_s=time.perf_counter() - t0)
     else:
         batches, (conds, seed0), (stream_seed, stream_mfcc) = parallel_inputs(dev)
-        ref = torch.load(spec["reference"], weights_only=False)
+        refs = torch.load(spec["reference"], weights_only=False)
         diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
-        cfg = TrainConfig(lr=1e-4, batch_size=P_BATCH)
-        for name, grid in (("dp", (2, 1)), ("tp", (1, 2))):
+        cfg = parallel_config()
+        for name in spec["runs"]:
+            grid, fused = PARALLEL_RUNS[name]
+            ref = refs["fused" if fused else "plain"]
             mesh = make_mesh(*grid)
-            model = parallel_model(True).to(dev)
+            model = parallel_model(True, fused).to(dev)
             model.load_state_dict(ref["state"])
             states = []
-            (losses, grads, step_ms, _), launches = counted(lambda: run_train_steps(
+            (losses, grads, step_ms, (peak, _)), launches = counted(lambda: run_train_steps(
                 model, diffusion, cfg, batches, mesh=mesh, states=states))
-            tp = states[0].tp
-            shards = {} if tp is None else {
-                n: (tuple(s.shape), tuple(states[0].optimizer.state[s]["exp_avg"].shape))
-                for n, s in tp.shards.items()}
-            forced = teacher_forced_steps(model, diffusion, cfg, batches, ref["records"],
-                                          mesh=mesh)
+            state = states[0]
+            held = {} if state.tp is None else held_shapes(state)
+            resident = picked_bytes(state) if state.tp is not None else {}
+            del model, states, state
+            model = parallel_model(True, fused).to(dev)
+            forced = (teacher_forced_steps(model, diffusion, cfg, batches, ref["records"],
+                                           mesh=mesh) if spec.get("forced", True) else [])
             out[name] = dict(
-                losses=losses, step_ms=step_ms, launches=launches, shards=shards,
+                losses=losses, step_ms=step_ms, launches=launches, held=held,
+                resident=resident, peak_mib=peak, first_grads=grads,
                 loss_err=max(abs(x - y) / abs(y) for x, y in zip(losses, ref["losses"])),
                 grad_err=grad_gap(grads, ref["grads"])[0],
                 tf_loss=[abs(x - r["loss"]) / abs(r["loss"])
                          for (x, _), r in zip(forced, ref["records"])],
                 tf_grad=[grad_gap(g, r["grads"]) for (_, g), r in zip(forced, ref["records"])])
-            del model, states, forced
-        mesh = make_mesh(2, 1)
-        model = parallel_model(False).to(dev).eval()
-        model.load_state_dict(torch.load(spec["model_path"], map_location=dev))
-        take_diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
-                                          timestep_respacing=RESPACING, device=dev)
-        per = P_TAKES // mesh.data
-        rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
-        t0 = time.perf_counter()
-        with pdist.global_rows(rows.start, per, P_TAKES):
-            take, out["take_launches"] = counted(lambda: run_take(
-                model, take_diffusion, {k: v[:, rows] for k, v in conds.items()},
-                seed0[rows], 1))
-        out["take_s"] = time.perf_counter() - t0
-        out["take"] = pdist.all_gather_cat(take.transpose(0, 1), mesh.data_group).transpose(
-            0, 1).cpu()
-        session = parallel_session(model, mesh, dev)
-        session.start(stream_seed, rng=10)
-        out["chunks"], out["stream_launches"] = counted(
-            lambda: [session.feed({"mfcc": m}) for m in stream_mfcc])
+            if not spec.get("keep_grads"):
+                del out[name]["first_grads"]
+            del model, forced
+            torch.cuda.empty_cache()
+        if spec.get("take"):
+            mesh = make_mesh(2, 1)
+            model = parallel_model(False).to(dev).eval()
+            model.load_state_dict(torch.load(spec["model_path"], map_location=dev))
+            take_diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
+                                              timestep_respacing=RESPACING, device=dev)
+            per = P_TAKES // mesh.data
+            rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+            t0 = time.perf_counter()
+            with pdist.global_rows(rows.start, per, P_TAKES):
+                take, out["take_launches"] = counted(lambda: run_take(
+                    model, take_diffusion, {k: v[:, rows] for k, v in conds.items()},
+                    seed0[rows], 1))
+            out["take_s"] = time.perf_counter() - t0
+            out["take"] = pdist.all_gather_cat(take.transpose(0, 1), mesh.data_group).transpose(
+                0, 1).cpu()
+            session = parallel_session(model, mesh, dev)
+            session.start(stream_seed, rng=10)
+            out["chunks"], out["stream_launches"] = counted(
+                lambda: [session.feed({"mfcc": m}) for m in stream_mfcc])
     torch.save(out, spec_path.replace(".pt", f".rank{rank}.pt"))
     dist.destroy_process_group()
     return 0
 
 
-def spawn_ranks(spec_path: str, world: int, backend=None, timeout=900) -> list:
+def spawn_ranks(spec_path: str, world: int, backend=None, timeout=900,
+                torchrun: bool = False) -> list:
     """Phase 18's ranks as subprocesses of this script on a free localhost
-    port; each rank's readings."""
+    port, the world named by GDT_NUM_PROCESSES and GDT_PROCESS_ID, or with
+    ``torchrun`` by torchrun's WORLD_SIZE, RANK and LOCAL_RANK alone; each
+    rank's readings."""
     import socket
 
     import torch
@@ -4204,14 +4364,20 @@ def spawn_ranks(spec_path: str, world: int, backend=None, timeout=900) -> list:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, GDT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-               GDT_NUM_PROCESSES=str(world))
-    env.pop("GDT_DIST_BACKEND", None)
+    env = dict(os.environ, GDT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+    for var in ("GDT_DIST_BACKEND", "GDT_NUM_PROCESSES", "GDT_PROCESS_ID", "WORLD_SIZE",
+                "RANK", "LOCAL_RANK"):
+        env.pop(var, None)
     if backend:
         env["GDT_DIST_BACKEND"] = backend
+
+    def rank_env(r):
+        if torchrun:
+            return dict(env, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r))
+        return dict(env, GDT_NUM_PROCESSES=str(world), GDT_PROCESS_ID=str(r))
+
     procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                               "--parallel-rank", spec_path],
-                              env=dict(env, GDT_PROCESS_ID=str(r)), cwd=HERE)
+                               "--parallel-rank", spec_path], env=rank_env(r), cwd=HERE)
              for r in range(world)]
     try:
         codes = [p.wait(timeout=timeout) for p in procs]
@@ -4226,23 +4392,43 @@ def spawn_ranks(spec_path: str, world: int, backend=None, timeout=900) -> list:
             for r in range(world)]
 
 
+def parallel_reference(model, diffusion, cfg, batches):
+    """The single-process steps a multi-rank run is held against: the
+    initial weights, the losses, the first step's gradients, each step's
+    record (run_train_steps), the bytes of the weights tensor parallelism
+    picks and the peak memory."""
+    import torch
+
+    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    states = []
+    losses, grads, step_ms, (peak, _), records = run_train_steps(
+        model, diffusion, cfg, batches, record=True, states=states)
+    return {"state": state0, "losses": losses, "grads": on_host(grads), "records": records,
+            "step_ms": step_ms, "peak_mib": peak, "resident": picked_bytes(states[0])}
+
+
 def parallel_phase(model_path, card):
     """Phase 18: the multi-rank paths on the card.  The train CLI on NCCL at
     world size 1; two ranks sharing the card over gloo (NCCL refuses two
     ranks on one device) for TRAIN_STEPS steps at global batch P_BATCH
-    through kernels 5 and 6 with dropout on, at 2 x 1 (64 rows a rank, rank
-    1 at row offset 64) and at 1 x 2 (each weight of the shape rule as its
-    half), each held against the single-process steps on the card
-    free-running and teacher-forced under TOL_STEP_LOSS and TOL_STEP_GRAD;
-    a P_TAKES-take, CHUNKS-chunk take split over the two ranks and a
-    P_STREAMS-stream session on mesh= against the single-process ones under
-    TOL_TAKE.  Launches are counted per rank.  Returns the launches of the
-    phase's main paths by kernel, summed over the ranks."""
+    with dropout on: through kernels 5 and 6 at 2 x 1 (64 rows a rank,
+    rank 1 at row offset 64) and at 1 x 2, and on the default plain path
+    at 1 x 2 (the column-parallel products on the blocks), each held
+    against the single-process steps of its path on the card free-running
+    and teacher-forced under TOL_STEP_LOSS and TOL_STEP_GRAD; at 1 x 2
+    each rank's bytes of the picked weights, gradients, moments and EMA
+    (by name) beside the single process's, and the peak memory of each; a
+    P_TAKES-take, CHUNKS-chunk take split over the two ranks and a
+    P_STREAMS-stream session on mesh= against the single-process ones
+    under TOL_TAKE; then the plain 1 x 2 steps again from a launch by
+    torchrun's variables alone (WORLD_SIZE, RANK, LOCAL_RANK), held
+    against the GDT_* launch's.  Launches are counted per rank.  Returns
+    the launches of the phase's main paths by kernel, summed over the
+    ranks."""
     import numpy as np
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
-    from gesturediffusion_tpu_torch.train.loop import TrainConfig
 
     base = os.path.join(HERE, "build", "chip_smoke", "parallel")
     os.makedirs(base, exist_ok=True)
@@ -4273,19 +4459,18 @@ def parallel_phase(model_path, card):
         raise AssertionError("the train CLI on NCCL at world size 1 failed")
     add(r0["launches"])
 
-    # the single-process references on the card
+    # the single-process references on the card, through the fused layer and plain
     batches, (conds, seed0), (stream_seed, stream_mfcc) = parallel_inputs(dev)
-    model = parallel_model(True).to(dev)
-    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
-    cfg = TrainConfig(lr=1e-4, batch_size=P_BATCH)
-    losses, grads, step_ms, _, records = run_train_steps(model, diffusion, cfg, batches,
-                                                         record=True)
+    cfg = parallel_config()
+    refs = {}
+    for path, fused in (("fused", True), ("plain", False)):
+        refs[path] = parallel_reference(parallel_model(True, fused).to(dev), diffusion, cfg,
+                                        batches)
+        torch.cuda.empty_cache()
+    shapes = {n: tuple(v.shape) for n, v in refs["fused"]["state"].items()}
     ref_path = os.path.join(base, "reference.pt")
-    torch.save({"state": state0, "losses": losses, "grads": on_host(grads),
-                "records": records}, ref_path)
-    del model, records
+    torch.save(refs, ref_path)
     tmodel = parallel_model(False).to(dev).eval()
     tmodel.load_state_dict(torch.load(model_path, map_location=dev))
     take_diffusion = create_diffusion(noise_schedule="cosine", steps=1000,
@@ -4300,32 +4485,36 @@ def parallel_phase(model_path, card):
 
     # two ranks on the card over gloo
     spec = os.path.join(base, "grid.pt")
-    torch.save({"kind": "grid", "reference": ref_path, "model_path": model_path}, spec)
+    torch.save({"kind": "grid", "reference": ref_path, "model_path": model_path,
+                "runs": list(PARALLEL_RUNS), "take": True, "keep_grads": True}, spec)
     t0 = time.perf_counter()
     ranks = spawn_ranks(spec, 2, backend="gloo")
     ranks_s = time.perf_counter() - t0
     want = LAYERS * TRAIN_STEPS
+    # each weight of the shape rule as its half: the weight, gradient, moments and EMA
+    rule = {n for n, s in shapes.items()
+            if len(s) == 2 and s[0] * s[1] >= 1 << 16 and s[0] % 2 == 0}
     for name, grid in (("dp", f"2 x 1 ({P_BATCH // 2} rows a rank)"),
-                       ("tp", f"1 x 2 ({P_BATCH} rows a rank)")):
+                       ("tp", f"1 x 2 ({P_BATCH} rows a rank)"),
+                       ("tp_plain", f"1 x 2 on the plain path ({P_BATCH} rows a rank)")):
         runs = [r[name] for r in ranks]
+        fused = PARALLEL_RUNS[name][1]
         launches = [(x["launches"]["encoder_layer_train_fwd"],
                      x["launches"]["encoder_layer_train_bwd"]) for x in runs]
         for x in runs:
             add(x["launches"])
         agree = max(abs(a - b) / abs(b) for x in runs for a, b in zip(x["losses"],
                                                                        runs[0]["losses"]))
-        # each weight of the shape rule as its half, its moments too
-        rule = {n for n, s in shapes.items()
-                if len(s) == 2 and s[0] * s[1] >= 1 << 16 and s[0] % 2 == 0}
-        shards_ok = name == "dp" or all(set(x["shards"]) == rule and all(
-            s == m == (shapes[n][0] // 2, shapes[n][1]) for n, (s, m) in x["shards"].items())
+        held_ok = name == "dp" or all(set(x["held"]) == rule and all(
+            shp == ((shapes[n][0] // 2, shapes[n][1]),) * 5 for n, shp in x["held"].items())
             for x in runs)
         free_ok = all(x["loss_err"] <= TOL_STEP_LOSS and x["grad_err"] <= TOL_STEP_GRAD
                       for x in runs)
         tf_ok = all(max(x["tf_loss"]) <= TOL_STEP_LOSS
                     and max(g for g, _ in x["tf_grad"]) <= TOL_STEP_GRAD for x in runs)
-        ok = (free_ok and tf_ok and shards_ok and agree <= TOL_STEP_LOSS
-              and all(n == (want, want) for n in launches)
+        want_launches = (want, want) if fused else (0, 0)
+        ok = (free_ok and tf_ok and held_ok and agree <= TOL_STEP_LOSS
+              and all(n == want_launches for n in launches)
               and all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks))
         x = runs[0]
         log(f"{'OK' if ok else 'FAIL'} parallel: {TRAIN_STEPS} steps at global batch "
@@ -4336,17 +4525,35 @@ def parallel_phase(model_path, card):
             f"{', '.join(f'{r[name]['grad_err']:.3e}' for r in ranks)} (tol {TOL_STEP_GRAD:g}); "
             f"teacher-forced losses rel {', '.join(f'{v:.3e}' for v in x['tf_loss'])}, grads "
             f"{', '.join(f'{v:.3e} ({n})' for v, n in x['tf_grad'])}; the ranks' losses "
-            f"{agree:.3e} apart; launches a rank fwd/bwd {launches} (expected {want} each)"
+            f"{agree:.3e} apart; launches a rank fwd/bwd {launches} (expected "
+            f"{want_launches} each)"
             + ("" if name == "dp" else
-               f"; {len(x['shards'])} weights as halves, each block and its moments "
-               f"{sorted(set(s for s, _ in x['shards'].values()))}"))
+               f"; {len(x['held'])} weights held as halves (weight, gradient, moments, EMA), "
+               f"blocks {sorted(set(h[0] for h in x['held'].values()))}"))
         if not ok:
             raise AssertionError(f"the {grid} multi-rank steps disagree with the "
                                  "single-process steps")
+        ref = refs["fused" if fused else "plain"]
         log(f"time parallel train step ({grid}, 2 ranks sharing one card over gloo, a "
             f"functional reading, not a scaling figure; median of steps 2-{TRAIN_STEPS}): "
             f"{', '.join(f'{r[name]['step_ms']:.3f}' for r in ranks)} ms a rank; the "
-            f"single process at batch {P_BATCH}: {step_ms:.3f} ms {card}")
+            f"single process at batch {P_BATCH}: {ref['step_ms']:.3f} ms {card}")
+        if name == "dp":
+            continue
+        single = sum(ref["resident"].values())
+        held = [sum(r[name]["resident"].values()) for r in ranks]
+        ok = (set(ref["resident"]) == rule
+              and all(set(r[name]["resident"]) == rule for r in ranks)
+              and all(h <= 0.5 * single for h in held))
+        log(f"{'OK' if ok else 'FAIL'} parallel memory ({grid}): the {len(rule)} picked "
+            f"weights' weight + gradient + moments + EMA, counted by name: "
+            f"{', '.join(f'{h / 2**20:.3f}' for h in held)} MiB a rank against the single "
+            f"process's {single / 2**20:.3f} MiB ({', '.join(f'{h / single:.4f}' for h in held)}"
+            f"x, limit 0.5x); torch.cuda.max_memory_allocated "
+            f"{', '.join(f'{r[name]['peak_mib']:.1f}' for r in ranks)} MiB a rank, single "
+            f"process {ref['peak_mib']:.1f} MiB {card}")
+        if not ok:
+            raise AssertionError(f"a rank of {grid} holds more than its blocks")
     want = {"local_block": STEPS * CHUNKS, "encoder_layer": STEPS * CHUNKS * LAYERS,
             "flash_attention": STEPS * CHUNKS * LAYERS}
     take_err = max((r["take"] - take).abs().max().item() for r in ranks)
@@ -4372,6 +4579,31 @@ def parallel_phase(model_path, card):
         f"2-rank run {ranks_s:.1f} s in all")
     if not ok:
         raise AssertionError("the mesh= session disagrees with the single-process session")
+
+    # the plain 1 x 2 steps again, launched by torchrun's variables alone
+    spec = os.path.join(base, "torchrun.pt")
+    torch.save({"kind": "grid", "reference": ref_path, "runs": ["tp_plain"],
+                "keep_grads": True, "forced": False}, spec)
+    t0 = time.perf_counter()
+    runs = spawn_ranks(spec, 2, backend="gloo", torchrun=True)
+    run_s = time.perf_counter() - t0
+    loss_gap = max(abs(a - b) / abs(b) for r, g in zip(runs, ranks)
+                   for a, b in zip(r["tp_plain"]["losses"], g["tp_plain"]["losses"]))
+    grad_gaps = [grad_gap(r["tp_plain"]["first_grads"], g["tp_plain"]["first_grads"])[0]
+                 for r, g in zip(runs, ranks)]
+    exact = all(r["tp_plain"]["losses"] == g["tp_plain"]["losses"] and all(
+        torch.equal(r["tp_plain"]["first_grads"][n], v)
+        for n, v in g["tp_plain"]["first_grads"].items()) for r, g in zip(runs, ranks))
+    ok = (loss_gap <= TOL_STEP_LOSS and max(grad_gaps) <= TOL_STEP_GRAD
+          and all(r["world"] == 2 and r["backend"] == "gloo" for r in runs)
+          and [r["device"] for r in runs] == [r["device"] for r in ranks])
+    log(f"{'OK' if ok else 'FAIL'} parallel: the plain 1 x 2 steps launched by WORLD_SIZE / "
+        f"RANK / LOCAL_RANK alone (no GDT_NUM_PROCESSES / GDT_PROCESS_ID; devices "
+        f"{[r['device'] for r in runs]}) against the GDT_* launch: losses rel {loss_gap:.3e} "
+        f"(tol {TOL_STEP_LOSS:g}), first step's grads {', '.join(f'{v:.3e}' for v in grad_gaps)} "
+        f"(tol {TOL_STEP_GRAD:g}), bit for bit: {exact}; {run_s:.1f} s {card}")
+    if not ok:
+        raise AssertionError("the torchrun launch disagrees with the GDT_* launch")
     return total
 
 
@@ -5082,6 +5314,8 @@ def main() -> int:
     if not ok:
         raise AssertionError("kernel take disagrees with the plain take")
 
+    btj_launches = btj_take_phase(model, diffusion, chunk_conds, init_seed, card)
+
     ckpt_dir = os.path.join(HERE, "build", "chip_smoke", "run")
     os.makedirs(ckpt_dir, exist_ok=True)
     model_path = os.path.join(ckpt_dir, "model000000000.pt")
@@ -5261,7 +5495,7 @@ def main() -> int:
          "launches": launches["local_block"] + genea["local_block"]
                      + gesture_edit["local_block"] + samplers["local_block"]
                      + a2m_eval["local_block"] + wav_old["local_block"]
-                     + par["local_block"],
+                     + par["local_block"] + btj_launches["local_block"],
          "max_abs_err": lb_err,
          "ms": lb_ms, "device_ms": lb_device_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": lb_lib_ms},
@@ -5271,7 +5505,8 @@ def main() -> int:
          "launches": (launches["encoder_layer"] + long_launches["encoder_layer"]
                       + genea["encoder_layer"] + gesture_edit["encoder_layer"]
                       + samplers["encoder_layer"] + a2m_eval["encoder_layer"]
-                      + wav_old["encoder_layer"] + par["encoder_layer"]),
+                      + wav_old["encoder_layer"] + par["encoder_layer"]
+                      + btj_launches["encoder_layer"]),
          "max_abs_err": enc_err,
          "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
@@ -5298,7 +5533,8 @@ def main() -> int:
     kernels[-1]["launches"] += (genea["flash_attention"] + t2m["flash_attention"]
                                 + samplers["flash_attention"] + a2m["flash_attention"]
                                 + a2m_eval["flash_attention"] + t2m_eval["flash_attention"]
-                                + wav_old["flash_attention"] + par["flash_attention"])
+                                + wav_old["flash_attention"] + par["flash_attention"]
+                                + btj_launches["flash_attention"])
     kernels += (t2m_rows + t2m_train_rows + a2m_rows + [a2m_eval_row, t2m_eval_row]
                 + wide_rows)
     print(json.dumps({"kernels": kernels}))

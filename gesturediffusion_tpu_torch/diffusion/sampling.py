@@ -403,6 +403,20 @@ def make_sample_fn(diffusion: GaussianDiffusion, sampler: str = "ddpm",
     return partial(sample_loop(sampler), diffusion, **default_kwargs)
 
 
+def check_time_axis(shape: tuple, time_axis: int) -> None:
+    """The time axis of a sampling state of ``shape``: -1 (the last, the
+    canonical [B, J, F, T]) or 1, only for the time-major [B, T, J*F]
+    (sampling.py:584-593, with its messages: on a 4-D shape time_axis=1
+    would slice the joint axis for the seed hand-off)."""
+    if time_axis == 1 and len(shape) != 3:
+        raise ValueError(
+            "time_axis=1 requires the 3D time-major [B, T, J*F] shape; "
+            f"got shape {tuple(shape)}"
+        )
+    if time_axis not in (-1, len(shape) - 1, 1):
+        raise ValueError(f"unsupported time_axis {time_axis}")
+
+
 def ar_chunk_step(
     diffusion: GaussianDiffusion,
     model_fn: ModelFn,
@@ -416,12 +430,16 @@ def ar_chunk_step(
     noise_fn: Optional[NoiseFn] = None,
     cond_precompute: Optional[Callable] = None,
     loop: Callable = p_sample_loop,
+    time_axis: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One chunk of the chunked-AR protocol: inject the carried seed poses
     into the conditioning, run one denoise ``loop``, hand off the last
-    ``seed_poses`` frames.  The one definition of the per-chunk math: the
-    batch loop and the streaming session (serve/streaming.py) both call
-    it.  Returns ``(chunk, handoff_seed)``."""
+    ``seed_poses`` frames along ``time_axis`` (check_time_axis; 1 for the
+    time-major fast path, whose hand-off is ``out[:, -S:]``).  The one
+    definition of the per-chunk math: the batch loop and the streaming
+    session (serve/streaming.py) both call it.  Returns ``(chunk,
+    handoff_seed)``."""
+    check_time_axis(shape, time_axis)
     cond = dict(cond_c)
     cond["seed"] = seed
     if cond_precompute is not None:
@@ -429,7 +447,7 @@ def ar_chunk_step(
     out = loop(
         diffusion, model_fn, shape, cond, generator=generator, noise_fn=noise_fn, chunk=k
     )
-    return out, out[..., -seed_poses:]
+    return out, (out[:, -seed_poses:] if time_axis == 1 else out[..., -seed_poses:])
 
 
 @torch.no_grad()
@@ -445,22 +463,28 @@ def autoregressive_sample_loop(
     noise_fn: Optional[NoiseFn] = None,
     cond_precompute: Optional[Callable] = None,
     loop: Callable = p_sample_loop,
+    time_axis: int = -1,
 ) -> torch.Tensor:
     """Chunked autoregressive generation: the last ``seed_poses`` frames of
     chunk k seed chunk k+1, each chunk one denoise ``loop``.
 
     chunk_conds: per-chunk conditioning tensors with a leading chunk axis
       [C, ...] (mfcc, scale, ...; without 'seed').
-    init_seed: [B, J, F, S] seed poses of the first chunk.
-    Returns [C, B, J, F, T].
+    init_seed: [B, J, F, S] seed poses of the first chunk (or [B, S, J*F]
+      time-major).
+    time_axis: the time axis of ``shape`` (check_time_axis): -1 for the
+      canonical [B, J, F, T], 1 for the time-major [B, T, J*F] of the
+      fast path's "btj" layout, whose carried seed is [B, S, J*F].
+    Returns [C, B, J, F, T] ([C, B, T, J*F] at time_axis=1).
     """
+    check_time_axis(shape, time_axis)
     n_chunks = next(iter(chunk_conds.values())).shape[0]
     seed, outs = init_seed, []
     for k in range(n_chunks):
         out, seed = ar_chunk_step(
             diffusion, model_fn, shape, k, {n: v[k] for n, v in chunk_conds.items()},
             seed, seed_poses, generator=generator, noise_fn=noise_fn,
-            cond_precompute=cond_precompute, loop=loop,
+            cond_precompute=cond_precompute, loop=loop, time_axis=time_axis,
         )
         outs.append(out)
     return torch.stack(outs)

@@ -18,6 +18,7 @@ from torch import nn
 
 from gesturediffusion_tpu_torch.ops.dropout import dropout as drop
 from gesturediffusion_tpu_torch.parallel.distributed import draw_rows
+from gesturediffusion_tpu_torch.parallel.tensor import Linear
 
 
 def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
@@ -60,9 +61,9 @@ class TimestepEmbedder(nn.Module):
         super().__init__()
         self.sequence_pos_encoder = sequence_pos_encoder
         self.time_embed = nn.Sequential(
-            nn.Linear(latent_dim, latent_dim),
+            Linear(latent_dim, latent_dim),
             nn.SiLU(),
-            nn.Linear(latent_dim, latent_dim),
+            Linear(latent_dim, latent_dim),
         )
 
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:

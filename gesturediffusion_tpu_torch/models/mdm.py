@@ -11,6 +11,9 @@ Shape flow: [B,J,F,T] -> input_process -> [B,T,D] -> cat audio [B,T,D+A]
 block (rotary + causal band attention + cond token + rotary) [B,T+1,D] ->
 8-layer post-LN encoder -> drop token -> output_process -> [B,J,F,T].
 
+Its Linear layers are parallel/tensor.py:Linear: nn.Linear, whose weight
+may be a tensor-parallel block under ``--mesh_model_axis``.
+
 ``forward(..., train=True, generator=g)`` is the training mode of
 mdm.py:MDM.__call__ (:276-299): conditioning dropout with probability
 ``cond_mask_prob`` (independent draws for the text and the seed-pose
@@ -45,6 +48,7 @@ from gesturediffusion_tpu_torch.ops.fused_local_block import (
     pre_encoder_local_block,
 )
 from gesturediffusion_tpu_torch.parallel.distributed import all_reduce_sum, current_rows
+from gesturediffusion_tpu_torch.parallel.tensor import Linear
 from gesturediffusion_tpu_torch.utils.device import full_f32
 
 WAV_FEATURES = 32  # the wav encoder's output channels, the audio width it gives the model
@@ -55,7 +59,7 @@ class SeedPoseEncoder(nn.Module):
 
     def __init__(self, in_dim: int, latent_dim: int):
         super().__init__()
-        self.seed_embed = nn.Linear(in_dim, latent_dim)
+        self.seed_embed = Linear(in_dim, latent_dim)
 
     def forward(self, flat_seed: torch.Tensor) -> torch.Tensor:
         return self.seed_embed(flat_seed)
@@ -146,13 +150,13 @@ class WavEncoder(nn.Module):
 class InputProcess(nn.Module):
     def __init__(self, in_dim: int, latent_dim: int):
         super().__init__()
-        self.poseEmbedding = nn.Linear(in_dim, latent_dim)
+        self.poseEmbedding = Linear(in_dim, latent_dim)
 
 
 class OutputProcess(nn.Module):
     def __init__(self, latent_dim: int, out_dim: int):
         super().__init__()
-        self.poseFinal = nn.Linear(latent_dim, out_dim)
+        self.poseFinal = Linear(latent_dim, out_dim)
 
 
 class MDM(nn.Module):
@@ -203,7 +207,7 @@ class MDM(nn.Module):
         d = latent_dim
 
         self.input_process = InputProcess(pose_dim, d)
-        self.project_to_lat = nn.Linear(2 * d + self.audio_feat_dim, d)
+        self.project_to_lat = Linear(2 * d + self.audio_feat_dim, d)
         self.output_process = OutputProcess(d, pose_dim)
         self.sequence_pos_encoder = PositionalEncoding(d)
         self.embed_timestep = TimestepEmbedder(d, self.sequence_pos_encoder)
@@ -211,7 +215,7 @@ class MDM(nn.Module):
             pose_dim * seed_poses, d - text_dim if use_text else d
         )
         if use_text:
-            self.embed_text = nn.Linear(clip_dim, text_dim)
+            self.embed_text = Linear(clip_dim, text_dim)
         if self.reads_audio:
             self.wav_encoder = WavEncoder()
         self.seqTransEncoder = TransformerEncoder(

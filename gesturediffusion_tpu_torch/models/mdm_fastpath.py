@@ -1,9 +1,9 @@
 """Sampling fast path for the MDM gesture denoiser.
 
 PyTorch counterpart of gesturediffusion_tpu/models/mdm_fastpath.py
-(make_fast_model_fn with the canonical "bjft" layout, make_fast_cfg_fn,
-select_sampling_model_fn).  The denoise loop calls the model once per step
-with the same conditioning, so:
+(make_fast_model_fn, make_fast_cfg_fn, select_sampling_model_fn).  The
+denoise loop calls the model once per step with the same conditioning,
+so:
 
   * ``precompute(cond)`` runs the loop-invariant pieces once per chunk
     (seed encoder, audio projection, conditioning-token projection);
@@ -15,8 +15,18 @@ with the same conditioning, so:
 
 Per step the latent then goes through the local block and the encoder
 layers of the model itself (models/mdm.py:MDM.local_block chooses the
-fused local block or, above 256 frames, the band-attention path).  The
-time-major "btj" layout waits for a later slice.
+fused local block or, above 256 frames, the band-attention path).
+
+``layout`` selects the sampling state's layout (mdm_fastpath.py:52-61):
+"bjft", the canonical [B, J, F, T] in and out, or "btj", the time-major
+[B, T, J*F] in and out, the model's own layout, which leaves out the two
+relayouts a step; the sampler's arithmetic is elementwise, so the chain
+runs in either (diffusion/sampling.py:autoregressive_sample_loop with
+``time_axis=1`` hands off the seed poses [B, S, J*F]).  Under "btj" the
+seed may arrive canonical [B, J, F, S] (the first chunk) or time-major
+[B, S, J*F] (the carry), flattened in the (j, f, s) order of the seed
+encoder's weight rows either way.  The kernels a step runs are the same
+in both layouts.
 """
 
 from __future__ import annotations
@@ -55,10 +65,23 @@ def _compose(model: MDM) -> dict:
     return {k: v.detach() for k, v in out.items()}
 
 
-def make_fast_model_fn(model: MDM) -> tuple[Callable, Callable]:
-    """Build (precompute, fast_fn) for inference-time MDM sampling in the
-    canonical [B, J, F, T] layout.  ``fast_fn(x, t, precompute(cond))``
-    equals ``model(x, t, cond)`` up to float32 reassociation."""
+LAYOUTS = ("bjft", "btj")
+
+
+def make_fast_model_fn(model: MDM, layout: str = "bjft") -> tuple[Callable, Callable]:
+    """Build (precompute, fast_fn) for inference-time MDM sampling with
+    the sampling state in ``layout`` ("bjft": [B, J, F, T]; "btj": [B, T,
+    J*F]).  ``fast_fn(x, t, precompute(cond))`` equals ``model(x, t,
+    cond)`` (in the layout) up to float32 reassociation.  An unknown
+    layout raises ValueError, a model without the MFCC input (the wav
+    encoder's) NotImplementedError, as mdm_fastpath.py:62-69."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    if not model.mfcc_input:
+        raise NotImplementedError(
+            "fast path supports the MFCC audio input only "
+            "(use_wav_enc runs a BatchNorm conv stack — keep MDM.apply)"
+        )
     with torch.no_grad():
         W = _compose(model)
 
@@ -66,6 +89,9 @@ def make_fast_model_fn(model: MDM) -> tuple[Callable, Callable]:
         """Run the loop-invariant conditioning; returns cond + '_fast'."""
         seed = cond["seed"]
         b = seed.shape[0]
+        if seed.ndim == 3:
+            # the time-major carry [B, S, J*F] -> the canonical (j, f, s) flattening
+            seed = seed.transpose(1, 2)
         uncond = cond.get("uncond")
         if uncond is None:
             uncond = torch.zeros((b,), device=seed.device)
@@ -86,8 +112,11 @@ def make_fast_model_fn(model: MDM) -> tuple[Callable, Callable]:
         return out
 
     def to_pose(x: torch.Tensor) -> torch.Tensor:
+        """The sampling state as [B, T, J*F]."""
+        if layout == "btj":
+            return x
         bs, nj, nf, nt = x.shape
-        return x.reshape(bs, nj * nf, nt).transpose(1, 2)             # [B, T, J*F]
+        return x.reshape(bs, nj * nf, nt).transpose(1, 2)
 
     def latent_forward(xseq: torch.Tensor, coa: torch.Tensor) -> torch.Tensor:
         """[B, T, D] latent + cond token -> model output [B, T, J*F]."""
@@ -96,6 +125,9 @@ def make_fast_model_fn(model: MDM) -> tuple[Callable, Callable]:
         return out[:, 1:] @ W["w_out"] + W["b_out"]
 
     def from_tm(out: torch.Tensor, shape) -> torch.Tensor:
+        """[B, T, J*F] -> the sampling state's layout (of ``shape``)."""
+        if layout == "btj":
+            return out
         bs, nj, nf, nt = shape
         return out.reshape(bs, nt, nj, nf).permute(0, 2, 3, 1)
 
@@ -124,14 +156,16 @@ def make_fast_model_fn(model: MDM) -> tuple[Callable, Callable]:
     return precompute, fast_fn
 
 
-def make_fast_cfg_fn(model: MDM, cond_mask_prob: float = 0.1) -> tuple[Callable, Callable]:
+def make_fast_cfg_fn(model: MDM, cond_mask_prob: float = 0.1,
+                     layout: str = "bjft") -> tuple[Callable, Callable]:
     """Fast-path twin of models/cfg.py:classifier_free_guidance.  Returns
     (precompute_cfg, guided_fn): the cond/uncond problems are stacked once
     per chunk, and each step runs one 2B forward and the guided combine
-    with the per-sample scale from cond['scale']."""
+    with the per-sample scale from cond['scale'].  ``layout`` as
+    ``make_fast_model_fn``'s."""
     if not cond_mask_prob > 0.0:
         raise ValueError("Cannot run CFG on a model trained without conditioning dropout")
-    precompute, fast_fn = make_fast_model_fn(model)
+    precompute, fast_fn = make_fast_model_fn(model, layout)
     ins = fast_fn.internals
 
     def precompute_cfg(cond: dict) -> dict:

@@ -50,6 +50,7 @@ from gesturediffusion_tpu_torch.models.embeddings import (
 )
 from gesturediffusion_tpu_torch.models.mdm import InputProcess, OutputProcess
 from gesturediffusion_tpu_torch.models.transformer import TransformerEncoder
+from gesturediffusion_tpu_torch.parallel.tensor import Linear
 
 COND_MODES = ("text", "action", "no_cond")
 
@@ -136,7 +137,7 @@ class MotionMDM(nn.Module):
         self.sequence_pos_encoder = PositionalEncoding(d, dropout=dropout)
         self.embed_timestep = TimestepEmbedder(d, self.sequence_pos_encoder)
         if cond_mode == "text":
-            self.embed_text = nn.Linear(clip_dim, d)
+            self.embed_text = Linear(clip_dim, d)
         elif cond_mode == "action":
             self.embed_action = EmbedAction(num_actions, d)
         self.seqTransEncoder = TransformerEncoder(

@@ -22,6 +22,11 @@ CPU tensors).  Training (``train=True``):
 reference the kernels are held against).  GELU only (the activation of
 every configuration the repo ships).
 
+Under tensor parallelism (parallel/mesh.py:ShardedParams) a weight may be
+a block: the plain layer runs its four products on the blocks
+(parallel/tensor.py:linear), and the fused training layer gathers the
+layer's weights for each call (ops/fused_encoder_train.py).
+
 ``remat`` (transformer.py:308-319, 370-399): each plain training layer
 runs under ``torch.utils.checkpoint``, so its activations are recomputed
 in the backward pass instead of kept.  The recompute replays the layer's

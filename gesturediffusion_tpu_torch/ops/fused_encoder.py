@@ -12,7 +12,9 @@ order with GELU in its tanh form):
 The plain version also serves training: ``drop(z, site)`` applies the
 dropout of one of the four sites (attention probabilities, attention
 output, activation, feed-forward output), with Bernoulli masks
-(models/transformer.py) or hash masks (ops/fused_encoder_train.py).
+(models/transformer.py) or hash masks (ops/fused_encoder_train.py).  Its
+four products are parallel/tensor.py:linear, so a weight that is a
+tensor-parallel block runs the column-parallel product.
 
 Weights use PyTorch's [out, in] layout: wqkv [3D, D] (the packed
 ``in_proj_weight``), wo [D, D], w1 [F, D], w2 [D, F]; LayerNorm weight
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 from gesturediffusion_tpu_torch.ops import _build
 from gesturediffusion_tpu_torch.ops.band_attention import padded_head_width
 from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+from gesturediffusion_tpu_torch.parallel.tensor import linear
 
 LN_EPS = 1e-5
 # the training dropout sites, in the order the layer reaches them
@@ -59,13 +62,13 @@ def self_attention_plain(
     b, t, d = x.shape
     dh = d // num_heads
     ct = torch.promote_types(x.dtype, torch.float32)
-    q, k, v = F.linear(x, wqkv, bqkv).chunk(3, dim=-1)
+    q, k, v = linear(x, wqkv, bqkv).chunk(3, dim=-1)
     q, k, v = (y.reshape(b, t, num_heads, dh).transpose(1, 2) for y in (q, k, v))
     attn = (torch.einsum("bhid,bhjd->bhij", q.to(ct), k.to(ct)) * (dh**-0.5)).softmax(dim=-1)
     if drop is not None:
         attn = drop(attn, SITE_ATTN)
     out = torch.einsum("bhij,bhjd->bhid", attn.to(x.dtype), v)
-    return F.linear(out.transpose(1, 2).reshape(b, t, d), wo, bo)
+    return linear(out.transpose(1, 2).reshape(b, t, d), wo, bo)
 
 
 def encoder_layer_plain(
@@ -80,8 +83,8 @@ def encoder_layer_plain(
     d = x.shape[-1]
     a = self_attention_plain(x, wqkv, bqkv, wo, bo, num_heads, drop)
     x = F.layer_norm(x + dropped(a, SITE_POST_ATTN), (d,), ln1_w, ln1_b, LN_EPS)
-    h = dropped(gelu_tanh(F.linear(x, w1, b1)), SITE_ACT)
-    h = dropped(F.linear(h, w2, b2), SITE_FF)
+    h = dropped(gelu_tanh(linear(x, w1, b1)), SITE_ACT)
+    h = dropped(linear(h, w2, b2), SITE_FF)
     return F.layer_norm(x + h, (d,), ln2_w, ln2_b, LN_EPS)
 
 

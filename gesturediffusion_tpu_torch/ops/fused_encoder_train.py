@@ -45,6 +45,8 @@ from gesturediffusion_tpu_torch.ops.fused_encoder import (
     _check_cuda_args as _check_layer_args,
     encoder_layer_plain,
 )
+from gesturediffusion_tpu_torch.parallel.distributed import all_gather_cat
+from gesturediffusion_tpu_torch.parallel.tensor import block_of, whole
 
 _U32 = 0xFFFFFFFF
 _GOLD = 0x9E3779B9
@@ -200,23 +202,37 @@ encoder_layer_train_bwd.launches = 0
 
 class _EncoderLayerTrain(torch.autograd.Function):
     """Forward kernel; the backward kernel recomputes from x.  Saved for
-    backward: x, the 12 weights and the seed tensor (and the row offset),
-    nothing else."""
+    backward: x, the 12 weights as they are held and the seed tensor (and
+    the row offset), nothing else.  A weight that is a tensor-parallel
+    block (parallel/tensor.py) is gathered whole into a transient for each
+    kernel, and the backward returns its block's slice of the whole
+    gradient (every rank of the model group holds the same rows, so the
+    whole gradient is the same on each)."""
 
     @staticmethod
     def forward(ctx, x, seed, num_heads, rate, row0, *weights):
         ctx.num_heads, ctx.rate, ctx.row0 = num_heads, rate, row0
+        ctx.blocks = [block_of(w) for w in weights]
         ctx.save_for_backward(x, seed, *weights)
-        return encoder_layer_train_fwd(x, *weights, seed=seed, num_heads=num_heads, rate=rate,
-                                       row0=row0)
+        return encoder_layer_train_fwd(x, *_gathered(weights, ctx.blocks), seed=seed,
+                                       num_heads=num_heads, rate=rate, row0=row0)
 
     @staticmethod
     def backward(ctx, g):
         x, seed, *weights = ctx.saved_tensors
-        dx, *dws = encoder_layer_train_bwd(x, *weights, seed=seed, g=g.contiguous(),
-                                           num_heads=ctx.num_heads, rate=ctx.rate,
-                                           row0=ctx.row0)
+        dx, *dws = encoder_layer_train_bwd(x, *_gathered(weights, ctx.blocks), seed=seed,
+                                           g=g.contiguous(), num_heads=ctx.num_heads,
+                                           rate=ctx.rate, row0=ctx.row0)
+        dws = [dw if blk is None else blk.of(dw).contiguous()
+               for dw, blk in zip(dws, ctx.blocks)]
         return (dx, None, None, None, None, *dws)
+
+
+def _gathered(weights, blocks) -> list:
+    """The whole weights of ``weights`` (blocks gathered, without autograd)."""
+    with torch.no_grad():
+        return [w if blk is None else all_gather_cat(w, blk.group)
+                for w, blk in zip(weights, blocks)]
 
 
 def fused_encoder_layer_train(
@@ -227,11 +243,15 @@ def fused_encoder_layer_train(
     ``encoder_layer_train_plain``; CUDA tensors run the forward kernel and,
     under autograd, the backward kernel.  On the card ``seed`` is one int32
     element on the device (an int is moved there).  x holds rows ``row0``
-    on of the batch the dropout indices count."""
+    on of the batch the dropout indices count.  A weight that is a
+    tensor-parallel block (parallel/tensor.py) is gathered whole for the
+    call, as a pallas_call under GSPMD gets its operands gathered: on the
+    card into a transient that each kernel's launch builds and drops (one
+    layer's weights at a time), on the CPU under autograd."""
     weights = (wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b)
     if x.device.type == "cpu":
-        return encoder_layer_train_plain(x, *weights, seed=seed, num_heads=num_heads, rate=rate,
-                                         row0=row0)
+        return encoder_layer_train_plain(x, *(whole(w) for w in weights), seed=seed,
+                                         num_heads=num_heads, rate=rate, row0=row0)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not isinstance(seed, torch.Tensor):

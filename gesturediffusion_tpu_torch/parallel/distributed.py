@@ -7,10 +7,14 @@ the port runs one process a card (a rank) and makes its collectives itself:
   * ``maybe_initialize`` joins the process group the environment names
     (GDT_COORDINATOR_ADDRESS as host:port, GDT_NUM_PROCESSES,
     GDT_PROCESS_ID) over TCP: NCCL for ranks on the card, gloo on the CPU.
+    Where the launcher knows the topology the GDT_* pair may be left out,
+    as JAX's runtime lets it be (distributed.py:36-53): under torchrun the
+    world size and the rank come from WORLD_SIZE and RANK.
     GDT_DIST_BACKEND=gloo forces gloo, which lets two ranks share one card
     (NCCL refuses that).  Without GDT_COORDINATOR_ADDRESS it does nothing;
-  * ``rank_device``: rank r takes the card r % device_count unless the
-    device names its index;
+  * ``rank_device``: a rank takes the card torchrun's LOCAL_RANK names
+    where it is set, else card rank % device_count (either modulo the
+    cards), unless the device names its index;
   * every rank builds the same shuffled order and loads only its contiguous
     slice of each global batch (``local_batch_slice``, data/loader.py);
     ``make_global_batch`` gathers the slices back in rank order;
@@ -40,26 +44,46 @@ from gesturediffusion_tpu_torch.utils.device import resolve_device
 BACKENDS = ("nccl", "gloo")
 
 
-def _env_int(name: str) -> int:
-    value = os.environ.get(name)
-    if not value:
-        raise ValueError(f"GDT_COORDINATOR_ADDRESS is set but {name} is not: a rank needs the "
-                         f"world size (GDT_NUM_PROCESSES) and its rank (GDT_PROCESS_ID)")
-    return int(value)
+WORLD_PAIRS = (("GDT_NUM_PROCESSES", "GDT_PROCESS_ID"), ("WORLD_SIZE", "RANK"))
+_BOTH = ("a rank needs the world size and its rank: GDT_NUM_PROCESSES and GDT_PROCESS_ID, "
+         "or torchrun's WORLD_SIZE and RANK")
+
+
+def world_from_env() -> tuple[int, int]:
+    """(world size, rank) from GDT_NUM_PROCESSES and GDT_PROCESS_ID, or,
+    where that pair is unset, from torchrun's WORLD_SIZE and RANK.  Half a
+    pair, neither pair, or two pairs that disagree raise a ValueError
+    naming both sources."""
+    pairs = []
+    for names in WORLD_PAIRS:
+        values = [os.environ.get(n) or None for n in names]
+        if (values[0] is None) != (values[1] is None):
+            raise ValueError(f"GDT_COORDINATOR_ADDRESS is set but {names[values.index(None)]} "
+                             f"is not (only {names[values[0] is None]} is): {_BOTH}")
+        pairs.append(None if values[0] is None else (int(values[0]), int(values[1])))
+    gdt, run = pairs
+    if gdt is None and run is None:
+        raise ValueError(f"GDT_COORDINATOR_ADDRESS is set but neither GDT_NUM_PROCESSES nor "
+                         f"WORLD_SIZE is: {_BOTH}")
+    if gdt is not None and run is not None and gdt != run:
+        raise ValueError(f"GDT_NUM_PROCESSES / GDT_PROCESS_ID {gdt} disagree with torchrun's "
+                         f"WORLD_SIZE / RANK {run}: {_BOTH}, not two different worlds")
+    return gdt or run
 
 
 def maybe_initialize(device=None) -> bool:
-    """Join the process group named by GDT_COORDINATOR_ADDRESS,
-    GDT_NUM_PROCESSES and GDT_PROCESS_ID, on the backend of this rank's
-    device (``rank_device(device)``) unless GDT_DIST_BACKEND names one.
-    Returns True if a group was joined (or already was).  A rank that
-    cannot reach its card or its peers raises the init's error."""
+    """Join the process group named by GDT_COORDINATOR_ADDRESS and the
+    world of ``world_from_env`` (GDT_NUM_PROCESSES and GDT_PROCESS_ID, or
+    torchrun's WORLD_SIZE and RANK), on the backend of this rank's device
+    (``rank_device(device)``) unless GDT_DIST_BACKEND names one.  Returns
+    True if a group was joined (or already was).  A rank that cannot reach
+    its card or its peers raises the init's error."""
     addr = os.environ.get("GDT_COORDINATOR_ADDRESS")
     if not addr:
         return False
     if dist.is_initialized():
         return True
-    world, rank = _env_int("GDT_NUM_PROCESSES"), _env_int("GDT_PROCESS_ID")
+    world, rank = world_from_env()
     if not 0 <= rank < world:
         raise ValueError(f"process_id {rank} out of range")
     dev = rank_device(device, rank=rank, world=world)
@@ -83,12 +107,18 @@ def process_index() -> int:
 def rank_device(device=None, rank: Optional[int] = None,
                 world: Optional[int] = None) -> torch.device:
     """``resolve_device(device)``; in a run of several ranks a card without
-    an index becomes card ``rank % torch.cuda.device_count()``."""
+    an index becomes card LOCAL_RANK (torchrun's) where it is set, else
+    card ``rank``, either modulo ``torch.cuda.device_count()`` (ranks that
+    share a card over gloo take the same one)."""
     dev = resolve_device(device)
     world = process_count() if world is None else world
     if dev.type == "cuda" and dev.index is None and world > 1:
-        rank = process_index() if rank is None else rank
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        local = os.environ.get("LOCAL_RANK")
+        if local:
+            index = int(local)
+        else:
+            index = process_index() if rank is None else rank
+        dev = torch.device("cuda", index % torch.cuda.device_count())
     return dev
 
 
@@ -113,13 +143,14 @@ def barrier() -> None:
 
 # ---- collectives over a group; ``group=None`` is a group of one rank ------ #
 
-def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
-    """Each rank's ``x`` concatenated along dim 0 in the group's rank order."""
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Each rank's ``x`` concatenated along ``dim`` in the group's rank order."""
     if group is None:
         return x
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:

@@ -31,11 +31,15 @@ microbatch), the gradients are averaged over the data group once a step
 in one flat bucket, and the logged loss, the finiteness check, the
 metrics and the sampler's (t, loss) are the global batch's, so every rank
 keeps or skips the same step and holds the same EMA and sampler state.
-Under tensor parallelism (``mesh.model`` > 1, loop.py:387-400) each weight
-of parallel/mesh.py:shard_params_tp trains as its row block with its AdamW
-moments (``TrainState.tp``): the step keeps its block of the averaged
-gradient, updates the block, and gathers the whole weight over the model
-group for the next forward, the fused layers taking whole weights.
+Under tensor parallelism (``mesh.model`` > 1, loop.py:386-407) each weight
+of parallel/mesh.py:shard_params_tp is its block in the model
+(``TrainState.tp``), and so are its gradient, its AdamW moments and its
+EMA: the plain layers run their products on the blocks
+(parallel/tensor.py), the fused training layer gathers its layer's
+weights for each call, the gradient norm sums each block's squares over
+the model group once, and the whole weights are built only for a
+checkpoint (the single-process layout) and rank 0's evaluation at a save
+(``TrainState.whole``).
 
 ``TrainLoop`` is the host shell: data, text embedding, logging,
 checkpoints and resume.  With a ``text_encoder`` each batch's captions are
@@ -121,6 +125,13 @@ class TrainState:
     mesh: Optional[Mesh] = None          # the ranks' grid; None: one process
     tp: Optional[ShardedParams] = None   # the sharded weights' blocks (mesh.model > 1)
 
+    def whole(self):
+        """Run a block with the model's sharded weights and the EMA whole
+        (ShardedParams.whole; collective over the model group), as a
+        checkpoint and the evaluation read them; nothing without tensor
+        parallelism."""
+        return contextlib.nullcontext() if self.tp is None else self.tp.whole(self.ema)
+
 
 def quartile_means(t: torch.Tensor, values: torch.Tensor, num_timesteps: int) -> dict:
     """Mean of ``values`` per timestep quartile (the reference's logging)."""
@@ -157,10 +168,11 @@ def make_optimizer(params, config: TrainConfig):
 
 def make_train_state(model: nn.Module, config: TrainConfig, sampler,
                      mesh: Optional[Mesh] = None) -> TrainState:
-    """A fresh state: AdamW over the model's parameters (each weight tensor
-    parallelism shards as its block), the EMA from the weights."""
+    """A fresh state: each weight tensor parallelism shards cut to its
+    block in the model, AdamW over the model's parameters, the EMA from
+    the weights."""
     tp = ShardedParams(model, mesh) if mesh is not None and mesh.model > 1 else None
-    opt, sched = make_optimizer(tp.optimizer_params() if tp else model.parameters(), config)
+    opt, sched = make_optimizer(model.parameters(), config)
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
            if config.ema_rate > 0 else {})
     return TrainState(model, opt, sched, sampler, ema, mesh=mesh, tp=tp)
@@ -261,7 +273,8 @@ def train_step(
             terms.setdefault(name, []).append(val.detach())
     terms = {name: torch.cat(vals) for name, vals in terms.items()}
 
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
     for p in params:
         if p.grad is None:  # a parameter the loss does not reach
             p.grad = torch.zeros_like(p)
@@ -272,15 +285,14 @@ def train_step(
         cols = in_order(torch.stack([t.float(), weights, *(terms[n] for n in names)], dim=1))
         t, weights = cols[:, 0].long(), cols[:, 1]
         terms = {n: cols[:, 2 + j] for j, n in enumerate(names)}
-    grad_norm = global_norm(p.grad for p in params)
+    if state.tp is None:
+        grad_norm = global_norm(p.grad for p in params)
+    else:  # the whole model's norm from the blocks
+        grad_norm = state.tp.global_norm((n, p.grad) for n, p in named)
     ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
     if ok:
-        if state.tp is not None:
-            state.tp.keep_grad_blocks()
         state.optimizer.step()
         state.scheduler.step()
-        if state.tp is not None:
-            state.tp.gather()
         if config.ema_rate > 0:
             with torch.no_grad():
                 for name, p in model.named_parameters():
@@ -294,7 +306,9 @@ def train_step(
     state.step += 1
 
     with torch.no_grad():
-        metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": global_norm(params),
+        param_norm = (global_norm(params) if state.tp is None
+                      else state.tp.global_norm(named))
+        metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm,
                    "nonfinite_skips": state.nonfinite_skips}
         for name, val in terms.items():
             # importance-weighted, so the logged loss is the optimised one
@@ -372,30 +386,30 @@ class TrainLoop:
         return os.path.abspath(os.path.join(self.config.save_dir, f"{kind}{step:09d}.pt"))
 
     def save(self) -> str:
-        """Rank 0 writes the checkpoint (the optimizer's sharded moments
-        gathered whole first), the others wait for it."""
+        """Rank 0 writes the checkpoint in the single-process layout (the
+        sharded weights, moments and EMA gathered whole first), the others
+        wait for it."""
         s = self.state
         path = self._path("model", s.step)
         opt_state = s.optimizer.state_dict()
         if s.tp is not None:
             opt_state = s.tp.full_optimizer_state(opt_state)
-        if not self.writes:
-            barrier()
-            return path
-        torch.save(s.model.state_dict(), path)
-        torch.save({
-            "optimizer": opt_state,
-            "scheduler": s.scheduler.state_dict(),
-            "sampler": s.sampler.state_dict(),
-            "ema": s.ema,
-            "nonfinite_skips": s.nonfinite_skips,
-            "generator": self.generator.get_state(),
-            # parameters as they train where the model file holds them
-            # folded (models/mdm_t2m.py:EmbedAction)
-            "unfolded": {n: m.unfolded_state() for n, m in s.model.named_modules()
-                         if hasattr(m, "unfolded_state")},
-        }, self._path("opt", s.step))
-        log_lib.log(f"saved checkpoint {path}")
+        with s.whole():
+            if self.writes:
+                torch.save(s.model.state_dict(), path)
+                torch.save({
+                    "optimizer": opt_state,
+                    "scheduler": s.scheduler.state_dict(),
+                    "sampler": s.sampler.state_dict(),
+                    "ema": s.ema,
+                    "nonfinite_skips": s.nonfinite_skips,
+                    "generator": self.generator.get_state(),
+                    # parameters as they train where the model file holds them
+                    # folded (models/mdm_t2m.py:EmbedAction)
+                    "unfolded": {n: m.unfolded_state() for n, m in s.model.named_modules()
+                                 if hasattr(m, "unfolded_state")},
+                }, self._path("opt", s.step))
+                log_lib.log(f"saved checkpoint {path}")
         barrier()
         return path
 
@@ -404,30 +418,32 @@ class TrainLoop:
         optimizer, schedule, sampler, EMA and generator continue; without
         it (a reference or JAX-exported file) the optimizer starts fresh
         and only the LR schedule resumes at the file's step.  Every rank
-        reads the files; a sharded weight keeps its block."""
+        reads the files; a sharded weight, its moments and its EMA keep
+        their blocks of the whole ones."""
         s = self.state
-        load_weights(s.model, path)
-        if s.tp is not None:
-            s.tp.refill_shards()
         step = parse_resume_step_from_filename(path)
         opt_path = os.path.join(os.path.dirname(path),
                                 os.path.basename(path).replace("model", "opt", 1))
-        if os.path.exists(opt_path):
-            ck = torch.load(opt_path, map_location=self.device, weights_only=True)
+        ck = (torch.load(opt_path, map_location=self.device, weights_only=True)
+              if os.path.exists(opt_path) else None)
+        with s.whole():
+            load_weights(s.model, path)
+            if ck is not None:
+                modules = dict(s.model.named_modules())
+                for n, state in ck.get("unfolded", {}).items():
+                    modules[n].load_unfolded_state(state)
+        if ck is not None:
             s.optimizer.load_state_dict(ck["optimizer"] if s.tp is None
                                         else s.tp.local_optimizer_state(ck["optimizer"]))
             s.scheduler.load_state_dict(ck["scheduler"])
             s.sampler.load_state_dict(ck["sampler"])
-            s.ema = {n: e.to(self.device) for n, e in ck["ema"].items()}
+            ema = {n: e.to(self.device) for n, e in ck["ema"].items()}
+            s.ema = ema if s.tp is None else s.tp.block_tensors(ema)
             s.nonfinite_skips = int(ck["nonfinite_skips"])
             self.generator.set_state(ck["generator"].cpu())
-            modules = dict(s.model.named_modules())
-            for n, state in ck.get("unfolded", {}).items():
-                modules[n].load_unfolded_state(state)
             log_lib.log(f"resumed from {path} at step {step}")
         else:
-            s.optimizer, s.scheduler = make_optimizer(
-                s.tp.optimizer_params() if s.tp else s.model.parameters(), self.config)
+            s.optimizer, s.scheduler = make_optimizer(s.model.parameters(), self.config)
             s.scheduler.last_epoch = step
             for group, base in zip(s.optimizer.param_groups, s.scheduler.base_lrs):
                 group["lr"] = base * lr_factor(step, self.config.lr_anneal_steps)
@@ -487,9 +503,10 @@ class TrainLoop:
                 log_lib.dumpkvs()
 
             if step > 0 and step % cfg.save_interval == 0:
-                self.save()
-                if self.eval_fn is not None and self.writes:
-                    self._evaluate(step)
+                with self.state.whole():  # one gather for the save and the evaluation
+                    self.save()
+                    if self.eval_fn is not None and self.writes:
+                        self._evaluate(step)
                 barrier()  # the other ranks wait for rank 0's evaluation
                 if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
                     return

@@ -25,13 +25,20 @@ the a2m benchmark on humanact12 / uestc (eval/eval_a2m.py), else, or where
 a benchmark cannot run (SMPL missing, a split under 32 clips), the
 validation loss over a fixed set of batches.
 
-Several ranks (train_mdm.py:41-43, 66-67, 231-240): with GDT_COORDINATOR_ADDRESS,
-GDT_NUM_PROCESSES and GDT_PROCESS_ID set, each process joins the group
-before it touches the card (parallel/distributed.py:maybe_initialize; rank r
-on card r % device_count unless ``--device`` names one), the ranks form a
-(data, model) grid with ``--mesh_model_axis`` on the model axis, each data
-rank loads its slice of every global ``--batch_size`` batch, and rank 0
-alone writes the files, reports to the platform and evaluates.
+Several ranks (train_mdm.py:41-43, 66-67, 231-240): with GDT_COORDINATOR_ADDRESS
+set and the world named by GDT_NUM_PROCESSES and GDT_PROCESS_ID, or under
+``torchrun --nproc_per_node N`` by its WORLD_SIZE and RANK, each process
+joins the group before it touches the card
+(parallel/distributed.py:maybe_initialize; a rank on card LOCAL_RANK where
+torchrun sets it, else rank % device_count, unless ``--device`` names
+one), the ranks form a (data, model) grid with ``--mesh_model_axis`` on
+the model axis, each data rank loads its slice of every global
+``--batch_size`` batch, and rank 0 alone writes the files, reports to the
+platform and evaluates.  ``--mesh_model_axis N`` divides each weight of
+JAX's shape rule over the model axis: a rank holds its 1/N block of the
+weight, its gradient, its AdamW moments and its EMA, and runs the
+products on the block (parallel/tensor.py); the checkpoints keep the
+single-process layout.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 port, torch on one thread a rank) held against the port's single-process
 runs on the global batch, and a 2-rank step against JAX's step.
 
-Two spawns serve every test of the file: a world of 2 ranks, which runs
-the data-parallel grid (2 x 1) and the tensor-parallel one (1 x 2), and a
-world of 4 (2 x 2).  The spawned runs:
+Three spawns serve every test of the file: a world of 2 ranks, which runs
+the data-parallel grid (2 x 1) and the tensor-parallel one (1 x 2), a
+world of 4 (2 x 2), and a world of 2 launched with torchrun's variables
+(WORLD_SIZE, RANK, LOCAL_RANK) in place of the GDT_* pair, held bit for
+bit against the GDT_* launch.  The spawned runs:
 
   * data-parallel steps with dropout 0.1 and cond_mask_prob 0.1 through
     the fused training layer's plain twin (rank 1 at a nonzero row offset);
@@ -13,9 +15,16 @@ world of 4 (2 x 2).  The spawned runs:
     loss-second-moment sampler past its warm-up; the wav-encoder MDM, whose
     BatchNorms reduce over the ranks;
   * tensor-parallel steps at 1 x 2 and 2 x 2 (a D 256 model, so that the
-    shape rule shards weights), each sharded weight and its AdamW moments
-    at 1/tp of their size on every rank;
-  * TrainLoop runs saved by rank 0 at step 2 and resumed on 2 ranks;
+    shape rule shards weights) through the fused training layer and on the
+    plain path (the column-parallel products; at 2 x 2 also with
+    microbatches under remat and the wav-encoder MDM; at 1 x 2 the a2m
+    MotionMDM with its geometric losses), each sharded weight, its
+    gradient, its AdamW moments and its EMA at 1/tp of their size on
+    every rank; the plain 2 x 2 runs are held against the same rows'
+    2 x 1 runs, which the world of 2 runs too
+    (test_plain_path_runs_its_products_on_the_blocks says why);
+  * TrainLoop runs saved by rank 0 at step 2 and resumed on 2 ranks (data-
+    parallel, and tensor-parallel through the fused layer and plain);
   * the train CLI over 2 ranks (2 x 1, and 1 x 2 under --mesh_model_axis
     2), and the generate CLI's take over 2 ranks; a 4-stream session on
     mesh=;
@@ -53,6 +62,7 @@ import torch
 from gesturediffusion_tpu.diffusion import gaussian as jg
 from gesturediffusion_tpu.train import loop as jloop
 from gesturediffusion_tpu_torch.models.mdm import MDM
+from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
 from gesturediffusion_tpu_torch.sample import generate
 from gesturediffusion_tpu_torch.utils.convert import state_dict_from_params
 from tests import torch_mp_worker as worker
@@ -77,14 +87,26 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(spec_dir: str, names: list, world: int, timeout: float = 400) -> list:
-    """Run the named specs on ``world`` gloo ranks; each rank's stdout."""
+def spawn(spec_dir: str, names: list, world: int, timeout: float = 400,
+          torchrun: bool = False) -> list:
+    """Run the named specs on ``world`` gloo ranks; each rank's stdout.
+    The ranks learn the world from GDT_NUM_PROCESSES and GDT_PROCESS_ID,
+    or with ``torchrun`` from the variables torchrun sets (WORLD_SIZE,
+    RANK, LOCAL_RANK) alone."""
     env = dict(os.environ, GDT_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
-               GDT_NUM_PROCESSES=str(world), OMP_NUM_THREADS="1",
+               OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    env.pop("GDT_DIST_BACKEND", None)
+    for var in ("GDT_DIST_BACKEND", "GDT_NUM_PROCESSES", "GDT_PROCESS_ID", "WORLD_SIZE",
+                "RANK", "LOCAL_RANK"):
+        env.pop(var, None)
+
+    def rank_env(r):
+        if torchrun:
+            return dict(env, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r))
+        return dict(env, GDT_NUM_PROCESSES=str(world), GDT_PROCESS_ID=str(r))
+
     procs = [subprocess.Popen([sys.executable, WORKER, spec_dir, *names],
-                              env=dict(env, GDT_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+                              env=rank_env(r), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, cwd=REPO)
              for r in range(world)]
     try:
@@ -137,7 +159,48 @@ FUSED = dict(SMALL, dropout=0.1, use_fused_train_encoder=True)
 WAV = dict(SMALL, dropout=0.1, use_fused_train_encoder=True, use_wav_enc=True,
            mfcc_input=False)
 TP = dict(WIDE, dropout=0.1, use_fused_train_encoder=True)
+TP_PLAIN = dict(WIDE, dropout=0.1)  # the default path: plain layers, products on the blocks
 TP_CONFIG = {"ema_rate": 0.9}
+# the action-mode MotionMDM at D 256 with HumanAct12's 12 actions (its action table
+# stays whole), the recipe's geometric losses through a synthetic SMPL
+A2M = dict(njoints=25, nfeats=6, latent_dim=256, num_layers=1, ff_size=256, num_heads=4,
+           cond_mode="action", num_actions=12, cond_mask_prob=0.1, dropout=0.1)
+A2M_LAMBDAS = dict(lambda_rcxyz=1.0, lambda_vel=1.0, lambda_fc=1.0)
+
+
+def _a2m_spec(mesh) -> dict:
+    """Steps of the a2m MotionMDM with its geometric losses (fk_fn)."""
+    rs = np.random.RandomState(3)
+    torch.manual_seed(0)
+    state = MotionMDM(**A2M).state_dict()
+    batches = []
+    for _ in range(2):
+        mask = np.ones((4, 1, 1, T), bool)
+        mask[-1, ..., T // 2:] = False
+        motion = rs.randn(4, 25, 6, T).astype(np.float32) * 0.3
+        motion[:, 24, 3:] = 0.0  # the translation row holds xyz
+        batches.append({"motion": torch.from_numpy(motion),
+                        "cond": {"action": torch.from_numpy(rs.randint(0, 12, size=4)),
+                                 "mask": torch.from_numpy(mask)}})
+    return {"kind": "steps", "mesh": mesh, "model": A2M, "motion_mdm": True, "state": state,
+            "config": {"lr": LR, "weight_decay": 0.1, **TP_CONFIG}, "diffusion_steps": 8,
+            "seed": 5, "lambdas": A2M_LAMBDAS, "smpl_vertices": 128, "batches": batches}
+
+
+# the plain path's tensor-parallel runs: name -> (world, spec maker)
+PLAIN_TP = {
+    "dp1xtp2": (2, lambda: _steps_spec((1, 2), TP_PLAIN, config=TP_CONFIG)),
+    "dp1xtp2_a2m": (2, lambda: _a2m_spec((1, 2))),
+    "dp2xtp2": (4, lambda: _steps_spec((2, 2), TP_PLAIN, config=TP_CONFIG)),
+    # the wav encoder's BatchNorms reduce over the data group, not the model group;
+    # microbatches of the global batch, each through the plain layers under remat
+    "dp2xtp2_wav_microbatch": (4, lambda: _steps_spec(
+        (2, 2), dict(TP_PLAIN, use_wav_enc=True, mfcc_input=False, remat=True), b=8,
+        config={**TP_CONFIG, "microbatch_size": 4}, audio=True)),
+}
+# the 4-rank runs: the fused layer's 2 x 2 (tp_dp) and the plain path's
+WORLD4 = {"tp_dp": lambda: _steps_spec((2, 2), TP, config=TP_CONFIG),
+          **{name: make for name, (world, make) in PLAIN_TP.items() if world == 4}}
 
 
 def _specs(tmp: str) -> dict:
@@ -151,9 +214,15 @@ def _specs(tmp: str) -> dict:
         "dp_wav": _steps_spec((2, 1), WAV, audio=True),
         "tp2": _steps_spec((1, 2), TP, config=TP_CONFIG),
     }
-    for name, mesh, kw in (("resume_dp", (2, 1), FUSED), ("resume_tp", (1, 2), TP)):
+    for name, mesh, kw in (("resume_dp", (2, 1), FUSED), ("resume_tp", (1, 2), TP),
+                           ("resume_tp_plain", (1, 2), TP_PLAIN)):
         specs[name] = {**_steps_spec(mesh, kw, n=3, config=TP_CONFIG), "kind": "resume",
                        "resume_at": 2, "save_dir": os.path.join(tmp, name)}
+    for name, (world, make) in PLAIN_TP.items():
+        if world == 2:
+            specs[name] = make()
+        else:  # the 2 x 2 run's rows over 2 data ranks, without tensor parallelism
+            specs[f"{name}_dp"] = {**make(), "mesh": (2, 1)}
     return specs
 
 
@@ -252,12 +321,28 @@ def world2(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
+    """Every 4-rank run: {name: (spec, [rank outputs])}; ``tp_dp`` through
+    the fused training layer, the others the plain path's (PLAIN_TP)."""
     tmp = str(tmp_path_factory.mktemp("mp4"))
-    spec = _steps_spec((2, 2), TP, config=TP_CONFIG)
-    torch.save(spec, os.path.join(tmp, "tp_dp.pt"))
-    spawn(tmp, ["tp_dp"], 4)
-    return spec, [torch.load(os.path.join(tmp, f"tp_dp.rank{r}.pt"), weights_only=False)
-                  for r in range(4)]
+    specs = {name: make() for name, make in WORLD4.items()}
+    for name, spec in specs.items():
+        torch.save(spec, os.path.join(tmp, f"{name}.pt"))
+    spawn(tmp, list(specs), 4)
+    return {name: (spec, [torch.load(os.path.join(tmp, f"{name}.rank{r}.pt"),
+                                     weights_only=False) for r in range(4)])
+            for name, spec in specs.items()}
+
+
+@pytest.fixture(scope="module")
+def torchrun2(tmp_path_factory):
+    """The 1 x 2 plain-path run on 2 ranks launched with torchrun's
+    variables (WORLD_SIZE, RANK, LOCAL_RANK) and no GDT_* world pair."""
+    tmp = str(tmp_path_factory.mktemp("mp2_torchrun"))
+    spec = PLAIN_TP["dp1xtp2"][1]()
+    torch.save(spec, os.path.join(tmp, "dp1xtp2.pt"))
+    spawn(tmp, ["dp1xtp2"], 2, torchrun=True)
+    return spec, [torch.load(os.path.join(tmp, f"dp1xtp2.rank{r}.pt"), weights_only=False)
+                  for r in range(2)]
 
 
 def _zero_grad_rows(name: str, d: int):
@@ -335,31 +420,78 @@ def test_wav_encoder_batchnorm_reduces_over_the_ranks(world2):
         assert not torch.equal(want["params"][k], spec["state"][k]), k  # they moved
 
 
-@pytest.mark.parametrize("grid", ["dp1xtp2", "dp2xtp2"])
-def test_tensor_parallel_steps_equal_the_single_process_steps(world2, world4, grid):
-    """Each weight the shape rule picks trains as its 1/tp row block with
-    1/tp moments on every rank; the steps, the EMA and the whole moments
-    equal the single-process steps."""
-    spec, outs = world2["tp2"] if grid == "dp1xtp2" else world4
+def assert_blocks_held(spec: dict, outs: list, at_least: int = 5):
+    """Each weight the shape rule picks is held by every rank as its 1/tp
+    row block: the weight in the model, its gradient, its two AdamW
+    moments and its EMA; every other parameter whole."""
     tp = spec["mesh"][1]
-    want = _single(spec)
-    assert_steps_equal(spec, outs, want)
-    params = dict(MDM(**spec["model"]).named_parameters())
+    params = dict(worker.build_model(spec).named_parameters())
     sharded = {n for n, p in params.items()
                if p.ndim == 2 and p.numel() >= 1 << 16 and p.shape[0] % tp == 0}
-    assert len(sharded) >= 5
+    assert len(sharded) >= at_least
     for out in outs:
         assert set(out["shards"]) == sharded
         for n, shapes in out["shards"].items():
             block = (params[n].shape[0] // tp, params[n].shape[1])
-            assert shapes == (block, block, block), n
+            assert shapes == (block,) * 5, n
 
 
-@pytest.mark.parametrize("name", ["resume_dp", "resume_tp"])
+def _tp_run(world2, world4, name: str):
+    """A tensor-parallel run: world2's ``name`` (1 x 2), else world4's (2 x 2)."""
+    return world2[name] if name in world2 else world4[name]
+
+
+@pytest.mark.parametrize("grid", ["dp1xtp2", "dp2xtp2"])
+def test_tensor_parallel_steps_equal_the_single_process_steps(world2, world4, grid):
+    """Through the fused training layer (which gathers its layer's weights
+    for each call; the model's other picked weights run the column-parallel
+    product): each weight the shape rule picks trains as its 1/tp row
+    block, with its gradient, 1/tp moments and its EMA, on every rank; the
+    steps, the EMA and the whole moments equal the single-process steps."""
+    spec, outs = _tp_run(world2, world4, "tp2" if grid == "dp1xtp2" else "tp_dp")
+    assert_steps_equal(spec, outs, _single(spec))
+    assert_blocks_held(spec, outs)
+
+
+@pytest.mark.parametrize("name", list(PLAIN_TP))
+def test_plain_path_runs_its_products_on_the_blocks(world2, world4, name):
+    """The default training path (plain layers, no fused layer) under
+    tensor parallelism: every product on a picked weight is the column-
+    parallel product on its block, so a rank's model, gradients, moments
+    and EMA hold blocks.  At 1 x 2 (and the a2m model's geometric losses
+    through SMPL) the steps equal the single-process steps.  At 2 x 2 (the
+    data group's all-reduce of block gradients; with microbatches under
+    remat and the wav encoder's BatchNorms, whose statistics are over the
+    data group) they equal the same rows' steps over 2 data ranks without
+    tensor parallelism (2 x 1): on this path the 2 x 1 steps themselves
+    stand one weight element 1.96e-05 from one process's, against
+    assert_weights_close's atol 1e-5, because that element's first
+    gradient (1.5e-08) lies within Adam's eps of 1e-8, where the halves'
+    summation order moves the step."""
+    spec, outs = _tp_run(world2, world4, name)
+    want = _single(spec) if spec["mesh"][0] == 1 else world2[f"{name}_dp"][1][0]
+    assert_steps_equal(spec, outs, want)
+    assert_blocks_held(spec, outs, at_least=6)
+
+
+def test_torchrun_launch_equals_the_gdt_launch(world2, torchrun2):
+    """Two ranks that learn the world from WORLD_SIZE, RANK and LOCAL_RANK
+    alone run the 1 x 2 plain-path steps exactly as the GDT_* launch."""
+    _, got = torchrun2
+    _, want = world2["dp1xtp2"]
+    for g, w in zip(got, want):
+        assert g["losses"] == w["losses"] and g["grad_norms"] == w["grad_norms"]
+        for k, v in w["params"].items():
+            assert torch.equal(g["params"][k], v), k
+        assert g["shards"] == w["shards"]
+
+
+@pytest.mark.parametrize("name", ["resume_dp", "resume_tp", "resume_tp_plain"])
 def test_resume_on_two_ranks_equals_the_uninterrupted_run(world2, name, tmp_path):
-    """Rank 0 writes the step-2 checkpoint (the sharded moments gathered
-    whole), a fresh loop on 2 ranks reads it, and its step equals step 3 of
-    an uninterrupted single-process loop."""
+    """Rank 0 writes the step-2 checkpoint (the sharded weights, moments
+    and EMA gathered whole), a fresh loop on 2 ranks reads it (each rank
+    cutting its blocks), and its step equals step 3 of an uninterrupted
+    single-process loop."""
     spec, outs = world2[name]
     save_dir = spec["save_dir"]
     assert sorted(f for f in os.listdir(save_dir) if f.endswith(".pt")) == [

@@ -20,6 +20,7 @@ from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
 from gesturediffusion_tpu_torch.diffusion.sampling import p_sample_loop
 from gesturediffusion_tpu_torch.models.embeddings import mask_cond
 from gesturediffusion_tpu_torch.models.mdm import MDM
+from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
 from gesturediffusion_tpu_torch.ops.dropout import dropout
 from gesturediffusion_tpu_torch.ops.fused_encoder import SITE_ATTN
 from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
@@ -135,6 +136,25 @@ def test_tensor_parallel_shape_rule_follows_jax():
     assert pmesh.shard_params_tp(model.named_parameters(), pmesh.Mesh(1, 1)) == {}
 
 
+@pytest.mark.parametrize("num_actions", [12, 40, 256])
+def test_tensor_parallelism_keeps_the_action_table_whole(num_actions):
+    """The action table stays whole under tensor parallelism: HumanAct12's
+    and UESTC's (12 and 40 actions at D 512) are under the shape rule's
+    size, and a table the rule would reach is refused before any block is
+    cut."""
+    model = MotionMDM(njoints=25, nfeats=6, latent_dim=512, num_layers=1, ff_size=64,
+                      num_heads=4, cond_mode="action", num_actions=num_actions)
+    mesh = pmesh.Mesh(data=1, model=2)
+    names = pmesh.shard_params_tp(model.named_parameters(), mesh)
+    if num_actions * 512 < 1 << 16:
+        assert "embed_action.action_embedding" not in names
+        return
+    before = {n: p.shape for n, p in model.named_parameters()}
+    with pytest.raises(ValueError, match="action table"):
+        pmesh.ShardedParams(model, mesh)
+    assert {n: p.shape for n, p in model.named_parameters()} == before
+
+
 def test_draws_under_global_rows_are_the_rows_of_the_whole_batch_draw():
     """dropout (batch-major and [B * H, ...] axes), the conditioning mask
     and a sampling loop's noise, drawn by rank r of 3 over a batch of 6,
@@ -204,12 +224,15 @@ def test_parser_takes_a_model_axis_and_the_session_takes_a_mesh(tmp_path):
                                 device="cpu")
 
 
+WORLD_VARS = ("GDT_COORDINATOR_ADDRESS", "GDT_NUM_PROCESSES", "GDT_PROCESS_ID",
+              "GDT_DIST_BACKEND", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+
+
 def test_initialize_reads_the_environment(monkeypatch):
     """No coordinator address: nothing to join.  An address without the
     world size or the rank, or an unknown backend, is refused before any
     connection is tried."""
-    for var in ("GDT_COORDINATOR_ADDRESS", "GDT_NUM_PROCESSES", "GDT_PROCESS_ID",
-                "GDT_DIST_BACKEND"):
+    for var in WORLD_VARS:
         monkeypatch.delenv(var, raising=False)
     assert pdist.maybe_initialize("cpu") is False
     assert (pdist.process_count(), pdist.process_index()) == (1, 0)
@@ -226,7 +249,69 @@ def test_initialize_reads_the_environment(monkeypatch):
         pdist.maybe_initialize("cpu")
 
 
+@pytest.mark.parametrize("env,want", [
+    ({"GDT_NUM_PROCESSES": "4", "GDT_PROCESS_ID": "3"}, (4, 3)),
+    ({"WORLD_SIZE": "4", "RANK": "2", "LOCAL_RANK": "0"}, (4, 2)),
+    ({"GDT_NUM_PROCESSES": "2", "GDT_PROCESS_ID": "1", "WORLD_SIZE": "2", "RANK": "1"}, (2, 1)),
+], ids=["gdt", "torchrun", "both-agree"])
+def test_world_comes_from_the_gdt_pair_or_torchrun(monkeypatch, env, want):
+    """The world size and the rank from GDT_NUM_PROCESSES / GDT_PROCESS_ID,
+    or where they are unset from torchrun's WORLD_SIZE / RANK (JAX lets
+    the pair be left out where the runtime knows the topology,
+    distributed.py:36-53); two pairs that agree are one world."""
+    for var in WORLD_VARS:
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("GDT_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert pdist.world_from_env() == want
+
+
+@pytest.mark.parametrize("env,match", [
+    ({}, "neither GDT_NUM_PROCESSES nor WORLD_SIZE"),
+    ({"GDT_NUM_PROCESSES": "2"}, "GDT_PROCESS_ID is not"),
+    ({"GDT_PROCESS_ID": "0"}, "GDT_NUM_PROCESSES is not"),
+    ({"WORLD_SIZE": "2"}, "RANK is not"),
+    ({"RANK": "1", "LOCAL_RANK": "1"}, "WORLD_SIZE is not"),
+    ({"GDT_NUM_PROCESSES": "2", "GDT_PROCESS_ID": "0", "WORLD_SIZE": "2", "RANK": "1"},
+     "disagree"),
+    ({"GDT_NUM_PROCESSES": "2", "GDT_PROCESS_ID": "1", "WORLD_SIZE": "4", "RANK": "1"},
+     "disagree"),
+    ({"GDT_NUM_PROCESSES": "2", "WORLD_SIZE": "2", "RANK": "0"}, "GDT_PROCESS_ID is not"),
+], ids=["neither", "gdt-size-only", "gdt-rank-only", "torchrun-size-only",
+        "torchrun-rank-only", "ranks-disagree", "sizes-disagree", "half-gdt-with-torchrun"])
+def test_initialize_refuses_half_a_world_or_two_worlds(monkeypatch, env, match):
+    """Half a pair, neither pair, or two pairs that disagree: a ValueError
+    naming both sources, before any connection is tried."""
+    for var in WORLD_VARS:
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("GDT_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match=match) as err:
+        pdist.maybe_initialize("cpu")
+    assert "GDT_NUM_PROCESSES" in str(err.value) and "WORLD_SIZE" in str(err.value)
+
+
+def test_rank_device_takes_the_card_from_local_rank(monkeypatch):
+    """Under torchrun LOCAL_RANK names the card (modulo the cards, as ranks
+    sharing one card over gloo need), before rank % device_count; a device
+    with an index keeps it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert pdist.rank_device(None, rank=2, world=4) == torch.device("cuda", 1)
+    assert pdist.rank_device("cuda", rank=0, world=4) == torch.device("cuda", 1)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert pdist.rank_device("cuda", rank=0, world=4) == torch.device("cuda", 0)
+    assert pdist.rank_device("cuda:1", rank=0, world=4) == torch.device("cuda", 1)
+    assert pdist.rank_device("cpu", rank=0, world=4) == torch.device("cpu")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert pdist.rank_device(None, rank=2, world=4) == torch.device("cuda", 0)
+
+
 def test_rank_device_maps_ranks_onto_the_cards(monkeypatch):
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
     assert pdist.rank_device("cpu", rank=3, world=4) == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)

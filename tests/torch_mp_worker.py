@@ -27,6 +27,9 @@ from gesturediffusion_tpu_torch.diffusion.resample import (  # noqa: E402
     create_named_schedule_sampler,
 )
 from gesturediffusion_tpu_torch.models.mdm import MDM  # noqa: E402
+from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM  # noqa: E402
+from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz  # noqa: E402
+from gesturediffusion_tpu_torch.models.smpl import make_synthetic_smpl  # noqa: E402
 from gesturediffusion_tpu_torch.parallel import distributed as dist_lib  # noqa: E402
 from gesturediffusion_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from gesturediffusion_tpu_torch.train.loop import (  # noqa: E402
@@ -52,10 +55,21 @@ def local_batch(batch: dict, mesh) -> dict:
                 else local_rows(batch[k], mesh)) for k in batch}
 
 
-def build_model(spec: dict) -> MDM:
-    model = MDM(**spec["model"])
+def build_model(spec: dict):
+    """The spec's gesture MDM, or with ``spec["motion_mdm"]`` the MotionMDM."""
+    model = (MotionMDM if spec.get("motion_mdm") else MDM)(**spec["model"])
     model.load_state_dict(spec["state"])
     return model
+
+
+def make_fk_fn(spec: dict):
+    """xyz joints through a synthetic SMPL of ``spec["smpl_vertices"]``
+    vertices (the a2m geometric losses), or None."""
+    if not spec.get("smpl_vertices"):
+        return None
+    smpl = make_synthetic_smpl(spec["smpl_vertices"])
+    return lambda sample: rotation2xyz(smpl, sample, pose_rep="rot6d", translation=True,
+                                       glob=True, jointstype="smpl", vertstrans=False)
 
 
 def train_steps(spec: dict, mesh=None) -> dict:
@@ -67,29 +81,39 @@ def train_steps(spec: dict, mesh=None) -> dict:
     optimizer's tensors a sharded weight holds."""
     model = build_model(spec)
     cfg = TrainConfig(**spec["config"])
-    diffusion = create_diffusion(steps=spec["diffusion_steps"], noise_schedule="cosine")
+    diffusion = create_diffusion(steps=spec["diffusion_steps"], noise_schedule="cosine",
+                                 **spec.get("lambdas", {}))
     sampler = create_named_schedule_sampler(cfg.schedule_sampler, diffusion.num_timesteps)
     state = make_train_state(model, cfg, sampler, mesh)
+    tp = state.tp
     gen = torch.Generator().manual_seed(spec["seed"])
+    fk_fn = make_fk_fn(spec)
     losses, grad_norms, grads = [], [], []
     for batch in spec["batches"]:
         b = local_batch(batch, mesh)
         m = train_step(state, diffusion, cfg, b["motion"], b["cond"], gen, b.get("t"),
-                       b.get("noise"))
+                       b.get("noise"), fk_fn=fk_fn)
         losses.append(m["loss"].item())
         grad_norms.append(m["grad_norm"].item())
-        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        g = {n: p.grad.clone() for n, p in model.named_parameters()}
+        grads.append(g if tp is None else tp.whole_tensors(g))
     opt = state.optimizer.state_dict()
     shards = {}
-    if state.tp is not None:
-        for n, shard in state.tp.shards.items():
-            st = state.optimizer.state[shard]
-            shards[n] = (tuple(shard.shape), tuple(st["exp_avg"].shape),
-                         tuple(st["exp_avg_sq"].shape))
-        opt = state.tp.full_optimizer_state(opt)
-    return {"losses": losses, "grad_norms": grad_norms, "grads": grads,
-            "params": {k: v.clone() for k, v in model.state_dict().items()},
-            "opt": opt["state"], "ema": state.ema, "sampler": state.sampler.state_dict(),
+    if tp is not None:
+        # what a rank holds of each sharded weight: the weight, its gradient,
+        # its two moments and its EMA
+        params = dict(model.named_parameters())
+        for n in tp.blocks:
+            p = params[n]
+            st = state.optimizer.state[p]
+            shards[n] = tuple(tuple(x.shape) for x in (p, p.grad, st["exp_avg"],
+                                                       st["exp_avg_sq"], state.ema[n]))
+        opt = tp.full_optimizer_state(opt)
+    with state.whole():
+        params = {k: v.clone() for k, v in model.state_dict().items()}
+        ema = dict(state.ema)
+    return {"losses": losses, "grad_norms": grad_norms, "grads": grads, "params": params,
+            "opt": opt["state"], "ema": ema, "sampler": state.sampler.state_dict(),
             "shards": shards, "generator": gen.get_state()}
 
 
@@ -116,8 +140,9 @@ def train_resumed(spec: dict, save_dir: str, mesh=None) -> dict:
     else:
         loop, rest = loop_to(n), batches
     loop.run_loop(batch_source=((b["motion"], b["cond"]) for b in rest))
-    return {"params": {k: v.clone() for k, v in loop.state.model.state_dict().items()},
-            "step": loop.state.step}
+    with loop.state.whole():
+        params = {k: v.clone() for k, v in loop.state.model.state_dict().items()}
+    return {"params": params, "step": loop.state.step}
 
 
 def stream_chunks(spec: dict, mesh=None) -> list:
