@@ -189,8 +189,11 @@ Phases, each fatal on failure:
               conv biases before the BatchNorms, whose gradient is zero in
               exact arithmetic, held against the model's largest gradient,
               grad_gap); the train CLI
-              --use_wav_enc --use_fused_train_encoder on --dataset synthetic
-              (launches counted) and the generate CLI on its checkpoint; a
+              --use_wav_enc --use_fused_train_encoder --ema_rate 0.9999 on
+              --dataset synthetic (launches counted), its EMA exported by
+              utils/export_torch.py --ema and loaded on the card (parameters
+              bit for bit the EMA, buffers the model file's) and the generate
+              CLI on the exported file; a
               wav-encoder CFG denoise step's time, idle share and conv-stack
               share, an MDMOld step's and phase 4's fast-path step's
  18. parallel the multi-rank paths, ranks spawned as subprocesses of this
@@ -3219,8 +3222,9 @@ def wav_old_phase(fast_model, chunk_conds, init_seed, randn, card):
     control; 5 wav-encoder
     train steps at batch 256 (4 x 64) through the training kernels against
     the plain steps, the BatchNorm running statistics compared after each;
-    the train CLI --use_wav_enc --use_fused_train_encoder on --dataset
-    synthetic (launches counted) and the generate CLI on its checkpoint;
+    the train CLI --use_wav_enc --use_fused_train_encoder --ema_rate 0.9999
+    on --dataset synthetic (launches counted), the EMA export of its
+    checkpoint (``ema_export_phase``) and the generate CLI on that file;
     the times and profiles of a wav-encoder CFG denoise step (the conv
     stack's share), an MDMOld step and phase 4's fast-path step.  Returns
     the launches of the phase's main paths by kernel."""
@@ -3365,7 +3369,8 @@ def wav_old_phase(fast_model, chunk_conds, init_seed, randn, card):
                         stats=True, zero_grads=tuple(f"wav_encoder.feat_extractor.{i}.bias"
                                                      for i in (0, 3, 6)))
     del plain, batches
-    cli_launches = train_cli_phase(card, extra=("--use_wav_enc",), name="train_wav")
+    cli_launches = train_cli_phase(card, extra=("--use_wav_enc", "--ema_rate", "0.9999"),
+                                   name="train_wav", export_ema=True)
     sd = load_checkpoint(os.path.join(HERE, "build", "chip_smoke", "train_wav",
                                       f"model{CLI_STEPS:09d}.pt"))
     tracked = int(sd["wav_encoder.feat_extractor.1.num_batches_tracked"])
@@ -4099,9 +4104,51 @@ def compare_train_steps(model, plain, diffusion, cfg, batches, per_step, label, 
     return step_ms
 
 
-def train_cli_phase(card, extra=(), name="train"):
+def ema_export_phase(ckpt: str, card: str) -> str:
+    """The export CLI with ``--ema`` on a train-CLI checkpoint, in this
+    process, and its file loaded onto the model on the card: every parameter
+    must equal the opt file's EMA bit for bit, every buffer the model
+    file's.  Returns the exported file's path."""
+    import argparse
+    import json
+
+    import torch
+
+    from gesturediffusion_tpu_torch.utils import export_torch
+    from gesturediffusion_tpu_torch.utils.convert import load_checkpoint, load_weights
+    from gesturediffusion_tpu_torch.utils.model_factory import create_model
+
+    run = os.path.dirname(ckpt)
+    out = os.path.join(run, os.path.basename(ckpt).replace("model", "ema", 1))
+    t0 = time.perf_counter()
+    export_torch.main(["--model_path", ckpt, "--out", out, "--ema"])
+    with open(os.path.join(run, "args.json")) as f:
+        model = create_model(argparse.Namespace(**json.load(f))).to(torch.device("cuda"))
+    load_weights(model, out)
+    ema = torch.load(os.path.join(run, os.path.basename(ckpt).replace("model", "opt", 1)),
+                     map_location="cpu", weights_only=True)["ema"]
+    model_sd = load_checkpoint(ckpt)
+    params = dict(model.named_parameters())
+    sd = model.state_dict()
+    buffers = [k for k in sd if k not in params]
+    same = set(params) == set(ema) and all(
+        torch.equal(sd[k].cpu(), ema[k] if k in params else model_sd[k]) for k in sd)
+    moved = sum(not torch.equal(ema[k], model_sd[k]) for k in params)
+    secs = time.perf_counter() - t0
+    ok = same and moved > 0
+    log(f"{'OK' if ok else 'FAIL'} EMA export (utils/export_torch.py --ema) of "
+        f"{os.path.basename(ckpt)} loaded on the card: {len(params)} parameters bit for bit the "
+        f"opt file's EMA ({moved} of them apart from the model file's), {len(buffers)} buffers "
+        f"the model file's, in {secs:.2f} s (export, load and compare) {card}")
+    if not ok:
+        raise AssertionError("EMA export: parameters or buffers differ")
+    return out
+
+
+def train_cli_phase(card, extra=(), name="train", export_ema=False):
     """The train CLI in this process (its launches counted; ``extra``: more
-    flags), then the generate CLI on the checkpoint it writes; the run under
+    flags), then the generate CLI on the checkpoint it writes, or with
+    ``export_ema`` on the EMA export of it; the run under
     build/chip_smoke/``name``."""
     import numpy as np
 
@@ -4131,17 +4178,18 @@ def train_cli_phase(card, extra=(), name="train"):
         f"{launches[1]} (expected {want} each); wrote {os.path.basename(ckpt)} {card}")
     if not ok:
         raise AssertionError("train CLI: wrong launch counts or no checkpoint")
+    sampled = ema_export_phase(ckpt, card) if export_ema else ckpt
     out_dir = os.path.join(save_dir, "samples")
     subprocess.run(
         [sys.executable, "-m", "gesturediffusion_tpu_torch.sample.generate",
-         "--model_path", ckpt, "--dataset", "synthetic", "--num_samples", "8",
+         "--model_path", sampled, "--dataset", "synthetic", "--num_samples", "8",
          "--timestep_respacing", RESPACING, "--output_dir", out_dir],
         check=True, cwd=HERE, timeout=600,
     )
     res = np.load(os.path.join(out_dir, "results.npy"), allow_pickle=True).item()
     ok = res["motion"].shape == (8, J // 6, 3, T_CLI) and np.isfinite(res["motion"]).all()
-    log(f"{'OK' if ok else 'FAIL'} generate CLI on the trained checkpoint: motion "
-        f"{res['motion'].shape}")
+    log(f"{'OK' if ok else 'FAIL'} generate CLI on the trained checkpoint"
+        f"{' (its EMA export)' if export_ema else ''}: motion {res['motion'].shape}")
     if not ok:
         raise AssertionError("generate CLI on the trained checkpoint failed")
     return launches

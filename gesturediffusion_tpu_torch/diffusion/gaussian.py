@@ -2,8 +2,8 @@
 
 PyTorch counterpart of gesturediffusion_tpu/diffusion/gaussian.py
 (GaussianDiffusion :78-424 and create_diffusion :427-526): the schedule
-arrays, respacing through ``timestep_map``, q_sample, the posterior, the
-x0/eps converters, p_mean_variance with fixed or learned variances,
+arrays, respacing through ``timestep_map``, q_mean_variance, q_sample,
+the posterior, the x0/eps converters, p_mean_variance with fixed or learned variances,
 inpainting, ``clip_denoised`` and ``denoised_fn``, the classifier-guidance
 shifts ``condition_mean`` and ``condition_score``, and the training losses
 (masked MSE for START_X / EPSILON / PREVIOUS_X, the learned-variance ``vb``
@@ -81,6 +81,7 @@ class GaussianDiffusion:
     alphas_cumprod_next: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     posterior_variance: torch.Tensor
@@ -110,6 +111,15 @@ class GaussianDiffusion:
         if self.rescale_timesteps:
             return new_t.float() * (1000.0 / self.original_num_steps)
         return new_t
+
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log variance of q(x_t | x_0)
+        (gaussian.py:135-140)."""
+        nd = x_start.dim()
+        mean = _extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+        variance = _extract(1.0 - self.alphas_cumprod, t, nd)
+        log_variance = _extract(self.log_one_minus_alphas_cumprod, t, nd)
+        return mean, variance, log_variance
 
     def q_sample(self, x_start, t, noise):
         nd = x_start.dim()
@@ -394,6 +404,7 @@ def create_diffusion(
         "alphas_cumprod_next": alphas_cumprod_next,
         "sqrt_alphas_cumprod": np.sqrt(alphas_cumprod),
         "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - alphas_cumprod),
+        "log_one_minus_alphas_cumprod": np.log(1.0 - alphas_cumprod),
         "sqrt_recip_alphas_cumprod": np.sqrt(1.0 / alphas_cumprod),
         "sqrt_recipm1_alphas_cumprod": np.sqrt(1.0 / alphas_cumprod - 1),
         "posterior_variance": posterior_variance,

@@ -363,7 +363,11 @@ class TrainLoop:
         self.mesh = mesh if mesh is not None else make_data_mesh_for_batch(config.batch_size)
         self.writes = process_index() == 0
         self.platform = platform or TrainPlatform(config.save_dir)
-        self.logger = log_lib.configure(config.save_dir if self.writes else None)
+        # the logger is one process's (utils/logger.py): the other ranks print
+        # their table and write no file, whatever OPENAI_LOGDIR and
+        # OPENAI_LOG_FORMAT say
+        self.logger = (log_lib.configure(config.save_dir) if self.writes
+                       else log_lib.configure(format_strs=["stdout"]))
         model = model.to(device)
         sampler = create_named_schedule_sampler(
             config.schedule_sampler, diffusion.num_timesteps, device)

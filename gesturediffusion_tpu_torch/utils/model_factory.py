@@ -1,7 +1,8 @@
 """Model and diffusion from the command-line flags, shared by the train,
-generate and edit CLIs.
+generate, edit and export CLIs.
 
-Counterpart of gesturediffusion_tpu/utils/model_factory.py (:52-110): the
+Counterpart of gesturediffusion_tpu/utils/model_factory.py
+(``get_model_args``, ``create_model``, :23-111): the
 gesture datasets get MDM V2 with MFCC input, or with the wav encoder under
 ``--use_wav_enc`` (``--mfcc_input`` with it is refused as JAX refuses it,
 :68-90), ``humanml`` and ``kit`` the
@@ -69,32 +70,44 @@ def create_gaussian_diffusion(args, device: torch.device,
     )
 
 
+def get_model_args(args, data=None) -> dict:
+    """The denoiser's constructor arguments from the flags
+    (model_factory.py:23-50): a gesture model takes ``data``'s
+    ``pose_dim`` features, 498 without it (as JAX, for ``genea2022`` too);
+    ff 1024, 4 heads and dropout 0.1 as the reference's get_model_args."""
+    if args.dataset in GESTURE_DATASETS:
+        njoints, nfeats = getattr(data, "pose_dim", None) or 498, 1
+    elif args.dataset in TEXT_NJOINTS:
+        njoints, nfeats = TEXT_NJOINTS[args.dataset], 1
+    elif args.dataset in NUM_ACTIONS:
+        njoints, nfeats = 25, 6  # rot6d + the translation row
+    else:
+        raise ValueError(f"Unsupported dataset name [{args.dataset}]")
+    return dict(njoints=njoints, nfeats=nfeats, latent_dim=args.latent_dim, ff_size=1024,
+                num_layers=args.layers, num_heads=4, dropout=0.1,
+                cond_mask_prob=args.cond_mask_prob, clip_dim=512)
+
+
+def create_model(args, data=None):
+    """The denoiser of the flags, on the CPU (model_factory.py:53-111);
+    ``data`` gives a gesture model its feature count."""
+    if getattr(args, "arch", "trans_enc") != "trans_enc":
+        raise NotImplementedError(f"--arch {args.arch!r}: only 'trans_enc' can be built")
+    kw = get_model_args(args, data)
+    kw.update(use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
+              remat=getattr(args, "remat", False))
+    unconstrained = getattr(args, "unconstrained", False)
+    if args.dataset in GESTURE_DATASETS:
+        mfcc_input, use_wav_enc = gesture_audio_input(args)
+        return MDM(use_text=args.use_text, seed_poses=args.seed_poses, mfcc_input=mfcc_input,
+                   use_wav_enc=use_wav_enc, **kw)
+    if args.dataset in TEXT_NJOINTS:
+        return MotionMDM(cond_mode="no_cond" if unconstrained else "text", **kw)
+    return MotionMDM(cond_mode="no_cond" if unconstrained else "action",
+                     num_actions=NUM_ACTIONS[args.dataset], **kw)
+
+
 def create_model_and_diffusion(args, dataset, device: torch.device):
     """The denoiser of the flags (on the CPU; the caller moves it) and its
     diffusion (on ``device``)."""
-    if getattr(args, "arch", "trans_enc") != "trans_enc":
-        raise NotImplementedError(f"--arch {args.arch!r}: only 'trans_enc' can be built")
-    train_kw = dict(use_fused_train_encoder=getattr(args, "use_fused_train_encoder", False),
-                    remat=getattr(args, "remat", False))
-    unconstrained = getattr(args, "unconstrained", False)
-    if args.dataset in TEXT_NJOINTS or args.dataset in NUM_ACTIONS:
-        text = args.dataset in TEXT_NJOINTS
-        model = MotionMDM(
-            njoints=TEXT_NJOINTS[args.dataset] if text else 25, nfeats=1 if text else 6,
-            latent_dim=args.latent_dim, ff_size=1024, num_layers=args.layers, num_heads=4,
-            dropout=0.1, clip_dim=512,
-            cond_mode="no_cond" if unconstrained else ("text" if text else "action"),
-            num_actions=NUM_ACTIONS.get(args.dataset, 12),
-            cond_mask_prob=args.cond_mask_prob, **train_kw,
-        )
-        return model, create_gaussian_diffusion(args, device)
-    if args.dataset not in GESTURE_DATASETS:
-        raise ValueError(f"Unsupported dataset name [{args.dataset}]")
-    mfcc_input, use_wav_enc = gesture_audio_input(args)
-    model = MDM(
-        njoints=dataset.pose_dim, nfeats=1, latent_dim=args.latent_dim,
-        ff_size=1024, num_layers=args.layers, num_heads=4, dropout=0.1,
-        cond_mask_prob=args.cond_mask_prob, use_text=args.use_text,
-        seed_poses=args.seed_poses, mfcc_input=mfcc_input, use_wav_enc=use_wav_enc, **train_kw,
-    )
-    return model, create_gaussian_diffusion(args, device)
+    return create_model(args, dataset), create_gaussian_diffusion(args, device)

@@ -11,9 +11,13 @@ error, and a training flag that the port cannot honour yet raises
 NotImplementedError.  Left out of the JAX set because nothing here would
 read them: ``--emb_trans_dec`` (trans_dec only), ``--use_audio`` (read by
 no model), ``--prng`` (the port draws from torch generators), edit's
-``--no_fast_sampler`` (a gesture model samples through its fast path only)
-and the train CLI's ``--use_fused_encoder`` (the inference layer takes no
-part in training).  A JAX ``args.json`` that carries them still loads:
+``--no_fast_sampler`` (a gesture model samples through its fast path only),
+the train CLI's ``--use_fused_encoder`` (the inference layer takes no
+part in training) and the generate CLI's ``--input_text``,
+``--action_file``, ``--text_prompt`` and ``--action_name`` (the JAX
+parser accepts them, gesturediffusion_tpu/utils/parser.py:236-239, and
+nothing there reads them; the predict CLI takes its prompt as
+``--text``).  A JAX ``args.json`` that carries them still loads:
 generation copies only the keys its parser has.
 """
 

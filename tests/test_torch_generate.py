@@ -71,3 +71,12 @@ def test_cli_needs_a_card_unless_cpu_is_asked(checkpoint):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.main(["--model_path", checkpoint])
+
+
+@pytest.mark.parametrize("flag", ["--input_text", "--action_file", "--text_prompt",
+                                  "--action_name"])
+def test_jax_generate_flags_nothing_reads_are_refused(checkpoint, flag):
+    """The JAX generate parser accepts these four and reads them nowhere;
+    the port refuses them on purpose (utils/parser.py's docstring)."""
+    with pytest.raises(SystemExit):
+        generate_args(["--model_path", checkpoint, flag, "x"])
