@@ -7,8 +7,10 @@ Phases, each fatal on failure:
   2. build    nvcc builds every kernel from csrc/ (in parallel), printing
               the -Xptxas -v register / shared-memory / spill lines, and
               counts the TF32 tensor-core instructions (wgmma's HGMMA,
-              mma.sync's HMMA) of each training-layer kernel and of the
-              band and local-block kernels in their SASS
+              mma.sync's HMMA) of each product kernel of the five libraries
+              in their SASS; the inference flash forward to 128 columns
+              (flash_fwd_narrow_kernel, 12 instantiations in the flash and
+              the inference-layer libraries) must hold TF32 HGMMA
   3. parity   each kernel against its plain PyTorch version on the card at
               the main-path shapes, with the tolerance stated: the sampling
               kernels at batch 82, the training layer's forward (rates 0.1
@@ -48,9 +50,12 @@ Phases, each fatal on failure:
   6. times    kernel, plain and library-call times (CUDA events), take and
               train-step throughput and peak memory, and a profile of a
               denoise step and of a train step, with the card name and
-              power limit; the training kernels at 81 and 121 rows and the
-              device kernels one forward and backward launch (none of them a
-              library kernel); the train-step profile summed by kernel
+              power limit; kernel 4 alone at the step's [82, 4, 81, 64]
+              (beside its plain twin, SDPA, its bound and the profiler's
+              device time, on a random stream of its own); the training
+              kernels at 81 and 121 rows and the device kernels one forward
+              and backward launch (none of them a library kernel); the
+              train-step profile summed by kernel
   7. long     long-chunk sampling at 1200 frames: the band-attention kernel
               at [82, 8, 1200, 32], the flash kernel at [82, 4, 1201, 64]
               (and at a length off its tile), the encoder layer with its
@@ -5196,7 +5201,10 @@ def main() -> int:
         encoder_layer_plain,
         fused_encoder_layer,
     )
-    from gesturediffusion_tpu_torch.ops.flash_attention import fused_self_attention
+    from gesturediffusion_tpu_torch.ops.flash_attention import (
+        fused_self_attention,
+        self_attention_reference,
+    )
     from gesturediffusion_tpu_torch.ops.fused_local_block import (
         fused_local_block,
         pre_encoder_local_block,
@@ -5238,14 +5246,23 @@ def main() -> int:
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
-    for lib in ("encoder_layer_train", "band_attention", "local_block"):
+    for lib in ("encoder_layer_train", "band_attention", "local_block", "flash_attention",
+                "encoder_layer"):
         sass = tensor_core_sass(lib)
         if not sass:
             log(f"sass {lib}: not measured (no cuobjdump beside nvcc)")
+        elif lib in ("flash_attention", "encoder_layer"):
+            # the inference flash forward to 128 columns, both products on
+            # wgmma: 8 padded widths, the 4 to DHP 64 also with 32-key tiles
+            narrow = {fn: ops for fn, ops in sass.items() if "flash_fwd_narrow_kernel" in fn}
+            if len(narrow) != 12 or not all(ops["HGMMA"] for ops in narrow.values()):
+                raise AssertionError(f"{lib}: the inference flash kernels without TF32 "
+                                     f"HGMMA: {narrow}")
         for fn, ops in sorted(sass.items()):
             product = any(k in fn for k in (
-                "gemm_tf32x3_kernel", "flash_attention_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkdv_kernel", "band_attention_kernel", "local_block_kernel",
+                "gemm_tf32x3_kernel", "flash_attention_kernel", "flash_fwd_narrow_kernel",
+                "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "band_attention_kernel",
+                "local_block_kernel",
                 "flash_fwd_wide_kernel", "flash_sliced_kernel", "band_wide_kernel",
                 "band_sliced_kernel", "local_block_wide_kernel",
                 "attn_bwd_dq_wide_kernel", "attn_bwd_dkdv_wide_kernel",
@@ -5411,6 +5428,28 @@ def main() -> int:
     enc_bytes = 4 * (2 * m * D + sum(w.numel() for w in enc_w))
     enc_bound, enc_by = bound_ms(enc_flops, enc_bytes, tf32x3=True)
 
+    # kernel 4 alone at the step's shape (the attention stage of kernel 1),
+    # on a random stream of its own: the later phases keep their inputs
+    fs = np.random.RandomState(22)
+    qf, kf, vf = (torch.from_numpy(fs.randn(bb, HEADS, T + 1, D // HEADS).astype(np.float32))
+                  .to(dev) for _ in range(3))
+    flash_err = (fused_self_attention(qf, kf, vf)
+                 - self_attention_reference(qf, kf, vf)).abs().max().item()
+    ok = flash_err <= TOL_FLASH
+    log(f"{'OK' if ok else 'FAIL'} flash_attention [{bb},{HEADS},{T + 1},{D // HEADS}]: "
+        f"max|diff| {flash_err:.3e} (tol {TOL_FLASH:g})")
+    if not ok:
+        raise AssertionError("flash_attention kernel disagrees with its plain version")
+    flash_ms = cuda_time_ms(lambda: fused_self_attention(qf, kf, vf))
+    flash_device_ms = device_ms(lambda: fused_self_attention(qf, kf, vf),
+                                "flash_fwd_narrow_kernel", iters=100)
+    flash_plain_ms = cuda_time_ms(lambda: self_attention_reference(qf, kf, vf))
+    flash_lib_ms = cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qf, kf, vf))
+    flash_flops = 4 * bb * HEADS * (T + 1) ** 2 * (D // HEADS)
+    flash_bytes = 4 * 4 * qf.numel()
+    flash_bound, flash_by = bound_ms(flash_flops, flash_bytes, tf32x3=True)
+
     train_times = {t: train_kernel_times(*train_x[t], enc_w, seed) for t in (T + 1, T_CLI + 1)}
     layer_kernels = layer_kernel_names(xt, gt, enc_w, seed)
     ok = all(train_kernel_group(n) for n in layer_kernels)
@@ -5425,6 +5464,11 @@ def main() -> int:
         f"{lb_device_ms:.4f} ms, {lb_bound / lb_device_ms:.3f} of the bound {card}")
     time_line(f"encoder_layer [{bb},{T + 1},{D}]", enc_ms, enc_plain_ms, enc_lib_ms, enc_bound,
               enc_by, enc_flops, enc_bytes, card, tf32x3=True)
+    time_line(f"flash_attention [{bb},{HEADS},{T + 1},{D // HEADS}]", flash_ms, flash_plain_ms,
+              flash_lib_ms, flash_bound, flash_by, flash_flops, flash_bytes, card, tf32x3=True)
+    log(f"time flash_attention [{bb},{HEADS},{T + 1},{D // HEADS}] kernel's device time "
+        f"(profiler): {flash_device_ms:.4f} ms, {flash_bound / flash_device_ms:.3f} of the bound "
+        f"{card}")
     for t, tt in train_times.items():
         time_line(f"encoder_layer_train_fwd [{MB},{t},{D}]", *tt["fwd"], card, tf32x3=True)
         time_line(f"encoder_layer_train_bwd [{MB},{t},{D}] (plain and library: forward + "

@@ -9,13 +9,20 @@ layer's chain launches the same device code on its packed qkv buffer as its
 attention stage (ops/fused_encoder.py), and counts those launches here too.
 The kernel takes any head width (``padded_head_width``), as pallas_flash.py
 pads D to a multiple of 128: up to 128 at the next multiple of 16 with
-zero-filled columns; from 129 to 544 in csrc/wide_attention.cuh's
-flash_fwd_wide_kernel: one block, or a cluster of two past 272 columns,
-takes 64 query rows over the whole width, each warpgroup a share of the
-columns for both products; the scores are computed once (the shares'
-partial sums added through the cluster's shared memory), each K and V
-element is split into big and small tiles once, S runs on mma.sync and
-o += p v on wgmma; wider heads in 128-column slices.
+zero-filled columns, in the inference body flash_fwd_narrow_kernel (a
+producer warpgroup lands K and V by the copy engine's tensor maps, or a
+float at a time where rows are not 16-byte aligned, and splits them into
+big and small once a block; one or two consumer warpgroups of 64 query rows
+run S = q k^T and o += p v on wgmma; one grid dimension over (batch * head,
+query tile), so B * H may pass 65535); from 129 to 544 in
+csrc/wide_attention.cuh's flash_fwd_wide_kernel: one block, or a cluster of
+two past 272 columns, takes 64 query rows over the whole width, each
+warpgroup a share of the columns for both products; the scores are
+computed once (the shares' partial sums added through the cluster's shared
+memory), each K and V element is split into big and small tiles once, S
+runs on mma.sync and o += p v on wgmma; wider heads in 128-column slices.
+The training layer's attention stage keeps the mma.sync body of the same
+header (its dropout and log-sum-exp).
 """
 
 from __future__ import annotations

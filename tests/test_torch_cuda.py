@@ -422,6 +422,91 @@ def test_train_kernels_reject_a_head_width(dev):
     _check_train_kernels(dev, 2, 8, 64, 8, 128, 0.1)
 
 
+# the inference flash forward to 128 columns (csrc/flash_attention.cuh's
+# flash_fwd_narrow_kernel): a producer warpgroup lands K and V by tensor
+# copies (a float at a time where rows are not 16-byte aligned) and splits
+# them, one or two consumer warpgroups run both products on wgmma
+NARROW_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128)
+
+
+@pytest.mark.parametrize("dh", NARROW_WIDTHS)
+@pytest.mark.parametrize("t", [1, 17, 63, 64, 65, 81, 197, 1201])
+def test_flash_kernel_narrow_at_every_width_and_length(dev, t, dh):
+    """Lengths around the 64-row consumer tiles and the 32- and 64-key
+    tiles, from one row, at every padded width."""
+    rs = np.random.RandomState(36)
+    q, k, v = (_randn(rs, 2, 2, t, dh, device=dev) for _ in range(3))
+    before = fused_self_attention.launches
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == before + 1
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", NARROW_WIDTHS)
+def test_flash_kernel_narrow_reads_a_packed_qkv_buffer(dev, dh):
+    """q, k and v as strided views of one [B, T, 3D] buffer, as the encoder
+    layer's chain passes them: the tensor maps order the dimensions by
+    stride (H before T)."""
+    b, t, h = 2, 97, 2
+    d = h * dh
+    packed = _randn(np.random.RandomState(37), b, t, 3 * d, device=dev)
+    q, k, v = (packed[..., i * d:(i + 1) * d].reshape(b, t, h, dh).transpose(1, 2)
+               for i in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", [18, 66, 126])
+@pytest.mark.parametrize("t", [17, 300])
+def test_flash_kernel_narrow_with_unaligned_rows(dev, t, dh):
+    """Head widths not divisible by 4: rows copied a float at a time by
+    cp.async into the same swizzled raw tiles, in the same kernel."""
+    rs = np.random.RandomState(38)
+    q, k, v = (_randn(rs, 2, 2, t, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_kernel_narrow_is_bit_for_bit_repeatable(dev, dh):
+    """No atomics, every sum in a fixed order: two calls, the same bits."""
+    rs = np.random.RandomState(39)
+    q, k, v = (_randn(rs, 8, 4, 300, dh, device=dev) for _ in range(3))
+    first = fused_self_attention(q, k, v)
+    second = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("bh", [65535, 65536])
+def test_flash_kernel_narrow_past_the_grid_guard(dev, bh, dh):
+    """B * H at and past 65535, the training body's grid.y limit: the
+    inference body indexes (batch * head, query tile) in grid.x."""
+    rs = np.random.RandomState(40)
+    q, k, v = (_randn(rs, bh, 1, 3, dh, device=dev) for _ in range(3))
+    got = fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, self_attention_reference(q, k, v), rtol=0, atol=2e-4)
+
+
+def test_encoder_layer_runs_the_narrow_flash_stage_at_the_gesture_shape(dev):
+    """Kernel 1 at the gesture step's [82, 81, 256] (4 heads of 64): its
+    attention stage is the inference flash body, counted once."""
+    w = _encoder_weights(256, 1024, dev, seed=41)
+    x = _randn(np.random.RandomState(41), 82, 81, 256, device=dev)
+    want = encoder_layer_plain(x, *w, num_heads=4)
+    before = (fused_encoder_layer.launches, fused_self_attention.launches)
+    got = fused_encoder_layer(x, *w, num_heads=4)
+    torch.cuda.synchronize()
+    assert (fused_encoder_layer.launches - before[0],
+            fused_self_attention.launches - before[1]) == (1, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 # head widths past 128 (csrc/wide_attention.cuh): --latent_dim 544, 1024,
 # 1056 and 2080 at 4 heads
 WIDE_WIDTHS = (136, 256, 264, 520)

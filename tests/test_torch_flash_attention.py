@@ -35,7 +35,7 @@ from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
 from gesturediffusion_tpu_torch.ops.fused_local_block import (
     _check_cuda_args as check_local_block_args,
 )
-from tests.torch_port_common import WIDE_MAX_WIDTH, wide_block_shape
+from tests.torch_port_common import WIDE_MAX_WIDTH, narrow_block_shape, wide_block_shape
 
 TOL = 2e-5
 
@@ -174,6 +174,35 @@ def test_flash_wrapper_rejects_other_devices():
 
 # an H100's shared memory a block may use (csrc/common.cuh:kMaxSmem)
 MAX_SMEM = 232448
+
+
+@pytest.mark.parametrize("t", [81, 1201])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_narrow_block_fits_shared_memory_and_covers_the_width(dh, t):
+    """The inference flash forward's block at every padded width to 128:
+    shared memory within a block's 232,448 bytes, the raw boxes of 32
+    columns cover the width, whole k8 steps of the key tile split among the
+    producer's 128 threads, a 64-row wgmma tile per consumer, and no more
+    than one block's worth of registers (the consumers' o and q's big parts
+    take DHP / 2 + DHP / 2 registers a thread within the 65,536 of an SM)."""
+    shape = narrow_block_shape(dh, t)
+    assert shape["dhp"] == dh and shape["smem"] <= MAX_SMEM
+    assert 32 * shape["nb"] >= dh > 32 * (shape["nb"] - 1)
+    assert shape["bk"] * dh % (128 * 4) == 0 and shape["bk"] % 8 == 0
+    assert shape["threads"] * (dh // 2 + dh // 2 + shape["bk"] // 2) <= 65536
+
+
+@pytest.mark.parametrize("b,h,t", [(65536, 1, 3), (70000, 1, 1), (256, 300, 197), (8, 8, 1201)])
+def test_narrow_grid_covers_bh_past_the_grid_y_limit(b, h, t):
+    """One grid dimension over (batch * head, query tile): B * H past 65535,
+    the training body's grid.y limit, launches, and every query row of
+    every head has its block."""
+    for dh in (8, 64, 80, 128):
+        shape = narrow_block_shape(dh, t)
+        blocks = shape["blocks"](b, h, t)
+        rows = 64 * shape["nc"]
+        assert blocks <= 2**31 - 1 and blocks * rows >= b * h * t
+        assert blocks == b * h * -(-t // rows)
 
 
 @pytest.mark.parametrize("dh", [129, 131, 136, 200, 256, 261, 264, 272, 273, 520, 523, 544])

@@ -12,7 +12,13 @@ ops/pallas_encoder.py:fused_encoder_layer at [3, 24, 128], 4 heads, ff 256,
 within 5e-4 (the card's tolerance for the layer), and
 ops/pallas_flash.py:fused_self_attention at [2, 3, 130, 32], within 2e-4
 (the flash kernel's).  A single TF32 pass is at least 10x further from the
-reference than three: that is why the kernels take three.  The flash
+reference than three: that is why the kernels take three.  The inference
+flash forward up to a head width of 128 (csrc/flash_attention.cuh's
+flash_fwd_narrow_kernel) is emulated step by step (``narrow_flash``): its
+key tiles (tests/torch_port_common.py:narrow_block_shape), the scores over
+the whole width in one accumulator, the online softmax in log2 units with
+its rescale before each tile's p v; its consumer warpgroups own disjoint
+query rows, so nothing is combined across them.  The flash
 forward past a head width of 128 (csrc/wide_attention.cuh) is emulated
 step by step (``wide_flash``): its 32-key tiles, the scores summed once
 from the partial products over the blocks' and warpgroups' column shares,
@@ -52,6 +58,7 @@ from gesturediffusion_tpu_torch.ops.fused_encoder_train import hash_dropout_mask
 from tests.torch_port_common import (
     jax_layer_args,
     jax_layer_params,
+    narrow_block_shape,
     one_torch_thread,
     threefry_prng,  # noqa: F401 (autouse fixture)
     torch_layer_weights,
@@ -157,6 +164,58 @@ def test_flash_in_three_passes_matches_jax(b, h, t, d):
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
     three = attention(qt, kt, vt, matmul_tf32x3).numpy()
     one = attention(qt, kt, vt, matmul_tf32).numpy()
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 <= TOL_FLASH, err3
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+def narrow_flash(q, k, v, mm):
+    """[B, H, T, dh] attention as csrc/flash_attention.cuh's inference body
+    (flash_fwd_narrow_kernel) computes it, dh <= 128: the width padded to
+    the next multiple of 16 with zero columns; per key tile of ``bk`` keys
+    (narrow_block_shape; the last tile's rows past T read as zeros and
+    score -FLT_MAX) S = q k^T over the whole width in one accumulator
+    (products by ``mm``), the online softmax in log2 units, o rescaled
+    before it takes the tile's p v; out = o / l.  The kernel splits q once a
+    block, K and V once a tile (the producer) and P a slice at a time; the
+    split is elementwise, so ``mm`` splitting its operands gives the same
+    parts."""
+    b, h, t, dh = q.shape
+    shape = narrow_block_shape(dh, t)
+    dhp, bk = shape["dhp"], shape["bk"]
+    tp = -(-t // bk) * bk
+    qp = F.pad(q, (0, dhp - dh))
+    kp, vp = (F.pad(x, (0, dhp - dh, 0, tp - t)) for x in (k, v))
+    scale_log2 = dh**-0.5 * 1.4426950408889634
+    fmax = torch.finfo(torch.float32).max
+    m = torch.full((b, h, t), -fmax, dtype=q.dtype)
+    l = q.new_zeros(b, h, t)
+    o = q.new_zeros(b, h, t, dhp)
+    for j0 in range(0, tp, bk):
+        s = mm(qp, kp[:, :, j0:j0 + bk].transpose(-1, -2)) * scale_log2
+        s = torch.where(torch.arange(j0, j0 + bk) < t, s, torch.tensor(-fmax))
+        mn = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - mn[..., None])
+        alpha = torch.exp2(m - mn)
+        l, m = alpha * l + p.sum(-1), mn
+        o = o * alpha[..., None] + mm(p, vp[:, :, j0:j0 + bk])
+    return o[..., :dh] / l[..., None]
+
+
+@pytest.mark.parametrize("b,h,t,d", [(2, 3, 81, 64), (1, 4, 197, 128), (2, 2, 61, 128),
+                                     (1, 2, 130, 80), (1, 2, 100, 72), (2, 2, 90, 16),
+                                     (1, 2, 200, 64)])
+def test_narrow_flash_schedule_in_three_passes_matches_jax(b, h, t, d):
+    """The inference body's schedule up to a head width of 128 (64-key tiles
+    to DHP 64 past 128 rows, else 32) in 3xTF32 against JAX's flash kernel in
+    interpret mode, within the flash tolerance; one TF32 pass at least 10x
+    further off."""
+    rs = np.random.RandomState(9)
+    q, k, v = (rs.randn(b, h, t, d).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    three = narrow_flash(qt, kt, vt, matmul_tf32x3).numpy()
+    one = narrow_flash(qt, kt, vt, matmul_tf32).numpy()
     err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
     assert err3 <= TOL_FLASH, err3
     assert err1 >= 10 * err3, (err1, err3)

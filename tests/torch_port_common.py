@@ -204,6 +204,31 @@ def jax_layer_args(p: dict) -> tuple:
             l2["kernel"], l2["bias"], n2["scale"], n2["bias"])
 
 
+def narrow_block_shape(dh: int, t: int) -> dict | None:
+    """The blocks of csrc/flash_attention.cuh's inference flash forward
+    (flash_fwd_narrow_kernel) at head width dh and length t, as NarrowTile
+    and flash_narrow_launch choose them (dh 1 .. 128; None past it): the
+    padded width ``dhp`` (the next multiple of 16), ``nc`` consumer
+    warpgroups of 64 query rows each beside one producer warpgroup
+    (``threads``), key tiles of ``bk`` keys (64 up to DHP 64 where t > 128,
+    else 32), raw rows in
+    ``nb`` tensor-copy boxes of 32 columns, and ``smem`` bytes of shared
+    memory a block (NarrowTile::smem: the raw ring of two stages, the split
+    ring of two, q's small part for each consumer, 64 bytes of mbarriers
+    and 1024 of alignment slack).  ``blocks(B, H, T)`` is the grid.  The
+    tests emulate the kernel's schedule from it."""
+    if not 0 < dh <= 128:
+        return None
+    dhp = -(-dh // 16) * 16
+    nc, bk = (2 if dhp <= 96 else 1), (64 if dhp <= 64 and t > 128 else 32)
+    nb = -(-dhp // 32)
+    floats = 2 * (2 * nb * bk * 32) + 2 * (4 * bk * dhp) + nc * 64 * dhp
+    rows = 64 * nc
+    return dict(dhp=dhp, nc=nc, bk=bk, nb=nb, threads=128 * (nc + 1),
+                smem=4 * floats + 64 + 1024,
+                blocks=lambda b, h, t: b * h * -(-t // rows))
+
+
 # csrc/wide_attention.cuh's wide forward past a head width of 128: the
 # widest head flash_fwd_wide_kernel and band_wide_kernel take (wider ones
 # run in 128-column slices, flash_sliced_kernel and band_sliced_kernel)

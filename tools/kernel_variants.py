@@ -80,11 +80,31 @@ does):
                      after the first (the split reads stale rows)
   wbwd_bounded       the wide passes' score loop with its bound check at
                      every width (shipped: none where the half is KS steps)
+  narrow_mma_sync    the flash forward up to a head width of 128 as PR 4
+                     wrote it: the inference dispatch sent to the training
+                     body (mma.sync.m16n8k8, 4 warps, K and V split as
+                     each warp reads them), in the flash and inference
+                     libraries
+  narrow_bk32        the inference body with 32-key tiles at every shape
+  narrow_bk64        ... with 64-key tiles up to DHP 64 at every length
+                     (shipped: 64 there where T > 128, else 32)
+  narrow_one_consumer the inference body with one consumer warpgroup (64
+                     query rows a block) at every width (shipped: two up to
+                     DHP 96)
+  narrow_no_split    the inference body's producer without its split pass
+                     (the products read stale split tiles)
+  narrow_no_softmax  the inference body without its exponentials
+  narrow_no_products the inference body without its wgmmas (the split
+                     fragments folded into the accumulators)
+  narrow_no_loads    the inference body without its tensor copies (the raw
+                     tiles stay as they are)
+  narrow_bare        all four removed: the pipeline's hand-offs, the q and
+                     output passes and the softmax's other work are left
 
 The variants whose errors are not checked (the gemm_* ones, *_no_*,
-*_blocks, band_pv_two_acc) are ablations, timed to see what a phase or a
-choice costs.  One line a case: the encoder layer at [82, 81, 256] and
-[82, 1201, 256] (ff 1024, 4 heads; its products' device time from the
+*_blocks, band_pv_two_acc, narrow_bare) are ablations, timed to see what a
+phase or a choice costs.  One line a case: the encoder layer at [82, 81,
+256] and [82, 1201, 256] (ff 1024, 4 heads; its products' device time from the
 profiler at 1201 rows), the flash kernel at [82, 4, 1201, 64], the band
 kernel at [82, 8, 1200, 32] (the local block's aliased, transposed heads),
 the local block at [82, 80, 256] and [82, 80, 320] (heads of 40), and, for
@@ -110,8 +130,17 @@ window 60 (past the narrow ring's shared memory), and the local block at
 profiler's device time of a call (every kernel of it), in the turns
 shipped, band_sliced, band_sliced, shipped, beside the plain twin and the
 library (chip_smoke.py's band_sdpa and local_block_sdpa) by CUDA events;
-given alone it builds and times only those two libraries.
-A patch that no longer matches the sources fails loudly.
+given alone it builds and times only those two libraries.  The narrow_*
+variants time the flash forward alone (by CUDA events and by the
+profiler's device time) at [82, 4, 81, 64] (the gesture step), [82, 4,
+1201, 64], [82, 4, 1201, 80], [6, 4, 197, 128], [64, 4, 197, 128] and [32,
+4, 197, 128], and kernel 1 at [82, 81, 256], [6, 197, 512], [64, 197, 512],
+[32, 197, 512], [64, 61, 512] and [12, 61, 512] (4 heads, ff 1024), in the
+turns shipped, each variant, each again in reverse order, shipped, each
+beside the plain twin, the library call (SDPA; the SDPA layer) and the
+bound; given alone they build and time only the flash and inference
+libraries.  A patch that no longer matches the sources fails loudly
+(tests/test_torch_kernel_variants.py checks every patch on the CPU).
 """
 
 from __future__ import annotations
@@ -128,7 +157,7 @@ sys.path.insert(0, HERE)
 
 G, M = "gemm_tf32x3.cuh", "mma_tf32x3.cuh"
 BAND, LOCAL, TILE = "band_attention.cu", "local_block.cu", "band_tile.cuh"
-WIDE = "wide_attention.cuh"
+WIDE, FLASH = "wide_attention.cuh", "flash_attention.cuh"
 WIDE_DISPATCH = "  if (dh <= 144)\n    return flash_fwd_wide_launch<DROP, 9, 1>("
 TRAIN = "encoder_layer_train.cu"
 WIDE_BWD_DISPATCH = "  if (a.dh <= 144) return attn_bwd_wide_launch<DROP, 9, 1>(a, s);\n"
@@ -232,7 +261,39 @@ VARIANTS.update({
                              (LOCAL, "    if (warp == 0 && u + gridDim.x < a.units) "
                                      "fetch(u + gridDim.x, s ^ 1);\n"
                                      "    mbar_wait(&bar[s], (it >> 1) & 1);\n", "")],
+    "narrow_mma_sync": [(FLASH, "    return flash_narrow_launch<DHP>(a, s);",
+                         "    return flash_launch<DHP, false>(a, s);")],
+    "narrow_bk32": [(FLASH, "    if (a.T > 128) return flash_narrow_tiles<DHP, 64>(a, s);",
+                     "    if (false) return flash_narrow_tiles<DHP, 64>(a, s);")],
+    "narrow_bk64": [(FLASH, "    if (a.T > 128) return flash_narrow_tiles<DHP, 64>(a, s);",
+                     "    if (true) return flash_narrow_tiles<DHP, 64>(a, s);")],
+    "narrow_one_consumer": [
+        (FLASH, "  static constexpr int NC = DHP <= 96 ? 2 : 1;    // consumer warpgroups",
+         "  static constexpr int NC = 1;  // consumer warpgroups")],
+    "narrow_no_split": [(FLASH, "      for (int it = 0; it < BK * DHP / 512; ++it) {",
+                         "      for (int it = 0; it < 0; ++it) {")],
+    "narrow_no_softmax": [
+        (FLASH, "        sc[4 * n + e] = exp2f(sc[4 * n + e] - mn_lo);",
+         "        sc[4 * n + e] = sc[4 * n + e] - mn_lo;"),
+        (FLASH, "        sc[4 * n + 2 + e] = exp2f(sc[4 * n + 2 + e] - mn_hi);",
+         "        sc[4 * n + 2 + e] = sc[4 * n + 2 + e] - mn_hi;")],
+    "narrow_no_products": [
+        (FLASH, "      wgmma_rs<BK>(sc, qbig[c], ds);\n"
+                "      wgmma_ss<BK>(sc, wgmma_desc(qs + c * 512, 128, 256), db);\n"
+                "      wgmma_rs<BK>(sc, qbig[c], db);\n",
+         "      sc[c % (BK / 2)] += __uint_as_float(qbig[c][0] ^ qbig[c][1]);\n"),
+        (FLASH, "      wgmma_rs<DHP>(o, p_big[set], ds);\n"
+                "      wgmma_rs<DHP>(o, p_small[set], db);\n"
+                "      wgmma_rs<DHP>(o, p_big[set], db);\n",
+         "      o[n % (DHP / 2)] += __uint_as_float(p_big[set][0] ^ p_small[set][1]);\n")],
+    "narrow_no_loads": [
+        (FLASH, "          mbar_arrive_expect_tx(bar, static_cast<uint32_t>(2 * NB * BOX * "
+                "sizeof(float)));", "          mbar_arrive(bar);"),
+        (FLASH, "          for (int x = 0; x < NB; ++x) {\n            tma_load_4d(",
+         "          for (int x = 0; x < 0; ++x) {\n            tma_load_4d(")],
 })
+VARIANTS["narrow_bare"] = (VARIANTS["narrow_no_loads"] + VARIANTS["narrow_no_products"]
+                          + VARIANTS["narrow_no_softmax"] + VARIANTS["narrow_no_split"])
 # the libraries each variant is timed through
 LIBS = ("encoder_layer", "flash_attention", "band_attention", "local_block",
         "encoder_layer_train")
@@ -248,25 +309,41 @@ for _name in BWD_VARIANTS:
     VARIANT_LIBS[_name] = ("encoder_layer_train",)
 
 
+CSRC = os.path.join(HERE, "gesturediffusion_tpu_torch", "csrc")
+
+
+def patched_sources(name: str, patches) -> dict[str, str]:
+    """{file name: text} of the csrc/ files one variant changes, its patches
+    applied in order (a whole file from tools/variants/ where ``old`` is
+    None); raises where a patch no longer matches the sources."""
+    files: dict[str, str] = {}
+    for fname, old, new in patches:
+        if old is None:  # the whole file, from tools/variants/
+            with open(os.path.join(HERE, "tools", "variants", new)) as f:
+                files[fname] = f.read()
+            continue
+        if fname not in files:
+            with open(os.path.join(CSRC, fname)) as f:
+                files[fname] = f.read()
+        if old not in files[fname]:
+            raise RuntimeError(f"variant {name}: {fname} no longer holds {old!r}")
+        files[fname] = files[fname].replace(old, new)
+    return files
+
+
 def start_build(name: str, patches, libs=LIBS) -> dict:
     """Starts nvcc on each library of one variant; finish_build waits."""
     from gesturediffusion_tpu_torch.ops import _build
 
     src = _build.CSRC_DIR
     if patches is not None:
+        files = patched_sources(name, patches)
         src = os.path.join(HERE, "build", "variants", name)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, src)
-        for fname, old, new in patches:
-            path = os.path.join(src, fname)
-            if old is None:  # the whole file, from tools/variants/
-                shutil.copyfile(os.path.join(HERE, "tools", "variants", new), path)
-                continue
-            text = open(path).read()
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {fname} no longer holds {old!r}")
-            with open(path, "w") as f:
-                f.write(text.replace(old, new))
+        for fname, text in files.items():
+            with open(os.path.join(src, fname), "w") as f:
+                f.write(text)
     out = os.path.join(HERE, "build", "variants", name + "-lib")
     os.makedirs(out, exist_ok=True)
     return {k: (os.path.join(out, f"lib{k}.so"),
@@ -494,6 +571,63 @@ def band_ab(builds, order, rn, cuda_ms, smi):
         del x, coa, want
 
 
+def narrow_ab(builds, order, rn, cuda_ms, smi, flash, layer):
+    """The narrow_* rows: the flash forward alone and kernel 1 at their
+    shipped shapes up to a head width of 128 in the turns of ``order``,
+    each beside the plain twin, the library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import bound_ms, device_split, encoder_layer_sdpa
+    from gesturediffusion_tpu_torch.ops.flash_attention import self_attention_reference
+    from gesturediffusion_tpu_torch.ops.fused_encoder import encoder_layer_plain
+
+    for shape in ((82, 4, 81, 64), (82, 4, 1201, 64), (82, 4, 1201, 80), (6, 4, 197, 128),
+                  (64, 4, 197, 128), (32, 4, 197, 128)):
+        q, k, v = (rn(*shape) for _ in range(3))
+        want = self_attention_reference(q, k, v)
+        b, h, t, dh = shape
+        iters = 5 if t > 1000 else 50
+        parts = []
+        for name in order:
+            lib = builds[name]["flash_attention"]
+            err = (flash(lib, q, k, v) - want).abs().max().item()
+            ms = cuda_ms(lambda: flash(lib, q, k, v), iters)
+            dev, _ = device_split(lambda: flash(lib, q, k, v), 10)
+            parts.append(f"{name} {ms:.4f} ms, device {dev:.4f} (max|diff| {err:.2e})")
+        plain = cuda_ms(lambda: self_attention_reference(q, k, v), 5)
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+        bound, by = bound_ms(4 * b * h * t * t * dh, 4 * 4 * q.numel(), tf32x3=True)
+        print(f"flash {list(shape)}: " + "; ".join(parts) + f"; plain {plain:.4f} ms, "
+              f"F.scaled_dot_product_attention {sdpa:.4f} ms, bound {bound:.4f} ms ({by}) "
+              f"[{smi}]", flush=True)
+        del q, k, v, want
+    for b, t, d in ((82, 81, 256), (6, 197, 512), (64, 197, 512), (32, 197, 512), (64, 61, 512),
+                    (12, 61, 512)):
+        ff = 1024
+        w = (rn(3 * d, d, scale=d**-0.5), rn(3 * d, scale=0.02), rn(d, d, scale=d**-0.5),
+             rn(d, scale=0.02), 1 + rn(d, scale=0.1), rn(d, scale=0.1), rn(ff, d, scale=d**-0.5),
+             rn(ff, scale=0.02), rn(d, ff, scale=ff**-0.5), rn(d, scale=0.02),
+             1 + rn(d, scale=0.1), rn(d, scale=0.1))
+        x = rn(b, t, d)
+        want = encoder_layer_plain(x, *w, num_heads=4)
+        parts = []
+        for name in order:
+            lib = builds[name]["encoder_layer"]
+            err = (layer(lib, x, w) - want).abs().max().item()
+            ms = cuda_ms(lambda: layer(lib, x, w), 50)
+            parts.append(f"{name} {ms:.4f} ms (max|diff| {err:.2e})")
+        plain = cuda_ms(lambda: encoder_layer_plain(x, *w, num_heads=4), 10)
+        sdpa = cuda_ms(lambda: encoder_layer_sdpa(x, *w, 4), 50)
+        m = b * t
+        bound, by = bound_ms(2 * m * (4 * d * d + 2 * d * ff) + 4 * b * t * t * d,
+                             4 * (2 * m * d + sum(y.numel() for y in w)), tf32x3=True)
+        print(f"encoder layer [{b},{t},{d}] heads 4 ff {ff}: " + "; ".join(parts)
+              + f"; plain {plain:.4f} ms, the SDPA layer {sdpa:.4f} ms, bound {bound:.4f} ms "
+              f"({by}) [{smi}]", flush=True)
+        del x, w, want
+
+
 def main(prefixes: list[str]) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -517,10 +651,12 @@ def main(prefixes: list[str]) -> int:
     # band's A/B alone the band and local-block libraries
     only_bwd = all(name in BWD_VARIANTS for name in chosen)
     only_band = chosen == ["band_sliced"]
+    only_narrow = all(name.startswith("narrow_") for name in chosen)
     # every variant's nvcc runs at once
     started = {"shipped": start_build("shipped", None,
                                       ("encoder_layer_train",) if only_bwd else
-                                      VARIANT_LIBS["band_sliced"] if only_band else LIBS)}
+                                      VARIANT_LIBS["band_sliced"] if only_band else
+                                      VARIANT_LIBS["narrow_mma_sync"] if only_narrow else LIBS)}
     started.update({name: start_build(name, VARIANTS[name], VARIANT_LIBS[name])
                     for name in chosen})
     builds = {name: finish_build(name, procs) for name, procs in started.items()}
@@ -588,6 +724,13 @@ def main(prefixes: list[str]) -> int:
         if code:
             raise RuntimeError(f"flash variant failed: CUDA error {code}")
         return out
+
+    narrow = [name for name in chosen if name.startswith("narrow_")]
+    if narrow:
+        narrow_ab(builds, ("shipped", *narrow, *narrow[::-1], "shipped"), rn, cuda_ms, smi,
+                  flash, layer)
+    if only_narrow:
+        return 0
 
     def device_ms(fn, kernel, iters=20):
         """the profiler's device time of the kernel, per launch it traced"""
