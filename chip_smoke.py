@@ -10,10 +10,13 @@ Phases, each fatal on failure:
               mma.sync's HMMA) of each product kernel of the five libraries
               in their SASS; the inference flash forward to 128 columns
               (flash_fwd_narrow_kernel, 12 instantiations in the flash and
-              the inference-layer libraries) must hold TF32 HGMMA
+              the inference-layer libraries) and the inference layer's
+              GEMM (gemm_ws_kernel, 7 instantiations) must hold TF32 HGMMA
   3. parity   each kernel against its plain PyTorch version on the card at
               the main-path shapes, with the tolerance stated: the sampling
-              kernels at batch 82, the training layer's forward (rates 0.1
+              kernels at batch 82 (and kernel 1's four products on
+              gemm_ws.cuh against the parent GEMM, the difference and
+              whether it is zero logged), the training layer's forward (rates 0.1
               and 0) and backward (dx and 12 gradients) at microbatch 64 and
               81 rows (80 frames and the token), 121 rows (the train CLI's
               default 120 frames) and 201 rows (off every tile); the local
@@ -31,7 +34,8 @@ Phases, each fatal on failure:
   4. sample   the full-width gesture MDM V2 (J=498, D=256, 8 layers) with
               seeded random weights samples a 41-take, 2-chunk CFG take
               (batch 82) through select_sampling_model_fn ->
-              autoregressive_sample_loop, counting kernel launches; the same
+              autoregressive_sample_loop, counting kernel launches (and the
+              weight splits: 32 in the first take, none in the second); the same
               take re-runs with the plain versions on the card and the two
               are compared; the same take through the time-major "btj"
               fast path (state [B, T, J], time_axis=1) against the "bjft"
@@ -3553,6 +3557,36 @@ def report(name, err, tol, ok_shape=True):
         raise AssertionError(f"{name} disagrees with its plain version")
 
 
+def gemm_ws_parity(x, w):
+    """The inference layer's four products at x's rows on csrc/gemm_ws.cuh
+    against the parent GEMM (gemm_tf32x3.cuh's gemm_nt) on the same operands
+    (A: x's rows, and for ff2 random rows of width F from a generator of its
+    own, so the phases after keep their inputs), each difference logged with
+    whether it is zero; raises past TOL_ENCODER.  Returns the largest."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder import layer_product
+
+    wqkv, bqkv, wo, bo, _, _, w1, b1, w2, b2, _, _ = w
+    rows = x.reshape(-1, x.shape[-1])
+    gen = torch.Generator(device=x.device).manual_seed(23)
+    ff = torch.randn(rows.shape[0], w1.shape[0], device=x.device, generator=gen)
+    worst = 0.0
+    for name, a, wt, bias, epi in (("qkv", rows, wqkv, bqkv, "bias"),
+                                   ("out", rows, wo, bo, "resid"),
+                                   ("ff1", rows, w1, b1, "gelu"),
+                                   ("ff2", ff, w2, b2, "resid")):
+        resid = rows if epi == "resid" else None
+        got = layer_product(a, wt, bias, epi=epi, resid=resid)
+        parent = layer_product(a, wt, bias, epi=epi, resid=resid, parent=True)
+        torch.cuda.synchronize()
+        err = (got - parent).abs().max().item()
+        report(f"gemm_ws {name} [{a.shape[0]},{wt.shape[0]},{a.shape[1]}] against the parent "
+               f"GEMM (bit for bit: {torch.equal(got, parent)})", err, TOL_ENCODER)
+        worst = max(worst, err)
+    return worst
+
+
 def band_edges_parity(randn):
     """Kernels 2 and 3 off the main path's shapes: the local block at one
     tile (T 10), off the 16-query tile (90), at 16 tiles (256), at heads
@@ -5200,6 +5234,7 @@ def main() -> int:
     from gesturediffusion_tpu_torch.ops.fused_encoder import (
         encoder_layer_plain,
         fused_encoder_layer,
+        weight_split,
     )
     from gesturediffusion_tpu_torch.ops.flash_attention import (
         fused_self_attention,
@@ -5244,7 +5279,8 @@ def main() -> int:
     log(f"build: {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry",
+                                       "wgmma")):
                 log(f"  {name}: {line.strip()}")
     for lib in ("encoder_layer_train", "band_attention", "local_block", "flash_attention",
                 "encoder_layer"):
@@ -5258,9 +5294,17 @@ def main() -> int:
             if len(narrow) != 12 or not all(ops["HGMMA"] for ops in narrow.values()):
                 raise AssertionError(f"{lib}: the inference flash kernels without TF32 "
                                      f"HGMMA: {narrow}")
+        if sass and lib == "encoder_layer":
+            # the inference layer's products (gemm_ws.cuh): 128 x 128 and
+            # 64 x 128 tiles with bias, GELU, residual; 64 x 256 with the
+            # LayerNorm
+            ws = {fn: ops for fn, ops in sass.items() if "gemm_ws_kernel" in fn}
+            if len(ws) != 7 or not all(ops["HGMMA"] for ops in ws.values()):
+                raise AssertionError(f"{lib}: the inference layer's GEMM without TF32 HGMMA: "
+                                     f"{ws}")
         for fn, ops in sorted(sass.items()):
             product = any(k in fn for k in (
-                "gemm_tf32x3_kernel", "flash_attention_kernel", "flash_fwd_narrow_kernel",
+                "gemm_tf32x3_kernel", "gemm_ws_kernel", "flash_attention_kernel", "flash_fwd_narrow_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "band_attention_kernel",
                 "local_block_kernel",
                 "flash_fwd_wide_kernel", "flash_sliced_kernel", "band_wide_kernel",
@@ -5306,6 +5350,7 @@ def main() -> int:
         f"max|diff| {enc_err:.3e} (tol {TOL_ENCODER:g})")
     if not ok:
         raise AssertionError("encoder_layer kernel disagrees with its plain version")
+    gemm_ws_parity(xe, enc_w)
 
     seed = torch.tensor([20240], dtype=torch.int32, device=dev)
     train_x = {t: (randn(MB, t, D), randn(MB, t, D)) for t in TRAIN_ROWS}
@@ -5346,10 +5391,12 @@ def main() -> int:
     fused_local_block.launches = 0
     fused_encoder_layer.launches = 0
     fused_self_attention.launches = 0
+    weight_split.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = take(1)
     first_s = time.perf_counter() - t0
+    splits = weight_split.launches
     launches = {"local_block": fused_local_block.launches,
                 "encoder_layer": fused_encoder_layer.launches,
                 "flash_attention": fused_self_attention.launches}
@@ -5367,6 +5414,15 @@ def main() -> int:
     t0 = time.perf_counter()
     take(1)
     kernel_take_s = time.perf_counter() - t0
+    # each layer's four weights split once, at the first step, never again
+    ok = (splits, weight_split.launches) == (4 * LAYERS, 4 * LAYERS)
+    held = sum(4 * model.seqTransEncoder.layers[i].weights()[j].numel() * 2
+               for i in range(LAYERS) for j in (0, 2, 6, 8))
+    log(f"{'OK' if ok else 'FAIL'} weight splits: {splits} in the first take, "
+        f"{weight_split.launches - splits} in the second (expected {4 * LAYERS}, 0); "
+        f"the model's splits hold {held / 1e6:.1f} MB {card}")
+    if not ok:
+        raise AssertionError("the layers' weights were not split once")
     model.use_kernels = False
     t0 = time.perf_counter()
     out_plain = take(1)

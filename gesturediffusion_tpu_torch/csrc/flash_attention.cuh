@@ -156,6 +156,7 @@
 
 #include "common.cuh"
 #include "mma_tf32x3.cuh"
+#include "tma.cuh"
 #include "wide_attention.cuh"
 
 namespace {
@@ -369,57 +370,7 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b) {
   else wgmma_ss_n64(d, a, b);
 }
 
-// ---- the copy engine's tensor copies, mbarriers, named barriers ---------- //
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// one thread: an mbarrier that completes a phase on `count` arrivals (and
-// the bytes they expect); then mbar_init_fence, then a block barrier
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// one arrival that also expects `bytes` of tensor copies on this phase
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// waits for the completion of the barrier's phase of parity `parity` (its
-// n-th phase has parity n % 2)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// the box of tensor map `map` at coordinates (c0, c1, c2, c3) global ->
-// shared by the copy engine (out-of-bounds elements read as zeros),
-// completing on `bar`
-__device__ __forceinline__ void tma_load_4d(float* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
+// ---- named barriers -------------------------------------------------------- //
 
 // the `n` threads of one warpgroup wait for each other (barrier `id`, not 0)
 __device__ __forceinline__ void named_sync(int id, int n) {
@@ -1002,30 +953,6 @@ cudaError_t flash_launch(const FlashArgs& a, cudaStream_t s) {
       a.q, a.k, a.v, a.out, a.sq, a.sk, a.sv, a.so, a.H, a.T, a.dh, a.vec, a.scale, a.drop,
       a.lse);
   return cudaSuccess;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against the driver library), or null where the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // The tensor map of a [B, H, T, dh] operand read through its strides (rows

@@ -1,14 +1,18 @@
-// 3xTF32 tensor-core GEMM of both encoder layers (encoder_layer.cu,
-// encoder_layer_train.cu), and the 3xTF32 primitives the attention kernels
-// share (flash_attention.cuh, the training layer's attention backward).
+// 3xTF32 tensor-core GEMM of the training layer (encoder_layer_train.cu) and
+// of the inference layer's products outside gemm_ws.cuh's rule
+// (encoder_layer.cu: rows not 16-byte aligned, or K past 1024), and the
+// 3xTF32 primitives the attention kernels share (flash_attention.cuh, the
+// training layer's attention backward).
 //
-// Replaces: the four products of
+// Replaces: the products of pallas_encoder_train.py::_fwd_kernel and
+// ::_bwd_kernel: the four forward products of
 // gesturediffusion_tpu/ops/pallas_encoder.py::_encoder_layer_kernel (qkv,
-// out-projection, ff1 with GELU, ff2), each a jnp.dot with
-// preferred_element_type=float32 at full f32 precision, and the products of
-// pallas_encoder_train.py::_fwd_kernel and ::_bwd_kernel: the same four
-// forward products with dropout, the data gradients dX = dY . W and the
-// weight gradients dW = dY^T . X.
+// out-projection, ff1 with GELU, ff2, each a jnp.dot with
+// preferred_element_type=float32 at full f32 precision) with dropout, the
+// data gradients dX = dY . W and the weight gradients dW = dY^T . X; and the
+// inference layer's products where gemm_ws.cuh (the redesign for Hopper:
+// weights split once, TMA, a producer warp, a persistent walk) does not
+// take them.
 //
 // Why three passes.  A TF32 operand keeps 10 of f32's 23 mantissa bits, so a
 // single-pass TF32 product is off by ~1e-3 relative: another result than the
@@ -57,8 +61,8 @@
 // form), the dropout of a training site, the GELU derivative or the
 // residual, and stores float2 pairs.  Overlapping the next slice's split
 // with the running wgmmas (two B buffers) measured no faster with a 2-stage
-// ring and slower with 3 (one block an SM); TMA, swizzled tiles and a
-// producer warp are later work.
+// ring and slower with 3 (one block an SM).  gemm_ws.cuh keeps this file's
+// arithmetic and k order on a Hopper pipeline for the inference layer.
 //
 // The 3xTF32 split and the mma.sync primitives the attention kernels use
 // live in mma_tf32x3.cuh; tools/tf32_ceiling.py measures both instructions'

@@ -41,6 +41,11 @@ from gesturediffusion_tpu_torch.ops.flash_attention import (
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
     encoder_layer_plain,
     fused_encoder_layer,
+    kernel_layer_routes,
+    layer_product,
+    layer_routes,
+    split_weight_plain,
+    weight_split,
 )
 from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
     encoder_layer_train_bwd,
@@ -505,6 +510,172 @@ def test_encoder_layer_runs_the_narrow_flash_stage_at_the_gesture_shape(dev):
     assert (fused_encoder_layer.launches - before[0],
             fused_self_attention.launches - before[1]) == (1, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# csrc/gemm_ws.cuh, the inference layer's products: M off every tile, the
+# gesture and t2m layers' N and K
+GEMM_WS_M, GEMM_WS_N, GEMM_WS_K = (1, 63, 129, 6642), (256, 768, 1024), (256, 512, 1024)
+
+
+def _product_operands(m, n, k, seed):
+    rs = np.random.RandomState(seed)
+    return (_randn(rs, m, k, device="cuda"), _randn(rs, n, k, scale=k**-0.5, device="cuda"),
+            _randn(rs, n, scale=0.02, device="cuda"), _randn(rs, m, n, device="cuda"))
+
+
+@pytest.mark.parametrize("k", GEMM_WS_K)
+@pytest.mark.parametrize("n", GEMM_WS_N)
+@pytest.mark.parametrize("m", GEMM_WS_M)
+def test_gemm_ws_matches_the_parent_gemm(dev, m, n, k):
+    """The new GEMM against the parent (gemm_tf32x3.cuh's gemm_nt) on the
+    same operands, bias epilogue: the same three passes in the same order
+    over K (the difference, and whether it is zero, printed), and both
+    against the float64 product, within 2e-5 of its largest magnitude: the
+    tensor cores truncate each sum into the accumulator, 384 times at K 1024
+    (gemm_tf32x3.cuh's note on kTcFlushK)."""
+    a, w, bias, _ = _product_operands(m, n, k, 50)
+    got = layer_product(a, w, bias)
+    parent = layer_product(a, w, bias, parent=True)
+    torch.cuda.synchronize()
+    want = a.double() @ w.double().T + bias.double()
+    scale = want.abs().max().item()
+    diff = (got - parent).abs().max().item()
+    print(f"gemm_ws vs parent [{m},{n},{k}]: max|diff| {diff:.3e}, bit for bit "
+          f"{torch.equal(got, parent)}")
+    assert diff <= 2e-5 * scale, diff
+    for c in (got, parent):
+        assert (c.double() - want).abs().max().item() <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("epi", ["gelu", "resid"])
+@pytest.mark.parametrize("m,n,k", [(6642, 1024, 256), (6642, 256, 1024), (129, 768, 512)])
+def test_gemm_ws_epilogues_match_the_parent(dev, m, n, k, epi):
+    a, w, bias, resid = _product_operands(m, n, k, 51)
+    got = layer_product(a, w, bias, epi=epi, resid=resid)
+    parent = layer_product(a, w, bias, epi=epi, resid=resid, parent=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, parent, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [256, 128, 36])
+@pytest.mark.parametrize("m,k", [(1, 256), (63, 1024), (129, 512), (6642, 256), (6642, 1024)])
+def test_gemm_ws_layernorm_epilogue_matches_plain(dev, m, n, k):
+    """bias + residual + LayerNorm in the epilogue (whole rows of N <= 256 in
+    one warpgroup; columns past N left out of the statistics) against the
+    parent's product and F.layer_norm."""
+    a, w, bias, resid = _product_operands(m, n, k, 52)
+    rs = np.random.RandomState(53)
+    lw, lb = 1.0 + _randn(rs, n, scale=0.1, device=dev), _randn(rs, n, scale=0.1, device=dev)
+    got = layer_product(a, w, bias, epi="ln", resid=resid, ln=(lw, lb))
+    pre = layer_product(a, w, bias, epi="resid", resid=resid, parent=True)
+    want = torch.nn.functional.layer_norm(pre, (n,), lw, lb, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("n,k", [(768, 256), (256, 1024), (96, 12), (5, 1040)])
+def test_weight_split_kernel_is_its_plain_twin(dev, n, k):
+    w = _randn(np.random.RandomState(54), n, k, device=dev)
+    assert torch.equal(weight_split(w).split, split_weight_plain(w))
+
+
+def test_gemm_ws_raises_outside_its_rule(dev):
+    """K past 1024, or a width not a multiple of 4, is refused, not run."""
+    for m, n, k in ((64, 256, 1040), (64, 258, 256)):
+        a, w, bias, _ = _product_operands(m, n, k, 55)
+        with pytest.raises(RuntimeError, match="encoder_layer"):
+            layer_product(a, w, bias)
+
+
+@pytest.mark.parametrize("d", [32, 64, 130, 198, 256, 264, 512, 1024, 1088])
+@pytest.mark.parametrize("f", [128, 1024, 1030, 1040, 4096])
+def test_layer_routes_mirror_the_kernels(dev, d, f):
+    assert kernel_layer_routes(d, f) == layer_routes(d, f)
+
+
+def _layer_kernel_count(x, w, heads):
+    from torch.profiler import ProfilerActivity, profile
+
+    fused_encoder_layer(x, *w, num_heads=heads)  # the splits, once
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_encoder_layer(x, *w, num_heads=heads)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU)
+
+
+@pytest.mark.parametrize("d,launches", [(256, 5), (512, 7)])
+def test_encoder_layer_launches(dev, d, launches):
+    """The gesture layer is five kernels (qkv, flash, out + LN1, ff1,
+    ff2 + LN2); past D 256 the two LayerNorm launches stay."""
+    w = _encoder_weights(d, 1024, dev, seed=56)
+    x = _randn(np.random.RandomState(56), 8, 81, d, device=dev)
+    assert _layer_kernel_count(x, w, 4) == launches
+
+
+@pytest.mark.parametrize("change", ["add_", "copy_", "load_state_dict"])
+def test_encoder_layer_sees_a_weight_changed_in_place(dev, change):
+    """A weight changed in place after a call (an optimizer step, copy_,
+    load_state_dict) is split again: the next call is the plain layer's on
+    the new values."""
+    from gesturediffusion_tpu_torch.models.transformer import TransformerEncoderLayer
+
+    torch.manual_seed(57)
+    layer = TransformerEncoderLayer(256, 4, 1024, 0.0).to(dev).eval()
+    x = _randn(np.random.RandomState(57), 4, 81, 256, device=dev)
+    with torch.no_grad():
+        first = layer(x)
+        if change == "add_":
+            for prm in layer.parameters():
+                prm.add_(0.01 * torch.randn_like(prm))
+        elif change == "copy_":
+            layer.linear2.weight.copy_(torch.randn_like(layer.linear2.weight) * 0.03)
+        else:
+            other = TransformerEncoderLayer(256, 4, 1024, 0.0).to(dev)
+            layer.load_state_dict(other.state_dict())
+        got = layer(x)
+        want = encoder_layer_plain(x, *layer.weights(), num_heads=4)
+    torch.cuda.synchronize()
+    assert (got - first).abs().max().item() > 1e-3
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_encoder_layer_of_inference_tensors(dev, d):
+    """A layer built under torch.inference_mode(): its weights count no
+    versions, so each call splits them anew, and those splits live until the
+    layer's launches are queued (the scratch the call allocates after them
+    never takes their memory).  Two calls at [82,81,D] against the plain
+    layer."""
+    from gesturediffusion_tpu_torch.models.transformer import TransformerEncoderLayer
+
+    torch.manual_seed(59)
+    with torch.inference_mode():
+        layer = TransformerEncoderLayer(d, 4, 1024, 0.0).to(dev).eval()
+        assert all(w.is_inference() for w in layer.weights())
+        x = _randn(np.random.RandomState(59), 82, 81, d, device=dev)
+        before = weight_split.launches
+        got = [layer(x) for _ in range(2)]
+        want = encoder_layer_plain(x, *layer.weights(), num_heads=4)
+    torch.cuda.synchronize()
+    assert weight_split.launches - before == 8
+    for y in got:
+        torch.testing.assert_close(y, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,heads,f", [(130, 2, 1030), (198, 3, 792), (256, 4, 1040)])
+def test_encoder_layer_outside_the_rule_takes_the_parent(dev, d, heads, f):
+    """Products outside gemm_ws.cuh's rule run the parent GEMM (no split of
+    their weights) and the layer still matches the plain one."""
+    w = _encoder_weights(d, f, dev, seed=58)
+    x = _randn(np.random.RandomState(58), 3, 81, d, device=dev)
+    before = weight_split.launches
+    got = fused_encoder_layer(x, *w, num_heads=heads)
+    torch.cuda.synchronize()
+    assert weight_split.launches - before == bin(layer_routes(d, f) & 15).count("1")
+    torch.testing.assert_close(got, encoder_layer_plain(x, *w, num_heads=heads), rtol=0,
+                               atol=1e-4)
 
 
 # head widths past 128 (csrc/wide_attention.cuh): --latent_dim 544, 1024,

@@ -12,14 +12,6 @@ does):
 
   cvt_rounding       TF32 rounding by cvt.rna.tf32.f32 instead of the two
                      integer operations of tf32_rn (the same rounding)
-  gemm_no_loads      the GEMM without its global loads (shared memory keeps
-                     stale data)
-  gemm_no_split      the GEMM's W split pass without its shared-memory
-                     reads, its proxy fence and its barrier (the rounding
-                     and the stores stay)
-  gemm_no_a_frags    the GEMM without its A fragment reads
-  gemm_wgmma_only    the GEMM with all three removed: wgmma, the epilogue
-                     and the stage's barriers are left
   band_no_math       the band kernel without its band tiles (the ring's
                      loads, barriers and the stores of zeros are left)
   band_no_loads      the band kernel without its ring loads (the tiles
@@ -100,8 +92,29 @@ does):
                      tiles stay as they are)
   narrow_bare        all four removed: the pipeline's hand-offs, the q and
                      output passes and the softmax's other work are left
+  ws_parent          kernel 1's products on the parent GEMM again
+                     (gemm_tf32x3.cuh's gemm_nt, the LayerNorm row kernel
+                     after the out-projection and ff2): layer_routes sends
+                     every product there
+  ws_no_loads        gemm_ws.cuh without its tensor copies (the ring keeps
+                     stale data; the producer still signals each stage)
+  ws_no_a_split      gemm_ws.cuh's consumers without reading and splitting A's
+                     fragments (constant bits in their place)
+  ws_no_ln           gemm_ws.cuh without the LayerNorm epilogue: the
+                     out-projection and ff2 with the residual epilogue, the
+                     row kernel after each (seven launches at D 256)
+  ws_ln_one_consumer the LayerNorm route's 64 x 256 tiles on one consumer
+                     warpgroup of n256 (shipped: two of 128 columns each,
+                     the row sums exchanged in shared memory)
+  ws_cols            the bias, GELU and residual routes on 64 x 256 tiles,
+                     the two consumers 128 columns each, as the LayerNorm
+                     route (shipped: 128 x 128, 64 rows each, or 64 x 128
+                     where those fit one wave)
+  ws_no_short        those routes on 128 x 128 tiles at every M (shipped:
+                     64 x 128, 64 columns a consumer, where those fit one
+                     wave of the card)
 
-The variants whose errors are not checked (the gemm_* ones, *_no_*,
+The variants whose errors are not checked (*_no_* but ws_no_ln,
 *_blocks, band_pv_two_acc, narrow_bare) are ablations, timed to see what a
 phase or a choice costs.  One line a case: the encoder layer at [82, 81,
 256] and [82, 1201, 256] (ff 1024, 4 heads; its products' device time from the
@@ -139,7 +152,19 @@ profiler's device time) at [82, 4, 81, 64] (the gesture step), [82, 4,
 turns shipped, each variant, each again in reverse order, shipped, each
 beside the plain twin, the library call (SDPA; the SDPA layer) and the
 bound; given alone they build and time only the flash and inference
-libraries.  A patch that no longer matches the sources fails loudly
+libraries.  The ws_* variants time kernel 1 at [82, 81, 256], [6, 197, 512],
+[64, 197, 512], [32, 197, 512], [64, 61, 512] and [12, 61, 512] (4 heads,
+ff 1024; CUDA events over back-to-back calls, and the profiler's device
+time of its products: every gemm_ws_kernel and gemm_tf32x3_kernel of a
+call) in the turns shipped, each variant, each again in reverse order,
+shipped, then
+the products row: each of the four products alone at the gesture layer's
+[6642 rows, D 256] and the t2m layer's [12608, 512] (ff 1024) by the
+profiler's device time a launch, on gemm_ws.cuh and on the parent GEMM
+(csrc/encoder_layer.cu's gdt_gemm_ws_f32 and gdt_gemm_parent_f32, shipped
+build), beside F.linear in full f32 (TF32 off; the profiler's device time
+of its kernels) and the product's bound, 3 x FLOP / 495 TFLOP/s; given
+alone they build and time only the inference library.  A patch that no longer matches the sources fails loudly
 (tests/test_torch_kernel_variants.py checks every patch on the CPU).
 """
 
@@ -155,7 +180,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-G, M = "gemm_tf32x3.cuh", "mma_tf32x3.cuh"
+M = "mma_tf32x3.cuh"
 BAND, LOCAL, TILE = "band_attention.cu", "local_block.cu", "band_tile.cuh"
 WIDE, FLASH = "wide_attention.cuh", "flash_attention.cuh"
 WIDE_DISPATCH = "  if (dh <= 144)\n    return flash_fwd_wide_launch<DROP, 9, 1>("
@@ -168,18 +193,7 @@ VARIANTS = {
     "cvt_rounding": [(M, "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
                       "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n"
                       "  return r;")],
-    "gemm_no_loads": [(G, "    if (next < ktiles) load_stage(next % kTcStages, next);", ""),
-                      (G, "    if (s < ktiles) load_stage(s, s);", "")],
-    "gemm_no_split": [(G, "    fence_proxy_async();\n    __syncthreads();\n", ""),
-                      (G, "        const float4 lo = ld4(bs), hi = ld4(bs + 4);",
-                       "        const float4 lo = make_float4(1.f, 2.f, 3.f, 4.f), hi = lo;")],
-    "gemm_no_a_frags": [(G, "        lo = *reinterpret_cast<const float2*>(as + arow * kTcLd + 8 * s + 2 * t);\n"
-                            "        hi = *reinterpret_cast<const float2*>(as + (arow + 8) * kTcLd + 8 * s"
-                            " + 2 * t);",
-                         "        lo = make_float2(s, 1.f);\n        hi = lo;")],
 }
-VARIANTS["gemm_wgmma_only"] = (VARIANTS["gemm_no_loads"] + VARIANTS["gemm_no_split"]
-                               + VARIANTS["gemm_no_a_frags"])
 ROWS = (LOCAL, None, "local_block_rows.cu")  # the whole file, from tools/variants/
 BAND_CALL = "    band_tile<DHP>(q0, T, a.window, a.scale_log2, qrow, krow, vrow, o);"
 LOCAL_CALL = "    band_tile<DHP>(q0, T, a.window, a.scale_log2, row, row, row, o);"
@@ -292,6 +306,32 @@ VARIANTS.update({
         (FLASH, "          for (int x = 0; x < NB; ++x) {\n            tma_load_4d(",
          "          for (int x = 0; x < 0; ++x) {\n            tma_load_4d(")],
 })
+WS, LAYER = "gemm_ws.cuh", "encoder_layer.cu"
+VARIANTS.update({
+    "ws_parent": [(LAYER, "int layer_routes(int D, int F) {\n",
+                   "int layer_routes(int D, int F) {\n  if (D > 0) return 0;\n")],
+    "ws_no_loads": [(WS, "          mbar_arrive_expect_tx(&full[s], Tile::kStageBytes);\n"
+                         "          tma_load_2d(stage, &tma, ks * kWsBK, m0, &full[s]);\n"
+                         "#pragma unroll\n          for (int part = 0; part < 2; ++part) {",
+                     "          mbar_arrive(&full[s]);\n"
+                     "#pragma unroll\n          for (int part = 0; part < 0; ++part) {")],
+    "ws_no_a_split": [(WS, "        const float2 lo = ld2f(a + arow * kWsBK + col);\n"
+                           "        const float2 hi = ld2f(a + (arow + 8) * kWsBK + col);\n"
+                           "        split_tf32(lo.x, a_big[buf][0], a_small[buf][0]);\n"
+                           "        split_tf32(hi.x, a_big[buf][1], a_small[buf][1]);\n"
+                           "        split_tf32(lo.y, a_big[buf][2], a_small[buf][2]);\n"
+                           "        split_tf32(hi.y, a_big[buf][3], a_small[buf][3]);\n",
+                       "        a_big[buf][0] = a_big[buf][1] = a_big[buf][2] = a_big[buf][3] = col;\n"
+                       "        a_small[buf][0] = a_small[buf][1] = a_small[buf][2] = "
+                       "a_small[buf][3] = 0u;\n")],
+    "ws_no_ln": [(LAYER, "  if (D <= kWsLnCols) r |= (r & 2) << 3 | (r & 8) << 2;\n", "")],
+    "ws_ln_one_consumer": [(WS, "    return gemm_ws_launch<2, kWsLnCols, true, EPI>(",
+                            "    return gemm_ws_launch<1, kWsLnCols, true, EPI>(")],
+    "ws_cols": [(WS, "    return gemm_ws_launch<2, 128, false, EPI>(",
+                 "    return gemm_ws_launch<2, 256, true, EPI>(")],
+    "ws_no_short": [(WS, "    if (short_tiles <= wave) return gemm_ws_launch<2, 128, true, EPI>(A, tmw, "
+                         "p, s);\n", "")],
+})
 VARIANTS["narrow_bare"] = (VARIANTS["narrow_no_loads"] + VARIANTS["narrow_no_products"]
                           + VARIANTS["narrow_no_softmax"] + VARIANTS["narrow_no_split"])
 # the libraries each variant is timed through
@@ -307,6 +347,9 @@ BWD_VARIANTS = ("wide_bwd_sliced", "wbwd_no_scores", "wbwd_no_outputs", "wbwd_no
                 "wbwd_no_loads", "wbwd_bounded")
 for _name in BWD_VARIANTS:
     VARIANT_LIBS[_name] = ("encoder_layer_train",)
+WS_VARIANTS = tuple(name for name in VARIANTS if name.startswith("ws_"))
+for _name in WS_VARIANTS:
+    VARIANT_LIBS[_name] = ("encoder_layer",)
 
 
 CSRC = os.path.join(HERE, "gesturediffusion_tpu_torch", "csrc")
@@ -628,6 +671,76 @@ def narrow_ab(builds, order, rn, cuda_ms, smi, flash, layer):
         del x, w, want
 
 
+def ws_ab(builds, order, rn, cuda_ms, smi, layer):
+    """The ws_* rows: kernel 1 at its shipped shapes up to D 512 in the
+    turns of ``order`` (CUDA events, and the device time of its products)."""
+    from chip_smoke import bound_ms, device_split, encoder_layer_sdpa
+    from gesturediffusion_tpu_torch.ops.fused_encoder import encoder_layer_plain
+
+    checked = ("shipped", "ws_parent", "ws_no_ln", "ws_ln_one_consumer", "ws_cols",
+               "ws_no_short")
+    for b, t, d in ((82, 81, 256), (6, 197, 512), (64, 197, 512), (32, 197, 512), (64, 61, 512),
+                    (12, 61, 512)):
+        ff = 1024
+        w = (rn(3 * d, d, scale=d**-0.5), rn(3 * d, scale=0.02), rn(d, d, scale=d**-0.5),
+             rn(d, scale=0.02), 1 + rn(d, scale=0.1), rn(d, scale=0.1), rn(ff, d, scale=d**-0.5),
+             rn(ff, scale=0.02), rn(d, ff, scale=ff**-0.5), rn(d, scale=0.02),
+             1 + rn(d, scale=0.1), rn(d, scale=0.1))
+        x = rn(b, t, d)
+        want = encoder_layer_plain(x, *w, num_heads=4)
+        parts = []
+        for name in order:
+            lib = builds[name]["encoder_layer"]
+            got = layer(lib, x, w)
+            note = f"{(got - want).abs().max().item():.2e}" if name in checked else "not checked"
+            ms = cuda_ms(lambda: layer(lib, x, w), 50)
+            _, kernels = device_split(lambda: layer(lib, x, w), 10, "gemm")
+            gemm = sum(k for n, (k, _) in kernels.items() if "gemm_" in n)
+            parts.append(f"{name} {ms:.4f} ms, products {gemm:.4f} device (max|diff| {note})")
+        plain = cuda_ms(lambda: encoder_layer_plain(x, *w, num_heads=4), 10)
+        sdpa = cuda_ms(lambda: encoder_layer_sdpa(x, *w, 4), 50)
+        m = b * t
+        bound, by = bound_ms(2 * m * (4 * d * d + 2 * d * ff) + 4 * b * t * t * d,
+                             4 * (2 * m * d + sum(y.numel() for y in w)), tf32x3=True)
+        pbound, _ = bound_ms(2 * m * (4 * d * d + 2 * d * ff), 0, tf32x3=True)
+        print(f"encoder layer [{b},{t},{d}] heads 4 ff {ff}: " + "; ".join(parts)
+              + f"; plain {plain:.4f} ms, the SDPA layer {sdpa:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), the products' bound {pbound:.4f} ms [{smi}]", flush=True)
+        del x, w, want
+
+
+def products_ab(rn, smi):
+    """The products row: each of kernel 1's four products alone, gemm_ws.cuh
+    against the parent GEMM and F.linear in full f32, by the profiler's
+    device time a launch, beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import bound_ms, device_split
+    from gesturediffusion_tpu_torch.ops.fused_encoder import layer_product
+
+    for m, d in ((6642, 256), (12608, 512)):
+        ff = 1024
+        rows = []
+        for name, n, k, epi in (("qkv", 3 * d, d, "bias"),
+                                ("out", d, d, "ln" if d <= 256 else "resid"),
+                                ("ff1", ff, d, "gelu"),
+                                ("ff2", d, ff, "ln" if d <= 256 else "resid")):
+            a, w, bias, resid = rn(m, k), rn(n, k, scale=k**-0.5), rn(n, scale=0.02), rn(m, n)
+            ln = (1 + rn(n, scale=0.1), rn(n, scale=0.1))
+            new, _ = device_split(lambda: layer_product(a, w, bias, epi=epi, resid=resid, ln=ln),
+                                  20, "gemm_ws")
+            pe = "resid" if epi == "ln" else epi
+            old, _ = device_split(lambda: layer_product(a, w, bias, epi=pe, resid=resid,
+                                                        parent=True), 20, "gemm_tf32x3")
+            lib, _ = device_split(lambda: F.linear(a, w, bias), 20)
+            bound, _ = bound_ms(2 * m * n * k, 0, tf32x3=True)
+            rows.append(f"{name} [{m},{n},{k}] {epi}: gemm_ws {new:.4f} ms ({bound / new:.2f} of "
+                        f"the bound), parent {old:.4f}, F.linear f32 {lib:.4f}, bound {bound:.4f}")
+            del a, w, bias, resid
+        print(f"products D {d}: " + "; ".join(rows) + f" [{smi}]", flush=True)
+
+
 def main(prefixes: list[str]) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -652,11 +765,13 @@ def main(prefixes: list[str]) -> int:
     only_bwd = all(name in BWD_VARIANTS for name in chosen)
     only_band = chosen == ["band_sliced"]
     only_narrow = all(name.startswith("narrow_") for name in chosen)
+    only_ws = all(name.startswith("ws_") for name in chosen)
     # every variant's nvcc runs at once
     started = {"shipped": start_build("shipped", None,
                                       ("encoder_layer_train",) if only_bwd else
                                       VARIANT_LIBS["band_sliced"] if only_band else
-                                      VARIANT_LIBS["narrow_mma_sync"] if only_narrow else LIBS)}
+                                      VARIANT_LIBS["narrow_mma_sync"] if only_narrow else
+                                      ("encoder_layer",) if only_ws else LIBS)}
     started.update({name: start_build(name, VARIANTS[name], VARIANT_LIBS[name])
                     for name in chosen})
     builds = {name: finish_build(name, procs) for name, procs in started.items()}
@@ -697,17 +812,39 @@ def main(prefixes: list[str]) -> int:
          rn(ff, scale=0.02), rn(d, ff, scale=ff**-0.5), rn(d, scale=0.02), 1 + rn(d, scale=0.1),
          rn(d, scale=0.1))
 
+    splits = {}  # (library, weights) -> the four weights' splits and maps
+
+    def weight_maps(lib, w):
+        """the maps of w's four weight splits by the library's own split"""
+        entry = splits.get((id(lib), id(w)))
+        if entry is None or entry[0] is not w:
+            fn = lib.gdt_split_weight_f32
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+            held = []
+            for y in (w[0], w[2], w[6], w[8]):
+                n, k = y.shape
+                split = torch.empty(2, n, (k + 7) // 8 * 8, device="cuda")
+                tmap = ctypes.create_string_buffer(lib.gdt_tensor_map_bytes())
+                code = fn(y.data_ptr(), split.data_ptr(), n, k, ctypes.addressof(tmap),
+                          torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"weight split failed: CUDA error {code}")
+                held.append((split, tmap))
+            entry = splits[(id(lib), id(w))] = (w, held)
+        return [ctypes.addressof(tmap) for _, tmap in entry[1]]
+
     def layer(lib, x, w=w):
         fn = lib.gdt_encoder_layer_f32
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_float] + [p] * 5
         b, t, d = x.shape
+        ff = w[6].shape[0]
         new = functools.partial(torch.empty, device="cuda")
         bufs = (new(b * t, 3 * d), new(b * t, d), new(b * t, d), new(b * t, d), new(b * t, ff))
         out = new(b, t, d)
         code = fn(x.data_ptr(), *(y.data_ptr() for y in w), *(y.data_ptr() for y in bufs),
                   out.data_ptr(), b, t, d, ff, heads, (d // heads) ** -0.5,
-                  torch.cuda.current_stream().cuda_stream)
+                  *weight_maps(lib, w), torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"encoder layer variant failed: CUDA error {code}")
         return out
@@ -730,6 +867,12 @@ def main(prefixes: list[str]) -> int:
         narrow_ab(builds, ("shipped", *narrow, *narrow[::-1], "shipped"), rn, cuda_ms, smi,
                   flash, layer)
     if only_narrow:
+        return 0
+    ws = [name for name in chosen if name.startswith("ws_")]
+    if ws:
+        ws_ab(builds, ("shipped", *ws, *ws[::-1], "shipped"), rn, cuda_ms, smi, layer)
+        products_ab(rn, smi)
+    if only_ws:
         return 0
 
     def device_ms(fn, kernel, iters=20):
@@ -758,7 +901,7 @@ def main(prefixes: list[str]) -> int:
             torch.cuda.synchronize()
         us = 0.0
         for e in prof.key_averages():
-            if "gemm_tf32x3_kernel" in e.key and e.device_type != torch.autograd.DeviceType.CPU:
+            if "gemm_" in e.key and e.device_type != torch.autograd.DeviceType.CPU:
                 t = getattr(e, "self_device_time_total", None)
                 us += e.self_cuda_time_total if t is None else t
         return us / 5 / 1e3
@@ -772,7 +915,8 @@ def main(prefixes: list[str]) -> int:
                 continue
             err = (layer(libs["encoder_layer"], x) - want).abs().max().item()
             ms = cuda_ms(lambda: layer(libs["encoder_layer"], x))
-            note = f"{err:.2e}" if not name.startswith("gemm_") else "not checked"
+            note = (f"{err:.2e}" if not name.startswith(("ws_no_loads", "ws_no_a"))
+                    else "not checked")
             extra = f", products {gemm_ms(libs['encoder_layer'], x):.4f} ms" if t > 81 else ""
             parts.append(f"{name} {ms:.4f} ms (max|diff| {note}{extra})")
         print(f"encoder layer [82,{t},{d}]: " + "; ".join(parts) + f" [{smi}]", flush=True)

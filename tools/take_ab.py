@@ -16,13 +16,16 @@ of chip_smoke.py's phase 5 (batch 256 = 4 x 64 at 80 frames, dropout 0.1,
 the fused training layer, injected timesteps and noise), run six times,
 with the same seeded weights and inputs in every tree, then a
 text-to-motion denoise step of phase 10's model at CFG batch 6 and 64
-(three runs of 20 steps by CUDA events), then the training layer's forward
-and backward kernels (5 and 6) alone at the three training shapes of the
-smoke run, [64, 81, 256], [64, 197, 512] and [64, 61, 512] (CUDA events
-over 20 calls, median of three).  One line a tree: the median ms per
-denoise step and chunks/s of each take, the median ms and samples/s of
-train steps 2-6, the median t2m step and the kernels' ms, with the card's
-name and power limit.
+(three runs of 20 steps by CUDA events; the CFG-6 step's idle share: one
+less the profiler's device time over the step's time), kernel 1's host
+time a call at [6, 197, 512] and [82, 81, 256] (the wall time of 50
+back-to-back calls with nothing synchronised, over 50), then the training
+layer's forward and backward kernels (5 and 6) alone at the three training
+shapes of the smoke run, [64, 81, 256], [64, 197, 512] and [64, 61, 512]
+(CUDA events over 20 calls, median of three).  One line a tree: the
+median ms per denoise step and chunks/s of each take, the median ms and
+samples/s of train steps 2-6, the median t2m step, kernel 1's host ms and
+the kernels' ms, with the card's name and power limit.
 Needs a CUDA card.
 """
 
@@ -78,6 +81,7 @@ def one_tree(root: str) -> dict:
     ms = train_step_ms(cs, gen)
     result["train"] = {"ms": ms, "samples_per_s": cs.BATCH / ms * 1e3}
     result["t2m"] = t2m_step_ms(cs, gen)
+    result["layer_host"] = layer_host_ms(cs, gen)
     result["train_kernels"] = train_kernel_ms(cs, gen)
     return result
 
@@ -109,6 +113,31 @@ def train_kernel_ms(cs, gen) -> dict:
     return out
 
 
+def layer_host_ms(cs, gen) -> dict:
+    """Kernel 1's host time a call: 50 back-to-back calls, nothing
+    synchronised inside the window, after a warm up."""
+    import torch
+
+    from gesturediffusion_tpu_torch.ops.fused_encoder import fused_encoder_layer
+
+    dev = torch.device("cuda")
+    out = {}
+    for b, t, d in ((cs.T2M_REPS * 2, cs.T2M_FRAMES + 1, cs.T2M_D), (2 * cs.B_TAKES, cs.T + 1, cs.D)):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * scale
+
+        w, x = cs.layer_weights(rn, d, cs.FF), rn(b, t, d)
+        for _ in range(5):
+            fused_encoder_layer(x, *w, num_heads=cs.HEADS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fused_encoder_layer(x, *w, num_heads=cs.HEADS)
+        out[f"[{b},{t},{d}]"] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+    return out
+
+
 def t2m_step_ms(cs, gen) -> dict:
     """Median ms of a text-to-motion denoise step (chip_smoke.py's phase-10
     model, CFG batch 6 and 64, through the kernels) over three runs of 20."""
@@ -136,9 +165,13 @@ def t2m_step_ms(cs, gen) -> dict:
         cond = {"text_emb": torch.randn(b, 512, generator=gen, device=dev) * 0.1,
                 "scale": torch.full((b,), cs.GUIDANCE, device=dev)}
         t = torch.full((b,), diffusion.num_timesteps // 2, dtype=torch.long, device=dev)
-        runs = [cs.cuda_time_ms(lambda: p_sample(diffusion, guided, x, t, cond, noise), 20, 3)
-                for _ in range(3)]
+        def step():
+            return p_sample(diffusion, guided, x, t, cond, noise)
+
+        runs = [cs.cuda_time_ms(step, 20, 3) for _ in range(3)]
         out[f"CFG {2 * b}"] = sorted(runs)[1]
+        if b == cs.T2M_REPS:
+            out[f"CFG {2 * b} idle share"] = 1.0 - cs.device_split(step, 10)[0] / out[f"CFG {2 * b}"]
     return out
 
 
@@ -205,7 +238,8 @@ def main(argv: list[str]) -> int:
             f"{k} {v['ms_per_step']:.3f} ms/step = {v['chunks_per_s']:.3f} chunks/s"
             for k, v in r.items() if k.startswith("T=")) + f", train step {r['train']['ms']:.3f} "
             f"ms = {r['train']['samples_per_s']:.1f} samples/s, t2m step " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in r["t2m"].items()) + ", kernels " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["t2m"].items()) + ", kernel 1's host ms a call "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["layer_host"].items()) + ", kernels " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in r["train_kernels"].items()) + f" [{smi}]", flush=True)
     return 0
 
