@@ -32,12 +32,23 @@
 // Design: the TPU kernels kept a batch block in VMEM and accumulated the
 // weight gradients in VMEM scratch across a sequential grid.  Here each
 // entry point is a chain of launches on one stream:
-//   * the wgmma GEMM of gemm_tf32x3.cuh (shared with the inference layer),
-//     which takes either operand along K or transposed, so the forward
-//     products (A . W^T), the data gradients (dY . W) and the weight
-//     gradients (dY^T . X, a reduction over all B*T rows) share it.  Every
-//     product here flushes its accumulator into an f32 sum every 128 of K
-//     (kFwdFlush, kDataGradFlush, kWeightGradFlush): unflushed, the
+//   * the products on gemm_ws.cuh's warp-specialized 3xTF32 GEMM (shared
+//     with the inference layer): the forward products (A . W^T, also
+//     recomputed in the backward) and the data gradients (dY . W) read each
+//     weight's TF32 big and small parts, split once per weight and version
+//     (W and, for the data gradients, W^T; ops/fused_encoder.py keeps both
+//     with their tensor maps), landed by the copy engine into a swizzled
+//     mbarrier ring by a producer warp and multiplied on wgmma by two
+//     consumer warpgroups; the weight gradients (dY^T . X, a reduction over
+//     all B*T rows) land both operands raw and a producer warpgroup splits
+//     X's slices, transposed, into the consumers' layout.  A product whose
+//     rows are not 16-byte aligned (train_routes) runs gemm_tf32x3.cuh's
+//     GEMM, which takes either operand along K or transposed.  Both GEMMs
+//     do the same arithmetic in the same order, so a product is the same bit
+//     for bit on either route (gdt_encoder_layer_train_parent_* run the
+//     chain with every product on gemm_tf32x3.cuh, for the comparison).
+//     Every product here flushes its accumulator into an f32 sum every 128
+//     of K (kFwdFlush, kDataGradFlush, kWeightGradFlush): unflushed, the
 //     action-to-motion step's gradients stood ~8x further from the exact
 //     ones than plain f32's, and the rot6d losses amplify that past the
 //     step tolerance (tools/a2m_f64_check.py).  The
@@ -64,6 +75,7 @@
 #include "common.cuh"
 #include "flash_attention.cuh"
 #include "gemm_tf32x3.cuh"
+#include "gemm_ws.cuh"
 
 namespace {
 
@@ -1197,17 +1209,62 @@ struct Dims {
 // every 32 brings the model output to plain f32's error for 12-28% more;
 // flushing only the gradients' products leaves them where the unflushed
 // GEMM had them (the forward's error is the one the rot6d losses amplify).
+// gemm_ws.cuh flushes every one of these at any K; gemm_tf32x3.cuh's
+// GENERAL route (K past kTcFlushK, unaligned rows) every kTcFlushSlices,
+// equal to them, so a product is the same on either route.
 constexpr int kFwdFlush = 4, kDataGradFlush = 4, kWeightGradFlush = 4;
 
-// C[M, N] = epi(A[M, K] . W[K, N]): the data gradients (W in [out, in])
+// The products' routes by the layer's D and F: bit i set where weight i's
+// products take gemm_ws.cuh (0 wqkv [3D, D], 1 wo [D, D], 2 w1 [F, D], 3 w2
+// [D, F], each [out, in]): its forward product [M, out] over in (recomputed
+// in the backward), its data gradient [M, in] over out and its weight
+// gradient [out, in] over M.  The rule (ws_aligned) asks the same of the
+// three: out and in multiples of 4.  The others take gemm_tf32x3.cuh.
+int train_routes(int D, int F) {
+  const int out[4] = {3 * D, D, F, D}, in[4] = {D, D, D, F};
+  int r = 0;
+  for (int i = 0; i < 4; ++i)
+    if (ws_aligned(out[i], in[i])) r |= 1 << i;
+  return r;
+}
+
+// The tensor maps of the weights' splits (ops/fused_encoder.py), by weight
+// as train_routes numbers them: W's (the forward products) and W^T's (the
+// data gradients); null where the route is gemm_tf32x3.cuh's
+struct Maps {
+  const CUtensorMap* w[4];
+  const CUtensorMap* t[4];
+};
+
+WsArgs ws_args(float* C, int M, int N, int K, const EpiArgs& ep) {
+  return WsArgs{C, M, N, K, ep.bias, ep.resid, nullptr, nullptr, ep.aux, ep.pre, ep.drop,
+                ep.site};
+}
+
+// C[M, N] = epi(A[M, K] . W[N, K]^T): a forward product, on gemm_ws.cuh by
+// W's split where `map` is set (its route), else gemm_tf32x3.cuh
 template <int EPI>
-cudaError_t gemm_nn(const float* A, const float* W, float* C, int M, int N, int K,
-                    const EpiArgs& ep, cudaStream_t s) {
-  return gemm_tf32x3<true, false, EPI, kDataGradFlush>(A, W, C, M, N, K, K, N, 1, K, ep, s);
+cudaError_t fwd_product(bool ws, const CUtensorMap* map, const float* A, const float* W,
+                        float* C, int M, int N, int K, const EpiArgs& ep, cudaStream_t s) {
+  if (!ws) return gemm_nt<EPI, kFwdFlush>(A, W, C, M, N, K, ep, s);
+  if (map == nullptr) return cudaErrorInvalidValue;  // the split's map is missing
+  return gemm_ws<EPI, kFwdFlush>(A, *map, ws_args(C, M, N, K, ep), s);
+}
+
+// C[M, N] = epi(A[M, K] . W[K, N]): a data gradient (W in [out, in]), on
+// gemm_ws.cuh by W^T's split where its route says so
+template <int EPI>
+cudaError_t gemm_nn(bool ws, const CUtensorMap* map, const float* A, const float* W, float* C,
+                    int M, int N, int K, const EpiArgs& ep, cudaStream_t s) {
+  if (!ws)
+    return gemm_tf32x3<true, false, EPI, kDataGradFlush>(A, W, C, M, N, K, K, N, 1, K, ep, s);
+  if (map == nullptr) return cudaErrorInvalidValue;
+  return gemm_ws<EPI, kDataGradFlush>(A, *map, ws_args(C, M, N, K, ep), s);
 }
 
 // How many row chunks a weight gradient [I, J] over M rows is split into,
-// and the chunk length (a multiple of kTcBK): enough blocks to fill the card.
+// and the chunk length (a multiple of kTcBK): enough of gemm_tf32x3.cuh's
+// 128 x 64 blocks to fill the card.  Both routes take these chunks.
 int weight_grad_splits(int I, int J, int M, int* chunk) {
   const int tiles = ((I + kTcBM - 1) / kTcBM) * ((J + kTcBN - 1) / kTcBN);
   int splits = (kTargetBlocks + tiles - 1) / tiles;
@@ -1218,18 +1275,19 @@ int weight_grad_splits(int I, int J, int M, int* chunk) {
   return (M + c - 1) / c;
 }
 
-// dW[I, J] = sum_m dY[m, i] X[m, j] (dY [M, I], X [M, J]); `part` holds the
-// split partial sums.
-cudaError_t weight_grad(const float* dY, const float* X, float* dW, float* part, int M, int I,
-                        int J, cudaStream_t s) {
+// dW[I, J] = sum_m dY[m, i] X[m, j] (dY [M, I], X [M, J]), on gemm_ws.cuh
+// where `ws`; `part` holds the chunks' partial sums, added in chunk order.
+cudaError_t weight_grad(bool ws, const float* dY, const float* X, float* dW, float* part, int M,
+                        int I, int J, cudaStream_t s) {
   int chunk;
   const int splits = weight_grad_splits(I, J, M, &chunk);
   const EpiArgs ep{};
-  if (splits == 1)
-    return gemm_tf32x3<false, false, kPlain, kWeightGradFlush>(dY, X, dW, I, J, M, I, J, 1,
+  float* C = splits == 1 ? dW : part;
+  const cudaError_t e =
+      ws ? gemm_ws_tn<kWeightGradFlush>(dY, X, C, I, J, M, chunk, splits, s)
+         : gemm_tf32x3<false, false, kPlain, kWeightGradFlush>(dY, X, C, I, J, M, I, J, splits,
                                                                chunk, ep, s);
-  const cudaError_t e = gemm_tf32x3<false, false, kPlain, kWeightGradFlush>(
-      dY, X, part, I, J, M, I, J, splits, chunk, ep, s);
+  if (e != cudaSuccess || splits == 1) return e;
   const int n = I * J;
   sum_splits_kernel<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       part, dW, n, splits);
@@ -1266,29 +1324,30 @@ struct Weights {
 
 // The forward chain.  qkv [M, 3D], o, u, y1, v2 [M, D] and hd [M, F] are
 // written; h1 [M, F] and lse [B*H, T] when not null; the layer output goes
-// to `out` unless it is null (the backward's recompute stops at v2).
+// to `out` unless it is null (the backward's recompute stops at v2).  Bit i
+// of `routes` sends weight i's product to gemm_ws.cuh on its split's map.
 cudaError_t forward_chain(const float* x, const Weights& w, const Drop& drop,
-                          const Dims& n, float scale, float* qkv, float* o, float* lse,
-                          float* u, float* y1, float* h1, float* hd, float* v2,
-                          float* out, cudaStream_t s) {
+                          const Dims& n, float scale, int routes, const Maps& maps, float* qkv,
+                          float* o, float* lse, float* u, float* y1, float* h1, float* hd,
+                          float* v2, float* out, cudaStream_t s) {
   const int M = n.M, D = n.D, F = n.F;
   const long long dh = D / n.H, t = n.T;
   const AttnStrides packed{t * 3 * D, dh, 3 * D}, rows{t * D, dh, D};
-  cudaError_t e = gemm_nt<kBias, kFwdFlush>(x, w.wqkv, qkv, M, 3 * D, D, EpiArgs{w.bqkv}, s);
+  cudaError_t e = fwd_product<kBias>(routes & 1, maps.w[0], x, w.wqkv, qkv, M, 3 * D, D,
+                                     EpiArgs{w.bqkv}, s);
   if (e == cudaSuccess)
     e = flash_attention<true>(qkv, qkv + D, qkv + 2 * D, o, packed, packed, packed, rows, n.B,
                               n.H, n.T, D / n.H, scale, drop, lse, s);
   if (e == cudaSuccess)
-    e = gemm_nt<kBiasResid, kFwdFlush>(o, w.wo, u, M, D, D,
-                                       EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn},
-                                       s);
+    e = fwd_product<kBiasResid>(routes & 2, maps.w[1], o, w.wo, u, M, D, D,
+                                EpiArgs{w.bo, x, nullptr, nullptr, drop, kSitePostAttn}, s);
   if (e != cudaSuccess) return e;
   layernorm(u, w.ln1_w, w.ln1_b, y1, M, D, s);
-  e = gemm_nt<kBiasGelu, kFwdFlush>(y1, w.w1, hd, M, F, D,
-                                    EpiArgs{w.b1, nullptr, nullptr, h1, drop, kSiteAct}, s);
+  e = fwd_product<kBiasGelu>(routes & 4, maps.w[2], y1, w.w1, hd, M, F, D,
+                             EpiArgs{w.b1, nullptr, nullptr, h1, drop, kSiteAct}, s);
   if (e == cudaSuccess)
-    e = gemm_nt<kBiasResid, kFwdFlush>(hd, w.w2, v2, M, D, F,
-                                       EpiArgs{w.b2, y1, nullptr, nullptr, drop, kSiteFF}, s);
+    e = fwd_product<kBiasResid>(routes & 8, maps.w[3], hd, w.w2, v2, M, D, F,
+                                EpiArgs{w.b2, y1, nullptr, nullptr, drop, kSiteFF}, s);
   if (e == cudaSuccess && out != nullptr) layernorm(v2, w.ln2_w, w.ln2_b, out, M, D, s);
   return e;
 }
@@ -1315,10 +1374,11 @@ size_t split_floats(const Dims& n) {
 }
 
 // The backward chain: the forward recomputed from x, then from g = dL/dout
-// dx and the 12 gradients (each in its parameter's layout).
+// dx and the 12 gradients (each in its parameter's layout); `routes` and
+// `maps` as forward_chain's (maps.t: the data gradients').
 cudaError_t backward_chain(const float* x, const Weights& w, const Drop& drop, const Dims& n,
-                           float scale, const float* g, float* dx, float* dwqkv,
-                           float* dbqkv, float* dwo, float* dbo, float* dln1_w,
+                           float scale, int routes, const Maps& maps, const float* g, float* dx,
+                           float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* dln1_w,
                            float* dln1_b, float* dw1, float* db1, float* dw2, float* db2,
                            float* dln2_w, float* dln2_b, float* ws, cudaStream_t s) {
   const int M = n.M, D = n.D, F = n.F;
@@ -1342,36 +1402,64 @@ cudaError_t backward_chain(const float* x, const Weights& w, const Drop& drop, c
   float* lse = part + split_floats(n);  // [B*H, T]
   float* dvec = lse + m * n.H;          // [B*H, T]
 
-  cudaError_t e = forward_chain(x, w, drop, n, scale, qkv, o, lse, u, y1, h1, hd, v2, nullptr,
-                                s);
+  cudaError_t e = forward_chain(x, w, drop, n, scale, routes, maps, qkv, o, lse, u, y1, h1, hd,
+                                v2, nullptr, s);
   if (e != cudaSuccess) return e;
   // LN2 and the feed-forward branch
   ln_bwd(v2, g, w.ln2_w, dv, dff, P, M, D, drop, kSiteFF, s);
   colsum(P, dln2_w, part, M, D, s);
   colsum(g, dln2_b, part, M, D, s);
-  e = weight_grad(dff, hd, dw2, part, M, D, F, s);
+  e = weight_grad(routes & 8, dff, hd, dw2, part, M, D, F, s);
   colsum(dff, db2, part, M, D, s);
   if (e == cudaSuccess)  // hd <- dh1
-    e = gemm_nn<kDropGeluGrad>(dff, w.w2, hd, M, F, D,
+    e = gemm_nn<kDropGeluGrad>(routes & 8, maps.t[3], dff, w.w2, hd, M, F, D,
                                EpiArgs{nullptr, nullptr, h1, nullptr, drop, kSiteAct}, s);
-  if (e == cudaSuccess) e = weight_grad(hd, y1, dw1, part, M, F, D, s);
+  if (e == cudaSuccess) e = weight_grad(routes & 4, hd, y1, dw1, part, M, F, D, s);
   colsum(hd, db1, part, M, F, s);
-  if (e == cudaSuccess) e = gemm_nn<kResid>(hd, w.w1, dy1, M, D, F, EpiArgs{nullptr, dv}, s);
+  if (e == cudaSuccess)
+    e = gemm_nn<kResid>(routes & 4, maps.t[2], hd, w.w1, dy1, M, D, F, EpiArgs{nullptr, dv}, s);
   if (e != cudaSuccess) return e;
   // LN1 and the attention branch
   ln_bwd(u, dy1, w.ln1_w, du, da, P, M, D, drop, kSitePostAttn, s);
   colsum(P, dln1_w, part, M, D, s);
   colsum(dy1, dln1_b, part, M, D, s);
-  e = weight_grad(da, o, dwo, part, M, D, D, s);
+  e = weight_grad(routes & 2, da, o, dwo, part, M, D, D, s);
   colsum(da, dbo, part, M, D, s);
-  if (e == cudaSuccess) e = gemm_nn<kPlain>(da, w.wo, dout, M, D, D, EpiArgs{}, s);
+  if (e == cudaSuccess)
+    e = gemm_nn<kPlain>(routes & 2, maps.t[1], da, w.wo, dout, M, D, D, EpiArgs{}, s);
   if (e == cudaSuccess)
     e = attention_backward(qkv, o, dout, lse, dvec, dqkv, n.B, n.T, D, n.H, scale, drop, s);
-  if (e == cudaSuccess) e = weight_grad(dqkv, x, dwqkv, part, M, 3 * D, D, s);
+  if (e == cudaSuccess) e = weight_grad(routes & 1, dqkv, x, dwqkv, part, M, 3 * D, D, s);
   colsum(dqkv, dbqkv, part, M, 3 * D, s);
   if (e == cudaSuccess)
-    e = gemm_nn<kResid>(dqkv, w.wqkv, dx, M, D, 3 * D, EpiArgs{nullptr, du}, s);
+    e = gemm_nn<kResid>(routes & 1, maps.t[0], dqkv, w.wqkv, dx, M, D, 3 * D,
+                        EpiArgs{nullptr, du}, s);
   return e;
+}
+
+Maps maps_of(const void* const* w, const void* const* t) {
+  Maps m{};
+  for (int i = 0; i < 4; ++i) {
+    m.w[i] = static_cast<const CUtensorMap*>(w[i]);
+    m.t[i] = t == nullptr ? nullptr : static_cast<const CUtensorMap*>(t[i]);
+  }
+  return m;
+}
+
+cudaError_t fwd_entry(const float* x, const Weights& w, const int* seed, float* out, float* ws,
+                      const Dims& n, float scale, unsigned thresh, float inv_keep,
+                      int use_dropout, int row0, int routes, const Maps& maps, cudaStream_t s) {
+  const size_t M = n.M;
+  float* qkv = ws;
+  float* o = qkv + M * 3 * n.D;
+  float* u = o + M * n.D;
+  float* y1 = u + M * n.D;
+  float* v2 = y1 + M * n.D;
+  float* hd = v2 + M * n.D;
+  const Drop drop = make_drop(seed, thresh, inv_keep, use_dropout, row0, n);
+  const cudaError_t e = forward_chain(x, w, drop, n, scale, routes, maps, qkv, o, nullptr, u, y1,
+                                      nullptr, hd, v2, out, s);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -1392,38 +1480,102 @@ size_t gdt_encoder_layer_train_workspace(int B, int T, int D, int F, int H,
   return M * (17 * (size_t)D + 2 * (size_t)F + 2 * (size_t)H) + split_floats(n);
 }
 
+// The products' routes of a layer (train_routes; the Python mirror:
+// ops/fused_encoder_train.py:train_routes)
+int gdt_encoder_layer_train_routes(int D, int F) { return train_routes(D, F); }
+
+// bytes of a tensor map (the host buffer weight maps are written into)
+int gdt_tensor_map_bytes() { return static_cast<int>(sizeof(CUtensorMap)); }
+
+// Queues the split of W [N, K] into `split` (float32 [2][N][K rounded up to
+// 8], 16-byte aligned) and encodes its tensor map into the host buffer
+// `map` (as encoder_layer.cu's).  Returns cudaGetLastError() or the
+// encoder's error.
+int gdt_split_weight_f32(const float* w, float* split, int N, int K, void* map, void* stream) {
+  const cudaError_t e = split_weight(w, split, N, K, static_cast<CUtensorMap*>(map),
+                                     static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The same for a data gradient's weight W [K, N] ([out, in], N = in): the
+// split of W^T, [2][N][K rounded up to 8]
+int gdt_split_weight_t_f32(const float* w, float* split, int N, int K, void* map, void* stream) {
+  const cudaError_t e = split_weight(w, split, N, K, static_cast<CUtensorMap*>(map),
+                                     static_cast<cudaStream_t>(stream), true);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // Forward: x [B, T, D] -> out [B, T, D].  `seed` points at one int32 on the
 // device; thresh and inv_keep come from the caller (rate 0: use_dropout 0);
 // x holds rows [row0, row0 + B) of the batch the dropout indices count.
-// Any D and F, any head width D / H.  Returns
-// cudaGetLastError() after queueing the chain on `stream`.
+// Any D and F, any head width D / H.  map_qkv, map_o, map_1, map_2: host
+// buffers holding the tensor maps of the weights' splits
+// (gdt_split_weight_f32), needed by the products train_routes sends to
+// gemm_ws.cuh (null otherwise).  Returns cudaGetLastError() after queueing
+// the chain on `stream`.
 int gdt_encoder_layer_train_fwd_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* ln2_w,
     const float* ln2_b, const int* seed, float* out, float* ws, int B, int T,
     int D, int F, int H, float scale, unsigned thresh, float inv_keep,
-    int use_dropout, int row0, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int use_dropout, int row0, const void* map_qkv, const void* map_o, const void* map_1,
+    const void* map_2, void* stream) {
   const Dims n{B, T, D, F, H, B * T};
   const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
-  const size_t M = n.M;
-  float* qkv = ws;
-  float* o = qkv + M * 3 * D;
-  float* u = o + M * D;
-  float* y1 = u + M * D;
-  float* v2 = y1 + M * D;
-  float* hd = v2 + M * D;
-  const Drop drop = make_drop(seed, thresh, inv_keep, use_dropout, row0, n);
-  const cudaError_t e =
-      forward_chain(x, w, drop, n, scale, qkv, o, nullptr, u, y1, nullptr, hd, v2, out, s);
+  const void* maps[4] = {map_qkv, map_o, map_1, map_2};
+  return static_cast<int>(fwd_entry(x, w, seed, out, ws, n, scale, thresh, inv_keep,
+                                    use_dropout, row0, train_routes(D, F),
+                                    maps_of(maps, nullptr), static_cast<cudaStream_t>(stream)));
+}
+
+// Backward: recompute the forward from x, then from g = dL/dout produce dx
+// and the 12 gradients (each in its parameter's layout).  map_*: the
+// forward's (W's splits), then mapt_*: the data gradients' (W^T's splits).
+int gdt_encoder_layer_train_bwd_f32(
+    const float* x, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* ln2_w,
+    const float* ln2_b, const int* seed, const float* g, float* dx,
+    float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* dln1_w,
+    float* dln1_b, float* dw1, float* db1, float* dw2, float* db2,
+    float* dln2_w, float* dln2_b, float* ws, int B, int T, int D, int F, int H,
+    float scale, unsigned thresh, float inv_keep, int use_dropout, int row0,
+    const void* map_qkv, const void* map_o, const void* map_1, const void* map_2,
+    const void* mapt_qkv, const void* mapt_o, const void* mapt_1, const void* mapt_2,
+    void* stream) {
+  const Dims n{B, T, D, F, H, B * T};
+  const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
+  const void* fwd[4] = {map_qkv, map_o, map_1, map_2};
+  const void* t[4] = {mapt_qkv, mapt_o, mapt_1, mapt_2};
+  const cudaError_t e = backward_chain(
+      x, w, make_drop(seed, thresh, inv_keep, use_dropout, row0, n), n, scale,
+      train_routes(D, F), maps_of(fwd, t), g, dx, dwqkv, dbqkv, dwo, dbo, dln1_w, dln1_b, dw1,
+      db1, dw2, db2, dln2_w, dln2_b, ws, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward: recompute the forward from x, then from g = dL/dout produce dx
-// and the 12 gradients (each in its parameter's layout).
-int gdt_encoder_layer_train_bwd_f32(
+// The parent chain, every product on gemm_tf32x3.cuh (the layer as it was
+// before gemm_ws.cuh took its products), with the forward entry's and the
+// backward entry's arguments less the maps: the card tests and
+// chip_smoke.py hold the shipped chain against it bit for bit.  The main
+// path never calls it.
+int gdt_encoder_layer_train_parent_fwd_f32(
+    const float* x, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* ln2_w,
+    const float* ln2_b, const int* seed, float* out, float* ws, int B, int T,
+    int D, int F, int H, float scale, unsigned thresh, float inv_keep,
+    int use_dropout, int row0, void* stream) {
+  const Dims n{B, T, D, F, H, B * T};
+  const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
+  return static_cast<int>(fwd_entry(x, w, seed, out, ws, n, scale, thresh, inv_keep,
+                                    use_dropout, row0, 0, Maps{},
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+int gdt_encoder_layer_train_parent_bwd_f32(
     const float* x, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* ln1_w, const float* ln1_b, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* ln2_w,
@@ -1436,12 +1588,42 @@ int gdt_encoder_layer_train_bwd_f32(
   const Dims n{B, T, D, F, H, B * T};
   const Weights w{wqkv, bqkv, wo, bo, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b};
   const cudaError_t e = backward_chain(
-      x, w, make_drop(seed, thresh, inv_keep, use_dropout, row0, n), n, scale, g, dx, dwqkv,
-      dbqkv,
-      dwo, dbo, dln1_w, dln1_b, dw1, db1, dw2, db2, dln2_w, dln2_b, ws,
+      x, w, make_drop(seed, thresh, inv_keep, use_dropout, row0, n), n, scale, 0, Maps{}, g,
+      dx, dwqkv, dbqkv, dwo, dbo, dln1_w, dln1_b, dw1, db1, dw2, db2, dln2_w, dln2_b, ws,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One product family alone, for the card tests, chip_smoke.py and
+// tools/kernel_variants.py, on gemm_ws.cuh (ws 1: `map` the split's map)
+// or on gemm_tf32x3.cuh (ws 0), no dropout.  family 0, a forward product:
+// C [M, N] = epi(A [M, K] . W[N, K]^T), epi 1 bias, 2 bias and residual, 3
+// bias and GELU (pre: h1 or null); family 1, a data gradient: C [M, N] =
+// epi(A [M, K] . W[K, N]) (map: W^T's split), epi 0 plain, 4 GELU'(aux), 5
+// residual; family 2, a weight gradient: C [M, N] = A[K, M]^T . W[K, N] in
+// weight_grad's chunks (part: their sums, train_workspace's size for the
+// layer is enough).  cudaErrorInvalidValue outside the rule (ws 1).
+int gdt_train_product_f32(int family, int ws, const float* A, const float* W, const void* map,
+                          float* C, float* part, int M, int N, int K, int epi, const float* bias,
+                          const float* resid, const float* aux, float* pre, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CUtensorMap* tm = static_cast<const CUtensorMap*>(map);
+  const EpiArgs ep{bias, resid, aux, pre};
+  cudaError_t e = cudaErrorInvalidValue;
+  if (family == 0)
+    e = epi == kBias       ? fwd_product<kBias>(ws, tm, A, W, C, M, N, K, ep, s)
+        : epi == kBiasResid ? fwd_product<kBiasResid>(ws, tm, A, W, C, M, N, K, ep, s)
+        : epi == kBiasGelu  ? fwd_product<kBiasGelu>(ws, tm, A, W, C, M, N, K, ep, s)
+                            : cudaErrorInvalidValue;
+  else if (family == 1)
+    e = epi == kPlain          ? gemm_nn<kPlain>(ws, tm, A, W, C, M, N, K, ep, s)
+        : epi == kDropGeluGrad ? gemm_nn<kDropGeluGrad>(ws, tm, A, W, C, M, N, K, ep, s)
+        : epi == kResid        ? gemm_nn<kResid>(ws, tm, A, W, C, M, N, K, ep, s)
+                               : cudaErrorInvalidValue;
+  else if (family == 2 && (ws == 0 || ws_aligned(N, M)))
+    e = weight_grad(ws, A, W, C, part, K, M, N, s);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// 3xTF32 tensor-core GEMM of the training layer (encoder_layer_train.cu) and
-// of the inference layer's products outside gemm_ws.cuh's rule
-// (encoder_layer.cu: rows not 16-byte aligned, or K past 1024), and the
+// 3xTF32 tensor-core GEMM of the encoder layers' products outside
+// gemm_ws.cuh's rules (encoder_layer.cu: rows not 16-byte aligned, or K past
+// 1024; encoder_layer_train.cu: rows not 16-byte aligned), the parent chain
+// the training layer's products are held against bit for bit, and the
 // 3xTF32 primitives the attention kernels share (flash_attention.cuh, the
 // training layer's attention backward).
 //
@@ -10,9 +11,8 @@
 // out-projection, ff1 with GELU, ff2, each a jnp.dot with
 // preferred_element_type=float32 at full f32 precision) with dropout, the
 // data gradients dX = dY . W and the weight gradients dW = dY^T . X; and the
-// inference layer's products where gemm_ws.cuh (the redesign for Hopper:
-// weights split once, TMA, a producer warp, a persistent walk) does not
-// take them.
+// products where gemm_ws.cuh (the redesign for Hopper: weights split once,
+// TMA, a producer warp, a persistent walk) does not take them.
 //
 // Why three passes.  A TF32 operand keeps 10 of f32's 23 mantissa bits, so a
 // single-pass TF32 product is off by ~1e-3 relative: another result than the
@@ -62,7 +62,8 @@
 // residual, and stores float2 pairs.  Overlapping the next slice's split
 // with the running wgmmas (two B buffers) measured no faster with a 2-stage
 // ring and slower with 3 (one block an SM).  gemm_ws.cuh keeps this file's
-// arithmetic and k order on a Hopper pipeline for the inference layer.
+// arithmetic, k order, flush and epilogues on a Hopper pipeline for both
+// encoder layers.
 //
 // The 3xTF32 split and the mma.sync primitives the attention kernels use
 // live in mma_tf32x3.cuh; tools/tf32_ceiling.py measures both instructions'

@@ -31,7 +31,10 @@ weight's TF32 big and small parts, split once (``weight_split``: a CUDA
 kernel, its plain twin ``split_weight_plain`` on the CPU) and kept per
 weight tensor and version with the split's tensor map, so an optimizer
 step, ``load_state_dict`` or any other in-place change is split again at
-the next call.
+the next call.  The training layer (ops/fused_encoder_train.py) reads the
+same splits for its forward products, and for its data gradients the
+splits of the transposed weights (``weight_split_t``, twin
+``split_weight_t_plain``), kept beside them.
 """
 
 from __future__ import annotations
@@ -153,6 +156,13 @@ def split_weight_plain(w: torch.Tensor) -> torch.Tensor:
     return torch.stack((big, tf32_rn(x - big)))
 
 
+def split_weight_t_plain(w: torch.Tensor) -> torch.Tensor:
+    """csrc/gemm_ws.cuh:split_weight_t_kernel in plain PyTorch: the split of
+    w^T for w [out, in], [2, in, split_cols(out)] (the B operand of the data
+    gradient dX = dY . w)."""
+    return split_weight_plain(w.t())
+
+
 @dataclass
 class WeightSplit:
     """A weight's split ([2, N, split_cols(K)]) and, on the card, its tensor
@@ -164,46 +174,61 @@ class WeightSplit:
     key: tuple = ()
 
 
-# weight tensor -> its split; the entry dies with the tensor
+# weight tensor -> its split (and its transpose's); an entry dies with its tensor
 _splits = WeakIdKeyDictionary()
+_splits_t = WeakIdKeyDictionary()
 
 
-def _split(w: torch.Tensor) -> WeightSplit:
+def _split(w: torch.Tensor, library: str, transposed: bool) -> WeightSplit:
     if w.device.type == "cpu":
-        return WeightSplit(split_weight_plain(w), None)
-    n, k = w.shape
+        return WeightSplit((split_weight_t_plain if transposed else split_weight_plain)(w), None)
+    n, k = w.shape[::-1] if transposed else w.shape
     split = torch.empty((2, n, split_cols(k)), dtype=torch.float32, device=w.device)
-    fn, map_bytes = _split_kernel()
+    fn, map_bytes = _split_kernel(library, transposed)
     tmap = ctypes.create_string_buffer(map_bytes)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         code = fn(w.data_ptr(), split.data_ptr(), n, k, ctypes.addressof(tmap), stream)
-    _build.check("encoder_layer", code)
-    weight_split.launches += 1
+    _build.check(library, code)
+    (weight_split_t if transposed else weight_split).launches += 1
     return WeightSplit(split, tmap)
 
 
-def weight_split(w: torch.Tensor) -> WeightSplit:
-    """The split of weight ``w`` [N, K] (float32, contiguous): the kernel's
-    on the card (``weight_split.launches`` counts its launches), the plain
-    twin on the CPU.  Kept per tensor object while it lives, and made again
-    when its storage (``.data`` reassigned), shape or version counter moves:
-    every in-place change moves the counter (an optimizer step, ``copy_``,
-    ``load_state_dict``).  Inference tensors, which count no versions, are
-    split at every call.  The caller holds the returned split until its
-    launch is queued: the map and the tensor die with it."""
+def _cached(cache, w: torch.Tensor, library: str, transposed: bool) -> WeightSplit:
     if w.is_inference():
-        return _split(w)
+        return _split(w, library, transposed)
     key = (w.data_ptr(), w._version, tuple(w.shape), w.device)
-    entry = _splits.get(w)
+    entry = cache.get(w)
     if entry is None or entry.key != key:
-        entry = _split(w)
+        entry = _split(w, library, transposed)
         entry.key = key
-        _splits[w] = entry
+        cache[w] = entry
     return entry
 
 
+def weight_split(w: torch.Tensor, library: str = "encoder_layer") -> WeightSplit:
+    """The split of weight ``w`` [N, K] (float32, contiguous): the kernel's
+    on the card (``weight_split.launches`` counts its launches; ``library``
+    is the kernel library that splits it, the same kernel in each), the
+    plain twin on the CPU.  Kept per tensor object while it lives, and made
+    again when its storage (``.data`` reassigned), shape or version counter
+    moves: every in-place change moves the counter (an optimizer step,
+    ``copy_``, ``load_state_dict``).  Inference tensors, which count no
+    versions, are split at every call.  The caller holds the returned split
+    until its launch is queued: the map and the tensor die with it."""
+    return _cached(_splits, w, library, False)
+
+
+def weight_split_t(w: torch.Tensor, library: str = "encoder_layer_train") -> WeightSplit:
+    """The split of ``w``^T for a weight w [out, in]: [2, in, split_cols(out)],
+    the training layer's data gradients' operand, kept beside
+    ``weight_split``'s as that one is (``weight_split_t.launches`` counts
+    its kernel's launches)."""
+    return _cached(_splits_t, w, library, True)
+
+
 weight_split.launches = 0
+weight_split_t.launches = 0
 
 
 @functools.cache
@@ -216,10 +241,11 @@ def _kernel():
 
 
 @functools.cache
-def _split_kernel():
+def _split_kernel(library: str, transposed: bool):
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.load_function("encoder_layer", "gdt_split_weight_f32", [p, p, i, i, p, p])
-    map_bytes = _build.load_function("encoder_layer", "gdt_tensor_map_bytes", [])()
+    name = "gdt_split_weight_t_f32" if transposed else "gdt_split_weight_f32"
+    fn = _build.load_function(library, name, [p, p, i, i, p, p])
+    map_bytes = _build.load_function(library, "gdt_tensor_map_bytes", [])()
     return fn, map_bytes
 
 

@@ -30,6 +30,15 @@ The kernels' attention is flash-style in both directions (the flash kernel
 of ops/flash_attention.py with site-0 dropout, and a tiled backward), so T
 is bounded by device memory only, and takes any head width, D and F, as
 the inference layer does.
+
+The products of a weight whose rows are 16-byte aligned (``train_routes``,
+the mirror of csrc/encoder_layer_train.cu:train_routes) run on
+csrc/gemm_ws.cuh: the forward products read the weight's split
+(ops/fused_encoder.py:weight_split, the inference layer's), the data
+gradients its transpose's (``weight_split_t``), both kept per weight and
+version; the weight gradients split X's slices as they land.  Every
+product is bit for bit what csrc/gemm_tf32x3.cuh gives (the parent chain,
+``encoder_layer_train_parent``, which the card tests hold it against).
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from gesturediffusion_tpu_torch.ops import _build
 from gesturediffusion_tpu_torch.ops.fused_encoder import (
     _check_cuda_args as _check_layer_args,
     encoder_layer_plain,
+    weight_split,
+    weight_split_t,
 )
 from gesturediffusion_tpu_torch.parallel.distributed import all_gather_cat
 from gesturediffusion_tpu_torch.parallel.tensor import block_of, whole
@@ -125,22 +136,61 @@ def encoder_layer_train_plain(
     )
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def train_routes(d: int, f: int) -> int:
+    """The routes of a training layer of width d and ff f, as
+    csrc/encoder_layer_train.cu:train_routes gives them: bit i set where
+    weight i's products (0 wqkv, 1 wo, 2 w1, 3 w2: its forward product, data
+    gradient and weight gradient) take csrc/gemm_ws.cuh, the others
+    csrc/gemm_tf32x3.cuh.  The rule asks each weight's rows to be 16-byte
+    aligned, its out and in both multiples of 4; the products flush, so no
+    reduction is too long."""
+    shapes = ((3 * d, d), (d, d), (f, d), (d, f))
+    return sum((n % 4 == 0 and k % 4 == 0) << i for i, (n, k) in enumerate(shapes))
+
+
+def weight_grad_splits(i: int, j: int, m: int) -> tuple[int, int]:
+    """(chunks, rows a chunk) of a weight gradient [i, j] summed over m rows,
+    as csrc/encoder_layer_train.cu:weight_grad_splits cuts them: enough of
+    csrc/gemm_tf32x3.cuh's 128 x 64 tiles to fill 264 blocks, at most m /
+    128 chunks, the chunk a multiple of 32 rows.  Both GEMMs take these."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    tiles = cdiv(i, 128) * cdiv(j, 64)
+    splits = max(1, min(cdiv(264, tiles), m // 128))
+    chunk = cdiv(cdiv(m, splits), 32) * 32
+    return cdiv(m, chunk), chunk
+
+
+# the four [out, in] weights among the layer's twelve, in train_routes' order
+WEIGHT_INDEX = (0, 2, 6, 8)
+LIBRARY = "encoder_layer_train"
+
+_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                               ctypes.c_int]
+_PARENT_FWD_ARGS = [ctypes.c_void_p] * 16 + _TAIL + [ctypes.c_void_p]
+_PARENT_BWD_ARGS = [ctypes.c_void_p] * 29 + _TAIL + [ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 16 + _TAIL + [ctypes.c_void_p] * 5
+_BWD_ARGS = [ctypes.c_void_p] * 29 + _TAIL + [ctypes.c_void_p] * 9
 
 
 @functools.cache
-def _kernels():
-    fwd = _build.load_function(
-        "encoder_layer_train", "gdt_encoder_layer_train_fwd_f32", _FWD_ARGS)
-    bwd = _build.load_function(
-        "encoder_layer_train", "gdt_encoder_layer_train_bwd_f32", _BWD_ARGS)
-    ws = _build.load_function(
-        "encoder_layer_train", "gdt_encoder_layer_train_workspace", [ctypes.c_int] * 6)
+def _kernels(parent: bool = False):
+    prefix = "gdt_encoder_layer_train_parent" if parent else "gdt_encoder_layer_train"
+    fwd = _build.load_function(LIBRARY, prefix + "_fwd_f32",
+                               _PARENT_FWD_ARGS if parent else _FWD_ARGS)
+    bwd = _build.load_function(LIBRARY, prefix + "_bwd_f32",
+                               _PARENT_BWD_ARGS if parent else _BWD_ARGS)
+    ws = _build.load_function(LIBRARY, "gdt_encoder_layer_train_workspace", [ctypes.c_int] * 6)
     ws.restype = ctypes.c_size_t
     return fwd, bwd, ws
+
+
+def kernel_train_routes(d: int, f: int) -> int:
+    """csrc/encoder_layer_train.cu's own train_routes (``train_routes``
+    mirrors it)."""
+    return _build.load_function(LIBRARY, "gdt_encoder_layer_train_routes",
+                                [ctypes.c_int] * 2)(d, f)
 
 
 def _check_cuda_args(x, weights, seed, num_heads):
@@ -149,32 +199,110 @@ def _check_cuda_args(x, weights, seed, num_heads):
         raise ValueError("seed must be one int32 element on the device of x")
 
 
-def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float, row0: int):
+def _splits(weights, backward: bool) -> list:
+    """The splits the products on gemm_ws.cuh read (W's, then with
+    ``backward`` W^T's), None where train_routes sends a weight's products
+    to gemm_tf32x3.cuh.  The caller holds them until its launch is queued."""
+    d, f = weights[0].shape[1], weights[6].shape[0]
+    routes = train_routes(d, f)
+    on = [routes >> i & 1 for i in range(4)]
+    held = [weight_split(weights[j], LIBRARY) if r else None for j, r in zip(WEIGHT_INDEX, on)]
+    if backward:
+        held += [weight_split_t(weights[j], LIBRARY) if r else None
+                 for j, r in zip(WEIGHT_INDEX, on)]
+    return held
+
+
+def _launch(backward: bool, x, weights, seed, g, num_heads: int, rate: float, row0: int,
+            parent: bool = False):
     _check_cuda_args(x, weights, seed, num_heads)
     if row0 < 0:
         raise ValueError(f"row0 must be >= 0, got {row0}")
     b, t, d = x.shape
     f = weights[6].shape[0]
     keep = 1.0 - rate
-    fwd, bwd, ws_floats = _kernels()
+    fwd, bwd, ws_floats = _kernels(parent)
     ws = torch.empty(ws_floats(b, t, d, f, num_heads, int(backward)),
                      dtype=torch.float32, device=x.device)
     tail = (b, t, d, f, num_heads, (d // num_heads) ** -0.5,
             keep_threshold(keep), 1.0 / keep, int(rate > 0.0), row0)
+    # held until the launch is queued (an inference tensor's are made for it)
+    held = [] if parent else _splits(weights, backward)
+    maps = [None if s is None else ctypes.addressof(s.map) for s in held]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [x.data_ptr(), *(w.data_ptr() for w in weights), seed.data_ptr()]
         if not backward:
             outs = (torch.empty_like(x),)
-            code = fwd(*ptrs, outs[0].data_ptr(), ws.data_ptr(), *tail, stream)
+            code = fwd(*ptrs, outs[0].data_ptr(), ws.data_ptr(), *tail, *maps, stream)
         else:
             if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
                 raise ValueError("g must be a contiguous float32 tensor shaped like x")
             outs = (torch.empty_like(x), *(torch.empty_like(w) for w in weights))
             code = bwd(*ptrs, g.data_ptr(), *(o.data_ptr() for o in outs),
-                       ws.data_ptr(), *tail, stream)
-    _build.check("encoder_layer_train", code)
+                       ws.data_ptr(), *tail, *maps, stream)
+    _build.check(LIBRARY, code)
+    del held
     return outs
+
+
+def encoder_layer_train_parent(x, *weights, seed, num_heads: int, rate: float, row0: int = 0,
+                               g=None):
+    """The training layer's forward (``g`` None) or backward with every
+    product on csrc/gemm_tf32x3.cuh (the chain before gemm_ws.cuh took its
+    products): the parent that the card tests and chip_smoke.py hold the
+    kernels against bit for bit.  Not counted; the main path never calls it."""
+    return _launch(g is not None, x, weights, seed, g, num_heads, rate, row0, parent=True)
+
+
+# the product families of csrc/encoder_layer_train.cu:gdt_train_product_f32
+# and their epilogues (the Epilogue enum of csrc/gemm_tf32x3.cuh)
+FAMILIES = {"forward": 0, "data": 1, "weight": 2}
+TRAIN_EPILOGUES = {"plain": 0, "bias": 1, "resid": 2, "gelu": 3, "gelu_grad": 4, "add": 5}
+
+
+@functools.cache
+def _product_kernel():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.load_function(LIBRARY, "gdt_train_product_f32",
+                                [i] * 2 + [p] * 5 + [i] * 4 + [p] * 5)
+
+
+def train_product(family: str, a, w, *, epi="plain", bias=None, resid=None, aux=None, pre=None,
+                  parent=False):
+    """One product of the training layer alone on the card, without dropout,
+    for the card tests and the tools: on csrc/gemm_ws.cuh (or with
+    ``parent`` on gemm_tf32x3.cuh).  "forward": epi(a [M, K] . w [N, K]^T),
+    epi "bias", "resid" (bias, + resid) or "gelu" (bias, ``pre`` <- the
+    pre-activation, GELU); "data": epi(a [M, K] . w [K, N]) by w^T's split,
+    epi "plain", "gelu_grad" (times GELU'(aux)) or "add" (+ resid);
+    "weight": a [K, M]^T . w [K, N] in the layer's row chunks.  Raises where
+    the kernel refuses the shape."""
+    for y in (a, w, bias, resid, aux, pre):
+        if y is not None and (y.device.type != "cuda" or y.dtype != torch.float32
+                              or not y.is_contiguous()):
+            raise ValueError("train_product takes contiguous float32 CUDA tensors")
+    fam = FAMILIES[family]
+    if fam == 2:
+        (k, m), n = a.shape, w.shape[1]
+        split = None
+    else:
+        m, k = a.shape
+        n = w.shape[0] if fam == 0 else w.shape[1]
+        split = None if parent else (weight_split if fam == 0 else weight_split_t)(w, LIBRARY)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    part = torch.empty(weight_grad_splits(m, n, k)[0] * m * n if fam == 2 else 1,
+                       dtype=torch.float32, device=a.device)  # the chunks' sums
+    fn = _product_kernel()
+    ptr = lambda y: None if y is None else y.data_ptr()  # noqa: E731
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = fn(fam, int(not parent), a.data_ptr(), w.data_ptr(),
+                  None if split is None else ctypes.addressof(split.map), out.data_ptr(),
+                  part.data_ptr(), m, n, k, TRAIN_EPILOGUES[epi], ptr(bias), ptr(resid),
+                  ptr(aux), ptr(pre), stream)
+    _build.check(LIBRARY, code)
+    return out
 
 
 def encoder_layer_train_fwd(x, *weights, seed, num_heads: int, rate: float,

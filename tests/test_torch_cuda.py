@@ -22,8 +22,13 @@ up to 1201 keys in another order, online rescaling); encoder layer atol
 1e-4, 5e-4 with the flash stage at T = 1201 (sums over K <= 1024 in another
 order, two LayerNorms); MDM fast CFG step atol 1e-4; training layer forward
 atol 1e-4 and each of its 13 gradients within 5e-4 of that gradient's
-largest magnitude (the weight gradients sum over all B*T rows).
+largest magnitude (the weight gradients sum over all B*T rows).  The
+products on csrc/gemm_ws.cuh are held bit for bit (torch.equal) against
+the parent GEMM of csrc/gemm_tf32x3.cuh: the same arithmetic in the same
+order.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -814,9 +819,11 @@ def test_train_kernels_wide_lse_is_the_plain_logsumexp(dev, dh, rate):
     _, bwd, ws_floats = fet._kernels()
     ws = torch.empty(ws_floats(b, t, d, f, h, 1), dtype=torch.float32, device=dev)
     outs = [torch.empty_like(x), *(torch.empty_like(y) for y in w)]
+    held = fet._splits(w, True)  # the products' splits, as the wrapper passes them
+    maps = [None if sp is None else ctypes.addressof(sp.map) for sp in held]
     code = bwd(x.data_ptr(), *(y.data_ptr() for y in w), seed.data_ptr(), g.data_ptr(),
                *(o.data_ptr() for o in outs), ws.data_ptr(), b, t, d, f, h, dh**-0.5,
-               fet.keep_threshold(keep), 1.0 / keep, int(rate > 0.0), 0,
+               fet.keep_threshold(keep), 1.0 / keep, int(rate > 0.0), 0, *maps,
                torch.cuda.current_stream().cuda_stream)
     assert code == 0, code
     torch.cuda.synchronize()
@@ -1616,3 +1623,165 @@ def test_evaluator_trainer_gradients_on_the_card_match_the_cpu(dev):
     assert abs(got["loss"].item() - want["loss"].item()) <= 1e-5 * abs(want["loss"].item())
     for (name, pw), (_, pg) in zip(cpu.named_parameters(), card.named_parameters()):
         assert (pg.grad.cpu() - pw.grad).abs().max() <= 1e-5 * pw.grad.abs().max(), name
+
+
+# ---- kernels 5 and 6's products on csrc/gemm_ws.cuh ---------------------- #
+
+def _train_chain(x, w, seed, heads, rate, row0, g=None, parent=False):
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import encoder_layer_train_parent
+
+    if parent:
+        return encoder_layer_train_parent(x, *w, seed=seed, num_heads=heads, rate=rate,
+                                          row0=row0, g=g)
+    if g is None:
+        return (encoder_layer_train_fwd(x, *w, seed=seed, num_heads=heads, rate=rate,
+                                        row0=row0),)
+    return encoder_layer_train_bwd(x, *w, seed=seed, g=g, num_heads=heads, rate=rate, row0=row0)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("t,d,row0", [(81, 256, 0), (121, 256, 0), (201, 256, 0), (197, 512, 0),
+                                      (61, 512, 0), (81, 256, 64)])
+def test_train_kernels_are_the_parent_chain_bit_for_bit(dev, t, d, row0, rate):
+    """Kernel 5's output and kernel 6's 13 outputs with their products on
+    gemm_ws.cuh against the parent chain (every product on gemm_tf32x3.cuh,
+    csrc/encoder_layer_train.cu's gdt_encoder_layer_train_parent_*): the
+    same k order, flushes, chunks and epilogues, so torch.equal."""
+    w = _encoder_weights(d, 1024, dev, seed=60)
+    rs = np.random.RandomState(60)
+    x, g = _randn(rs, 8, t, d, device=dev), _randn(rs, 8, t, d, device=dev)
+    seed = torch.tensor([20240], dtype=torch.int32, device=dev)
+    for gg in (None, g):
+        got = _train_chain(x, w, seed, 4, rate, row0, gg)
+        want = _train_chain(x, w, seed, 4, rate, row0, gg, parent=True)
+        torch.cuda.synchronize()
+        assert len(got) == (1 if gg is None else 13)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (i, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("m", [1, 100, 5184])
+@pytest.mark.parametrize("d,f", [(256, 1024), (512, 1024), (64, 1056)])
+def test_train_product_families_are_the_parent_bit_for_bit(dev, m, d, f):
+    """Each family alone: the forward products (bias, residual, GELU with
+    its pre-activation), the data gradients (plain, GELU', residual) and the
+    weight gradients in the parent's row chunks, on gemm_ws.cuh and on
+    gemm_tf32x3.cuh, bit for bit; the weight gradient also against float64."""
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import train_product
+
+    rs = np.random.RandomState(61)
+    cases = [("forward", f, d, "gelu"), ("forward", 3 * d, d, "bias"),
+             ("forward", d, f, "resid"), ("data", f, d, "gelu_grad"), ("data", d, f, "add"),
+             ("data", d, 3 * d, "plain")]
+    for fam, n, k, epi in cases:
+        a = _randn(rs, m, k, device=dev)
+        w = _randn(rs, *((n, k) if fam == "forward" else (k, n)), scale=k**-0.5, device=dev)
+        kw = dict(epi=epi, bias=_randn(rs, n, scale=0.02, device=dev),
+                  resid=_randn(rs, m, n, device=dev), aux=_randn(rs, m, n, device=dev))
+        pres = [torch.empty(m, n, device=dev) if epi == "gelu" else None for _ in range(2)]
+        got = train_product(fam, a, w, pre=pres[0], **kw)
+        want = train_product(fam, a, w, pre=pres[1], parent=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (fam, epi, (got - want).abs().max().item())
+        if epi == "gelu":
+            assert torch.equal(pres[0], pres[1])
+    for i, j in ((d, f), (f, d), (d, d), (3 * d, d)):
+        dy, x = _randn(rs, m, i, device=dev), _randn(rs, m, j, device=dev)
+        got = train_product("weight", dy, x)
+        want = train_product("weight", dy, x, parent=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (i, j, (got - want).abs().max().item())
+        exact = dy.double().T @ x.double()
+        assert (got.double() - exact).abs().max() <= 2e-5 * exact.abs().max()
+
+
+@pytest.mark.parametrize("d", [32, 64, 130, 198, 256, 264, 512, 1024])
+@pytest.mark.parametrize("f", [128, 1024, 1030, 1056])
+def test_train_routes_mirror_the_kernels(dev, d, f):
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import (
+        kernel_train_routes,
+        train_routes,
+    )
+
+    assert kernel_train_routes(d, f) == train_routes(d, f)
+
+
+@pytest.mark.parametrize("n,k", [(768, 256), (256, 1024), (12, 96), (1030, 5)])
+def test_transposed_split_kernel_is_its_plain_twin(dev, n, k):
+    from gesturediffusion_tpu_torch.ops.fused_encoder import split_weight_t_plain, weight_split_t
+
+    w = _randn(np.random.RandomState(62), n, k, device=dev)
+    assert torch.equal(weight_split_t(w).split, split_weight_t_plain(w))
+
+
+def test_train_step_splits_each_weight_once_per_step(dev):
+    """Two optimizer steps of 4 microbatches: each layer's 4 weights split
+    once in each orientation a step (W's at the first forward, W^T's at the
+    first backward), the other microbatches reading the kept splits."""
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.ops.fused_encoder import weight_split_t
+    from gesturediffusion_tpu_torch.train.loop import TrainConfig, TrainState, make_optimizer, train_step
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+
+    torch.manual_seed(0)
+    model = MDM(njoints=12, latent_dim=64, num_layers=2, ff_size=128, seed_poses=4,
+                cond_mask_prob=0.1, mfcc_dim=8, window_size=5,
+                use_fused_train_encoder=True).to(dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=8, microbatch_size=2)
+    opt, sched = make_optimizer(model.parameters(), cfg)
+    state = TrainState(model, opt, sched, UniformSampler(10), {})
+    rs = np.random.RandomState(63)
+    diffusion = create_diffusion(steps=10, device=dev)
+    for step in range(2):
+        cond = {"mfcc": _randn(rs, 8, 8, 1, 20, device=dev),
+                "seed": _randn(rs, 8, 12, 1, 4, device=dev),
+                "mask": torch.ones((8, 1, 1, 20), dtype=torch.bool, device=dev)}
+        before = (encoder_layer_train_fwd.launches, weight_split.launches,
+                  weight_split_t.launches)
+        train_step(state, diffusion, cfg, _randn(rs, 8, 12, 1, 20, device=dev), cond,
+                   torch.Generator(device=dev).manual_seed(step))
+        torch.cuda.synchronize()
+        after = (encoder_layer_train_fwd.launches, weight_split.launches,
+                 weight_split_t.launches)
+        assert [a - b for a, b in zip(after, before)] == [8, 8, 8], (step, after, before)
+
+
+def test_train_forward_of_inference_tensors(dev):
+    """The training forward under torch.inference_mode() on weights made
+    there: each call splits them anew and holds the splits until its launch
+    is queued; the output is the parent chain's bit for bit, twice."""
+    w0 = _encoder_weights(256, 1024, dev, seed=64)
+    with torch.inference_mode():
+        w = [y.clone() for y in w0]
+        assert all(y.is_inference() for y in w)
+        x = _randn(np.random.RandomState(64), 64, 81, 256, device=dev)
+        seed = torch.tensor([7], dtype=torch.int32, device=dev)
+        before = weight_split.launches
+        got = [encoder_layer_train_fwd(x, *w, seed=seed, num_heads=4, rate=0.1)
+               for _ in range(2)]
+        want = _train_chain(x, w, seed, 4, 0.1, 0, parent=True)[0]
+    torch.cuda.synchronize()
+    assert weight_split.launches - before == 8
+    for y in got:
+        assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("d,heads,f", [(130, 2, 1030), (256, 4, 1030)])
+def test_train_kernels_outside_the_rule_split_only_what_it_takes(dev, d, heads, f):
+    """D 130 / F 1030 splits nothing (every product on the parent); F 1030 at
+    D 256 splits wqkv and wo only; both the parent chain bit for bit."""
+    from gesturediffusion_tpu_torch.ops.fused_encoder import weight_split_t
+    from gesturediffusion_tpu_torch.ops.fused_encoder_train import train_routes
+
+    w = _encoder_weights(d, f, dev, seed=65)
+    rs = np.random.RandomState(65)
+    x, g = _randn(rs, 4, 81, d, device=dev), _randn(rs, 4, 81, d, device=dev)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    before = (weight_split.launches, weight_split_t.launches)
+    got = _train_chain(x, w, seed, heads, 0.1, 0, g)
+    want = _train_chain(x, w, seed, heads, 0.1, 0, g, parent=True)
+    torch.cuda.synchronize()
+    on = bin(train_routes(d, f)).count("1")
+    assert (weight_split.launches - before[0], weight_split_t.launches - before[1]) == (on, on)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

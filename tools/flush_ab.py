@@ -16,7 +16,10 @@ accumulator of their own, the big . big product alone in ``acc``, both
 added into the f32 sum at each flush (tried for ROADMAP C6; 142-154
 registers a thread against 128 for two blocks an SM).  The GEMM's GENERAL
 instantiation (a reduction past K 1024, unaligned operands) flushes every
-128 of K in every variant.  All variants are built at once; then each runs
+128 of K in every variant.  Every variant runs its products on
+csrc/gemm_tf32x3.cuh (csrc/encoder_layer_train.cu:train_routes patched to
+send them all there, as tools/kernel_variants.py train_parent does): the
+shipped products on csrc/gemm_ws.cuh are k128's bit for bit.  All variants are built at once; then each runs
 in a process of its own, in the order given and again in reverse:
 
   - first pass only: tools/a2m_f64_check.py at full size (batch 64, 8
@@ -160,8 +163,11 @@ def make_tree(name: str) -> str:
                           f"kWeightGradFlush = {wgrad};", open(path).read())
     if n != 1:
         raise RuntimeError(f"{SOURCE}: the flush constants' line is not there to patch")
+    routes = "int train_routes(int D, int F) {\n"
+    if new.count(routes) != 1:
+        raise RuntimeError(f"{SOURCE}: train_routes is not there to patch")
     with open(path, "w") as f:
-        f.write(new)
+        f.write(new.replace(routes, routes + "  if (D > 0) return 0;\n"))
     if corr:
         path = os.path.join(root, GEMM)
         text = open(path).read()

@@ -113,6 +113,9 @@ does):
   ws_no_short        those routes on 128 x 128 tiles at every M (shipped:
                      64 x 128, 64 columns a consumer, where those fit one
                      wave of the card)
+  train_parent       kernels 5 and 6's products on the parent GEMM again
+                     (gemm_tf32x3.cuh): train_routes sends every product
+                     there
 
 The variants whose errors are not checked (*_no_* but ws_no_ln,
 *_blocks, band_pv_two_acc, narrow_bare) are ablations, timed to see what a
@@ -164,7 +167,13 @@ profiler's device time a launch, on gemm_ws.cuh and on the parent GEMM
 (csrc/encoder_layer.cu's gdt_gemm_ws_f32 and gdt_gemm_parent_f32, shipped
 build), beside F.linear in full f32 (TF32 off; the profiler's device time
 of its kernels) and the product's bound, 3 x FLOP / 495 TFLOP/s; given
-alone they build and time only the inference library.  A patch that no longer matches the sources fails loudly
+alone they build and time only the inference library.  train_parent times
+kernels 5 and 6 at [64, 81, 256], [64, 121, 256], [64, 197, 512] and [64,
+61, 512] (4 heads, ff 1024, rate 0.1; CUDA events over back-to-back calls,
+and the profiler's device time of their products) in the turns shipped,
+train_parent, train_parent, shipped, each output checked bit for bit
+against the first turn's; given alone it builds and times only the
+training library.  A patch that no longer matches the sources fails loudly
 (tests/test_torch_kernel_variants.py checks every patch on the CPU).
 """
 
@@ -325,12 +334,14 @@ VARIANTS.update({
                        "        a_small[buf][0] = a_small[buf][1] = a_small[buf][2] = "
                        "a_small[buf][3] = 0u;\n")],
     "ws_no_ln": [(LAYER, "  if (D <= kWsLnCols) r |= (r & 2) << 3 | (r & 8) << 2;\n", "")],
-    "ws_ln_one_consumer": [(WS, "    return gemm_ws_launch<2, kWsLnCols, true, EPI>(",
-                            "    return gemm_ws_launch<1, kWsLnCols, true, EPI>(")],
-    "ws_cols": [(WS, "    return gemm_ws_launch<2, 128, false, EPI>(",
-                 "    return gemm_ws_launch<2, 256, true, EPI>(")],
-    "ws_no_short": [(WS, "    if (short_tiles <= wave) return gemm_ws_launch<2, 128, true, EPI>(A, tmw, "
-                         "p, s);\n", "")],
+    "ws_ln_one_consumer": [(WS, "    return gemm_ws_launch<2, kWsLnCols, true, EPI, FLUSH>(",
+                            "    return gemm_ws_launch<1, kWsLnCols, true, EPI, FLUSH>(")],
+    "ws_cols": [(WS, "    return gemm_ws_launch<2, 128, false, EPI, FLUSH>(",
+                 "    return gemm_ws_launch<2, 256, true, EPI, FLUSH>(")],
+    "ws_no_short": [(WS, "    if (short_tiles <= wave) return gemm_ws_launch<2, 128, true, EPI, "
+                         "FLUSH>(A, tmw, p, s);\n", "")],
+    "train_parent": [(TRAIN, "int train_routes(int D, int F) {\n",
+                      "int train_routes(int D, int F) {\n  if (D > 0) return 0;\n")],
 })
 VARIANTS["narrow_bare"] = (VARIANTS["narrow_no_loads"] + VARIANTS["narrow_no_products"]
                           + VARIANTS["narrow_no_softmax"] + VARIANTS["narrow_no_split"])
@@ -350,6 +361,7 @@ for _name in BWD_VARIANTS:
 WS_VARIANTS = tuple(name for name in VARIANTS if name.startswith("ws_"))
 for _name in WS_VARIANTS:
     VARIANT_LIBS[_name] = ("encoder_layer",)
+VARIANT_LIBS["train_parent"] = ("encoder_layer_train",)
 
 
 CSRC = os.path.join(HERE, "gesturediffusion_tpu_torch", "csrc")
@@ -406,6 +418,41 @@ def finish_build(name: str, procs: dict) -> dict[str, ctypes.CDLL]:
     return libs
 
 
+_TRAIN_MAPS = {}  # (library, weights) -> their splits and maps, held
+
+
+def train_maps(lib, w, backward):
+    """The maps of w's weight splits (W's, then with ``backward`` W^T's) by
+    the library's own split kernels, None where its train_routes sends a
+    weight to the parent GEMM, as ops/fused_encoder_train.py passes them."""
+    import torch
+
+    entry = _TRAIN_MAPS.get((id(lib), id(w)))
+    if entry is None or entry[0] is not w:
+        routes = lib.gdt_encoder_layer_train_routes
+        routes.argtypes = [ctypes.c_int] * 2
+        on = routes(w[0].shape[1], w[6].shape[0])
+        held = []
+        for name in ("gdt_split_weight_f32", "gdt_split_weight_t_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+            for i, j in enumerate((0, 2, 6, 8)):
+                if not on >> i & 1:
+                    held.append(None)
+                    continue
+                n, k = w[j].shape if name == "gdt_split_weight_f32" else w[j].shape[::-1]
+                split = torch.empty(2, n, (k + 7) // 8 * 8, device="cuda")
+                tmap = ctypes.create_string_buffer(lib.gdt_tensor_map_bytes())
+                code = fn(w[j].data_ptr(), split.data_ptr(), n, k, ctypes.addressof(tmap),
+                          torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"weight split failed: CUDA error {code}")
+                held.append((split, tmap))
+        entry = _TRAIN_MAPS[(id(lib), id(w))] = (w, held)
+    maps = [None if h is None else ctypes.addressof(h[1]) for h in entry[1]]
+    return maps if backward else maps[:4]
+
+
 def train_layer(lib, x, w, seed, g=None, heads=4, rate=0.1):
     """Kernel 5 (g None: the output) or kernel 6 (dx and the 12 weight
     gradients for the output gradient g) of one build, called as
@@ -423,7 +470,8 @@ def train_layer(lib, x, w, seed, g=None, heads=4, rate=0.1):
     f, keep = w[6].shape[0], 1.0 - rate
     ws = torch.empty(ws_floats(b, t, d, f, heads, int(backward)), device="cuda")
     tail = (b, t, d, f, heads, (d // heads) ** -0.5, fet.keep_threshold(keep), 1.0 / keep,
-            int(rate > 0.0), 0, torch.cuda.current_stream().cuda_stream)
+            int(rate > 0.0), 0, *train_maps(lib, w, backward),
+            torch.cuda.current_stream().cuda_stream)
     ptrs = [x.data_ptr(), *(y.data_ptr() for y in w), seed.data_ptr()]
     if backward:
         outs = (torch.empty_like(x), *(torch.empty_like(y) for y in w))
@@ -434,6 +482,41 @@ def train_layer(lib, x, w, seed, g=None, heads=4, rate=0.1):
     if code:
         raise RuntimeError(f"training layer variant failed: CUDA error {code}")
     return outs
+
+
+def train_parent_ab(builds, order, rn, cuda_ms, smi, heads=4, rate=0.1):
+    """train_parent's rows: kernels 5 and 6 at their shipped shapes in the
+    turns of ``order``, each output against the first turn's bit for bit,
+    with the profiler's device time of their products."""
+    import torch
+
+    from chip_smoke import device_split
+
+    seed = torch.tensor([20240], dtype=torch.int32, device="cuda")
+    for b, t, d in ((64, 81, 256), (64, 121, 256), (64, 197, 512), (64, 61, 512)):
+        ff = 1024
+        w = (rn(3 * d, d, scale=d**-0.5), rn(3 * d, scale=0.02), rn(d, d, scale=d**-0.5),
+             rn(d, scale=0.02), 1 + rn(d, scale=0.1), rn(d, scale=0.1), rn(ff, d, scale=d**-0.5),
+             rn(ff, scale=0.02), rn(d, ff, scale=ff**-0.5), rn(d, scale=0.02),
+             1 + rn(d, scale=0.1), rn(d, scale=0.1))
+        x, g = rn(b, t, d), rn(b, t, d)
+        for what, gg in (("kernel 5", None), ("kernel 6", g)):
+            parts, first = [], None
+            for name in order:
+                lib = builds[name]["encoder_layer_train"]
+                got = train_layer(lib, x, w, seed, gg, heads, rate)
+                first = first or got
+                same = all(torch.equal(a, c) for a, c in zip(got, first))
+                ms = cuda_ms(lambda: train_layer(lib, x, w, seed, gg, heads, rate), 20)
+                _, kernels = device_split(lambda: train_layer(lib, x, w, seed, gg, heads, rate),
+                                          10, "gemm_")
+                gemm = sum(k for n, (k, _) in kernels.items() if "gemm_" in n)
+                parts.append(f"{name} {ms:.4f} ms, products {gemm:.4f} device (bit for bit: "
+                             f"{same})")
+            print(f"{what} [{b},{t},{d}] heads {heads} ff {ff} rate {rate}: " + "; ".join(parts)
+                  + f" [{smi}]", flush=True)
+        del x, g, w
+    _TRAIN_MAPS.clear()
 
 
 def train_ab(builds, order, w, rn, cuda_ms, smi, heads=4, rate=0.1):
@@ -766,12 +849,14 @@ def main(prefixes: list[str]) -> int:
     only_band = chosen == ["band_sliced"]
     only_narrow = all(name.startswith("narrow_") for name in chosen)
     only_ws = all(name.startswith("ws_") for name in chosen)
+    only_train = chosen == ["train_parent"]
     # every variant's nvcc runs at once
     started = {"shipped": start_build("shipped", None,
                                       ("encoder_layer_train",) if only_bwd else
                                       VARIANT_LIBS["band_sliced"] if only_band else
                                       VARIANT_LIBS["narrow_mma_sync"] if only_narrow else
-                                      ("encoder_layer",) if only_ws else LIBS)}
+                                      ("encoder_layer",) if only_ws else
+                                      ("encoder_layer_train",) if only_train else LIBS)}
     started.update({name: start_build(name, VARIANTS[name], VARIANT_LIBS[name])
                     for name in chosen})
     builds = {name: finish_build(name, procs) for name, procs in started.items()}
@@ -792,6 +877,11 @@ def main(prefixes: list[str]) -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
+    if "train_parent" in builds:
+        train_parent_ab(builds, ("shipped", "train_parent", "train_parent", "shipped"), rn,
+                        cuda_ms, smi)
+    if only_train:
+        return 0
     if "band_sliced" in builds:
         band_ab(builds, ("shipped", "band_sliced", "band_sliced", "shipped"), rn, cuda_ms, smi)
     if only_band:

@@ -22,10 +22,15 @@ time a call at [6, 197, 512] and [82, 81, 256] (the wall time of 50
 back-to-back calls with nothing synchronised, over 50), then the training
 layer's forward and backward kernels (5 and 6) alone at the three training
 shapes of the smoke run, [64, 81, 256], [64, 197, 512] and [64, 61, 512]
-(CUDA events over 20 calls, median of three).  One line a tree: the
-median ms per denoise step and chunks/s of each take, the median ms and
-samples/s of train steps 2-6, the median t2m step, kernel 1's host ms and
-the kernels' ms, with the card's name and power limit.
+(CUDA events over 20 calls, median of three), then the text-to-motion
+train step of phase 12 (humanml-encoder-512 at batch 64, 196 frames) and
+the action-to-motion train step of phase 13 (the action MotionMDM at batch
+64, 60 frames, the recipe's geometric losses through a synthetic SMPL of
+6890 vertices written under the tree's build/), six each.  One line a
+tree: the median ms per denoise step and chunks/s of each take, the median
+ms, samples/s and peak memory of train steps 2-6 (gesture, t2m, a2m), the median t2m
+step, kernel 1's host ms and the kernels' ms, with the card's name and
+power limit.
 Needs a CUDA card.
 """
 
@@ -78,8 +83,11 @@ def one_tree(root: str) -> dict:
         take_s = sorted(times)[1]
         result[f"T={frames}"] = {"ms_per_step": take_s / (steps * cs.CHUNKS) * 1e3,
                                  "chunks_per_s": cs.B_TAKES * cs.CHUNKS / take_s}
-    ms = train_step_ms(cs, gen)
-    result["train"] = {"ms": ms, "samples_per_s": cs.BATCH / ms * 1e3}
+    ms, peak = train_step_ms(cs, gen)
+    result["train"] = {"ms": ms, "samples_per_s": cs.BATCH / ms * 1e3, "peak_mib": peak}
+    for name in ("t2m train", "a2m train"):
+        ms, peak = motion_train_step_ms(cs, gen, root, action=name.startswith("a2m"))
+        result[name] = {"ms": ms, "samples_per_s": cs.MB / ms * 1e3, "peak_mib": peak}
     result["t2m"] = t2m_step_ms(cs, gen)
     result["layer_host"] = layer_host_ms(cs, gen)
     result["train_kernels"] = train_kernel_ms(cs, gen)
@@ -175,8 +183,9 @@ def t2m_step_ms(cs, gen) -> dict:
     return out
 
 
-def train_step_ms(cs, gen) -> float:
-    """Median ms of train steps 2-6 at chip_smoke.py's phase-5 shape."""
+def train_step_ms(cs, gen) -> tuple[float, float]:
+    """Median ms of train steps 2-6 at chip_smoke.py's phase-5 shape, and
+    the peak MiB allocated over the six."""
     import torch
 
     from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
@@ -210,13 +219,97 @@ def train_step_ms(cs, gen) -> float:
     steps = torch.randint(0, 1000, (n,), generator=gen, device=dev)
     step_gen = torch.Generator(device=dev).manual_seed(7)
     times = []
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         train_step(state, diffusion, cfg, motion, cond, step_gen, steps, noise)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return sorted(times[1:])[2] * 1e3
+    return sorted(times[1:])[2] * 1e3, torch.cuda.max_memory_allocated() / 2**20
+
+
+def motion_train_step_ms(cs, gen, root, action=False) -> tuple[float, float]:
+    """Median ms of train steps 2-6 (and the peak MiB allocated over the six)
+    of chip_smoke.py's phase-12 text model
+    (batch 64, 196 frames) or, with ``action``, its phase-13 action model
+    (batch 64, 60 frames, lambdas rcxyz, vel and fc through a synthetic SMPL
+    pickle of 6890 vertices under the tree's build/)."""
+    import torch
+
+    from gesturediffusion_tpu_torch.diffusion.gaussian import create_diffusion
+    from gesturediffusion_tpu_torch.diffusion.resample import UniformSampler
+    from gesturediffusion_tpu_torch.models.mdm_t2m import MotionMDM
+    from gesturediffusion_tpu_torch.train.loop import (
+        TrainConfig,
+        TrainState,
+        make_optimizer,
+        train_step,
+    )
+
+    torch.set_grad_enabled(True)
+    dev = torch.device("cuda")
+    torch.manual_seed(5)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    b, fk_fn = cs.MB, None
+    if action:
+        from gesturediffusion_tpu_torch.models.rotation2xyz import rotation2xyz
+        from gesturediffusion_tpu_torch.models.smpl import (
+            load_smpl_pickle,
+            save_synthetic_smpl_pickle,
+        )
+        from gesturediffusion_tpu_torch.ops.rotations import (
+            matrix_to_rotation_6d,
+            rotation_6d_to_matrix,
+        )
+
+        base = os.path.join(os.path.abspath(root), "build", "take_ab")
+        os.makedirs(base, exist_ok=True)
+        smpl = load_smpl_pickle(save_synthetic_smpl_pickle(
+            os.path.join(base, "smpl.pkl"), n_vertices=cs.A2M_VERTS)).to(dev)
+
+        def fk_fn(sample):
+            return rotation2xyz(smpl, sample, pose_rep="rot6d", translation=True, glob=True,
+                                jointstype="smpl", vertstrans=False)
+
+        frames = cs.A2M_FRAMES
+        model = MotionMDM(njoints=cs.A2M_J, nfeats=cs.A2M_F, latent_dim=cs.T2M_D,
+                          ff_size=cs.FF, num_layers=cs.LAYERS, num_heads=cs.HEADS,
+                          dropout=cs.RATE, cond_mode="action", num_actions=cs.A2M_ACTIONS,
+                          cond_mask_prob=0.0, use_fused_train_encoder=True).to(dev)
+        diffusion = create_diffusion(noise_schedule="cosine", steps=1000, lambda_rcxyz=1.0,
+                                     lambda_vel=1.0, lambda_fc=1.0, device=dev)
+        rot = matrix_to_rotation_6d(rotation_6d_to_matrix(rn(b, 24, frames, 6, scale=0.3)))
+        trans = torch.zeros(b, 1, frames, 6, device=dev)
+        motion = torch.cat([rot, trans], dim=1).permute(0, 1, 3, 2).contiguous()
+        noise = rn(b, cs.A2M_J, cs.A2M_F, frames)
+        cond = {"action": torch.randint(0, cs.A2M_ACTIONS, (b,), generator=gen, device=dev)}
+    else:
+        frames = cs.T2M_FRAMES
+        model = MotionMDM(njoints=cs.T2M_J, latent_dim=cs.T2M_D, ff_size=cs.FF,
+                          num_layers=cs.LAYERS, num_heads=cs.HEADS, dropout=cs.RATE,
+                          cond_mode="text", cond_mask_prob=0.1,
+                          use_fused_train_encoder=True).to(dev)
+        diffusion = create_diffusion(noise_schedule="cosine", steps=1000, device=dev)
+        motion, noise = rn(b, cs.T2M_J, 1, frames) * 0.5, rn(b, cs.T2M_J, 1, frames)
+        cond = {"text_emb": rn(b, 512, scale=0.1)}
+    cond["mask"] = torch.ones((b, 1, 1, frames), dtype=torch.bool, device=dev)
+    cfg = TrainConfig(lr=1e-4, batch_size=b)
+    state = TrainState(model, *make_optimizer(model.parameters(), cfg), UniformSampler(1000), {})
+    steps = torch.randint(0, 1000, (b,), generator=gen, device=dev)
+    step_gen = torch.Generator(device=dev).manual_seed(7)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, diffusion, cfg, motion, cond, step_gen, steps, noise, fk_fn=fk_fn)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times[1:])[2] * 1e3, torch.cuda.max_memory_allocated() / 2**20
 
 
 def main(argv: list[str]) -> int:
@@ -236,8 +329,10 @@ def main(argv: list[str]) -> int:
         r = json.loads(out.strip().splitlines()[-1])
         print(f"take A/B {root}: " + ", ".join(
             f"{k} {v['ms_per_step']:.3f} ms/step = {v['chunks_per_s']:.3f} chunks/s"
-            for k, v in r.items() if k.startswith("T=")) + f", train step {r['train']['ms']:.3f} "
-            f"ms = {r['train']['samples_per_s']:.1f} samples/s, t2m step " + ", ".join(
+            for k, v in r.items() if k.startswith("T=")) + ", " + ", ".join(
+            f"{k} step {r[k]['ms']:.3f} ms = {r[k]['samples_per_s']:.1f} samples/s (peak "
+            f"{r[k]['peak_mib']:.1f} MiB)" for k in ("train", "t2m train", "a2m train"))
+            + ", t2m step " + ", ".join(
             f"{k} {v:.4f}" for k, v in r["t2m"].items()) + ", kernel 1's host ms a call "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["layer_host"].items()) + ", kernels " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in r["train_kernels"].items()) + f" [{smi}]", flush=True)
